@@ -10,12 +10,16 @@ Phases (any failure exits non-zero and prints no result line):
 1. build: compile every kernel of the path (``ops/csrc/*.cu``, sm_90a)
    from the sources in this checkout;
 2. kernels: each kernel against its plain PyTorch version on the card, on
-   seeded random inputs at the shapes the path gives it, with the f32
-   tolerance stated below, and timed on the card (CUDA events around a
-   CUDA graph of 100 calls, median of 11 replays; warm) beside its plain
-   version, the one PyTorch call that computes the same function, and its
-   roofline bound; the time of a single call with the host's issue
-   included (events around each call, median of 200) is logged too;
+   seeded random inputs at every shape the port gives it (for the LSTM:
+   the serving step B=64 T=1, the learner's sequence B=32 T=16, the test
+   shape and a batch with a partial row tile), with the f32 tolerance
+   stated below, its launch plan logged, and timed on the card (CUDA
+   events around a CUDA graph of 100 calls, median of 11 replays; warm)
+   beside its plain version, the one PyTorch call that computes the same
+   function (``torch.lstm_cell`` at T=1; at T=16 cuDNN's ``torch.lstm`` on
+   a reset-free copy, a labelled yardstick only) and its roofline bound;
+   the time of a single call with the host's issue included (events
+   around each call, median of 200) is logged too;
 3. serve: the default ``RunConfig`` (LSTM(128) policy, bf16 compute, f32
    params drawn from ``--seed``; max_batch 64, max_slots 256) served by
    ``ServeEngine`` on the card: 64 games submit 20 steps each (1,280
@@ -35,6 +39,7 @@ power limit from nvidia-smi; the last line is the JSON result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -133,72 +138,153 @@ def lstm_bound(B, T, D, H):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_lstm_kernel(device, seed):
-    """Kernel vs plain version at the serving step (B=64, T=1) and the
-    learner's sequence (B=32, T=16); returns the serving shape's entry."""
+# (B, T, D, H): the serving step, the learner's sequence, the small test
+# shape, and a batch that leaves one partial row tile
+LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128))
+
+
+def max_err(got, want):
+    return max(float((a - b).abs().max()) for a, b in zip((got[0], *got[1]), (want[0], *want[1])))
+
+
+def lstm_cell_library(args):
+    """The serving step's function in one PyTorch call: torch.lstm_cell
+    (gate order i, f, g, o) on the reset-masked carry."""
+    import torch
+
+    x, h0, c0, wx, wh, b, r = args
+    keep = (1.0 - r[:, 0])[:, None]
+    w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
+    zero_b = torch.zeros_like(b)
+    return lambda: torch.lstm_cell(x[:, 0], (h0 * keep, c0 * keep), w_ih, w_hh, b, zero_b)
+
+
+def lstm_reset_free_library(args):
+    """A labelled yardstick for T > 1, not the kernel's function: cuDNN's
+    torch.lstm on a reset-free copy of the inputs. No single PyTorch call
+    computes the reset-masked sequence. Returns (call, its max abs error
+    against the plain version on the same reset-free inputs)."""
     import torch
 
     from dotaclient_tpu_torch.ops import lstm
 
-    entry = sequence = call = None
-    for B, T in ((64, 1), (32, 16)):
-        D = H = 128
+    x, h0, c0, wx, wh, b, r = args
+    D, H = wx.shape[0], h0.shape[1]
+    free = torch.zeros_like(r)
+    mod = torch.nn.LSTM(D, H, batch_first=True).to(x.device)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(wx.t())
+        mod.weight_hh_l0.copy_(wh.t())
+        mod.bias_ih_l0.copy_(b)
+        mod.bias_hh_l0.zero_()
+    mod.flatten_parameters()
+    hx = (h0[None].contiguous(), c0[None].contiguous())
+
+    def call():
+        with torch.no_grad():
+            return mod(x, hx)
+
+    out, (hT, cT) = call()
+    want = lstm.lstm_sequence_reference(x, h0, c0, wx, wh, b, free)
+    return call, max_err((out, (hT[0], cT[0])), want)
+
+
+def check_lstm_kernel(device, seed):
+    """Kernel vs plain version at every shape of LSTM_SHAPES, each timed on
+    the card with its plan logged; returns the kernels line's entry (the
+    serving step's numbers, the worst error of all shapes, the sequence's
+    time) and every shape's numbers."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+
+    shapes = {}
+    for B, T, D, H in LSTM_SHAPES:
+        plan = lstm.kernel_plan(B, T, D, H)
         args = lstm_inputs(B, T, D, H, seed + B + T, device)
         got = lstm.lstm_sequence_kernel(*args)
         torch.cuda.synchronize()
         want = lstm.lstm_sequence_reference(*args)
-        err = max(
-            float((a - b).abs().max())
-            for a, b in zip((got[0], *got[1]), (want[0], *want[1]))
-        )
+        err = max_err(got, want)
         if not err <= KERNEL_ATOL:
-            raise AssertionError(f"lstm_seq B={B} T={T}: max abs err {err} > {KERNEL_ATOL}")
-        ms = device_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        plain_ms = device_ms(lambda: lstm.lstm_sequence_reference(*args))
-        call_ms = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
+            raise AssertionError(f"lstm_seq B={B} T={T} D={D} H={H}: max abs err {err} > {KERNEL_ATOL}")
         bound, bound_by = lstm_bound(B, T, D, H)
-        library_ms = None
-        if T == 1:
-            # the same function in one PyTorch call: torch.lstm_cell (gate
-            # order i, f, g, o) on the reset-masked carry
-            x, h0, c0, wx, wh, b, r = args
-            keep = (1.0 - r[:, 0])[:, None]
-            w_ih, w_hh = wx.t().contiguous(), wh.t().contiguous()
-            zero_b = torch.zeros_like(b)
-
-            def library():
-                return torch.lstm_cell(x[:, 0], (h0 * keep, c0 * keep), w_ih, w_hh, b, zero_b)
-
+        shape = {"B": B, "T": T, "D": D, "H": H, "plan": dataclasses.asdict(plan), "max_abs_err": err,
+                 "ms": device_ms(lambda: lstm.lstm_sequence_kernel(*args)),
+                 "plain_ms": device_ms(lambda: lstm.lstm_sequence_reference(*args)),
+                 "bound_ms": bound, "bound_by": bound_by}
+        if (B, T) == (64, 1):
+            library = lstm_cell_library(args)
             lib_h, lib_c = library()
             lib_err = max(float((lib_h - want[1][0]).abs().max()), float((lib_c - want[1][1]).abs().max()))
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
-            library_ms = device_ms(library)
+            shape["library_ms"] = device_ms(library)
+            shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
+        if (B, T) == (32, 16):
+            reset_free, rf_err = lstm_reset_free_library(args)
+            log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
+            shape["library_ms_reset_free"] = device_ms(reset_free)
         log(
-            f"lstm_seq B={B} T={T} D={D} H={H}: max abs err {err:.3g} (atol {KERNEL_ATOL}); "
-            f"kernel {ms * 1e3:.2f} us on the card ({call_ms * 1e3:.2f} us a call with the host's issue), "
-            f"plain {plain_ms * 1e3:.2f} us, "
-            f"torch.lstm_cell {'-' if library_ms is None else f'{library_ms * 1e3:.2f} us'}, "
-            f"bound {bound * 1e3:.3f} us"
+            f"lstm_seq B={B} T={T} D={D} H={H}: plan cluster {plan.cluster}, rows per tile {plan.rows}, "
+            f"{plan.grid} blocks of {plan.threads} threads, {plan.smem_bytes} B shared memory each; "
+            f"max abs err {err:.3g} (atol {KERNEL_ATOL}); kernel {shape['ms'] * 1e3:.2f} us on the card, "
+            f"plain {shape['plain_ms'] * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {bound_by}"
+            + (f", torch.lstm_cell {shape['library_ms'] * 1e3:.2f} us, "
+               f"{shape['call_ms'] * 1e3:.2f} us a call with the host's issue" if "library_ms" in shape else "")
+            + (f", torch.lstm reset-free {shape['library_ms_reset_free'] * 1e3:.2f} us"
+               if "library_ms_reset_free" in shape else "")
         )
-        if T == 1:
-            entry = {
-                "name": "lstm_seq",
-                "route": "cuda",
-                "source": "dotaclient_tpu_torch/ops/csrc/lstm_seq.cu",
-                "replaces": "dotaclient_tpu/ops/pallas/lstm.py:112",
-                "launches": 0,
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-            }
-            call = {"B": B, "T": T, "call_ms": call_ms}
-        else:
-            sequence = {"B": B, "T": T, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "call_ms": call_ms, "bound_ms": bound, "bound_by": bound_by}
-    return entry, {"serve_step_call": call, "sequence": sequence}
+        shapes[(B, T)] = shape
+    serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
+    entry = {
+        "name": "lstm_seq",
+        "route": "cuda",
+        "source": "dotaclient_tpu_torch/ops/csrc/lstm_seq.cu",
+        "replaces": "dotaclient_tpu/ops/pallas/lstm.py:112",
+        "launches": 0,
+        "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+        "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        "plan": serve["plan"],
+        "sequence_ms": sequence["ms"],
+    }
+    return entry, {"sequence": sequence, "shapes": list(shapes.values())}
+
+
+def lstm_sweep(device, seed):
+    """Where the kernel's time goes: its device time at B=32 over T (the
+    slope is the cost of one step, the intercept the launch, weight load
+    and epilogue), at T=1 over B (one cluster to a full card), and the
+    device time of the smallest PyTorch kernel timed the same way (the
+    floor that any launch in a stream pays)."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+
+    D = H = 128
+    by_t = {}
+    for T in (1, 2, 4, 8, 16, 32):
+        args = lstm_inputs(32, T, D, H, seed + T, device)
+        by_t[T] = device_ms(lambda: lstm.lstm_sequence_kernel(*args))
+    by_b = {}
+    for B in (4, 16, 64, 128):
+        args = lstm_inputs(B, 1, D, H, seed + B, device)
+        by_b[B] = device_ms(lambda: lstm.lstm_sequence_kernel(*args))
+    one = torch.zeros(1, device=device)
+    floor_ms = device_ms(lambda: one.add_(1.0))
+    slope, intercept = np.polyfit(list(by_t), list(by_t.values()), 1)
+    log(
+        "lstm_seq sweep: B=32 by T "
+        + ", ".join(f"T={t} {v * 1e3:.2f}" for t, v in by_t.items())
+        + f" us -> {slope * 1e3:.3f} us a step + {intercept * 1e3:.2f} us; T=1 by B "
+        + ", ".join(f"B={b} {v * 1e3:.2f}" for b, v in by_b.items())
+        + f" us; smallest PyTorch kernel {floor_ms * 1e3:.2f} us"
+    )
+    return {"B32_ms_by_T": by_t, "ms_per_step": float(slope), "intercept_ms": float(intercept),
+            "T1_ms_by_B": by_b, "launch_floor_ms": floor_ms}
 
 
 # -- phase 3: serve -----------------------------------------------------------
@@ -527,6 +613,7 @@ def main() -> int:
     log(f"build: {build_s:.1f} s")
 
     lstm_entry, lstm_extra = check_lstm_kernel(device, args.seed)
+    lstm_extra["sweep"] = lstm_sweep(device, args.seed)
     serve = serve_phase(device, args.seed)
     lstm_entry["launches"] = serve["lstm_seq_launches"]
     profiled = profile_serve(device, args.seed)

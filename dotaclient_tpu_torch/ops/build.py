@@ -30,7 +30,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types; every entry point returns int (0 = ok)
 _SIGNATURES = {
-    "dota_lstm_seq_forward": [_P] * 10 + [_I] * 4 + [_P, ctypes.c_char_p, _I],
+    # 10 tensors; B, T, D, H; the plan's cluster, rows, grid, threads and
+    # smem_bytes; stream, error buffer and its length
+    "dota_lstm_seq_forward": [_P] * 10 + [_I] * 4 + [_I] * 5 + [_P, ctypes.c_char_p, _I],
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,9 @@ Cell math, gate order i, f, g, o, the reset applied BEFORE the step::
 
 ``lstm_sequence_reference`` is the plain PyTorch version: a Python loop over
 T, and the spec the kernel is held against. ``lstm_sequence_kernel`` launches
-``csrc/lstm_seq.cu`` (one launch for all T steps) and counts its launches in
+``csrc/lstm_seq.cu`` (one launch for all T steps, one thread-block cluster
+per tile of batch rows, the weights resident in the cluster's shared memory)
+with the numbers of ``kernel_plan``, and counts its launches in
 ``lstm_sequence_kernel.launches``. ``lstm_sequence`` dispatches on where the
 tensors lie: the kernel for CUDA tensors, the plain version for CPU tensors
 or when ``use_kernel=False``. The forward only; the recompute backward comes
@@ -24,6 +26,7 @@ with the learner.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -54,9 +57,59 @@ def lstm_sequence_reference(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
     return torch.stack(hs, dim=1), (h, c)
 
 
+ROWS_PER_TILE = 4           # batch rows per cluster (kRows in the source)
+CLUSTER_SIZES = (8, 4, 2, 1)  # portable cluster sizes, largest first
+TARGET_THREADS = 256        # per block: column groups x K-slices
+MAX_SMEM_BYTES = 232_448    # shared memory one block may use on Hopper (227 KB)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Launch numbers of the cluster kernel for one shape."""
+
+    cluster: int      # blocks per cluster; block r owns hidden units [r*U, (r+1)*U)
+    rows: int         # batch rows per tile; one cluster per tile
+    grid: int         # blocks in all: cluster x tiles
+    threads: int      # per block: U column groups (of the 4U columns) x kslices
+    kslices: int      # the K axis is cut into this many slices of 4-deep chunks
+    smem_bytes: int   # dynamic shared memory per block
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def kernel_plan(B: int, T: int, D: int, H: int) -> KernelPlan:
+    """The cluster kernel's launch for ``x [B, T, D]`` and hidden width H.
+    Pure Python. Raises ``ValueError`` for a shape the kernel does not take:
+    an empty one, or one whose weight slice and buffers exceed one block's
+    shared memory at the largest portable cluster size that divides H."""
+    if min(B, T, D, H) < 1:
+        raise ValueError(f"lstm kernel plan: empty shape B={B} T={T} D={D} H={H}")
+    cluster = next(c for c in CLUSTER_SIZES if H % c == 0)
+    units = H // cluster
+    rows = ROWS_PER_TILE
+    kslices = max(rows, min(32, TARGET_THREADS // units))
+    threads = units * kslices
+    cols, Dp, Hp = 4 * units, _round4(D), _round4(H)
+    # mbarriers, weights, x and h (two buffers each), partial sums, gate
+    # pre-activations, bias, the tile's resets (smem_floats in the source)
+    floats = (4 + (Dp + Hp) * cols + 2 * rows * (Dp + Hp) + kslices * rows * cols + rows * cols
+              + cols + _round4(rows * T))
+    smem = 4 * floats
+    if smem > MAX_SMEM_BYTES or threads > 1024:
+        raise ValueError(
+            f"lstm kernel plan: D={D} H={H} needs {smem} bytes of shared memory and {threads} "
+            f"threads per block at a cluster of {cluster} (limits {MAX_SMEM_BYTES} and 1024)"
+        )
+    tiles = -(-B // rows)
+    return KernelPlan(cluster, rows, cluster * tiles, threads, kslices, smem)
+
+
 def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
     """Launch the Hopper kernel on the current stream. Takes contiguous f32
-    CUDA tensors of the contract's shapes and raises on anything else."""
+    CUDA tensors of the contract's shapes and raises on anything else,
+    a shape outside ``kernel_plan``'s limit included."""
     B, T, D = x.shape
     H = h0.shape[-1]
     expected = {
@@ -73,8 +126,7 @@ def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
             raise ValueError(f"lstm kernel: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"lstm kernel: {name} is not contiguous")
-    if B == 0 or T == 0:
-        raise ValueError(f"lstm kernel: empty input (B={B}, T={T})")
+    plan = kernel_plan(B, T, D, H)
     hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
     hT = torch.empty((B, H), dtype=torch.float32, device=x.device)
     cT = torch.empty((B, H), dtype=torch.float32, device=x.device)
@@ -85,7 +137,8 @@ def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
         status = lib.dota_lstm_seq_forward(
             x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(),
             wh.data_ptr(), b.data_ptr(), resets.data_ptr(), hs.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), B, T, D, H, stream, err, len(err),
+            hT.data_ptr(), cT.data_ptr(), B, T, D, H, plan.cluster, plan.rows, plan.grid,
+            plan.threads, plan.smem_bytes, stream, err, len(err),
         )
     build.check(status, err, "lstm_seq kernel launch")
     lstm_sequence_kernel.launches += 1

@@ -3,8 +3,10 @@
 The port's plain version (``lstm_sequence_reference``) must equal the JAX
 spec and the Pallas kernel (in interpret mode, as tests/test_pallas.py runs
 it) on the same numpy inputs, at f32 with atol 1e-5 (both sides accumulate
-the gate products in f32, in different orders). The CUDA kernel itself is
-compared with the plain version in the ``cuda`` case, which needs a card.
+the gate products in f32, in different orders). The kernel's launch plan is
+pure Python and is checked here; the CUDA kernel itself is compared with the
+plain version in the ``cuda`` cases, which need a card
+(``python -m pytest tests/test_torch_lstm.py -m cuda``).
 """
 
 import jax.numpy as jnp
@@ -114,3 +116,80 @@ def test_kernel_matches_plain_on_cuda(cuda_device, B, T, D, H):
     want = port.lstm_sequence_reference(*args)
     for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+# every shape the port's tests, configs and scripts give the kernel: the
+# serving step, the learner's sequence, the small test shape, a batch that
+# leaves one partial tile, and the width scripts/serve_loadgen.py runs
+PLAN_SHAPES = [(64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128), (1, 4, 8, 8)]
+
+
+@pytest.mark.parametrize("B,T,D,H", PLAN_SHAPES)
+def test_kernel_plan_fits_one_block(B, T, D, H):
+    plan = port.kernel_plan(B, T, D, H)
+    assert plan.smem_bytes <= 232_448
+    assert 1 <= plan.cluster <= 8
+    assert H % plan.cluster == 0  # the hidden units divide evenly over the cluster
+    units = H // plan.cluster
+    assert plan.threads == units * plan.kslices <= 1024
+    assert plan.kslices >= plan.rows  # enough threads for the (row, unit) cell updates
+    tiles = -(-B // plan.rows)
+    assert plan.grid == plan.cluster * tiles and (tiles - 1) * plan.rows < B
+
+
+@pytest.mark.parametrize("D,H", [(512, 512), (128, 1024), (4096, 128)])
+def test_kernel_plan_refuses_shapes_past_the_limit(D, H):
+    with pytest.raises(ValueError, match="shared memory"):
+        port.kernel_plan(8, 4, D, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 128), (5, 128), (63, 128), (65, 128), (5, 8)])
+def test_kernel_matches_plain_across_tiles(cuda_device, B, H):
+    """Batches that fill no tile, part of a tile and one row past a whole
+    number of tiles, and the narrowest width a script runs."""
+    args = to_torch(inputs(B=B, T=3, D=H, H=H, seed=B + H), device=cuda_device)
+    got = port.lstm_sequence_kernel(*args)
+    torch.cuda.synchronize()
+    want = port.lstm_sequence_reference(*args)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 1), (32, 16)])
+def test_kernel_is_deterministic(cuda_device, B, T):
+    """Two launches on the same inputs give the same bits."""
+    args = to_torch(inputs(B=B, T=T, D=128, H=128, seed=7), device=cuda_device)
+    a = port.lstm_sequence_kernel(*args)
+    b = port.lstm_sequence_kernel(*args)
+    torch.cuda.synchronize()
+    for x, y in zip((a[0], *a[1]), (b[0], *b[1])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 1), (32, 16), (5, 3)])
+def test_kernel_rows_are_independent(cuda_device, B, T):
+    """Row 0's outputs have the same bits whether rows 1..B-1 hold zeros or
+    random values: the serve engine's replay pads its batches differently."""
+    x, h0, c0, wx, wh, b, r = to_torch(inputs(B=B, T=T, D=128, H=128, seed=8), device=cuda_device)
+    quiet = [torch.zeros_like(t) for t in (x, h0, c0, r)]
+    for q, t in zip(quiet, (x, h0, c0, r)):
+        q[0] = t[0]
+    a = port.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    z = port.lstm_sequence_kernel(quiet[0], quiet[1], quiet[2], wx, wh, b, quiet[3])
+    torch.cuda.synchronize()
+    for u, v in zip((a[0], *a[1]), (z[0], *z[1])):
+        assert torch.equal(u[0], v[0])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_shapes_past_the_plan(cuda_device):
+    """For CUDA tensors a shape the plan refuses raises; it never falls back
+    to the plain version."""
+    args = to_torch(inputs(B=2, T=1, D=512, H=512, seed=9), device=cuda_device)
+    before = port.lstm_sequence_kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        port.lstm_sequence(*args)
+    assert port.lstm_sequence_kernel.launches == before
