@@ -30,7 +30,33 @@ Phases (any failure exits non-zero and prints no result line):
    recorded stream through ``reference_step``. The kernels' launch counts
    are reset just before this phase and read just after it;
 4. profile: a few more serve rounds under torch.profiler, for the card's
-   busy share and the kernels that took its time.
+   busy share and the kernels that took its time;
+5. backward: ``LSTMSequenceFunction`` (the kernel's forward, the recompute
+   backward) against autograd through the plain version at the learner's
+   update shape (B=128, T=17, D=H=128) under one random cotangent, each
+   gradient within BACKWARD_RTOL of its largest magnitude; the backward's
+   time is logged;
+6. train: ``Learner(cfg, actor="fused")`` on the default ``RunConfig``
+   (LSTM(128), bf16 compute, f32 params from ``init_params`` with
+   ``--seed``) at 128 games against the easy scripted bot, games of 20 s so
+   that every game ends inside the phase and the update's sequence forward
+   meets mid-chunk resets: 2 warm iterations, then 8 timed ones (16,384
+   trained frames) run under ``torch.cuda.set_sync_debug_mode("error")``,
+   so a read of the device from the host inside an iteration fails the
+   run. Checked: finite loss and gradient norm and ``health_ok`` 1 in
+   every iteration, every param tensor moved, every sampled action legal
+   under its masks, episodes ended, and ``lstm_seq`` launched exactly
+   iterations x (rollout_len + updates) times (its counts are reset just
+   before the phase and read just after). Logged: trained frames/s, wall ms
+   an iteration split into rollout and update by CUDA events, the LSTM
+   backward's share of the update, and the card's busy share and top
+   kernels in a torch.profiler window of 2 more iterations;
+7. kernel against plain in the train step: on one chunk of the phase, from
+   the phase's state, the loss and gradients with the kernel and with
+   ``use_kernel=False``, at f32 compute (loss within TRAIN_LOSS_ATOL, each
+   gradient within TRAIN_GRAD_RTOL of its largest magnitude) and at the
+   phase's bf16 (the looser bf16 bounds below), then one ``_train_step``
+   each way at f32.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -58,6 +84,24 @@ KERNEL_ATOL = 1e-5            # f32 kernel vs plain f32 version on the card
 # cuBLAS and the CPU round bf16 products and sums in their own order; a
 # few bf16 ulps at logits of magnitude ~1 stay well inside this
 SERVE_LOGP_ATOL = 0.1
+# the recompute backward is autograd through the plain version on the
+# saved inputs, so it should equal the plain version's gradients
+BACKWARD_RTOL = 1e-5
+# kernel against plain inside one train step, from the phase's state on one
+# of its chunks. At f32 compute: loss within TRAIN_LOSS_ATOL, each gradient
+# within TRAIN_GRAD_RTOL of its largest magnitude. At the phase's bf16
+# compute the kernel's f32 outputs (within 1e-5 of the plain version's)
+# round to a neighbouring bf16 value here and there (one ulp is 2^-8 of
+# the value), and the trunk's gradients move by about an ulp of their
+# largest entry (0.0061 of it, measured on the card): the bf16 bounds allow
+# about five ulps
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_BF16_LOSS_ATOL = 1e-3
+TRAIN_BF16_GRAD_RTOL = 2e-2
+
+TRAIN_ENVS, TRAIN_MAX_DOTA_TIME = 128, 20.0
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 2
 
 N_GAMES, N_STEPS = 64, 20
 RELEASE_AFTER_ROUND, RELEASED_SLOTS = 7, (3, 40)
@@ -68,19 +112,21 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def time_ms(fn, n: int = 200, warmup: int = 20) -> float:
+def time_ms(fn, n: int = 200, warmup: int = 20, setup=None) -> float:
     """Median time of one call of ``fn`` in ms as a caller sees it: CUDA
     events around each single call, so the host's work to issue it counts
-    wherever the card would otherwise wait for it."""
+    wherever the card would otherwise wait for it. ``setup()``, run before
+    each call's start event, makes its arguments."""
     import torch
 
     for _ in range(warmup):
-        fn()
+        fn(*(setup() if setup else ()))
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for s, e in zip(starts, ends):
+        args = setup() if setup else ()
         s.record()
-        fn()
+        fn(*args)
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
@@ -139,8 +185,11 @@ def lstm_bound(B, T, D, H):
 
 
 # (B, T, D, H): the serving step, the learner's sequence, the small test
-# shape, and a batch that leaves one partial row tile
-LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128))
+# shape, a batch that leaves one partial row tile, and the fused training
+# path's two: the rollout step over 128 lanes and the update's sequence
+# forward (rollout_len 16 plus the bootstrap step)
+LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
+               (128, 1, 128, 128), (128, 17, 128, 128))
 
 
 def max_err(got, want):
@@ -213,14 +262,14 @@ def check_lstm_kernel(device, seed):
                  "ms": device_ms(lambda: lstm.lstm_sequence_kernel(*args)),
                  "plain_ms": device_ms(lambda: lstm.lstm_sequence_reference(*args)),
                  "bound_ms": bound, "bound_by": bound_by}
-        if (B, T) == (64, 1):
+        if T == 1 and D == H == 128:
             library = lstm_cell_library(args)
             lib_h, lib_c = library()
             lib_err = max(float((lib_h - want[1][0]).abs().max()), float((lib_c - want[1][1]).abs().max()))
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if (B, T) == (32, 16):
+        if T > 1 and D == H == 128 and B in (32, 128):
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -236,6 +285,7 @@ def check_lstm_kernel(device, seed):
         )
         shapes[(B, T)] = shape
     serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
+    train_step, train_seq = shapes[(128, 1)], shapes[(128, 17)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -250,8 +300,11 @@ def check_lstm_kernel(device, seed):
         "library_ms": serve["library_ms"],
         "plan": serve["plan"],
         "sequence_ms": sequence["ms"],
+        "train_rollout_step_ms": train_step["ms"],
+        "train_sequence_ms": train_seq["ms"],
     }
-    return entry, {"sequence": sequence, "shapes": list(shapes.values())}
+    return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
+                   "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -527,15 +580,56 @@ def serve_phase(device, seed):
     return result
 
 
+def profiled(fn):
+    """Run ``fn`` under torch.profiler and reduce the window to the wall
+    time, the device's busy time and share (device-side events only: a CPU
+    op's self device time repeats the time of the kernels it launched) and
+    the kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+
+    def dev_us(evt):
+        return float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
+
+    # kernels and copies only: a user annotation (Optimizer.step#Adam.step)
+    # is mirrored on the device timeline and spans the kernels inside it
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(dev_us(e) for e in events)
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_events": sum(e.count for e in events),
+        "device_busy_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": (device_us / 1e6) / wall_s if device_us > 0 else None,
+        "top_device_ops": [
+            {"name": e.key, "device_us": dev_us(e), "count": e.count} for e in top if dev_us(e) > 0
+        ],
+    }
+
+
+def log_profile(label, result):
+    busy = result["device_busy_ms"]
+    log(
+        f"{label} in {result['wall_ms']:.1f} ms wall, {result['device_events']} kernels and copies, device busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms ({result['device_busy_share']:.3f})")
+    )
+    for e in result["top_device_ops"]:
+        log(f"  {e['device_us']:10.1f} us  x{e['count']:<5d} {e['name'][:90]}")
+
+
 def profile_serve(device, seed, rounds: int = 5):
     """A few lockstep rounds on a fresh engine under torch.profiler (after
     a warm-up), reduced to the device's busy share of the wall clock and
     the kernels that took the most device time. Runs after the checked
     serve phase, whose launch counts are already read."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from dotaclient_tpu_torch.config import RunConfig
     from dotaclient_tpu_torch.models import convert, random_flax_params
     from dotaclient_tpu_torch.serve import ServeEngine, make_inference_policy
@@ -547,40 +641,341 @@ def profile_serve(device, seed, rounds: int = 5):
     engine = ServeEngine(cfg, make_inference_policy(cfg, device=device), params,
                          registry=reg, device=device)
     run_games(engine, cfg, np.random.default_rng(seed + 200), params, N_GAMES, 2, release_round=-1)
+    import torch
+
     torch.cuda.synchronize()
     before = reg.snapshot()["serve/dispatches_total"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_games(engine, cfg, np.random.default_rng(seed + 300), params, N_GAMES, rounds, release_round=-1)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    result = profiled(lambda: run_games(engine, cfg, np.random.default_rng(seed + 300), params, N_GAMES, rounds,
+                                        release_round=-1))
     engine.stop()
     dispatches = reg.snapshot()["serve/dispatches_total"] - before
+    result = {"rounds": rounds, "dispatches": dispatches, **result}
+    log_profile(f"profile: {dispatches:.0f} dispatches", result)
+    return result
 
-    def dev_us(evt):
-        return float(getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0))
 
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_us = sum(dev_us(e) for e in events)
-    top = sorted(events, key=dev_us, reverse=True)[:12]
+# -- phase 5: the LSTM kernel's recompute backward ----------------------------
+
+
+def check_lstm_backward(device, seed, B=128, T=17, D=128, H=128):
+    """``LSTMSequenceFunction`` with the kernel's forward against autograd
+    through the plain version, on the card, under one random cotangent."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+
+    args = lstm_inputs(B, T, D, H, seed + 500, device)
+    g = torch.Generator().manual_seed(seed + 501)
+    cot = [torch.randn(*s, generator=g).to(device) for s in ((B, T, H), (B, H), (B, H))]
+
+    def kernel_forward():
+        diff = [t.clone().requires_grad_(True) for t in args[:6]]
+        outs = lstm.LSTMSequenceFunction.apply(lstm.lstm_sequence_kernel, *diff, args[6])
+        return outs, diff
+
+    def backward(outs, diff):
+        return torch.autograd.grad(outs, diff, cot)
+
+    got = backward(*kernel_forward())
+    ref = [t.clone().requires_grad_(True) for t in args[:6]]
+    rhs, (rhT, rcT) = lstm.lstm_sequence_reference(*ref, args[6])
+    want = torch.autograd.grad((rhs, rhT, rcT), ref, cot)
+    errs = {}
+    for name, a, b in zip(("x", "h0", "c0", "wx", "wh", "b"), got, want):
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+        if not errs[name] <= BACKWARD_RTOL:
+            raise AssertionError(f"lstm backward: grad of {name} off by {errs[name]:.3g} of its max > {BACKWARD_RTOL}")
+    def plain_forward_backward():
+        diff = [t.clone().requires_grad_(True) for t in args[:6]]
+        hs, (hT, cT) = lstm.lstm_sequence_reference(*diff, args[6])
+        return torch.autograd.grad((hs, hT, cT), diff, cot)
+
     result = {
-        "rounds": rounds,
-        "dispatches": dispatches,
-        "wall_ms": wall_s * 1e3,
-        "device_busy_ms": device_us / 1e3 if device_us > 0 else None,
-        "device_busy_share": (device_us / 1e6) / wall_s if device_us > 0 else None,
-        "top_device_ops": [
-            {"name": e.key, "device_us": dev_us(e), "count": e.count} for e in top if dev_us(e) > 0
-        ],
+        "B": B, "T": T, "D": D, "H": H,
+        "max_rel_err": errs,
+        "backward_ms": time_ms(backward, n=30, warmup=3, setup=kernel_forward),
+        "kernel_forward_ms": device_ms(lambda: lstm.lstm_sequence_kernel(*args)),
+        "plain_forward_ms": device_ms(lambda: lstm.lstm_sequence_reference(*args)),
+        # device time alone (a CUDA graph of 10 calls), the host's issue out
+        "kernel_forward_backward_device_ms": device_ms(lambda: backward(*kernel_forward()), n=10),
+        "plain_forward_backward_device_ms": device_ms(plain_forward_backward, n=10),
     }
     log(
-        f"profile: {dispatches:.0f} dispatches in {wall_s * 1e3:.1f} ms wall, device busy "
-        + ("not measured" if device_us <= 0 else f"{device_us / 1e3:.2f} ms ({result['device_busy_share']:.3f})")
+        f"lstm backward B={B} T={T} D=H={H}: grads vs autograd through the plain version within "
+        + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+        + f" of their max (rtol {BACKWARD_RTOL}); recompute backward {result['backward_ms']:.3f} ms "
+        f"(CUDA events around the call, host issue included), kernel forward "
+        f"{result['kernel_forward_ms'] * 1e3:.2f} us, plain forward {result['plain_forward_ms'] * 1e3:.2f} us; "
+        f"device time of forward and backward in a CUDA graph: kernel forward with the recompute backward "
+        f"{result['kernel_forward_backward_device_ms'] * 1e3:.1f} us, plain forward with autograd's backward "
+        f"{result['plain_forward_backward_device_ms'] * 1e3:.1f} us"
     )
-    for e in result["top_device_ops"]:
-        log(f"  {e['device_us']:10.1f} us  x{e['count']:<5d} {e['name'][:90]}")
+    return result
+
+
+# -- phase 6: train ---------------------------------------------------------------
+
+
+def train_config(seed):
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(
+        cfg,
+        env=dataclasses.replace(cfg.env, n_envs=TRAIN_ENVS, opponent="scripted_easy",
+                                max_dota_time=TRAIN_MAX_DOTA_TIME),
+        # no log boundary inside the phase: a log line reads the device
+        log_every=10 ** 9,
+        seed=seed,
+    )
+
+
+class Recorder:
+    """Wraps a learner's fused step and its actor's rollout to record, with
+    no read of the device: CUDA events at the start of each rollout, at its
+    end and at the end of the update; each call's metrics; each chunk; and
+    events around each LSTM recompute backward."""
+
+    def __init__(self, learner):
+        import torch
+
+        from dotaclient_tpu_torch.ops import lstm
+
+        self.marks, self.metrics, self.chunks, self.backward_marks = [], [], [], []
+        actor = learner.device_actor
+        rollout, fused = actor._rollout_impl, learner.fused_step
+        backward = lstm.LSTMSequenceFunction.backward
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_rollout(policy, state, **kw):
+            start = event()
+            out = rollout(policy, state, **kw)
+            self.marks.append([start, event()])
+            self.chunks.append(out[1])
+            return out
+
+        def timed_fused(state, actor_state):
+            out = fused(state, actor_state)
+            self.marks[-1].append(event())
+            self.metrics.append(out[2])
+            return out
+
+        def timed_backward(ctx, *grads):
+            start = event()
+            out = backward(ctx, *grads)
+            self.backward_marks.append((start, event()))
+            return out
+
+        actor._rollout_impl = timed_rollout
+        learner.fused_step = timed_fused
+        lstm.LSTMSequenceFunction.backward = staticmethod(timed_backward)
+        self._restore = lambda: setattr(lstm.LSTMSequenceFunction, "backward", staticmethod(backward))
+
+    def clear(self):
+        """Forget the marks and metrics; the chunks are kept."""
+        self.marks, self.metrics, self.backward_marks = [], [], []
+
+    def close(self):
+        self._restore()
+
+
+def train_phase(device, seed):
+    """The fused learner on the card: warm-up, the timed and checked
+    iterations under the sync guard, then a profiled window."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = train_config(seed)
+    T = cfg.ppo.rollout_len
+    updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    rec = Recorder(learner)
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        learner.train(TRAIN_WARM * updates)
+        torch.cuda.synchronize()
+        rec.clear()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = learner.train(TRAIN_TIMED * updates)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = lstm.lstm_sequence_kernel.launches
+        iters = TRAIN_WARM + TRAIN_TIMED
+        if launches != iters * (T + updates):
+            raise AssertionError(f"lstm_seq launched {launches} times in {iters} iterations, "
+                                 f"expected {iters * (T + updates)}")
+        metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+        for i, m in enumerate(metrics):
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+                raise AssertionError(f"timed iteration {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                     f"health_ok {m['health_ok']}")
+        frames = TRAIN_TIMED * learner.device_actor.n_lanes * T
+        if out["frames_trained"] != frames or len(metrics) != TRAIN_TIMED:
+            raise AssertionError(f"{out['frames_trained']} frames in {len(metrics)} iterations, expected {frames}")
+        rollout_ms = statistics.mean(a.elapsed_time(b) for a, b, _ in rec.marks)
+        update_ms = statistics.mean(b.elapsed_time(c) for _, b, c in rec.marks)
+        backward_ms = sum(a.elapsed_time(b) for a, b in rec.backward_marks) / TRAIN_TIMED
+        if len(rec.backward_marks) != TRAIN_TIMED * updates:
+            raise AssertionError(f"{len(rec.backward_marks)} LSTM backwards in {TRAIN_TIMED} iterations")
+        chunks = list(rec.chunks)
+        rec.clear()
+        profile = profiled(lambda: learner.train(TRAIN_PROFILED * updates))
+    finally:
+        rec.close()
+    moved = {k: not torch.equal(v, before[k]) for k, v in learner.policy.state_dict().items()}
+    # the ability head's every gradient is weighted by the probability of
+    # CAST, which is exactly 0 where the mask forbids it: it may stay put
+    # only if no frame of the phase could cast
+    cast_legal = sum(int(c["obs"]["mask_action_type"][..., 3].sum()) for c in chunks)
+    still = [k for k, v in moved.items() if not v and not (k.startswith("head_ability.") and cast_legal == 0)]
+    if still:
+        raise AssertionError(f"params that did not move: {still} ({cast_legal} frames could cast)")
+    illegal, n_actions = check_chunk_actions(chunks)
+    if illegal:
+        raise AssertionError(f"{illegal} of {n_actions} sampled actions illegal under their masks")
+    stats = learner.device_actor.drain_stats()
+    if not stats["episodes_done"] > 0:
+        raise AssertionError("no episode ended in the train phase")
+    result = {
+        "n_envs": cfg.env.n_envs, "lanes": learner.device_actor.n_lanes, "rollout_len": T,
+        "updates_per_iteration": updates, "warm_iterations": TRAIN_WARM, "timed_iterations": TRAIN_TIMED,
+        "frames_trained": frames,
+        "frames_per_s": frames / wall_s,
+        "iteration_ms": wall_s * 1e3 / TRAIN_TIMED,
+        "rollout_ms": rollout_ms,
+        "update_ms": update_ms,
+        "lstm_backward_ms_per_iteration": backward_ms,
+        "lstm_backward_share_of_update": backward_ms / update_ms,
+        "lstm_seq_launches": launches,
+        "actions_checked": n_actions,
+        "frames_that_could_cast": cast_legal,
+        "params_moved": sum(moved.values()), "params": len(moved),
+        "episodes_done": stats["episodes_done"],
+        "win_rate": stats["win_rate"],
+        "last_metrics": metrics[-1],
+        "sync_debug_mode": "error",
+        "profile": {"iterations": TRAIN_PROFILED, **profile},
+    }
+    log(
+        f"train: {TRAIN_TIMED} timed fused iterations x {learner.device_actor.n_lanes} lanes x {T} steps = "
+        f"{frames} trained frames in {wall_s * 1e3:.1f} ms: {result['frames_per_s']:.0f} frames/s, "
+        f"{result['iteration_ms']:.2f} ms an iteration (rollout {rollout_ms:.2f} ms, update {update_ms:.2f} ms "
+        f"between CUDA events; LSTM recompute backward {backward_ms:.2f} ms, "
+        f"{result['lstm_backward_share_of_update']:.3f} of the update); no host sync inside the iterations; "
+        f"loss {metrics[-1]['loss']:.4g}, grad_norm {metrics[-1]['grad_norm']:.4g}, health_ok 1 in all; "
+        f"{n_actions} actions legal; {sum(moved.values())} of {len(moved)} param tensors moved "
+        f"({cast_legal} frames could cast); {stats['episodes_done']:.0f} episodes; lstm_seq launches {launches}"
+    )
+    log_profile(f"train profile: {TRAIN_PROFILED} iterations", profile)
+    return result, learner, chunks[-1]
+
+
+def check_chunk_actions(chunks):
+    """Every sampled action of the chunks legal under its step's masks."""
+    from dotaclient_tpu_torch.models import distributions as D
+
+    illegal = n = 0
+    for chunk in chunks:
+        obs = {k: v.cpu().numpy() for k, v in chunk["obs"].items() if k.startswith("mask_")}
+        packed = np.stack([chunk["actions"][h].cpu().numpy() for h in D.HEADS], axis=-1)
+        L, T = packed.shape[:2]
+        for lane in range(L):
+            for t in range(T):
+                n += 1
+                if not action_is_legal({k: v[lane, t] for k, v in obs.items()}, packed[lane, t]):
+                    illegal += 1
+    return illegal, n
+
+
+# -- phase 7: the kernel against its plain version inside a train step --------
+
+
+def grads_both_ways(learner, chunk, compute_dtype):
+    """Loss and named gradients of one update's loss with the kernel and
+    with the plain version, each from a clone of the learner's state whose
+    policy computes in ``compute_dtype``; the kernel's launches in each."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train import ppo
+
+    out = {}
+    for use_kernel in (True, False):
+        state = learner.state.clone()
+        state.policy.compute_dtype = compute_dtype
+        before = lstm.lstm_sequence_kernel.launches
+        loss, _ = ppo.ppo_loss(state.policy, chunk, learner.config.ppo, step=state.step, use_kernel=use_kernel)
+        named = list(state.policy.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        out[use_kernel] = (float(loss.detach()), {n: g for (n, _), g in zip(named, grads)},
+                           lstm.lstm_sequence_kernel.launches - before)
+    return out
+
+
+def compare_grads(out):
+    (loss_k, grads_k, launched_k), (loss_p, grads_p, launched_p) = out[True], out[False]
+    if (launched_k, launched_p) != (1, 0):
+        raise AssertionError(f"kernel launches in one loss: {launched_k} with the kernel, {launched_p} without")
+    errs = {}
+    for name, g in grads_k.items():
+        ref = grads_p[name]
+        scale = float(ref.abs().max())
+        errs[name] = float((g - ref).abs().max()) / (scale if scale > 0 else 1.0)
+    worst = max(errs, key=errs.get)
+    return {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p),
+            "worst_grad": worst, "worst_grad_rel_err": errs[worst],
+            "lstm_grad_rel_err": {k: v for k, v in errs.items() if k.startswith("core.")}}
+
+
+def check_train_step_kernel(learner, chunk):
+    """The kernel against its plain version inside the update, from the
+    phase's state on one of its chunks: loss and gradients at f32 compute
+    and at the phase's bf16, then one whole ``_train_step`` each way at
+    f32 (loss and pre-clip gradient norm)."""
+    import torch
+
+    from dotaclient_tpu_torch.train import ppo
+
+    result = {}
+    for dtype, loss_tol, grad_tol in ((torch.float32, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL),
+                                      (torch.bfloat16, TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_RTOL)):
+        r = compare_grads(grads_both_ways(learner, chunk, dtype))
+        name = str(dtype).replace("torch.", "")
+        log(
+            f"train step at {name} compute, kernel vs plain on one chunk: loss {r['loss_kernel']:.7g} vs "
+            f"{r['loss_plain']:.7g} (abs err {r['loss_abs_err']:.3g}, atol {loss_tol}); worst grad "
+            f"{r['worst_grad']} within {r['worst_grad_rel_err']:.3g} of its max (rtol {grad_tol}); LSTM grads "
+            + ", ".join(f"{k} {v:.2g}" for k, v in r["lstm_grad_rel_err"].items())
+        )
+        if not r["loss_abs_err"] <= loss_tol:
+            raise AssertionError(f"{name} train step loss: kernel {r['loss_kernel']} vs plain {r['loss_plain']}")
+        if not r["worst_grad_rel_err"] <= grad_tol:
+            raise AssertionError(f"{name} train step grad of {r['worst_grad']}: off by "
+                                 f"{r['worst_grad_rel_err']:.3g} of its max > {grad_tol}")
+        result[name] = r
+    steps = {}
+    for use_kernel in (True, False):
+        state = learner.state.clone()
+        state.policy.compute_dtype = torch.float32
+        _, m = ppo._train_step(learner.config.ppo, state, chunk, use_kernel=use_kernel)
+        steps[use_kernel] = {k: float(m[k]) for k in ("loss", "grad_norm", "health_ok")}
+    if not abs(steps[True]["loss"] - steps[False]["loss"]) <= TRAIN_LOSS_ATOL:
+        raise AssertionError(f"_train_step loss: kernel {steps[True]} vs plain {steps[False]}")
+    result["train_step_f32"] = {"kernel": steps[True], "plain": steps[False]}
+    log(f"_train_step at float32 compute: kernel {steps[True]}, plain {steps[False]}")
     return result
 
 
@@ -615,14 +1010,18 @@ def main() -> int:
     lstm_entry, lstm_extra = check_lstm_kernel(device, args.seed)
     lstm_extra["sweep"] = lstm_sweep(device, args.seed)
     serve = serve_phase(device, args.seed)
-    lstm_entry["launches"] = serve["lstm_seq_launches"]
-    profiled = profile_serve(device, args.seed)
+    serve_profile = profile_serve(device, args.seed)
+    lstm_extra["backward"] = check_lstm_backward(device, args.seed)
+    train, learner, chunk = train_phase(device, args.seed)
+    train["kernel_vs_plain"] = check_train_step_kernel(learner, chunk)
+    lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"]}
+    lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve,
-                       "build_s": build_s, "card": smi, "profile": profiled}, f, indent=2)
+                       "build_s": build_s, "card": smi, "profile": serve_profile, "train": train}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

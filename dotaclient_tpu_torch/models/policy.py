@@ -77,16 +77,17 @@ class LSTMCore(nn.Module):
         self.b = nn.Parameter(torch.zeros(4 * hidden, device=device))
 
     def forward(
-        self, x: torch.Tensor, carry: Carry, resets: torch.Tensor
+        self, x: torch.Tensor, carry: Carry, resets: torch.Tensor, use_kernel: bool = True
     ) -> Tuple[Carry, torch.Tensor]:
         """x [B, T, D] and carry (c, h) in the compute dtype, resets [B, T]
-        -> (new carry (c, h), hs [B, T, H]) in the compute dtype."""
+        -> (new carry (c, h), hs [B, T, H]) in the compute dtype.
+        ``use_kernel=False`` runs the plain version on CUDA tensors too."""
         c, h = carry
         dtype = x.dtype
         # kernel boundary: the kernel takes and returns f32
         hs, (hT, cT) = lstm_sequence(
             x.float().contiguous(), h.float().contiguous(), c.float().contiguous(),
-            self.wx, self.wh, self.b, resets.float().contiguous(),
+            self.wx, self.wh, self.b, resets.float().contiguous(), use_kernel=use_kernel,
         )
         return (cT.to(dtype), hT.to(dtype)), hs.to(dtype)
 
@@ -181,17 +182,18 @@ class Policy(nn.Module):
         )
 
     def step(
-        self, obs: Obs, carry: Carry
+        self, obs: Obs, carry: Carry, use_kernel: bool = True
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
         """Single batched step: obs ``[B, ...]``; the core runs with T=1."""
         x, unit_emb = self._trunk(obs)
         resets = torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)
-        carry, ys = self.core(x[:, None], carry, resets)
+        carry, ys = self.core(x[:, None], carry, resets, use_kernel=use_kernel)
         logits, value = self._heads(ys[:, 0], unit_emb)
         return logits, value, carry
 
     def sequence(
-        self, obs: Obs, carry: Carry, dones: Optional[torch.Tensor] = None
+        self, obs: Obs, carry: Carry, dones: Optional[torch.Tensor] = None,
+        use_kernel: bool = True,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
         """Teacher-forced sequence mode: obs ``[B, T, ...]`` from the stored
         initial carry. ``dones`` ([B, T'] with T' <= T, episode ended AT step
@@ -202,7 +204,7 @@ class Policy(nn.Module):
         if dones is not None:
             # step 0 is reset by carry0 itself; step t>0 resets if t-1 done
             resets[:, 1:] = dones[:, : T - 1].float()
-        carry, ys = self.core(x, carry, resets)
+        carry, ys = self.core(x, carry, resets, use_kernel=use_kernel)
         logits, value = self._heads(ys, unit_emb)
         return logits, value, carry
 
@@ -223,6 +225,46 @@ def make_policy(
             "the LSTM core has no FFN to route"
         )
     return Policy(model, obs_spec, action_spec, device=device)
+
+
+@torch.no_grad()
+def init_params(policy: Policy, generator: torch.Generator) -> Policy:
+    """Fill ``policy`` in place from ``generator`` with the distributions
+    Flax's initializers draw (not the same values): Dense kernels
+    lecun-normal (a normal truncated at 2 standard deviations, variance
+    1/fan_in after truncation), biases zero, the hero embedding normal with
+    variance 1/embed_dim (Flax's ``variance_scaling(1, fan_in, normal,
+    out_axis=0)``), and the LSTM cell's input kernels lecun-normal and its
+    four recurrent kernels orthogonal, each [H, H] gate block on its own,
+    with a zero bias. The draws are made on the CPU and copied, so a seed
+    gives the same params on every device. Returns ``policy``."""
+
+    def lecun(fan_in: int, *shape: int) -> torch.Tensor:
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        out = torch.empty(*shape)
+        nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return out * std
+
+    for name, module in policy.named_modules():
+        if isinstance(module, nn.Linear):
+            # Linear weight [out, in] is the transposed Flax kernel [in, out]
+            module.weight.copy_(lecun(module.in_features, module.in_features,
+                                      module.out_features).t())
+            module.bias.zero_()
+    emb = policy.hero_embed.weight
+    emb.copy_(torch.randn(emb.shape, generator=generator) / math.sqrt(emb.shape[1]))
+    core = policy.core
+    D, G = core.wx.shape
+    H = G // 4
+    core.wx.copy_(torch.cat([lecun(D, D, H) for _ in range(4)], dim=1))
+    blocks = []
+    for _ in range(4):
+        q = torch.empty(H, H)
+        nn.init.orthogonal_(q, generator=generator)
+        blocks.append(q)
+    core.wh.copy_(torch.cat(blocks, dim=1))
+    core.b.zero_()
+    return policy
 
 
 TORCH_DTYPES = {

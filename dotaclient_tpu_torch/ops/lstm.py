@@ -17,10 +17,18 @@ T, and the spec the kernel is held against. ``lstm_sequence_kernel`` launches
 ``csrc/lstm_seq.cu`` (one launch for all T steps, one thread-block cluster
 per tile of batch rows, the weights resident in the cluster's shared memory)
 with the numbers of ``kernel_plan``, and counts its launches in
-``lstm_sequence_kernel.launches``. ``lstm_sequence`` dispatches on where the
-tensors lie: the kernel for CUDA tensors, the plain version for CPU tensors
-or when ``use_kernel=False``. The forward only; the recompute backward comes
-with the learner.
+``lstm_sequence_kernel.launches``.
+
+``LSTMSequenceFunction`` gives the kernel its gradient, as the JAX package's
+``lstm_sequence_pallas`` custom VJP does: the forward runs the
+implementation it is handed and saves its inputs; the backward re-runs the
+plain version under autograd on them and returns the gradients of x, h0,
+c0, wx, wh and b (none for resets). No kernel is written for the backward.
+
+``lstm_sequence`` dispatches on where the tensors lie: the plain version for
+CPU tensors or when ``use_kernel=False``; for CUDA tensors the kernel, through
+``LSTMSequenceFunction`` whenever autograd is recording and an input needs a
+gradient, directly otherwise.
 """
 
 from __future__ import annotations
@@ -148,9 +156,37 @@ def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
 lstm_sequence_kernel.launches = 0
 
 
+class LSTMSequenceFunction(torch.autograd.Function):
+    """The recompute backward: ``apply(forward_impl, x, h0, c0, wx, wh, b,
+    resets) -> (hs, hT, cT)``. ``forward_impl`` (the kernel on the card; a
+    CPU test passes the plain version) computes the outputs; the backward
+    re-runs ``lstm_sequence_reference`` under autograd and returns its
+    gradients, so backpropagation through time costs one plain forward and
+    its backward, as in the JAX package's ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, forward_impl, x, h0, c0, wx, wh, b, resets):
+        hs, (hT, cT) = forward_impl(x, h0, c0, wx, wh, b, resets)
+        ctx.save_for_backward(x, h0, c0, wx, wh, b, resets)
+        return hs, hT, cT
+
+    @staticmethod
+    def backward(ctx, g_hs, g_hT, g_cT):
+        x, h0, c0, wx, wh, b, resets = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (x, h0, c0, wx, wh, b)]
+            hs, (hT, cT) = lstm_sequence_reference(*inputs, resets)
+            grads = torch.autograd.grad((hs, hT, cT), inputs, (g_hs, g_hT, g_cT))
+        return (None, *grads, None)
+
+
 def lstm_sequence(x, h0, c0, wx, wh, b, resets, use_kernel: bool = True) -> LSTMOut:
-    """Dispatch: the kernel for CUDA tensors, the plain version for CPU
-    tensors or when ``use_kernel=False`` forces it."""
+    """Dispatch: the plain version for CPU tensors or when
+    ``use_kernel=False`` forces it; the kernel for CUDA tensors, through
+    ``LSTMSequenceFunction`` when a gradient is wanted."""
     if not use_kernel or x.device.type == "cpu":
         return lstm_sequence_reference(x, h0, c0, wx, wh, b, resets)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h0, c0, wx, wh, b)):
+        hs, hT, cT = LSTMSequenceFunction.apply(lstm_sequence_kernel, x, h0, c0, wx, wh, b, resets)
+        return hs, (hT, cT)
     return lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets)

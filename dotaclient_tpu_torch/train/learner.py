@@ -1,0 +1,172 @@
+"""The learner, fused mode: self-play PPO on one card.
+
+Counterpart of the fused branch of ``dotaclient_tpu/train/learner.py``
+(``Learner(config, actor="fused")``, its training loop and ``train``'s
+return dict) and of its ``--smoke`` entry point. Run on the card::
+
+    python -m dotaclient_tpu_torch.train.learner --smoke [--steps N] [--n-envs N]
+        [--opponent scripted_easy|scripted_hard|selfplay] [--seed S] [--device cuda|cpu]
+
+Each loop iteration is one call of the fused step (``train/fused.py``):
+``steps_per_dispatch`` rollouts and ``epochs_per_batch x minibatches``
+updates each. The host reads the device only at log boundaries (every
+``log_every`` optimizer steps): the metrics and the drained episode stats.
+
+Not ported yet, each with its ROADMAP item: the other actor modes
+(``device``, ``vec``, ``scalar``, ``external``; queue 1, item 4), the
+health guardian's rollback (item 4), checkpoints and the CUDA graph of the
+iteration (item 3), transports (items 1-2) and the league (item 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import json
+import sys
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
+from dotaclient_tpu_torch.config import RunConfig, default_config
+from dotaclient_tpu_torch.device import DeviceLike, resolve_device
+from dotaclient_tpu_torch.models.policy import init_params, make_policy
+from dotaclient_tpu_torch.train.fused import make_fused_step
+from dotaclient_tpu_torch.train.ppo import init_train_state
+from dotaclient_tpu_torch.utils import telemetry
+
+# actor modes of the reference learner that the port does not have yet
+_NOT_PORTED = {
+    "device": "ROADMAP queue 1, item 4 (the buffered learner path)",
+    "vec": "ROADMAP queue 1, item 4 (the buffered learner path)",
+    "scalar": "ROADMAP queue 1, item 4 (the buffered learner path)",
+    "external": "ROADMAP queue 1, items 1 and 4 (the socket lane and the buffered learner path)",
+}
+
+
+class Learner:
+    """Fused-mode learner: params from ``init_params`` with ``seed``, one
+    device actor over ``config.env.n_envs`` games, one fused step."""
+
+    def __init__(
+        self,
+        config: RunConfig,
+        actor: str = "fused",
+        seed: int = 0,
+        device: DeviceLike = None,
+        registry: Optional[telemetry.Registry] = None,
+    ) -> None:
+        if actor != "fused":
+            where = _NOT_PORTED.get(actor)
+            if where is None:
+                raise ValueError(f"unknown actor mode {actor!r}")
+            raise NotImplementedError(f"actor mode {actor!r} is not ported yet: {where}")
+        if config.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.registry = registry if registry is not None else telemetry.get_registry()
+        self.policy = make_policy(config.model, config.obs, config.actions, device=self.device)
+        init_params(self.policy, torch.Generator().manual_seed(seed))
+        # the anchor of anchor_kl is the policy as constructed, frozen
+        self.anchor = None
+        if config.ppo.anchor_kl_coef > 0:
+            self.anchor = copy.deepcopy(self.policy).requires_grad_(False)
+        self.state = init_train_state(self.policy, config.ppo)
+        self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
+                                        device=self.device)
+        self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
+        self._last_metrics: Dict[str, float] = {}
+        self.history: List[Dict[str, float]] = []
+
+    def train(self, num_steps: int) -> Dict[str, float]:
+        """Run until ``num_steps`` optimizer steps have completed (rounded
+        up to whole fused calls). Returns the last logged metrics, the
+        actor's stats (``actor_*``), ``optimizer_steps``,
+        ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``."""
+        cfg = self.config
+        da = self.device_actor
+        k_iters = cfg.steps_per_dispatch
+        stride = cfg.ppo.steps_per_batch * k_iters
+        frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
+        t_start = time.time()
+        frames_trained = 0
+        steps_done = 0
+        while steps_done < num_steps:
+            self.state, da.state, metrics, _ = self.fused_step(self.state, da.state)
+            da.env_steps += frames_per
+            da.rollouts_shipped += da.n_lanes * k_iters
+            steps_done += stride
+            frames_trained += frames_per
+            if self.state.step % cfg.log_every < stride:
+                # log boundary: the one read of the device
+                self._last_metrics = {k: float(v) for k, v in metrics.items()}
+                self._last_metrics.update(da.drain_stats())
+                self.history.append({"step": float(self.state.step), **self._last_metrics})
+        elapsed = time.time() - t_start
+        actor_stats = da.stats()
+        return {
+            **self._last_metrics,
+            **{f"actor_{k}": v for k, v in actor_stats.items()},
+            "optimizer_steps": float(steps_done),
+            "frames_trained": float(frames_trained),
+            "frames_per_sec": frames_trained / max(elapsed, 1e-9),
+            "elapsed_sec": elapsed,
+        }
+
+
+def smoke_config(config: RunConfig) -> RunConfig:
+    """The reference learner's ``--smoke`` sizes: 4 games of 60 s, chunks of
+    8 steps, a log line every step."""
+    return dataclasses.replace(
+        config,
+        env=dataclasses.replace(config.env, n_envs=4, max_dota_time=60.0),
+        ppo=dataclasses.replace(config.ppo, rollout_len=8, batch_rollouts=8),
+        buffer=dataclasses.replace(config.buffer, capacity_rollouts=32, min_fill=8),
+        log_every=1,
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(description="Fused self-play PPO learner on one CUDA card.")
+    p.add_argument("--smoke", action="store_true", help="tiny sizes, at most 5 steps")
+    p.add_argument("--steps", type=int, default=1000, help="optimizer steps")
+    p.add_argument("--n-envs", type=int, default=None, help="games (default: the config's)")
+    p.add_argument("--opponent", type=str, default=None,
+                   choices=("scripted_easy", "scripted_hard", "selfplay", "league"))
+    p.add_argument("--actor", type=str, default="fused",
+                   choices=("fused", "device", "vec", "scalar", "external"))
+    p.add_argument("--steps-per-dispatch", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
+    args = p.parse_args(argv)
+
+    config = default_config()
+    if args.smoke:
+        config = smoke_config(config)
+        args.steps = min(args.steps, 5)
+    env_over = {}
+    if args.n_envs is not None:
+        env_over["n_envs"] = args.n_envs
+    if args.opponent is not None:
+        env_over["opponent"] = args.opponent
+    if env_over:
+        config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
+    if args.steps_per_dispatch is not None:
+        config = dataclasses.replace(config, steps_per_dispatch=args.steps_per_dispatch)
+    config = dataclasses.replace(config, seed=args.seed)
+
+    learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device)
+    out = learner.train(args.steps)
+    for row in learner.history:
+        print(json.dumps({k: round(v, 6) for k, v in row.items()}), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -193,3 +193,142 @@ def test_kernel_refuses_shapes_past_the_plan(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         port.lstm_sequence(*args)
     assert port.lstm_sequence_kernel.launches == before
+
+
+# -- the recompute backward ---------------------------------------------------
+
+
+def jax_grads(args, cotangents):
+    """Gradients of x, h0, c0, wx, wh and b through the Pallas kernel's
+    custom VJP (interpret mode) under one cotangent of (hs, hT, cT)."""
+    import jax
+
+    from dotaclient_tpu.ops.pallas.lstm import lstm_sequence_pallas
+
+    x, h0, c0, wx, wh, b, r = to_jax(args)
+    g_hs, g_hT, g_cT = (jnp.asarray(c) for c in cotangents)
+
+    def loss(*diff):
+        hs, (hT, cT) = lstm_sequence_pallas(*diff, r, True)
+        return (hs * g_hs).sum() + (hT * g_hT).sum() + (cT * g_cT).sum()
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=tuple(range(6)))(x, h0, c0, wx, wh, b)]
+
+
+def cotangents_for(B, T, H, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in ((B, T, H), (B, H), (B, H))]
+
+
+def function_grads(args, cotangents, forward_impl, device="cpu"):
+    """Gradients of the six differentiable inputs through
+    ``LSTMSequenceFunction`` with ``forward_impl`` under the cotangent."""
+    ts = to_torch(args, device)
+    diff = [t.requires_grad_(True) for t in ts[:6]]
+    hs, hT, cT = port.LSTMSequenceFunction.apply(forward_impl, *diff, ts[6])
+    outs = (hs, hT, cT)
+    grads = torch.autograd.grad(outs, diff, [torch.from_numpy(c).to(device) for c in cotangents])
+    return outs, grads
+
+
+@pytest.mark.parametrize("B,T", [(4, 5), (3, 1)])
+def test_function_grads_match_jax_grad_through_pallas(B, T):
+    """The Function on the CPU, its plain forward passed explicitly, against
+    jax.grad through lstm_sequence_pallas(..., interpret=True): f32, atol
+    1e-5 on every gradient."""
+    args = inputs(B=B, T=T, D=8, H=16, seed=20 + B + T)
+    cot = cotangents_for(B, T, 16, seed=B * T)
+    _, got = function_grads(args, cot, port.lstm_sequence_reference)
+    for g, w, name in zip(got, jax_grads(args, cot), ("x", "h0", "c0", "wx", "wh", "b")):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=ATOL, err_msg=name)
+
+
+def test_function_grads_equal_autograd_through_plain_version():
+    """On the same inputs the Function's gradients are those of autograd
+    through the plain version (the recompute is that backward, bitwise)."""
+    args = inputs(B=5, T=4, D=8, H=16, seed=31)
+    cot = cotangents_for(5, 4, 16, seed=32)
+    outs, got = function_grads(args, cot, port.lstm_sequence_reference)
+    ts = to_torch(args)
+    diff = [t.requires_grad_(True) for t in ts[:6]]
+    hs, (hT, cT) = port.lstm_sequence_reference(*diff, ts[6])
+    want = torch.autograd.grad((hs, hT, cT), diff, [torch.from_numpy(c) for c in cot])
+    for o, w in zip(outs, (hs, hT, cT)):
+        assert torch.equal(o, w)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_dispatch_on_cpu_keeps_autograd_through_plain_version():
+    """CPU tensors that need a gradient take the plain version, and the
+    gradient reaches the weights."""
+    ts = to_torch(inputs(seed=33))
+    wx = ts[3].requires_grad_(True)
+    hs, _ = port.lstm_sequence(ts[0], ts[1], ts[2], wx, ts[4], ts[5], ts[6])
+    hs.sum().backward()
+    assert wx.grad is not None and wx.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(32, 17), (128, 17), (5, 3)])
+def test_function_with_kernel_matches_plain_autograd_on_cuda(cuda_device, B, T):
+    """On the card: lstm_sequence with a gradient wanted routes through the
+    Function and launches the kernel once; outputs within 1e-5 of the plain
+    version and every gradient within 1e-5 of its largest magnitude."""
+    D = H = 128 if B > 5 else 32
+    args = inputs(B=B, T=T, D=D, H=H, seed=B + T)
+    cot = [torch.from_numpy(c).to(cuda_device) for c in cotangents_for(B, T, H, seed=B)]
+    ts = to_torch(args, cuda_device)
+    diff = [t.clone().requires_grad_(True) for t in ts[:6]]
+    before = port.lstm_sequence_kernel.launches
+    hs, (hT, cT) = port.lstm_sequence(*diff, ts[6])
+    got = torch.autograd.grad((hs, hT, cT), diff, cot)
+    assert port.lstm_sequence_kernel.launches == before + 1
+    ref = [t.clone().requires_grad_(True) for t in ts[:6]]
+    rhs, (rhT, rcT) = port.lstm_sequence_reference(*ref, ts[6])
+    want = torch.autograd.grad((rhs, rhT, rcT), ref, cot)
+    for o, w in zip((hs, hT, cT), (rhs, rhT, rcT)):
+        torch.testing.assert_close(o, w, rtol=0, atol=ATOL)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_train_step_with_kernel_matches_plain_on_cuda(cuda_device):
+    """One PPO update on a chunk from the port's own device rollout, from the
+    same state with the kernel and with ``use_kernel=False``, at f32
+    compute: loss within 1e-5, each gradient within 1e-4 of its largest
+    magnitude, and the kernel launched once in the update's forward (the
+    recompute backward launches none)."""
+    import dataclasses
+
+    from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
+    from dotaclient_tpu_torch.config import ModelConfig, RunConfig
+    from dotaclient_tpu_torch.models.policy import init_params, make_policy
+    from dotaclient_tpu_torch.train import ppo
+
+    cfg = RunConfig()
+    cfg = dataclasses.replace(
+        cfg, model=ModelConfig(dtype="float32"),
+        env=dataclasses.replace(cfg.env, n_envs=16, max_dota_time=1.0),
+    )
+    policy = make_policy(cfg.model, cfg.obs, cfg.actions, device=cuda_device)
+    init_params(policy, torch.Generator().manual_seed(0))
+    actor = DeviceActor(cfg, policy, seed=0, device=cuda_device)
+    with torch.no_grad():
+        _, chunk, _ = actor._rollout_impl(policy, actor.state)
+    state = ppo.init_train_state(policy, cfg.ppo)
+    out = {}
+    for use_kernel in (True, False):
+        s = state.clone()
+        before = port.lstm_sequence_kernel.launches
+        loss, _ = ppo.ppo_loss(s.policy, chunk, cfg.ppo, step=0, use_kernel=use_kernel)
+        named = list(s.policy.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        assert port.lstm_sequence_kernel.launches - before == (1 if use_kernel else 0)
+        out[use_kernel] = (loss.detach(), {n: g for (n, _), g in zip(named, grads)})
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert abs(float(lk) - float(lp)) <= 1e-5
+    assert gk["core.wx"].abs().max() > 0
+    for name, g in gk.items():
+        assert (g - gp[name]).abs().max() <= 1e-4 * gp[name].abs().max(), name

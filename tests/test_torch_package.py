@@ -44,7 +44,7 @@ def test_port_imports_without_jax():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 10  # every module of the port
+    assert int(out.stdout.split()[-1]) >= 34  # every module of the port, the training slice's included
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bflax\b", r"dotaclient_tpu\.", r"from dotaclient_tpu import"])
