@@ -55,8 +55,12 @@ Phases (any failure exits non-zero and prints no result line):
    the phase's state, the loss and gradients with the kernel and with
    ``use_kernel=False``, at f32 compute (loss within TRAIN_LOSS_ATOL, each
    gradient within TRAIN_GRAD_RTOL of its largest magnitude) and at the
-   phase's bf16 (the looser bf16 bounds below), then one ``_train_step``
-   each way at f32.
+   phase's bf16 (the looser bf16 bounds below, logged beside their
+   control); then, on the chunk with CAST and every ability slot made
+   legal (the lane sim exposes one ability, so the phase's own masks leave
+   the ability head a zero gradient), the same at f32 with the ability
+   head's gradient nonzero, and one ``_train_step`` each way at f32 in
+   which every param tensor moves.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -90,15 +94,20 @@ BACKWARD_RTOL = 1e-5
 # kernel against plain inside one train step, from the phase's state on one
 # of its chunks. At f32 compute: loss within TRAIN_LOSS_ATOL, each gradient
 # within TRAIN_GRAD_RTOL of its largest magnitude. At the phase's bf16
-# compute the kernel's f32 outputs (within 1e-5 of the plain version's)
+# compute the kernel's f32 outputs (within ~2e-7 of the plain version's)
 # round to a neighbouring bf16 value here and there (one ulp is 2^-8 of
-# the value), and the trunk's gradients move by about an ulp of their
-# largest entry (0.0061 of it, measured on the card): the bf16 bounds allow
-# about five ulps
+# the value), and the gradients move by about an ulp of their largest
+# entry. The control measures that: the plain version against itself with
+# its f32 hs moved by uniform noise of CONTROL_NOISE (a tenth of the
+# kernel's f32 tolerance) before the cast, on the same chunk. The bf16
+# bounds sit between the kernel's reading and the control's (H100: 2.5e-7
+# and 6.2e-3 against 2.0e-6 and 2.0e-2), and the kernel must also read
+# below the control in the same run
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
-TRAIN_BF16_LOSS_ATOL = 1e-3
-TRAIN_BF16_GRAD_RTOL = 2e-2
+TRAIN_BF16_LOSS_ATOL = 1e-6
+TRAIN_BF16_GRAD_RTOL = 1e-2
+CONTROL_NOISE = 1e-6
 
 TRAIN_ENVS, TRAIN_MAX_DOTA_TIME = 128, 20.0
 TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 2
@@ -836,13 +845,17 @@ def train_phase(device, seed):
     finally:
         rec.close()
     moved = {k: not torch.equal(v, before[k]) for k, v in learner.policy.state_dict().items()}
-    # the ability head's every gradient is weighted by the probability of
-    # CAST, which is exactly 0 where the mask forbids it: it may stay put
-    # only if no frame of the phase could cast
-    cast_legal = sum(int(c["obs"]["mask_action_type"][..., 3].sum()) for c in chunks)
-    still = [k for k, v in moved.items() if not v and not (k.startswith("head_ability.") and cast_legal == 0)]
+    cast_legal, ability_choice = cast_frames(chunks)
+    # the ability head's gradient is exactly 0 unless some frame could cast
+    # with two or more abilities legal: with one, its distribution is a
+    # point mass (log-prob 0 whatever the logits), and where CAST is
+    # forbidden its terms are weighted by a probability of exactly 0. The
+    # lane sim exposes one ability, so there it stays put; phase 7 holds its
+    # gradient on the card on a chunk whose masks give it a choice
+    still = [k for k, v in moved.items() if not v and not (k.startswith("head_ability.") and ability_choice == 0)]
     if still:
-        raise AssertionError(f"params that did not move: {still} ({cast_legal} frames could cast)")
+        raise AssertionError(f"params that did not move: {still} ({cast_legal} frames could cast, "
+                             f"{ability_choice} of them with a choice of ability)")
     illegal, n_actions = check_chunk_actions(chunks)
     if illegal:
         raise AssertionError(f"{illegal} of {n_actions} sampled actions illegal under their masks")
@@ -862,6 +875,7 @@ def train_phase(device, seed):
         "lstm_seq_launches": launches,
         "actions_checked": n_actions,
         "frames_that_could_cast": cast_legal,
+        "frames_with_a_choice_of_ability": ability_choice,
         "params_moved": sum(moved.values()), "params": len(moved),
         "episodes_done": stats["episodes_done"],
         "win_rate": stats["win_rate"],
@@ -877,10 +891,24 @@ def train_phase(device, seed):
         f"{result['lstm_backward_share_of_update']:.3f} of the update); no host sync inside the iterations; "
         f"loss {metrics[-1]['loss']:.4g}, grad_norm {metrics[-1]['grad_norm']:.4g}, health_ok 1 in all; "
         f"{n_actions} actions legal; {sum(moved.values())} of {len(moved)} param tensors moved "
-        f"({cast_legal} frames could cast); {stats['episodes_done']:.0f} episodes; lstm_seq launches {launches}"
+        f"({cast_legal} frames could cast, {ability_choice} with a choice of ability); "
+        f"{stats['episodes_done']:.0f} episodes; lstm_seq launches {launches}"
     )
     log_profile(f"train profile: {TRAIN_PROFILED} iterations", profile)
     return result, learner, chunks[-1]
+
+
+def cast_frames(chunks):
+    """Frames of the chunks where CAST was legal, and those of them with two
+    or more abilities legal."""
+    from dotaclient_tpu_torch.envs.lane_sim import ACTION_CAST
+
+    legal = choice = 0
+    for c in chunks:
+        can = c["obs"]["mask_action_type"][..., ACTION_CAST]
+        legal += int(can.sum())
+        choice += int((can & (c["obs"]["mask_ability"].sum(dim=-1) >= 2)).sum())
+    return legal, choice
 
 
 def check_chunk_actions(chunks):
@@ -903,79 +931,148 @@ def check_chunk_actions(chunks):
 # -- phase 7: the kernel against its plain version inside a train step --------
 
 
-def grads_both_ways(learner, chunk, compute_dtype):
-    """Loss and named gradients of one update's loss with the kernel and
-    with the plain version, each from a clone of the learner's state whose
-    policy computes in ``compute_dtype``; the kernel's launches in each."""
+def loss_grads(learner, chunk, compute_dtype, use_kernel, hs_noise=None):
+    """Loss and named gradients of one update's loss from a clone of the
+    learner's state whose policy computes in ``compute_dtype``, and the
+    kernel's launches in it. ``hs_noise`` (with the plain version) adds
+    uniform noise of that size to the core's f32 outputs before their cast,
+    and records how far the kernel's outputs on the same inputs lie from
+    the plain version's."""
     import torch
 
+    from dotaclient_tpu_torch.models import policy as P
     from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.train import ppo
 
-    out = {}
-    for use_kernel in (True, False):
-        state = learner.state.clone()
-        state.policy.compute_dtype = compute_dtype
-        before = lstm.lstm_sequence_kernel.launches
+    state = learner.state.clone()
+    state.policy.compute_dtype = compute_dtype
+    gap, core_op = [], P.lstm_sequence
+    if hs_noise is not None:
+        gen = torch.Generator(device=chunk["rewards"].device).manual_seed(0)
+
+        def noisy_plain(x, h0, c0, wx, wh, b, resets, use_kernel=True):
+            hs, carry = core_op(x, h0, c0, wx, wh, b, resets, use_kernel=False)
+            with torch.no_grad():
+                gap.append(float((lstm.lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets)[0] - hs).abs().max()))
+            noise = (torch.rand(hs.shape, generator=gen, device=hs.device) * 2 - 1) * hs_noise
+            return hs + noise, carry
+
+        P.lstm_sequence = noisy_plain
+    before = lstm.lstm_sequence_kernel.launches
+    try:
         loss, _ = ppo.ppo_loss(state.policy, chunk, learner.config.ppo, step=state.step, use_kernel=use_kernel)
-        named = list(state.policy.named_parameters())
-        grads = torch.autograd.grad(loss, [p for _, p in named])
-        out[use_kernel] = (float(loss.detach()), {n: g for (n, _), g in zip(named, grads)},
-                           lstm.lstm_sequence_kernel.launches - before)
-    return out
+    finally:
+        P.lstm_sequence = core_op
+    launched = lstm.lstm_sequence_kernel.launches - before - len(gap)
+    named = list(state.policy.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {"loss": float(loss.detach()), "grads": {n: g for (n, _), g in zip(named, grads)},
+            "launches": launched, "hs_gap": max(gap) if gap else None}
 
 
-def compare_grads(out):
-    (loss_k, grads_k, launched_k), (loss_p, grads_p, launched_p) = out[True], out[False]
-    if (launched_k, launched_p) != (1, 0):
-        raise AssertionError(f"kernel launches in one loss: {launched_k} with the kernel, {launched_p} without")
+def compare_grads(a, b):
+    """Loss difference and each gradient's max abs difference over its
+    largest magnitude, ``a`` against the reference ``b``."""
     errs = {}
-    for name, g in grads_k.items():
-        ref = grads_p[name]
+    for name, g in a["grads"].items():
+        ref = b["grads"][name]
         scale = float(ref.abs().max())
         errs[name] = float((g - ref).abs().max()) / (scale if scale > 0 else 1.0)
     worst = max(errs, key=errs.get)
-    return {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p),
+    return {"loss": a["loss"], "loss_ref": b["loss"], "loss_abs_err": abs(a["loss"] - b["loss"]),
             "worst_grad": worst, "worst_grad_rel_err": errs[worst],
             "lstm_grad_rel_err": {k: v for k, v in errs.items() if k.startswith("core.")}}
+
+
+def kernel_vs_plain(learner, chunk, dtype, loss_tol, grad_tol, label):
+    """The kernel against the plain version in one update's loss and
+    gradients, checked within the stated tolerances; also the runs."""
+    kern = loss_grads(learner, chunk, dtype, True)
+    plain = loss_grads(learner, chunk, dtype, False)
+    if (kern["launches"], plain["launches"]) != (1, 0):
+        raise AssertionError(f"kernel launches in one loss: {kern['launches']} with the kernel, "
+                             f"{plain['launches']} without")
+    r = compare_grads(kern, plain)
+    log(
+        f"{label}, kernel vs plain: loss {r['loss']:.7g} vs {r['loss_ref']:.7g} (abs err {r['loss_abs_err']:.3g}, "
+        f"atol {loss_tol}); worst grad {r['worst_grad']} within {r['worst_grad_rel_err']:.3g} of its max "
+        f"(rtol {grad_tol}); LSTM grads " + ", ".join(f"{k} {v:.2g}" for k, v in r["lstm_grad_rel_err"].items())
+    )
+    if not r["loss_abs_err"] <= loss_tol:
+        raise AssertionError(f"{label} loss: kernel {r['loss']} vs plain {r['loss_ref']}")
+    if not r["worst_grad_rel_err"] <= grad_tol:
+        raise AssertionError(f"{label} grad of {r['worst_grad']}: off by {r['worst_grad_rel_err']:.3g} "
+                             f"of its max > {grad_tol}")
+    return r, kern, plain
+
+
+def with_ability_choice(chunk):
+    """The chunk with CAST legal on every frame and every ability slot
+    legal: masks under which the ability head has a distribution to learn."""
+    from dotaclient_tpu_torch.envs.lane_sim import ACTION_CAST
+
+    obs = dict(chunk["obs"])
+    obs["mask_action_type"] = obs["mask_action_type"].clone()
+    obs["mask_action_type"][..., ACTION_CAST] = True
+    obs["mask_ability"] = obs["mask_ability"].clone().fill_(True)
+    return {**chunk, "obs": obs}
 
 
 def check_train_step_kernel(learner, chunk):
     """The kernel against its plain version inside the update, from the
     phase's state on one of its chunks: loss and gradients at f32 compute
-    and at the phase's bf16, then one whole ``_train_step`` each way at
-    f32 (loss and pre-clip gradient norm)."""
+    and at the phase's bf16, the bf16 reading beside its control (the plain
+    version against itself with its outputs moved by CONTROL_NOISE), then
+    on the chunk with a choice of ability (the ability head's gradient
+    nonzero and matching) one whole ``_train_step`` each way at f32 (loss,
+    pre-clip gradient norm, and every param moved)."""
     import torch
 
     from dotaclient_tpu_torch.train import ppo
 
     result = {}
-    for dtype, loss_tol, grad_tol in ((torch.float32, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL),
-                                      (torch.bfloat16, TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_RTOL)):
-        r = compare_grads(grads_both_ways(learner, chunk, dtype))
-        name = str(dtype).replace("torch.", "")
-        log(
-            f"train step at {name} compute, kernel vs plain on one chunk: loss {r['loss_kernel']:.7g} vs "
-            f"{r['loss_plain']:.7g} (abs err {r['loss_abs_err']:.3g}, atol {loss_tol}); worst grad "
-            f"{r['worst_grad']} within {r['worst_grad_rel_err']:.3g} of its max (rtol {grad_tol}); LSTM grads "
-            + ", ".join(f"{k} {v:.2g}" for k, v in r["lstm_grad_rel_err"].items())
-        )
-        if not r["loss_abs_err"] <= loss_tol:
-            raise AssertionError(f"{name} train step loss: kernel {r['loss_kernel']} vs plain {r['loss_plain']}")
-        if not r["worst_grad_rel_err"] <= grad_tol:
-            raise AssertionError(f"{name} train step grad of {r['worst_grad']}: off by "
-                                 f"{r['worst_grad_rel_err']:.3g} of its max > {grad_tol}")
-        result[name] = r
+    result["float32"], _, _ = kernel_vs_plain(learner, chunk, torch.float32, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL,
+                                              "train step at float32 compute")
+    result["bfloat16"], _, plain = kernel_vs_plain(learner, chunk, torch.bfloat16, TRAIN_BF16_LOSS_ATOL,
+                                                   TRAIN_BF16_GRAD_RTOL, "train step at bfloat16 compute")
+    noisy = loss_grads(learner, chunk, torch.bfloat16, False, hs_noise=CONTROL_NOISE)
+    control = compare_grads(noisy, plain)
+    control.update(noise=CONTROL_NOISE, kernel_hs_gap=noisy["hs_gap"])
+    result["bfloat16_control"] = control
+    log(
+        f"bf16 control, plain vs plain with its f32 hs moved by uniform noise of {CONTROL_NOISE:g} (the kernel's "
+        f"hs lie within {noisy['hs_gap']:.3g} of the plain version's on these inputs): loss abs err "
+        f"{control['loss_abs_err']:.3g}, worst grad {control['worst_grad']} within "
+        f"{control['worst_grad_rel_err']:.3g} of its max; the kernel's: {result['bfloat16']['loss_abs_err']:.3g}, "
+        f"{result['bfloat16']['worst_grad_rel_err']:.3g}"
+    )
+    for key in ("loss_abs_err", "worst_grad_rel_err"):
+        if not result["bfloat16"][key] < control[key]:
+            raise AssertionError(f"bf16 {key}: kernel {result['bfloat16'][key]:.3g} not below the control's "
+                                 f"{control[key]:.3g}")
+
+    wide = with_ability_choice(chunk)
+    r, kern, plain = kernel_vs_plain(learner, wide, torch.float32, TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL,
+                                     "train step at float32 compute with a choice of ability")
+    for name in ("head_ability.weight", "head_ability.bias"):
+        if not (kern["grads"][name].any() and plain["grads"][name].any()):
+            raise AssertionError(f"{name}: zero gradient under masks that give the ability head a choice")
+    result["float32_ability_choice"] = r
     steps = {}
     for use_kernel in (True, False):
         state = learner.state.clone()
         state.policy.compute_dtype = torch.float32
-        _, m = ppo._train_step(learner.config.ppo, state, chunk, use_kernel=use_kernel)
+        before = {k: v.detach().clone() for k, v in state.policy.state_dict().items()}
+        _, m = ppo._train_step(learner.config.ppo, state, wide, use_kernel=use_kernel)
+        still = [k for k, v in state.policy.state_dict().items() if torch.equal(v, before[k])]
+        if still:
+            raise AssertionError(f"_train_step with use_kernel={use_kernel}: params that did not move: {still}")
         steps[use_kernel] = {k: float(m[k]) for k in ("loss", "grad_norm", "health_ok")}
     if not abs(steps[True]["loss"] - steps[False]["loss"]) <= TRAIN_LOSS_ATOL:
         raise AssertionError(f"_train_step loss: kernel {steps[True]} vs plain {steps[False]}")
     result["train_step_f32"] = {"kernel": steps[True], "plain": steps[False]}
-    log(f"_train_step at float32 compute: kernel {steps[True]}, plain {steps[False]}")
+    log(f"_train_step at float32 compute with a choice of ability, every param moved: "
+        f"kernel {steps[True]}, plain {steps[False]}")
     return result
 
 

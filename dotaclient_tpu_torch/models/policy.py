@@ -182,12 +182,12 @@ class Policy(nn.Module):
         )
 
     def step(
-        self, obs: Obs, carry: Carry, use_kernel: bool = True
+        self, obs: Obs, carry: Carry
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
         """Single batched step: obs ``[B, ...]``; the core runs with T=1."""
         x, unit_emb = self._trunk(obs)
         resets = torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)
-        carry, ys = self.core(x[:, None], carry, resets, use_kernel=use_kernel)
+        carry, ys = self.core(x[:, None], carry, resets)
         logits, value = self._heads(ys[:, 0], unit_emb)
         return logits, value, carry
 

@@ -213,7 +213,9 @@ def _train_step(
     use_kernel: bool = True,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One PPO update of ``state`` (in place) on ``batch``; returns the
-    state and the update's metrics (0-d tensors)."""
+    state and the update's metrics (0-d tensors). ``use_kernel=False``
+    runs the LSTM core's plain version on CUDA tensors too, to hold the
+    kernel against it."""
     policy, opt = state.policy, state.optimizer
     warm = cfg.value_warmup_steps
     policy_on = 1.0 if not warm or state.step >= warm else 0.0

@@ -9,10 +9,15 @@ step. Two updates, so Adam's moments and bias correction count.
 Adam's first update divides each gradient element by its own magnitude
 (plus eps 1e-8), so an element whose exact value is 0 but which both sides
 compute as cancellation noise (~1e-9, different on each side) moves by a
-noise-set fraction of the learning rate. The batch seed is one whose
-gradients have no such element; with seed 2 one element of 3,000 in the
-warmup case does (2.3e-5 apart after the update, from gradients of -1.7e-9
-and -2.3e-9).
+noise-set fraction of the learning rate: with batch seed 2, one element in
+the warmup case ends 2.3e-5 apart, from gradients of -1.7e-9 and -2.3e-9.
+So the updated params are compared outside the elements whose reference
+gradient (as the optimizer sees it, after the warmup mask) was nonzero but
+below NOISE_FLOOR of its leaf's largest in this or an earlier update: a
+rule on the gradient, over several batch seeds, with the share it leaves
+out bounded by MAX_EXCLUDED. Exact zeros stay in: they are structural (a
+dead ReLU unit, a hero id no frame holds), zero on both sides, and Adam
+leaves their params where they were.
 """
 
 import dataclasses
@@ -40,6 +45,8 @@ jppo = importlib.import_module("dotaclient_tpu.train.ppo")
 
 RTOL, ATOL = 1e-4, 1e-6
 B, T = 4, 5
+NOISE_FLOOR = 1e-6    # of a leaf's largest gradient: below it, a direction set by rounding
+MAX_EXCLUDED = 0.01   # share of all param elements the rule may leave out
 
 
 def adv_inputs(seed, B=5, T=7):
@@ -178,44 +185,71 @@ def batch_to(batch, fn):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_train_step(jcfg, with_anchor):
+def jax_train_step(jcfg):
+    """The JAX package's update, jitted once per config, beside the gradient
+    its optimizer sees (the loss's gradient with the warmup mask applied)."""
     policy = jax_policy(jcfg)[0]
+    warm = jcfg.ppo.value_warmup_steps
 
     def step(state, batch, anchor):
-        return jppo._train_step(policy, jcfg.ppo, state, batch, anchor_params=anchor, probe=True)
+        grads = jax.grad(lambda p: jppo.ppo_loss(policy, p, batch, jcfg.ppo, step=state.step,
+                                                 anchor_params=anchor)[0])(state.params)
+        if warm:
+            on = (state.step >= warm).astype(jnp.float32)
+            grads = jax.tree_util.tree_map_with_path(
+                lambda path, g: g if any(getattr(k, "key", None) == "head_value" for k in path) else g * on, grads)
+        return (*jppo._train_step(policy, jcfg.ppo, state, batch, anchor_params=anchor, probe=True), grads)
 
-    return jax.jit(step) if with_anchor else jax.jit(lambda s, b: step(s, b, None))
+    return jax.jit(step)
 
 
-@pytest.mark.parametrize("lever", list(LEVERS))
-def test_two_train_steps_match_jax(lever):
-    jcfg, pcfg = ppo_configs(lever)
+def jax_inputs(jcfg, pcfg, lever, seed):
+    """The converted-from params, the batch of ``seed`` and the JAX side's
+    state, batch and anchor params."""
     params = flax_params(jcfg, seed=1)
-    batch = make_batch(pcfg, params, seed=4)
+    batch = make_batch(pcfg, params, seed=seed)
     anchor_params = flax_params(jcfg, seed=5) if lever == "anchor_kl" else None
-
     jstate = jppo.init_train_state(jax.tree.map(jnp.asarray, params), jcfg.ppo)
-    jbatch = batch_to(batch, jnp.asarray)
-    step = jax_train_step(jcfg, anchor_params is not None)
+    janchor = jax.tree.map(jnp.asarray, anchor_params) if anchor_params is not None else None
+    return params, batch, anchor_params, (jstate, batch_to(batch, jnp.asarray), janchor)
+
+
+@pytest.fixture(scope="module", params=list(LEVERS))
+def lever(request):
+    """A lever of the loss or the step, its JAX update compiled once here."""
+    jcfg, pcfg = ppo_configs(request.param)
+    jax.block_until_ready(jax_train_step(jcfg)(*jax_inputs(jcfg, pcfg, request.param, 0)[3]))
+    return request.param
+
+
+@pytest.mark.parametrize("seed", [2, 4, 6])
+def test_two_train_steps_match_jax(lever, seed):
+    jcfg, pcfg = ppo_configs(lever)
+    params, batch, anchor_params, (jstate, jbatch, janchor) = jax_inputs(jcfg, pcfg, lever, seed)
+    step = jax_train_step(jcfg)
     pstate = pppo.init_train_state(port_policy(pcfg, params), pcfg.ppo)
     pbatch = batch_to(batch, lambda a: torch.from_numpy(np.array(a)))
     anchor = port_policy(pcfg, anchor_params).requires_grad_(False) if anchor_params is not None else None
 
+    noisy = {}
     for i in range(2):
-        if anchor_params is not None:
-            jstate, jm = step(jstate, jbatch, jax.tree.map(jnp.asarray, anchor_params))
-        else:
-            jstate, jm = step(jstate, jbatch)
+        jstate, jm, jgrads = step(jstate, jbatch, janchor)
         pstate, pm = pppo._train_step(pcfg.ppo, pstate, pbatch, anchor=anchor)
         assert set(pm) == set(jm), (lever, i, set(pm) ^ set(jm))
         for k in jm:
             np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=RTOL, atol=ATOL,
-                                       err_msg=f"{lever} step {i}: metric {k}")
+                                       err_msg=f"{lever} seed {seed} step {i}: metric {k}")
+        for name, g in convert(jax.tree.map(np.asarray, jgrads)).items():
+            tiny = (g != 0) & (g.abs() < NOISE_FLOOR * g.abs().max())
+            noisy[name] = noisy[name] | tiny if name in noisy else tiny
         want = convert(jax.tree.map(np.asarray, jstate.params))
         got = pstate.policy.state_dict()
         for name, w in want.items():
-            np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=RTOL, atol=ATOL,
-                                       err_msg=f"{lever} step {i}: param {name}")
+            keep = ~noisy[name]
+            np.testing.assert_allclose(got[name][keep].numpy(), w[keep].numpy(), rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{lever} seed {seed} step {i}: param {name}")
+    excluded = sum(int(m.sum()) for m in noisy.values())
+    assert excluded <= MAX_EXCLUDED * sum(m.numel() for m in noisy.values()), (lever, seed, excluded)
     assert pstate.step == 2 and int(jstate.step) == 2
 
 
