@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -60,7 +60,27 @@ Phases (any failure exits non-zero and prints no result line):
    legal (the lane sim exposes one ability, so the phase's own masks leave
    the ability head a zero gradient), the same at f32 with the ability
    head's gradient nonzero, and one ``_train_step`` each way at f32 in
-   which every param tensor moves.
+   which every param tensor moves;
+8. socket: the phase-6 learner's state saved with the port's
+   ``CheckpointManager`` and loaded as the serve CLI loads it
+   (``load_inference_params``, then ``ServeEngine`` on the card behind a
+   ``PolicyServer`` on 127.0.0.1): 64 ``ServeClient`` threads run 20
+   lockstep steps each (1,280 requests, resets at episode starts) after one
+   uncounted warm-up round; after round 7 one client closes and attaches
+   again, and must land on its freed slot with a zeroed carry; then a raw
+   peer sends ``poison_frame_limit`` frames with a bad payload CRC and must
+   be quarantined. Checked: every step answered with a legal action at the
+   checkpoint's version, no dispatch error, the quarantine and corrupt-frame
+   counts, ``lstm_seq`` launched once a dispatch (its counts are reset just
+   before the 20 rounds and read just after), and each game's stream
+   replayed through the checkpoint's policy on the CPU, carries chained:
+   the served log-probs within SERVE_LOGP_ATOL. Logged: the clients' round
+   trip p50/p99 (host clock), requests/s, mean batch fill and dispatch mean,
+   beside phase 3's in-process numbers;
+9. cli: ``python -m dotaclient_tpu_torch.serve --checkpoint DIR`` as a
+   child process: SERVE_LISTENING within 120 s, 8 clients x 5 steps, then
+   SIGINT; it must exit 0 with 40 requests at the checkpoint's version in
+   its last line. Every wait is bounded and the child is killed on failure.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -74,6 +94,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -299,7 +320,7 @@ def check_lstm_kernel(device, seed):
         "name": "lstm_seq",
         "route": "cuda",
         "source": "dotaclient_tpu_torch/ops/csrc/lstm_seq.cu",
-        "replaces": "dotaclient_tpu/ops/pallas/lstm.py:112",
+        "replaces": "dotaclient_tpu/ops/pallas/lstm.py:117",
         "launches": 0,
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
         "ms": serve["ms"],
@@ -1076,6 +1097,342 @@ def check_train_step_kernel(learner, chunk):
     return result
 
 
+# -- phase 8: the socket lane, serving a checkpoint the learner wrote ----------
+
+
+SOCKET_GAMES, SOCKET_STEPS = 64, 20
+RECONNECT_GAME, RECONNECT_AFTER_ROUND = 5, 7
+CLI_GAMES, CLI_STEPS = 8, 5
+WAIT_S = 120.0
+
+
+def wait_for(pred, what, timeout=WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None):
+    """One ServeClient per game on its own thread, every round started
+    together (a barrier). ``reconnect=(game, round, before_reconnect)``: that
+    game closes after the round, calls ``before_reconnect()``, attaches
+    again and sends its next step without a reset, so only the release's
+    zeroing makes its carry fresh. Returns per game the (obs, reset, packed,
+    logp, version, latency) of each step and, per game, the slots it held."""
+    import threading
+
+    from dotaclient_tpu_torch.serve import ServeClient
+
+    n = len(rngs)
+    barrier = threading.Barrier(n)
+    records = [[] for _ in range(n)]
+    slots = [[] for _ in range(n)]
+    errors = []
+
+    def game(g):
+        try:
+            client = ServeClient(host, port, cfg, timeout_s=WAIT_S)
+            slots[g].append(client.slot)
+            ep_left, reattached = 0, False
+            for r in range(n_steps):
+                obs = synthetic_obs(cfg, rngs[g])
+                reset = r == 0 or ep_left == 0
+                if reset or reattached:
+                    ep_left = int(rngs[g].integers(4, 12))
+                ep_left -= 1
+                reset, reattached = reset and not reattached, False
+                barrier.wait(timeout=WAIT_S)
+                client.step(obs, reset=reset)
+                records[g].append((obs, reset, client.last_packed.copy(), client.last_logp, client.last_version,
+                                   client.last_latency_s))
+                if reconnect is not None and g == reconnect[0] and r == reconnect[1]:
+                    client.close()
+                    reconnect[2]()
+                    client = ServeClient(host, port, cfg, timeout_s=WAIT_S)
+                    slots[g].append(client.slot)
+                    reattached = True
+            client.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=game, args=(g,), daemon=True) for g in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S * (n_steps + 2))
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    return records, slots
+
+
+def replay_logps_on_cpu(cfg, params, records, zeroed):
+    """Every game's own stream through the checkpoint's policy on the CPU,
+    carries chained, resets applied (and the carry zeroed where ``zeroed``
+    holds (game, round)): the log-prob of each served action. Returns the
+    largest difference from the served log-probs and, for each entry of
+    ``zeroed``, the replay's log-prob there with the carry kept instead."""
+    import torch
+
+    from dotaclient_tpu_torch.models import distributions as D
+    from dotaclient_tpu_torch.models.policy import mask_carry
+    from dotaclient_tpu_torch.serve import make_inference_policy
+
+    policy = make_inference_policy(cfg, device="cpu")
+    policy.load_state_dict(params)
+    n = len(records)
+    carry = policy.initial_state(n)
+    worst, kept = 0.0, {}
+    with torch.no_grad():
+        for r in range(len(records[0])):
+            rows = [records[g][r] for g in range(n)]
+            obs = {k: torch.from_numpy(np.stack([np.asarray(row[0][k]) for row in rows])) for k in rows[0][0]}
+            actions = {h: torch.tensor([int(row[2][i]) for row in rows]) for i, h in enumerate(D.HEADS)}
+            for g in (g for g in range(n) if (g, r) in zeroed):
+                logits, _, _ = policy.step(obs, carry)
+                kept[(g, r)] = float(D.log_prob(logits, obs, actions)[g])
+            keep = torch.tensor([0.0 if (row[1] or (g, r) in zeroed) else 1.0 for g, row in enumerate(rows)])
+            logits, _, carry = policy.step(obs, mask_carry(carry, keep))
+            ref = D.log_prob(logits, obs, actions).numpy()
+            worst = max(worst, float(np.abs(ref - np.asarray([row[3] for row in rows], np.float32)).max()))
+    return worst, kept
+
+
+def socket_phase(device, seed, learner, ckpt_dir, inproc):
+    """The serving path a game reaches from outside the process: the
+    learner's state saved with the port's CheckpointManager, loaded as the
+    CLI loads it, and served by a PolicyServer to 64 ServeClients over TCP.
+    ``inproc`` is phase 3's result, logged beside this phase's."""
+    import socket as pysocket
+
+    import torch
+    from google.protobuf import __version__ as pb_version
+    from google.protobuf.internal import api_implementation
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.serve import PolicyServer, ServeClient, ServeEngine, load_inference_params
+    from dotaclient_tpu_torch.serve import make_inference_policy
+    from dotaclient_tpu_torch.serve.server import KIND_SERVE_REQUEST
+    from dotaclient_tpu_torch.transport.serialize import frame_crc32
+    from dotaclient_tpu_torch.transport.socket_transport import _recv_frame, _send_frame
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    log(f"socket: protobuf {pb_version} ({api_implementation.Type()})")
+    step = learner.state.step
+    if not CheckpointManager(ckpt_dir, registry=telemetry.Registry()).save(learner.state, learner.config, force=True):
+        raise AssertionError("checkpoint save failed")
+    cfg, params, version = load_inference_params(ckpt_dir)
+    if version != step or cfg.model != learner.config.model:
+        raise AssertionError(f"checkpoint restored step {version} (saved {step}), model {cfg.model}")
+    reg = telemetry.Registry()
+    engine = ServeEngine(cfg, make_inference_policy(cfg, device=device), params, version=version,
+                         registry=reg, device=device)
+    server = PolicyServer(engine, cfg, host="127.0.0.1", port=0, registry=reg)
+    host, port = server.address[:2]
+    try:
+        # a warm-up round on the same server (its first dispatches), outside the counts
+        lockstep_clients(host, port, cfg, [np.random.default_rng(seed + 900 + g) for g in range(SOCKET_GAMES)], 1)
+        wait_for(lambda: server.n_connected == 0, "the warm-up clients to detach")
+        before = reg.snapshot()
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        t0 = time.perf_counter()
+        records, slots = lockstep_clients(
+            host, port, cfg, [np.random.default_rng(seed + 1000 + g) for g in range(SOCKET_GAMES)], SOCKET_STEPS,
+            reconnect=(RECONNECT_GAME, RECONNECT_AFTER_ROUND,
+                       lambda: wait_for(lambda: server.n_connected == SOCKET_GAMES - 1, "the server to drop a client")),
+        )
+        wall = time.perf_counter() - t0
+        launches = lstm.lstm_sequence_kernel.launches
+        mid = reg.snapshot()
+
+        # a peer that sends poison_frame_limit frames with a bad payload CRC
+        limit = cfg.transport.poison_frame_limit
+        raw = pysocket.create_connection((host, port), timeout=WAIT_S)
+        try:
+            if _recv_frame(raw) is None:
+                raise AssertionError("no attach frame")
+            payload = b"\x00" * 64
+            for _ in range(limit):
+                _send_frame(raw, KIND_SERVE_REQUEST, payload, crc=frame_crc32(payload) ^ 0xDEADBEEF)
+            wait_for(lambda: reg.snapshot()["transport/peers_quarantined"] == mid["transport/peers_quarantined"] + 1,
+                     "the poisoning peer's quarantine")
+        finally:
+            raw.close()
+        after = reg.snapshot()
+    finally:
+        server.close()
+        engine.stop()
+
+    n = SOCKET_GAMES * SOCKET_STEPS
+    flat = [rec for game in records for rec in game]
+    if len(flat) != n:
+        raise AssertionError(f"{len(flat)} steps returned, expected {n}")
+    bad_version = [rec[4] for rec in flat if rec[4] != step]
+    if bad_version:
+        raise AssertionError(f"{len(bad_version)} replies carry version {bad_version[0]}, not the checkpoint's {step}")
+    illegal = sum(not action_is_legal(rec[0], rec[2]) for rec in flat)
+    if illegal:
+        raise AssertionError(f"{illegal} illegal actions")
+    if not all(np.isfinite(rec[3]) for rec in flat):
+        raise AssertionError("non-finite log-prob in a reply")
+    if after["serve/dispatch_errors_total"] != 0:
+        raise AssertionError(f"serve/dispatch_errors_total = {after['serve/dispatch_errors_total']}")
+    quarantined = after["transport/peers_quarantined"] - mid["transport/peers_quarantined"]
+    corrupt = after["transport/frames_corrupt_total"] - mid["transport/frames_corrupt_total"]
+    if (quarantined, corrupt) != (1, limit):
+        raise AssertionError(f"poisoning peer: {quarantined} quarantined, {corrupt} corrupt frames (limit {limit})")
+    if slots[RECONNECT_GAME][0] != slots[RECONNECT_GAME][1]:
+        raise AssertionError(f"the reconnecting game moved from slot {slots[RECONNECT_GAME][0]} to "
+                             f"{slots[RECONNECT_GAME][1]}, not onto its freed slot")
+    dispatches = int(mid["serve/dispatches_total"] - before["serve/dispatches_total"])
+    if launches != dispatches:
+        raise AssertionError(f"{launches} lstm_seq launches for {dispatches} dispatches")
+    requests = int(mid["serve/requests_total"] - before["serve/requests_total"])
+    if requests != n:
+        raise AssertionError(f"the server counted {requests} requests, expected {n}")
+    fresh = (RECONNECT_GAME, RECONNECT_AFTER_ROUND + 1)
+    logp_err, kept = replay_logps_on_cpu(cfg, params, records, {fresh})
+    if not logp_err <= SERVE_LOGP_ATOL:
+        raise AssertionError(f"served log-probs vs the checkpoint's policy on the CPU: {logp_err} > {SERVE_LOGP_ATOL}")
+    # the reattached game's first step: served from a zeroed carry, so the
+    # replay that keeps the old carry must read farther off than the fresh one
+    served_logp = records[fresh[0]][fresh[1]][3]
+    kept_gap = abs(kept[fresh] - served_logp)
+    if not kept_gap > logp_err:
+        raise AssertionError(f"the reattached game's first step: served {served_logp}, a kept carry gives "
+                             f"{kept[fresh]} (gap {kept_gap:.3g}), no farther than the replay's error {logp_err:.3g}")
+    lat_ms = np.asarray([rec[5] * 1e3 for rec in flat])
+    span, req_span = "span/serve/dispatch", "span/serve/request"
+
+    def span_mean_ms(name):
+        return 1e3 * (mid[f"{name}/total_s"] - before[f"{name}/total_s"]) / max(
+            1.0, mid[f"{name}/count"] - before[f"{name}/count"])
+
+    result = {
+        "checkpoint_step": step,
+        "requests": n,
+        "dispatches": dispatches,
+        "mean_batch_fill": n / (dispatches * cfg.serve.max_batch),
+        "requests_per_s": n / wall,
+        "round_trip_p50_ms": float(np.percentile(lat_ms, 50)),
+        "round_trip_p99_ms": float(np.percentile(lat_ms, 99)),
+        "round_trip_mean_ms": float(lat_ms.mean()),
+        # arrival at ServeEngine.submit to the reply callback, on the server
+        "server_request_mean_ms": span_mean_ms(req_span),
+        "dispatch_mean_ms": span_mean_ms(span),
+        "dispatch_errors": int(after["serve/dispatch_errors_total"]),
+        "reconnect": {"game": RECONNECT_GAME, "slots": slots[RECONNECT_GAME]},
+        "quarantined": int(quarantined),
+        "corrupt_frames": int(corrupt),
+        "logp_err_vs_cpu_replay": logp_err,
+        "reattached_step_gap_with_kept_carry": kept_gap,
+        "lstm_seq_launches": launches,
+        "protobuf": f"{pb_version} ({api_implementation.Type()})",
+    }
+    log(
+        f"socket: checkpoint step {step} served to {SOCKET_GAMES} clients over TCP, {n} requests, {dispatches} "
+        f"dispatches, mean batch fill {result['mean_batch_fill']:.3f}, {result['requests_per_s']:.0f} req/s, "
+        f"client round trip p50 {result['round_trip_p50_ms']:.3f} ms p99 {result['round_trip_p99_ms']:.3f} ms "
+        f"mean {result['round_trip_mean_ms']:.3f} ms (host clock, 64 client threads and the server's threads on "
+        f"one interpreter), of it on the server from submit to reply {result['server_request_mean_ms']:.3f} ms "
+        f"mean, dispatch mean {result['dispatch_mean_ms']:.3f} ms; game {RECONNECT_GAME} reconnected onto slot "
+        f"{slots[RECONNECT_GAME][1]} and its next step was served from a zeroed carry (a kept carry's replay is "
+        f"{kept_gap:.3g} off); poisoning peer quarantined after {int(corrupt)} corrupt frames; "
+        f"log-probs vs the checkpoint's policy on the CPU within {logp_err:.3g} (atol {SERVE_LOGP_ATOL}); "
+        f"lstm_seq launches {launches}"
+    )
+    log(
+        f"socket vs in process (phase 3, the same stream through ServeEngine.submit): "
+        f"{result['requests_per_s']:.0f} vs {inproc['requests_per_s']:.0f} req/s, p50 "
+        f"{result['round_trip_p50_ms']:.3f} vs {inproc['request_p50_ms']:.3f} ms, p99 "
+        f"{result['round_trip_p99_ms']:.3f} vs {inproc['request_p99_ms']:.3f} ms, dispatch mean "
+        f"{result['dispatch_mean_ms']:.3f} vs {inproc['dispatch_mean_ms']:.3f} ms, mean batch fill "
+        f"{result['mean_batch_fill']:.3f} vs {inproc['mean_batch_fill']:.3f}"
+    )
+    return result
+
+
+# -- phase 9: the serve CLI in a child process ------------------------------------
+
+
+def cli_phase(ckpt_dir, step, seed):
+    """``python -m dotaclient_tpu_torch.serve --checkpoint DIR`` as a child
+    process: wait for SERVE_LISTENING, serve 8 clients x 5 steps, SIGINT,
+    and read its final line."""
+    import os
+    import pathlib
+    import queue
+    import signal
+    import threading
+
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = str(pathlib.Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "dotaclient_tpu_torch.serve", "--checkpoint", ckpt_dir,
+         "--serve-listen", "127.0.0.1:0"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line.rstrip("\n")) for line in child.stdout], daemon=True)
+    reader.start()
+    seen = []
+    try:
+        addr = None
+        deadline = time.monotonic() + WAIT_S
+        while addr is None:
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"the serve CLI did not start within {WAIT_S:.0f} s: {seen[-5:]}") from None
+            seen.append(line)
+            if line.startswith("SERVE_LISTENING "):
+                addr = json.loads(line[len("SERVE_LISTENING "):])
+        start_s = time.perf_counter() - t0
+        cfg = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
+        # the clients' own budget: the child's first dispatch makes its CUDA
+        # context's first cuBLAS calls
+        cfg = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, request_deadline_s=WAIT_S))
+        records, _ = lockstep_clients(addr["host"], addr["port"], cfg,
+                                      [np.random.default_rng(seed + 2000 + g) for g in range(CLI_GAMES)], CLI_STEPS)
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=WAIT_S)
+    except BaseException:
+        while not lines.empty():
+            seen.append(lines.get())
+        log("the serve CLI's output so far:\n" + "\n".join(seen[-20:]))
+        raise
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    reader.join(30)
+    while not lines.empty():
+        seen.append(lines.get())
+    if rc != 0:
+        raise AssertionError(f"the serve CLI exited {rc}: {seen[-10:]}")
+    final = json.loads(seen[-1])
+    n = CLI_GAMES * CLI_STEPS
+    if final["serve_requests_total"] != n or final["serve_weights_version"] != step:
+        raise AssertionError(f"the serve CLI's last line {final}: expected {n} requests at version {step}")
+    flat = [rec for game in records for rec in game]
+    if not all(action_is_legal(rec[0], rec[2]) and rec[4] == step for rec in flat):
+        raise AssertionError("an illegal action or a wrong version from the serve CLI")
+    listening = next(line for line in seen if line.startswith("serve: listening"))
+    ready = [line for line in seen if line.startswith("serve: kernels ready")]
+    log(f"cli: {'; '.join(ready + [listening])}; SERVE_LISTENING after {start_s:.1f} s; {n} requests served; exit 0 on "
+        f"SIGINT; last line {json.dumps(final)}")
+    return {"start_s": start_s, "requests": n, "final": final}
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1111,14 +1468,18 @@ def main() -> int:
     lstm_extra["backward"] = check_lstm_backward(device, args.seed)
     train, learner, chunk = train_phase(device, args.seed)
     train["kernel_vs_plain"] = check_train_step_kernel(learner, chunk)
-    lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        sock = socket_phase(device, args.seed, learner, ckpt_dir, serve)
+        sock["cli"] = cli_phase(ckpt_dir, learner.state.step, args.seed)
+    lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
+                                      "serve_socket": sock["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve,
-                       "build_s": build_s, "card": smi, "profile": serve_profile, "train": train}, f, indent=2)
+            json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
+                       "profile": serve_profile, "train": train, "socket": sock}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

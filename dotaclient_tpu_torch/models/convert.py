@@ -48,6 +48,8 @@ def _params_level(params: Mapping[str, Any]) -> Mapping[str, Any]:
 
 
 def _f32(a: Any) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bf16 leaf of a decoded weights frame
+        return a.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 

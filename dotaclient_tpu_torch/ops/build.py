@@ -47,7 +47,10 @@ def _build(verbose: bool) -> ctypes.CDLL:
     from torch.utils.cpp_extension import load
 
     os.makedirs(BUILD_DIR, exist_ok=True)
-    flags = list(CUDA_FLAGS) + (["-Xptxas=-v"] if verbose else [])
+    # ptxas's register report is always asked for (``verbose`` only shows
+    # it): the flags are part of the build's hash, so a quiet process reuses
+    # a verbose one's build instead of compiling again
+    flags = list(CUDA_FLAGS) + ["-Xptxas=-v"]
     path = load(
         name=LIBRARY_NAME,
         sources=source_paths(),

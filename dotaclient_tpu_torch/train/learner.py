@@ -6,16 +6,21 @@ return dict) and of its ``--smoke`` entry point. Run on the card::
 
     python -m dotaclient_tpu_torch.train.learner --smoke [--steps N] [--n-envs N]
         [--opponent scripted_easy|scripted_hard|selfplay] [--seed S] [--device cuda|cpu]
+        [--checkpoint-dir DIR [--checkpoint-every N] [--restore]]
 
 Each loop iteration is one call of the fused step (``train/fused.py``):
 ``steps_per_dispatch`` rollouts and ``epochs_per_batch x minibatches``
-updates each. The host reads the device only at log boundaries (every
-``log_every`` optimizer steps): the metrics and the drained episode stats.
+updates each. The host reads the device only between iterations: at log
+boundaries (every ``log_every`` optimizer steps) the metrics and the
+drained episode stats, and with ``checkpoint_dir`` the whole train state at
+``checkpoint_every`` boundaries and once more at the end of ``train``
+(``utils/checkpoint.py``; ``restore`` resumes from the newest valid step).
 
 Not ported yet, each with its ROADMAP item: the other actor modes
 (``device``, ``vec``, ``scalar``, ``external``; queue 1, item 4), the
-health guardian's rollback (item 4), checkpoints and the CUDA graph of the
-iteration (item 3), transports (items 1-2) and the league (item 5).
+health guardian's rollback (item 4), async checkpoint saves and the CUDA
+graph of the iteration (item 3), ``--init-from`` (item 2), the learner's
+transports (item 4) and the league (item 5).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dotaclient_tpu_torch.models.policy import init_params, make_policy
 from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.ppo import init_train_state
 from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
 
 # actor modes of the reference learner that the port does not have yet
 _NOT_PORTED = {
@@ -48,8 +54,10 @@ _NOT_PORTED = {
 
 
 class Learner:
-    """Fused-mode learner: params from ``init_params`` with ``seed``, one
-    device actor over ``config.env.n_envs`` games, one fused step."""
+    """Fused-mode learner: params from ``init_params`` with ``seed`` (or,
+    with ``restore``, from the newest valid checkpoint in
+    ``checkpoint_dir``), one device actor over ``config.env.n_envs`` games,
+    one fused step."""
 
     def __init__(
         self,
@@ -58,6 +66,8 @@ class Learner:
         seed: int = 0,
         device: DeviceLike = None,
         registry: Optional[telemetry.Registry] = None,
+        checkpoint_dir: Optional[str] = None,
+        restore: bool = False,
     ) -> None:
         if actor != "fused":
             where = _NOT_PORTED.get(actor)
@@ -76,6 +86,13 @@ class Learner:
         if config.ppo.anchor_kl_coef > 0:
             self.anchor = copy.deepcopy(self.policy).requires_grad_(False)
         self.state = init_train_state(self.policy, config.ppo)
+        self.ckpt: Optional[CheckpointManager] = None
+        if checkpoint_dir:
+            self.ckpt = CheckpointManager(checkpoint_dir, registry=self.registry)
+            if restore and self.ckpt.latest_step() is not None:
+                self.state, _ = self.ckpt.restore(config, self.state)
+        elif restore:
+            raise ValueError("restore needs a checkpoint_dir")
         self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                         device=self.device)
         self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
@@ -84,7 +101,8 @@ class Learner:
 
     def train(self, num_steps: int) -> Dict[str, float]:
         """Run until ``num_steps`` optimizer steps have completed (rounded
-        up to whole fused calls). Returns the last logged metrics, the
+        up to whole fused calls), then save a checkpoint (with
+        ``checkpoint_dir``). Returns the last logged metrics, the
         actor's stats (``actor_*``), ``optimizer_steps``,
         ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``."""
         cfg = self.config
@@ -106,6 +124,14 @@ class Learner:
                 self._last_metrics = {k: float(v) for k, v in metrics.items()}
                 self._last_metrics.update(da.drain_stats())
                 self.history.append({"step": float(self.state.step), **self._last_metrics})
+            # `< stride`: the step counter advances in strides and may step
+            # over exact multiples
+            if self.ckpt is not None and self.state.step % cfg.checkpoint_every < stride:
+                self.ckpt.save(self.state, cfg)
+        if self.ckpt is not None:
+            # the end-of-run save lands at the exact stop step and raises
+            # on an I/O error
+            self.ckpt.save(self.state, cfg, force=True)
         elapsed = time.time() - t_start
         actor_stats = da.stats()
         return {
@@ -141,6 +167,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    choices=("fused", "device", "vec", "scalar", "external"))
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="write checkpoints here (every --checkpoint-every steps and at the end)")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="optimizer steps between periodic checkpoints (default RunConfig.checkpoint_every)")
+    p.add_argument("--restore", action="store_true",
+                   help="resume from the newest valid checkpoint in --checkpoint-dir")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
     args = p.parse_args(argv)
@@ -158,9 +190,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
     if args.steps_per_dispatch is not None:
         config = dataclasses.replace(config, steps_per_dispatch=args.steps_per_dispatch)
+    if args.checkpoint_every is not None:
+        config = dataclasses.replace(config, checkpoint_every=args.checkpoint_every)
+    if args.restore and not args.checkpoint_dir:
+        p.error("--restore needs --checkpoint-dir")
     config = dataclasses.replace(config, seed=args.seed)
 
-    learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device)
+    learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
+                      checkpoint_dir=args.checkpoint_dir, restore=args.restore)
     out = learner.train(args.steps)
     for row in learner.history:
         print(json.dumps({k: round(v, 6) for k, v in row.items()}), flush=True)

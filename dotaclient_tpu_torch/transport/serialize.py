@@ -1,0 +1,427 @@
+"""Wire codec: host trees of arrays <-> ``Rollout`` / ``ModelWeights`` protos.
+
+Counterpart of ``dotaclient_tpu/transport/serialize.py``, protobuf path
+only. The bytes are the JAX package's: a tree flattens to slash-joined leaf
+names in the same order (``flatten_tree``), each leaf becomes a
+``TensorProto`` (shape, numpy dtype name, raw little-endian bytes), and map
+entries are inserted in that order, so ``encode_rollout(...)
+.SerializeToString()`` is byte for byte what the JAX package writes for the
+same tree. Frames carry the same integrity trailer (``frame_crc32``).
+
+bfloat16 without ``ml_dtypes``: on the host the port holds a bf16 leaf as a
+``torch.bfloat16`` CPU tensor. f32 -> bf16 rounds to nearest even with
+integer ops on the f32 bits (a NaN becomes the quiet NaN of its sign,
+0x7FC0 or 0xFFC0); bf16 -> f32 is the exact 16-bit shift. Both match
+``ml_dtypes`` bit for bit, subnormals included.
+
+Not ported here, each waiting for the learner's ingest (ROADMAP queue 1,
+item 4) or a host-speed item: the native C++ codec, the wire byte
+accounting (``meta["wire_bytes"]``/``["raw_bytes"]``) and
+``decode_drained_payloads``.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dotaclient_tpu_torch.protos import dota_pb2 as pb
+
+BF16 = "bfloat16"
+
+# -- bfloat16 on the host ----------------------------------------------------
+
+
+def f32_to_bf16_bits(a: Any) -> np.ndarray:
+    """f32 values -> bf16 bit patterns (uint16), round to nearest even."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    lsb = (u >> np.uint32(16)) & np.uint32(1)
+    rounded = ((u + np.uint32(0x7FFF) + lsb) >> np.uint32(16)).astype(np.uint16)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    quiet = (((u >> np.uint32(16)) & np.uint32(0x8000)) | np.uint32(0x7FC0)).astype(np.uint16)
+    return np.where(nan, quiet, rounded)
+
+
+def bf16_bits_to_f32(bits: Any) -> np.ndarray:
+    """bf16 bit patterns (uint16) -> f32 values (exact)."""
+    return (np.asarray(bits, dtype=np.uint16).astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def bits_to_bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint16).view(np.int16).copy()).view(torch.bfloat16)
+
+
+def bf16_tensor_to_bits(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _to_f32(a: Any) -> np.ndarray:
+    """A leaf as f32 numpy (a bf16 tensor upcast exactly)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return bf16_bits_to_f32(bf16_tensor_to_bits(a))
+        return a.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(a, dtype=np.float32)
+
+
+def _dtype_name(a: Any) -> str:
+    """The wire's dtype string of a leaf (numpy dtype names; ``bfloat16``)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return BF16
+        return np.dtype(str(a.dtype).replace("torch.", "")).name
+    return np.dtype(a.dtype).name
+
+
+# -- wire-frame integrity ----------------------------------------------------
+#
+# The frames' CRC32 trailer, exactly the JAX package's: a frame above
+# _CRC_FOLD_THRESHOLD bytes is first XOR-folded over 8-byte lanes to a 64-bit
+# digest, and the CRC32 (seeded with the length) covers the digest and the
+# unaligned tail. A JAX peer rejects every large frame whose trailer differs.
+
+_CRC_FOLD_THRESHOLD = 4096
+CRC_SIZE = 4
+
+
+def frame_crc32(payload) -> int:
+    """32-bit integrity trailer for one wire frame (bytes-like; memoryview
+    slices fold in place)."""
+    n = len(payload)
+    if n <= _CRC_FOLD_THRESHOLD:
+        return zlib.crc32(payload) & 0xFFFFFFFF
+    m = n & ~7
+    fold = int(np.bitwise_xor.reduce(np.frombuffer(payload, "<u8", count=m >> 3)))
+    c = zlib.crc32(fold.to_bytes(8, "little"), n & 0xFFFFFFFF)
+    if m != n:
+        c = zlib.crc32(payload[m:], c)
+    return c & 0xFFFFFFFF
+
+
+# -- trees --------------------------------------------------------------------
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Flatten a nested dict/tuple tree of arrays to slash-joined names."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        out[prefix.rstrip("/")] = (
+            tree if hasattr(tree, "dtype") and hasattr(tree, "shape") else np.asarray(tree)
+        )
+        return out
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`flatten_tree`: a level whose keys are exactly the
+    unpadded indices 0..n-1 becomes a tuple."""
+    nested: Dict[str, Any] = {}
+    for name, value in flat.items():
+        parts = name.split("/")
+        node = nested
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() and str(int(k)) == k for k in node) and set(node) == {
+            str(i) for i in range(len(node))
+        }:
+            return tuple(fix(node[str(i)]) for i in range(len(node)))
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(nested)
+
+
+# -- rollout wire narrowing ----------------------------------------------------
+#
+# With wire_dtype="bfloat16", f32 leaves off the pinned list narrow to bf16
+# and integer leaves whose config bound fits narrow to int8/int16; the
+# in-band "__wire_cast__" entry lists each narrowed leaf as
+# "name=orig_dtype", and decode(upcast=True) restores the original dtypes
+# exactly. behavior_logp, rewards, dones, values and the initial carries
+# stay f32 whatever the wire.
+
+ROLLOUT_WIRE_DTYPES = ("float32", "bfloat16")
+_ROLLOUT_PINNED_NAMES = frozenset({"behavior_logp", "rewards", "dones", "values"})
+_ROLLOUT_PINNED_PREFIXES = ("carry0/",)
+
+# in-band pseudo-entries, intercepted by name at decode
+_WIRE_CAST_MARKER = "__wire_cast__"
+_TRACE_MARKER = "__trace__"
+# the JAX package's native decoder holds at most this many entries; a
+# payload past it would be unreadable there
+_MAX_TENSORS = 64
+
+
+def rollout_leaf_pinned(name: str) -> bool:
+    """True iff this rollout leaf must cross the wire at full width."""
+    return name in _ROLLOUT_PINNED_NAMES or name.startswith(_ROLLOUT_PINNED_PREFIXES)
+
+
+def rollout_int_bounds(config) -> Dict[str, int]:
+    """Max values the config guarantees for integer-like rollout leaves:
+    what licenses their exact int8/int16 narrowing."""
+    bounds = {f"actions/{head}": size - 1 for head, size in config.actions.head_sizes.items()}
+    bounds["obs/hero_id"] = config.model.n_hero_ids - 1
+    # unit handles are sim-assigned identities; the encode verifies the
+    # range before casting
+    bounds["obs/unit_handles"] = np.iinfo(np.int16).max
+    return bounds
+
+
+def rollout_cast_plan(
+    specs: Mapping[str, Any],
+    wire_dtype: str,
+    int_bounds: Optional[Mapping[str, int]] = None,
+) -> Dict[str, str]:
+    """``leaf name -> narrow dtype name`` for the leaves that change on the
+    wire. ``specs`` maps flat leaf names to dtype names."""
+    if wire_dtype not in ROLLOUT_WIRE_DTYPES:
+        raise ValueError(
+            f"unknown rollout_wire_dtype {wire_dtype!r} (expected one of {ROLLOUT_WIRE_DTYPES})"
+        )
+    if wire_dtype == "float32":
+        return {}
+    plan: Dict[str, str] = {}
+    for name, dname in specs.items():
+        if rollout_leaf_pinned(name) or dname == BF16:
+            continue
+        dtype = np.dtype(dname)
+        if dtype == np.float32:
+            plan[name] = BF16
+        elif dtype.kind == "i" and int_bounds and name in int_bounds:
+            bound = int(int_bounds[name])
+            if 0 <= bound <= np.iinfo(np.int8).max and dtype.itemsize > 1:
+                plan[name] = "int8"
+            elif 0 <= bound <= np.iinfo(np.int16).max and dtype.itemsize > 2:
+                plan[name] = "int16"
+    return plan
+
+
+def _cast_leaf(a: Any, narrow: str) -> Any:
+    if narrow == BF16:
+        return bits_to_bf16_tensor(f32_to_bf16_bits(_to_f32(a)))
+    return np.asarray(a).astype(narrow)
+
+
+_CAST_PLAN_CACHE: Dict[tuple, tuple] = {}
+
+
+def _narrow_rollout_flat(
+    flat: Dict[str, Any], wire_dtype: str, int_bounds: Optional[Mapping[str, int]]
+) -> Tuple[Dict[str, Any], Optional[bytes]]:
+    """Apply the cast plan; returns ``(flat', marker blob or None)``. Plan
+    and marker are memoized per (names, dtypes, wire dtype, bounds)."""
+    if wire_dtype == "float32":
+        return flat, None
+    names = tuple((n, _dtype_name(a)) for n, a in flat.items())
+    key = (names, wire_dtype, tuple(sorted(int_bounds.items())) if int_bounds else None)
+    cached = _CAST_PLAN_CACHE.get(key)
+    if cached is None:
+        plan = rollout_cast_plan(dict(names), wire_dtype, int_bounds)
+        dnames = dict(names)
+        marker = "\n".join(f"{n}={dnames[n]}" for n in plan).encode() if plan else None
+        _CAST_PLAN_CACHE[key] = cached = (plan, marker)
+    plan, marker = cached
+    if not plan:
+        return flat, None
+    for name, narrow in plan.items():
+        if narrow == BF16:
+            continue
+        arr = np.asarray(flat[name])
+        info = np.iinfo(narrow)
+        if arr.size and (arr.min() < info.min or arr.max() > info.max):
+            raise ValueError(
+                f"rollout leaf {name!r} exceeds its declared int bound ({info.max}): observed range "
+                f"[{arr.min()}, {arr.max()}] does not fit {info.dtype}"
+            )
+    return {n: (_cast_leaf(a, plan[n]) if n in plan else a) for n, a in flat.items()}, marker
+
+
+def _parse_cast_marker(blob: bytes) -> Dict[str, str]:
+    """Marker blob -> ``{leaf name: original dtype name}``."""
+    cast: Dict[str, str] = {}
+    for line in blob.decode().split("\n"):
+        if line:
+            name, _, orig = line.partition("=")
+            cast[name] = orig
+    return cast
+
+
+def _upcast_flat(flat: Dict[str, Any], cast: Mapping[str, str]) -> Dict[str, Any]:
+    """Restore narrowed leaves to their original dtypes (exact)."""
+    for name, orig in cast.items():
+        arr = flat.get(name)
+        if arr is None:
+            continue
+        if isinstance(arr, torch.Tensor):
+            flat[name] = _to_f32(arr).astype(orig)
+        else:
+            flat[name] = arr.astype(orig)
+    return flat
+
+
+# -- tensors ---------------------------------------------------------------------
+
+
+def tensor_to_proto(a: Any) -> "pb.TensorProto":
+    """One leaf (numpy array, or CPU tensor; bf16 as ``torch.bfloat16``)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            bits = bf16_tensor_to_bits(a)
+            return pb.TensorProto(shape=list(bits.shape), dtype=BF16, data=bits.tobytes())
+        a = a.detach().cpu().numpy()
+    arr = np.ascontiguousarray(a)
+    return pb.TensorProto(shape=list(arr.shape), dtype=arr.dtype.name, data=arr.tobytes())
+
+
+def proto_to_tensor(t: "pb.TensorProto") -> Any:
+    """A ``TensorProto`` -> numpy array (a bf16 leaf -> ``torch.bfloat16``)."""
+    shape = tuple(t.shape)
+    if t.dtype == BF16:
+        return bits_to_bf16_tensor(np.frombuffer(t.data, np.uint16).reshape(shape))
+    return np.frombuffer(t.data, dtype=np.dtype(t.dtype)).reshape(shape).copy()
+
+
+def _raise_too_many_tensors(n_entries: int, side: str) -> None:
+    raise ValueError(
+        f"rollout payload carries {n_entries} tensor entries at {side}; the JAX package's "
+        f"native wire codec holds at most {_MAX_TENSORS}"
+    )
+
+
+# -- rollouts (and the serve lane's requests and replies) --------------------------
+
+
+def encode_rollout(
+    arrays: Any,
+    model_version: int,
+    env_id: int,
+    rollout_id: int,
+    length: int,
+    total_reward: float,
+    wire_dtype: str = "float32",
+    int_bounds: Optional[Mapping[str, int]] = None,
+    trace: Optional[bytes] = None,
+) -> "pb.Rollout":
+    """Serialize one tree of host arrays. ``wire_dtype="bfloat16"`` narrows
+    per :func:`rollout_cast_plan` and adds the ``__wire_cast__`` entry;
+    ``trace`` rides as the ``__trace__`` entry."""
+    r = pb.Rollout(
+        model_version=model_version,
+        env_id=env_id,
+        rollout_id=rollout_id,
+        length=length,
+        total_reward=total_reward,
+    )
+    flat, marker = _narrow_rollout_flat(flatten_tree(arrays), wire_dtype, int_bounds)
+    n_entries = len(flat) + (marker is not None) + (trace is not None)
+    if n_entries > _MAX_TENSORS:
+        _raise_too_many_tensors(n_entries, "encode")
+    for name, arr in flat.items():
+        r.arrays[name].CopyFrom(tensor_to_proto(arr))
+    if marker is not None:
+        r.arrays[_WIRE_CAST_MARKER].CopyFrom(pb.TensorProto(shape=[len(marker)], dtype="marker", data=marker))
+    if trace is not None:
+        r.arrays[_TRACE_MARKER].CopyFrom(pb.TensorProto(shape=[len(trace)], dtype="marker", data=trace))
+    return r
+
+
+def decode_rollout(r: "pb.Rollout", upcast: bool = False) -> Tuple[Dict[str, Any], Any]:
+    """Deserialize -> (meta, tree of arrays). Narrowed leaves keep their
+    wire dtypes unless ``upcast``; the marker lands in ``meta["wire_cast"]``
+    and a trace entry in ``meta["trace_blob"]``."""
+    meta: Dict[str, Any] = {
+        "model_version": r.model_version,
+        "env_id": r.env_id,
+        "rollout_id": r.rollout_id,
+        "length": r.length,
+        "total_reward": r.total_reward,
+    }
+    flat: Dict[str, Any] = {}
+    cast: Dict[str, str] = {}
+    for name, t in r.arrays.items():
+        if name == _WIRE_CAST_MARKER:
+            cast = _parse_cast_marker(t.data)
+        elif name == _TRACE_MARKER:
+            meta["trace_blob"] = t.data
+        else:
+            flat[name] = proto_to_tensor(t)
+    if cast:
+        meta["wire_cast"] = cast
+        if upcast:
+            flat = _upcast_flat(flat, cast)
+    return meta, unflatten_tree(flat)
+
+
+def encode_rollout_bytes(arrays: Any, model_version: int, env_id: int, rollout_id: int, length: int,
+                         total_reward: float, **kw: Any) -> bytes:
+    """:func:`encode_rollout` straight to wire bytes."""
+    return encode_rollout(arrays, model_version, env_id, rollout_id, length, total_reward, **kw).SerializeToString()
+
+
+def decode_rollout_bytes(payload, upcast: bool = False) -> Tuple[Dict[str, Any], Any]:
+    """Decode a serialized ``Rollout`` (bytes-like)."""
+    r = pb.Rollout()
+    r.ParseFromString(payload if isinstance(payload, bytes) else bytes(payload))
+    if len(r.arrays) > _MAX_TENSORS:
+        _raise_too_many_tensors(len(r.arrays), "decode")
+    return decode_rollout(r, upcast=upcast)
+
+
+# -- weights ------------------------------------------------------------------------
+
+
+def encode_weights(
+    params: Any, version: int, wire_dtype: str = "float32", trace: Optional[bytes] = None
+) -> "pb.ModelWeights":
+    """Serialize a param tree (host arrays or CPU tensors) for the weights
+    fanout. ``wire_dtype="bfloat16"`` casts f32 leaves to bf16 and lists
+    them in the ``__wire_cast__`` entry; other leaves pass unchanged."""
+    if wire_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown wire_dtype {wire_dtype!r}")
+    msg = pb.ModelWeights(version=version)
+    cast_names = []
+    for name, arr in flatten_tree(params).items():
+        if wire_dtype == BF16 and _dtype_name(arr) == "float32":
+            arr = _cast_leaf(arr, BF16)
+            cast_names.append(name)
+        msg.params[name].CopyFrom(tensor_to_proto(arr))
+    if cast_names:
+        msg.params[_WIRE_CAST_MARKER].CopyFrom(
+            pb.TensorProto(dtype="marker", data="\n".join(cast_names).encode())
+        )
+    if trace is not None:
+        msg.params[_TRACE_MARKER].CopyFrom(pb.TensorProto(dtype="marker", data=trace))
+    return msg
+
+
+def decode_weights(msg: "pb.ModelWeights", upcast: bool = True) -> Tuple[int, Any]:
+    """A weights fanout message -> ``(version, param tree)``. With
+    ``upcast`` the leaves the encoder narrowed come back f32 (exact);
+    leaves that were bf16 before encode keep their dtype."""
+    cast_names = frozenset()
+    # `in` before indexing: a protobuf map's __getitem__ inserts
+    if _WIRE_CAST_MARKER in msg.params:
+        cast_names = frozenset(msg.params[_WIRE_CAST_MARKER].data.decode().split("\n"))
+    flat = {}
+    for name, t in msg.params.items():
+        if name in (_WIRE_CAST_MARKER, _TRACE_MARKER):
+            continue
+        arr = proto_to_tensor(t)
+        if upcast and name in cast_names and isinstance(arr, torch.Tensor):
+            arr = _to_f32(arr)
+        flat[name] = arr
+    return msg.version, unflatten_tree(flat)

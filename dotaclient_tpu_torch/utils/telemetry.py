@@ -8,17 +8,21 @@ read:
 * timers: ``<name>/count``, ``/total_s``, ``/last_s``, ``/mean_s``,
   ``/ema_s``, ``/p95_s``; spans are timers named ``span/<stage>``.
 
-Everything is host wall clock; recording never touches the device. The
-JSONL, console and TensorBoard sinks come with the port's learner.
+Everything is host wall clock; recording never touches the device.
+``JsonlSink`` (the serve CLI's ``--serve-metrics-jsonl``) writes the same
+line format. The console and TensorBoard sinks come with the port's
+buffered learner.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
 import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional, TextIO
 
 # Fleet-health snapshot cadence in seconds (the utilization plane's fold
 # interval defaults to it).
@@ -176,6 +180,76 @@ class Registry:
             for stat, v in t.stats().items():
                 out[f"{name}/{stat}"] = v
         return out
+
+
+def _json_safe(v: float) -> Optional[float]:
+    # NaN/Inf are not JSON: a diverged value becomes null
+    return v if math.isfinite(v) else None
+
+
+class JsonlSink:
+    """Append one JSON object per emit: ``{"ts": <unix>, "step": <int>,
+    "scalars": {name: number|null}}``. Every emit is one write of a whole
+    line and a flush, so a killed process tears at most its last line;
+    a torn last line left by an earlier process is cut before appending,
+    and ``close`` fsyncs."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        _seal_torn_tail(path)
+        self._f: Optional[TextIO] = open(path, "a", buffering=1)
+        self._lock = threading.Lock()
+
+    def emit(self, step: int, scalars: Dict[str, float]) -> None:
+        line = json.dumps(
+            {
+                "ts": time.time(),
+                "step": int(step),
+                "scalars": {k: _json_safe(float(v)) for k, v in scalars.items()},
+            },
+            sort_keys=True,
+        )
+        with self._lock:
+            if self._f is not None:
+                self._f.write(line + "\n")
+                self._f.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                try:
+                    self._f.flush()
+                    os.fsync(self._f.fileno())
+                except (OSError, ValueError):
+                    pass  # durability is best-effort; close must not raise
+                self._f.close()
+                self._f = None
+
+
+def _seal_torn_tail(path: str) -> None:
+    """Cut an unterminated trailing fragment from an existing JSONL file
+    (best-effort: a missing or unwritable file is left as it is)."""
+    try:
+        with open(path, "rb+") as f:
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            if size == 0:
+                return
+            f.seek(size - 1)
+            if f.read(1) == b"\n":
+                return
+            pos = size
+            while pos > 0:
+                step = min(4096, pos)
+                f.seek(pos - step)
+                idx = f.read(step).rfind(b"\n")
+                if idx >= 0:
+                    f.truncate(pos - step + idx + 1)
+                    return
+                pos -= step
+            f.truncate(0)
+    except OSError:
+        return
 
 
 # One process-wide registry; tests that want isolation construct their own.

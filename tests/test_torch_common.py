@@ -32,6 +32,18 @@ def small_configs(dtype="float32", **serve):
     return tuple(out)
 
 
+def tiny_configs(dtype="float32", **serve):
+    """``small_configs`` at the serving tests' model
+    (``tests/test_serve.py``: unit_embed_dim 8, hidden_dim 8, hero_embed_dim
+    4), f32 compute by default."""
+    out = []
+    for mod, cfg in zip((jax_config, port_config), small_configs(dtype, **serve)):
+        out.append(dataclasses.replace(
+            cfg, model=mod.ModelConfig(unit_embed_dim=8, hidden_dim=8, hero_embed_dim=4, dtype=dtype),
+        ))
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_policy(jcfg, value_head=True):
     """The flax policy and its step/sequence applies, jitted (one compile
