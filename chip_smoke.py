@@ -74,13 +74,19 @@ Phases (any failure exits non-zero and prints no result line):
    counts, ``lstm_seq`` launched once a dispatch (its counts are reset just
    before the 20 rounds and read just after), and each game's stream
    replayed through the checkpoint's policy on the CPU, carries chained:
-   the served log-probs within SERVE_LOGP_ATOL. Logged: the clients' round
-   trip p50/p99 (host clock), requests/s, mean batch fill and dispatch mean,
-   beside phase 3's in-process numbers;
+   the served log-probs within SOCKET_LOGP_ATOL, while two replays of a
+   server that mishandles carries (each game handed another game's carry;
+   carries never zeroed at a reset or reattach) must each read farther off
+   than that, and the reattached game's first step replayed with its old
+   carry kept farther off than the sound replay. Logged: the clients'
+   round trip p50/p99 (host clock), requests/s, mean batch fill and
+   dispatch mean, beside phase 3's in-process numbers;
 9. cli: ``python -m dotaclient_tpu_torch.serve --checkpoint DIR`` as a
-   child process: SERVE_LISTENING within 120 s, 8 clients x 5 steps, then
-   SIGINT; it must exit 0 with 40 requests at the checkpoint's version in
-   its last line. Every wait is bounded and the child is killed on failure.
+   child process: SERVE_LISTENING within 120 s (after its warm-up
+   dispatch), 8 clients x 5 steps on the default ``ServeConfig`` deadline,
+   as real games get it, then SIGINT; it must exit 0 with 40 requests at
+   the checkpoint's version in its last line. Every wait is bounded and the
+   child is killed on failure.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -109,6 +115,12 @@ KERNEL_ATOL = 1e-5            # f32 kernel vs plain f32 version on the card
 # cuBLAS and the CPU round bf16 products and sums in their own order; a
 # few bf16 ulps at logits of magnitude ~1 stay well inside this
 SERVE_LOGP_ATOL = 0.1
+# phase 8's replay of each game's stream over TCP, the same bf16 on both
+# sides. The limit sits between the sound replays' readings (H100:
+# 0.0018-0.0039) and the carry faults' (a reattached step served from the
+# old carry: 0.0552); the same run's controls, replays of a server that
+# mixes carries between games or never zeroes one, must read above it
+SOCKET_LOGP_ATOL = 0.01
 # the recompute backward is autograd through the plain version on the
 # saved inputs, so it should equal the plain version's gradients
 BACKWARD_RTOL = 1e-5
@@ -1170,12 +1182,18 @@ def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None):
     return records, slots
 
 
-def replay_logps_on_cpu(cfg, params, records, zeroed):
+CARRY_FAULTS = ("permuted", "kept")
+
+
+def replay_logps_on_cpu(cfg, params, records, zeroed, fault=None):
     """Every game's own stream through the checkpoint's policy on the CPU,
     carries chained, resets applied (and the carry zeroed where ``zeroed``
     holds (game, round)): the log-prob of each served action. Returns the
     largest difference from the served log-probs and, for each entry of
-    ``zeroed``, the replay's log-prob there with the carry kept instead."""
+    ``zeroed``, the replay's log-prob there with the carry kept instead.
+    ``fault`` replays a server that mishandles carries, as a control:
+    "permuted" hands each game the carry of the game before it, "kept"
+    never zeroes a carry."""
     import torch
 
     from dotaclient_tpu_torch.models import distributions as D
@@ -1195,8 +1213,12 @@ def replay_logps_on_cpu(cfg, params, records, zeroed):
             for g in (g for g in range(n) if (g, r) in zeroed):
                 logits, _, _ = policy.step(obs, carry)
                 kept[(g, r)] = float(D.log_prob(logits, obs, actions)[g])
-            keep = torch.tensor([0.0 if (row[1] or (g, r) in zeroed) else 1.0 for g, row in enumerate(rows)])
-            logits, _, carry = policy.step(obs, mask_carry(carry, keep))
+            keep = torch.tensor([0.0 if (row[1] or (g, r) in zeroed) and fault != "kept" else 1.0
+                                 for g, row in enumerate(rows)])
+            carry = mask_carry(carry, keep)
+            if fault == "permuted":
+                carry = tuple(torch.roll(c, 1, 0) for c in carry)
+            logits, _, carry = policy.step(obs, carry)
             ref = D.log_prob(logits, obs, actions).numpy()
             worst = max(worst, float(np.abs(ref - np.asarray([row[3] for row in rows], np.float32)).max()))
     return worst, kept
@@ -1232,6 +1254,7 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
     reg = telemetry.Registry()
     engine = ServeEngine(cfg, make_inference_policy(cfg, device=device), params, version=version,
                          registry=reg, device=device)
+    warm_s = engine.warm_up()
     server = PolicyServer(engine, cfg, host="127.0.0.1", port=0, registry=reg)
     host, port = server.address[:2]
     try:
@@ -1298,8 +1321,14 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
         raise AssertionError(f"the server counted {requests} requests, expected {n}")
     fresh = (RECONNECT_GAME, RECONNECT_AFTER_ROUND + 1)
     logp_err, kept = replay_logps_on_cpu(cfg, params, records, {fresh})
-    if not logp_err <= SERVE_LOGP_ATOL:
-        raise AssertionError(f"served log-probs vs the checkpoint's policy on the CPU: {logp_err} > {SERVE_LOGP_ATOL}")
+    if not logp_err <= SOCKET_LOGP_ATOL:
+        raise AssertionError(f"served log-probs vs the checkpoint's policy on the CPU: {logp_err} > {SOCKET_LOGP_ATOL}")
+    # the controls: the limit must tell a server that mishandles carries
+    # from a sound one, in this run
+    controls = {fault: replay_logps_on_cpu(cfg, params, records, {fresh}, fault=fault)[0] for fault in CARRY_FAULTS}
+    blind = {fault: err for fault, err in controls.items() if not err > SOCKET_LOGP_ATOL}
+    if blind:
+        raise AssertionError(f"carry-fault controls {blind} read within the limit {SOCKET_LOGP_ATOL}")
     # the reattached game's first step: served from a zeroed carry, so the
     # replay that keeps the old carry must read farther off than the fresh one
     served_logp = records[fresh[0]][fresh[1]][3]
@@ -1331,7 +1360,10 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
         "quarantined": int(quarantined),
         "corrupt_frames": int(corrupt),
         "logp_err_vs_cpu_replay": logp_err,
+        "logp_atol": SOCKET_LOGP_ATOL,
+        "carry_fault_controls": controls,
         "reattached_step_gap_with_kept_carry": kept_gap,
+        "warm_up_s": warm_s,
         "lstm_seq_launches": launches,
         "protobuf": f"{pb_version} ({api_implementation.Type()})",
     }
@@ -1344,8 +1376,9 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
         f"mean, dispatch mean {result['dispatch_mean_ms']:.3f} ms; game {RECONNECT_GAME} reconnected onto slot "
         f"{slots[RECONNECT_GAME][1]} and its next step was served from a zeroed carry (a kept carry's replay is "
         f"{kept_gap:.3g} off); poisoning peer quarantined after {int(corrupt)} corrupt frames; "
-        f"log-probs vs the checkpoint's policy on the CPU within {logp_err:.3g} (atol {SERVE_LOGP_ATOL}); "
-        f"lstm_seq launches {launches}"
+        f"log-probs vs the checkpoint's policy on the CPU within {logp_err:.3g} (atol {SOCKET_LOGP_ATOL}; "
+        f"controls: another game's carry {controls['permuted']:.3g}, carries never zeroed {controls['kept']:.3g}); "
+        f"warm-up dispatch {warm_s:.3f} s; lstm_seq launches {launches}"
     )
     log(
         f"socket vs in process (phase 3, the same stream through ServeEngine.submit): "
@@ -1398,10 +1431,8 @@ def cli_phase(ckpt_dir, step, seed):
             if line.startswith("SERVE_LISTENING "):
                 addr = json.loads(line[len("SERVE_LISTENING "):])
         start_s = time.perf_counter() - t0
+        # the clients keep the stored ServeConfig's deadline budget
         cfg = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
-        # the clients' own budget: the child's first dispatch makes its CUDA
-        # context's first cuBLAS calls
-        cfg = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, request_deadline_s=WAIT_S))
         records, _ = lockstep_clients(addr["host"], addr["port"], cfg,
                                       [np.random.default_rng(seed + 2000 + g) for g in range(CLI_GAMES)], CLI_STEPS)
         child.send_signal(signal.SIGINT)
@@ -1428,9 +1459,9 @@ def cli_phase(ckpt_dir, step, seed):
     if not all(action_is_legal(rec[0], rec[2]) and rec[4] == step for rec in flat):
         raise AssertionError("an illegal action or a wrong version from the serve CLI")
     listening = next(line for line in seen if line.startswith("serve: listening"))
-    ready = [line for line in seen if line.startswith("serve: kernels ready")]
-    log(f"cli: {'; '.join(ready + [listening])}; SERVE_LISTENING after {start_s:.1f} s; {n} requests served; exit 0 on "
-        f"SIGINT; last line {json.dumps(final)}")
+    ready = [line for line in seen if line.startswith(("serve: kernels ready", "serve: warm-up"))]
+    log(f"cli: {'; '.join(ready + [listening])}; SERVE_LISTENING after {start_s:.1f} s; {n} requests served within "
+        f"the clients' {cfg.serve.request_deadline_s:.0f} s deadline; exit 0 on SIGINT; last line {json.dumps(final)}")
     return {"start_s": start_s, "requests": n, "final": final}
 
 def main() -> int:

@@ -21,8 +21,6 @@ def connect_with_backoff(
     max_attempts: int = 6,
     base_delay: float = 0.5,
     max_delay: float = 10.0,
-    sleep: Callable[[float], None] = time.sleep,
-    rng: Optional[random.Random] = None,
     should_abort: Optional[Callable[[], bool]] = None,
 ) -> T:
     """Call ``factory()`` until it returns, sleeping a uniform draw from
@@ -30,14 +28,13 @@ def connect_with_backoff(
     counts ``transport/reconnects_total``; after ``max_attempts`` the last
     connection error is re-raised as the cause. ``should_abort`` is polled
     before every attempt and ends the schedule within one sleep."""
-    rng = rng or random.Random()
     tel = telemetry.get_registry()
     last: Optional[BaseException] = None
     for attempt in range(max_attempts):
         if attempt:
             tel.counter("transport/reconnects_total").inc()
             delay = min(max_delay, base_delay * (2 ** (attempt - 1)))
-            sleep(rng.uniform(0.0, delay))
+            time.sleep(random.uniform(0.0, delay))
         if should_abort is not None and should_abort():
             raise ConnectionError("reconnect abandoned: stop requested") from last
         try:

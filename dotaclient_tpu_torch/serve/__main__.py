@@ -13,7 +13,7 @@ serves actions over the socket lane (clients are ``serve.ServeClient``, one
 per game; a JAX client works too), and with ``--subscribe`` hot-swaps newer
 weights frames from a learner's fanout between dispatches. Prints
 ``serve: listening on ...`` and ``SERVE_LISTENING {"host", "port"}`` at
-start, and one JSON line of serve totals when it stops (``--duration`` or
+start, after one warm-up dispatch, and one JSON line of serve totals when it stops (``--duration`` or
 SIGINT). Without a card it raises unless ``--device cpu`` is given.
 
 Accepted but not ported yet, each raising ``NotImplementedError`` with its
@@ -87,6 +87,8 @@ def main(argv=None) -> int:
 
     engine = ServeEngine(config, make_inference_policy(config, device=device), params,
                          version=version, device=device)
+    # the device's first calls happen here, not inside a game's first request
+    print(f"serve: warm-up dispatch in {engine.warm_up():.2f} s", flush=True)
     host, port = args.serve_listen.rsplit(":", 1)
     server = PolicyServer(engine, config, host=host, port=int(port))
     print(

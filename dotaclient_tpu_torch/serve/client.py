@@ -12,7 +12,7 @@ budget (``serve.request_deadline_s``) across at most
 ``connect_with_backoff``, and raises :class:`ServeDeadlineError` when the
 budget is spent. A reconnect lands on a fresh slot, so the next request
 either resends the stashed carry row (``serve.carry_shadow``) or is sent
-with ``reset=True`` and counted in ``carry_resets``.
+with ``reset=True``.
 
 Fleet mode (``router=True``, the session router) waits for ROADMAP queue 1,
 item 2; request tracing waits for item 8.
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import socket
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -63,7 +63,6 @@ class ServeClient:
         timeout_s: float = 30.0,
         router: bool = False,
         max_reconnects: int = 6,
-        should_abort: Optional[Callable[[], bool]] = None,
     ) -> None:
         if router:
             raise NotImplementedError(
@@ -75,21 +74,17 @@ class ServeClient:
         self._retries = max(0, int(scfg.request_retries))
         self._shadow = bool(scfg.carry_shadow)
         self._max_reconnects = max(1, int(max_reconnects))
-        self._should_abort = should_abort
         self._wire_kwargs = serve_request_wire_kwargs(config)
         self._next_id = 1  # 0 is the attach frame's id
         self.slot = -1
         self.last_version = 0
         self.last_logp = 0.0
         self.last_latency_s = 0.0
-        self.last_dispatch_idx = -1
         self._last_packed = np.zeros((len(HEADS),), np.int32)
-        self.carry_resets = 0
-        self.retries_total = 0
         self._carry_stash: Optional[Dict[str, np.ndarray]] = None
         self._pending_restore = False
         self._sock: Optional[socket.socket] = None
-        self.backend_addr: Tuple[str, int] = (host, port)
+        self._addr: Tuple[str, int] = (host, port)
         try:
             self._connect_backend(time.monotonic() + self._deadline_s)
         except BaseException:
@@ -98,23 +93,11 @@ class ServeClient:
 
     # -- connection ------------------------------------------------------------
 
-    def _abort_by(self, deadline: float) -> Callable[[], bool]:
-        """Stop predicate of the backoff schedule: the caller's hook or the
-        deadline, whichever trips first."""
-        def abort() -> bool:
-            if self._should_abort is not None and self._should_abort():
-                return True
-            return time.monotonic() >= deadline
-        return abort
-
     def _connect_backend(self, deadline: float) -> None:
-        """(Re)connect and read the attach frame. A reconnect lands on a
-        fresh slot, so it arms the restore path."""
-        reconnecting = self._sock is not None
-        self._close_backend()
+        """Connect and read the attach frame."""
 
         def factory() -> socket.socket:
-            sock = socket.create_connection(self.backend_addr, timeout=self._timeout_s)
+            sock = socket.create_connection(self._addr, timeout=self._timeout_s)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             sock.settimeout(self._timeout_s)
             try:
@@ -130,10 +113,8 @@ class ServeClient:
 
         self._sock = connect_with_backoff(
             factory, max_attempts=self._max_reconnects, base_delay=0.1, max_delay=1.0,
-            should_abort=self._abort_by(deadline),
+            should_abort=lambda: time.monotonic() >= deadline,
         )
-        if reconnecting:
-            self._pending_restore = True
 
     def _close_backend(self) -> None:
         if self._sock is not None:
@@ -150,8 +131,6 @@ class ServeClient:
         # the old slot is gone: the next request restores or resets
         self._pending_restore = True
         while True:
-            if self._should_abort is not None and self._should_abort():
-                raise ConnectionError("serve client stopping: stop requested")
             if time.monotonic() >= deadline:
                 raise ServeDeadlineError("recovery exceeded the request deadline budget")
             try:
@@ -199,15 +178,10 @@ class ServeClient:
         _send_frame(self._sock, KIND_SERVE_REQUEST, payload)
         meta, reply = self._recv_reply_on(self._sock, request_id, deadline)
         self.last_latency_s = time.perf_counter() - t0
-        if self._pending_restore:
-            self._pending_restore = False
-            if send_carry is None:
-                self.carry_resets += 1
+        self._pending_restore = False
         self.last_version = meta["model_version"]
         self._last_packed = np.asarray(reply["actions"]).astype(np.int32)
         self.last_logp = float(np.asarray(reply["logp"]).reshape(-1)[0])
-        if "dispatch_idx" in reply:
-            self.last_dispatch_idx = int(np.asarray(reply["dispatch_idx"]).reshape(-1)[0])
         if self._shadow and reply.get("carry") is not None:
             self._carry_stash = reply["carry"]
         return {h: int(self._last_packed[j]) for j, h in enumerate(HEADS)}
@@ -221,8 +195,6 @@ class ServeClient:
         deadline = time.monotonic() + self._deadline_s
         attempts = 0
         while True:
-            if self._should_abort is not None and self._should_abort():
-                raise ConnectionError("serve client stopping: stop requested")
             try:
                 return self._step_once(obs, reset, deadline)
             except ServeDeadlineError:
@@ -231,7 +203,6 @@ class ServeClient:
                 # socket.timeout is an OSError, FrameCorrupt a ValueError
                 last_err = e
             attempts += 1
-            self.retries_total += 1
             if time.monotonic() >= deadline or attempts > self._retries:
                 raise ServeDeadlineError(
                     f"serve request failed after {attempts} attempt(s) inside the {self._deadline_s:.1f}s "
@@ -243,12 +214,6 @@ class ServeClient:
     def last_packed(self) -> np.ndarray:
         """The raw packed ``[5]`` int32 action row of the last reply."""
         return self._last_packed
-
-    @property
-    def last_carry(self) -> Optional[Dict[str, np.ndarray]]:
-        """The carry-shadow row from the last reply (None unless the server
-        runs ``serve.carry_shadow``)."""
-        return self._carry_stash
 
     def close(self) -> None:
         self._close_backend()

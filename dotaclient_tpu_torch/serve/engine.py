@@ -313,6 +313,25 @@ class ServeEngine:
         with self._cond:
             return len(self._pending)
 
+    def warm_up(self) -> float:
+        """One dispatch of zero observations, every row on the scratch slot,
+        so that a game's first request does not pay the device's first calls
+        (library loads, cuBLAS set-up). Call it before any game attaches.
+        Counted nowhere: no counter, dispatch index or game carry moves.
+        Returns its seconds."""
+        t0 = time.perf_counter()
+        B, dev = self._scfg.max_batch, self._device
+        out, _ = self._dispatch(
+            self._params,
+            {name: torch.zeros_like(lane) for name, lane in self._dev_lanes.items()},
+            torch.full((B,), self._scratch_slot, dtype=torch.int64, device=dev),
+            torch.ones((B,), dtype=torch.float32, device=dev),
+            self._carries,
+            torch.Generator(device=dev),
+        )
+        self._unpack(out)
+        return time.perf_counter() - t0
+
     # -- the dispatch --------------------------------------------------------
 
     def _dispatch(

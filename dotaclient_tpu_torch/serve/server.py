@@ -157,7 +157,7 @@ class PolicyServer:
                 slot = heapq.heappop(self._free_slots)
                 conn = _ServeConn(sock, slot)
                 self._conns.append(conn)
-            self._publish_conn_gauges()
+                self._publish_conn_gauges()
             # the attach frame rides the writer's queue: a joiner that never
             # reads wedges only its own writer
             with conn.cond:
@@ -249,6 +249,7 @@ class PolicyServer:
                 heapq.heappush(self._free_slots, conn.slot)
                 # the engine zeroes the slot's carry row between dispatches
                 self._engine.release_slot(conn.slot)
+                self._publish_conn_gauges()
         with conn.cond:
             conn.dead = True
             conn.cond.notify_all()
@@ -257,14 +258,13 @@ class PolicyServer:
                 fn()
             except OSError:
                 pass
-        self._publish_conn_gauges()
 
     def _publish_conn_gauges(self) -> None:
-        with self._conns_lock:
-            n = len(self._conns)
-            in_use = self._engine.max_slots - len(self._free_slots)
-        self._tel.gauge("serve/clients_connected").set(float(n))
-        self._tel.gauge("serve/slots_in_use").set(float(in_use))
+        """Set the pool's gauges. Called with ``_conns_lock`` held, in the
+        critical section that changed the pool, so the last value set is
+        always the pool's state."""
+        self._tel.gauge("serve/clients_connected").set(float(len(self._conns)))
+        self._tel.gauge("serve/slots_in_use").set(float(self._engine.max_slots - len(self._free_slots)))
 
     # -- weights subscription ------------------------------------------------
 

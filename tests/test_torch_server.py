@@ -416,6 +416,60 @@ def test_deadline_error_against_a_server_that_never_replies():
             s.close()
 
 
+def test_carry_shadow_resend_resumes_the_game_after_a_reconnect():
+    """The lane drops mid-game: the client reconnects onto a fresh slot and
+    resends the carry row of its last reply, so the game's log-probs go on
+    from the JAX policy's over its own stream, not from a reset."""
+    jcfg, pcfg = configs(max_batch=1, carry_shadow=True)
+    jparams = flax_params(jcfg, seed=18, value_head=False)
+    rows, drop_at = stream(pcfg, 5, seed=180), 3
+    with port_stack(pcfg, convert(jparams)) as (reg, _, server):
+        client = ServeClient(*server.address, pcfg, timeout_s=TIMEOUT_S)
+        try:
+            served = []
+            for t, row in enumerate(rows):
+                if t == drop_at:
+                    client._sock.shutdown(socket.SHUT_RDWR)
+                client.step(row, reset=t == 0)
+                served.append((client.last_packed.copy(), client.last_logp))
+        finally:
+            client.close()
+        assert reg.snapshot()["serve/carry_installs_total"] == 1.0
+    actions = [p for p, _ in served]
+    want = jax_logps_over_stream(jcfg, jparams, rows, actions)
+    np.testing.assert_allclose([lp for _, lp in served], want, rtol=0, atol=ATOL)
+    # teeth: the same step from a reset carry reads otherwise
+    reset = jax_logps_over_stream(jcfg, jparams, rows[drop_at:], actions[drop_at:])
+    assert abs(reset[0] - want[drop_at]) > 100 * ATOL
+
+
+def test_connect_with_backoff_retries_counts_and_stops():
+    """Failed attempts are retried and counted until one succeeds; the
+    schedule ends at ``max_attempts`` or when ``should_abort`` trips."""
+    from dotaclient_tpu_torch.actor.backoff import connect_with_backoff
+
+    def flaky(fails):
+        calls = []
+
+        def factory():
+            calls.append(1)
+            if len(calls) <= fails:
+                raise ConnectionRefusedError("down")
+            return len(calls)
+
+        return factory
+
+    tel = telemetry.get_registry()
+    before = tel.snapshot().get("transport/reconnects_total", 0.0)
+    assert connect_with_backoff(flaky(2), max_attempts=3, base_delay=0.01, max_delay=0.02) == 3
+    assert tel.snapshot()["transport/reconnects_total"] == before + 2
+    with pytest.raises(ConnectionError, match="after 3 attempts") as err:
+        connect_with_backoff(flaky(3), max_attempts=3, base_delay=0.01, max_delay=0.02)
+    assert isinstance(err.value.__cause__, ConnectionRefusedError)
+    with pytest.raises(ConnectionError, match="stop requested"):
+        connect_with_backoff(flaky(0), should_abort=lambda: True)
+
+
 def test_router_mode_is_not_ported():
     _, pcfg = configs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -506,6 +560,7 @@ def test_serve_cli_serves_a_checkpoint_on_the_cpu(tmp_path):
     thread.start()
     assert wait_until(lambda: any(l.startswith("SERVE_LISTENING ") for l in out.lines()))
     addr = json.loads(next(l for l in out.lines() if l.startswith("SERVE_LISTENING "))[len("SERVE_LISTENING "):])
+    assert [l.split()[1] for l in out.lines()[:3]] == ["warm-up", "listening", '{"host":']
     client = ServeClient(addr["host"], addr["port"], pcfg, timeout_s=TIMEOUT_S)
     try:
         for t, row in enumerate(stream(pcfg, 3, seed=160)):
@@ -521,6 +576,30 @@ def test_serve_cli_serves_a_checkpoint_on_the_cpu(tmp_path):
                           "serve_weights_version"}
     snaps = [json.loads(l) for l in (tmp_path / "serve.jsonl").read_text().splitlines()]
     assert snaps and snaps[-1]["scalars"]["serve/weights_version"] == 12.0
+
+
+def test_warm_up_dispatch_moves_no_counter_or_carry():
+    """The CLI's warm-up dispatch before SERVE_LISTENING leaves the first
+    real dispatch exactly as it would be without it."""
+    jcfg, pcfg = configs()
+    params = convert(flax_params(jcfg, seed=19, value_head=False))
+    reg = telemetry.Registry()
+    engine = ServeEngine(pcfg, make_inference_policy(pcfg, device="cpu"), params, registry=reg, device="cpu")
+    try:
+        store = [c.clone() for c in engine._carries]
+        assert engine.warm_up() > 0.0
+        assert all(torch.equal(a[:-1], b[:-1]) for a, b in zip(engine._carries, store))  # the scratch row aside
+        snap = reg.snapshot()
+        assert snap["serve/dispatches_total"] == 0.0 and snap["serve/requests_total"] == 0.0
+        row = stream(pcfg, 1, seed=190)[0]
+        got = []
+        engine.submit(1, row, True, lambda *reply, **_: got.append(reply))
+        assert wait_until(lambda: got)
+        want = engine.reference_step([row], [1], [1.0], engine.initial_carries(), 0)
+        np.testing.assert_array_equal(got[0][0], want[0][0])
+        assert got[0][1] == float(want[1][0]) and got[0][4] == 0  # dispatch index 0
+    finally:
+        engine.stop()
 
 
 def test_serve_cli_refuses_what_is_not_there(tmp_path, monkeypatch):
