@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
 2. kernels: each kernel against its plain PyTorch version on the card, on
    seeded random inputs at every shape the port gives it (for the LSTM:
    the serving step B=64 T=1, the learner's sequence B=32 T=16, the test
-   shape and a batch with a partial row tile), with the f32 tolerance
+   shape, a batch with a partial row tile, the training path's B=128 at
+   T=1 and T=17, and the parity digest's B=1 T=1), with the f32 tolerance
    stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
@@ -86,7 +87,32 @@ Phases (any failure exits non-zero and prints no result line):
    dispatch), 8 clients x 5 steps on the default ``ServeConfig`` deadline,
    as real games get it, then SIGINT; it must exit 0 with 40 requests at
    the checkpoint's version in its last line. Every wait is bounded and the
-   child is killed on failure.
+   child is killed on failure;
+10. fleet parity: ``serve.loadgen.run_rehome_parity`` on the card with the
+    checkpoint's params and config (LSTM(128), bf16): two backends and a
+    hot spare behind a ``SessionRouter`` in this process, ``max_batch`` 1,
+    probes every 0.1 s and a 0.4 s grace, one backend torn down after 5
+    steps. Checked: the moved session's and the control's replies replayed
+    bitwise through ``reference_step`` across the boundary (the shadow
+    row copied between carry stores), the teeth check (a zeroed carry
+    reads otherwise), the session on the spare, the router's re-home count,
+    and ``lstm_seq`` launched once a dispatch and once a ``reference_step``,
+    counted apart. Logged: the blackout;
+11. fleet processes: three ``python -m dotaclient_tpu_torch.serve`` children
+    on the checkpoint with ``--serve carry_shadow=true`` (A, B active; C a
+    hot spare) under ``python -m dotaclient_tpu_torch.serve.router
+    --metrics-jsonl``; 32 ``ServeClient(router=True)`` games step 8 rounds in
+    lockstep, A gets SIGKILL, 8 more rounds on the default 10 s deadline,
+    then SIGINT to the router, B and C. Checked: every step answered
+    legally; each of A's games re-homed onto C; the router's last line 1
+    death and A's games re-homed; a ``serve_peer_dead`` ALERT in its JSONL;
+    B's and C's request counts equal the requests sent to them; their
+    ``lstm_seq`` launches equal their dispatches; each game's log-probs
+    replayed on the CPU with the shadow row carried across within
+    SOCKET_LOGP_ATOL, and the same replay with a zeroed carry at the
+    re-home above it. Logged: each game's blackout (SIGKILL to its first
+    reply from C), round trip p50/p99 before and after, each child's start.
+    Every child is killed in a ``finally``.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -227,11 +253,12 @@ def lstm_bound(B, T, D, H):
 
 
 # (B, T, D, H): the serving step, the learner's sequence, the small test
-# shape, a batch that leaves one partial row tile, and the fused training
-# path's two: the rollout step over 128 lanes and the update's sequence
-# forward (rollout_len 16 plus the bootstrap step)
+# shape, a batch that leaves one partial row tile, the fused training
+# path's two (the rollout step over 128 lanes and the update's sequence
+# forward, rollout_len 16 plus the bootstrap step), and the re-home parity
+# digest's step (max_batch 1)
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
-               (128, 1, 128, 128), (128, 17, 128, 128))
+               (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128))
 
 
 def max_err(got, want):
@@ -327,7 +354,7 @@ def check_lstm_kernel(device, seed):
         )
         shapes[(B, T)] = shape
     serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
-    train_step, train_seq = shapes[(128, 1)], shapes[(128, 17)]
+    train_step, train_seq, digest_step = shapes[(128, 1)], shapes[(128, 17)], shapes[(1, 1)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -344,9 +371,10 @@ def check_lstm_kernel(device, seed):
         "sequence_ms": sequence["ms"],
         "train_rollout_step_ms": train_step["ms"],
         "train_sequence_ms": train_seq["ms"],
+        "digest_step_ms": digest_step["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
-                   "shapes": list(shapes.values())}
+                   "digest_step": digest_step, "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -1126,26 +1154,38 @@ def wait_for(pred, what, timeout=WAIT_S):
         time.sleep(0.01)
 
 
-def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None):
+def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None, router=False, before_round=None):
     """One ServeClient per game on its own thread, every round started
     together (a barrier). ``reconnect=(game, round, before_reconnect)``: that
     game closes after the round, calls ``before_reconnect()``, attaches
     again and sends its next step without a reset, so only the release's
-    zeroing makes its carry fresh. Returns per game the (obs, reset, packed,
-    logp, version, latency) of each step and, per game, the slots it held."""
+    zeroing makes its carry fresh. ``router``: the clients attach through
+    the session router at (host, port). ``before_round={round: fn}``: fn runs
+    once all games are ready for that round, before any of them steps.
+    Returns per game the (obs, reset, packed, logp, version, latency,
+    backend address, re-home count, monotonic time of the reply) of each
+    step and, per game, the slots it held."""
     import threading
 
     from dotaclient_tpu_torch.serve import ServeClient
 
     n = len(rngs)
-    barrier = threading.Barrier(n)
+    rounds = iter(range(n_steps))
+    hooks = before_round or {}
+
+    def at_barrier():
+        fn = hooks.get(next(rounds))
+        if fn is not None:
+            fn()
+
+    barrier = threading.Barrier(n, action=at_barrier)
     records = [[] for _ in range(n)]
     slots = [[] for _ in range(n)]
     errors = []
 
     def game(g):
         try:
-            client = ServeClient(host, port, cfg, timeout_s=WAIT_S)
+            client = ServeClient(host, port, cfg, timeout_s=WAIT_S, router=router)
             slots[g].append(client.slot)
             ep_left, reattached = 0, False
             for r in range(n_steps):
@@ -1158,7 +1198,8 @@ def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None):
                 barrier.wait(timeout=WAIT_S)
                 client.step(obs, reset=reset)
                 records[g].append((obs, reset, client.last_packed.copy(), client.last_logp, client.last_version,
-                                   client.last_latency_s))
+                                   client.last_latency_s, tuple(client.backend_addr), client.rehomed_count,
+                                   time.monotonic()))
                 if reconnect is not None and g == reconnect[0] and r == reconnect[1]:
                     client.close()
                     reconnect[2]()
@@ -1394,61 +1435,83 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
 # -- phase 9: the serve CLI in a child process ------------------------------------
 
 
+class Child:
+    """A child process of the port with its merged output read line by line
+    on a thread. ``kill`` (SIGKILL) leaves nothing running."""
+
+    def __init__(self, args):
+        import os
+        import pathlib
+        import queue
+        import threading
+
+        root = str(pathlib.Path(__file__).resolve().parent)
+        env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._lines = queue.Queue()
+        self.seen = []
+        self._reader = threading.Thread(
+            target=lambda: [self._lines.put(line.rstrip("\n")) for line in self.proc.stdout], daemon=True)
+        self._reader.start()
+
+    def wait_line(self, prefix, what):
+        """The JSON after ``prefix`` on the first line that starts with it,
+        and the seconds from the spawn to that line."""
+        import queue
+
+        deadline = time.monotonic() + WAIT_S
+        while True:
+            try:
+                line = self._lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"{what} printed no {prefix.strip()} within {WAIT_S:.0f} s: "
+                                     f"{self.seen[-5:]}") from None
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return json.loads(line[len(prefix):]), time.perf_counter() - self.t0
+
+    def drain(self):
+        while not self._lines.empty():
+            self.seen.append(self._lines.get())
+        return self.seen
+
+    def stop(self, sig):
+        """Send ``sig``, wait for the exit; returns (exit code, every line)."""
+        self.proc.send_signal(sig)
+        rc = self.proc.wait(timeout=WAIT_S)
+        self._reader.join(30)
+        return rc, self.drain()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
 def cli_phase(ckpt_dir, step, seed):
     """``python -m dotaclient_tpu_torch.serve --checkpoint DIR`` as a child
     process: wait for SERVE_LISTENING, serve 8 clients x 5 steps, SIGINT,
     and read its final line."""
-    import os
-    import pathlib
-    import queue
     import signal
-    import threading
 
     from dotaclient_tpu_torch.utils import telemetry
     from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
 
-    root = str(pathlib.Path(__file__).resolve().parent)
-    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    t0 = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-m", "dotaclient_tpu_torch.serve", "--checkpoint", ckpt_dir,
-         "--serve-listen", "127.0.0.1:0"],
-        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    lines = queue.Queue()
-    reader = threading.Thread(target=lambda: [lines.put(line.rstrip("\n")) for line in child.stdout], daemon=True)
-    reader.start()
-    seen = []
+    child = Child(["dotaclient_tpu_torch.serve", "--checkpoint", ckpt_dir, "--serve-listen", "127.0.0.1:0"])
     try:
-        addr = None
-        deadline = time.monotonic() + WAIT_S
-        while addr is None:
-            try:
-                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
-            except queue.Empty:
-                raise AssertionError(f"the serve CLI did not start within {WAIT_S:.0f} s: {seen[-5:]}") from None
-            seen.append(line)
-            if line.startswith("SERVE_LISTENING "):
-                addr = json.loads(line[len("SERVE_LISTENING "):])
-        start_s = time.perf_counter() - t0
+        addr, start_s = child.wait_line("SERVE_LISTENING ", "the serve CLI")
         # the clients keep the stored ServeConfig's deadline budget
         cfg = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
         records, _ = lockstep_clients(addr["host"], addr["port"], cfg,
                                       [np.random.default_rng(seed + 2000 + g) for g in range(CLI_GAMES)], CLI_STEPS)
-        child.send_signal(signal.SIGINT)
-        rc = child.wait(timeout=WAIT_S)
+        rc, seen = child.stop(signal.SIGINT)
     except BaseException:
-        while not lines.empty():
-            seen.append(lines.get())
-        log("the serve CLI's output so far:\n" + "\n".join(seen[-20:]))
+        log("the serve CLI's output so far:\n" + "\n".join(child.drain()[-20:]))
         raise
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait(timeout=30)
-    reader.join(30)
-    while not lines.empty():
-        seen.append(lines.get())
+        child.kill()
     if rc != 0:
         raise AssertionError(f"the serve CLI exited {rc}: {seen[-10:]}")
     final = json.loads(seen[-1])
@@ -1463,6 +1526,205 @@ def cli_phase(ckpt_dir, step, seed):
     log(f"cli: {'; '.join(ready + [listening])}; SERVE_LISTENING after {start_s:.1f} s; {n} requests served within "
         f"the clients' {cfg.serve.request_deadline_s:.0f} s deadline; exit 0 on SIGINT; last line {json.dumps(final)}")
     return {"start_s": start_s, "requests": n, "final": final}
+
+
+# -- phase 10: the re-home parity digest at full width, in one process ------------
+
+
+def fleet_parity_phase(device, seed, ckpt_dir):
+    """``run_rehome_parity`` on the card with the checkpoint's params and
+    config (the default ModelConfig): two backends and a hot spare behind a
+    SessionRouter in this process, one backend torn down after 5 steps, the
+    moved session's replies replayed bitwise through ``reference_step``.
+    The engines' dispatches and the replay's ``reference_step`` calls are
+    counted apart, each against its ``lstm_seq`` launches."""
+    import torch
+
+    from dotaclient_tpu_torch.config import ModelConfig
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.serve import ServeEngine, load_inference_params
+    from dotaclient_tpu_torch.serve.loadgen import run_rehome_parity
+
+    cfg, params, _ = load_inference_params(ckpt_dir)
+    if cfg.model != ModelConfig():
+        raise AssertionError(f"the checkpoint's model {cfg.model} is not the default ModelConfig()")
+    counts = {"dispatches": 0, "replay_steps": 0, "replay_launches": 0}
+    dispatch_window, reference_step = ServeEngine._dispatch_window, ServeEngine.reference_step
+
+    def counted_window(self, rows):
+        dispatch_window(self, rows)
+        counts["dispatches"] += 1
+
+    def counted_reference(self, *args, **kw):
+        before = lstm.lstm_sequence_kernel.launches
+        out = reference_step(self, *args, **kw)
+        counts["replay_steps"] += 1
+        counts["replay_launches"] += lstm.lstm_sequence_kernel.launches - before
+        return out
+
+    ServeEngine._dispatch_window, ServeEngine.reference_step = counted_window, counted_reference
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        t0 = time.perf_counter()
+        digest = run_rehome_parity(seed=seed, device=device, config=cfg, params=params)
+        wall_s = time.perf_counter() - t0
+        launches = lstm.lstm_sequence_kernel.launches
+    finally:
+        ServeEngine._dispatch_window, ServeEngine.reference_step = dispatch_window, reference_step
+    fleet_launches = launches - counts["replay_launches"]
+    checks = {
+        "parity bitwise": digest["parity"] == "bitwise",
+        "teeth": digest["teeth"] is True,
+        "re-homed to the spare": digest["rehomed_to_spare"] is True,
+        "router counted a re-home": digest["router_sessions_rehomed"] >= 1,
+        "launches = dispatches": fleet_launches == counts["dispatches"] > 0,
+        "replay launches = reference_step calls": counts["replay_launches"] == counts["replay_steps"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet parity: {failed} failed: {digest}, {counts}, {fleet_launches} fleet launches")
+    result = {**digest, **counts, "lstm_seq_launches": fleet_launches, "wall_s": wall_s,
+              "model": dataclasses.asdict(cfg.model)}
+    log(
+        f"fleet parity: {digest['steps']} steps of 2 games over 3 engines at LSTM({cfg.model.hidden_dim}) "
+        f"{cfg.model.dtype}, max_batch 1; one backend torn down after 5 steps, its session re-homed to the spare "
+        f"(router: {digest['router_sessions_rehomed']} re-homed, {digest['router_backend_deaths']} death); "
+        f"replay {digest['parity']} with teeth; blackout {digest['blackout_s']:.3f} s; lstm_seq launches "
+        f"{fleet_launches} = {counts['dispatches']} dispatches, and {counts['replay_launches']} in "
+        f"{counts['replay_steps']} reference_step calls; {wall_s:.1f} s"
+    )
+    return result
+
+
+# -- phase 11: the fleet as an operator runs it, in processes ---------------------
+
+
+FLEET_GAMES, FLEET_STEPS, FLEET_KILL_ROUND = 32, 16, 8
+
+
+def fleet_cli_phase(ckpt_dir, step, seed):
+    """Three serve CLIs on the checkpoint with ``--serve carry_shadow=true``
+    and the router CLI over them (A and B active, C a hot spare); 32 games
+    attach through the router and step in lockstep; after 8 rounds backend
+    A's process gets SIGKILL; 8 more rounds on the default 10 s deadline;
+    then SIGINT to the router and the surviving CLIs."""
+    import pathlib
+    import signal
+    import socket
+
+    from dotaclient_tpu_torch.serve import load_inference_params, route_call
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    jsonl = f"{ckpt_dir}/router.jsonl"
+    serves = [Child(["dotaclient_tpu_torch.serve", "--checkpoint", ckpt_dir, "--serve-listen", "127.0.0.1:0",
+                     "--serve", "carry_shadow=true"]) for _ in range(3)]
+    children = list(serves)
+    kill = {}
+    try:
+        started = [c.wait_line("SERVE_LISTENING ", f"serve CLI {n}") for n, c in zip("ABC", serves)]
+        addrs = [(a["host"], int(a["port"])) for a, _ in started]
+        router = Child(["dotaclient_tpu_torch.serve.router", "--backends", ",".join(f"{h}:{p}" for h, p in addrs[:2]),
+                        "--spares", "%s:%d" % addrs[2], "--metrics-jsonl", jsonl])
+        children.append(router)
+        raddr, router_s = router.wait_line("ROUTER_LISTENING ", "the router CLI")
+        rhost, rport = raddr["host"], int(raddr["port"])
+
+        def status():
+            sock = socket.create_connection((rhost, rport), timeout=WAIT_S)
+            try:
+                return route_call(sock, {"op": "status"}, timeout=WAIT_S)
+            finally:
+                sock.close()
+
+        wait_for(lambda: all(b["live"] for b in status()["backends"]), "the router's probes to find 3 live backends")
+        stored = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
+        cfg = dataclasses.replace(stored, serve=dataclasses.replace(stored.serve, carry_shadow=True))
+
+        def sigkill_a():
+            kill["t"] = time.monotonic()
+            serves[0].proc.kill()
+
+        records, _ = lockstep_clients(rhost, rport, cfg, [np.random.default_rng(seed + 3000 + g)
+                                                          for g in range(FLEET_GAMES)],
+                                      FLEET_STEPS, router=True, before_round={FLEET_KILL_ROUND: sigkill_a})
+        wait_for(lambda: '"serve_peer_dead"' in pathlib.Path(jsonl).read_text(), "the serve_peer_dead ALERT")
+        ends = {name: c.stop(signal.SIGINT) for name, c in (("router", router), ("B", serves[1]), ("C", serves[2]))}
+        serves[0].proc.wait(timeout=30)
+    except BaseException:
+        for name, c in zip(("A", "B", "C", "router"), children):
+            log(f"fleet: {name}'s output so far:\n" + "\n".join(c.drain()[-15:]))
+        raise
+    finally:
+        for c in children:
+            c.kill()
+    bad_rc = {name: rc for name, (rc, _) in ends.items() if rc != 0}
+    if bad_rc:
+        raise AssertionError(f"fleet: exit codes {bad_rc}: " + "; ".join(f"{n}: {ends[n][1][-5:]}" for n in bad_rc))
+    finals = {name: json.loads(lines[-1]) for name, (_, lines) in ends.items()}
+    A, B, C = addrs
+    on_a = [g for g in range(FLEET_GAMES) if records[g][FLEET_KILL_ROUND - 1][6] == A]
+    flat = [rec for game in records for rec in game]
+    failed = []
+    if len(flat) != FLEET_GAMES * FLEET_STEPS or not all(action_is_legal(rec[0], rec[2]) and rec[4] == step
+                                                         for rec in flat):
+        failed.append("every request answered with a legal action at the checkpoint's version")
+    if not on_a or not all(records[g][-1][7] >= 1 and records[g][-1][6] == C for g in on_a):
+        failed.append(f"each of A's {len(on_a)} games re-homed onto C")
+    if any(rec[7] != 0 for g in range(FLEET_GAMES) if g not in on_a for rec in records[g]):
+        failed.append("the games on B stayed")
+    if (finals["router"]["router_backend_deaths"], finals["router"]["router_sessions_rehomed"]) != (1, len(on_a)):
+        failed.append(f"the router's last line {finals['router']}: 1 death and {len(on_a)} re-homed")
+    events = [json.loads(line) for line in pathlib.Path(jsonl).read_text().splitlines() if '"event"' in line]
+    if not any(e["rule"] == "serve_peer_dead" and e["state"] == "fired" for e in events):
+        failed.append("a serve_peer_dead ALERT in the router's JSONL")
+    sent = {name: sum(rec[6] == addr for rec in flat) for name, addr in (("B", B), ("C", C))}
+    served = {name: int(finals[name]["serve_requests_total"]) for name in ("B", "C")}
+    if sent != served:
+        failed.append(f"requests sent after attaching {sent} = requests B and C counted {served}")
+    # each CLI's count includes its warm-up dispatch
+    launches = {name: finals[name]["lstm_seq_launches"] - 1 for name in ("B", "C")}
+    dispatches = {name: int(finals[name]["serve_dispatches_total"]) for name in ("B", "C")}
+    if launches != dispatches or not all(launches.values()):
+        failed.append(f"lstm_seq launches {launches} = dispatches {dispatches}")
+    _, params, _ = load_inference_params(ckpt_dir)
+    logp_err, _ = replay_logps_on_cpu(cfg, params, records, set())
+    zeroed_err, _ = replay_logps_on_cpu(cfg, params, records, {(g, FLEET_KILL_ROUND) for g in on_a})
+    if not logp_err <= SOCKET_LOGP_ATOL:
+        failed.append(f"replay with the shadow row carried across {logp_err:.3g} <= {SOCKET_LOGP_ATOL}")
+    if not zeroed_err > SOCKET_LOGP_ATOL:
+        failed.append(f"replay with a zeroed carry at the re-home {zeroed_err:.3g} > {SOCKET_LOGP_ATOL}")
+    if failed:
+        raise AssertionError(f"fleet: failed: {failed}")
+    blackouts = [next(rec[8] for rec in records[g][FLEET_KILL_ROUND:] if rec[6] == C) - kill["t"] for g in on_a]
+    lat = {when: np.asarray([rec[5] * 1e3 for game in records for rec in rows(game)])
+           for when, rows in (("before", lambda game: game[:FLEET_KILL_ROUND]),
+                              ("after", lambda game: game[FLEET_KILL_ROUND + 1:]))}
+    result = {
+        "games": FLEET_GAMES, "steps": FLEET_STEPS, "kill_after_round": FLEET_KILL_ROUND,
+        "games_on_a": len(on_a), "requests_sent": sent, "finals": finals,
+        "cli_start_s": {n: s for n, (_, s) in zip("ABC", started)}, "router_start_s": router_s,
+        "blackout_s": {"min": min(blackouts), "max": max(blackouts), "all": blackouts},
+        "round_trip_ms": {when: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+                          for when, v in lat.items()},
+        "logp_err_vs_cpu_replay": logp_err, "zeroed_carry_control": zeroed_err,
+        "alerts": [(e["rule"], e["state"]) for e in events],
+        "lstm_seq_launches": sum(launches.values()), "launches_by_backend": launches,
+    }
+    log(
+        f"fleet: 3 serve CLIs up after {', '.join(f'{s:.1f}' for _, s in started)} s, the router CLI after "
+        f"{router_s:.1f} s; {FLEET_GAMES} games x {FLEET_STEPS} lockstep steps through the router, {len(on_a)} on A; "
+        f"A SIGKILLed after round {FLEET_KILL_ROUND}; each of A's games answered again by C after "
+        f"{min(blackouts):.3f}-{max(blackouts):.3f} s (deadline {cfg.serve.request_deadline_s:.0f} s); round trip "
+        f"p50/p99 {result['round_trip_ms']['before']['p50']:.2f}/{result['round_trip_ms']['before']['p99']:.2f} ms "
+        f"before the kill, {result['round_trip_ms']['after']['p50']:.2f}/{result['round_trip_ms']['after']['p99']:.2f} "
+        f"ms after; router: {finals['router']}; alerts {result['alerts']}; requests B {served['B']}, C {served['C']} "
+        f"= sent; replay within {logp_err:.3g} (atol {SOCKET_LOGP_ATOL}), a zeroed carry at the re-home "
+        f"{zeroed_err:.3g}; lstm_seq launches B {launches['B']}, C {launches['C']} = their dispatches"
+    )
+    return result
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1502,15 +1764,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         sock = socket_phase(device, args.seed, learner, ckpt_dir, serve)
         sock["cli"] = cli_phase(ckpt_dir, learner.state.step, args.seed)
+        fleet = {"parity": fleet_parity_phase(device, args.seed, ckpt_dir),
+                 "cli": fleet_cli_phase(ckpt_dir, learner.state.step, args.seed)}
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
-                                      "serve_socket": sock["lstm_seq_launches"]}
+                                      "serve_socket": sock["lstm_seq_launches"],
+                                      "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
+                                      "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
-                       "profile": serve_profile, "train": train, "socket": sock}, f, indent=2)
+                       "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -14,11 +14,17 @@ per game; a JAX client works too), and with ``--subscribe`` hot-swaps newer
 weights frames from a learner's fanout between dispatches. Prints
 ``serve: listening on ...`` and ``SERVE_LISTENING {"host", "port"}`` at
 start, after one warm-up dispatch, and one JSON line of serve totals when it stops (``--duration`` or
-SIGINT). Without a card it raises unless ``--device cpu`` is given.
+SIGINT), with the ``lstm_seq`` kernel's launches in this process (the
+warm-up's included). Without a card it raises unless ``--device cpu`` is
+given. A fleet is several of these behind ``python -m
+dotaclient_tpu_torch.serve.router``, each started with
+``--serve carry_shadow=true`` where sessions must resume bit-exact when
+re-homed.
 
 Accepted but not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: ``--subscribe shm://`` (queue 1, item 2), ``--trace-jsonl``
-and ``--trace-sample`` (item 8), ``--fleet-interval`` (item 8).
+ROADMAP item: ``--subscribe shm://`` (queue 1, item 4, beside the learner's
+shm publisher), ``--trace-jsonl`` and ``--trace-sample`` (item 8),
+``--fleet-interval`` (item 8).
 """
 
 from __future__ import annotations
@@ -56,10 +62,11 @@ def main(argv=None) -> int:
     if args.fleet_interval is not None:
         raise NotImplementedError("--fleet-interval is not ported yet: ROADMAP queue 1, item 8")
     if args.subscribe and args.subscribe.startswith("shm://"):
-        raise NotImplementedError("--subscribe shm:// (the shm lane) is not ported yet: ROADMAP queue 1, item 2")
+        raise NotImplementedError("--subscribe shm:// (the shm lane) is not ported yet: ROADMAP queue 1, item 4")
 
     from dotaclient_tpu_torch.config import ServeConfig
     from dotaclient_tpu_torch.device import resolve_device
+    from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.serve import (
         PolicyServer,
         ServeEngine,
@@ -135,6 +142,7 @@ def main(argv=None) -> int:
             "serve_dispatches_total": snap.get("serve/dispatches_total", 0.0),
             "serve_p99_latency_ms": snap.get("serve/p99_latency_ms", 0.0),
             "serve_weights_version": snap.get("serve/weights_version", 0.0),
+            "lstm_seq_launches": lstm.lstm_sequence_kernel.launches,
         }), flush=True)
     return 0
 

@@ -12,10 +12,18 @@ budget (``serve.request_deadline_s``) across at most
 ``connect_with_backoff``, and raises :class:`ServeDeadlineError` when the
 budget is spent. A reconnect lands on a fresh slot, so the next request
 either resends the stashed carry row (``serve.carry_shadow``) or is sent
-with ``reset=True``.
+with ``reset=True``, counted in ``carry_resets``.
 
-Fleet mode (``router=True``, the session router) waits for ROADMAP queue 1,
-item 2; request tracing waits for item 8.
+Fleet mode (``router=True``): ``(host, port)`` names a
+:class:`~dotaclient_tpu_torch.serve.router.SessionRouter`. The client
+attaches through the router, talks to its backend (``backend_addr``)
+directly, and after any backend failure asks the router ``where`` its
+session lives now, following a new epoch to the backend or promoted spare
+it was re-homed to (``rehomed_count``, ``last_rehomed``). Until the router
+declares the old backend dead, ``where`` answers with the old address and
+the client polls inside its deadline. ``close`` detaches the session.
+
+Request tracing waits for ROADMAP queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 from dotaclient_tpu_torch.actor.backoff import connect_with_backoff
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.models.distributions import HEADS
+from dotaclient_tpu_torch.serve.router import route_call
 from dotaclient_tpu_torch.serve.server import ATTACH_REQUEST_ID, KIND_SERVE_REPLY, KIND_SERVE_REQUEST
 from dotaclient_tpu_torch.transport.serialize import (
     decode_rollout_bytes,
@@ -53,7 +62,7 @@ def serve_request_wire_kwargs(config: RunConfig) -> Dict[str, Any]:
 
 
 class ServeClient:
-    """Blocking request/reply client for one game."""
+    """Blocking request/reply client for one game (direct or fleet mode)."""
 
     def __init__(
         self,
@@ -64,10 +73,6 @@ class ServeClient:
         router: bool = False,
         max_reconnects: int = 6,
     ) -> None:
-        if router:
-            raise NotImplementedError(
-                "router=True (the session router) is not ported yet: ROADMAP queue 1, item 2"
-            )
         scfg = config.serve
         self._timeout_s = timeout_s
         self._deadline_s = max(0.05, scfg.request_deadline_s)
@@ -80,13 +85,33 @@ class ServeClient:
         self.last_version = 0
         self.last_logp = 0.0
         self.last_latency_s = 0.0
+        self.last_dispatch_idx = -1
         self._last_packed = np.zeros((len(HEADS),), np.int32)
+        # fleet mode
+        self._router = bool(router)
+        self._router_addr: Optional[Tuple[str, int]] = None
+        self._route_sock: Optional[socket.socket] = None
+        self.session: Optional[int] = None
+        self._epoch = -1
+        # failover bookkeeping
+        self.rehomed_count = 0
+        self.last_rehomed = False
+        self.carry_resets = 0
         self._carry_stash: Optional[Dict[str, np.ndarray]] = None
         self._pending_restore = False
         self._sock: Optional[socket.socket] = None
-        self._addr: Tuple[str, int] = (host, port)
+        self.backend_addr: Tuple[str, int] = (host, port)
+        deadline = time.monotonic() + self._deadline_s
         try:
-            self._connect_backend(time.monotonic() + self._deadline_s)
+            if self._router:
+                self._router_addr = (host, port)
+                info = self._route({"op": "attach"}, deadline)
+                if "error" in info:
+                    raise ConnectionError(f"router attach failed: {info['error']}")
+                self.session = int(info["session"])
+                self._epoch = int(info["epoch"])
+                self.backend_addr = (info["addr"][0], int(info["addr"][1]))
+            self._connect_backend(deadline)
         except BaseException:
             self.close()
             raise
@@ -97,7 +122,7 @@ class ServeClient:
         """Connect and read the attach frame."""
 
         def factory() -> socket.socket:
-            sock = socket.create_connection(self._addr, timeout=self._timeout_s)
+            sock = socket.create_connection(self.backend_addr, timeout=self._timeout_s)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             sock.settimeout(self._timeout_s)
             try:
@@ -124,9 +149,46 @@ class ServeClient:
                 pass
             self._sock = None
 
+    def _close_route(self) -> None:
+        if self._route_sock is not None:
+            try:
+                self._route_sock.close()
+            except OSError:
+                pass
+            self._route_sock = None
+
+    def _route(self, request: Dict[str, Any], deadline: float) -> Dict[str, Any]:
+        """One router round trip, redialing the control connection once if
+        it went stale, inside the deadline either way."""
+        redialed = False
+        while True:
+            if self._route_sock is None:
+                def factory() -> socket.socket:
+                    s = socket.create_connection(self._router_addr, timeout=self._timeout_s)
+                    s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                    return s
+
+                self._route_sock = connect_with_backoff(
+                    factory, max_attempts=self._max_reconnects, base_delay=0.1, max_delay=1.0,
+                    should_abort=lambda: time.monotonic() >= deadline,
+                )
+            try:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise ServeDeadlineError("route round trip would exceed the request deadline")
+                return route_call(self._route_sock, request, timeout=min(self._timeout_s, remaining))
+            except ServeDeadlineError:
+                raise
+            except (OSError, ConnectionError, ValueError):
+                self._close_route()
+                if redialed:
+                    raise
+                redialed = True
+
     def _recover(self, deadline: float) -> None:
-        """After a failed attempt: reconnect, looping until connected or the
-        deadline budget is spent."""
+        """After a failed attempt: find the session's home (fleet mode asks
+        the router and follows a redirect) and reconnect, looping until
+        connected or the deadline budget is spent."""
         self._close_backend()
         # the old slot is gone: the next request restores or resets
         self._pending_restore = True
@@ -134,9 +196,25 @@ class ServeClient:
             if time.monotonic() >= deadline:
                 raise ServeDeadlineError("recovery exceeded the request deadline budget")
             try:
+                if self._router:
+                    info = self._route({"op": "where", "session": self.session}, deadline)
+                    if "error" in info:
+                        # no live backend yet: poll inside the budget
+                        time.sleep(0.05)
+                        continue
+                    epoch = int(info["epoch"])
+                    if epoch != self._epoch:
+                        # the redirect: the session was re-homed
+                        self._epoch = epoch
+                        self.backend_addr = (info["addr"][0], int(info["addr"][1]))
+                        self.rehomed_count += 1
+                        self.last_rehomed = True
                 self._connect_backend(deadline)
                 return
+            except ServeDeadlineError:
+                raise
             except (OSError, ConnectionError):
+                # refused or mid-restart: go around, inside the deadline
                 time.sleep(0.05)
 
     # -- request/reply -------------------------------------------------------
@@ -178,20 +256,27 @@ class ServeClient:
         _send_frame(self._sock, KIND_SERVE_REQUEST, payload)
         meta, reply = self._recv_reply_on(self._sock, request_id, deadline)
         self.last_latency_s = time.perf_counter() - t0
-        self._pending_restore = False
+        if self._pending_restore:
+            self._pending_restore = False
+            if send_carry is None:
+                self.carry_resets += 1
         self.last_version = meta["model_version"]
         self._last_packed = np.asarray(reply["actions"]).astype(np.int32)
         self.last_logp = float(np.asarray(reply["logp"]).reshape(-1)[0])
+        if "dispatch_idx" in reply:
+            self.last_dispatch_idx = int(np.asarray(reply["dispatch_idx"]).reshape(-1)[0])
         if self._shadow and reply.get("carry") is not None:
             self._carry_stash = reply["carry"]
         return {h: int(self._last_packed[j]) for j, h in enumerate(HEADS)}
 
     def step(self, obs: Dict[str, np.ndarray], reset: bool = False) -> Dict[str, int]:
         """One action for one observation (unbatched leaves): the per-head
-        indices. The joint log-prob, weights version, packed row and
-        round-trip time land on ``last_logp``, ``last_version``,
-        ``last_packed`` and ``last_latency_s``. Resolves within
-        ``serve.request_deadline_s`` or raises :class:`ServeDeadlineError`."""
+        indices. The joint log-prob, weights version, packed row, dispatch
+        index and round-trip time land on ``last_logp``, ``last_version``,
+        ``last_packed``, ``last_dispatch_idx`` and ``last_latency_s``.
+        Resolves within ``serve.request_deadline_s`` (retries, reconnects
+        and router redirects included) or raises
+        :class:`ServeDeadlineError`."""
         deadline = time.monotonic() + self._deadline_s
         attempts = 0
         while True:
@@ -216,4 +301,10 @@ class ServeClient:
         return self._last_packed
 
     def close(self) -> None:
+        if self._router and self.session is not None:
+            try:
+                self._route({"op": "detach", "session": self.session}, time.monotonic() + 1.0)
+            except (OSError, ConnectionError, ValueError):
+                pass  # router gone: nothing to detach from
         self._close_backend()
+        self._close_route()

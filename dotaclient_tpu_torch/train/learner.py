@@ -6,7 +6,7 @@ return dict) and of its ``--smoke`` entry point. Run on the card::
 
     python -m dotaclient_tpu_torch.train.learner --smoke [--steps N] [--n-envs N]
         [--opponent scripted_easy|scripted_hard|selfplay] [--seed S] [--device cuda|cpu]
-        [--checkpoint-dir DIR [--checkpoint-every N] [--restore]]
+        [--checkpoint-dir DIR [--checkpoint-every N] [--restore]] [--init-from DIR]
 
 Each loop iteration is one call of the fused step (``train/fused.py``):
 ``steps_per_dispatch`` rollouts and ``epochs_per_batch x minibatches``
@@ -15,12 +15,14 @@ boundaries (every ``log_every`` optimizer steps) the metrics and the
 drained episode stats, and with ``checkpoint_dir`` the whole train state at
 ``checkpoint_every`` boundaries and once more at the end of ``train``
 (``utils/checkpoint.py``; ``restore`` resumes from the newest valid step).
+``init_from`` seeds a fresh run with the weights of another run's newest
+valid checkpoint: fresh Adam moments, step 0, the source left untouched.
 
 Not ported yet, each with its ROADMAP item: the other actor modes
 (``device``, ``vec``, ``scalar``, ``external``; queue 1, item 4), the
 health guardian's rollback (item 4), async checkpoint saves and the CUDA
-graph of the iteration (item 3), ``--init-from`` (item 2), the learner's
-transports (item 4) and the league (item 5).
+graph of the iteration (item 3), the learner's transports (item 4) and the
+league (item 5).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import sys
 import time
 from typing import Dict, List, Optional
@@ -42,7 +45,7 @@ from dotaclient_tpu_torch.models.policy import init_params, make_policy
 from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.ppo import init_train_state
 from dotaclient_tpu_torch.utils import telemetry
-from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, shape_mismatches
 
 # actor modes of the reference learner that the port does not have yet
 _NOT_PORTED = {
@@ -56,8 +59,9 @@ _NOT_PORTED = {
 class Learner:
     """Fused-mode learner: params from ``init_params`` with ``seed`` (or,
     with ``restore``, from the newest valid checkpoint in
-    ``checkpoint_dir``), one device actor over ``config.env.n_envs`` games,
-    one fused step."""
+    ``checkpoint_dir``; or, with ``init_from``, the weights alone of the
+    newest valid checkpoint in that other directory), one device actor over
+    ``config.env.n_envs`` games, one fused step."""
 
     def __init__(
         self,
@@ -68,6 +72,7 @@ class Learner:
         registry: Optional[telemetry.Registry] = None,
         checkpoint_dir: Optional[str] = None,
         restore: bool = False,
+        init_from: Optional[str] = None,
     ) -> None:
         if actor != "fused":
             where = _NOT_PORTED.get(actor)
@@ -81,10 +86,9 @@ class Learner:
         self.registry = registry if registry is not None else telemetry.get_registry()
         self.policy = make_policy(config.model, config.obs, config.actions, device=self.device)
         init_params(self.policy, torch.Generator().manual_seed(seed))
-        # the anchor of anchor_kl is the policy as constructed, frozen
-        self.anchor = None
-        if config.ppo.anchor_kl_coef > 0:
-            self.anchor = copy.deepcopy(self.policy).requires_grad_(False)
+        self.init_from_step = 0  # the source's step when seeded by init_from
+        if init_from:
+            self.init_from_step = self._seed_from(init_from, checkpoint_dir, restore)
         self.state = init_train_state(self.policy, config.ppo)
         self.ckpt: Optional[CheckpointManager] = None
         if checkpoint_dir:
@@ -93,11 +97,44 @@ class Learner:
                 self.state, _ = self.ckpt.restore(config, self.state)
         elif restore:
             raise ValueError("restore needs a checkpoint_dir")
+        # the anchor of anchor_kl is the policy as constructed (after
+        # init_from or restore), frozen
+        self.anchor = None
+        if config.ppo.anchor_kl_coef > 0:
+            self.anchor = copy.deepcopy(self.policy).requires_grad_(False)
         self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                         device=self.device)
         self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
         self._last_metrics: Dict[str, float] = {}
         self.history: List[Dict[str, float]] = []
+
+    def _seed_from(self, init_from: str, checkpoint_dir: Optional[str], restore: bool) -> int:
+        """Load the weights of ``init_from``'s newest valid checkpoint into
+        the policy; returns that checkpoint's step. The optimizer and the
+        step counter stay fresh: Adam moments fitted to the source run's
+        gradients could over-step the transferred policy."""
+        if restore:
+            raise ValueError(
+                "init_from seeds a fresh run from a source checkpoint; restore resumes this run's own "
+                "checkpoint_dir: they are mutually exclusive"
+            )
+        if checkpoint_dir and os.path.realpath(init_from) == os.path.realpath(checkpoint_dir):
+            raise ValueError(
+                "init_from must point at a separate source directory: the seeded run starts at step 0, so "
+                "its saves into the source directory would overwrite the source's steps"
+            )
+        if not os.path.isdir(init_from):
+            # CheckpointManager would create it: a mistyped path fails instead
+            raise FileNotFoundError(f"init_from directory does not exist: {init_from!r}")
+        params, step = CheckpointManager(init_from, registry=self.registry).restore_weights()
+        bad = shape_mismatches(params, self.policy.state_dict())
+        if bad:
+            raise ValueError(
+                f"init_from checkpoint is incompatible with this run's model config (param shape {bad[0]}, "
+                f"+{len(bad) - 1} more mismatches): was it trained with another core or width?"
+            )
+        self.policy.load_state_dict(params)
+        return step
 
     def train(self, num_steps: int) -> Dict[str, float]:
         """Run until ``num_steps`` optimizer steps have completed (rounded
@@ -173,6 +210,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="optimizer steps between periodic checkpoints (default RunConfig.checkpoint_every)")
     p.add_argument("--restore", action="store_true",
                    help="resume from the newest valid checkpoint in --checkpoint-dir")
+    p.add_argument("--init-from", type=str, default=None, metavar="DIR",
+                   help="seed a fresh run with the params of the newest checkpoint in DIR (the source stays "
+                   "untouched; not with --restore)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
     args = p.parse_args(argv)
@@ -197,7 +237,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     config = dataclasses.replace(config, seed=args.seed)
 
     learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
-                      checkpoint_dir=args.checkpoint_dir, restore=args.restore)
+                      checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from)
     out = learner.train(args.steps)
     for row in learner.history:
         print(json.dumps({k: round(v, 6) for k, v in row.items()}), flush=True)

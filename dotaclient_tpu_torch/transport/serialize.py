@@ -6,7 +6,8 @@ names in the same order (``flatten_tree``), each leaf becomes a
 ``TensorProto`` (shape, numpy dtype name, raw little-endian bytes), and map
 entries are inserted in that order, so ``encode_rollout(...)
 .SerializeToString()`` is byte for byte what the JAX package writes for the
-same tree. Frames carry the same integrity trailer (``frame_crc32``).
+same tree. Frames carry the same integrity trailer (``frame_crc32``,
+defined beside the framing in ``socket_transport.py`` and re-exported here).
 
 bfloat16 without ``ml_dtypes``: on the host the port holds a bf16 leaf as a
 ``torch.bfloat16`` CPU tensor. f32 -> bf16 rounds to nearest even with
@@ -22,13 +23,13 @@ accounting (``meta["wire_bytes"]``/``["raw_bytes"]``) and
 
 from __future__ import annotations
 
-import zlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
+from dotaclient_tpu_torch.transport.socket_transport import frame_crc32  # noqa: F401  (re-exported)
 
 BF16 = "bfloat16"
 
@@ -74,31 +75,6 @@ def _dtype_name(a: Any) -> str:
             return BF16
         return np.dtype(str(a.dtype).replace("torch.", "")).name
     return np.dtype(a.dtype).name
-
-
-# -- wire-frame integrity ----------------------------------------------------
-#
-# The frames' CRC32 trailer, exactly the JAX package's: a frame above
-# _CRC_FOLD_THRESHOLD bytes is first XOR-folded over 8-byte lanes to a 64-bit
-# digest, and the CRC32 (seeded with the length) covers the digest and the
-# unaligned tail. A JAX peer rejects every large frame whose trailer differs.
-
-_CRC_FOLD_THRESHOLD = 4096
-CRC_SIZE = 4
-
-
-def frame_crc32(payload) -> int:
-    """32-bit integrity trailer for one wire frame (bytes-like; memoryview
-    slices fold in place)."""
-    n = len(payload)
-    if n <= _CRC_FOLD_THRESHOLD:
-        return zlib.crc32(payload) & 0xFFFFFFFF
-    m = n & ~7
-    fold = int(np.bitwise_xor.reduce(np.frombuffer(payload, "<u8", count=m >> 3)))
-    c = zlib.crc32(fold.to_bytes(8, "little"), n & 0xFFFFFFFF)
-    if m != n:
-        c = zlib.crc32(payload[m:], c)
-    return c & 0xFFFFFFFF
 
 
 # -- trees --------------------------------------------------------------------

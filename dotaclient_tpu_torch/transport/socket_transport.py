@@ -8,6 +8,10 @@ CRC32 of those 5 header bytes, then the payload, then a 4-byte big-endian
 drops that frame alone (``FrameCorrupt``); a corrupt header makes every later
 byte boundary untrustworthy and the stream is lost (``FramingLost``).
 
+The frame CRC (``frame_crc32``) lives here, with no torch import, so the
+session router (``serve/router.py``) frames its control lane without
+loading torch.
+
 Kinds 0-2 are the training transport's (rollout, weights, heartbeat), 3-4
 the serve lane's request and reply (``serve/server.py``), 5 a fleet metrics
 snapshot.
@@ -26,11 +30,37 @@ import socket
 import struct
 import threading
 import time
+import zlib
 from typing import Optional, Tuple
 
+import numpy as np
+
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
-from dotaclient_tpu_torch.transport.serialize import frame_crc32
 from dotaclient_tpu_torch.utils import telemetry
+
+# -- wire-frame integrity ----------------------------------------------------
+#
+# The frames' CRC32 trailer, exactly the JAX package's: a frame above
+# _CRC_FOLD_THRESHOLD bytes is first XOR-folded over 8-byte lanes to a 64-bit
+# digest, and the CRC32 (seeded with the length) covers the digest and the
+# unaligned tail. A JAX peer rejects every large frame whose trailer differs.
+
+_CRC_FOLD_THRESHOLD = 4096
+
+
+def frame_crc32(payload) -> int:
+    """32-bit integrity trailer for one wire frame (bytes-like; memoryview
+    slices fold in place)."""
+    n = len(payload)
+    if n <= _CRC_FOLD_THRESHOLD:
+        return zlib.crc32(payload) & 0xFFFFFFFF
+    m = n & ~7
+    fold = int(np.bitwise_xor.reduce(np.frombuffer(payload, "<u8", count=m >> 3)))
+    c = zlib.crc32(fold.to_bytes(8, "little"), n & 0xFFFFFFFF)
+    if m != n:
+        c = zlib.crc32(payload[m:], c)
+    return c & 0xFFFFFFFF
+
 
 _KIND_ROLLOUT = 0
 _KIND_WEIGHTS = 1

@@ -22,9 +22,10 @@ previous step. ``max_to_keep`` keeps the newest saves. A periodic save that
 hits an I/O error is counted (``checkpoint/save_failures_total``) and
 returns False; a forced save raises.
 
-Not ported yet (ROADMAP queue 1, items 2 and 3): async saves on a thread,
-the ``last_good`` slot, ``restore_pipeline``, ``discard_steps_above`` and
-``--init-from``.
+``shape_mismatches`` compares a restored state dict with the one a run
+expects (the learner's ``init_from`` check). Not ported yet (ROADMAP queue
+1, item 3): async saves on a thread, the ``last_good`` slot,
+``restore_pipeline`` and ``discard_steps_above``.
 """
 
 from __future__ import annotations
@@ -101,6 +102,22 @@ def verify_manifest(manifest: dict, host_state: Any) -> None:
                 raise CheckpointIntegrityError(
                     f"leaf {key!r} {field} mismatch: restored {g.get(field)!r} != saved {spec[field]!r}"
                 )
+
+
+def shape_mismatches(got: Dict[str, Any], want: Dict[str, Any]) -> List[str]:
+    """Key-by-key shape comparison of two state dicts: one
+    ``"<key>: (got) != (want)"`` string per mismatched tensor, in key order,
+    or a single ``"tree structure differs: ..."`` when the key sets differ."""
+    if set(got) != set(want):
+        missing = sorted(set(want) - set(got))[:3]
+        extra = sorted(set(got) - set(want))[:3]
+        return [f"tree structure differs: missing {missing}, unexpected {extra}"]
+    out = []
+    for key in sorted(want):
+        g, w = tuple(got[key].shape), tuple(want[key].shape)
+        if g != w:
+            out.append(f"{key}: {g} != {w}")
+    return out
 
 
 def _file_crc(path: str) -> int:
@@ -326,5 +343,6 @@ __all__ = [
     "CheckpointIntegrityError",
     "CheckpointManager",
     "build_manifest",
+    "shape_mismatches",
     "verify_manifest",
 ]

@@ -9,9 +9,10 @@ read:
   ``/ema_s``, ``/p95_s``; spans are timers named ``span/<stage>``.
 
 Everything is host wall clock; recording never touches the device.
-``JsonlSink`` (the serve CLI's ``--serve-metrics-jsonl``) writes the same
-line format. The console and TensorBoard sinks come with the port's
-buffered learner.
+``JsonlSink`` (the serve CLI's ``--serve-metrics-jsonl``, the router CLI's
+``--metrics-jsonl``) writes the same line format, structured events
+(``ALERT``) included. The console and TensorBoard sinks come with the
+port's buffered learner.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, TextIO
+from typing import Dict, Iterator, List, Optional, TextIO, Tuple
 
 # Fleet-health snapshot cadence in seconds (the utilization plane's fold
 # interval defaults to it).
@@ -181,6 +182,15 @@ class Registry:
                 out[f"{name}/{stat}"] = v
         return out
 
+    def counters_and_gauges(self) -> Tuple[Dict[str, float], Dict[str, float]]:
+        """Counter totals and gauge values as two plain dicts, timers left
+        out: what the alert engine evaluates and the router CLI snapshots."""
+        with self._lock:
+            return (
+                {n: c.value for n, c in self._counters.items()},
+                {n: g.value for n, g in self._gauges.items()},
+            )
+
 
 def _json_safe(v: float) -> Optional[float]:
     # NaN/Inf are not JSON: a diverged value becomes null
@@ -189,10 +199,11 @@ def _json_safe(v: float) -> Optional[float]:
 
 class JsonlSink:
     """Append one JSON object per emit: ``{"ts": <unix>, "step": <int>,
-    "scalars": {name: number|null}}``. Every emit is one write of a whole
-    line and a flush, so a killed process tears at most its last line;
-    a torn last line left by an earlier process is cut before appending,
-    and ``close`` fsyncs."""
+    "scalars": {name: number|null}}``, and per ``emit_event`` one
+    ``{"ts": <unix>, "event": ..., ...}`` line. Every line is one write of a
+    whole line and a flush, so a killed process tears at most its last
+    line; a torn last line left by an earlier process is cut before
+    appending, and ``close`` fsyncs."""
 
     def __init__(self, path: str) -> None:
         self.path = path
@@ -209,6 +220,14 @@ class JsonlSink:
             },
             sort_keys=True,
         )
+        self._write_line(line)
+
+    def emit_event(self, event: Dict[str, object]) -> None:
+        """Append one structured event line (``{"ts", "event", ...}``, keys
+        sorted) to the stream of metric lines: the alert channel."""
+        self._write_line(json.dumps({"ts": time.time(), **event}, sort_keys=True))
+
+    def _write_line(self, line: str) -> None:
         with self._lock:
             if self._f is not None:
                 self._f.write(line + "\n")

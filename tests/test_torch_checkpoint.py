@@ -184,3 +184,69 @@ def test_learner_restores_the_saved_state(tmp_path):
     assert_state_equal(resumed.state, src.state)
     with pytest.raises(ValueError, match="checkpoint_dir"):
         plearner.Learner(learner_config(), actor="fused", device="cpu", restore=True)
+
+
+# -- init_from: a weights-only seed from another run's checkpoint ----------------------
+
+
+def test_init_from_seeds_weights_into_a_fresh_run(tmp_path):
+    """The seeded run holds the source's params, a fresh optimizer and step
+    0 (and, with anchor_kl on, the seeded policy as its anchor); it saves
+    into its own directory and leaves the source's steps as they were."""
+    src_dir, dst_dir = str(tmp_path / "src"), str(tmp_path / "dst")
+    src = plearner.Learner(learner_config(), actor="fused", seed=1, device="cpu", checkpoint_dir=src_dir,
+                           registry=telemetry.Registry())
+    src.train(2)
+    cfg = learner_config(anchor_kl_coef=0.1)
+    dst = plearner.Learner(cfg, actor="fused", seed=9, device="cpu", checkpoint_dir=dst_dir, init_from=src_dir,
+                           registry=telemetry.Registry())
+    assert dst.init_from_step == 2 and (dst.state.step, dst.state.version) == (0, 0)
+    assert dst.state.optimizer.state_dict()["state"] == {}
+    for (k, v), (_, w), (_, a) in zip(src.policy.state_dict().items(), dst.policy.state_dict().items(),
+                                      dst.anchor.state_dict().items()):
+        assert torch.equal(v, w) and torch.equal(v, a), k
+    dst.train(1)
+    assert CheckpointManager(dst_dir, registry=telemetry.Registry()).all_steps() == [1]
+    assert CheckpointManager(src_dir, registry=telemetry.Registry()).all_steps() == [2]
+
+
+@pytest.mark.parametrize("fault", ["with_restore", "same_dir", "missing_dir", "wrong_width"])
+def test_init_from_refuses(tmp_path, fault):
+    src_dir = str(tmp_path / "src")
+    trained = plearner.Learner(learner_config(), actor="fused", seed=1, device="cpu", checkpoint_dir=src_dir,
+                               registry=telemetry.Registry())
+    trained.train(1)
+    cfg, kw = learner_config(), {"init_from": src_dir, "checkpoint_dir": str(tmp_path / "dst")}
+    if fault == "with_restore":
+        kw["restore"], err, match = True, ValueError, "mutually exclusive"
+    elif fault == "same_dir":
+        kw["checkpoint_dir"], err, match = src_dir, ValueError, "separate source directory"
+    elif fault == "missing_dir":
+        kw["init_from"], err, match = str(tmp_path / "nope"), FileNotFoundError, "does not exist"
+    else:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=16))
+        err, match = ValueError, r"param shape core\.b: \(32,\) != \(64,\)"
+    with pytest.raises(err, match=match):
+        plearner.Learner(cfg, actor="fused", device="cpu", registry=telemetry.Registry(), **kw)
+    assert not os.path.exists(str(tmp_path / "nope"))  # a mistyped source is not created
+
+
+def test_shape_mismatches_names_each_mismatched_tensor():
+    from dotaclient_tpu_torch.utils.checkpoint import shape_mismatches
+
+    want = {"a": torch.zeros(2, 3), "b": torch.zeros(4), "c": torch.zeros(1)}
+    assert shape_mismatches({k: v.clone() for k, v in want.items()}, want) == []
+    got = {"a": torch.zeros(3, 2), "b": torch.zeros(4), "c": torch.zeros(2)}
+    assert shape_mismatches(got, want) == ["a: (3, 2) != (2, 3)", "c: (2,) != (1,)"]
+    assert shape_mismatches({"a": want["a"]}, want) == ["tree structure differs: missing ['b', 'c'], unexpected []"]
+
+
+def test_learner_cli_init_from(tmp_path, capsys):
+    src, dst = str(tmp_path / "src"), str(tmp_path / "dst")
+    assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", src]) == 0
+    capsys.readouterr()
+    assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", dst,
+                          "--init-from", src]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert rows[0]["step"] == 1.0  # a fresh count, not the source's
+    assert CheckpointManager(dst, registry=telemetry.Registry()).all_steps() == [1]

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package."""
 
+import json
 import os
 import pathlib
 import re
@@ -44,7 +45,37 @@ def test_port_imports_without_jax():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 45  # every module of the port, the socket slice's included
+    assert int(out.stdout.split()[-1]) >= 49  # every module of the port, the serve fleet's included
+
+
+# the router and its CLI with torch blocked as well: a router process holds
+# no CUDA context
+_NO_TORCH = r"""
+import sys
+BANNED = ("torch", "jax", "jaxlib", "flax", "dotaclient_tpu")
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"banned import: {name}")
+        return None
+sys.meta_path.insert(0, Blocker())
+from dotaclient_tpu_torch.serve import SessionRouter, route_call
+from dotaclient_tpu_torch.serve import router
+from dotaclient_tpu_torch.utils import alerts, fleet
+assert router.main(["--backends", "127.0.0.1:9", "--interval", "0.05", "--duration", "0.3"]) == 0
+assert not any(n.split(".")[0] in BANNED for n in sys.modules)
+print("router without torch")
+"""
+
+
+def test_router_runs_without_torch():
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines()[-1] == "router without torch"
+    assert json.loads(out.stdout.splitlines()[-2])["router_backend_deaths"] == 0.0
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bflax\b", r"dotaclient_tpu\.", r"from dotaclient_tpu import"])

@@ -471,9 +471,17 @@ def test_connect_with_backoff_retries_counts_and_stops():
 
 
 def test_router_mode_is_not_ported():
-    _, pcfg = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeClient("127.0.0.1", 1, pcfg, router=True)
+    """``router=True`` needs a router: pointed at a plain backend, which
+    skips route frames, the attach fails with a ConnectionError inside its
+    budget, and the backend counts neither a request nor a corrupt frame."""
+    jcfg, pcfg = configs(request_deadline_s=0.6)
+    with port_stack(pcfg, convert(flax_params(jcfg, seed=6, value_head=False))) as (reg, _, server):
+        t0 = time.monotonic()
+        with pytest.raises(ConnectionError):
+            ServeClient(*server.address, pcfg, timeout_s=TIMEOUT_S, router=True)
+        assert time.monotonic() - t0 < 0.6 + 0.5
+        snap = reg.snapshot()
+        assert snap["serve/requests_total"] == 0.0 and snap["transport/frames_corrupt_total"] == 0.0
 
 
 # -- weights subscription ------------------------------------------------------------
@@ -573,7 +581,8 @@ def test_serve_cli_serves_a_checkpoint_on_the_cpu(tmp_path):
     final = json.loads(out.lines()[-1])
     assert final["serve_weights_version"] == 12.0 and final["serve_requests_total"] >= 3.0
     assert set(final) == {"serve_requests_total", "serve_dispatches_total", "serve_p99_latency_ms",
-                          "serve_weights_version"}
+                          "serve_weights_version", "lstm_seq_launches"}
+    assert final["lstm_seq_launches"] == 0  # CPU tensors take the plain version
     snaps = [json.loads(l) for l in (tmp_path / "serve.jsonl").read_text().splitlines()]
     assert snaps and snaps[-1]["scalars"]["serve/weights_version"] == 12.0
 
