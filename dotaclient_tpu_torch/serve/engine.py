@@ -15,10 +15,16 @@ place with ``index_copy_``. Row ``max_slots`` is a scratch slot: padding rows
 gather and scatter it, so they never touch a live game, and a window never
 holds two requests for one slot (the second waits for the next window).
 
-Weight swaps and slot releases are marshalled to the batcher thread and
-applied BETWEEN dispatches, so every action of one batch comes from one
-weights version (the version rides each reply), and every carry mutation
-happens on the batcher thread.
+Weight swaps, slot releases and carry-shadow installs are marshalled to the
+batcher thread and applied BETWEEN dispatches, so every action of one batch
+comes from one weights version (the version rides each reply), and every
+carry mutation happens on the batcher thread. Releases and installs are
+taken in the same hold of the lock that closes a window, and applied before
+it dispatches: a request that joins an open window never dispatches ahead
+of the shadow row it carries or of a release of its slot that came before
+it, and a released game's requests still in the window are dropped. (The
+reference takes them once per batcher turn, before it opens the window, so
+a request that joins the open window dispatches without them.)
 
 Sampling determinism: dispatch ``i`` draws its Gumbel noise from a
 generator seeded from ``(serve.seed, i)``, so ``reference_step`` replays a
@@ -151,6 +157,7 @@ class ServeEngine:
         self._dispatch_idx = 0
         self._cond = threading.Condition()
         self._pending: Deque[_Request] = deque()
+        self._window: List[_Request] = []  # the open window's requests
         self._reset_slots: Set[int] = set()
         self._stopped = False
         self._weights_lock = threading.Lock()
@@ -293,11 +300,14 @@ class ServeEngine:
 
     def release_slot(self, slot: int) -> None:
         """A game detached: zero its carry row (between dispatches, on the
-        batcher) and discard its still-pending requests, whose carry would
-        otherwise land in the reclaimed row."""
+        batcher, before the next window dispatches) and discard its
+        still-pending requests, those in the open window included, and its
+        shadow row, whose carry would otherwise land in the reclaimed row."""
         with self._cond:
             if any(r.slot == slot for r in self._pending):
                 self._pending = deque(r for r in self._pending if r.slot != slot)
+            self._window = [r for r in self._window if r.slot != slot]
+            self._install_carries.pop(slot, None)
             self._reset_slots.add(slot)
             self._cond.notify()
 
@@ -383,10 +393,7 @@ class ServeEngine:
                     self._util.phase("window_wait", time.perf_counter() - t_w)
                 if self._stopped and not self._pending:
                     return
-                resets = list(self._reset_slots)
-                self._reset_slots.clear()
-                installs = list(self._install_carries.items())
-                self._install_carries.clear()
+            rows, resets, installs = self._collect_window()
             if resets:
                 idx = torch.as_tensor(resets, dtype=torch.int64, device=self._device)
                 for c in self._carries:
@@ -398,7 +405,6 @@ class ServeEngine:
                     c[slot] = torch.as_tensor(leaf).to(self._device, c.dtype)
                 self._tel.counter("serve/carry_installs_total").inc()
             self._apply_pending_weights()
-            rows = self._collect_window()
             if rows:
                 try:
                     self._dispatch_window(rows)
@@ -426,38 +432,49 @@ class ServeEngine:
         self._tel.gauge("serve/weights_version").set(float(self._version))
         self._tel.counter("serve/weight_swaps_total").inc()
 
-    def _collect_window(self) -> List[_Request]:
+    def _collect_window(self) -> Tuple[List[_Request], List[int], List[Tuple[int, Tuple[np.ndarray, ...]]]]:
+        """Fill the open window (``self._window``) until it is full or its
+        deadline passes, then close it and, in the same hold of the lock,
+        take the slot releases and shadow-row installs submitted so far.
+        Returns (the window's requests, the slots to zero, the rows to
+        install); the requests are empty when nothing is pending."""
         scfg = self._scfg
         window_s = scfg.batch_window_ms / 1e3
-        rows: List[_Request] = []
-        slots: Set[int] = set()
         deadline: Optional[float] = None
         while True:
             with self._cond:
+                slots = {r.slot for r in self._window}
                 held: List[_Request] = []
-                while self._pending and len(rows) < scfg.max_batch:
+                while self._pending and len(self._window) < scfg.max_batch:
                     req = self._pending.popleft()
                     if req.slot in slots:
                         # one request per slot per dispatch: the second
                         # waits for the next window
                         held.append(req)
                         continue
-                    rows.append(req)
+                    self._window.append(req)
                     slots.add(req.slot)
                 for req in reversed(held):
                     self._pending.appendleft(req)
-                if not rows:
-                    return rows
-                if deadline is None:
-                    # the window opened when the FIRST request arrived
-                    deadline = rows[0].t0 + window_s
-                if len(rows) >= scfg.max_batch:
-                    self._tel.counter("serve/max_batch_hits").inc()
-                    return rows
-                now = time.perf_counter()
-                if now >= deadline or self._stopped:
-                    self._tel.counter("serve/batch_window_hits").inc()
-                    return rows
+                close = not self._window
+                if self._window:
+                    if deadline is None:
+                        # the window opened when the FIRST request arrived
+                        deadline = self._window[0].t0 + window_s
+                    now = time.perf_counter()
+                    if len(self._window) >= scfg.max_batch:
+                        self._tel.counter("serve/max_batch_hits").inc()
+                        close = True
+                    elif now >= deadline or self._stopped:
+                        self._tel.counter("serve/batch_window_hits").inc()
+                        close = True
+                if close:
+                    rows, self._window = self._window, []
+                    resets = list(self._reset_slots)
+                    self._reset_slots.clear()
+                    installs = list(self._install_carries.items())
+                    self._install_carries.clear()
+                    return rows, resets, installs
                 self._cond.wait(min(deadline - now, 0.05))
                 self._util.phase("window_wait", time.perf_counter() - now)
 

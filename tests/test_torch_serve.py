@@ -45,7 +45,7 @@ class ReplyCollector:
         self.cond = threading.Condition()
         self.replies = []
 
-    def __call__(self, actions, logp, version, request_id, dispatch_idx):
+    def __call__(self, actions, logp, version, request_id, dispatch_idx, carry=None):
         with self.cond:
             self.replies.append(dict(
                 actions=np.asarray(actions).copy(), logp=logp, version=version,
@@ -189,6 +189,70 @@ def test_release_slot_zeroes_the_carry_row():
             _, _, carries = engine.reference_step([obs_row(obs, i)], [0], [z], carries, idx)
         stale = engine.reference_step([obs_row(obs, 2)], [0], [0.0], carries, served["dispatch_idx"])
         assert float(stale[1][0]) != served["logp"]
+    finally:
+        engine.stop()
+
+
+def replay_window(engine, replies, rows, slots, resets, carries):
+    """The one dispatch that served ``replies`` (in row order), replayed on
+    ``carries``: its packed actions and log-probs must be the served ones."""
+    assert len({r["dispatch_idx"] for r in replies}) == 1, "the requests did not share a window"
+    packed, logp, _ = engine.reference_step(rows, slots, resets, carries, replies[0]["dispatch_idx"])
+    for i, r in enumerate(replies):
+        np.testing.assert_array_equal(packed[i], r["actions"])
+        assert float(logp[i]) == r["logp"]
+
+
+def test_shadow_row_joining_an_open_window_is_installed_before_it_dispatches():
+    """A re-homed game's request with its carry row arrives while another
+    game's window is open: the row is installed before that window
+    dispatches, not after."""
+    jcfg, pcfg = small_configs(max_batch=4, batch_window_ms=400.0, carry_shadow=True)
+    engine = port_engine(pcfg, convert(slim_params(jcfg, seed=13)))
+    sink = ReplyCollector()
+    obs = random_obs(pcfg, (2,), seed=14)
+    rng = np.random.default_rng(15)
+    H = pcfg.model.hidden_dim
+    wire = {"c0": rng.normal(size=H).astype(np.float32), "c1": rng.normal(size=H).astype(np.float32)}
+    try:
+        engine.submit(0, obs_row(obs, 0), reset=True, reply=sink, request_id=1)
+        time.sleep(0.1)  # the window is open
+        engine.submit(1, obs_row(obs, 1), reset=False, reply=sink, request_id=2, carry=wire)
+        replies = sink.wait(2)
+        carries = engine.initial_carries()
+        for store, key in zip(carries, ("c0", "c1")):
+            store[1] = torch.from_numpy(wire[key]).to(store.dtype)
+        replay_window(engine, replies, [obs_row(obs, 0), obs_row(obs, 1)], [0, 1], [1.0, 0.0], carries)
+    finally:
+        engine.stop()
+
+
+def test_release_and_reattach_inside_an_open_window_serve_a_fresh_carry():
+    """A slot released while another game's window is open, and attached
+    again by a game that sends no reset into that window: the release's
+    zeroing lands before the window dispatches, so the new game starts from
+    zeros and keeps the carry its first step wrote."""
+    jcfg, pcfg = small_configs(max_batch=4, batch_window_ms=400.0)
+    engine = port_engine(pcfg, convert(slim_params(jcfg, seed=16)))
+    sink = ReplyCollector()
+    obs = random_obs(pcfg, (4,), seed=17)
+    try:
+        engine.submit(0, obs_row(obs, 0), reset=True, reply=sink, request_id=1)  # the old game
+        sink.wait(1)
+        engine.submit(1, obs_row(obs, 1), reset=True, reply=sink, request_id=2)
+        time.sleep(0.1)  # the window is open
+        engine.release_slot(0)
+        engine.submit(0, obs_row(obs, 2), reset=False, reply=sink, request_id=3)  # the new game
+        replies = sink.wait(3)[1:]
+        replay_window(engine, replies, [obs_row(obs, 1), obs_row(obs, 2)], [1, 0], [1.0, 0.0],
+                      engine.initial_carries())
+        # its next step goes on from the carry its first step wrote
+        engine.submit(0, obs_row(obs, 3), reset=False, reply=sink, request_id=4)
+        last = sink.wait(4)[3]
+        carries = engine.initial_carries()
+        engine.reference_step([obs_row(obs, 1), obs_row(obs, 2)], [1, 0], [1.0, 0.0], carries,
+                              replies[0]["dispatch_idx"])
+        replay_window(engine, [last], [obs_row(obs, 3)], [0], [0.0], carries)
     finally:
         engine.stop()
 
