@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training and league paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -13,11 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
    seeded random inputs at every shape the port gives it (for the LSTM:
    the serving step B=64 T=1, the learner's sequence B=32 T=16, the test
    shape, a batch with a partial row tile, the training path's B=128 at
-   T=1 and T=17, and the parity digest's B=1 T=1), with the f32 tolerance
+   T=1 and T=17, the parity digest's B=1 T=1, and the 5v5 league's
+   B=1,280 at T=1 and T=17), with the f32 tolerance
    stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
-   function (``torch.lstm_cell`` at T=1; at T=16 cuDNN's ``torch.lstm`` on
+   function (``torch.lstm_cell`` at T=1; at T>1 cuDNN's ``torch.lstm`` on
    a reset-free copy, a labelled yardstick only) and its roofline bound;
    the time of a single call with the host's issue included (events
    around each call, median of 200) is logged too;
@@ -113,6 +114,30 @@ Phases (any failure exits non-zero and prints no result line):
     re-home above it. Logged: each game's blackout (SIGKILL to its first
     reply from C), round trip p50/p99 before and after, each child's start.
     Every child is killed in a ``finally``.
+12. league: ``Learner(cfg, actor="fused")`` at the 5v5 league shape (256
+    games, ``team_size`` 5, hero pool (1, 2, 3), ``opponent="league"``,
+    PFSP with the default pool of 8 and ``selfplay_prob`` 0.5,
+    ``anchor_prob`` 0.25 against the ``mixed`` anchor bots), with games of
+    20 s, ``snapshot_every`` 2 and ``opponent_hold`` 2 so that the phase
+    sees several snapshots and frozen draws: 2 warm iterations, then 8
+    timed ones under ``torch.cuda.set_sync_debug_mode("error")`` (the PFSP
+    flush at the end of ``train`` runs with the guard lifted). Checked:
+    finite loss and ``health_ok`` 1, every param moved, every action of
+    the learner lanes and of the opponent lanes legal under its masks,
+    episodes ended, more than one snapshot, a frozen draw whose PFSP games
+    equal the ``league_episodes`` its calls reported, every snapshot
+    bitwise equal to its value when taken, and ``lstm_seq`` launched
+    iterations x (2 x rollout_len + updates) times. Logged: trained
+    frames/s, rollout and update ms, and the busy share and top kernels of
+    2 more iterations under the profiler. Then, on its params:
+    ``evaluate`` against ``scripted_hard`` and (league mode) against the
+    step-0 snapshot, 64 games each (episodes >= games, win rate in [0, 1],
+    ``lstm_seq`` launches = the policy steps it ran, wall time logged);
+    ``python -m dotaclient_tpu_torch.league`` as a child on a checkpoint of
+    the phase with ``--vs`` on a second; and ``python -m
+    dotaclient_tpu_torch.train.demo`` as a child at a smoke size. Each
+    child must exit 0 with its result line; every wait is bounded and every
+    child is killed in a ``finally``.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -255,10 +280,12 @@ def lstm_bound(B, T, D, H):
 # (B, T, D, H): the serving step, the learner's sequence, the small test
 # shape, a batch that leaves one partial row tile, the fused training
 # path's two (the rollout step over 128 lanes and the update's sequence
-# forward, rollout_len 16 plus the bootstrap step), and the re-home parity
-# digest's step (max_batch 1)
+# forward, rollout_len 16 plus the bootstrap step), the re-home parity
+# digest's step (max_batch 1), and the 5v5 league's two (1,280 learner
+# lanes, and as many opponent lanes, at T=1; the update at T=17)
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
-               (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128))
+               (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
+               (1280, 1, 128, 128), (1280, 17, 128, 128))
 
 
 def max_err(got, want):
@@ -338,7 +365,7 @@ def check_lstm_kernel(device, seed):
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128 and B in (32, 128):
+        if T > 1 and D == H == 128 and B in (32, 128, 1280):
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -355,6 +382,7 @@ def check_lstm_kernel(device, seed):
         shapes[(B, T)] = shape
     serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
     train_step, train_seq, digest_step = shapes[(128, 1)], shapes[(128, 17)], shapes[(1, 1)]
+    league_step, league_seq = shapes[(1280, 1)], shapes[(1280, 17)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -372,9 +400,12 @@ def check_lstm_kernel(device, seed):
         "train_rollout_step_ms": train_step["ms"],
         "train_sequence_ms": train_seq["ms"],
         "digest_step_ms": digest_step["ms"],
+        "league_rollout_step_ms": league_step["ms"],
+        "league_sequence_ms": league_seq["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
-                   "digest_step": digest_step, "shapes": list(shapes.values())}
+                   "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
+                   "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -821,15 +852,15 @@ class Recorder:
             e.record()
             return e
 
-        def timed_rollout(policy, state, **kw):
+        def timed_rollout(params, state, opp_params=None, **kw):
             start = event()
-            out = rollout(policy, state, **kw)
+            out = rollout(params, state, opp_params, **kw)
             self.marks.append([start, event()])
             self.chunks.append(out[1])
             return out
 
-        def timed_fused(state, actor_state):
-            out = fused(state, actor_state)
+        def timed_fused(state, actor_state, opp_params=None):
+            out = fused(state, actor_state, opp_params)
             self.marks[-1].append(event())
             self.metrics.append(out[2])
             return out
@@ -905,18 +936,7 @@ def train_phase(device, seed):
         profile = profiled(lambda: learner.train(TRAIN_PROFILED * updates))
     finally:
         rec.close()
-    moved = {k: not torch.equal(v, before[k]) for k, v in learner.policy.state_dict().items()}
-    cast_legal, ability_choice = cast_frames(chunks)
-    # the ability head's gradient is exactly 0 unless some frame could cast
-    # with two or more abilities legal: with one, its distribution is a
-    # point mass (log-prob 0 whatever the logits), and where CAST is
-    # forbidden its terms are weighted by a probability of exactly 0. The
-    # lane sim exposes one ability, so there it stays put; phase 7 holds its
-    # gradient on the card on a chunk whose masks give it a choice
-    still = [k for k, v in moved.items() if not v and not (k.startswith("head_ability.") and ability_choice == 0)]
-    if still:
-        raise AssertionError(f"params that did not move: {still} ({cast_legal} frames could cast, "
-                             f"{ability_choice} of them with a choice of ability)")
+    moved, cast_legal, ability_choice = check_params_moved(before, learner.policy, chunks)
     illegal, n_actions = check_chunk_actions(chunks)
     if illegal:
         raise AssertionError(f"{illegal} of {n_actions} sampled actions illegal under their masks")
@@ -957,6 +977,27 @@ def train_phase(device, seed):
     )
     log_profile(f"train profile: {TRAIN_PROFILED} iterations", profile)
     return result, learner, chunks[-1]
+
+
+def check_params_moved(before, policy, chunks):
+    """Every param tensor of ``policy`` moved from ``before``, but the
+    ability head where no frame of the chunks gave it a choice. Returns
+    (moved by name, frames that could cast, those with a choice)."""
+    import torch
+
+    moved = {k: not torch.equal(v, before[k]) for k, v in policy.state_dict().items()}
+    cast_legal, ability_choice = cast_frames(chunks)
+    # the ability head's gradient is exactly 0 unless some frame could cast
+    # with two or more abilities legal: with one, its distribution is a
+    # point mass (log-prob 0 whatever the logits), and where CAST is
+    # forbidden its terms are weighted by a probability of exactly 0. The
+    # lane sim exposes one ability, so there it stays put; phase 7 holds its
+    # gradient on the card on a chunk whose masks give it a choice
+    still = [k for k, v in moved.items() if not v and not (k.startswith("head_ability.") and ability_choice == 0)]
+    if still:
+        raise AssertionError(f"params that did not move: {still} ({cast_legal} frames could cast, "
+                             f"{ability_choice} of them with a choice of ability)")
+    return moved, cast_legal, ability_choice
 
 
 def cast_frames(chunks):
@@ -1726,6 +1767,334 @@ def fleet_cli_phase(ckpt_dir, step, seed):
     return result
 
 
+# -- phase 12: league self-play at the 5v5 league shape ------------------------------
+
+
+LEAGUE_ENVS, LEAGUE_TEAM, LEAGUE_MAX_DOTA_TIME = 256, 5, 20.0
+LEAGUE_WARM, LEAGUE_TIMED, LEAGUE_PROFILED = 2, 8, 2
+LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 16
+DEMO_ARGS = ("--steps", "4", "--n-envs", "64", "--team-size", "5", "--opponent", "league",
+             "--max-dota-time", "20", "--eval-games", "16")
+CHILD_S = 600.0
+
+
+def league_config(seed):
+    """BASELINE config 5's league shape at the default model: 256 games of
+    5v5, hero pool (1, 2, 3), PFSP at the default pool and self-play share,
+    a quarter of the games anchored to the mixed bots; cut to 20 s games,
+    a snapshot every 2 steps and draws held for 2."""
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(
+        cfg,
+        env=dataclasses.replace(cfg.env, n_envs=LEAGUE_ENVS, team_size=LEAGUE_TEAM, hero_pool=(1, 2, 3),
+                                opponent="league", max_dota_time=LEAGUE_MAX_DOTA_TIME),
+        league=dataclasses.replace(cfg.league, enabled=True, snapshot_every=2, opponent_hold=2,
+                                   anchor_prob=0.25, anchor_opponent="mixed"),
+        # no log boundary inside the phase: a log line reads the device
+        log_every=10 ** 9,
+        seed=seed,
+    )
+
+
+def actions_legal(masks, acts):
+    """``action_is_legal`` over a batch of rows on the device: [B] bool."""
+    import torch
+
+    def ok(mask, i):
+        n = mask.shape[-1]
+        picked = mask.gather(-1, i.clamp(0, n - 1).long()[:, None])[:, 0]
+        return (i >= 0) & (i < n) & (picked | ~mask.any(dim=-1))
+
+    a = acts["action_type"]
+    good = ok(masks["mask_action_type"], a)
+    for head in ("move_x", "move_y"):
+        good &= (acts[head] >= 0) & (acts[head] < 9)
+    tmask = torch.where((a == 3)[:, None], masks["mask_cast_target"], masks["mask_target_unit"])
+    good &= ~((a == 2) | (a == 3)) | ok(tmask, acts["target_unit"])
+    good &= (a != 3) | ok(masks["mask_ability"], acts["ability"])
+    return good
+
+
+class LeagueRecorder(Recorder):
+    """The ``Recorder``, and, with no read of the device: each fused call's
+    opponent uid and stats, a copy of every snapshot as it is taken, and
+    every ``distributions.sample`` call's masks and actions (in a league
+    rollout the calls alternate learner lanes, opponent lanes). The PFSP
+    flush, a read of the device at the end of ``train``, runs with the sync
+    guard lifted."""
+
+    def __init__(self, learner):
+        import torch
+
+        from dotaclient_tpu_torch.models import distributions as D
+
+        super().__init__(learner)
+        pool = learner.league
+        self.reports, self.samples = [], []
+        self.witness = {s.uid: {k: v.clone() for k, v in s.params.items()} for s in pool.snapshots}
+        report, snapshot, flush, sample = (learner._report_league, pool.maybe_snapshot,
+                                           learner._flush_league_reports, D.sample)
+
+        def recording_report(uid, stats):
+            self.reports.append((uid, stats))
+            report(uid, stats)
+
+        def witnessed_snapshot(params, version, step):
+            took = snapshot(params, version, step)
+            if took:
+                snap = pool.snapshots[-1]
+                self.witness[snap.uid] = {k: v.clone() for k, v in snap.params.items()}
+            return took
+
+        def unguarded_flush():
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                flush()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        def recording_sample(logits, obs, **kw):
+            acts, logp = sample(logits, obs, **kw)
+            self.samples.append(({k: v for k, v in obs.items() if k.startswith("mask_")}, acts))
+            return acts, logp
+
+        learner._report_league = recording_report
+        pool.maybe_snapshot = witnessed_snapshot
+        learner._flush_league_reports = unguarded_flush
+        D.sample = recording_sample
+        restore = self._restore
+
+        def restore_all():
+            restore()
+            D.sample = sample
+
+        self._restore = restore_all
+
+
+def counted_eval(learner, mode, opponent_params, seed, device):
+    """``evaluate`` of the learner's params, its wall time and its
+    ``lstm_seq`` launches beside the policy steps its collects ran."""
+    import torch
+
+    from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
+    from dotaclient_tpu_torch.league import evaluate
+    from dotaclient_tpu_torch.ops import lstm
+
+    collect, sides = DeviceActor.collect, []
+
+    def counting(self, params, opp_params=None):
+        sides.append(1 + (self._opp_feat is not None))
+        return collect(self, params, opp_params)
+
+    torch.cuda.synchronize()
+    before = lstm.lstm_sequence_kernel.launches
+    t0 = time.perf_counter()
+    DeviceActor.collect = counting
+    try:
+        result = evaluate(learner.config, learner.policy, learner.policy.state_dict(), mode,
+                          opponent_params=opponent_params, n_games=LEAGUE_EVAL_GAMES, seed=seed, device=device)
+        torch.cuda.synchronize()
+    finally:
+        DeviceActor.collect = collect
+    wall_s = time.perf_counter() - t0
+    launches = lstm.lstm_sequence_kernel.launches - before
+    T = learner.config.ppo.rollout_len
+    steps = len(sides) * T
+    if launches != sum(sides) * T:
+        raise AssertionError(f"evaluate vs {mode}: lstm_seq launched {launches} times in {steps} rollout steps "
+                             f"of {sides[0]} policy step(s) each")
+    if not (result["episodes"] >= LEAGUE_EVAL_GAMES and 0.0 <= result["win_rate"] <= 1.0):
+        raise AssertionError(f"evaluate vs {mode}: {result} for {LEAGUE_EVAL_GAMES} games")
+    log(f"evaluate vs {mode}: {LEAGUE_EVAL_GAMES} games, {result['episodes']:.0f} episodes, win rate "
+        f"{result['win_rate']:.4f}, episode reward {result['episode_reward_mean']:.4g}; {len(sides)} collects, "
+        f"{steps} rollout steps, lstm_seq launches {launches}; {wall_s:.2f} s wall")
+    return {**result, "collects": len(sides), "rollout_steps": steps, "lstm_seq_launches": launches,
+            "wall_s": wall_s}
+
+
+def run_child(args, what):
+    """A child of the port run to its exit within CHILD_S: (its lines, its
+    wall seconds). It must exit 0; it is killed in a ``finally``."""
+    child = Child(list(args))
+    try:
+        rc = child.proc.wait(timeout=CHILD_S)
+        child._reader.join(30)
+        lines = child.drain()
+    except BaseException:
+        log(f"{what}'s output so far:\n" + "\n".join(child.drain()[-20:]))
+        raise
+    finally:
+        child.kill()
+    wall_s = time.perf_counter() - child.t0
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}: {lines[-10:]}")
+    return lines, wall_s
+
+
+def league_children(learner, ckpt_dir):
+    """The league CLI on a checkpoint of the phase against a second one
+    (the step-0 snapshot's params), and the demo at a smoke size, each as a
+    child process."""
+    import os
+
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, _to_cpu
+
+    a, b = os.path.join(ckpt_dir, "league_a"), os.path.join(ckpt_dir, "league_b")
+    CheckpointManager(a, registry=telemetry.Registry()).save(learner.state, learner.config, force=True)
+    snap0 = learner.league.snapshots[0]
+    CheckpointManager(b, registry=telemetry.Registry()).save_host(
+        {"step": 0, "version": 0, "params": {k: v.cpu() for k, v in snap0.params.items()},
+         "opt_state": _to_cpu(learner.state.optimizer.state_dict())}, learner.config, force=True)
+    lines, cli_s = run_child(["dotaclient_tpu_torch.league", "--checkpoint", a, "--vs", b,
+                              "--games", str(LEAGUE_CLI_GAMES)], "the league CLI")
+    cli = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+    if not (cli["games"] >= LEAGUE_CLI_GAMES and cli["opponent"] == f"checkpoint:{b}@step0"
+            and cli["step"] == learner.state.step and 0.0 <= cli["win_rate"] <= 1.0):
+        raise AssertionError(f"the league CLI's line {cli}")
+    log(f"league CLI: {json.dumps(cli)} in {cli_s:.1f} s wall")
+    lines, demo_s = run_child(["dotaclient_tpu_torch.train.demo", *DEMO_ARGS], "the demo")
+    summary = json.loads(next(line for line in reversed(lines) if line.startswith("DEMO_SUMMARY "))
+                         [len("DEMO_SUMMARY "):])
+    rates = [v for k, v in summary.items() if "_win_" in k]
+    flag = dict(zip(DEMO_ARGS[::2], DEMO_ARGS[1::2]))
+    if not (summary["steps"] == int(flag["--steps"]) and summary["team_size"] == int(flag["--team-size"])
+            and len(rates) == 5
+            and all(0.0 <= r <= 1.0 for r in rates)):
+        raise AssertionError(f"the demo's summary {summary}")
+    log(f"demo {' '.join(DEMO_ARGS)}: DEMO_SUMMARY {json.dumps(summary)} in {demo_s:.1f} s wall")
+    return {"cli": {**cli, "wall_s": cli_s}, "demo": {**summary, "wall_s": demo_s}}
+
+
+def league_phase(device, seed, ckpt_dir):
+    """The fused learner in league mode on the card: warm-up, the timed and
+    checked iterations under the sync guard, a profiled window, then the
+    evaluations and the two CLIs on its params."""
+    import torch
+
+    from dotaclient_tpu_torch.league import LIVE
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = league_config(seed)
+    T = cfg.ppo.rollout_len
+    updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    da, pool = learner.device_actor, learner.league
+    rec = LeagueRecorder(learner)
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        learner.train(LEAGUE_WARM * updates)
+        torch.cuda.synchronize()
+        rec.clear()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = learner.train(LEAGUE_TIMED * updates)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = lstm.lstm_sequence_kernel.launches
+        iters = LEAGUE_WARM + LEAGUE_TIMED
+        if launches != iters * (2 * T + updates):
+            raise AssertionError(f"lstm_seq launched {launches} times in {iters} league iterations, "
+                                 f"expected {iters * (2 * T + updates)}")
+        metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+        for i, m in enumerate(metrics):
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+                raise AssertionError(f"league iteration {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                     f"health_ok {m['health_ok']}")
+        frames = LEAGUE_TIMED * da.n_lanes * T
+        if out["frames_trained"] != frames or len(metrics) != LEAGUE_TIMED:
+            raise AssertionError(f"{out['frames_trained']} frames in {len(metrics)} iterations, expected {frames}")
+        rollout_ms = statistics.mean(a.elapsed_time(b) for a, b, _ in rec.marks)
+        update_ms = statistics.mean(b.elapsed_time(c) for _, b, c in rec.marks)
+        # PFSP: each frozen opponent's record equals the league episodes
+        # (and wins) of the calls that played it, read after the flush
+        reports = [(uid, float(st["league_episodes"].sum()), float(st["league_wins"].sum()))
+                   for uid, st in rec.reports]
+        drawn = {uid for uid, _, _ in reports if uid != LIVE}
+        played = {uid: sum(g for u, g, _ in reports if u == uid) for uid in drawn}
+        for snap in pool.snapshots:
+            if snap.uid in drawn:
+                won = sum(w for u, _, w in reports if u == snap.uid)
+                if (snap.games, snap.wins) != (played[snap.uid], won):
+                    raise AssertionError(f"snapshot {snap.uid}: PFSP record {snap.games} games, {snap.wins} wins; "
+                                         f"its calls reported {played[snap.uid]} and {won}")
+        if not any(played[s.uid] > 0 for s in pool.snapshots if s.uid in drawn):
+            raise AssertionError(f"no frozen draw in the pool played a full league episode: draws "
+                                 f"{[u for u, _, _ in reports]}, league episodes {played}")
+        if len(pool) < 2:
+            raise AssertionError(f"{len(pool)} snapshot(s) in the pool")
+        for snap in pool.snapshots:
+            if not all(torch.equal(v, rec.witness[snap.uid][k]) for k, v in snap.params.items()):
+                raise AssertionError(f"snapshot {snap.uid} (step {snap.step}) changed after it was taken")
+        chunks, samples = list(rec.chunks), list(rec.samples)
+        rec.close()
+        profile = profiled(lambda: learner.train(LEAGUE_PROFILED * updates))
+    finally:
+        rec.close()
+    moved, cast_legal, ability_choice = check_params_moved(before, learner.policy, chunks)
+    if len(samples) != 2 * iters * T:
+        raise AssertionError(f"{len(samples)} sample calls in {iters} league iterations, expected {2 * iters * T}")
+    illegal, n_actions = [0, 0], [0, 0]
+    for i, (masks, acts) in enumerate(samples):
+        good = actions_legal(masks, acts)
+        illegal[i % 2] += int((~good).sum())
+        n_actions[i % 2] += good.numel()
+    if any(illegal):
+        raise AssertionError(f"illegal actions: learner lanes {illegal[0]} of {n_actions[0]}, "
+                             f"opponent lanes {illegal[1]} of {n_actions[1]}")
+    stats = da.drain_stats()
+    if not stats["episodes_done"] > 0:
+        raise AssertionError("no episode ended in the league phase")
+    result = {
+        "n_envs": cfg.env.n_envs, "team_size": cfg.env.team_size, "lanes": da.n_lanes,
+        "opponent_lanes": da.n_opp_lanes, "anchor_games": da.n_anchor_games, "rollout_len": T,
+        "updates_per_iteration": updates, "warm_iterations": LEAGUE_WARM, "timed_iterations": LEAGUE_TIMED,
+        "frames_trained": frames,
+        "frames_per_s": frames / wall_s,
+        "iteration_ms": wall_s * 1e3 / LEAGUE_TIMED,
+        "rollout_ms": rollout_ms,
+        "update_ms": update_ms,
+        "lstm_seq_launches": launches,
+        "actions_checked": {"learner": n_actions[0], "opponent": n_actions[1]},
+        "params_moved": sum(moved.values()), "params": len(moved),
+        "frames_that_could_cast": cast_legal, "frames_with_a_choice_of_ability": ability_choice,
+        "episodes_done": stats["episodes_done"], "win_rate": stats["win_rate"],
+        "draws": [uid for uid, _, _ in reports],
+        "snapshots": [{"uid": s.uid, "step": s.step, "games": s.games, "wins": s.wins} for s in pool.snapshots],
+        "last_metrics": metrics[-1],
+        "sync_debug_mode": "error",
+        "profile": {"iterations": LEAGUE_PROFILED, **profile},
+    }
+    log(
+        f"league: {LEAGUE_TIMED} timed fused iterations x {da.n_lanes} learner lanes (and {da.n_opp_lanes} "
+        f"opponent lanes; {da.n_anchor_games} anchor games) x {T} steps = {frames} trained frames in "
+        f"{wall_s * 1e3:.1f} ms: {result['frames_per_s']:.0f} frames/s, {result['iteration_ms']:.2f} ms an "
+        f"iteration (rollout {rollout_ms:.2f} ms, update {update_ms:.2f} ms between CUDA events); no host sync "
+        f"inside the iterations; loss {metrics[-1]['loss']:.4g}, health_ok 1 in all; {n_actions[0]} learner and "
+        f"{n_actions[1]} opponent actions legal; {sum(moved.values())} of {len(moved)} param tensors moved; "
+        f"{stats['episodes_done']:.0f} episodes; draws {result['draws']}; snapshots {result['snapshots']}, each "
+        f"bitwise as taken; lstm_seq launches {launches}"
+    )
+    log_profile(f"league profile: {LEAGUE_PROFILED} iterations", profile)
+    if pool.snapshots[0].step != 0:
+        raise AssertionError("the step-0 snapshot left the pool before the league evaluation")
+    evals = {"scripted_hard": counted_eval(learner, "scripted_hard", None, seed, device),
+             "league": counted_eval(learner, "league", pool.snapshots[0].params, seed, device)}
+    result["eval"] = {**evals, "lstm_seq_launches": sum(e["lstm_seq_launches"] for e in evals.values())}
+    result["children"] = league_children(learner, ckpt_dir)
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1766,17 +2135,21 @@ def main() -> int:
         sock["cli"] = cli_phase(ckpt_dir, learner.state.step, args.seed)
         fleet = {"parity": fleet_parity_phase(device, args.seed, ckpt_dir),
                  "cli": fleet_cli_phase(ckpt_dir, learner.state.step, args.seed)}
+        league = league_phase(device, args.seed, ckpt_dir)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
-                                      "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"]}
+                                      "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"],
+                                      "train_league": league["lstm_seq_launches"],
+                                      "league_eval": league["eval"]["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
-                       "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet}, f, indent=2)
+                       "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
+                       "league": league}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -7,24 +7,29 @@ learner's sequence forward resets the carry mid-chunk), so no frame is
 padding. Episode stats accumulate on the device as per-game and per-lane
 partials and are read only by ``drain_stats``.
 
-Randomness comes from the actor's own ``torch.Generator`` on the device,
-drawn in a fixed order each step: the five Gumbel arrays of the action
-heads, the sim step's wave jitter, then the reset's. ``_rollout_impl`` also
-takes that noise as inputs, so a test can hand in what the JAX package
-drew from its per-game keys.
+In league mode (``opponent="league"``) the Dire players are opponent
+lanes: their own featurizer, their own recurrent carry, and a policy step
+with the frozen opponent's params (``functional_call`` on the actor's
+policy), whose actions overwrite the learner side's for those players
+before the sim steps. Anchor games pin their opponent side to a scripted
+bot, whose control the sim applies over those actions.
 
-The opponent modes ``scripted_easy``, ``scripted_hard`` and ``selfplay``
-are supported. ``league`` (frozen snapshot opponents on their own lanes)
-is not ported yet: ROADMAP queue 1, item 5.
+Randomness comes from the actor's own ``torch.Generator`` on the device,
+drawn in a fixed order each step: the five Gumbel arrays of the learner
+lanes' heads, those of the opponent lanes' heads (league mode), the sim
+step's wave jitter, then the reset's. ``_rollout_impl`` also takes that
+noise as inputs, so a test can hand in what the JAX package drew from its
+per-game keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
@@ -46,6 +51,7 @@ class DeviceActorState:
 
     sim: sim_mod.SimState
     carry: Tuple[torch.Tensor, torch.Tensor]   # learner lanes' LSTM state (c, h)
+    opp_carry: Tuple[torch.Tensor, torch.Tensor]  # opponent lanes' (a 1-row dummy without them)
     ep_return: torch.Tensor                    # f32 [L] running episode return
     ep_steps: torch.Tensor                     # i32 [N] env steps into each game's episode
     # cumulative episode stats as per-game/per-lane partials; drain_stats
@@ -74,6 +80,11 @@ def tree_map(fn, *trees):
     if isinstance(trees[0], Mapping):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+# the policy of one side of a rollout: a module (its own params) or a state
+# dict applied to the actor's policy with ``functional_call``
+PolicyParams = Union[Policy, Mapping[str, torch.Tensor]]
 
 
 def build_spec(config: RunConfig) -> VecSimSpec:
@@ -112,11 +123,6 @@ class DeviceActor:
         registry: Optional[telemetry.Registry] = None,
         device: DeviceLike = None,
     ) -> None:
-        if config.env.opponent == "league":
-            raise NotImplementedError(
-                "opponent 'league' (frozen snapshot opponents on their own lanes) is not ported "
-                "yet: ROADMAP queue 1, item 5 (league)"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.policy = policy
@@ -125,7 +131,12 @@ class DeviceActor:
         self.learner_players = learner_players
         self.opponent_players = opponent_players
         self.feat = TorchFeaturizer(self.spec, config.obs, config.actions, learner_players, self.device)
+        self._opp_feat = (
+            TorchFeaturizer(self.spec, config.obs, config.actions, opponent_players, self.device)
+            if opponent_players else None
+        )
         self.n_lanes = self.feat.n_lanes
+        self.n_opp_lanes = max(len(opponent_players) * self.spec.n_games, 1)
         N = self.spec.n_games
 
         hero_ids, control = draft_games(
@@ -144,6 +155,9 @@ class DeviceActor:
         self._outcome_masks = outcome_ingraph.bucket_masks(
             N, config.env.opponent, self.n_anchor_games, self.device
         )
+        # players whose sim actions come from the opponent lanes
+        self._opp_mask = torch.zeros(self.spec.n_players, dtype=torch.bool, device=self.device)
+        self._opp_mask[opponent_players] = True
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         sim0 = sim_mod.init_state(
@@ -155,6 +169,7 @@ class DeviceActor:
         self.state = DeviceActorState(
             sim=sim0,
             carry=policy.initial_state(self.n_lanes),
+            opp_carry=policy.initial_state(self.n_opp_lanes),
             ep_return=torch.zeros((self.n_lanes,), dtype=torch.float32, device=self.device),
             ep_steps=torch.zeros((N,), dtype=torch.int32, device=self.device),
             stats=self._zero_stats(),
@@ -171,8 +186,10 @@ class DeviceActor:
         outcome_records.ensure_actor_metrics(self._tel)
 
     def reset_recurrent(self) -> None:
-        """Zero every lane's recurrent carry; the games keep their episodes."""
+        """Zero every lane's recurrent carry, the learner's and the
+        opponent's; the games keep their episodes."""
         self.state.carry = self.policy.initial_state(self.n_lanes)
+        self.state.opp_carry = self.policy.initial_state(self.n_opp_lanes)
 
     def _zero_stats(self) -> Dict[str, Any]:
         """Per-game [N] counters and per-lane [L] reward sums."""
@@ -189,39 +206,65 @@ class DeviceActor:
 
     # -- the chunk generator ------------------------------------------------
 
+    def _policy_step(self, params: PolicyParams, obs, carry):
+        """``Policy.step`` of one side: a module steps with its own params,
+        a state dict through ``functional_call`` on the actor's policy
+        (``Policy.forward`` is ``step``)."""
+        if isinstance(params, torch.nn.Module):
+            return params.step(obs, carry)
+        return functional_call(self.policy, params, (obs, carry))
+
     def _rollout_impl(
         self,
-        policy: Policy,
+        params: PolicyParams,
         state: DeviceActorState,
+        opp_params: Optional[PolicyParams] = None,
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         jitter: Optional[Mapping[str, torch.Tensor]] = None,
+        opp_noise: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Tuple[DeviceActorState, Dict[str, Any], Dict[str, Any]]:
-        """T steps of the game under ``policy`` from ``state``: returns
-        (the new state, the chunk, this chunk's stat partials). ``noise``
-        (per head, [T, L, n]) and ``jitter`` ({"step", "reset"}, each [T, 2,
-        N, C]) replace the generator's draws. Call it under
-        ``torch.no_grad()``."""
+        """T steps of the game from ``state``, the learner lanes under
+        ``params`` and the opponent lanes (league mode, where
+        ``opp_params`` is required) under ``opp_params``; each is a
+        ``Policy`` or a state dict for the actor's policy. Returns (the new
+        state, the chunk, this chunk's stat partials). ``noise`` and
+        ``opp_noise`` (per head, [T, lanes, n]) and ``jitter`` ({"step",
+        "reset"}, each [T, 2, N, C]) replace the generator's draws. Call it
+        under ``torch.no_grad()``."""
         cfg, spec = self.config, self.spec
         T = cfg.ppo.rollout_len
         N, A, L = spec.n_games, len(self.learner_players), self.n_lanes
-        feat, gen = self.feat, self.generator
+        feat, opp_feat, gen = self.feat, self._opp_feat, self.generator
         weights = cfg.reward.as_dict()
+        if opp_feat is not None and opp_params is None:
+            raise ValueError("opponent lanes exist (league mode): pass opp_params, e.g. from OpponentPool.sample_indexed")
 
         carry0 = tuple(t.to(torch.float32) for t in state.carry)
         sim, lstm, ep_ret, ep_steps = state.sim, state.carry, state.ep_return, state.ep_steps
+        opp_lstm = state.opp_carry
         seq: Dict[str, list] = {k: [] for k in (
             "obs", "packed", "logp", "reward", "done_lane", "ep_done", "win", "ep_len",
             "ep_return", "rew_terms")}
         for t in range(T):
             obs = feat.featurize(sim)
-            logits, _, lstm2 = policy.step(obs, lstm)
+            logits, _, lstm2 = self._policy_step(params, obs, lstm)
             acts, logp = D.sample(
                 logits, obs, generator=gen,
                 noise=None if noise is None else {h: noise[h][t] for h in D.HEADS},
             )
             packed = torch.stack([acts[h] for h in D.HEADS], dim=1).to(torch.int32)
+            sim_acts = feat.actions_to_sim(packed)
+            if opp_feat is not None:
+                oobs = opp_feat.featurize(sim)
+                ologits, _, opp_lstm2 = self._policy_step(opp_params, oobs, opp_lstm)
+                oacts, _ = D.sample(
+                    ologits, oobs, generator=gen,
+                    noise=None if opp_noise is None else {h: opp_noise[h][t] for h in D.HEADS},
+                )
+                osim = opp_feat.actions_to_sim(torch.stack([oacts[h] for h in D.HEADS], dim=1))
+                sim_acts = {k: torch.where(self._opp_mask[None, :], osim[k], v) for k, v in sim_acts.items()}
             sim2 = sim_mod.step(
-                spec, sim, feat.actions_to_sim(packed), scripted_possible=self._scripted_possible,
+                spec, sim, sim_acts, scripted_possible=self._scripted_possible,
                 jitter=None if jitter is None else jitter["step"][t], generator=gen,
             )
             r_terms = shaped_reward_terms(spec, self.learner_players, sim, sim2, weights=weights)
@@ -240,6 +283,10 @@ class DeviceActor:
             )
             done_lane = done_g[:, None].expand(N, A).reshape(L)
             lstm = mask_carry(lstm2, 1.0 - done_lane.to(torch.float32))
+            if opp_feat is not None:
+                n_opp = len(self.opponent_players)
+                opp_done = done_g[:, None].expand(N, n_opp).reshape(N * n_opp)
+                opp_lstm = mask_carry(opp_lstm2, 1.0 - opp_done.to(torch.float32))
             # completed-episode returns leave through stats (owner lane of
             # each game); the accumulator resets on done
             owner_ret = ep_ret.reshape(-1, A)[:, 0]
@@ -283,12 +330,29 @@ class DeviceActor:
             for term in outcome_records.REWARD_TERMS
         }
         new_state = DeviceActorState(
-            sim=sim, carry=lstm, ep_return=ep_ret, ep_steps=ep_steps,
+            sim=sim, carry=lstm, opp_carry=opp_lstm, ep_return=ep_ret, ep_steps=ep_steps,
             stats=tree_map(torch.add, state.stats, stats),
         )
         return new_state, chunk, stats
 
     # -- host surface ------------------------------------------------------
+
+    def collect(
+        self, params: PolicyParams, opp_params: Optional[PolicyParams] = None
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """One chunk [L, T(+1), ...] on the device under ``params``, the
+        actor's state advanced: returns (chunk, this chunk's stat
+        partials), with no read of the device. League mode requires
+        ``opp_params`` (the frozen opponent): the live params in its place
+        would silently turn the league into mirror self-play."""
+        with self._tel.span("actor/collect"), torch.no_grad():
+            self.state, chunk, stats = self._rollout_impl(params, self.state, opp_params)
+        T = self.config.ppo.rollout_len
+        self.env_steps += self.n_lanes * T
+        self.rollouts_shipped += self.n_lanes
+        self._tel.counter("actor/frames_shipped").inc(self.n_lanes * T)
+        self._tel.counter("actor/rollouts_shipped").inc(self.n_lanes)
+        return chunk, stats
 
     def drain_stats(self) -> Dict[str, float]:
         """Read the accumulated episode stats (the one read of the device,

@@ -7,7 +7,10 @@ rolls out T steps of every lane under ``torch.no_grad()`` with the live
 params, then runs ``epochs_per_batch`` x ``minibatches`` updates on that
 chunk. The train batch is the lane set, strictly on-policy: the chunk is
 trained on by the params that made it (``ppo.batch_rollouts`` does not
-apply). Nothing inside a call reads the device from the host, so the host
+apply). In league mode the opponent lanes play ``opp_params``, fixed for
+the whole call; ``None`` means the live policy itself (self-play and the
+scripted modes, where no opponent lane steps: one signature for all
+modes). Nothing inside a call reads the device from the host, so the host
 issues the whole iteration ahead of the card; ``chip_smoke.py`` runs it
 under ``torch.cuda.set_sync_debug_mode("error")`` to hold it to that.
 
@@ -24,7 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, DeviceActorState, tree_map
+from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, DeviceActorState, PolicyParams, tree_map
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.models.policy import Policy
 from dotaclient_tpu_torch.train.ppo import Batch, TrainState, _train_step, fold_scan_metrics
@@ -51,8 +54,9 @@ def lane_minibatches(chunk: Batch, step: int, seed: int, n_lanes: int, n_mb: int
 
 
 def make_fused_step(config: RunConfig, actor: DeviceActor, anchor: Optional[Policy] = None):
-    """``fused(state, actor_state) -> (state, actor_state, metrics,
-    stats)``: ``steps_per_dispatch`` iterations of rollout and update.
+    """``fused(state, actor_state, opp_params=None) -> (state,
+    actor_state, metrics, stats)``: ``steps_per_dispatch`` iterations of
+    rollout and update, the opponent lanes (if any) under ``opp_params``.
     ``metrics`` fold by ``fold_scan_metrics`` (the last update's,
     ``health_ok`` the minimum of all), ``stats`` sum over the iterations."""
     if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
@@ -86,12 +90,13 @@ def make_fused_step(config: RunConfig, actor: DeviceActor, anchor: Optional[Poli
             epochs.append(fold_scan_metrics(per_mb))
         return state, fold_scan_metrics(epochs)
 
-    def fused(state: TrainState, actor_state: DeviceActorState):
+    def fused(state: TrainState, actor_state: DeviceActorState, opp_params: Optional[PolicyParams] = None):
         metric_seq: List[Dict[str, torch.Tensor]] = []
         stat_seq = []
         for _ in range(n_iters):
+            opp = state.policy if opp_params is None else opp_params
             with torch.no_grad():
-                actor_state, chunk, stats = actor._rollout_impl(state.policy, actor_state)
+                actor_state, chunk, stats = actor._rollout_impl(state.policy, actor_state, opp)
             state, metrics = update_on_chunk(state, chunk)
             metric_seq.append(metrics)
             stat_seq.append(stats)

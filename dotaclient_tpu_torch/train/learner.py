@@ -5,7 +5,8 @@ Counterpart of the fused branch of ``dotaclient_tpu/train/learner.py``
 return dict) and of its ``--smoke`` entry point. Run on the card::
 
     python -m dotaclient_tpu_torch.train.learner --smoke [--steps N] [--n-envs N]
-        [--opponent scripted_easy|scripted_hard|selfplay] [--seed S] [--device cuda|cpu]
+        [--opponent scripted_easy|scripted_hard|selfplay|league] [--league K=V,...]
+        [--seed S] [--device cuda|cpu]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore]] [--init-from DIR]
 
 Each loop iteration is one call of the fused step (``train/fused.py``):
@@ -18,11 +19,18 @@ drained episode stats, and with ``checkpoint_dir`` the whole train state at
 ``init_from`` seeds a fresh run with the weights of another run's newest
 valid checkpoint: fresh Adam moments, step 0, the source left untouched.
 
+League mode (``env.opponent="league"``) plays the Dire side against
+frozen past selves (``league/pool.py``). The pool is seeded with the
+initial params at step 0 (after ``init_from`` or ``restore``), snapshots
+every ``snapshot_every`` steps, and its draw is held for ``opponent_hold``
+steps. Each call's episode outcomes against a snapshot stay on the device
+until the flush at a log boundary or at the end of ``train``, the one
+read that PFSP's win rates cost.
+
 Not ported yet, each with its ROADMAP item: the other actor modes
 (``device``, ``vec``, ``scalar``, ``external``; queue 1, item 4), the
 health guardian's rollback (item 4), async checkpoint saves and the CUDA
-graph of the iteration (item 3), the learner's transports (item 4) and the
-league (item 5).
+graph of the iteration (item 3) and the learner's transports (item 4).
 """
 
 from __future__ import annotations
@@ -34,18 +42,21 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
-from dotaclient_tpu_torch.config import RunConfig, default_config
+from dotaclient_tpu_torch.config import LeagueConfig, RunConfig, default_config
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
+from dotaclient_tpu_torch.league.pool import LIVE, OpponentPool
 from dotaclient_tpu_torch.models.policy import init_params, make_policy
 from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.ppo import init_train_state
 from dotaclient_tpu_torch.utils import telemetry
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, shape_mismatches
+from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 
 # actor modes of the reference learner that the port does not have yet
 _NOT_PORTED = {
@@ -81,6 +92,16 @@ class Learner:
             raise NotImplementedError(f"actor mode {actor!r} is not ported yet: {where}")
         if config.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
+        league_on = config.league.enabled or config.env.opponent == "league"
+        stride = config.steps_per_dispatch * config.ppo.steps_per_batch
+        if league_on and stride > config.league.opponent_hold:
+            # the opponent is redrawn only between calls, so a shorter hold
+            # would silently stretch to the stride
+            raise ValueError(
+                f"league.opponent_hold ({config.league.opponent_hold}) is shorter than one dispatch stride "
+                f"(steps_per_dispatch x steps_per_batch = {stride}): raise opponent_hold or lower "
+                "steps_per_dispatch"
+            )
         self.config = config
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else telemetry.get_registry()
@@ -102,6 +123,15 @@ class Learner:
         self.anchor = None
         if config.ppo.anchor_kl_coef > 0:
             self.anchor = copy.deepcopy(self.policy).requires_grad_(False)
+        # league: frozen opponents for the Dire lanes, seeded with the
+        # initial params so those lanes never mirror the live policy unasked
+        self.league: Optional[OpponentPool] = None
+        self._league_pending: List[Tuple[int, Dict[str, Any]]] = []
+        self._held_opponent: Optional[Tuple[Optional[Dict[str, torch.Tensor]], int]] = None
+        self._held_until = -1
+        if config.env.opponent == "league":
+            self.league = OpponentPool(config.league, seed=seed)
+            self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, 0)
         self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                         device=self.device)
         self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
@@ -136,6 +166,54 @@ class Learner:
         self.policy.load_state_dict(params)
         return step
 
+    def _league_opponent(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
+        """Snapshot if due, and the opponent of the next call: (a
+        snapshot's params, or None for the live policy; the snapshot's uid
+        or ``LIVE``). A draw is held for ``opponent_hold`` optimizer steps,
+        so most of an episode plays one opponent and the outcomes PFSP
+        reads are not diluted toward the pool's mean; an episode across a
+        redraw credits its last opponent."""
+        if self.league is None:
+            return None, LIVE
+        self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, self.state.step)
+        if self._held_opponent is None or self.state.step >= self._held_until:
+            params, _, uid = self.league.sample_indexed(None, self.state.version)
+            self._held_opponent = (params, uid)
+            self._held_until = self.state.step + self.config.league.opponent_hold
+        return self._held_opponent
+
+    def _report_league(self, uid: int, chunk_stats: Dict[str, Any]) -> None:
+        """Queue one call's device-resident outcomes against the snapshot
+        that played them; they are read in one batch at the next flush."""
+        if self.league is None or uid == LIVE:
+            return
+        self._league_pending.append((uid, chunk_stats))
+        if len(self._league_pending) >= 64:
+            self._flush_league_reports()
+
+    def _flush_league_reports(self) -> None:
+        """Read the queued outcomes (one read of the device) into the pool's
+        PFSP record. Anchor games are left out: the snapshot never played
+        them (``league_episodes`` and ``league_wins``)."""
+        if not self._league_pending:
+            return
+        pending, self._league_pending = self._league_pending, []
+        stacked = torch.stack([torch.stack([st["league_wins"].sum(), st["league_episodes"].sum()])
+                               for _, st in pending]).cpu().numpy()
+        for (uid, _), (wins, games) in zip(pending, stacked):
+            self.league.report(uid, float(wins), float(games))
+
+    def _league_log(self) -> Dict[str, float]:
+        """The pool's part of a log line, after a flush."""
+        if self.league is None:
+            return {}
+        self._flush_league_reports()
+        wrs = self.league.win_rates()
+        out = {"league_snapshots": float(len(wrs))}
+        if wrs:
+            out["league_winrate_mean"] = float(np.mean(wrs))
+        return out
+
     def train(self, num_steps: int) -> Dict[str, float]:
         """Run until ``num_steps`` optimizer steps have completed (rounded
         up to whole fused calls), then save a checkpoint (with
@@ -151,7 +229,9 @@ class Learner:
         frames_trained = 0
         steps_done = 0
         while steps_done < num_steps:
-            self.state, da.state, metrics, _ = self.fused_step(self.state, da.state)
+            opp_params, opp_uid = self._league_opponent()
+            self.state, da.state, metrics, chunk_stats = self.fused_step(self.state, da.state, opp_params)
+            self._report_league(opp_uid, chunk_stats)
             da.env_steps += frames_per
             da.rollouts_shipped += da.n_lanes * k_iters
             steps_done += stride
@@ -160,11 +240,13 @@ class Learner:
                 # log boundary: the one read of the device
                 self._last_metrics = {k: float(v) for k, v in metrics.items()}
                 self._last_metrics.update(da.drain_stats())
+                self._last_metrics.update(self._league_log())
                 self.history.append({"step": float(self.state.step), **self._last_metrics})
             # `< stride`: the step counter advances in strides and may step
             # over exact multiples
             if self.ckpt is not None and self.state.step % cfg.checkpoint_every < stride:
                 self.ckpt.save(self.state, cfg)
+        self._flush_league_reports()
         if self.ckpt is not None:
             # the end-of-run save lands at the exact stop step and raises
             # on an I/O error
@@ -193,13 +275,30 @@ def smoke_config(config: RunConfig) -> RunConfig:
     )
 
 
+def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optional[str]) -> RunConfig:
+    """``--league K=V,...`` into ``config.league``. ``--opponent league``
+    defaults ``enabled=True`` (an explicit ``enabled=false`` stands), so
+    the checkpointed config says what ran; ``--league`` without it is an
+    error (``ValueError``)."""
+    if league and opponent != "league":
+        raise ValueError("--league overrides need --opponent league")
+    over = parse_dataclass_overrides(LeagueConfig, league, "--league") if league else {}
+    if opponent == "league":
+        over.setdefault("enabled", True)
+    return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description="Fused self-play PPO learner on one CUDA card.")
     p.add_argument("--smoke", action="store_true", help="tiny sizes, at most 5 steps")
     p.add_argument("--steps", type=int, default=1000, help="optimizer steps")
     p.add_argument("--n-envs", type=int, default=None, help="games (default: the config's)")
     p.add_argument("--opponent", type=str, default=None,
-                   choices=("scripted_easy", "scripted_hard", "selfplay", "league"))
+                   choices=("scripted_easy", "scripted_hard", "selfplay", "league"),
+                   help="'league' plays the Dire side against frozen past selves (tune with --league)")
+    p.add_argument("--league", type=str, default=None, metavar="K=V,...",
+                   help="comma-separated LeagueConfig overrides (with --opponent league), e.g. "
+                   "'anchor_prob=0.25,snapshot_every=200'")
     p.add_argument("--actor", type=str, default="fused",
                    choices=("fused", "device", "vec", "scalar", "external"))
     p.add_argument("--steps-per-dispatch", type=int, default=None)
@@ -234,6 +333,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         config = dataclasses.replace(config, checkpoint_every=args.checkpoint_every)
     if args.restore and not args.checkpoint_dir:
         p.error("--restore needs --checkpoint-dir")
+    try:
+        config = apply_league_flags(config, args.opponent, args.league)
+    except ValueError as e:
+        p.error(str(e))
     config = dataclasses.replace(config, seed=args.seed)
 
     learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,

@@ -31,8 +31,15 @@ names = [m.name for m in pkgutil.walk_packages(dotaclient_tpu_torch.__path__, "d
 for name in names:
     importlib.import_module(name)
 assert not any(n.split(".")[0] in BANNED for n in sys.modules), "a banned module got in"
+print(" ".join(names))
 print(len(names))
 """
+
+# modules that must be among those imported with JAX blocked (the league
+# slice's, beside the count of all of them)
+LEAGUE_MODULES = ("dotaclient_tpu_torch.league", "dotaclient_tpu_torch.league.pool",
+                  "dotaclient_tpu_torch.league.evaluation", "dotaclient_tpu_torch.league.__main__",
+                  "dotaclient_tpu_torch.train.demo")
 
 
 def port_sources():
@@ -45,7 +52,9 @@ def test_port_imports_without_jax():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 49  # every module of the port, the serve fleet's included
+    names, count = out.stdout.splitlines()[-2:]
+    assert int(count) >= 54  # every module of the port, the league's included
+    assert set(LEAGUE_MODULES) <= set(names.split())
 
 
 # the router and its CLI with torch blocked as well: a router process holds

@@ -49,11 +49,13 @@ def rollout_configs(opponent, max_dota_time=0.4):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_randomness(jcfg, n_lanes):
+def jax_randomness(jcfg, n_lanes, n_opp_lanes=0):
     """Jitted: (per-game keys [N, 2], sim key) -> the noise of every head
-    [T, L, n] and the step and reset jitter [T, 2, N, C] that T steps of
-    ``_rollout_impl`` draw."""
-    N, A = jcfg.env.n_envs, n_lanes // jcfg.env.n_envs
+    of the learner lanes [T, L, n] (from ``ks[:, 1]``), of the opponent
+    lanes [T, L_opp, n] (from ``ks[:, 2]``; None without them) and the
+    step and reset jitter [T, 2, N, C] that T steps of ``_rollout_impl``
+    draw."""
+    N = jcfg.env.n_envs
     C = (jcfg.obs.max_units - (2 * jcfg.env.team_size + 2)) // 2
     sizes = dict(jcfg.actions.head_sizes)
 
@@ -61,25 +63,32 @@ def jax_randomness(jcfg, n_lanes):
         return jnp.stack([jax.random.uniform(jax.random.fold_in(sub, i), (N, C), minval=-40.0, maxval=40.0)
                           for i in range(2)])
 
-    def game_noise(k):
-        keys = jax.random.split(k, 5)
-        return {h: jax.random.gumbel(kh, (A, sizes[h]), jnp.float32) for h, kh in zip(JD.HEADS, keys)}
+    def side_noise(keys, lanes):
+        A = lanes // N
+
+        def game_noise(k):
+            ks = jax.random.split(k, 5)
+            return {h: jax.random.gumbel(kh, (A, sizes[h]), jnp.float32) for h, kh in zip(JD.HEADS, ks)}
+
+        per_game = jax.vmap(game_noise)(keys)
+        return {h: per_game[h].reshape(N * A, -1) for h in JD.HEADS}
 
     def one_step(carry, _):
         keys, sim_key = carry
         ks = jax.vmap(lambda k: jax.random.split(k, 3))(keys)
-        keys, k_act = ks[:, 0], ks[:, 1]
-        per_game = jax.vmap(game_noise)(k_act)
-        noise = {h: per_game[h].reshape(N * A, -1) for h in JD.HEADS}
+        keys = ks[:, 0]
+        noise = side_noise(ks[:, 1], n_lanes)
+        opp_noise = side_noise(ks[:, 2], n_opp_lanes) if n_opp_lanes else {}
         sim_key, sub = jax.random.split(sim_key)
         j_step = from_sub(sub)
         sim_key, sub = jax.random.split(sim_key)
         j_reset = from_sub(jax.random.split(sub)[1])
-        return (keys, sim_key), (noise, {"step": j_step, "reset": j_reset})
+        return (keys, sim_key), (noise, opp_noise, {"step": j_step, "reset": j_reset})
 
     def draw(keys, sim_key):
-        _, (noise, jitter) = jax.lax.scan(one_step, (keys, sim_key), None, length=jcfg.ppo.rollout_len)
-        return noise, jitter
+        _, (noise, opp_noise, jitter) = jax.lax.scan(one_step, (keys, sim_key), None,
+                                                     length=jcfg.ppo.rollout_len)
+        return noise, opp_noise or None, jitter
 
     return jax.jit(draw)
 
@@ -115,7 +124,7 @@ def test_rollout_chunk_matches_jax(opponent):
     jactor = JaxDeviceActor(jcfg, jpolicy, seed=5)
     jparams = jax.tree.map(jnp.asarray, params)
     js = jactor.state
-    noise, jitter = jax_randomness(jcfg, jactor.n_lanes)(js.key, js.sim.key)
+    noise, _, jitter = jax_randomness(jcfg, jactor.n_lanes)(js.key, js.sim.key)
     j_new, j_chunk, j_stats = jax.jit(jactor._rollout_impl)(jparams, js, jparams)
 
     policy = port_policy(pcfg, params)
@@ -242,9 +251,9 @@ def test_learner_refuses_what_is_not_ported():
     _, cfg = rollout_configs("scripted_easy")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plearner.Learner(cfg, actor="device", device="cpu")
+    # league mode is ported: it builds its frozen-opponent pool instead
     league = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, opponent="league"))
-    with pytest.raises(NotImplementedError, match="league"):
-        plearner.Learner(league, actor="fused", device="cpu")
+    assert len(plearner.Learner(league, actor="fused", device="cpu").league) == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             plearner.Learner(cfg, actor="fused")
