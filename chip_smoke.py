@@ -13,9 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
    seeded random inputs at every shape the port gives it (for the LSTM:
    the serving step B=64 T=1, the learner's sequence B=32 T=16, the test
    shape, a batch with a partial row tile, the training path's B=128 at
-   T=1 and T=17, the parity digest's B=1 T=1, and the 5v5 league's
-   B=1,280 at T=1 and T=17), with the f32 tolerance
-   stated below, its launch plan logged, and timed on the card (CUDA
+   T=1 and T=17, the parity digest's B=1 T=1, the 5v5 league's B=1,280
+   at T=1 and T=17, and its 64-game evaluation's B=320 T=1), with the f32
+   tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
    function (``torch.lstm_cell`` at T=1; at T>1 cuDNN's ``torch.lstm`` on
@@ -277,15 +277,23 @@ def lstm_bound(B, T, D, H):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# phase 12's league: its games, team size and game length, and its
+# evaluations' games
+LEAGUE_ENVS, LEAGUE_TEAM, LEAGUE_MAX_DOTA_TIME = 256, 5, 20.0
+LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 16
+
 # (B, T, D, H): the serving step, the learner's sequence, the small test
 # shape, a batch that leaves one partial row tile, the fused training
 # path's two (the rollout step over 128 lanes and the update's sequence
 # forward, rollout_len 16 plus the bootstrap step), the re-home parity
-# digest's step (max_batch 1), and the 5v5 league's two (1,280 learner
-# lanes, and as many opponent lanes, at T=1; the update at T=17)
+# digest's step (max_batch 1), the 5v5 league's two (1,280 learner lanes,
+# and as many opponent lanes, at T=1; the update at T=17), and the
+# league evaluation's step (its games' learner lanes, and in league mode
+# as many opponent lanes, at T=1)
+LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
                (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
-               (1280, 1, 128, 128), (1280, 17, 128, 128))
+               (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128))
 
 
 def max_err(got, want):
@@ -365,7 +373,7 @@ def check_lstm_kernel(device, seed):
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128 and B in (32, 128, 1280):
+        if T > 1 and D == H == 128 and B in (32, 128, LEAGUE_LANES):
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -382,7 +390,8 @@ def check_lstm_kernel(device, seed):
         shapes[(B, T)] = shape
     serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
     train_step, train_seq, digest_step = shapes[(128, 1)], shapes[(128, 17)], shapes[(1, 1)]
-    league_step, league_seq = shapes[(1280, 1)], shapes[(1280, 17)]
+    league_step, league_seq = shapes[(LEAGUE_LANES, 1)], shapes[(LEAGUE_LANES, 17)]
+    league_eval_step = shapes[(LEAGUE_EVAL_LANES, 1)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -402,10 +411,11 @@ def check_lstm_kernel(device, seed):
         "digest_step_ms": digest_step["ms"],
         "league_rollout_step_ms": league_step["ms"],
         "league_sequence_ms": league_seq["ms"],
+        "league_eval_step_ms": league_eval_step["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
                    "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
-                   "shapes": list(shapes.values())}
+                   "league_eval_step": league_eval_step, "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -466,26 +476,41 @@ def synthetic_obs(cfg, rng):
     }
 
 
-def action_is_legal(obs, packed) -> bool:
-    """Legal under the masks, with the all-illegal-row rule of the
-    distribution (such a row is sampled as if all-legal)."""
-    a_type, move_x, move_y, target, ability = (int(v) for v in packed)
+MASK_KEYS = ("mask_action_type", "mask_target_unit", "mask_cast_target", "mask_ability")
+
+
+def actions_legal(masks, acts):
+    """Each row's sampled actions legal under its masks, with the
+    all-illegal-row rule of the distribution (such a row is sampled as if
+    all-legal): [B] bool, on the masks' device."""
+    import torch
 
     def ok(mask, i):
-        mask = np.asarray(mask)
-        return 0 <= i < mask.size and (mask[i] or not mask.any())
+        n = mask.shape[-1]
+        picked = mask.gather(-1, i.clamp(0, n - 1).long()[:, None])[:, 0]
+        return (i >= 0) & (i < n) & (picked | ~mask.any(dim=-1))
 
-    if not ok(obs["mask_action_type"], a_type):
-        return False
-    if not (0 <= move_x < 9 and 0 <= move_y < 9):
-        return False
-    if a_type in (2, 3):
-        tmask = obs["mask_cast_target"] if a_type == 3 else obs["mask_target_unit"]
-        if not ok(tmask, target):
-            return False
-    if a_type == 3 and not ok(obs["mask_ability"], ability):
-        return False
-    return True
+    a = acts["action_type"]
+    good = ok(masks["mask_action_type"], a)
+    for head in ("move_x", "move_y"):
+        good &= (acts[head] >= 0) & (acts[head] < 9)
+    tmask = torch.where((a == 3)[:, None], masks["mask_cast_target"], masks["mask_target_unit"])
+    good &= ~((a == 2) | (a == 3)) | ok(tmask, acts["target_unit"])
+    good &= (a != 3) | ok(masks["mask_ability"], acts["ability"])
+    return good
+
+
+def rows_legal(obs_rows, packed_rows):
+    """``actions_legal`` over host rows, each one observation and its
+    packed actions (one value a head, in ``distributions.HEADS`` order):
+    [N] bool numpy."""
+    import torch
+
+    from dotaclient_tpu_torch.models import distributions as D
+
+    masks = {k: torch.as_tensor(np.stack([np.asarray(o[k], bool) for o in obs_rows])) for k in MASK_KEYS}
+    packed = torch.as_tensor(np.asarray(packed_rows, np.int64).reshape(len(packed_rows), len(D.HEADS)))
+    return actions_legal(masks, {h: packed[:, i] for i, h in enumerate(D.HEADS)}).numpy()
 
 
 class Replies:
@@ -637,7 +662,8 @@ def serve_phase(device, seed):
         raise AssertionError(f"{len(replies)} replies for {n} requests")
     if snap["serve/dispatch_errors_total"] != 0:
         raise AssertionError(f"serve/dispatch_errors_total = {snap['serve/dispatch_errors_total']}")
-    illegal = [r[0] for r in replies if not action_is_legal(requests[r[0]][0], r[3])]
+    good = rows_legal([requests[r[0]][0] for r in replies], [r[3] for r in replies])
+    illegal = [r[0] for r, ok in zip(replies, good) if not ok]
     if illegal:
         raise AssertionError(f"{len(illegal)} illegal actions, e.g. request {illegal[0]}")
     if not all(np.isfinite(r[4]) for r in replies):
@@ -1019,14 +1045,11 @@ def check_chunk_actions(chunks):
 
     illegal = n = 0
     for chunk in chunks:
-        obs = {k: v.cpu().numpy() for k, v in chunk["obs"].items() if k.startswith("mask_")}
-        packed = np.stack([chunk["actions"][h].cpu().numpy() for h in D.HEADS], axis=-1)
-        L, T = packed.shape[:2]
-        for lane in range(L):
-            for t in range(T):
-                n += 1
-                if not action_is_legal({k: v[lane, t] for k, v in obs.items()}, packed[lane, t]):
-                    illegal += 1
+        acts = {h: chunk["actions"][h].flatten(0, 1) for h in D.HEADS}
+        L, T = chunk["actions"][D.HEADS[0]].shape[:2]
+        good = actions_legal({k: chunk["obs"][k][:, :T].flatten(0, 1) for k in MASK_KEYS}, acts)
+        illegal += int((~good).sum())
+        n += good.numel()
     return illegal, n
 
 
@@ -1381,7 +1404,7 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
     bad_version = [rec[4] for rec in flat if rec[4] != step]
     if bad_version:
         raise AssertionError(f"{len(bad_version)} replies carry version {bad_version[0]}, not the checkpoint's {step}")
-    illegal = sum(not action_is_legal(rec[0], rec[2]) for rec in flat)
+    illegal = int((~rows_legal([rec[0] for rec in flat], [rec[2] for rec in flat])).sum())
     if illegal:
         raise AssertionError(f"{illegal} illegal actions")
     if not all(np.isfinite(rec[3]) for rec in flat):
@@ -1560,7 +1583,8 @@ def cli_phase(ckpt_dir, step, seed):
     if final["serve_requests_total"] != n or final["serve_weights_version"] != step:
         raise AssertionError(f"the serve CLI's last line {final}: expected {n} requests at version {step}")
     flat = [rec for game in records for rec in game]
-    if not all(action_is_legal(rec[0], rec[2]) and rec[4] == step for rec in flat):
+    if not (rows_legal([rec[0] for rec in flat], [rec[2] for rec in flat]).all()
+            and all(rec[4] == step for rec in flat)):
         raise AssertionError("an illegal action or a wrong version from the serve CLI")
     listening = next(line for line in seen if line.startswith("serve: listening"))
     ready = [line for line in seen if line.startswith(("serve: kernels ready", "serve: warm-up"))]
@@ -1708,8 +1732,9 @@ def fleet_cli_phase(ckpt_dir, step, seed):
     on_a = [g for g in range(FLEET_GAMES) if records[g][FLEET_KILL_ROUND - 1][6] == A]
     flat = [rec for game in records for rec in game]
     failed = []
-    if len(flat) != FLEET_GAMES * FLEET_STEPS or not all(action_is_legal(rec[0], rec[2]) and rec[4] == step
-                                                         for rec in flat):
+    if (len(flat) != FLEET_GAMES * FLEET_STEPS
+            or not rows_legal([rec[0] for rec in flat], [rec[2] for rec in flat]).all()
+            or not all(rec[4] == step for rec in flat)):
         failed.append("every request answered with a legal action at the checkpoint's version")
     if not on_a or not all(records[g][-1][7] >= 1 and records[g][-1][6] == C for g in on_a):
         failed.append(f"each of A's {len(on_a)} games re-homed onto C")
@@ -1770,9 +1795,7 @@ def fleet_cli_phase(ckpt_dir, step, seed):
 # -- phase 12: league self-play at the 5v5 league shape ------------------------------
 
 
-LEAGUE_ENVS, LEAGUE_TEAM, LEAGUE_MAX_DOTA_TIME = 256, 5, 20.0
 LEAGUE_WARM, LEAGUE_TIMED, LEAGUE_PROFILED = 2, 8, 2
-LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 16
 DEMO_ARGS = ("--steps", "4", "--n-envs", "64", "--team-size", "5", "--opponent", "league",
              "--max-dota-time", "20", "--eval-games", "16")
 CHILD_S = 600.0
@@ -1796,25 +1819,6 @@ def league_config(seed):
         log_every=10 ** 9,
         seed=seed,
     )
-
-
-def actions_legal(masks, acts):
-    """``action_is_legal`` over a batch of rows on the device: [B] bool."""
-    import torch
-
-    def ok(mask, i):
-        n = mask.shape[-1]
-        picked = mask.gather(-1, i.clamp(0, n - 1).long()[:, None])[:, 0]
-        return (i >= 0) & (i < n) & (picked | ~mask.any(dim=-1))
-
-    a = acts["action_type"]
-    good = ok(masks["mask_action_type"], a)
-    for head in ("move_x", "move_y"):
-        good &= (acts[head] >= 0) & (acts[head] < 9)
-    tmask = torch.where((a == 3)[:, None], masks["mask_cast_target"], masks["mask_target_unit"])
-    good &= ~((a == 2) | (a == 3)) | ok(tmask, acts["target_unit"])
-    good &= (a != 3) | ok(masks["mask_ability"], acts["ability"])
-    return good
 
 
 class LeagueRecorder(Recorder):

@@ -9,7 +9,9 @@ differ from the learner's and anchor games present: the test replays JAX's
 per-game key stream to get the Gumbel noise of both sides' heads
 (``ks[:, 1]`` and ``ks[:, 2]``) and the creep-wave jitter, and hands all of
 it to the port. Actions, dones and stats must be equal; observations,
-rewards and log-probs agree within 1e-5 at f32 compute. Small sizes: the
+rewards and log-probs agree within 1e-5 at f32 compute. A second chunk
+starts from towers at half health, so its timeouts are decided and the
+win counts PFSP reads are compared too. Small sizes: the
 small f32 model, team size 2, 2 to 4 games, 3-step chunks of 0.4 s games.
 """
 
@@ -112,12 +114,12 @@ def test_pool_snapshots_are_frozen_copies():
 # -- one league chunk against the JAX package ----------------------------------------
 
 
-def port_league_actor(pcfg, params, jactor):
+def port_league_actor(pcfg, params, jactor, js=None):
     """The port's league actor on JAX's world: policy from ``params``, the
-    sim state copied from the JAX actor."""
+    sim state copied from ``js`` (the JAX actor's own by default)."""
     policy = port_policy(pcfg, params)
     actor = DeviceActor(pcfg, policy, seed=5, device="cpu")
-    js = jactor.state
+    js = jactor.state if js is None else js
     actor.state.sim = S.SimState(**{k: torch.from_numpy(np.array(getattr(js.sim, k))) for k in S.FIELDS})
     return policy, actor
 
@@ -126,18 +128,34 @@ def torch_tree(tree):
     return None if tree is None else {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
 
 
-def test_league_chunk_matches_jax():
+def decided_towers(jactor, js):
+    """``js`` with one tower at half health in each game: the Dire tower
+    in games 0, 2 and 3, the Radiant tower in game 1. Every first episode's
+    timeout is then decided (tower hp leads the adjudication): a win of
+    the learner's side (Radiant) in three games, a loss in one."""
+    t = jactor.spec.tower_lo
+    health = np.array(js.sim.health)
+    health[[0, 2, 3], t + 1] *= 0.5
+    health[1, t] *= 0.5
+    return js._replace(sim=js.sim._replace(health=jax.device_put(health, js.sim.health.sharding)))
+
+
+def league_chunk_against_jax(decided=False):
+    """One league chunk of the port against JAX's ``_rollout_impl`` from
+    the same world and noise, the opponent's params not the learner's:
+    asserts every output equal (discrete) or within ATOL, and returns the
+    port's stats."""
     jcfg, pcfg = league_configs()
     params, opp = flax_params(jcfg, seed=3), flax_params(jcfg, seed=4)
     jactor = JaxDeviceActor(jcfg, jax_policy(jcfg)[0], seed=5)
     assert jactor.n_anchor_games == 2 and jactor._opp_feat is not None
-    js = jactor.state
+    js = decided_towers(jactor, jactor.state) if decided else jactor.state
     noise, opp_noise, jitter = jax_randomness(jcfg, jactor.n_lanes, len(jactor.opponent_players) * 4)(
         js.key, js.sim.key)
     j_new, j_chunk, j_stats = jax.jit(jactor._rollout_impl)(
         jax.tree.map(jnp.asarray, params), js, jax.tree.map(jnp.asarray, opp))
 
-    policy, actor = port_league_actor(pcfg, params, jactor)
+    policy, actor = port_league_actor(pcfg, params, jactor, js)
     assert (actor.n_lanes, actor.n_opp_lanes, actor.n_anchor_games) == (8, 8, 2)
     with torch.no_grad():
         p_new, p_chunk, p_stats = actor._rollout_impl(
@@ -154,6 +172,8 @@ def test_league_chunk_matches_jax():
     assert_tree_close(got["obs"], want["obs"], "obs")
     stats, jstats = to_np(p_stats), to_np(j_stats)
     assert_tree_close(stats, jstats, "stats")
+    for k in ("episodes", "wins", "league_episodes", "league_wins"):
+        np.testing.assert_array_equal(stats[k], jstats[k], err_msg=k)
     # anchor games are left out of the snapshot's record, and both kinds ended
     assert 0 < stats["league_episodes"].sum() < stats["episodes"].sum()
     for k in S.FIELDS:
@@ -165,6 +185,21 @@ def test_league_chunk_matches_jax():
     for side in ("carry", "opp_carry"):
         for g, w in zip(getattr(p_new, side), getattr(j_new, side)):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL, err_msg=side)
+    return stats
+
+
+def test_league_chunk_matches_jax():
+    stats = league_chunk_against_jax()
+    # 0.4 s games of untouched towers, no kills, no gold: every timeout a tie
+    assert stats["wins"].sum() == 0
+
+
+def test_decided_league_chunk_matches_jax():
+    """Teeth for the outcome stats PFSP reads: decided games, some of them
+    league games, with the learner's wins and losses equal to JAX's."""
+    stats = league_chunk_against_jax(decided=True)
+    assert stats["league_wins"].sum() > 0
+    assert 0 < stats["wins"].sum() < stats["episodes"].sum()
 
 
 def record_samples(monkeypatch):
@@ -279,6 +314,29 @@ def test_learner_league_snapshots_draws_and_reports():
     assert not learner._league_pending                  # flushed at the end of train
     for snap in learner.league.snapshots:
         assert snap.games == sum(g for uid, g in reported if uid == snap.uid)
+
+
+def test_learner_credits_league_wins_to_the_pool():
+    """Decided games reach the PFSP record through the flush: with the
+    Dire tower at half health in both games, each first episode is the
+    learner's win, credited to the step-0 snapshot that every draw picks
+    (no mirror draws, no anchor games)."""
+    learner = league_learner(selfplay_prob=0.0, anchor_prob=0.0)
+    da = learner.device_actor
+    health = da.state.sim.health.clone()
+    health[:, da.spec.tower_lo + 1] *= 0.5
+    da.state.sim = da.state.sim.replace(health=health)
+    reported = []
+    report = learner._report_league
+    learner._report_league = lambda uid, st: (reported.append((uid, st)), report(uid, st))
+    learner.train(2)
+    assert not learner._league_pending
+    assert {uid for uid, _ in reported} == {0}
+    wins = sum(float(st["league_wins"].sum()) for _, st in reported)
+    games = sum(float(st["league_episodes"].sum()) for _, st in reported)
+    snap = learner.league.snapshots[0]
+    assert wins >= 2 and (snap.wins, snap.games) == (wins, games)
+    assert 0.0 < snap.win_rate < 1.0
 
 
 def test_learner_refuses_a_hold_shorter_than_the_stride():
