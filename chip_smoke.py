@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and league paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league and buffered-learner paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
    the serving step B=64 T=1, the learner's sequence B=32 T=16, the test
    shape, a batch with a partial row tile, the training path's B=128 at
    T=1 and T=17, the parity digest's B=1 T=1, the 5v5 league's B=1,280
-   at T=1 and T=17, and its 64-game evaluation's B=320 T=1), with the f32
+   at T=1 and T=17, its 64-game evaluation's B=320 T=1, and the buffered
+   learner's advantage pass B=32 T=17 and minibatch updates B=16 at T=16
+   (on precomputed advantages) and T=17 (the in-step estimator)), with the f32
    tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
@@ -138,6 +140,37 @@ Phases (any failure exits non-zero and prints no result line):
     dotaclient_tpu_torch.train.demo`` as a child at a smoke size. Each
     child must exit 0 with its result line; every wait is bounded and every
     child is killed in a ``finally``.
+13. buffered: ``Learner(cfg, actor="device")`` on the default ``RunConfig``
+    at phase 6's traffic (128 games against the easy bot, 20 s games) with
+    ``epochs_per_batch`` 2 and ``minibatches`` 2 over the default batch of
+    32 chunks and ring (256 chunks, ``min_fill`` 32), so the one-pass
+    advantage pass and the epoch step both run, the health guardian and the
+    snapshot engine on, and a checkpoint directory: 2 warm collects, 8
+    timed ones and one that meets the first log and checkpoint boundary,
+    each ``train`` call's loop under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (the boundary's copies to the host held by the engine until
+    the guard lifts; the end of each call, with its forced save, runs
+    unguarded), and 2 more collects under the profiler. Checked: finite
+    loss and gradient norm and ``health_ok`` 1 in every batch, every param
+    moved, every action legal, episodes ended, the ring's books (ingested =
+    collects x 128 = batches x 32 + size + each kind of drop),
+    ``advantage/passes_total`` = batches, one log line and the ``last_good``
+    slot at the boundary with no engine error, and ``lstm_seq`` launched
+    collects x ``rollout_len`` + passes + batches x 4 times in that run (its
+    counts reset just before it and read just after). Logged: trained
+    frames/s and wall ms a collect and a batch (the loop's host clock), a
+    collect and a batch's updates between CUDA events, ``snapshot/d2h_ms``,
+    ``learner/stall_fraction``, the busy share and top kernels, beside
+    phase 6's fused frames/s. Then a rollback (the 9th batch of a run with
+    boundaries every 20 steps poisoned by ``learner.nan_grad``: one
+    HEALTH_ROLLBACK line back to step 20, a refused checkpoint, the params
+    bitwise equal to the ``last_good`` slot, the poisoned chunks dropped,
+    the run at its target step), a resume (``request_stop`` at step 24,
+    then ``restore=True``: ring, slot versions, actor state and RNG,
+    ``mb_draws`` and params bitwise as saved, the next permutation an
+    uninterrupted run's), and ``python -m dotaclient_tpu_torch.train.learner
+    --smoke --steps 3`` as a child with the default actor (exit 0, its
+    result line).
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -282,18 +315,28 @@ def lstm_bound(B, T, D, H):
 LEAGUE_ENVS, LEAGUE_TEAM, LEAGUE_MAX_DOTA_TIME = 256, 5, 20.0
 LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 16
 
+# phase 13's buffered learner: the default batch of 32 chunks, split into
+# 2 minibatches in each of 2 epochs
+BUFFERED_BATCH, BUFFERED_EPOCHS, BUFFERED_MINIBATCHES = 32, 2, 2
+BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
+
 # (B, T, D, H): the serving step, the learner's sequence, the small test
 # shape, a batch that leaves one partial row tile, the fused training
 # path's two (the rollout step over 128 lanes and the update's sequence
 # forward, rollout_len 16 plus the bootstrap step), the re-home parity
 # digest's step (max_batch 1), the 5v5 league's two (1,280 learner lanes,
-# and as many opponent lanes, at T=1; the update at T=17), and the
-# league evaluation's step (its games' learner lanes, and in league mode
-# as many opponent lanes, at T=1)
+# and as many opponent lanes, at T=1; the update at T=17), the league
+# evaluation's step (its games' learner lanes, and in league mode as many
+# opponent lanes, at T=1), and the buffered learner's three: the one-pass
+# advantage pass over a batch (B=32 T=17, forward only), a minibatch's
+# update on precomputed advantages (B=16 over the T=16 transition steps,
+# the path phase 13 runs) and a minibatch's update with the in-step
+# estimator (B=16 T=17: one_pass_advantage off, or V-trace)
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
                (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
-               (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128))
+               (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128),
+               (BUFFERED_BATCH, 17, 128, 128), (BUFFERED_MB, 16, 128, 128), (BUFFERED_MB, 17, 128, 128))
 
 
 def max_err(got, want):
@@ -373,7 +416,7 @@ def check_lstm_kernel(device, seed):
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128 and B in (32, 128, LEAGUE_LANES):
+        if T > 1 and D == H == 128 and B in (BUFFERED_MB, 32, 128, LEAGUE_LANES):
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -392,6 +435,8 @@ def check_lstm_kernel(device, seed):
     train_step, train_seq, digest_step = shapes[(128, 1)], shapes[(128, 17)], shapes[(1, 1)]
     league_step, league_seq = shapes[(LEAGUE_LANES, 1)], shapes[(LEAGUE_LANES, 17)]
     league_eval_step = shapes[(LEAGUE_EVAL_LANES, 1)]
+    adv_seq, mb_seq, mb_seq_instep = (shapes[(BUFFERED_BATCH, 17)], shapes[(BUFFERED_MB, 16)],
+                                      shapes[(BUFFERED_MB, 17)])
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -412,10 +457,15 @@ def check_lstm_kernel(device, seed):
         "league_rollout_step_ms": league_step["ms"],
         "league_sequence_ms": league_seq["ms"],
         "league_eval_step_ms": league_eval_step["ms"],
+        "buffered_advantage_sequence_ms": adv_seq["ms"],
+        "buffered_minibatch_sequence_ms": mb_seq["ms"],
+        "buffered_minibatch_instep_sequence_ms": mb_seq_instep["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
                    "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
-                   "league_eval_step": league_eval_step, "shapes": list(shapes.values())}
+                   "league_eval_step": league_eval_step, "buffered_advantage_sequence": adv_seq,
+                   "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
+                   "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -910,6 +960,65 @@ class Recorder:
         self._restore()
 
 
+def unguarded_end(learner, on_lift=None):
+    """Run the end of each ``train`` call (``_settle`` and ``_seal``: the
+    snapshot engine's copies to the host, the final publish, the forced
+    save) with the sync guard lifted, so that a guarded ``train`` call holds
+    only its loop to the no-host-read rule. ``on_lift`` runs as the guard
+    is lifted."""
+    import torch
+
+    def lifted(fn):
+        def call(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            if on_lift is not None:
+                on_lift()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+
+    learner._settle, learner._seal = lifted(learner._settle), lifted(learner._seal)
+
+
+def guarded_train(learner, steps, rec=None):
+    """``learner.train(steps)`` with its loop under the sync guard (the end
+    of the call runs unguarded: ``unguarded_end``); with ``rec`` the
+    engine's copies wait for the guard to lift. Returns (the result, the
+    loop's wall seconds: first issue to a synchronise after the last)."""
+    import torch
+
+    loop = learner._run_mode_loop
+    wall = []
+
+    def timed_loop(num_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(num_steps)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        wall.append(time.perf_counter() - t0)
+
+    learner._run_mode_loop = timed_loop
+    if rec is not None:
+        rec.gate.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = learner.train(steps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        learner._run_mode_loop = loop
+        if rec is not None:
+            rec.gate.set()
+    return out, sum(wall)
+
+
 def train_phase(device, seed):
     """The fused learner on the card: warm-up, the timed and checked
     iterations under the sync guard, then a profiled window."""
@@ -924,6 +1033,7 @@ def train_phase(device, seed):
     updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
     learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
     rec = Recorder(learner)
+    unguarded_end(learner)
     before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
     try:
         torch.cuda.synchronize()
@@ -931,14 +1041,7 @@ def train_phase(device, seed):
         learner.train(TRAIN_WARM * updates)
         torch.cuda.synchronize()
         rec.clear()
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = learner.train(TRAIN_TIMED * updates)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        out, wall_s = guarded_train(learner, TRAIN_TIMED * updates)
         launches = lstm.lstm_sequence_kernel.launches
         iters = TRAIN_WARM + TRAIN_TIMED
         if launches != iters * (T + updates):
@@ -1990,6 +2093,7 @@ def league_phase(device, seed, ckpt_dir):
     learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
     da, pool = learner.device_actor, learner.league
     rec = LeagueRecorder(learner)
+    unguarded_end(learner)
     before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
     try:
         torch.cuda.synchronize()
@@ -1997,14 +2101,7 @@ def league_phase(device, seed, ckpt_dir):
         learner.train(LEAGUE_WARM * updates)
         torch.cuda.synchronize()
         rec.clear()
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = learner.train(LEAGUE_TIMED * updates)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        out, wall_s = guarded_train(learner, LEAGUE_TIMED * updates)
         launches = lstm.lstm_sequence_kernel.launches
         iters = LEAGUE_WARM + LEAGUE_TIMED
         if launches != iters * (2 * T + updates):
@@ -2099,6 +2196,345 @@ def league_phase(device, seed, ckpt_dir):
     return result
 
 
+# -- phase 13: the buffered learner ------------------------------------------------
+
+BUFFERED_ENVS, BUFFERED_MAX_DOTA_TIME = 128, 20.0
+# collects: warm, timed under the sync guard, profiled, then one that
+# meets the run's first log and checkpoint boundary (BOUNDARY_EVERY steps:
+# each collect feeds 128 / 32 batches of 2 x 2 updates)
+BUFFERED_WARM, BUFFERED_TIMED, BUFFERED_PROFILED = 2, 8, 2
+STEPS_PER_COLLECT = BUFFERED_ENVS // BUFFERED_BATCH * BUFFERED_EPOCHS * BUFFERED_MINIBATCHES
+BOUNDARY_EVERY = (BUFFERED_WARM + BUFFERED_TIMED + BUFFERED_PROFILED + 1) * STEPS_PER_COLLECT
+# the rollback run: log and checkpoint every 20 steps (a last_good save at
+# step 20), the 9th batch (steps 33-36) poisoned, so its verdict reaches the
+# engine ahead of the step-40 checkpoint, which is refused. The rollback
+# comes at the first boundary after the engine folds it, at step 40 or
+# later, and goes back to step 20 wherever it falls. 144 games a collect
+# (4.5 batches) leave chunks newer than step 20 in the ring at every
+# boundary from step 40 on, so the drop shows wherever the rollback falls.
+ROLLBACK_ENVS, ROLLBACK_EVERY, ROLLBACK_POISONED_BATCH, ROLLBACK_STEPS = 144, 20, 9, 80
+RESUME_STOP_STEP = 24   # mid collect 2: a held batch and chunks in the ring
+
+
+def buffered_config(seed, every=10 ** 9, n_envs=BUFFERED_ENVS):
+    """The default ``RunConfig`` with phase 6's traffic (128 games against
+    the easy bot, 20 s games; ``n_envs`` games if given), 2 epochs of 2
+    minibatches over the default batch of 32 chunks, the default ring (256
+    chunks, min_fill 32), and log and checkpoint boundaries every ``every``
+    optimizer steps."""
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(
+        cfg,
+        env=dataclasses.replace(cfg.env, n_envs=n_envs, opponent="scripted_easy",
+                                max_dota_time=BUFFERED_MAX_DOTA_TIME),
+        ppo=dataclasses.replace(cfg.ppo, batch_rollouts=BUFFERED_BATCH, epochs_per_batch=BUFFERED_EPOCHS,
+                                minibatches=BUFFERED_MINIBATCHES),
+        log_every=every,
+        checkpoint_every=every,
+        seed=seed,
+    )
+
+
+class BufferedRecorder:
+    """Records, with no read of the device: CUDA events around each collect
+    and each consumed batch's updates, each collect's chunk, each batch's
+    metrics; and holds the snapshot engine's copies to the host while a
+    guarded loop runs (they start once ``unguarded_end`` lifts the
+    guard)."""
+
+    def __init__(self, learner):
+        import threading
+
+        import torch
+
+        self.collect_marks, self.batch_marks, self.chunks, self.metrics = [], [], [], []
+        self.gate = threading.Event()
+        self.gate.set()
+        da, engine = learner.device_actor, learner._snap_engine
+        collect, optimize, fetch = da.collect, learner._optimize, engine._fetch
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_collect(params, opp_params=None):
+            start = event()
+            out = collect(params, opp_params)
+            self.collect_marks.append((start, event()))
+            self.chunks.append(out[0])
+            return out
+
+        def timed_optimize(batch):
+            start = event()
+            m = optimize(batch)
+            self.batch_marks.append((start, event()))
+            self.metrics.append(m)
+            return m
+
+        def held_fetch(copy):
+            if not self.gate.wait(WAIT_S):
+                raise AssertionError(f"the snapshot engine's copy was held past {WAIT_S:.0f} s")
+            return fetch(copy)
+
+        da.collect, learner._optimize, engine._fetch = timed_collect, timed_optimize, held_fetch
+        unguarded_end(learner, on_lift=self.gate.set)
+
+    def clear(self):
+        self.collect_marks, self.batch_marks, self.chunks, self.metrics = [], [], [], []
+
+
+def buffered_rollback(device, seed, ckpt_dir):
+    """A poisoned batch after a last_good save: the HEALTH_ROLLBACK line,
+    the refused checkpoint, the restore bitwise equal to the slot, the
+    poisoned chunks dropped, and the run at its target step."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import faults, telemetry
+
+    reg = telemetry.Registry()
+    faults.configure(f"learner.nan_grad@{ROLLBACK_POISONED_BATCH}")
+    try:
+        learner = Learner(buffered_config(seed, every=ROLLBACK_EVERY, n_envs=ROLLBACK_ENVS), actor="device", seed=seed, device=device,
+                          registry=reg, checkpoint_dir=ckpt_dir)
+    finally:
+        faults.configure(None)   # the learner keeps the registry it was built with
+    restored = []
+    restore_last_good = learner.ckpt.restore_last_good
+
+    def checked_restore(*args, **kwargs):
+        want, step = learner.ckpt._last_good_slot().restore_weights()
+        out = restore_last_good(*args, **kwargs)
+        got = {k: v.detach().cpu() for k, v in learner.policy.state_dict().items()}
+        restored.append((step, all(torch.equal(got[k], want[k]) for k in want)))
+        return out
+
+    learner.ckpt.restore_last_good = checked_restore
+    out_text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_text):
+        out = learner.train(ROLLBACK_STEPS)
+    wall_s = time.perf_counter() - t0
+    lines = out_text.getvalue().splitlines()
+    for line in lines:
+        log(f"rollback run: {line[:300]}")
+    events = [json.loads(x[len("HEALTH_ROLLBACK "):]) for x in lines if x.startswith("HEALTH_ROLLBACK ")]
+    snap = reg.snapshot()
+    blocked = snap["health/publish_blocked_total"] + snap["health/checkpoints_blocked_total"]
+    if len(events) != 1 or events[0]["to_step"] != ROLLBACK_EVERY:
+        raise AssertionError(f"rollback: HEALTH_ROLLBACK lines {events}, expected one back to step {ROLLBACK_EVERY}")
+    if restored != [(ROLLBACK_EVERY, True)]:
+        raise AssertionError(f"rollback: restores {restored}: the params must equal the last_good slot's bitwise")
+    if not (blocked >= 1 and snap["buffer/poison_dropped_total"] > 0 and snap["health/rollbacks_total"] == 1):
+        raise AssertionError(f"rollback: blocked {blocked}, poison dropped {snap['buffer/poison_dropped_total']}, "
+                             f"rollbacks {snap['health/rollbacks_total']}")
+    if not (learner.state.step == ROLLBACK_STEPS and out["optimizer_steps"] == ROLLBACK_STEPS
+            and np.isfinite(out["loss"]) and out["health_ok"] == 1.0 and learner._health.unhealthy is None):
+        raise AssertionError(f"rollback: step {learner.state.step}, {out['optimizer_steps']} steps, loss {out['loss']}, "
+                             f"health_ok {out['health_ok']}, latched {learner._health.unhealthy}")
+    learner.close()
+    result = {"event": events[0], "restored_step": restored[0][0], "publish_blocked": snap["health/publish_blocked_total"],
+              "checkpoints_blocked": snap["health/checkpoints_blocked_total"],
+              "poison_dropped": snap["buffer/poison_dropped_total"], "final_step": learner.state.step, "wall_s": wall_s}
+    log(f"rollback: batch {ROLLBACK_POISONED_BATCH} poisoned, {json.dumps(events[0])}; params bitwise equal to the "
+        f"last_good slot (step {restored[0][0]}); {blocked:.0f} publish or checkpoint blocked, "
+        f"{snap['buffer/poison_dropped_total']:.0f} poisoned chunks dropped; the run reached step "
+        f"{learner.state.step} healthy in {wall_s:.1f} s")
+    return result
+
+
+def buffered_resume(device, seed, ckpt_dir):
+    """``request_stop`` mid-run, then ``Learner(..., restore=True)``: the
+    ring, the slot versions, the actor's state and RNG and ``mb_draws``
+    equal what was saved, bitwise, and the next permutation is the one an
+    uninterrupted run draws."""
+    import torch
+
+    from dotaclient_tpu_torch.actor.device_rollout import flatten_state
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = buffered_config(seed)
+    make = lambda **kw: Learner(cfg, actor="device", seed=seed, device=device,  # noqa: E731
+                                registry=telemetry.Registry(), **kw)
+    a = make(checkpoint_dir=ckpt_dir)
+    after_step = a._after_step
+
+    def stop_at(m, frames, stride):
+        rewound = after_step(m, frames, stride)
+        if a.state.step >= RESUME_STOP_STEP:
+            a.request_stop()
+        return rewound
+
+    a._after_step = stop_at
+    out = a.train(10 * RESUME_STOP_STEP)
+    saved = {"buffer": a.buffer.state_dict(), "actor": [t.detach().cpu() for t in flatten_state(a.device_actor.state)],
+             "rng": a.device_actor.generator.get_state(), "mb_draws": a._mb_draws,
+             "params": {k: v.detach().cpu() for k, v in a.policy.state_dict().items()}}
+    if not (out["optimizer_steps"] == RESUME_STOP_STEP and saved["buffer"]["order"].ge(0).sum() > 0):
+        raise AssertionError(f"resume: stopped after {out['optimizer_steps']} steps with "
+                             f"{int(saved['buffer']['order'].ge(0).sum())} chunks in the ring")
+    a.close()
+    b = make(checkpoint_dir=ckpt_dir, restore=True)
+    got = b.buffer.state_dict()
+    bad = [k for k in ("order", "free", "slot_version", "counters") if not torch.equal(got[k], saved["buffer"][k])]
+    from dotaclient_tpu_torch.buffer.trajectory_buffer import tree_leaves
+
+    bad += ["store"] * (not all(torch.equal(x, y) for x, y in zip(tree_leaves(got["store"]),
+                                                                   tree_leaves(saved["buffer"]["store"]))))
+    bad += ["actor"] * (not all(torch.equal(x.cpu(), y) for x, y in zip(flatten_state(b.device_actor.state),
+                                                                      saved["actor"])))
+    bad += ["rng"] * (not torch.equal(b.device_actor.generator.get_state(), saved["rng"]))
+    bad += ["mb_draws"] * (b._mb_draws != saved["mb_draws"])
+    bad += ["params"] * (not all(torch.equal(v.cpu(), saved["params"][k]) for k, v in b.policy.state_dict().items()))
+    c = make()
+    c.train(RESUME_STOP_STEP)
+    perm_b, perm_c = b._mb_rng.permutation(BUFFERED_BATCH), c._mb_rng.permutation(BUFFERED_BATCH)
+    bad += ["permutation"] * (not np.array_equal(perm_b, perm_c) or c._mb_draws != saved["mb_draws"])
+    for learner in (b, c):
+        learner.close()
+    if bad:
+        raise AssertionError(f"resume: restored state differs from the saved one in {bad}")
+    n_ring = int(saved["buffer"]["order"].ge(0).sum())
+    log(f"resume: stopped at step {RESUME_STOP_STEP} with {n_ring} chunks in the ring; the restore's ring, slot "
+        f"versions, actor state and RNG, {saved['mb_draws']} minibatch draws and params equal the saved ones "
+        f"bitwise; the next permutation equals an uninterrupted run's")
+    return {"stop_step": RESUME_STOP_STEP, "ring_chunks": n_ring, "mb_draws": saved["mb_draws"]}
+
+
+def buffered_phase(device, seed, ckpt_dir, fused_frames_per_s):
+    """The buffered learner on the card: warm-up, timed collects under the
+    sync guard, a profiled window, one boundary under the guard with the
+    engine's copies held; then the rollback, the resume and the CLI."""
+    import os
+
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = buffered_config(seed, every=BOUNDARY_EVERY)
+    T, B = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts
+    updates = cfg.ppo.steps_per_batch
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="device", seed=seed, device=device, registry=reg,
+                      checkpoint_dir=os.path.join(ckpt_dir, "buffered"))
+    da, buf = learner.device_actor, learner.buffer
+    per_collect = STEPS_PER_COLLECT
+    if not (learner.epoch_step is not None and learner.advantage_pass is not None
+            and da.n_lanes // B * updates == per_collect and da.n_lanes % B == 0):
+        raise AssertionError("phase 13 must run the epoch step and the one-pass advantage pass on whole batches")
+    rec = BufferedRecorder(learner)
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    torch.cuda.synchronize()
+    lstm.lstm_sequence_kernel.launches = 0
+    guarded_train(learner, BUFFERED_WARM * per_collect)
+    rec.clear()
+    out, loop_s = guarded_train(learner, BUFFERED_TIMED * per_collect)
+    collect_ms = statistics.mean(a.elapsed_time(b) for a, b in rec.collect_marks)
+    batch_ms = statistics.mean(a.elapsed_time(b) for a, b in rec.batch_marks)
+    timed = {"collects": len(rec.collect_marks), "batches": len(rec.batch_marks)}
+    metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+    chunks = list(rec.chunks)
+    rec.clear()
+    profile = profiled(lambda: learner.train(BUFFERED_PROFILED * per_collect))
+    prof_counts = {"collects": len(rec.collect_marks), "batches": len(rec.batch_marks)}
+    chunks += rec.chunks
+    metrics += [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+    rec.clear()
+    boundary_out, _ = guarded_train(learner, per_collect, rec)
+    torch.cuda.synchronize()
+    chunks += rec.chunks
+    metrics += [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+    launches = lstm.lstm_sequence_kernel.launches
+    snap = reg.snapshot()
+    collects = BUFFERED_WARM + BUFFERED_TIMED + BUFFERED_PROFILED + 1
+    batches = collects * da.n_lanes // B
+    passes = snap["advantage/passes_total"]
+    expected = collects * T + passes + batches * updates
+    if launches != expected:
+        raise AssertionError(f"lstm_seq launched {launches} times: expected {collects} collects x {T} + {passes:.0f} "
+                             f"advantage passes + {batches} batches x {updates} updates = {expected:.0f}")
+    if passes != batches:
+        raise AssertionError(f"advantage/passes_total {passes} != {batches} batches consumed")
+    dropped = {"stale": buf.dropped_stale, "overflow": buf.dropped_overflow}
+    if not buf.ingested == collects * da.n_lanes == batches * B + buf.size + sum(dropped.values()):
+        raise AssertionError(f"ring books: ingested {buf.ingested}, {collects} collects x {da.n_lanes}, "
+                             f"{batches} batches x {B} + size {buf.size} + dropped {dropped}")
+    for i, m in enumerate(metrics):
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+            raise AssertionError(f"batch {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, health_ok {m['health_ok']}")
+    if len(metrics) != batches - BUFFERED_WARM * da.n_lanes // B:
+        raise AssertionError(f"{len(metrics)} batches recorded after the warm-up")
+    moved, cast_legal, ability_choice = check_params_moved(before, learner.policy, chunks)
+    illegal, n_actions = check_chunk_actions(chunks)
+    if illegal:
+        raise AssertionError(f"{illegal} of {n_actions} sampled actions illegal under their masks")
+    if not (len(learner.history) == 1 and learner.history[0]["step"] == BOUNDARY_EVERY
+            and learner.ckpt.last_good_step() == BOUNDARY_EVERY and snap["snapshot/errors_total"] == 0):
+        raise AssertionError(f"the boundary at step {BOUNDARY_EVERY}: log lines {[h['step'] for h in learner.history]}, "
+                             f"last_good {learner.ckpt.last_good_step()}, engine errors {snap['snapshot/errors_total']}")
+    stats = da.stats()
+    if not stats["episodes_done"] > 0:
+        raise AssertionError("no episode ended in the buffered phase")
+    frames = timed["batches"] * B * T
+    learner.close()
+    result = {
+        "n_envs": cfg.env.n_envs, "lanes": da.n_lanes, "rollout_len": T, "batch_rollouts": B,
+        "epochs_per_batch": cfg.ppo.epochs_per_batch, "minibatches": cfg.ppo.minibatches,
+        "capacity_rollouts": cfg.buffer.capacity_rollouts, "min_fill": cfg.buffer.min_fill,
+        "collects": collects, "batches": batches, "timed": timed, "profiled": prof_counts,
+        "frames_trained": frames, "frames_per_s": frames / loop_s,
+        "loop_ms": loop_s * 1e3,
+        "collect_ms": collect_ms, "batch_ms": batch_ms,
+        "wall_ms_per_collect": loop_s * 1e3 / timed["collects"],
+        "wall_ms_per_batch": loop_s * 1e3 / timed["batches"],
+        "fused_frames_per_s": fused_frames_per_s,
+        "snapshot_d2h_ms": snap["snapshot/d2h_ms"], "stall_fraction": snap["learner/stall_fraction"],
+        "lstm_seq_launches": launches, "advantage_passes": passes,
+        "ring": {"ingested": buf.ingested, "size": buf.size, **dropped},
+        "actions_checked": n_actions, "params_moved": sum(moved.values()), "params": len(moved),
+        "frames_that_could_cast": cast_legal, "frames_with_a_choice_of_ability": ability_choice,
+        "episodes_done": stats["episodes_done"], "last_metrics": metrics[-1], "timed_out": {
+            k: out[k] for k in ("optimizer_steps", "frames_trained")},
+        "boundary_log_line": learner.history[0]["step"], "sync_debug_mode": "error",
+        "profile": {"collects": BUFFERED_PROFILED, **profile},
+    }
+    log(
+        f"buffered: {timed['collects']} timed collects x {da.n_lanes} lanes x {T} steps into the ring, "
+        f"{timed['batches']} batches of {B} x {updates} updates (E={cfg.ppo.epochs_per_batch} M={cfg.ppo.minibatches}) "
+        f"= {frames} trained frames in {loop_s * 1e3:.1f} ms of loop: {result['frames_per_s']:.0f} frames/s "
+        f"(phase 6's fused {fused_frames_per_s:.0f}), {result['wall_ms_per_collect']:.2f} ms wall a collect, "
+        f"{result['wall_ms_per_batch']:.2f} ms a batch; between CUDA events a collect {collect_ms:.2f} ms, a batch's "
+        f"updates {batch_ms:.2f} ms; no host sync inside the loops, the boundary at step {BOUNDARY_EVERY} included "
+        f"(its copies to the host held until the guard lifted); snapshot/d2h_ms {snap['snapshot/d2h_ms']:.3f}, "
+        f"learner/stall_fraction {snap['learner/stall_fraction']:.4f}; loss {metrics[-1]['loss']:.4g}, health_ok 1 in "
+        f"all; {n_actions} actions legal; {sum(moved.values())} of {len(moved)} param tensors moved; "
+        f"{stats['episodes_done']:.0f} episodes; ring ingested {buf.ingested} = {batches} x {B} + {buf.size} + "
+        f"dropped {dropped}; advantage passes {passes:.0f}; lstm_seq launches {launches} = {collects} x {T} + "
+        f"{passes:.0f} + {batches} x {updates}"
+    )
+    log_profile(f"buffered profile: {BUFFERED_PROFILED} collects", profile)
+    result["rollback"] = buffered_rollback(device, seed, os.path.join(ckpt_dir, "rollback"))
+    result["resume"] = buffered_resume(device, seed, os.path.join(ckpt_dir, "resume"))
+    lines, cli_s = run_child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3"], "the learner CLI")
+    cli = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+    if not (cli["optimizer_steps"] == 3.0 and np.isfinite(cli["loss"]) and cli["health_ok"] == 1.0):
+        raise AssertionError(f"the learner CLI's line {cli}")
+    log(f"learner CLI --smoke --steps 3 (default actor): {cli['optimizer_steps']:.0f} steps, "
+        f"{cli['frames_trained']:.0f} frames, loss {cli['loss']:.4g} in {cli_s:.1f} s wall")
+    result["cli"] = {"optimizer_steps": cli["optimizer_steps"], "frames_trained": cli["frames_trained"],
+                     "wall_s": cli_s}
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2140,12 +2576,14 @@ def main() -> int:
         fleet = {"parity": fleet_parity_phase(device, args.seed, ckpt_dir),
                  "cli": fleet_cli_phase(ckpt_dir, learner.state.step, args.seed)}
         league = league_phase(device, args.seed, ckpt_dir)
+        buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
                                       "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"],
                                       "train_league": league["lstm_seq_launches"],
-                                      "league_eval": league["eval"]["lstm_seq_launches"]}
+                                      "league_eval": league["eval"]["lstm_seq_launches"],
+                                      "train_buffered": buffered["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
@@ -2153,7 +2591,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
-                       "league": league}, f, indent=2)
+                       "league": league, "buffered": buffered}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -76,10 +76,43 @@ def reduce_device_stats(stats: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same structure."""
+    """``fn`` over the leaves of nested dicts and tuples of one structure."""
     if isinstance(trees[0], Mapping):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
     return fn(*trees)
+
+
+def flatten_state(state: Any) -> list:
+    """The tensor leaves of a ``DeviceActorState`` (dataclasses, tuples and
+    dicts), in a fixed order: the checkpointed form of the actor."""
+    if dataclasses.is_dataclass(state):
+        return [leaf for f in dataclasses.fields(state) for leaf in flatten_state(getattr(state, f.name))]
+    if isinstance(state, Mapping):
+        return [leaf for k in state for leaf in flatten_state(state[k])]
+    if isinstance(state, tuple):
+        return [leaf for v in state for leaf in flatten_state(v)]
+    return [state]
+
+
+def unflatten_state(template: Any, leaves: list) -> Any:
+    """``template``'s structure with ``leaves`` (``flatten_state``'s order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if dataclasses.is_dataclass(t):
+            return dataclasses.replace(t, **{f.name: build(getattr(t, f.name)) for f in dataclasses.fields(t)})
+        if isinstance(t, Mapping):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(build(v) for v in t)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 # the policy of one side of a rollout: a module (its own params) or a state
@@ -354,13 +387,27 @@ class DeviceActor:
         self._tel.counter("actor/rollouts_shipped").inc(self.n_lanes)
         return chunk, stats
 
+    def begin_drain(self):
+        """The half of :meth:`drain_stats` that reads nothing: take the
+        stat accumulators (fresh tensors of the last collect, which nothing
+        writes into), reset them, and return ``(device_stats, finish)``.
+        ``finish(host_stats)`` folds the window into the host counters and
+        returns :meth:`stats`; the caller (the snapshot engine's thread, or
+        :meth:`drain_stats`) feeds it the one copy of ``device_stats``."""
+        dev, self.state.stats = self.state.stats, self._zero_stats()
+        return dev, self._finish_drain
+
     def drain_stats(self) -> Dict[str, float]:
         """Read the accumulated episode stats (the one read of the device,
         at log boundaries only), reset the accumulators, fold the window
         into the host counters and the outcome counters."""
-        dev, self.state.stats = self.state.stats, self._zero_stats()
+        dev, finish = self.begin_drain()
         with self._tel.span("actor/drain"):
-            s = reduce_device_stats(tree_map(lambda t: t.cpu().numpy(), dev))
+            host = tree_map(lambda t: t.cpu(), dev)
+        return finish(host)
+
+    def _finish_drain(self, host: Mapping[str, Any]) -> Dict[str, float]:
+        s = reduce_device_stats(tree_map(lambda t: t.numpy(), host))
         self.episodes_done += int(s["episodes"])
         self.wins += int(s["wins"])
         self._reward_sum += float(s["ep_return_sum"])

@@ -94,6 +94,7 @@ class PPOConfig:
     kl_lr_up: float = 1.02
     kl_lr_min_scale: float = 0.01
     kl_lr_max_scale: float = 10.0
+    # kept for the reference's configs; the port runs one epoch step either way
     fused_epoch: bool = True
     one_pass_advantage: bool = True
     advantage_dtype: str = "bfloat16"

@@ -19,8 +19,10 @@ Protocol:
 
 The reference's ``--core``, ``--moe-experts`` (ROADMAP queue 1, item 6),
 ``--logdir``, ``--metrics-jsonl`` and ``--log-every`` (item 10) are
-accepted and raise, naming their item; its buffered ``--actor device``
-waits for item 4a, so the demo trains in fused mode.
+accepted and raise, naming their item. ``--actor`` picks the learner's
+mode as the reference's does: ``fused`` (the default) or ``device``, the
+buffered learner (``--actor device --n-envs 8 --eval-games 4 --device cpu``
+runs it on the CPU).
 """
 
 from __future__ import annotations
@@ -70,8 +72,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="resume from the newest checkpoint in --checkpoint-dir instead of step 0")
     p.add_argument("--init-from", type=str, default=None, metavar="DIR",
                    help="seed a fresh run with the params of the newest checkpoint in DIR (never written to)")
+    p.add_argument("--actor", type=str, default="fused", choices=("fused", "device"),
+                   help="fused: rollout and update on the same chunk in one step; device: the buffered learner "
+                   "(trajectory ring, one-pass advantages, epoch step)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="rollout and update iterations in one fused call")
+                   help="with --actor fused: rollout and update iterations in one fused call")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
     p.add_argument("--core", type=str, default=None, help="not ported yet: " + _NOT_PORTED["core"])
@@ -83,6 +88,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name, item in _NOT_PORTED.items():
         if getattr(args, name) is not None:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet: {item}")
+    if args.steps_per_dispatch > 1 and args.actor != "fused":
+        p.error("--steps-per-dispatch needs --actor fused")
     if args.restore and not args.checkpoint_dir:
         p.error("--restore needs --checkpoint-dir")
     if args.init_from and args.restore:
@@ -126,7 +133,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         seed=args.seed,
     )
     device = resolve_device(args.device)
-    learner = Learner(config, actor="fused", seed=args.seed, device=device, checkpoint_dir=args.checkpoint_dir,
+    learner = Learner(config, actor=args.actor, seed=args.seed, device=device, checkpoint_dir=args.checkpoint_dir,
                       restore=args.restore, init_from=args.init_from)
     policy = learner.policy
     # after --restore (or --init-from) the "initial" evals baseline the
@@ -169,9 +176,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         "steps": args.steps,
         "team_size": args.team_size,
         "core": "lstm",
+        "actor": args.actor,
         "device": str(device),
         "restored_step": restored_step,
-        "frames": args.steps * config.ppo.rollout_len * learner.device_actor.n_lanes,
+        "frames": args.steps * config.ppo.rollout_len * (
+            learner.device_actor.n_lanes if args.actor == "fused" else config.ppo.batch_rollouts),
         "wall_sec": round(time.time() - t0, 1),
         "init_win_vs_easy": round(init_easy["win_rate"], 3),
         "init_win_vs_hard": round(init_hard["win_rate"], 3),

@@ -23,22 +23,14 @@ parity between the packages is held at ``minibatches=1``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, DeviceActorState, PolicyParams, tree_map
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.models.policy import Policy
-from dotaclient_tpu_torch.train.ppo import Batch, TrainState, _train_step, fold_scan_metrics
-
-
-def _take_lanes(tree: Any, idx: torch.Tensor) -> Any:
-    if isinstance(tree, dict):
-        return {k: _take_lanes(v, idx) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_take_lanes(v, idx) for v in tree)
-    return tree.index_select(0, idx)
+from dotaclient_tpu_torch.train.ppo import Batch, TrainState, _train_step, fold_scan_metrics, take_rows
 
 
 def lane_minibatches(chunk: Batch, step: int, seed: int, n_lanes: int, n_mb: int) -> List[Batch]:
@@ -50,7 +42,7 @@ def lane_minibatches(chunk: Batch, step: int, seed: int, n_lanes: int, n_mb: int
     gen.manual_seed((seed * 1_000_003 + step) % (2 ** 63))
     perm = torch.randperm(n_lanes, generator=gen, device=device)
     size = n_lanes // n_mb
-    return [_take_lanes(chunk, perm[m * size:(m + 1) * size]) for m in range(n_mb)]
+    return [take_rows(chunk, perm[m * size:(m + 1) * size]) for m in range(n_mb)]
 
 
 def make_fused_step(config: RunConfig, actor: DeviceActor, anchor: Optional[Policy] = None):

@@ -1,36 +1,57 @@
-"""The learner, fused mode: self-play PPO on one card.
+"""The learner: self-play PPO on one card, buffered or fused.
 
-Counterpart of the fused branch of ``dotaclient_tpu/train/learner.py``
-(``Learner(config, actor="fused")``, its training loop and ``train``'s
-return dict) and of its ``--smoke`` entry point. Run on the card::
+Counterpart of ``dotaclient_tpu/train/learner.py`` (``Learner(config,
+actor=...)``, its training loops, the health guardian, the snapshot
+engine's boundaries, ``train``'s return dict) and of its CLI. Run on the
+card::
 
-    python -m dotaclient_tpu_torch.train.learner --smoke [--steps N] [--n-envs N]
-        [--opponent scripted_easy|scripted_hard|selfplay|league] [--league K=V,...]
+    python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused]
+        [--n-envs N] [--opponent scripted_easy|scripted_hard|selfplay|league] [--league K=V,...]
+        [--buffer K=V,...] [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore]] [--init-from DIR]
 
-Each loop iteration is one call of the fused step (``train/fused.py``):
-``steps_per_dispatch`` rollouts and ``epochs_per_batch x minibatches``
-updates each. The host reads the device only between iterations: at log
-boundaries (every ``log_every`` optimizer steps) the metrics and the
-drained episode stats, and with ``checkpoint_dir`` the whole train state at
-``checkpoint_every`` boundaries and once more at the end of ``train``
-(``utils/checkpoint.py``; ``restore`` resumes from the newest valid step).
+Two actor modes, ``device`` the default as in the reference:
+
+* ``device``, the buffered learner: each iteration ``DeviceActor.collect``
+  rolls out every game on the card, ``TrajectoryBuffer.add_device`` puts
+  the chunks in the ring, and every ``batch_rollouts`` chunks taken from
+  it (``_next_batch``, with the prefetch lane's hold and release) get the
+  one-pass advantage pass (``train/advantage.py``) and ``epochs_per_batch
+  x minibatches`` updates (``_optimize``: one epoch-step call), the
+  minibatch permutations drawn on the host from ``default_rng(seed + 1)``;
+* ``fused``: one call of ``train/fused.py`` a loop iteration, rollout and
+  update on the same chunk.
+
+Around both loops, as in the reference: the health guardian
+(``train/health.py``; every batch's verdict tensors are queued with no
+read, folded on the snapshot engine's thread at boundaries, and a
+latched divergence blocks publishes and checkpoints and rolls the state
+back to the ``last_good`` save, dropping the poisoned timeline's saves,
+buffered experience and recurrent carries); the snapshot engine
+(``train/snapshot.py``; at a log, checkpoint or publish boundary the train
+thread only queues on-device clones); the end of ``train`` (the rollback
+re-entry, the final publish, the forced save with the whole pipeline: the
+ring, the device actor's state and RNG, the minibatch draw count, so
+``restore`` resumes exactly); and ``request_stop`` (the CLI's first
+SIGTERM or SIGINT drains and saves; a second one kills).
+
+The host reads the device only at those boundaries and at the end of
+``train``; between them the loops issue work and read host ints.
 ``init_from`` seeds a fresh run with the weights of another run's newest
 valid checkpoint: fresh Adam moments, step 0, the source left untouched.
 
-League mode (``env.opponent="league"``) plays the Dire side against
-frozen past selves (``league/pool.py``). The pool is seeded with the
-initial params at step 0 (after ``init_from`` or ``restore``), snapshots
-every ``snapshot_every`` steps, and its draw is held for ``opponent_hold``
-steps. Each call's episode outcomes against a snapshot stay on the device
-until the flush at a log boundary or at the end of ``train``, the one
-read that PFSP's win rates cost.
+League mode (``env.opponent="league"``) plays the Dire side against frozen
+past selves (``league/pool.py``): snapshots every ``snapshot_every`` steps,
+draws held for ``opponent_hold`` steps, and PFSP outcomes read in one
+batch at a log boundary or the end of ``train``.
 
-Not ported yet, each with its ROADMAP item: the other actor modes
-(``device``, ``vec``, ``scalar``, ``external``; queue 1, item 4), the
-health guardian's rollback (item 4), async checkpoint saves and the CUDA
-graph of the iteration (item 3) and the learner's transports (item 4).
+Not ported yet, each with its ROADMAP item: the ``vec``, ``scalar`` and
+``external`` actor modes and the learner's transports (queue 1, items 4b
+and 4c; the in-process transport is here), the weights pushes to
+in-process host pools (with the ``vec`` mode), the run record (item 10),
+best-model rotation, saves that return before the write lands and
+``--on-crash-checkpoint`` (item 3b).
 """
 
 from __future__ import annotations
@@ -40,6 +61,7 @@ import copy
 import dataclasses
 import json
 import os
+import signal
 import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -47,37 +69,46 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
-from dotaclient_tpu_torch.config import LeagueConfig, RunConfig, default_config
+from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, flatten_state, unflatten_state
+from dotaclient_tpu_torch.buffer import TrajectoryBuffer
+from dotaclient_tpu_torch.config import (
+    BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, RunConfig, default_config,
+)
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
 from dotaclient_tpu_torch.league.pool import LIVE, OpponentPool
 from dotaclient_tpu_torch.models.policy import init_params, make_policy
+from dotaclient_tpu_torch.train.advantage import make_advantage_pass, one_pass_enabled
 from dotaclient_tpu_torch.train.fused import make_fused_step
-from dotaclient_tpu_torch.train.ppo import init_train_state
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.train.health import VERDICT_KEYS, HealthMonitor
+from dotaclient_tpu_torch.train.ppo import init_train_state, make_epoch_step, make_train_step
+from dotaclient_tpu_torch.train.snapshot import SnapshotEngine, device_copy
+from dotaclient_tpu_torch.transport.queues import InProcTransport
+from dotaclient_tpu_torch.transport.serialize import encode_weights
+from dotaclient_tpu_torch.utils import faults, telemetry
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, shape_mismatches
 from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 
+ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
 # actor modes of the reference learner that the port does not have yet
 _NOT_PORTED = {
-    "device": "ROADMAP queue 1, item 4 (the buffered learner path)",
-    "vec": "ROADMAP queue 1, item 4 (the buffered learner path)",
-    "scalar": "ROADMAP queue 1, item 4 (the buffered learner path)",
-    "external": "ROADMAP queue 1, items 1 and 4 (the socket lane and the buffered learner path)",
+    "vec": "ROADMAP queue 1, item 4b (external actors and the learner's transports)",
+    "scalar": "ROADMAP queue 1, item 4c (the scalar path)",
+    "external": "ROADMAP queue 1, item 4b (external actors and the learner's transports)",
 }
 
 
 class Learner:
-    """Fused-mode learner: params from ``init_params`` with ``seed`` (or,
-    with ``restore``, from the newest valid checkpoint in
-    ``checkpoint_dir``; or, with ``init_from``, the weights alone of the
-    newest valid checkpoint in that other directory), one device actor over
-    ``config.env.n_envs`` games, one fused step."""
+    """Params from ``init_params`` with ``seed`` (or, with ``restore``, the
+    newest valid checkpoint in ``checkpoint_dir``, pipeline included; or,
+    with ``init_from``, the weights alone of the newest valid checkpoint in
+    that other directory), one device actor over ``config.env.n_envs``
+    games, and the ``actor`` mode's loop: ``device`` (the buffered learner)
+    or ``fused``."""
 
     def __init__(
         self,
         config: RunConfig,
-        actor: str = "fused",
+        actor: str = "device",
         seed: int = 0,
         device: DeviceLike = None,
         registry: Optional[telemetry.Registry] = None,
@@ -85,13 +116,18 @@ class Learner:
         restore: bool = False,
         init_from: Optional[str] = None,
     ) -> None:
-        if actor != "fused":
-            where = _NOT_PORTED.get(actor)
-            if where is None:
-                raise ValueError(f"unknown actor mode {actor!r}")
-            raise NotImplementedError(f"actor mode {actor!r} is not ported yet: {where}")
+        if actor not in ACTOR_MODES:
+            raise ValueError(f"unknown actor mode {actor!r}")
+        if actor in _NOT_PORTED:
+            raise NotImplementedError(f"actor mode {actor!r} is not ported yet: {_NOT_PORTED[actor]}")
         if config.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
+        if config.steps_per_dispatch > 1 and actor != "fused":
+            raise ValueError("steps_per_dispatch > 1 batches iterations inside the fused step; it has no meaning "
+                             "for the buffered learner: use actor='fused' or leave it at 1")
+        if actor == "device" and config.ppo.batch_rollouts % max(1, config.ppo.minibatches):
+            raise ValueError(f"batch_rollouts {config.ppo.batch_rollouts} not divisible by minibatches "
+                             f"{config.ppo.minibatches}")
         league_on = config.league.enabled or config.env.opponent == "league"
         stride = config.steps_per_dispatch * config.ppo.steps_per_batch
         if league_on and stride > config.league.opponent_hold:
@@ -102,6 +138,7 @@ class Learner:
                 f"(steps_per_dispatch x steps_per_batch = {stride}): raise opponent_hold or lower "
                 "steps_per_dispatch"
             )
+        self.actor_mode = actor
         self.config = config
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else telemetry.get_registry()
@@ -134,9 +171,55 @@ class Learner:
             self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, 0)
         self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                         device=self.device)
-        self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
+        self.fused_step = None
+        self.train_step = self.epoch_step = self.advantage_pass = None
+        self.buffer: Optional[TrajectoryBuffer] = None
+        if actor == "fused":
+            self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
+        else:
+            self.train_step = make_train_step(config, anchor=self.anchor)
+            # ppo.fused_epoch picks nothing here: the reference's staged
+            # loop and its scanned epoch are the same Python loop in torch
+            if config.ppo.steps_per_batch > 1:
+                self.epoch_step = make_epoch_step(config, anchor=self.anchor)
+            if one_pass_enabled(config):
+                self.advantage_pass = make_advantage_pass(self.policy, config)
+            self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry)
+        reg = self.registry
+        reg.gauge("advantage/one_pass").set(1.0 if self.advantage_pass is not None else 0.0)
+        reg.gauge("advantage/pass_ms")
+        reg.counter("advantage/passes_total")
+        self.transport = InProcTransport(registry=self.registry)
+        self._health: Optional[HealthMonitor] = None
+        if config.health.enabled:
+            self._health = HealthMonitor(config.health, registry=self.registry)
+        self._rollback_count = 0
+        # the last batch's verdict tensors (the sync-snapshots gap-closer)
+        self._last_verdict_m: Optional[Dict[str, torch.Tensor]] = None
+        self._published_version = -1   # the sync path's publish floor
+        self._snap_engine: Optional[SnapshotEngine] = None
+        if config.learner.async_snapshots:
+            self._snap_engine = SnapshotEngine(transport=self.transport, wire_dtype=config.transport.wire_dtype,
+                                               ckpt=self.ckpt, registry=self.registry, health=self._health)
+        for key in ("learner/publish_stall_ms", "learner/stall_fraction", "snapshot/pending", "snapshot/d2h_ms"):
+            reg.gauge(key)
+        self._stall_s = 0.0   # train-thread seconds spent at boundaries
+        self._mb_rng = np.random.default_rng(config.seed + 1)
+        self._mb_draws = 0     # permutations drawn (replayed on restore)
+        # the prefetch lane: batch N+1, taken and staged behind batch N's
+        # updates, its slots held in the ring until released or requeued
+        self._prefetched: Optional[Dict[str, Any]] = None
+        self._prefetch_ticket: Optional[int] = None
+        self._adv_overlap = config.learner.overlap_advantage
+        self._stop_requested = False
+        self._faults = faults.get()   # None unless fault injection is on
         self._last_metrics: Dict[str, float] = {}
         self.history: List[Dict[str, float]] = []
+        self._t_start = time.time()
+        self._frames_trained = 0
+        self._steps_done = 0
+        if restore and self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self._restore_pipeline()
 
     def _seed_from(self, init_from: str, checkpoint_dir: Optional[str], restore: bool) -> int:
         """Load the weights of ``init_from``'s newest valid checkpoint into
@@ -165,6 +248,21 @@ class Learner:
             )
         self.policy.load_state_dict(params)
         return step
+
+    # -- stopping ------------------------------------------------------------
+
+    def request_stop(self) -> None:
+        """Make the running ``train`` leave its loop at the next step
+        boundary; its end then saves the whole pipeline, so the run resumes
+        at that exact step. One flag write: safe in a signal handler."""
+        self._stop_requested = True
+
+    def close(self) -> None:
+        """Finish the snapshot engine's pending jobs and stop its thread."""
+        if self._snap_engine is not None:
+            self._snap_engine.stop()
+
+    # -- league ---------------------------------------------------------------
 
     def _league_opponent(self) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
         """Snapshot if due, and the opponent of the next call: (a
@@ -214,58 +312,427 @@ class Learner:
             out["league_winrate_mean"] = float(np.mean(wrs))
         return out
 
-    def train(self, num_steps: int) -> Dict[str, float]:
-        """Run until ``num_steps`` optimizer steps have completed (rounded
-        up to whole fused calls), then save a checkpoint (with
-        ``checkpoint_dir``). Returns the last logged metrics, the
-        actor's stats (``actor_*``), ``optimizer_steps``,
-        ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``."""
+    # -- the buffered learner's batch path --------------------------------------
+
+    def _optimize(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """``epochs_per_batch`` passes over one batch, each cut into
+        ``minibatches`` shuffled slices, in one epoch-step call (one
+        ``train_step`` when ``E x M`` is 1); the permutations come from
+        ``_mb_rng``, one draw an epoch, counted in ``_mb_draws``. Reads
+        nothing from the device. Returns the metrics (tensors): the epoch
+        step's fold."""
+        if self._faults is not None and self._faults.fire("learner.fail_train_step"):
+            raise RuntimeError("injected fault: learner.fail_train_step")
+        if self._faults is not None and self._faults.fire("learner.nan_grad"):
+            # one NaN reward poisons the loss and the whole backward; a
+            # one-pass batch gets it in its staged advantages too, or the
+            # loss would never see it
+            batch = dict(batch)
+            for key in ("rewards", "advantages"):
+                if key in batch:
+                    poisoned = batch[key].clone()
+                    poisoned[0, 0] = float("nan")
+                    batch[key] = poisoned
+        cfg = self.config.ppo
+        E, M, B = cfg.epochs_per_batch, max(1, cfg.minibatches), cfg.batch_rollouts
+        with self.registry.span("learner/dispatch"):
+            if self.epoch_step is None:
+                self.state, m = self.train_step(self.state, batch)
+            else:
+                if M > 1:
+                    perms = np.stack([self._mb_rng.permutation(B) for _ in range(E)])
+                    self._mb_draws += E
+                else:
+                    # an unsplit batch is never shuffled; the step ignores it
+                    perms = np.broadcast_to(np.arange(B), (E, B))
+                self.state, m = self.epoch_step(self.state, batch, perms)
+        self._submit_health(m)
+        return m
+
+    def _next_batch(self) -> Optional[Dict[str, Any]]:
+        """The batch staged behind the previous update if there is one
+        (its held slots released), else a take from the ring now; with its
+        advantages attached. None when the ring cannot give a batch."""
+        batch, self._prefetched = self._prefetched, None
+        if batch is not None:
+            self.buffer.release(self._prefetch_ticket)
+            self._prefetch_ticket = None
+            return self._attach_advantages(batch)
+        batch = self.buffer.take(current_version=self.state.version)
+        return None if batch is None else self._attach_advantages(batch)
+
+    def _prefetch_next(self) -> None:
+        """Take batch N+1 while batch N's updates run on the card: its
+        slots are held (an ingest can neither evict nor overwrite them),
+        and with ``learner.overlap_advantage`` its advantage pass is issued
+        now, behind the updates, so it reads their output params, the
+        params its first update trains from."""
+        if self._prefetched is not None or self.buffer is None:
+            return
+        taken = self.buffer.take(current_version=self.state.version, hold=True)
+        if taken is None:
+            return
+        self._prefetched, self._prefetch_ticket = taken
+        if self._adv_overlap:
+            self._prefetched = self._attach_advantages(self._prefetched)
+
+    def _flush_prefetch(self) -> None:
+        """Return an unconsumed prefetched batch to the front of the ring
+        before anything that snapshots or ends the run. Staged advantages
+        die with the batch: the next take reruns the pass with the params
+        live then (the rollback relies on it)."""
+        if self._prefetched is not None:
+            self.buffer.requeue(self._prefetch_ticket)
+            self._prefetched = None
+            self._prefetch_ticket = None
+
+    def _attach_advantages(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The one-pass advantage plane: the value forward and GAE once on
+        a just-taken batch, ``advantages`` and ``returns`` attached at the
+        staging dtype. Issues work, reads nothing."""
+        if self.advantage_pass is None or "advantages" in batch:
+            return batch
+        t0 = time.perf_counter()
+        adv, ret = self.advantage_pass(batch)
+        batch = {**batch, "advantages": adv, "returns": ret}
+        self.registry.gauge("advantage/pass_ms").set((time.perf_counter() - t0) * 1e3)
+        self.registry.counter("advantage/passes_total").inc()
+        return batch
+
+    # -- pipeline state (checkpoint and restore) ---------------------------------
+
+    def _pipeline_state(self) -> Dict[str, Any]:
+        """What a restore needs beyond the train state to resume the exact
+        pipeline: the ring and its bookkeeping, the device actor's state
+        (sim worlds, carries, episode accumulators) as flat leaves and its
+        RNG, and the minibatch draw count. The prefetch lane is flushed
+        first so the ring holds every unconsumed chunk."""
+        self._flush_prefetch()
+        out: Dict[str, Any] = {"buffer": self.buffer.state_dict()} if self.buffer is not None else {}
+        out["actor_leaves"] = {f"{i:04d}": leaf for i, leaf in enumerate(flatten_state(self.device_actor.state))}
+        out["actor_rng"] = self.device_actor.generator.get_state()
+        out["mb_draws"] = torch.tensor(self._mb_draws, dtype=torch.int64)
+        return out
+
+    def _restore_pipeline(self) -> None:
+        restored, reason = self.ckpt.restore_pipeline(self._pipeline_state())
+        if restored is None:
+            if reason:  # a mismatch is loud; a checkpoint without a pipeline is not
+                print(f"WARNING: checkpoint pipeline state not restored ({reason}); resuming weights-only: "
+                      "the ring's experience and the actor's games are lost", flush=True)
+            return
+        if self.buffer is not None and "buffer" in restored:
+            self.buffer.load_state_dict(restored["buffer"])
+        da = self.device_actor
+        if "actor_leaves" in restored:
+            leaves = [restored["actor_leaves"][k] for k in sorted(restored["actor_leaves"])]
+            da.state = unflatten_state(da.state, [t.to(self.device) for t in leaves])
+        if "actor_rng" in restored:
+            da.generator.set_state(restored["actor_rng"])
+        if "mb_draws" in restored:
+            # replay the seeded shuffle stream to its saved position
+            self._mb_draws = int(restored["mb_draws"])
+            self._mb_rng = np.random.default_rng(self.config.seed + 1)
+            for _ in range(self._mb_draws):
+                self._mb_rng.permutation(self.config.ppo.batch_rollouts)
+
+    # -- the health guardian -------------------------------------------------
+
+    def _submit_health(self, m: Dict[str, torch.Tensor]) -> None:
+        """Queue this batch's verdict tensors with the monitor (a host
+        append); the boundary flush hands the backlog to the engine. The
+        last batch's are kept for the sync-mode gap-closer."""
+        if self._health is None:
+            return
+        self._last_verdict_m = {k: m[k] for k in VERDICT_KEYS if k in m}
+        if self._snap_engine is not None:
+            self._health.submit(self.state.step, self.state.version, m)
+
+    def _sync_fold_latest(self) -> None:
+        """Sync-snapshots mode: fold the last batch's verdict (a read of
+        three scalars) before a checkpoint, publish or the end of the run
+        marks a state, when the last log boundary may predate it."""
+        if self._health is None or self._snap_engine is not None or self._last_verdict_m is None:
+            return
+        host = {k: float(v) for k, v in self._last_verdict_m.items()}
+        self._health.fold_host(self.state.step, self.state.version, host)
+
+    def _flush_health(self) -> None:
+        """Hand every pending verdict to the engine's never-coalesced stats
+        backlog, which it folds before the same cycle's publish and
+        checkpoint jobs: the ordering that makes their gates sound."""
+        if self._health is None or self._snap_engine is None:
+            return
+        pending = self._health.take_pending()
+        if pending:
+            self._snap_engine.submit_stats(device_copy(pending, clone=False), self._health.fold_batch)
+
+    def _maybe_rollback(self) -> int:
+        """Recover from a latched divergence: restore the ``last_good``
+        save (else the newest valid one), keep the version counter moving
+        forward past the poisoned range, drop the abandoned timeline's
+        saves, buffered experience and recurrent carries, reseed the
+        minibatch stream, and return the optimizer steps rewound (0 when
+        healthy) so the caller's budget covers the retraining. Bounded by
+        ``health.max_rollbacks``; without a checkpoint directory the
+        publishes stay blocked and the run carries on."""
+        if self._health is None or self._health.unhealthy is None:
+            return 0
+        ev = self._health.unhealthy
+        if self.ckpt is None:
+            if self._health.note_unrecoverable():
+                print(f"WARNING: training health latched unhealthy ({ev.reason} at step {ev.step}) but no "
+                      "checkpoint directory is configured: cannot roll back; weight publishes stay blocked",
+                      flush=True)
+            return 0
+        if self._rollback_count >= self.config.health.max_rollbacks:
+            raise RuntimeError(
+                f"training health guardian: divergence persisted after {self.config.health.max_rollbacks} "
+                f"rollback(s) ({ev.reason} at step {ev.step}, value {ev.value!r}): giving up; restart from "
+                f"{os.path.join(self.ckpt.directory, 'last_good')}"
+            )
+        self._rollback_count += 1
+        self.registry.counter("health/rollbacks_total").inc()
+        # drain with the monitor still latched: a pending publish or
+        # checkpoint of the poisoned timeline meets the gate and is refused
+        self._drain_snapshots()
+        published_floor = (self._snap_engine.last_published if self._snap_engine is not None
+                           else self._published_version)
+        from_step, from_version = self.state.step, self.state.version
+        restored = self.ckpt.restore_last_good(self.config, self.state)
+        if restored is None:
+            # no verified slot yet: the newest valid main save (every main
+            # save was itself health-gated)
+            try:
+                restored = self.ckpt.restore(self.config, self.state)
+            except (FileNotFoundError, ValueError, RuntimeError) as e:
+                raise RuntimeError(f"training health guardian: divergence at step {ev.step} ({ev.reason}) and no "
+                                   f"checkpoint to roll back to ({type(e).__name__}: {e})") from e
+        restored_version = self.state.version
+        # the version counter skips the poisoned range: no version the
+        # poisoned steps made is ever reused; the steps rewind
+        self.state.version = from_version + 1
+        rewound = from_step - self.state.step
+        self.ckpt.discard_steps_above(self.state.step)
+        if self.buffer is not None:
+            self._flush_prefetch()
+            self.buffer.drop_newer_than(restored_version)
+        self.device_actor.reset_recurrent()
+        # a distinct minibatch stream: the retry must not replay the one
+        # that diverged
+        self._mb_rng = np.random.default_rng(self.config.seed + 1 + 7919 * self._rollback_count)
+        self._mb_draws = 0
+        self._last_verdict_m = None
+        self._health.clear()
+        self.registry.gauge("health/last_good_step").set(float(self.state.step))
+        print("HEALTH_ROLLBACK " + json.dumps({
+            "reason": ev.reason, "detected_step": ev.step, "detected_version": ev.version,
+            "from_step": from_step, "to_step": self.state.step, "restored_version": restored_version,
+            "resumed_version": self.state.version, "published_floor": published_floor,
+            "rollback": self._rollback_count,
+        }, sort_keys=True), flush=True)
+        return rewound
+
+    # -- boundaries --------------------------------------------------------------
+
+    def _train_state_tree(self) -> Dict[str, Any]:
+        return {"step": self.state.step, "version": self.state.version, "params": self.policy.state_dict(),
+                "opt_state": self.state.optimizer.state_dict()}
+
+    def _publish_weights(self) -> None:
+        """Hand the params to the transport's weights fanout behind the
+        health gate. Async: an on-device clone, the engine does the rest;
+        sync (``--sync-snapshots``): the read, the encode and the publish
+        here."""
+        t0 = time.perf_counter()
+        if self._snap_engine is not None:
+            # verdicts for every step <= this version reach the engine first
+            self._flush_health()
+            self._snap_engine.submit_publish(device_copy(self.policy.state_dict()), self.state.version)
+        else:
+            self._sync_fold_latest()
+            if self._health is not None and self._health.unhealthy is not None:
+                self.registry.counter("health/publish_blocked_total").inc()
+            else:
+                host = {k: v.detach().cpu() for k, v in self.policy.state_dict().items()}
+                with self.registry.span("transport/publish_weights"):
+                    self.transport.publish_weights(
+                        encode_weights(host, self.state.version, wire_dtype=self.config.transport.wire_dtype))
+                self._published_version = max(self._published_version, self.state.version)
+        stall = time.perf_counter() - t0
+        self._stall_s += stall
+        self.registry.gauge("learner/publish_stall_ms").set(stall * 1e3)
+
+    def _drain_snapshots(self) -> None:
+        """Wait until the engine has landed every pending job."""
+        if self._snap_engine is None:
+            return
+        timeout = self.config.learner.snapshot_drain_timeout_s
+        if not self._snap_engine.drain(timeout=timeout):
+            print(f"WARNING: snapshot engine did not drain within {timeout:.0f}s; going on", flush=True)
+
+    def _log_boundary(self, m: Dict[str, torch.Tensor], host_extra: Dict[str, float]) -> None:
+        """One log line: async, the actor's stat drain joins the stats
+        backlog and the metrics go to the engine, whose thread appends the
+        line; sync, everything is read here."""
+        step, da = self.state.step, self.device_actor
+        if self._snap_engine is not None:
+            s_dev, s_fin = da.begin_drain()
+            self._snap_engine.submit_stats(device_copy(s_dev, clone=False), s_fin)
+
+            def finish(host: Dict[str, Any]) -> None:
+                scalars = {k: float(v) for k, v in host["m"].items()}
+                scalars.update(da.stats())
+                scalars.update(host_extra)
+                self._last_metrics = scalars
+                self.history.append({"step": float(step), **scalars})
+
+            self._snap_engine.submit_metrics(device_copy({"m": m}, clone=False), finish)
+            return
+        with self.registry.span("learner/metrics_fetch"):
+            scalars = {k: float(v) for k, v in m.items()}
+            scalars.update(da.drain_stats())
+        if self._health is not None:
+            self._health.fold_host(step, self.state.version, scalars)
+        scalars.update(host_extra)
+        self._last_metrics = scalars
+        self.history.append({"step": float(step), **scalars})
+
+    def _checkpoint_boundary(self) -> None:
+        """A periodic save of the train state (the pipeline is saved only
+        at the end of ``train``), behind the health gate."""
+        if self._snap_engine is not None:
+            self._snap_engine.submit_checkpoint(device_copy(self._train_state_tree()), self.config)
+            return
+        self._sync_fold_latest()
+        if self._health is not None and self._health.unhealthy is not None:
+            self.registry.counter("health/checkpoints_blocked_total").inc()
+        else:
+            self.ckpt.save(self.state, self.config, mark_good=self._health is not None)
+
+    def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
+        """The boundary work of one loop iteration; returns the optimizer
+        steps a rollback rewound (0 when healthy)."""
+        cfg = self.config
+        self._frames_trained += frames
+        step = self.state.step
+        log = step % cfg.log_every < stride
+        save = self.ckpt is not None and step % cfg.checkpoint_every < stride
+        t0 = time.perf_counter()
+        if log or save:
+            # verdicts ahead of this boundary's jobs
+            self._flush_health()
+        if log:
+            host_extra = self._league_log()
+            if self.buffer is not None:
+                host_extra.update(self.buffer.metrics())
+            elapsed = time.time() - self._t_start
+            host_extra["frames_per_sec"] = self._frames_trained / max(elapsed, 1e-9)
+            self._log_boundary(m, host_extra)
+        if save:
+            self._checkpoint_boundary()
+        if log or save:
+            self._stall_s += time.perf_counter() - t0
+            self.registry.gauge("learner/stall_fraction").set(
+                self._stall_s / max(time.time() - self._t_start, 1e-9))
+        return self._maybe_rollback()
+
+    # -- the loops ---------------------------------------------------------------
+
+    def _run_mode_loop(self, num_steps: int) -> None:
+        """The mode's loop until ``num_steps`` optimizer steps are done or
+        a stop is requested."""
         cfg = self.config
         da = self.device_actor
-        k_iters = cfg.steps_per_dispatch
-        stride = cfg.ppo.steps_per_batch * k_iters
-        frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
-        t_start = time.time()
-        frames_trained = 0
-        steps_done = 0
-        while steps_done < num_steps:
+        if self.fused_step is not None:
+            k_iters = cfg.steps_per_dispatch
+            stride = cfg.ppo.steps_per_batch * k_iters
+            frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
+            while self._steps_done < num_steps and not self._stop_requested:
+                opp_params, opp_uid = self._league_opponent()
+                self.state, da.state, m, chunk_stats = self.fused_step(self.state, da.state, opp_params)
+                self._report_league(opp_uid, chunk_stats)
+                da.env_steps += frames_per
+                da.rollouts_shipped += da.n_lanes * k_iters
+                self._submit_health(m)
+                self._steps_done += stride
+                self._steps_done -= self._after_step(m, frames_per, stride)
+            return
+        epochs = cfg.ppo.steps_per_batch
+        frames_per = cfg.ppo.batch_rollouts * cfg.ppo.rollout_len
+        while self._steps_done < num_steps and not self._stop_requested:
             opp_params, opp_uid = self._league_opponent()
-            self.state, da.state, metrics, chunk_stats = self.fused_step(self.state, da.state, opp_params)
+            chunk, chunk_stats = da.collect(self.policy, opp_params if opp_params is not None else self.policy)
             self._report_league(opp_uid, chunk_stats)
-            da.env_steps += frames_per
-            da.rollouts_shipped += da.n_lanes * k_iters
-            steps_done += stride
-            frames_trained += frames_per
-            if self.state.step % cfg.log_every < stride:
-                # log boundary: the one read of the device
-                self._last_metrics = {k: float(v) for k, v in metrics.items()}
-                self._last_metrics.update(da.drain_stats())
-                self._last_metrics.update(self._league_log())
-                self.history.append({"step": float(self.state.step), **self._last_metrics})
-            # `< stride`: the step counter advances in strides and may step
-            # over exact multiples
-            if self.ckpt is not None and self.state.step % cfg.checkpoint_every < stride:
-                self.ckpt.save(self.state, cfg)
+            self.buffer.add_device(chunk, self.state.version)
+            while (batch := self._next_batch()) is not None:
+                m = self._optimize(batch)
+                if self._steps_done + epochs < num_steps:
+                    # a batch staged behind the final update could never be
+                    # trained on
+                    self._prefetch_next()
+                self._steps_done += epochs
+                self._steps_done -= self._after_step(m, frames_per, epochs)
+                if self._steps_done >= num_steps or self._stop_requested:
+                    break
+
+    def _settle(self) -> int:
+        """After a loop: requeue the prefetched batch, land the engine's
+        jobs (pending verdicts first), and roll back if a verdict that
+        folded only now latched. Returns the steps rewound."""
+        if self.buffer is not None:
+            self._flush_prefetch()
+        self._flush_health()
+        self._drain_snapshots()
+        return self._maybe_rollback()
+
+    def _seal(self) -> None:
+        """The end of ``train``: the league's last outcomes, the final
+        publish, and with a checkpoint directory the forced save at the
+        exact stop step with the whole pipeline. The forced save is never
+        health-blocked, but only a verdict-clean state is marked good."""
         self._flush_league_reports()
+        self._publish_weights()
+        self._drain_snapshots()
         if self.ckpt is not None:
-            # the end-of-run save lands at the exact stop step and raises
-            # on an I/O error
-            self.ckpt.save(self.state, cfg, force=True)
-        elapsed = time.time() - t_start
-        actor_stats = da.stats()
+            self._sync_fold_latest()
+            self.ckpt.save(self.state, self.config, force=True, pipeline=self._pipeline_state(),
+                           mark_good=self._health is not None and self._health.unhealthy is None)
+
+    def train(self, num_steps: int) -> Dict[str, float]:
+        """Run until ``num_steps`` optimizer steps have completed (rounded
+        up to whole batches or fused calls; a rollback's rewound steps are
+        trained again), or until ``request_stop``. Returns the last logged
+        metrics, the actor's stats (``actor_*``), ``optimizer_steps``,
+        ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``.
+        Weights are published once, at the end: the in-process transport
+        has no reader in this process before then."""
+        self._t_start = time.time()
+        self._frames_trained = self._steps_done = 0
+        self._stall_s = 0.0
+        self._run_mode_loop(num_steps)
+        while True:
+            rewound = self._settle()
+            if not rewound or self._stop_requested:
+                break
+            self._steps_done -= rewound
+            self._run_mode_loop(num_steps)
+        self._seal()
+        elapsed = time.time() - self._t_start
+        actor_stats = self.device_actor.stats()
         return {
             **self._last_metrics,
             **{f"actor_{k}": v for k, v in actor_stats.items()},
-            "optimizer_steps": float(steps_done),
-            "frames_trained": float(frames_trained),
-            "frames_per_sec": frames_trained / max(elapsed, 1e-9),
+            "optimizer_steps": float(self._steps_done),
+            "frames_trained": float(self._frames_trained),
+            "frames_per_sec": self._frames_trained / max(elapsed, 1e-9),
             "elapsed_sec": elapsed,
         }
 
 
 def smoke_config(config: RunConfig) -> RunConfig:
     """The reference learner's ``--smoke`` sizes: 4 games of 60 s, chunks of
-    8 steps, a log line every step."""
+    8 steps, batches of 8, a ring of 32, a log line every step."""
     return dataclasses.replace(
         config,
         env=dataclasses.replace(config.env, n_envs=4, max_dota_time=60.0),
@@ -289,7 +756,7 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    p = argparse.ArgumentParser(description="Fused self-play PPO learner on one CUDA card.")
+    p = argparse.ArgumentParser(description="Self-play PPO learner on one CUDA card.")
     p.add_argument("--smoke", action="store_true", help="tiny sizes, at most 5 steps")
     p.add_argument("--steps", type=int, default=1000, help="optimizer steps")
     p.add_argument("--n-envs", type=int, default=None, help="games (default: the config's)")
@@ -299,8 +766,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--league", type=str, default=None, metavar="K=V,...",
                    help="comma-separated LeagueConfig overrides (with --opponent league), e.g. "
                    "'anchor_prob=0.25,snapshot_every=200'")
-    p.add_argument("--actor", type=str, default="fused",
-                   choices=("fused", "device", "vec", "scalar", "external"))
+    p.add_argument("--buffer", type=str, default=None, metavar="K=V,...",
+                   help="comma-separated BufferConfig overrides, e.g. 'capacity_rollouts=64,min_fill=8'")
+    p.add_argument("--health", type=str, default=None, metavar="K=V,...",
+                   help="comma-separated HealthConfig overrides (the health guardian), e.g. "
+                   "'explosion_band=50,max_rollbacks=2' or 'enabled=false'")
+    p.add_argument("--learner", type=str, default=None, metavar="K=V,...",
+                   help="comma-separated LearnerConfig overrides (the snapshot engine), e.g. "
+                   "'snapshot_drain_timeout_s=120' or 'async_snapshots=false'")
+    p.add_argument("--sync-snapshots", action="store_true",
+                   help="run the weights publish, periodic checkpoints and log-boundary reads on the train "
+                   "thread instead of the snapshot engine's (learner async_snapshots=false)")
+    p.add_argument("--actor", type=str, default="device", choices=ACTOR_MODES,
+                   help="device: the buffered learner over the on-device rollout (default); fused: rollout "
+                   "and update on the same chunk in one step")
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", type=str, default=None,
@@ -335,13 +814,43 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error("--restore needs --checkpoint-dir")
     try:
         config = apply_league_flags(config, args.opponent, args.league)
+        for flag, text, sub, cls in (("--buffer", args.buffer, "buffer", BufferConfig),
+                                     ("--health", args.health, "health", HealthConfig),
+                                     ("--learner", args.learner, "learner", LearnerConfig)):
+            if text:
+                over = parse_dataclass_overrides(cls, text, flag)
+                config = dataclasses.replace(config, **{sub: dataclasses.replace(getattr(config, sub), **over)})
     except ValueError as e:
         p.error(str(e))
+    if args.sync_snapshots:
+        config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)
 
     learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
                       checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from)
-    out = learner.train(args.steps)
+
+    # the first SIGTERM or SIGINT drains: the loop stops at its next step
+    # boundary and the end of train saves the whole pipeline; the handler
+    # then restores the default, so a second one kills
+    def graceful(signum, frame):
+        learner.request_stop()
+        name = signal.Signals(signum).name
+        print(f"learner: {name} received: draining (checkpoint and clean exit); send {name} again to force "
+              "exit", flush=True)
+        signal.signal(signum, signal.SIG_DFL)
+
+    previous = {}
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous[sig] = signal.signal(sig, graceful)
+    except ValueError:
+        pass  # not the main thread: signals stay with the embedding program
+    try:
+        out = learner.train(args.steps)
+    finally:
+        learner.close()
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
     for row in learner.history:
         print(json.dumps({k: round(v, 6) for k, v in row.items()}), flush=True)
     print(json.dumps(out), flush=True)

@@ -26,9 +26,17 @@ Where the port keeps state differently, and why:
 * Every metric is a 0-d tensor on the params' device; nothing in an update
   reads the device from the host.
 
-The MoE aux term is 0: the port has no MoE core. The buffered learner's
-precomputed-advantage batches, ``make_train_step``, ``make_epoch_step``
-and the sharding helpers are not ported.
+A batch that carries precomputed ``advantages`` and ``returns`` (the
+one-pass advantage plane, ``train/advantage.py``) trains on them over a
+T-step forward; other batches keep the in-step estimator over the full T+1
+chunk. ``make_train_step`` and ``make_epoch_step`` are the buffered
+learner's updates: one update on a batch, and all ``epochs_per_batch x
+minibatches`` updates of one consumed batch over the minibatch rows that
+host-drawn permutations select. ``example_batch`` is a zero batch of the
+ring's layout.
+
+The MoE aux term is 0: the port has no MoE core. There is no sharding (one
+card).
 """
 
 from __future__ import annotations
@@ -39,9 +47,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from dotaclient_tpu_torch.config import ADV_NORM_MODES, ADVANTAGE_MODES, PPOConfig
+from dotaclient_tpu_torch.config import ADV_NORM_MODES, ADVANTAGE_MODES, PPOConfig, RunConfig
+from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.models import distributions as D
-from dotaclient_tpu_torch.models.policy import Policy
+from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch
 from dotaclient_tpu_torch.train.gae import gae, vtrace
 
 # A training batch of rollout chunks:
@@ -118,11 +127,16 @@ def ppo_loss(
     ``anchor`` (with ``cfg.anchor_kl_coef > 0``) adds the exact conditional
     KL(pi_theta || pi_anchor) per frame from one extra forward of the
     frozen anchor policy. ``use_kernel=False`` runs the LSTM core's plain
-    version on CUDA tensors too."""
+    version on CUDA tensors too. A batch with precomputed ``advantages``
+    and ``returns`` skips the estimator and runs the forward over the T
+    transition steps only (the bootstrap slot fed the estimator alone)."""
     obs = batch["obs"]
     T = batch["rewards"].shape[1]
     valid = batch["valid"].to(torch.float32)
     n_valid = torch.clamp(valid.sum(), min=1.0)
+    precomputed = "advantages" in batch
+    if precomputed:
+        obs = {k: v[:, :T] for k, v in obs.items()}
 
     logits, values, _ = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel)
     moe_aux = torch.zeros((), device=values.device)
@@ -134,7 +148,12 @@ def ppo_loss(
 
     logp = D.log_prob(logits_t, obs_t, batch["actions"])
 
-    if cfg.advantage == "gae":
+    if precomputed:
+        # staged at the narrow dtype; constants to the optimizer, as the
+        # estimator's outputs are
+        adv = batch["advantages"].to(torch.float32)
+        returns = batch["returns"].to(torch.float32)
+    elif cfg.advantage == "gae":
         adv, returns = gae(batch["rewards"], values.detach(), batch["dones"], cfg.gamma, cfg.gae_lambda)
     elif cfg.advantage == "vtrace":
         adv, returns = vtrace(
@@ -254,10 +273,13 @@ def _train_step(
         else:
             with torch.no_grad():
                 T = batch["rewards"].shape[1]
-                logits_post, _, _ = policy.sequence(batch["obs"], batch["carry0"], batch["dones"],
-                                                    use_kernel=use_kernel)
+                obs = batch["obs"]
+                if "advantages" in batch:
+                    # the same T-step window the update trained on
+                    obs = {k: v[:, :T] for k, v in obs.items()}
+                logits_post, _, _ = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel)
                 logp_post = D.log_prob({k: v[:, :T] for k, v in logits_post.items()},
-                                       {k: v[:, :T] for k, v in batch["obs"].items()}, batch["actions"])
+                                       {k: v[:, :T] for k, v in obs.items()}, batch["actions"])
                 d = logp_post - logp_pre
                 valid = batch["valid"].to(torch.float32)
                 post_kl = _masked_mean((torch.exp(d) - 1.0) - d, valid, torch.clamp(valid.sum(), min=1.0))
@@ -291,3 +313,80 @@ def fold_scan_metrics(metric_seq: Sequence[Dict[str, torch.Tensor]]) -> Dict[str
     if "health_ok" in out:
         out["health_ok"] = torch.stack([m["health_ok"] for m in metric_seq]).amin()
     return out
+
+
+def take_rows(tree: Any, idx: torch.Tensor) -> Any:
+    """Rows ``idx`` (a device index tensor) of every leaf of a batch tree
+    (nested dicts and tuples of tensors with the row axis first)."""
+    if isinstance(tree, dict):
+        return {k: take_rows(v, idx) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(take_rows(v, idx) for v in tree)
+    return tree.index_select(0, idx)
+
+
+def make_train_step(config: RunConfig, anchor: Optional[Policy] = None):
+    """``train_step(state, batch) -> (state, metrics)``: one update (in
+    place) with the health probe on when ``config.health.enabled``.
+    ``anchor`` is required exactly when ``ppo.anchor_kl_coef > 0``."""
+    if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
+        raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
+    cfg, probe = config.ppo, config.health.enabled
+
+    def train_step(state: TrainState, batch: Batch):
+        return _train_step(cfg, state, batch, anchor=anchor, probe=probe)
+
+    return train_step
+
+
+def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None):
+    """``epoch_step(state, batch, perms) -> (state, metrics)``: all
+    ``epochs_per_batch x minibatches`` updates of one consumed batch.
+
+    ``perms`` is ``[E, B]`` (numpy or a tensor), one row order an epoch,
+    drawn on the host from the learner's seeded stream; reshaped to
+    ``[E*M, B/M]``, row r is the minibatch of update r, the rows the
+    reference's staged loop (``ppo.fused_epoch=False``) gathers. With ``minibatches == 1`` every update trains on
+    the whole batch and ``perms`` is ignored. Metrics fold by
+    ``fold_scan_metrics``: the last update's, ``health_ok`` the minimum."""
+    if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
+        raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
+    cfg, probe = config.ppo, config.health.enabled
+    E, M, B = cfg.epochs_per_batch, max(1, cfg.minibatches), cfg.batch_rollouts
+    if B % M:
+        raise ValueError(f"batch_rollouts {B} not divisible by minibatches {M}")
+    mb = B // M
+
+    def epoch_step(state: TrainState, batch: Batch, perms: Any):
+        metric_seq = []
+        if M == 1:
+            for _ in range(E):
+                state, m = _train_step(cfg, state, batch, anchor=anchor, probe=probe)
+                metric_seq.append(m)
+        else:
+            idx = host_index(perms, batch["rewards"].device).reshape(E * M, mb)
+            for r in range(E * M):
+                state, m = _train_step(cfg, state, take_rows(batch, idx[r]), anchor=anchor, probe=probe)
+                metric_seq.append(m)
+        return state, fold_scan_metrics(metric_seq)
+
+    return epoch_step
+
+
+def example_batch(config: RunConfig, batch: int, device: DeviceLike = None) -> Batch:
+    """A zero batch of ``batch`` rows in the layout of a rollout chunk and
+    of the trajectory ring: obs ``[batch, T+1, ...]`` (all-legal masks),
+    int32 actions, f32 ``behavior_logp``/``rewards``/``dones``, ``valid``
+    ones, and an f32 ``carry0`` (c, h)."""
+    dev = resolve_device(device)
+    T, H = config.ppo.rollout_len, config.model.hidden_dim
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "obs": dummy_obs_batch(batch, config.obs, config.actions, time=T + 1, device=dev),
+        "actions": {h: torch.zeros((batch, T), dtype=torch.int32, device=dev) for h in config.actions.head_sizes},
+        "behavior_logp": torch.zeros((batch, T), **f32),
+        "rewards": torch.zeros((batch, T), **f32),
+        "dones": torch.zeros((batch, T), **f32),
+        "valid": torch.ones((batch, T), **f32),
+        "carry0": (torch.zeros((batch, H), **f32), torch.zeros((batch, H), **f32)),
+    }

@@ -7,8 +7,13 @@ format (the port cannot read orbax). A checkpoint directory holds::
                                  "params": state dict of CPU tensors,
                                  "opt_state": optimizer.state_dict()}
     <dir>/<step>/config.json     RunConfig.to_json()
+    <dir>/<step>/pipeline.pt     (optional) the learner's pipeline state:
+                                 the trajectory ring, the device actor's
+                                 state, the minibatch draw count
     <dir>/manifests/<step>.json  per-leaf shape, dtype and frame_crc32,
                                  and the frame_crc32 of each file
+    <dir>/last_good/             the last health-verified save, a manager
+                                 of its own with max_to_keep 1
 
 A step is written into a temporary directory and moved into place with
 ``os.replace``, so a reader never sees half of one. ``state.pt`` is read
@@ -22,10 +27,21 @@ previous step. ``max_to_keep`` keeps the newest saves. A periodic save that
 hits an I/O error is counted (``checkpoint/save_failures_total``) and
 returns False; a forced save raises.
 
+The health guardian's pieces (``train/health.py``): ``save(...,
+mark_good=True)`` mirrors a verified save into the ``last_good`` slot,
+``restore_last_good`` is the rollback's restore point, and
+``discard_steps_above`` deletes the abandoned timeline's saves. A save with
+``pipeline`` carries the rest of the learner, which ``restore_pipeline``
+brings back into a template of the same shapes. Saves from the snapshot
+engine's thread and the train thread take one lock. The fault sites
+``checkpoint.fail_write`` (a write raises ``OSError``) and
+``checkpoint.corrupt_manifest`` (a verification fails) are those of the
+reference.
+
 ``shape_mismatches`` compares a restored state dict with the one a run
 expects (the learner's ``init_from`` check). Not ported yet (ROADMAP queue
-1, item 3): async saves on a thread, the ``last_good`` slot,
-``restore_pipeline`` and ``discard_steps_above``.
+1, item 3b): saves that return before the write lands, with ``wait`` and
+``close``, and the learner's ``--on-crash-checkpoint``.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -43,12 +60,15 @@ import torch
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike
 from dotaclient_tpu_torch.transport.serialize import frame_crc32
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.pt"
 CONFIG_FILE = "config.json"
+PIPELINE_FILE = "pipeline.pt"
+LAST_GOOD = "last_good"
+STATE_KEYS = ("step", "version", "params", "opt_state")
 
 
 class CheckpointIntegrityError(RuntimeError):
@@ -129,13 +149,19 @@ class CheckpointManager:
     """Sync saves and verified, walk-back restores under one directory."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 registry: Optional[telemetry.Registry] = None) -> None:
+                 registry: Optional[telemetry.Registry] = None, _is_slot: bool = False) -> None:
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max(1, max_to_keep)
         self._tel = registry if registry is not None else telemetry.get_registry()
         # the step a walk-back restore landed on
         self.last_restored_step: Optional[int] = None
+        self._is_slot = _is_slot
+        self._slot_mgr: Optional["CheckpointManager"] = None
+        # the snapshot engine's periodic saves and the train thread's
+        # forced ones write one directory
+        self._save_lock = threading.Lock()
+        self._faults = faults.get()   # None unless fault injection is on
         self._tel.counter("checkpoint/save_failures_total")
         self._tel.counter("checkpoint/manifest_failures_total")
 
@@ -159,34 +185,55 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------------
 
-    def save(self, state: Any, config: RunConfig, force: bool = False) -> bool:
+    def save(self, state: Any, config: RunConfig, force: bool = False, pipeline: Optional[Any] = None,
+             mark_good: bool = False) -> bool:
         """Write ``state`` (a ``TrainState``: its step, version, policy
-        params and optimizer state) and ``config`` at ``state.step``. Copies
-        every tensor to the host, so it reads the device: the learner calls
-        it only between iterations. A step that exists is replaced."""
+        params and optimizer state) and ``config`` at ``state.step``, with
+        ``pipeline`` (a tree of tensors and ints) beside it. Copies every
+        tensor to the host, so it reads the device: the learner calls it
+        only between iterations. A step that exists is replaced."""
         host_state = {
             "step": int(state.step),
             "version": int(state.version),
             "params": {k: v.detach().cpu().clone() for k, v in state.policy.state_dict().items()},
             "opt_state": _to_cpu(state.optimizer.state_dict()),
         }
-        return self.save_host(host_state, config, force=force)
+        if pipeline is not None:
+            pipeline = _to_cpu(pipeline)
+        return self.save_host(host_state, config, force=force, pipeline=pipeline, mark_good=mark_good)
 
-    def save_host(self, host_state: Dict[str, Any], config: RunConfig, force: bool = False) -> bool:
+    def save_host(self, host_state: Dict[str, Any], config: RunConfig, force: bool = False,
+                  pipeline: Optional[Any] = None, mark_good: bool = False) -> bool:
         """Write an already-fetched host state dict (``step``, ``version``,
-        ``params``, ``opt_state``)."""
+        ``params``, ``opt_state``), and ``pipeline`` if given. With
+        ``mark_good`` (a health-verified state) the save is mirrored into
+        the ``last_good`` slot."""
+        with self._save_lock:
+            saved = self._save_host_locked(host_state, config, force, pipeline)
+        if saved and mark_good and not self._is_slot:
+            self._save_last_good(host_state, config)
+        return saved
+
+    def _save_host_locked(self, host_state: Dict[str, Any], config: RunConfig, force: bool,
+                          pipeline: Optional[Any]) -> bool:
         step = int(host_state["step"])
         tmp = None
         try:
+            if self._faults is not None and self._faults.fire("checkpoint.fail_write"):
+                raise OSError("injected fault: checkpoint.fail_write (a full disk)")
             tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.directory)
             state_path = os.path.join(tmp, STATE_FILE)
             torch.save(host_state, state_path)
             with open(os.path.join(tmp, CONFIG_FILE), "w") as f:
                 f.write(config.to_json())
+            files = [STATE_FILE, CONFIG_FILE]
+            if pipeline is not None:
+                torch.save(pipeline, os.path.join(tmp, PIPELINE_FILE))
+                files.append(PIPELINE_FILE)
             manifest = {
                 "step": step,
                 **build_manifest(host_state),
-                "files": {n: _file_crc(os.path.join(tmp, n)) for n in (STATE_FILE, CONFIG_FILE)},
+                "files": {n: _file_crc(os.path.join(tmp, n)) for n in files},
             }
             os.makedirs(os.path.join(self.directory, "manifests"), exist_ok=True)
             with open(self._manifest_path(step) + ".tmp", "w") as f:
@@ -211,35 +258,98 @@ class CheckpointManager:
         self._retain()
         return True
 
+    def _save_last_good(self, host_state: Dict[str, Any], config: RunConfig) -> None:
+        """Mirror a health-verified save into the ``last_good`` slot (its
+        own manager, so the main retention never deletes it). An I/O error
+        here is counted and warned about; the main save stands."""
+        step = int(host_state["step"])
+        try:
+            self._last_good_slot().save_host({k: host_state[k] for k in STATE_KEYS}, config, force=True)
+            self._tel.gauge("health/last_good_step").set(float(step))
+        except Exception as e:  # noqa: BLE001 - a protection layer, never fatal
+            self._tel.counter("checkpoint/save_failures_total").inc()
+            logger.warning("last_good slot update at step %d failed (%s: %s); the main save stands", step,
+                           type(e).__name__, e)
+
+    def _last_good_slot(self) -> "CheckpointManager":
+        if self._slot_mgr is None:
+            self._slot_mgr = CheckpointManager(os.path.join(self.directory, LAST_GOOD), max_to_keep=1,
+                                               registry=self._tel, _is_slot=True)
+        return self._slot_mgr
+
+    def last_good_step(self) -> Optional[int]:
+        """The step the ``last_good`` slot holds, or None before the first
+        health-verified save."""
+        if self._slot_mgr is None and not os.path.isdir(os.path.join(self.directory, LAST_GOOD)):
+            return None
+        return self._last_good_slot().latest_step()
+
+    def restore_last_good(self, config: RunConfig, state: Any = None,
+                          device: DeviceLike = None) -> Optional[Tuple[Any, RunConfig]]:
+        """The last health-verified save into ``state`` (the rollback's
+        restore point), verified like every restore; None when the slot is
+        empty."""
+        if self.last_good_step() is None:
+            return None
+        return self._last_good_slot().restore(config, state, device=device)
+
+    def discard_steps_above(self, step: int) -> int:
+        """Delete every save newer than ``step`` (the rollback: the
+        abandoned timeline's saves must not be restorable, and the
+        retrained run reaches their step numbers again). Returns how many
+        were deleted."""
+        with self._save_lock:
+            doomed = [s for s in self.all_steps() if s > step]
+            for s in doomed:
+                self._delete(s)
+            return len(doomed)
+
+    def _delete(self, step: int) -> None:
+        shutil.rmtree(self._step_dir(step), ignore_errors=True)
+        try:
+            os.unlink(self._manifest_path(step))
+        except OSError:
+            pass
+
     def _retain(self) -> None:
         """Delete all but the newest ``max_to_keep`` steps and their
         manifests."""
         for step in self.all_steps()[: -self.max_to_keep]:
-            shutil.rmtree(self._step_dir(step), ignore_errors=True)
-            try:
-                os.unlink(self._manifest_path(step))
-            except OSError:
-                pass
+            self._delete(step)
 
     # -- restore ----------------------------------------------------------------
+
+    def _manifest(self, step: int) -> Optional[dict]:
+        """One step's manifest, None for a step saved without one. Raises
+        :class:`CheckpointIntegrityError` when it is unreadable, or when
+        the ``checkpoint.corrupt_manifest`` fault fires."""
+        if self._faults is not None and self._faults.fire("checkpoint.corrupt_manifest"):
+            raise CheckpointIntegrityError("injected fault: checkpoint.corrupt_manifest")
+        try:
+            with open(self._manifest_path(step)) as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+        except (OSError, json.JSONDecodeError) as e:
+            raise CheckpointIntegrityError(f"manifest for step {step} unreadable: {e}") from e
+
+    def _check_files(self, step: int, manifest: Optional[dict], names: Optional[Tuple[str, ...]] = None) -> None:
+        """Each file of the manifest (or ``names`` of them) against its crc."""
+        if manifest is None:
+            return
+        for name, crc in manifest.get("files", {}).items():
+            if names is not None and name not in names:
+                continue
+            got = _file_crc(os.path.join(self._step_dir(step), name))
+            if got != crc:
+                raise CheckpointIntegrityError(f"{name} of step {step}: crc {got} != saved {crc}")
 
     def _load_step(self, step: int) -> Dict[str, Any]:
         """Read and verify one step's state (a step without a manifest
         restores unverified)."""
-        path = os.path.join(self._step_dir(step), STATE_FILE)
-        try:
-            with open(self._manifest_path(step)) as f:
-                manifest = json.load(f)
-        except FileNotFoundError:
-            manifest = None
-        except (OSError, json.JSONDecodeError) as e:
-            raise CheckpointIntegrityError(f"manifest for step {step} unreadable: {e}") from e
-        if manifest is not None:
-            for name, crc in manifest.get("files", {}).items():
-                got = _file_crc(os.path.join(self._step_dir(step), name))
-                if got != crc:
-                    raise CheckpointIntegrityError(f"{name} of step {step}: crc {got} != saved {crc}")
-        raw = torch.load(path, map_location="cpu", weights_only=True)
+        manifest = self._manifest(step)
+        self._check_files(step, manifest, (STATE_FILE, CONFIG_FILE))
+        raw = torch.load(os.path.join(self._step_dir(step), STATE_FILE), map_location="cpu", weights_only=True)
         if manifest is not None:
             verify_manifest(manifest, raw)
         return raw
@@ -312,6 +422,29 @@ class CheckpointManager:
         _load_optimizer(state.optimizer, raw["opt_state"])
         state.step, state.version = int(raw["step"]), int(raw["version"])
         return state, saved
+
+    def restore_pipeline(self, template: Any, step: Optional[int] = None) -> Tuple[Optional[Any], str]:
+        """The pipeline state saved with ``step`` (by default the step the
+        last restore landed on, else the newest), checked leaf by leaf
+        against ``template``'s shapes. Returns (state, "") on success,
+        (None, "") when the step has no pipeline, and (None, reason) when
+        it has one that cannot be restored: a caller must say so loudly."""
+        if step is None:
+            step = self.last_restored_step if self.last_restored_step is not None else self.latest_step()
+        if step is None or not os.path.isfile(os.path.join(self._step_dir(step), PIPELINE_FILE)):
+            return None, ""
+        try:
+            self._check_files(step, self._manifest(step), (PIPELINE_FILE,))
+            out = torch.load(os.path.join(self._step_dir(step), PIPELINE_FILE), map_location="cpu",
+                             weights_only=True)
+        except (CheckpointIntegrityError, OSError, RuntimeError, EOFError, pickle.UnpicklingError) as e:
+            return None, f"{type(e).__name__}: {e}"
+        got = {k: v for k, v in _leaves(out) if isinstance(v, torch.Tensor)}
+        want = {k: v for k, v in _leaves(template) if isinstance(v, torch.Tensor)}
+        bad = shape_mismatches(got, want)
+        if bad:
+            return None, f"pipeline leaf shape mismatch: {bad[0]} (+{len(bad) - 1} more)"
+        return out, ""
 
 
 def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:

@@ -250,3 +250,98 @@ def test_learner_cli_init_from(tmp_path, capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert rows[0]["step"] == 1.0  # a fresh count, not the source's
     assert CheckpointManager(dst, registry=telemetry.Registry()).all_steps() == [1]
+
+
+# -- the health guardian's pieces: last_good, discard, pipeline, faults -------------
+
+
+@pytest.fixture
+def fault_spec():
+    from dotaclient_tpu_torch.utils import faults
+
+    yield faults.configure
+    faults.configure(None)
+
+
+def test_last_good_slot_survives_retention_and_restores_bitwise(tmp_path):
+    learner = trained_learner(steps=1)
+    reg = telemetry.Registry()
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1, registry=reg)
+    assert mgr.last_good_step() is None and mgr.restore_last_good(learner.config, learner.state) is None
+    assert mgr.save(learner.state, learner.config, mark_good=True)
+    good = learner.state.clone()
+    for _ in range(2):
+        learner.train(1)
+        assert mgr.save(learner.state, learner.config)   # not marked: the slot stays at step 1
+    assert mgr.all_steps() == [3] and mgr.last_good_step() == 1
+    assert reg.snapshot()["health/last_good_step"] == 1.0
+    state, _ = mgr.restore_last_good(learner.config, learner.state)
+    assert_state_equal(state, good)
+    # the slot is a manager of its own: the main directory lists none of it
+    assert "last_good" in os.listdir(str(tmp_path)) and 1 not in mgr.all_steps()
+
+
+def test_discard_steps_above(tmp_path):
+    learner = trained_learner(steps=1)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=5, registry=telemetry.Registry())
+    for _ in range(3):
+        mgr.save(learner.state, learner.config, mark_good=learner.state.step == 1)
+        learner.train(1)
+    assert mgr.all_steps() == [1, 2, 3]
+    assert mgr.discard_steps_above(1) == 2
+    assert mgr.all_steps() == [1] and mgr.last_good_step() == 1
+    assert sorted(os.listdir(tmp_path / "manifests")) == ["1.json"]
+    assert mgr.discard_steps_above(1) == 0
+
+
+def test_restore_pipeline_round_trip_and_mismatch(tmp_path):
+    learner = trained_learner(steps=1)
+    mgr = CheckpointManager(str(tmp_path), registry=telemetry.Registry())
+    mgr.save(learner.state, learner.config)
+    assert mgr.restore_pipeline({"a": torch.zeros(3)}) == (None, "")   # saved without one
+    learner.train(1)
+    pipeline = {"buffer": {"order": torch.arange(4), "store": (torch.randn(4, 2), torch.ones(4, 2))},
+                "mb_draws": torch.tensor(7)}
+    assert mgr.save(learner.state, learner.config, force=True, pipeline=pipeline)
+    got, reason = mgr.restore_pipeline(pipeline)
+    assert reason == "" and int(got["mb_draws"]) == 7
+    assert torch.equal(got["buffer"]["store"][0], pipeline["buffer"]["store"][0])
+    assert torch.equal(got["buffer"]["order"], pipeline["buffer"]["order"])
+    wrong = {**pipeline, "buffer": {**pipeline["buffer"], "order": torch.arange(5)}}
+    got, reason = mgr.restore_pipeline(wrong)
+    assert got is None and "shape mismatch" in reason
+    # a pipeline file whose crc differs from the manifest's is refused loudly
+    path = tmp_path / "2" / "pipeline.pt"
+    blob = bytearray(path.read_bytes())
+    blob[-3] ^= 0x01
+    path.write_bytes(bytes(blob))
+    got, reason = mgr.restore_pipeline(pipeline)
+    assert got is None and "CheckpointIntegrityError" in reason
+    # the state itself still restores
+    assert mgr.restore_weights()[1] == 2
+
+
+def test_fail_write_fault_degrades_periodic_and_raises_forced(tmp_path, fault_spec):
+    fault_spec("checkpoint.fail_write@1+1")
+    learner = trained_learner(steps=1)
+    reg = telemetry.Registry()
+    mgr = CheckpointManager(str(tmp_path), registry=reg)
+    assert mgr.save(learner.state, learner.config) is False
+    assert reg.snapshot()["checkpoint/save_failures_total"] == 1.0
+    with pytest.raises(OSError, match="fail_write"):
+        mgr.save(learner.state, learner.config, force=True)
+    assert mgr.all_steps() == []
+
+
+def test_corrupt_manifest_fault_walks_back(tmp_path, fault_spec):
+    learner = trained_learner(steps=1)
+    reg = telemetry.Registry()
+    older = {k: v.clone() for k, v in learner.policy.state_dict().items()}
+    fault_spec("checkpoint.corrupt_manifest@1")   # before the manager caches the registry
+    mgr = CheckpointManager(str(tmp_path), registry=reg)
+    mgr.save(learner.state, learner.config)
+    learner.train(1)
+    mgr.save(learner.state, learner.config)
+    params, step = mgr.restore_weights()
+    assert step == 1 and all(torch.equal(params[k], v) for k, v in older.items())
+    assert reg.snapshot()["checkpoint/manifest_failures_total"] == 1.0

@@ -36,10 +36,14 @@ print(len(names))
 """
 
 # modules that must be among those imported with JAX blocked (the league
-# slice's, beside the count of all of them)
+# slice's and the buffered learner's, beside the count of all of them)
 LEAGUE_MODULES = ("dotaclient_tpu_torch.league", "dotaclient_tpu_torch.league.pool",
                   "dotaclient_tpu_torch.league.evaluation", "dotaclient_tpu_torch.league.__main__",
                   "dotaclient_tpu_torch.train.demo")
+BUFFERED_MODULES = ("dotaclient_tpu_torch.buffer", "dotaclient_tpu_torch.buffer.trajectory_buffer",
+                    "dotaclient_tpu_torch.train.advantage", "dotaclient_tpu_torch.train.health",
+                    "dotaclient_tpu_torch.train.snapshot", "dotaclient_tpu_torch.transport.queues",
+                    "dotaclient_tpu_torch.utils.faults")
 
 
 def port_sources():
@@ -53,8 +57,8 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     names, count = out.stdout.splitlines()[-2:]
-    assert int(count) >= 54  # every module of the port, the league's included
-    assert set(LEAGUE_MODULES) <= set(names.split())
+    assert int(count) >= 61  # every module of the port, the league's and the buffered learner's included
+    assert set(LEAGUE_MODULES) <= set(names.split()) and set(BUFFERED_MODULES) <= set(names.split())
 
 
 # the router and its CLI with torch blocked as well: a router process holds

@@ -249,8 +249,11 @@ def test_learner_trains_with_frame_accounting():
 
 def test_learner_refuses_what_is_not_ported():
     _, cfg = rollout_configs("scripted_easy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plearner.Learner(cfg, actor="device", device="cpu")
+    # the buffered learner (device mode) is ported; the host-pool and
+    # external modes are not
+    for mode in ("vec", "scalar", "external"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            plearner.Learner(cfg, actor=mode, device="cpu")
     # league mode is ported: it builds its frozen-opponent pool instead
     league = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, opponent="league"))
     assert len(plearner.Learner(league, actor="fused", device="cpu").league) == 1
@@ -260,6 +263,11 @@ def test_learner_refuses_what_is_not_ported():
 
 
 def test_learner_smoke_cli_on_cpu(capsys):
+    # the default actor is the buffered learner: one step trains one batch
+    # of batch_rollouts (8) chunks of rollout_len (8)
     assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["optimizer_steps"] == 1.0 and out["frames_trained"] == 8 * 8
+    assert plearner.main(["--smoke", "--steps", "1", "--actor", "fused", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["optimizer_steps"] == 1.0 and out["frames_trained"] == 4 * 8
