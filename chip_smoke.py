@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league and buffered-learner paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner and run-record paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -169,8 +169,31 @@ Phases (any failure exits non-zero and prints no result line):
     then ``restore=True``: ring, slot versions, actor state and RNG,
     ``mb_draws`` and params bitwise as saved, the next permutation an
     uninterrupted run's), and ``python -m dotaclient_tpu_torch.train.learner
-    --smoke --steps 3`` as a child with the default actor (exit 0, its
-    result line).
+    --smoke --steps 3 --metrics-jsonl`` as a child with the default actor
+    (exit 0, its ``done:`` line, its record's last line).
+14. run record: (a) ``python -m dotaclient_tpu_torch.train.learner`` as a
+    child at phase 13's traffic on the default config (128 games, 16
+    steps, a periodic save every 8) with ``--metrics-jsonl``, ``--logdir``
+    and ``--profile``: its record against the schema's base tier and its
+    snapshot, health, trace, advantage, fleet, outcome and utilization
+    tiers (``utils/schema.py``), ``mem/hbm_peak_bytes`` inside the card's
+    memory, ``--logdir``'s one warning where tensorboardX is missing, the
+    profile's Chrome trace holding the 80 ``lstm_seq`` kernels the run
+    launched, the periodic saves and the final one with its pipeline;
+    (b) beside it, the same child with ``learner.fail_train_step`` on its
+    11th update and ``--on-crash-checkpoint``: a non-zero exit, the error on
+    stderr, the crash save's line and its step verified by its manifest,
+    then a ``--restore`` child that trains on from it and exits 0; (c) in
+    this process, on phase 13's buffered learner: ``CheckpointManager.save``
+    returning against ``wait`` landing for the train state alone and with
+    the pipeline, and the forced end-of-train save's two halves, printed
+    with the card's name and power limit; (d) that learner's 8 collects with
+    a log line each and ``checkpoint_best_min_episodes`` cut to 16 (from
+    50): ``best/`` and ``best_meta.json`` at the highest qualifying window,
+    ``init_from`` it loading those weights bitwise, and the outcome curves
+    off their priors at the totals' rate once games end; ``lstm_seq``
+    launched collects x ``rollout_len`` + passes + batches x 4 times there
+    (its counts reset just before and read just after).
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -1454,8 +1477,10 @@ def socket_phase(device, seed, learner, ckpt_dir, inproc):
 
     log(f"socket: protobuf {pb_version} ({api_implementation.Type()})")
     step = learner.state.step
-    if not CheckpointManager(ckpt_dir, registry=telemetry.Registry()).save(learner.state, learner.config, force=True):
+    mgr = CheckpointManager(ckpt_dir, registry=telemetry.Registry())
+    if not mgr.save(learner.state, learner.config, force=True):
         raise AssertionError("checkpoint save failed")
+    mgr.close()   # the write has landed
     cfg, params, version = load_inference_params(ckpt_dir)
     if version != step or cfg.model != learner.config.model:
         raise AssertionError(f"checkpoint restored step {version} (saved {step}), model {cfg.model}")
@@ -2051,11 +2076,14 @@ def league_children(learner, ckpt_dir):
     from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, _to_cpu
 
     a, b = os.path.join(ckpt_dir, "league_a"), os.path.join(ckpt_dir, "league_b")
-    CheckpointManager(a, registry=telemetry.Registry()).save(learner.state, learner.config, force=True)
+    mgr_a, mgr_b = (CheckpointManager(d, registry=telemetry.Registry()) for d in (a, b))
+    mgr_a.save(learner.state, learner.config, force=True)
     snap0 = learner.league.snapshots[0]
-    CheckpointManager(b, registry=telemetry.Registry()).save_host(
+    mgr_b.save_host(
         {"step": 0, "version": 0, "params": {k: v.cpu() for k, v in snap0.params.items()},
          "opt_state": _to_cpu(learner.state.optimizer.state_dict())}, learner.config, force=True)
+    for mgr in (mgr_a, mgr_b):
+        mgr.close()   # the writes land before the children read them
     lines, cli_s = run_child(["dotaclient_tpu_torch.league", "--checkpoint", a, "--vs", b,
                               "--games", str(LEAGUE_CLI_GAMES)], "the league CLI")
     cli = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
@@ -2524,14 +2552,374 @@ def buffered_phase(device, seed, ckpt_dir, fused_frames_per_s):
     log_profile(f"buffered profile: {BUFFERED_PROFILED} collects", profile)
     result["rollback"] = buffered_rollback(device, seed, os.path.join(ckpt_dir, "rollback"))
     result["resume"] = buffered_resume(device, seed, os.path.join(ckpt_dir, "resume"))
-    lines, cli_s = run_child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3"], "the learner CLI")
-    cli = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
-    if not (cli["optimizer_steps"] == 3.0 and np.isfinite(cli["loss"]) and cli["health_ok"] == 1.0):
-        raise AssertionError(f"the learner CLI's line {cli}")
-    log(f"learner CLI --smoke --steps 3 (default actor): {cli['optimizer_steps']:.0f} steps, "
-        f"{cli['frames_trained']:.0f} frames, loss {cli['loss']:.4g} in {cli_s:.1f} s wall")
-    result["cli"] = {"optimizer_steps": cli["optimizer_steps"], "frames_trained": cli["frames_trained"],
-                     "wall_s": cli_s}
+    cli_jsonl = os.path.join(ckpt_dir, "cli.jsonl")
+    lines, cli_s = run_child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3", "--metrics-jsonl",
+                              cli_jsonl], "the learner CLI")
+    steps, frames, _ = done_line(lines, "the learner CLI")
+    cli = read_record(cli_jsonl)[1][-1]
+    if not (steps == 3 and cli["optimizer_steps"] == 3.0 and np.isfinite(cli["loss"]) and cli["health_ok"] == 1.0):
+        raise AssertionError(f"the learner CLI: {steps} steps, its record's last line {cli}")
+    log(f"learner CLI --smoke --steps 3 (default actor): {steps} steps, {frames} frames, loss {cli['loss']:.4g} "
+        f"in {cli_s:.1f} s wall")
+    result["cli"] = {"optimizer_steps": steps, "frames_trained": frames, "wall_s": cli_s}
+    return result
+
+
+# -- phase 14: the run record and the rest of the checkpoint -----------------------
+
+# (a)'s child: phase 13's traffic on the default config (batches of 32,
+# one update each on the in-step estimator, B=32 T=17: at E x M = 1 no
+# advantage pass runs), a periodic save every 8 steps, and one log line
+# (the default log_every of 10) before the closing one
+RECORD_ENVS, RECORD_STEPS, RECORD_EVERY = 128, 16, 8
+# (b): the 11th update raises (the step-10 log line and the step-8 save
+# behind it), so the crash save lands at step 10; the resume trains 4 more
+CRASH_AT, CRASH_STEP, RESUME_STEPS = 11, 10, 4
+# (d): phase 13's config, a log boundary a collect, 8 collects (the 20 s
+# games end in the 7th), checkpoint_best_min_episodes cut from 50
+BEST_COLLECTS, BEST_MIN_EPISODES = 8, 16
+SAVE_REPS = 3
+RECORD_CHILD_S = 300.0
+
+
+class RecordChild:
+    """``python -m dotaclient_tpu_torch.train.learner ARGS`` as a child
+    process, its stdout and stderr into files (so children can run side by
+    side without a pipe filling up). ``result`` waits for its exit within
+    RECORD_CHILD_S: (exit code, stdout lines, stderr, wall seconds).
+    ``kill`` leaves nothing running."""
+
+    def __init__(self, args, root, name, env=None):
+        import os
+        import pathlib
+
+        repo = str(pathlib.Path(__file__).resolve().parent)
+        full_env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {})}
+        self.what, self.t0 = name, time.perf_counter()
+        self._out, self._err = (open(os.path.join(root, f"{name}.{k}"), "w+") for k in ("out", "err"))
+        self.proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.train.learner", *args], cwd=repo,
+                                     env=full_env, stdout=self._out, stderr=self._err, text=True)
+
+    def result(self):
+        try:
+            rc = self.proc.wait(timeout=RECORD_CHILD_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{self.what} ran past {RECORD_CHILD_S:.0f} s") from None
+        wall_s = time.perf_counter() - self.t0
+        self._out.seek(0)
+        self._err.seek(0)
+        return rc, self._out.read().splitlines(), self._err.read(), wall_s
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._out.close()
+        self._err.close()
+
+
+def done_line(lines, what):
+    """The learner CLI's closing ``done: N steps, F frames, R frames/sec``
+    line as (N, F, R)."""
+    import re
+
+    for line in reversed(lines):
+        m = re.fullmatch(r"done: (\d+) steps, (\d+) frames, (\d+) frames/sec", line)
+        if m:
+            return tuple(int(g) for g in m.groups())
+    raise AssertionError(f"{what} printed no done: line: {lines[-5:]}")
+
+
+def read_record(path):
+    """A --metrics-jsonl file: (its lines, the scalars of each metrics
+    line)."""
+    from dotaclient_tpu_torch.utils import telemetry
+
+    lines = telemetry.load_jsonl(path)
+    return lines, [json.loads(x)["scalars"] for x in lines if '"scalars"' in x]
+
+
+def profile_kernel_launches(profile_dir, kernel="lstm_seq"):
+    """The Chrome trace ``--profile`` wrote: (its bytes, the kernel events
+    whose name holds ``kernel``)."""
+    import glob
+    import os
+
+    paths = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"--profile {profile_dir} holds {paths}, expected one trace")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    n = sum(1 for e in events if e.get("cat") == "kernel" and kernel in e.get("name", ""))
+    return os.path.getsize(paths[0]), n
+
+
+def record_child_phase(device, seed, root):
+    """(a) the learner CLI with every sink of the run record and the
+    profiler, beside (b) a crash through --on-crash-checkpoint, then its
+    resume: the children run side by side (they share the card, each its
+    own directories) to keep the phase short."""
+    import os
+
+    d, jsonl, logdir, prof, d2 = (os.path.join(root, n) for n in ("ckpt", "run.jsonl", "tb", "profile", "crash"))
+    common = ["--n-envs", str(RECORD_ENVS), "--opponent", "scripted_easy", "--seed", str(seed)]
+    children = []
+    try:
+        children.append(RecordChild(
+            [*common, "--steps", str(RECORD_STEPS), "--checkpoint-dir", d, "--checkpoint-every", str(RECORD_EVERY),
+             "--metrics-jsonl", jsonl, "--logdir", logdir, "--profile", prof], root, "recorded"))
+        children.append(RecordChild(
+            [*common, "--steps", str(RECORD_STEPS), "--checkpoint-dir", d2, "--checkpoint-every", str(RECORD_EVERY),
+             "--on-crash-checkpoint"], root, "crashing", env={"DOTA_FAULTS": f"learner.fail_train_step@{CRASH_AT}"}))
+        crash = check_crash(d2, children[1].result())
+        children.append(RecordChild([*common, "--steps", str(RESUME_STEPS), "--checkpoint-dir", d2, "--restore"],
+                                    root, "resumed"))
+        result = check_recorded(device, d, jsonl, logdir, prof, children[0].result())
+        result["crash"] = {**crash, **check_resume(d2, children[2].result())}
+    finally:
+        for child in children:
+            child.kill()
+    return result
+
+
+def check_recorded(device, d, jsonl, logdir, prof, ran):
+    """(a): the record against the tiers, the memory gauge, the --logdir
+    sink, the trace's lstm_seq kernels, the checkpoints."""
+    import os
+
+    import torch
+
+    from dotaclient_tpu_torch.utils import schema, telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rc, lines, err, wall_s = ran
+    if rc != 0:
+        raise AssertionError(f"the recorded learner CLI exited {rc}: {lines[-10:]}\n{err[-3000:]}")
+    steps, frames, _ = done_line(lines, "the recorded learner CLI")
+    raw, rows = read_record(jsonl)
+    errors = schema.validate_lines(raw, schema.LEARNER_TIERS)
+    if errors or steps != RECORD_STEPS or [len(raw), len(rows)] != [2, 2]:
+        raise AssertionError(f"the record: {errors}, {steps} steps, {len(raw)} lines")
+    last = rows[-1]
+    card_bytes = torch.cuda.get_device_properties(device).total_memory
+    if not 0 < last["mem/hbm_peak_bytes"] < card_bytes:
+        raise AssertionError(f"mem/hbm_peak_bytes {last['mem/hbm_peak_bytes']} outside (0, {card_bytes})")
+    try:
+        import tensorboardX  # noqa: F401
+        tb = bool(os.path.isdir(logdir) and os.listdir(logdir))
+        tb_what = "tensorboardX event files written"
+    except ImportError:
+        warned = [x for x in lines if x.startswith("WARNING: tensorboardX not installed")]
+        tb, tb_what = len(warned) == 1, "tensorboardX absent: --logdir degraded with one warning"
+    if not tb:
+        raise AssertionError(f"--logdir: {tb_what} expected; stdout {lines[:5]}")
+    trace_bytes, traced = profile_kernel_launches(prof)
+    collects = RECORD_STEPS * 32 // RECORD_ENVS
+    expected = collects * 16 + RECORD_STEPS   # the rollout steps, and one update a batch
+    if traced != expected:
+        raise AssertionError(f"the child's trace holds {traced} lstm_seq kernels, expected {expected}")
+    reg = telemetry.Registry()
+    mgr = CheckpointManager(d, registry=reg)
+    step16, ok = mgr.restore_weights()[1], os.path.isfile(os.path.join(d, str(RECORD_STEPS), "pipeline.pt"))
+    if not (mgr.all_steps() == [RECORD_EVERY, RECORD_STEPS] and step16 == RECORD_STEPS and ok
+            and mgr.last_good_step() == RECORD_STEPS and reg.snapshot()["checkpoint/manifest_failures_total"] == 0):
+        raise AssertionError(f"the child's checkpoints: steps {mgr.all_steps()}, pipeline {ok}, last_good "
+                             f"{mgr.last_good_step()}")
+    util = {k[len("util/phase/"):]: round(v, 4) for k, v in rows[0].items() if k.startswith("util/phase/")}
+    result = {
+        "wall_s": wall_s, "steps": steps, "frames": frames, "record_lines": len(raw),
+        "record_bytes": os.path.getsize(jsonl), "keys": len(last), "tensorboard": tb_what,
+        "hbm_peak_bytes": last["mem/hbm_peak_bytes"], "trace_bytes": trace_bytes, "traced_lstm_seq": traced,
+        "util_phases": util, "duty_cycle": rows[0]["util/duty_cycle"],
+        "prefetch_hit_rate": last["learner/prefetch_hit_rate"], "overlap_fraction": last["learner/overlap_fraction"],
+        "advantage_overlap_fraction": last["advantage/overlap_fraction"],
+        "metrics_fetch_ms": 1e3 * last["span/learner/metrics_fetch/mean_s"],
+        "checkpoints": mgr.all_steps(),
+    }
+    log(f"run record (a): the learner CLI at {RECORD_ENVS} games, {steps} steps in {wall_s:.1f} s wall; "
+        f"{len(raw)} lines, {len(last)} keys, {result['record_bytes']} bytes, every tier present; "
+        f"mem/hbm_peak_bytes {last['mem/hbm_peak_bytes']:.0f}; {tb_what}; its profile {trace_bytes} bytes with "
+        f"{traced} lstm_seq kernels ({collects} collects x 16 + {RECORD_STEPS} updates); "
+        f"checkpoints {mgr.all_steps()} with the pipeline at {RECORD_STEPS}; at step 10 util/duty_cycle "
+        f"{rows[0]['util/duty_cycle']:.4f}, phases {util}; prefetch hit rate "
+        f"{last['learner/prefetch_hit_rate']:.3f}, overlap {last['learner/overlap_fraction']:.3f}, advantage "
+        f"overlap {last['advantage/overlap_fraction']:.3f}, metrics fetch {result['metrics_fetch_ms']:.2f} ms")
+    return result
+
+
+def check_crash(d2, ran):
+    """(b): a non-zero exit with the injected error, the rescue's line, the
+    crash step verified by its manifest."""
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rc, lines, err, crash_s = ran
+    saved = [x for x in lines if x.startswith(f"learner: crash checkpoint saved to {d2}")]
+    if rc == 0 or "injected fault: learner.fail_train_step" not in err or len(saved) != 1:
+        raise AssertionError(f"the crash: exit {rc}, stderr {err[-1500:]}, stdout {lines[-5:]}")
+    reg = telemetry.Registry()
+    mgr = CheckpointManager(d2, registry=reg)
+    if not (mgr.latest_step() == CRASH_STEP and mgr.restore_weights()[1] == CRASH_STEP
+            and reg.snapshot()["checkpoint/manifest_failures_total"] == 0):
+        raise AssertionError(f"the crash save: steps {mgr.all_steps()}")
+    log(f"run record (b): learner.fail_train_step@{CRASH_AT} with --on-crash-checkpoint: exit {rc}, the injected "
+        f"error on stderr, '{saved[0]}', step {CRASH_STEP} verified by its manifest ({crash_s:.1f} s wall)")
+    return {"exit": rc, "crash_step": CRASH_STEP, "wall_s": crash_s}
+
+
+def check_resume(d2, ran):
+    """(b): the --restore child resumes from the crash save and exits 0."""
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rc, lines, err, resume_s = ran
+    if rc != 0 or done_line(lines, "the resumed learner CLI")[0] != RESUME_STEPS:
+        raise AssertionError(f"the resume exited {rc}: {lines[-5:]}\n{err[-2000:]}")
+    mgr = CheckpointManager(d2, registry=telemetry.Registry())
+    if mgr.latest_step() != CRASH_STEP + RESUME_STEPS:
+        raise AssertionError(f"the resume's steps {mgr.all_steps()}")
+    log(f"run record (b): --restore trained from step {CRASH_STEP} to {mgr.latest_step()} and exited 0 "
+        f"({resume_s:.1f} s wall)")
+    return {"resume_wall_s": resume_s, "resumed_to": mgr.latest_step()}
+
+
+def timed_saves(mgr, save):
+    """``save()`` then ``mgr.wait()``, SAVE_REPS times: the medians of the
+    save's return and of the wait, in ms."""
+    back, landed = [], []
+    for _ in range(SAVE_REPS):
+        t0 = time.perf_counter()
+        save()
+        t1 = time.perf_counter()
+        mgr.wait()
+        back.append((t1 - t0) * 1e3)
+        landed.append((time.perf_counter() - t1) * 1e3)
+    return {"save_ms": statistics.median(back), "wait_ms": statistics.median(landed)}
+
+
+def record_inprocess_phase(device, seed, root, smi):
+    """(c) the save timing and (d) best-model rotation, on phase 13's
+    buffered learner in this process."""
+    import os
+
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = dataclasses.replace(buffered_config(seed, every=STEPS_PER_COLLECT),
+                              checkpoint_best_min_episodes=BEST_MIN_EPISODES)
+    d, jsonl = os.path.join(root, "best_run"), os.path.join(root, "best_run.jsonl")
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="device", seed=seed, device=device, registry=reg, checkpoint_dir=d,
+                      metrics_jsonl=jsonl)
+    saved_best, tail = [], {}
+    maybe_save_best, save, wait = learner._maybe_save_best, learner.ckpt.save, learner.ckpt.wait
+
+    def recording_best(scalars):
+        before = learner._best_win
+        maybe_save_best(scalars)
+        if learner._best_win != before:
+            saved_best.append((learner._best_win, learner.state.step,
+                               {k: v.detach().cpu().clone() for k, v in learner.policy.state_dict().items()}))
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            tail[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    learner._maybe_save_best = recording_best
+    learner.ckpt.save, learner.ckpt.wait = timed("save_ms", save), timed("wait_ms", wait)
+    torch.cuda.synchronize()
+    lstm.lstm_sequence_kernel.launches = 0
+    out = learner.train(BEST_COLLECTS * STEPS_PER_COLLECT)
+    torch.cuda.synchronize()
+    launches = lstm.lstm_sequence_kernel.launches
+    learner.ckpt.save, learner.ckpt.wait = save, wait
+    T, B = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts
+    batches = BEST_COLLECTS * learner.device_actor.n_lanes // B
+    passes = reg.snapshot()["advantage/passes_total"]
+    expected = BEST_COLLECTS * T + passes + batches * cfg.ppo.steps_per_batch
+    if launches != expected or passes != batches:
+        raise AssertionError(f"lstm_seq launched {launches} times in (d), expected {expected}")
+    # (c): the state alone and with the pipeline (the ring at 256 chunks),
+    # into a directory of their own
+    timing_mgr = CheckpointManager(os.path.join(root, "timing"), registry=telemetry.Registry())
+    pipeline = learner._pipeline_state()
+    state_only = timed_saves(timing_mgr, lambda: timing_mgr.save(learner.state, cfg, force=True))
+    with_pipeline = timed_saves(timing_mgr, lambda: timing_mgr.save(learner.state, cfg, force=True,
+                                                                    pipeline=pipeline))
+    timing_mgr.close()
+    ring_bytes = reg.snapshot()["buffer/shard_bytes"]
+    timing = {"card": smi, "state": state_only, "state_and_pipeline": with_pipeline, "ring_bytes": ring_bytes,
+              "end_of_train": {"save_ms": tail["save_ms"], "wait_ms": tail["wait_ms"]}}
+    log(f"run record (c) on {smi}: CheckpointManager.save returns / wait lands, median of {SAVE_REPS}: the train "
+        f"state {state_only['save_ms']:.2f} / {state_only['wait_ms']:.2f} ms; with the pipeline (the ring of "
+        f"{cfg.buffer.capacity_rollouts} chunks, {ring_bytes:.0f} bytes) {with_pipeline['save_ms']:.2f} / "
+        f"{with_pipeline['wait_ms']:.2f} ms; the forced end-of-train save on the train thread "
+        f"{tail['save_ms']:.2f} ms to return, {tail['wait_ms']:.2f} ms more to land (the sync save's time: "
+        f"{tail['save_ms'] + tail['wait_ms']:.2f} ms)")
+    # (d): best/ holds the highest qualifying logged window, saved at the
+    # step the train thread applied it
+    logged = [h for h in learner.history if h["episodes_recent"] >= BEST_MIN_EPISODES]
+    best_dir = os.path.join(d, "best")
+    if not (logged and saved_best and os.path.isdir(best_dir)):
+        raise AssertionError(f"no best save: qualifying windows {len(logged)}, saves {len(saved_best)}")
+    with open(os.path.join(best_dir, "best_meta.json")) as f:
+        meta = json.load(f)
+    win, step, params = saved_best[-1]
+    first_max = next(h for h in logged if h["win_rate_recent"] == max(x["win_rate_recent"] for x in logged))
+    if not (meta == {"win_rate_recent": win, "step": step} and win == first_max["win_rate_recent"]
+            and first_max["step"] <= step <= learner.state.step and learner.ckpt_best.latest_step() == step):
+        raise AssertionError(f"best_meta {meta}: the saves {[s[:2] for s in saved_best]}, qualifying windows "
+                             f"{[(h['step'], h['win_rate_recent']) for h in logged]}")
+    learner.close()
+    seeded = Learner(cfg, actor="device", seed=seed + 1, device=device, registry=telemetry.Registry(),
+                     init_from=best_dir)
+    same = all(torch.equal(v.detach().cpu(), params[k]) for k, v in seeded.policy.state_dict().items())
+    seeded.close()
+    if not (same and seeded.init_from_step == step):
+        raise AssertionError(f"init_from best/: step {seeded.init_from_step}, weights equal {same}")
+    # the outcome curves: moved off their priors by the first window of
+    # ended games, to the totals' rate (the 120 s window's base is empty)
+    _, rows = read_record(jsonl)
+    first = next((r for r in rows if r["outcome/episodes_recent"] >= 8), None)
+    if first is None:
+        raise AssertionError("no logged window holds 8 ended episodes")
+    eps = sum(first[f"outcome/episodes/{b}"] for b in ("vs_scripted", "vs_league", "vs_selfplay"))
+    wins = sum(first[f"outcome/wins/{b}"] for b in ("vs_scripted", "vs_league", "vs_selfplay"))
+    if not (first["outcome/win_rate/overall"] == wins / eps and first["outcome/stream_age_s"] >= 0
+            and first["outcome/episodes_total"] == eps and first["outcome/episode_len_p50"] > 0):
+        raise AssertionError(f"outcome curves: overall {first['outcome/win_rate/overall']} against {wins}/{eps}, "
+                             f"stream age {first['outcome/stream_age_s']}")
+    best = {"meta": meta, "qualifying_windows": [(h["step"], h["win_rate_recent"], h["episodes_recent"])
+                                                  for h in logged],
+            "outcome": {k: first[k] for k in ("outcome/win_rate/overall", "outcome/win_rate/vs_scripted",
+                                               "outcome/episodes_total", "outcome/episode_len_p50",
+                                               "outcome/stream_age_s")},
+            "lstm_seq_launches": launches, "optimizer_steps": out["optimizer_steps"]}
+    log(f"run record (d): {BEST_COLLECTS} collects, checkpoint_best_min_episodes {BEST_MIN_EPISODES}; qualifying "
+        f"windows (step, win rate, episodes) {best['qualifying_windows']}; best_meta {meta}; init_from best/ "
+        f"loads those weights bitwise; outcome curves at the first window of ended games {best['outcome']}; "
+        f"lstm_seq launches {launches} = {BEST_COLLECTS} x {T} + {passes:.0f} + {batches} x "
+        f"{cfg.ppo.steps_per_batch}")
+    return timing, best
+
+
+def run_record_phase(device, seed, smi):
+    """Phase 14: the run record and the rest of the checkpoint."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_record_") as root:
+        result = record_child_phase(device, seed, root)
+        result["save_timing"], result["best"] = record_inprocess_phase(device, seed, root, smi)
+    result["wall_s"] = time.perf_counter() - t0
+    result["lstm_seq_launches"] = result["best"]["lstm_seq_launches"]
+    log(f"run record: phase 14 in {result['wall_s']:.1f} s")
     return result
 
 
@@ -2562,7 +2950,6 @@ def main() -> int:
     build.kernel_library(verbose=True)
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
-
     lstm_entry, lstm_extra = check_lstm_kernel(device, args.seed)
     lstm_extra["sweep"] = lstm_sweep(device, args.seed)
     serve = serve_phase(device, args.seed)
@@ -2577,13 +2964,15 @@ def main() -> int:
                  "cli": fleet_cli_phase(ckpt_dir, learner.state.step, args.seed)}
         league = league_phase(device, args.seed, ckpt_dir)
         buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
+    record = run_record_phase(device, args.seed, smi)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
                                       "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"],
                                       "train_league": league["lstm_seq_launches"],
                                       "league_eval": league["eval"]["lstm_seq_launches"],
-                                      "train_buffered": buffered["lstm_seq_launches"]}
+                                      "train_buffered": buffered["lstm_seq_launches"],
+                                      "train_run_record": record["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
@@ -2591,7 +2980,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
-                       "league": league, "buffered": buffered}, f, indent=2)
+                       "league": league, "buffered": buffered, "run_record": record}, f, indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -1,1 +1,2 @@
-"""Episode outcomes: the counter schema and the in-graph reductions."""
+"""Episode outcomes: the counter schema, the in-graph reductions and the
+learner's windowed curves."""

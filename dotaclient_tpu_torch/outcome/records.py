@@ -2,9 +2,10 @@
 fold into.
 
 A copy of the names of ``dotaclient_tpu/outcome/records.py`` that the
-device rollout uses: the buckets, ``REWARD_TERMS``, ``N_LEN_BUCKETS``,
-``ensure_actor_metrics`` and ``fold_device_stats`` (with
-``add_reward_terms``). Counters live under ``outcome/`` in the telemetry
+device rollout and the learner use: the buckets, ``REWARD_TERMS``,
+``N_LEN_BUCKETS``, ``ensure_actor_metrics`` and ``fold_device_stats`` (with
+``add_reward_terms``), and ``counter_totals``, which the learner's
+``OutcomeAggregator`` (``outcome/aggregator.py``) reads. Counters live under ``outcome/`` in the telemetry
 registry with the reference's names. Episode length is counted in env steps
 and histogrammed into power-of-two buckets (bucket i covers [2^i, 2^(i+1)),
 the last one open-ended).
@@ -12,7 +13,7 @@ the last one open-ended).
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 from dotaclient_tpu_torch.config import RewardConfig
 from dotaclient_tpu_torch.utils import telemetry
@@ -85,3 +86,18 @@ def fold_device_stats(
     terms = stats.get("out_reward_terms")
     if isinstance(terms, Mapping):
         add_reward_terms(reg, {t: float(v) for t, v in terms.items()})
+
+
+def counter_totals(counters: Mapping[str, float]) -> Dict[str, float]:
+    """The outcome totals of a registry's counters: the process's own
+    ``outcome/...`` counters plus every fleet peer's mirror
+    (``fleet/<peer>/outcome/...``, already merged per peer, so the sum
+    survives a peer's restart)."""
+    totals: Dict[str, float] = {}
+    for name, v in counters.items():
+        if name.startswith("outcome/"):
+            totals[name] = totals.get(name, 0.0) + v
+        elif name.startswith("fleet/") and "/outcome/" in name:
+            key = "outcome/" + name.split("/outcome/", 1)[1]
+            totals[key] = totals.get(key, 0.0) + v
+    return totals

@@ -17,12 +17,16 @@ Protocol:
    initial self (league mode against the step-0 params);
 4. print ``DEMO_SUMMARY {json}``.
 
-The reference's ``--core``, ``--moe-experts`` (ROADMAP queue 1, item 6),
-``--logdir``, ``--metrics-jsonl`` and ``--log-every`` (item 10) are
-accepted and raise, naming their item. ``--actor`` picks the learner's
-mode as the reference's does: ``fused`` (the default) or ``device``, the
-buffered learner (``--actor device --n-envs 8 --eval-games 4 --device cpu``
-runs it on the CPU).
+``--metrics-jsonl PATH`` writes the learner's run record (pair it with
+``--log-every`` for dense outcome curves), ``--logdir`` its tensorboardX
+scalars. With neither, no log boundary falls inside a block: a boundary
+drains the windowed stats each block prints (the reference's default
+``--log-every``: 10,000 with ``--logdir``, else never). The reference's
+``--core`` and ``--moe-experts`` (ROADMAP queue 1, item 6) are accepted
+and raise, naming their item. ``--actor`` picks the learner's mode as the
+reference's does: ``fused`` (the default) or ``device``, the buffered
+learner (``--actor device --n-envs 8 --eval-games 4 --device cpu`` runs it
+on the CPU).
 """
 
 from __future__ import annotations
@@ -38,9 +42,6 @@ from typing import List, Optional
 _NOT_PORTED = {
     "core": "ROADMAP queue 1, item 6 (transformer and MoE cores)",
     "moe_experts": "ROADMAP queue 1, item 6 (transformer and MoE cores)",
-    "logdir": "ROADMAP queue 1, item 10 (the learner's run record)",
-    "metrics_jsonl": "ROADMAP queue 1, item 10 (the learner's run record)",
-    "log_every": "ROADMAP queue 1, item 10 (the learner's run record)",
 }
 
 
@@ -81,9 +82,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
     p.add_argument("--core", type=str, default=None, help="not ported yet: " + _NOT_PORTED["core"])
     p.add_argument("--moe-experts", type=int, default=None, help="not ported yet: " + _NOT_PORTED["moe_experts"])
-    p.add_argument("--logdir", type=str, default=None, help="not ported yet: " + _NOT_PORTED["logdir"])
-    p.add_argument("--metrics-jsonl", type=str, default=None, help="not ported yet: " + _NOT_PORTED["metrics_jsonl"])
-    p.add_argument("--log-every", type=int, default=None, help="not ported yet: " + _NOT_PORTED["log_every"])
+    p.add_argument("--logdir", type=str, default=None, help="tensorboardX scalars of the learner here")
+    p.add_argument("--metrics-jsonl", type=str, default=None, metavar="PATH",
+                   help="append the learner's log-boundary records as JSON lines to PATH (pair with --log-every "
+                   "for dense outcome curves)")
+    p.add_argument("--log-every", type=int, default=None,
+                   help="log-boundary cadence in optimizer steps (default: 10,000 with --logdir, else none: a "
+                   "boundary inside a block resets the windowed stats the demo prints)")
     args = p.parse_args(argv)
     for name, item in _NOT_PORTED.items():
         if getattr(args, name) is not None:
@@ -126,15 +131,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         env=dataclasses.replace(config.env, n_envs=args.n_envs, opponent=args.opponent,
                                 max_dota_time=args.max_dota_time, team_size=args.team_size,
                                 hero_pool=hero_pool),
-        # no log boundary: a drain mid-block would reset the windowed
-        # stats each block prints
-        log_every=1_000_000_000,
+        # no log boundary by default: a drain mid-block would reset the
+        # windowed stats each block prints
+        log_every=args.log_every if args.log_every is not None else (10_000 if args.logdir else 1_000_000_000),
         steps_per_dispatch=args.steps_per_dispatch,
         seed=args.seed,
     )
     device = resolve_device(args.device)
     learner = Learner(config, actor=args.actor, seed=args.seed, device=device, checkpoint_dir=args.checkpoint_dir,
-                      restore=args.restore, init_from=args.init_from)
+                      restore=args.restore, init_from=args.init_from, logdir=args.logdir,
+                      metrics_jsonl=args.metrics_jsonl)
     policy = learner.policy
     # after --restore (or --init-from) the "initial" evals baseline the
     # restored policy; restored_step says so
@@ -160,8 +166,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         n = min(block, args.steps - done_steps)
         learner.train(n)
         done_steps += n
-        # the block's window: the one read of the actor's stats
-        s = learner.device_actor.drain_stats()
+        # the block's window: the end of train drained it
+        s = learner.device_actor.stats()
         curve.append({"step": done_steps, "win_rate_recent": round(s["win_rate_recent"], 3),
                       "ep_reward_recent": round(s["ep_reward_recent"], 3)})
         print(f"[{time.time() - t0:7.1f}s] step {done_steps}: win_rate_recent={s['win_rate_recent']:.3f} "
@@ -190,6 +196,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "reward_first_block": curve[0]["ep_reward_recent"] if curve else None,
         "reward_last_block": curve[-1]["ep_reward_recent"] if curve else None,
     }
+    learner.close()
     print("DEMO_SUMMARY " + json.dumps(summary), flush=True)
     return 0
 

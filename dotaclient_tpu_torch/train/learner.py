@@ -2,14 +2,16 @@
 
 Counterpart of ``dotaclient_tpu/train/learner.py`` (``Learner(config,
 actor=...)``, its training loops, the health guardian, the snapshot
-engine's boundaries, ``train``'s return dict) and of its CLI. Run on the
-card::
+engine's boundaries, the run record, best-model rotation, ``train``'s
+return dict) and of its CLI. Run on the card::
 
     python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused]
-        [--n-envs N] [--opponent scripted_easy|scripted_hard|selfplay|league] [--league K=V,...]
-        [--buffer K=V,...] [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
-        [--seed S] [--device cuda|cpu]
-        [--checkpoint-dir DIR [--checkpoint-every N] [--restore]] [--init-from DIR]
+        [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
+        [--league K=V,...] [--ppo K=V,...] [--reward K=V,...] [--serve K=V,...] [--buffer K=V,...]
+        [--health K=V,...] [--learner K=V,...] [--sync-snapshots] [--wire-dtype float32|bfloat16]
+        [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
+        [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
+        [--init-from DIR]
 
 Two actor modes, ``device`` the default as in the reference:
 
@@ -31,10 +33,27 @@ back to the ``last_good`` save, dropping the poisoned timeline's saves,
 buffered experience and recurrent carries); the snapshot engine
 (``train/snapshot.py``; at a log, checkpoint or publish boundary the train
 thread only queues on-device clones); the end of ``train`` (the rollback
-re-entry, the final publish, the forced save with the whole pipeline: the
-ring, the device actor's state and RNG, the minibatch draw count, so
-``restore`` resumes exactly); and ``request_stop`` (the CLI's first
-SIGTERM or SIGINT drains and saves; a second one kills).
+re-entry, the last stat drain, the final publish, the forced save with
+the whole pipeline: the ring, the device actor's state and RNG, the
+minibatch draw count, so ``restore`` resumes exactly); and
+``request_stop`` (the CLI's first SIGTERM or SIGINT drains and saves; a
+second one kills).
+
+The run record, as the reference's: every log boundary goes through
+``MetricsLogger`` (``utils/metrics.py``: the console line, tensorboardX
+with ``logdir`` when it is installed, the ``metrics_jsonl`` file), each
+line carrying the registry's snapshot, and the end of ``train`` closes the
+file with one more line. At each boundary ``_publish_pipeline_gauges``
+sets the actor's weight staleness (0: the device actor plays the live
+params), the prefetch lane's hit rate and overlap fractions, the memory
+peak, the outcome curves (``outcome/aggregator.py``) and the utilization
+fold (``utils/utilization.py``: host wall-clock phases of the train
+thread). A ``FleetAggregator`` (``utils/fleet.py``) is built on every run,
+which creates the fleet and alert keys; its thread starts only in the
+external modes. Best-model rotation keeps ``<checkpoint_dir>/best`` at the
+best windowed win rate of ``checkpoint_best_min_episodes`` episodes or
+more (``best_meta.json`` holds it), and the CLI's ``--on-crash-checkpoint``
+saves the weights before an unexpected error is re-raised.
 
 The host reads the device only at those boundaries and at the end of
 ``train``; between them the loops issue work and read host ints.
@@ -49,9 +68,10 @@ batch at a log boundary or the end of ``train``.
 Not ported yet, each with its ROADMAP item: the ``vec``, ``scalar`` and
 ``external`` actor modes and the learner's transports (queue 1, items 4b
 and 4c; the in-process transport is here), the weights pushes to
-in-process host pools (with the ``vec`` mode), the run record (item 10),
-best-model rotation, saves that return before the write lands and
-``--on-crash-checkpoint`` (item 3b).
+in-process host pools (with the ``vec`` mode), the transformer and MoE
+cores (item 6), the mesh (item 7), the trace plane and the fleet
+fanout (item 8) and the JAX debug and cache flags (item 12). Their CLI
+flags are accepted and raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -63,6 +83,7 @@ import json
 import os
 import signal
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -72,11 +93,14 @@ import torch
 from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, flatten_state, unflatten_state
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
 from dotaclient_tpu_torch.config import (
-    BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, RunConfig, default_config,
+    BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, PPOConfig, RewardConfig, RunConfig, ServeConfig,
+    default_config,
 )
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
 from dotaclient_tpu_torch.league.pool import LIVE, OpponentPool
 from dotaclient_tpu_torch.models.policy import init_params, make_policy
+from dotaclient_tpu_torch.outcome import records as outcome_records
+from dotaclient_tpu_torch.outcome.aggregator import OutcomeAggregator
 from dotaclient_tpu_torch.train.advantage import make_advantage_pass, one_pass_enabled
 from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.health import VERDICT_KEYS, HealthMonitor
@@ -84,9 +108,12 @@ from dotaclient_tpu_torch.train.ppo import init_train_state, make_epoch_step, ma
 from dotaclient_tpu_torch.train.snapshot import SnapshotEngine, device_copy
 from dotaclient_tpu_torch.transport.queues import InProcTransport
 from dotaclient_tpu_torch.transport.serialize import encode_weights
-from dotaclient_tpu_torch.utils import faults, telemetry
+from dotaclient_tpu_torch.utils import faults, telemetry, tracing, utilization
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, shape_mismatches
+from dotaclient_tpu_torch.utils.fleet import FleetAggregator
+from dotaclient_tpu_torch.utils.metrics import MetricsLogger
 from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
+from dotaclient_tpu_torch.utils.profiling import trace
 
 ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
 # actor modes of the reference learner that the port does not have yet
@@ -103,7 +130,9 @@ class Learner:
     with ``init_from``, the weights alone of the newest valid checkpoint in
     that other directory), one device actor over ``config.env.n_envs``
     games, and the ``actor`` mode's loop: ``device`` (the buffered learner)
-    or ``fused``."""
+    or ``fused``. ``logdir`` and ``metrics_jsonl`` add the tensorboardX and
+    JSONL sinks to the run record; ``close`` lands the pending checkpoint
+    writes and closes the record."""
 
     def __init__(
         self,
@@ -115,6 +144,8 @@ class Learner:
         checkpoint_dir: Optional[str] = None,
         restore: bool = False,
         init_from: Optional[str] = None,
+        logdir: Optional[str] = None,
+        metrics_jsonl: Optional[str] = None,
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
@@ -142,6 +173,7 @@ class Learner:
         self.config = config
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else telemetry.get_registry()
+        tracing.ensure_metrics(self.registry)
         self.policy = make_policy(config.model, config.obs, config.actions, device=self.device)
         init_params(self.policy, torch.Generator().manual_seed(seed))
         self.init_from_step = 0  # the source's step when seeded by init_from
@@ -149,10 +181,21 @@ class Learner:
             self.init_from_step = self._seed_from(init_from, checkpoint_dir, restore)
         self.state = init_train_state(self.policy, config.ppo)
         self.ckpt: Optional[CheckpointManager] = None
+        # best-model rotation: <checkpoint_dir>/best at the best windowed
+        # win rate; its manager is made at the first qualifying save (a
+        # run that never qualifies leaves no empty tree), but the best so
+        # far loads now, so a resumed run cannot let its first window
+        # displace the kept peak
+        self.ckpt_best: Optional[CheckpointManager] = None
+        self._best_dir: Optional[str] = None
+        self._best_win = -1.0
         if checkpoint_dir:
             self.ckpt = CheckpointManager(checkpoint_dir, registry=self.registry)
             if restore and self.ckpt.latest_step() is not None:
                 self.state, _ = self.ckpt.restore(config, self.state)
+            if config.checkpoint_best_min_episodes > 0:
+                self._best_dir = os.path.join(checkpoint_dir, "best")
+                self._best_win = self._load_best_win()
         elif restore:
             raise ValueError("restore needs a checkpoint_dir")
         # the anchor of anchor_kl is the policy as constructed (after
@@ -188,6 +231,7 @@ class Learner:
         reg = self.registry
         reg.gauge("advantage/one_pass").set(1.0 if self.advantage_pass is not None else 0.0)
         reg.gauge("advantage/pass_ms")
+        reg.gauge("advantage/overlap_fraction")
         reg.counter("advantage/passes_total")
         self.transport = InProcTransport(registry=self.registry)
         self._health: Optional[HealthMonitor] = None
@@ -197,6 +241,11 @@ class Learner:
         # the last batch's verdict tensors (the sync-snapshots gap-closer)
         self._last_verdict_m: Optional[Dict[str, torch.Tensor]] = None
         self._published_version = -1   # the sync path's publish floor
+        # a best-model candidate the engine's metrics continuation leaves
+        # for the train thread (which alone reads self.state), swapped
+        # under the lock so a concurrent write is never lost
+        self._pending_best: Optional[Dict[str, float]] = None
+        self._pending_best_lock = threading.Lock()
         self._snap_engine: Optional[SnapshotEngine] = None
         if config.learner.async_snapshots:
             self._snap_engine = SnapshotEngine(transport=self.transport, wire_dtype=config.transport.wire_dtype,
@@ -204,22 +253,60 @@ class Learner:
         for key in ("learner/publish_stall_ms", "learner/stall_fraction", "snapshot/pending", "snapshot/d2h_ms"):
             reg.gauge(key)
         self._stall_s = 0.0   # train-thread seconds spent at boundaries
+        # the run record and the planes it reads: the fleet aggregator
+        # (built on every run for its keys; its thread starts only in the
+        # external modes) and the outcome curves, ticked here at log
+        # boundaries
+        self.metrics = MetricsLogger(logdir, jsonl=metrics_jsonl, registry=self.registry)
+        self.fleet = FleetAggregator(registry=self.registry, emit_event=self.metrics.emit_event)
+        outcome_records.ensure_actor_metrics(self.registry)
+        self.outcome = OutcomeAggregator(registry=self.registry)
+        self.fleet.add_tick_hook(self.outcome.tick)
+        self._fleet_started = False
+        self._util = utilization.make_learner(self.registry)   # None with the plane off
         self._mb_rng = np.random.default_rng(config.seed + 1)
         self._mb_draws = 0     # permutations drawn (replayed on restore)
         # the prefetch lane: batch N+1, taken and staged behind batch N's
-        # updates, its slots held in the ring until released or requeued
+        # updates, its slots held in the ring until released or requeued;
+        # hits, misses and the host seconds of staging behind an update in
+        # flight or not feed learner/prefetch_hit_rate and
+        # learner/overlap_fraction
         self._prefetched: Optional[Dict[str, Any]] = None
         self._prefetch_ticket: Optional[int] = None
+        self._prefetch_hits = self._prefetch_misses = 0
+        self._prefetch_overlapped_s = self._prefetch_serial_s = 0.0
         self._adv_overlap = config.learner.overlap_advantage
+        self._adv_overlapped_s = self._adv_serial_s = 0.0
+        self._adv_first = True   # the first pass's time is left out
+        # True between an update's issue and the next read of the device:
+        # host work then overlaps the card's
+        self._dispatch_inflight = False
         self._stop_requested = False
         self._faults = faults.get()   # None unless fault injection is on
         self._last_metrics: Dict[str, float] = {}
+        # each log boundary's scalars, as logged before the registry's
+        # snapshot joins them (the in-process record)
         self.history: List[Dict[str, float]] = []
         self._t_start = time.time()
         self._frames_trained = 0
         self._steps_done = 0
         if restore and self.ckpt is not None and self.ckpt.latest_step() is not None:
             self._restore_pipeline()
+
+    def _load_best_win(self) -> float:
+        """The best win rate kept in ``best/best_meta.json``, -1 without
+        one; +inf (rotation frozen, loudly) when it cannot be read, so a
+        resumed run never replaces a kept peak it cannot compare with."""
+        meta = os.path.join(self._best_dir, "best_meta.json")
+        if not os.path.exists(meta):
+            return -1.0
+        try:
+            with open(meta) as f:
+                return float(json.load(f)["win_rate_recent"])
+        except (OSError, ValueError, KeyError, TypeError):
+            print(f"WARNING: {meta} unreadable: best-model rotation frozen to protect the existing best/ "
+                  "checkpoint; delete the directory to reset it", flush=True)
+            return float("inf")
 
     def _seed_from(self, init_from: str, checkpoint_dir: Optional[str], restore: bool) -> int:
         """Load the weights of ``init_from``'s newest valid checkpoint into
@@ -258,9 +345,16 @@ class Learner:
         self._stop_requested = True
 
     def close(self) -> None:
-        """Finish the snapshot engine's pending jobs and stop its thread."""
+        """Finish the snapshot engine's pending jobs and stop its thread,
+        land the checkpoint writes, stop the fleet aggregator and close the
+        run record."""
         if self._snap_engine is not None:
             self._snap_engine.stop()
+        for mgr in (self.ckpt, self.ckpt_best):
+            if mgr is not None:
+                mgr.close()
+        self.fleet.stop()
+        self.metrics.close()
 
     # -- league ---------------------------------------------------------------
 
@@ -335,17 +429,24 @@ class Learner:
                     batch[key] = poisoned
         cfg = self.config.ppo
         E, M, B = cfg.epochs_per_batch, max(1, cfg.minibatches), cfg.batch_rollouts
+        perms = None
+        if self.epoch_step is not None:
+            if M > 1:
+                perms = np.stack([self._mb_rng.permutation(B) for _ in range(E)])
+                self._mb_draws += E
+            else:
+                # an unsplit batch is never shuffled; the step ignores it
+                perms = np.broadcast_to(np.arange(B), (E, B))
+        t0 = time.perf_counter()
         with self.registry.span("learner/dispatch"):
             if self.epoch_step is None:
                 self.state, m = self.train_step(self.state, batch)
             else:
-                if M > 1:
-                    perms = np.stack([self._mb_rng.permutation(B) for _ in range(E)])
-                    self._mb_draws += E
-                else:
-                    # an unsplit batch is never shuffled; the step ignores it
-                    perms = np.broadcast_to(np.arange(B), (E, B))
                 self.state, m = self.epoch_step(self.state, batch, perms)
+        if self._util is not None:
+            # the host's time issuing the updates (utils/utilization.py)
+            self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+        self._dispatch_inflight = True
         self._submit_health(m)
         return m
 
@@ -357,9 +458,20 @@ class Learner:
         if batch is not None:
             self.buffer.release(self._prefetch_ticket)
             self._prefetch_ticket = None
+            self._prefetch_hits += 1
             return self._attach_advantages(batch)
+        t0 = time.perf_counter()
         batch = self.buffer.take(current_version=self.state.version)
-        return None if batch is None else self._attach_advantages(batch)
+        dt = time.perf_counter() - t0
+        if self._util is not None:
+            # a productive take is staging; an empty one, the ring below
+            # its minimum
+            self._util.phase("gather" if batch is not None else "ingest_wait", dt)
+        if batch is None:
+            return None
+        self._prefetch_serial_s += dt
+        self._prefetch_misses += 1
+        return self._attach_advantages(batch)
 
     def _prefetch_next(self) -> None:
         """Take batch N+1 while batch N's updates run on the card: its
@@ -369,12 +481,24 @@ class Learner:
         params its first update trains from."""
         if self._prefetched is not None or self.buffer is None:
             return
+        t0 = time.perf_counter()
         taken = self.buffer.take(current_version=self.state.version, hold=True)
+        dt = time.perf_counter() - t0
         if taken is None:
+            if self._util is not None:
+                self._util.phase("ingest_wait", dt)
             return
         self._prefetched, self._prefetch_ticket = taken
+        if self._util is not None:
+            self._util.phase("gather", dt)
+        # recorded only when a batch was staged
+        self.registry.timer("span/learner/prefetch").observe(dt)
+        if self._dispatch_inflight:
+            self._prefetch_overlapped_s += dt
+        else:
+            self._prefetch_serial_s += dt
         if self._adv_overlap:
-            self._prefetched = self._attach_advantages(self._prefetched)
+            self._prefetched = self._attach_advantages(self._prefetched, overlapped=self._dispatch_inflight)
 
     def _flush_prefetch(self) -> None:
         """Return an unconsumed prefetched batch to the front of the ring
@@ -386,17 +510,30 @@ class Learner:
             self._prefetched = None
             self._prefetch_ticket = None
 
-    def _attach_advantages(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def _attach_advantages(self, batch: Dict[str, Any], overlapped: bool = False) -> Dict[str, Any]:
         """The one-pass advantage plane: the value forward and GAE once on
         a just-taken batch, ``advantages`` and ``returns`` attached at the
-        staging dtype. Issues work, reads nothing."""
+        staging dtype. Issues work, reads nothing. ``overlapped`` is the
+        caller's word: only the prefetch lane issues the pass behind an
+        update in flight (advantage/overlap_fraction)."""
         if self.advantage_pass is None or "advantages" in batch:
             return batch
         t0 = time.perf_counter()
         adv, ret = self.advantage_pass(batch)
         batch = {**batch, "advantages": adv, "returns": ret}
-        self.registry.gauge("advantage/pass_ms").set((time.perf_counter() - t0) * 1e3)
+        dt = time.perf_counter() - t0
+        self.registry.gauge("advantage/pass_ms").set(dt * 1e3)
         self.registry.counter("advantage/passes_total").inc()
+        if self._util is not None:
+            self._util.phase("advantage_pass", dt)
+        if self._adv_first:
+            # the first pass pays one-time costs (allocations, the kernel
+            # library's load)
+            self._adv_first = False
+        elif overlapped:
+            self._adv_overlapped_s += dt
+        else:
+            self._adv_serial_s += dt
         return batch
 
     # -- pipeline state (checkpoint and restore) ---------------------------------
@@ -561,54 +698,139 @@ class Learner:
                 self._published_version = max(self._published_version, self.state.version)
         stall = time.perf_counter() - t0
         self._stall_s += stall
+        if self._util is not None:
+            self._util.phase("publish_stall", stall)
         self.registry.gauge("learner/publish_stall_ms").set(stall * 1e3)
 
     def _drain_snapshots(self) -> None:
-        """Wait until the engine has landed every pending job."""
+        """Wait until the engine has landed every pending job, its
+        checkpoint writes included, then apply a best-model save its
+        metrics continuation left for this thread."""
         if self._snap_engine is None:
             return
         timeout = self.config.learner.snapshot_drain_timeout_s
         if not self._snap_engine.drain(timeout=timeout):
             print(f"WARNING: snapshot engine did not drain within {timeout:.0f}s; going on", flush=True)
+        self._apply_pending_best()
+
+    # -- best-model rotation -------------------------------------------------------
+
+    def _apply_pending_best(self) -> None:
+        with self._pending_best_lock:
+            best, self._pending_best = self._pending_best, None
+        if best is not None:
+            self._maybe_save_best(best)
+
+    def _maybe_save_best(self, scalars: Dict[str, float]) -> None:
+        """Save the weights to ``<checkpoint_dir>/best`` when the windowed
+        win rate beats the best so far over at least
+        ``checkpoint_best_min_episodes`` episodes. Train thread only: the
+        save reads ``self.state``."""
+        if self._best_dir is None:
+            return
+        wr = scalars.get("win_rate_recent")
+        eps = scalars.get("episodes_recent", 0.0)
+        if wr is None or eps < self.config.checkpoint_best_min_episodes or wr <= self._best_win:
+            return
+        if self.ckpt_best is None:
+            self.ckpt_best = CheckpointManager(self._best_dir, max_to_keep=1, registry=self.registry)
+        # a declined save (a resumed run whose step sits below the kept
+        # peak's) must not move the marker
+        if self.ckpt_best.save(self.state, self.config):
+            self._best_win = wr
+            # temp file and rename: a kill mid-write must not reset the
+            # marker on resume
+            meta = os.path.join(self._best_dir, "best_meta.json")
+            with open(meta + ".tmp", "w") as f:
+                json.dump({"win_rate_recent": wr, "step": int(self.state.step)}, f)
+            os.replace(meta + ".tmp", meta)
+
+    def _log(self, step: int, scalars: Dict[str, float]) -> None:
+        self.history.append({"step": float(step), **scalars})
+        self._last_metrics = self.metrics.log(step, scalars)
 
     def _log_boundary(self, m: Dict[str, torch.Tensor], host_extra: Dict[str, float]) -> None:
-        """One log line: async, the actor's stat drain joins the stats
-        backlog and the metrics go to the engine, whose thread appends the
-        line; sync, everything is read here."""
+        """One log line, in the reference's order: the actor's stat drain,
+        the outcome tick (after the drain folded the window's episodes, so
+        the line's curves match its counters), the host extras, the best
+        win rate. Async, the drain joins the engine's stats backlog and the
+        engine's thread finishes the line (a qualifying best-model save is
+        left for this thread: the engine never touches ``self.state``);
+        sync, everything is read here."""
         step, da = self.state.step, self.device_actor
         if self._snap_engine is not None:
             s_dev, s_fin = da.begin_drain()
             self._snap_engine.submit_stats(device_copy(s_dev, clone=False), s_fin)
+            best_win = self._best_win   # read here: the train thread owns it
 
             def finish(host: Dict[str, Any]) -> None:
                 scalars = {k: float(v) for k, v in host["m"].items()}
+                # host-only: the drain submitted above folded first
                 scalars.update(da.stats())
+                if not self._fleet_started:
+                    self.outcome.tick()
                 scalars.update(host_extra)
-                self._last_metrics = scalars
-                self.history.append({"step": float(step), **scalars})
+                if self._best_dir is not None:
+                    with self._pending_best_lock:
+                        self._pending_best = dict(scalars)
+                    scalars["best_win_rate"] = best_win
+                self._log(step, scalars)
 
             self._snap_engine.submit_metrics(device_copy({"m": m}, clone=False), finish)
             return
         with self.registry.span("learner/metrics_fetch"):
             scalars = {k: float(v) for k, v in m.items()}
             scalars.update(da.drain_stats())
+        # the read waited for the updates issued so far
+        self._dispatch_inflight = False
         if self._health is not None:
             self._health.fold_host(step, self.state.version, scalars)
         scalars.update(host_extra)
-        self._last_metrics = scalars
-        self.history.append({"step": float(step), **scalars})
+        self._maybe_save_best(scalars)
+        if self._best_dir is not None:
+            scalars["best_win_rate"] = self._best_win
+        if not self._fleet_started:
+            self.outcome.tick()
+        self._log(step, scalars)
+
+    def _publish_pipeline_gauges(self) -> None:
+        """The cross-stage gauges of a log boundary, host values only: the
+        actor's weight staleness (0: the device actor plays the learner's
+        live params), the transport's queue depth, the prefetch lane's hit
+        rate and overlap fraction, the advantage pass's overlap fraction,
+        the memory peak, the outcome tick and the utilization fold."""
+        reg = self.registry
+        reg.gauge("actor/weight_staleness").set(0.0)
+        reg.gauge("transport/queue_depth").set(float(self.transport.pending_rollouts))
+        served = self._prefetch_hits + self._prefetch_misses
+        if served:
+            reg.gauge("learner/prefetch_hit_rate").set(self._prefetch_hits / served)
+        staged = self._prefetch_overlapped_s + self._prefetch_serial_s
+        if staged > 0:
+            reg.gauge("learner/overlap_fraction").set(self._prefetch_overlapped_s / staged)
+        adv_staged = self._adv_overlapped_s + self._adv_serial_s
+        if adv_staged > 0:
+            reg.gauge("advantage/overlap_fraction").set(self._adv_overlapped_s / adv_staged)
+        tracing.update_memory_gauges(reg, self.device)
+        if not self._fleet_started:
+            self.outcome.tick()
+        if self._util is not None:
+            self._util.fold(self.state.step)
 
     def _checkpoint_boundary(self) -> None:
         """A periodic save of the train state (the pipeline is saved only
         at the end of ``train``), behind the health gate."""
+        t0 = time.perf_counter()
         if self._snap_engine is not None:
             self._snap_engine.submit_checkpoint(device_copy(self._train_state_tree()), self.config)
-            return
-        self._sync_fold_latest()
-        if self._health is not None and self._health.unhealthy is not None:
-            self.registry.counter("health/checkpoints_blocked_total").inc()
         else:
-            self.ckpt.save(self.state, self.config, mark_good=self._health is not None)
+            self._sync_fold_latest()
+            if self._health is not None and self._health.unhealthy is not None:
+                self.registry.counter("health/checkpoints_blocked_total").inc()
+            else:
+                self.ckpt.save(self.state, self.config, mark_good=self._health is not None)
+        if self._util is not None:
+            self._util.phase("checkpoint_stall", time.perf_counter() - t0)
 
     def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
         """The boundary work of one loop iteration; returns the optimizer
@@ -623,11 +845,14 @@ class Learner:
             # verdicts ahead of this boundary's jobs
             self._flush_health()
         if log:
+            # a best-model save the engine's continuation left here
+            self._apply_pending_best()
             host_extra = self._league_log()
             if self.buffer is not None:
                 host_extra.update(self.buffer.metrics())
             elapsed = time.time() - self._t_start
             host_extra["frames_per_sec"] = self._frames_trained / max(elapsed, 1e-9)
+            self._publish_pipeline_gauges()
             self._log_boundary(m, host_extra)
         if save:
             self._checkpoint_boundary()
@@ -650,7 +875,11 @@ class Learner:
             frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
             while self._steps_done < num_steps and not self._stop_requested:
                 opp_params, opp_uid = self._league_opponent()
+                t0 = time.perf_counter()
                 self.state, da.state, m, chunk_stats = self.fused_step(self.state, da.state, opp_params)
+                if self._util is not None:
+                    self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+                self._dispatch_inflight = True
                 self._report_league(opp_uid, chunk_stats)
                 da.env_steps += frames_per
                 da.rollouts_shipped += da.n_lanes * k_iters
@@ -682,15 +911,20 @@ class Learner:
         folded only now latched. Returns the steps rewound."""
         if self.buffer is not None:
             self._flush_prefetch()
+        self._dispatch_inflight = False
         self._flush_health()
         self._drain_snapshots()
         return self._maybe_rollback()
 
     def _seal(self) -> None:
-        """The end of ``train``: the league's last outcomes, the final
-        publish, and with a checkpoint directory the forced save at the
-        exact stop step with the whole pipeline. The forced save is never
-        health-blocked, but only a verdict-clean state is marked good."""
+        """The end of ``train``: the actor's last stat drain (the call's
+        window, the second best-model hook, so a peak is kept even when no
+        log boundary fell in the call), the league's last outcomes, the
+        final publish, and with a checkpoint directory the forced save at
+        the exact stop step with the whole pipeline, waited for: a failed
+        write raises here. The forced save is never health-blocked, but
+        only a verdict-clean state is marked good."""
+        self._maybe_save_best(self.device_actor.drain_stats())
         self._flush_league_reports()
         self._publish_weights()
         self._drain_snapshots()
@@ -698,6 +932,7 @@ class Learner:
             self._sync_fold_latest()
             self.ckpt.save(self.state, self.config, force=True, pipeline=self._pipeline_state(),
                            mark_good=self._health is not None and self._health.unhealthy is None)
+            self.ckpt.wait()
 
     def train(self, num_steps: int) -> Dict[str, float]:
         """Run until ``num_steps`` optimizer steps have completed (rounded
@@ -706,7 +941,8 @@ class Learner:
         metrics, the actor's stats (``actor_*``), ``optimizer_steps``,
         ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``.
         Weights are published once, at the end: the in-process transport
-        has no reader in this process before then."""
+        has no reader in this process before then. The run record gets its
+        closing line."""
         self._t_start = time.time()
         self._frames_trained = self._steps_done = 0
         self._stall_s = 0.0
@@ -720,7 +956,7 @@ class Learner:
         self._seal()
         elapsed = time.time() - self._t_start
         actor_stats = self.device_actor.stats()
-        return {
+        out = {
             **self._last_metrics,
             **{f"actor_{k}": v for k, v in actor_stats.items()},
             "optimizer_steps": float(self._steps_done),
@@ -728,6 +964,11 @@ class Learner:
             "frames_per_sec": self._frames_trained / max(elapsed, 1e-9),
             "elapsed_sec": elapsed,
         }
+        self._publish_pipeline_gauges()
+        # the record's closing line (the end's publish and save included),
+        # spared the console
+        self.metrics.log_files_only(self.state.step, out)
+        return out
 
 
 def smoke_config(config: RunConfig) -> RunConfig:
@@ -755,31 +996,93 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
+_ITEM_4B = "ROADMAP queue 1, item 4b (external actors and the learner's transports)"
+_ITEM_6 = "ROADMAP queue 1, item 6 (transformer and MoE cores)"
+_ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
+_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
+_ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
+# flags of the reference learner whose features the port does not have
+# yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
+# given
+_NOT_PORTED_FLAGS = (
+    ("--core", {"type": str}, _ITEM_6),
+    ("--moe-experts", {"type": int}, _ITEM_6),
+    ("--mesh", {"type": str}, _ITEM_7),
+    ("--multihost", {"action": "store_true"}, _ITEM_7),
+    ("--dcn-slices", {"type": int}, _ITEM_7),
+    ("--model-parallel", {"type": int}, _ITEM_7),
+    ("--listen", {"type": str}, _ITEM_4B),
+    ("--shm-name", {"type": str}, _ITEM_4B),
+    ("--amqp-host", {"type": str}, _ITEM_4B),
+    ("--rollout-wire-dtype", {"type": str}, _ITEM_4B),
+    ("--refresh-every", {"type": int}, _ITEM_4B),
+    ("--overlap", {"action": "store_true"}, _ITEM_4B),
+    ("--no-vec", {"action": "store_true"}, "ROADMAP queue 1, item 4c (the scalar path)"),
+    ("--trace-jsonl", {"type": str}, _ITEM_8),
+    ("--trace-sample", {"type": int}, _ITEM_8),
+    ("--fleet-interval", {"type": float}, _ITEM_8),
+    ("--checkify", {"action": "store_true"}, _ITEM_12),
+    ("--compile-cache", {"type": str}, _ITEM_12),
+)
+
+
+def crash_checkpoint(learner: Learner) -> None:
+    """``--on-crash-checkpoint``: land the engine's jobs, then a forced
+    weights-only save, waited for, and its line. Whatever fails here is
+    printed, never raised: the caller re-raises the original error."""
+    try:
+        learner._drain_snapshots()
+    except Exception:  # noqa: BLE001 - the rescue goes on
+        pass
+    try:
+        # forced: a failure raises instead of being counted, so success is
+        # never claimed when the disk is what broke
+        saved = learner.ckpt.save(learner.state, learner.config, force=True)
+        learner.ckpt.wait()
+        where = "saved to " + learner.ckpt.directory if saved else "declined (step already checkpointed)"
+        print(f"learner: crash checkpoint {where} before re-raising", flush=True)
+    except Exception as save_err:  # noqa: BLE001 - reported, never masks the original
+        print(f"learner: crash checkpoint failed too ({type(save_err).__name__}: {save_err})", flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description="Self-play PPO learner on one CUDA card.")
     p.add_argument("--smoke", action="store_true", help="tiny sizes, at most 5 steps")
     p.add_argument("--steps", type=int, default=1000, help="optimizer steps")
+    p.add_argument("--logdir", type=str, default=None,
+                   help="tensorboardX scalars here (one warning and the other sinks when tensorboardX is missing)")
+    p.add_argument("--metrics-jsonl", type=str, default=None, metavar="PATH",
+                   help="append every log boundary's scalars and the telemetry registry as JSON lines to PATH, "
+                   "closed by an end-of-run line; check it with scripts/check_telemetry_schema.py --path PATH")
     p.add_argument("--n-envs", type=int, default=None, help="games (default: the config's)")
+    p.add_argument("--team-size", type=int, default=None, help="heroes a side (default: the config's)")
     p.add_argument("--opponent", type=str, default=None,
                    choices=("scripted_easy", "scripted_hard", "selfplay", "league"),
                    help="'league' plays the Dire side against frozen past selves (tune with --league)")
-    p.add_argument("--league", type=str, default=None, metavar="K=V,...",
-                   help="comma-separated LeagueConfig overrides (with --opponent league), e.g. "
-                   "'anchor_prob=0.25,snapshot_every=200'")
-    p.add_argument("--buffer", type=str, default=None, metavar="K=V,...",
-                   help="comma-separated BufferConfig overrides, e.g. 'capacity_rollouts=64,min_fill=8'")
-    p.add_argument("--health", type=str, default=None, metavar="K=V,...",
-                   help="comma-separated HealthConfig overrides (the health guardian), e.g. "
-                   "'explosion_band=50,max_rollbacks=2' or 'enabled=false'")
-    p.add_argument("--learner", type=str, default=None, metavar="K=V,...",
-                   help="comma-separated LearnerConfig overrides (the snapshot engine), e.g. "
-                   "'snapshot_drain_timeout_s=120' or 'async_snapshots=false'")
+    for flag, cls, example in (("--ppo", "PPOConfig", "'learning_rate=1e-4,entropy_coef=0.001'"),
+                               ("--reward", "RewardConfig", "'win=25,tower_damage=20'"),
+                               ("--league", "LeagueConfig", "'anchor_prob=0.25,snapshot_every=200' (with "
+                                "--opponent league)"),
+                               ("--buffer", "BufferConfig", "'capacity_rollouts=64,min_fill=8'"),
+                               ("--health", "HealthConfig", "'explosion_band=50,max_rollbacks=2' or "
+                                "'enabled=false'"),
+                               ("--learner", "LearnerConfig", "'snapshot_drain_timeout_s=120' or "
+                                "'async_snapshots=false'"),
+                               ("--serve", "ServeConfig", "'batch_window_ms=4,max_batch=128' (saved with the "
+                                "checkpoints, so a serve CLI on them starts with them)")):
+        p.add_argument(flag, type=str, default=None, metavar="K=V,...",
+                       help=f"comma-separated {cls} overrides, e.g. {example}")
     p.add_argument("--sync-snapshots", action="store_true",
                    help="run the weights publish, periodic checkpoints and log-boundary reads on the train "
                    "thread instead of the snapshot engine's (learner async_snapshots=false)")
     p.add_argument("--actor", type=str, default="device", choices=ACTOR_MODES,
                    help="device: the buffered learner over the on-device rollout (default); fused: rollout "
                    "and update on the same chunk in one step")
+    p.add_argument("--transport", type=str, default="inproc", choices=("inproc", "socket", "shm", "amqp"),
+                   help="the weights and experience transport: inproc only (socket, shm and amqp: " + _ITEM_4B
+                   + ")")
+    p.add_argument("--wire-dtype", type=str, default=None, choices=("float32", "bfloat16"),
+                   help="the weights fanout's wire dtype (transport.wire_dtype)")
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", type=str, default=None,
@@ -791,21 +1094,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--init-from", type=str, default=None, metavar="DIR",
                    help="seed a fresh run with the params of the newest checkpoint in DIR (the source stays "
                    "untouched; not with --restore)")
+    p.add_argument("--on-crash-checkpoint", action="store_true",
+                   help="on an unexpected error, save the weights (forced, waited for) before re-raising "
+                   "(needs --checkpoint-dir); SIGTERM and SIGINT drain and save the whole pipeline without it")
+    p.add_argument("--profile", "--profile-dir", dest="profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run (CPU and CUDA activity) into DIR")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
+    for flag, kw, item in _NOT_PORTED_FLAGS:
+        p.add_argument(flag, **{"default": None, **kw}, help="not ported yet: " + item)
     args = p.parse_args(argv)
+    for flag, _, item in _NOT_PORTED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    if args.transport != "inproc":
+        raise NotImplementedError(f"--transport {args.transport} is not ported yet: {_ITEM_4B}")
 
     config = default_config()
     if args.smoke:
         config = smoke_config(config)
         args.steps = min(args.steps, 5)
-    env_over = {}
-    if args.n_envs is not None:
-        env_over["n_envs"] = args.n_envs
-    if args.opponent is not None:
-        env_over["opponent"] = args.opponent
-    if env_over:
-        config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
     if args.steps_per_dispatch is not None:
         config = dataclasses.replace(config, steps_per_dispatch=args.steps_per_dispatch)
     if args.checkpoint_every is not None:
@@ -814,20 +1122,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error("--restore needs --checkpoint-dir")
     try:
         config = apply_league_flags(config, args.opponent, args.league)
-        for flag, text, sub, cls in (("--buffer", args.buffer, "buffer", BufferConfig),
+        for flag, text, sub, cls in (("--ppo", args.ppo, "ppo", PPOConfig),
+                                     ("--reward", args.reward, "reward", RewardConfig),
+                                     ("--buffer", args.buffer, "buffer", BufferConfig),
                                      ("--health", args.health, "health", HealthConfig),
-                                     ("--learner", args.learner, "learner", LearnerConfig)):
+                                     ("--learner", args.learner, "learner", LearnerConfig),
+                                     ("--serve", args.serve, "serve", ServeConfig)):
             if text:
                 over = parse_dataclass_overrides(cls, text, flag)
                 config = dataclasses.replace(config, **{sub: dataclasses.replace(getattr(config, sub), **over)})
     except ValueError as e:
         p.error(str(e))
+    env_over = {k: v for k, v in (("n_envs", args.n_envs), ("opponent", args.opponent),
+                                  ("team_size", args.team_size)) if v is not None}
+    if env_over:
+        config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
+    if args.wire_dtype is not None:
+        config = dataclasses.replace(config, transport=dataclasses.replace(config.transport,
+                                                                           wire_dtype=args.wire_dtype))
     if args.sync_snapshots:
         config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)
 
     learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
-                      checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from)
+                      checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,
+                      logdir=args.logdir, metrics_jsonl=args.metrics_jsonl)
 
     # the first SIGTERM or SIGINT drains: the loop stops at its next step
     # boundary and the end of train saves the whole pipeline; the handler
@@ -846,14 +1165,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     except ValueError:
         pass  # not the main thread: signals stay with the embedding program
     try:
-        out = learner.train(args.steps)
+        with trace(args.profile):
+            out = learner.train(args.steps)
+    except BaseException as e:
+        if args.on_crash_checkpoint and not isinstance(e, (KeyboardInterrupt, SystemExit)) \
+                and learner.ckpt is not None:
+            crash_checkpoint(learner)
+        raise
     finally:
         learner.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
-    for row in learner.history:
-        print(json.dumps({k: round(v, 6) for k, v in row.items()}), flush=True)
-    print(json.dumps(out), flush=True)
+    print(f"done: {out['optimizer_steps']:.0f} steps, {out['frames_trained']:.0f} frames, "
+          f"{out['frames_per_sec']:.0f} frames/sec", flush=True)
     return 0
 
 

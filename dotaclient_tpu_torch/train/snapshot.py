@@ -26,8 +26,12 @@ Semantics, as the reference's:
   (``health/publish_blocked_total``) and periodic checkpoints
   (``health/checkpoints_blocked_total``); a checkpoint that passes the gate
   is mirrored into the ``last_good`` slot;
-* ``drain()`` blocks until every pending job has landed; a failing job is
-  counted in ``snapshot/errors_total`` and the engine goes on.
+* periodic checkpoints go through the manager's writer thread
+  (``CheckpointManager.save_host`` returns before the write lands), and
+  ``drain()`` and ``stop()`` return only after every pending job and the
+  checkpoint writes they queued have landed; a failing job is counted in
+  ``snapshot/errors_total`` and the engine goes on (a failed write
+  surfaces at the manager's next save or ``wait``).
 
 Telemetry: ``snapshot/pending``, ``snapshot/d2h_ms`` (the last batched
 device-to-host copy), ``snapshot/errors_total``,
@@ -164,7 +168,8 @@ class SnapshotEngine:
     # -- lifecycle ----------------------------------------------------------
 
     def drain(self, timeout: Optional[float] = None) -> bool:
-        """Block until every pending job is processed (False on timeout)."""
+        """Block until every pending job is processed and the checkpoint
+        writes they queued have landed (False on timeout)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             while self._pending_locked():
@@ -174,14 +179,22 @@ class SnapshotEngine:
                     if wait <= 0:
                         return False
                 self._cond.wait(min(wait, 1.0))
-        return True
+        return self._join_writes(deadline)
 
     def stop(self, timeout: float = 30.0) -> None:
-        """Process whatever is pending, then stop the thread."""
+        """Process whatever is pending, then stop the thread; returns once
+        the checkpoint writes it queued have landed (within ``timeout``)."""
+        deadline = time.monotonic() + timeout
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
         self._thread.join(timeout)
+        self._join_writes(deadline)
+
+    def _join_writes(self, deadline: Optional[float]) -> bool:
+        if self._ckpt is None:
+            return True
+        return self._ckpt.join_writes(None if deadline is None else max(0.0, deadline - time.monotonic()))
 
     @property
     def last_published(self) -> int:

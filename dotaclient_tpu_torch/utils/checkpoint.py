@@ -20,32 +20,55 @@ A step is written into a temporary directory and moved into place with
 back with ``torch.load(..., weights_only=True)``: tensors, numbers and plain
 containers only, as Adam's state dict is.
 
+Saves return before the write lands, as the reference's orbax saves do.
+``save`` copies the state to the host on the calling thread (the learner
+calls it between iterations: it reads the device) and ``save_host`` hands
+the write to the manager's one writer thread, at most one write in flight:
+a save first joins the previous write (bounded by ``LOCK_TIMEOUT_S``, as
+the writers' lock is). ``wait`` blocks until the write has landed and
+raises its failure; ``close`` lands it and stops the thread; a process that
+exits with a write in flight lands it first (an ``atexit`` hook, bounded by
+``LOCK_TIMEOUT_S``). Every reader
+(``all_steps``, ``latest_step``, the ``restore*`` calls,
+``last_good_step``, ``restore_last_good``, ``discard_steps_above``) joins
+the pending write first, so none races it.
+
+The failure policy is the reference's. A background write that fails
+surfaces at the next save's join: a periodic save counts it
+(``checkpoint/save_failures_total``), warns and goes on with its own
+write; a forced save raises it. A periodic save that cannot take the lock
+or join the previous write within ``LOCK_TIMEOUT_S`` is counted and
+returns False; a forced one raises. The decline rule is orbax's: a save
+that is not forced, at a step below the newest on disk and not on disk
+itself, is declined and returns False (a step on disk is replaced, the
+newest content winning). Where orbax orders its steps by save time (a
+forced save below the newest becomes its "latest"), this manager orders
+them by step, as a reopened orbax manager does.
+
 Every restore verifies the step's manifest. A step that fails (unreadable,
 or a leaf or file whose digest differs) is counted
 (``checkpoint/manifest_failures_total``), warned about and skipped for the
-previous step. ``max_to_keep`` keeps the newest saves. A periodic save that
-hits an I/O error is counted (``checkpoint/save_failures_total``) and
-returns False; a forced save raises.
+previous step. ``max_to_keep`` keeps the newest saves.
 
 The health guardian's pieces (``train/health.py``): ``save(...,
-mark_good=True)`` mirrors a verified save into the ``last_good`` slot,
-``restore_last_good`` is the rollback's restore point, and
-``discard_steps_above`` deletes the abandoned timeline's saves. A save with
-``pipeline`` carries the rest of the learner, which ``restore_pipeline``
-brings back into a template of the same shapes. Saves from the snapshot
-engine's thread and the train thread take one lock. The fault sites
-``checkpoint.fail_write`` (a write raises ``OSError``) and
+mark_good=True)`` mirrors a verified save into the ``last_good`` slot once
+the main write has landed (on the writer thread), ``restore_last_good`` is
+the rollback's restore point, and ``discard_steps_above`` deletes the
+abandoned timeline's saves. A save with ``pipeline`` carries the rest of
+the learner, which ``restore_pipeline`` brings back into a template of the
+same shapes. The snapshot engine's thread and the train thread hand their
+writes over under one lock. The fault sites ``checkpoint.fail_write`` (a
+save raises ``OSError`` as if the disk were full) and
 ``checkpoint.corrupt_manifest`` (a verification fails) are those of the
 reference.
 
 ``shape_mismatches`` compares a restored state dict with the one a run
-expects (the learner's ``init_from`` check). Not ported yet (ROADMAP queue
-1, item 3b): saves that return before the write lands, with ``wait`` and
-``close``, and the learner's ``--on-crash-checkpoint``.
+expects (the learner's ``init_from`` check).
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import logging
 import os
@@ -53,6 +76,8 @@ import pickle
 import shutil
 import tempfile
 import threading
+import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -145,8 +170,24 @@ def _file_crc(path: str) -> int:
         return frame_crc32(f.read())
 
 
+# managers with a writer thread, whose pending writes land at exit
+_WRITING: "weakref.WeakSet[CheckpointManager]" = weakref.WeakSet()
+
+
+@atexit.register
+def _land_pending_writes() -> None:
+    for mgr in list(_WRITING):
+        mgr.join_writes(mgr.LOCK_TIMEOUT_S)
+
+
 class CheckpointManager:
-    """Sync saves and verified, walk-back restores under one directory."""
+    """Saves handed to one writer thread, and verified, walk-back restores,
+    under one directory."""
+
+    # how long a save, ``wait`` or ``discard_steps_above`` waits for the
+    # writers' lock or for the previous write to land: a wedged disk fails
+    # a forced save loudly and costs a periodic one, instead of a hang
+    LOCK_TIMEOUT_S = 120.0
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  registry: Optional[telemetry.Registry] = None, _is_slot: bool = False) -> None:
@@ -159,8 +200,14 @@ class CheckpointManager:
         self._is_slot = _is_slot
         self._slot_mgr: Optional["CheckpointManager"] = None
         # the snapshot engine's periodic saves and the train thread's
-        # forced ones write one directory
+        # forced ones hand their writes over under one lock
         self._save_lock = threading.Lock()
+        # the writer: one write in flight (``_job``, set until it has
+        # landed) and the failure of a landed write not yet surfaced
+        self._cond = threading.Condition()
+        self._job: Optional[Callable[[], None]] = None
+        self._error: Optional[BaseException] = None
+        self._writer: Optional[threading.Thread] = None
         self._faults = faults.get()   # None unless fault injection is on
         self._tel.counter("checkpoint/save_failures_total")
         self._tel.counter("checkpoint/manifest_failures_total")
@@ -173,25 +220,121 @@ class CheckpointManager:
     def _manifest_path(self, step: int) -> str:
         return os.path.join(self.directory, "manifests", f"{step}.json")
 
-    def all_steps(self) -> List[int]:
+    def _steps_on_disk(self) -> List[int]:
         return sorted(
             int(n) for n in os.listdir(self.directory)
             if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, STATE_FILE))
         )
 
+    def all_steps(self) -> List[int]:
+        """The steps on disk, oldest first, once the pending write has
+        landed."""
+        self.join_writes()
+        return self._steps_on_disk()
+
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+    # -- the writer -------------------------------------------------------------
+
+    def join_writes(self, timeout: Optional[float] = None) -> bool:
+        """Block until the write in flight has landed, without surfacing
+        its failure (the next save or ``wait`` does); False on timeout."""
+        if threading.current_thread() is self._writer:
+            return True   # the writer's own reads: its job is the one in flight
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while self._job is not None:
+                left = None if deadline is None else deadline - time.monotonic()
+                if left is not None and left <= 0:
+                    return False
+                self._cond.wait(left)
+        return True
+
+    def _take_error(self) -> Optional[BaseException]:
+        with self._cond:
+            err, self._error = self._error, None
+            return err
+
+    def _hand_off(self, job: Callable[[], None]) -> None:
+        """Give ``job`` to the writer thread (the previous one has landed:
+        the caller joined it under the lock)."""
+        with self._cond:
+            self._job = job
+            if self._writer is None:
+                self._writer = threading.Thread(target=self._run_writer, name="checkpoint-writer", daemon=True)
+                self._writer.start()
+                _WRITING.add(self)
+            self._cond.notify_all()
+
+    def _run_writer(self) -> None:
+        while True:
+            with self._cond:
+                while self._job is None and self._writer is threading.current_thread():
+                    self._cond.wait()
+                if self._job is None:
+                    return   # closed
+                job = self._job
+            err = None
+            try:
+                job()
+            except Exception as e:  # noqa: BLE001 - surfaced at the next join that asks
+                err = e
+            with self._cond:
+                self._job = None
+                if err is not None:
+                    self._error = err
+                self._cond.notify_all()
+
+    def _refuse(self, force: bool, err: BaseException) -> bool:
+        """A save that could not be handed over: raised when forced, else
+        counted and declined."""
+        if force:
+            raise err
+        self._tel.counter("checkpoint/save_failures_total").inc()
+        logger.warning("periodic checkpoint save failed (%s: %s); training continues", type(err).__name__, err)
+        return False
+
+    def wait(self) -> None:
+        """Block until the pending write has landed; raise its failure."""
+        if not self._save_lock.acquire(timeout=self.LOCK_TIMEOUT_S):
+            raise RuntimeError(f"checkpoint writer lock not acquired within {self.LOCK_TIMEOUT_S:.0f}s: a "
+                               "concurrent save appears wedged")
+        try:
+            if not self.join_writes(self.LOCK_TIMEOUT_S):
+                raise RuntimeError(f"the checkpoint write in flight did not land within {self.LOCK_TIMEOUT_S:.0f}s")
+            err = self._take_error()
+            if err is not None:
+                raise err
+        finally:
+            self._save_lock.release()
+
+    def close(self) -> None:
+        """Land the pending write and stop the writer thread. A failure
+        no save surfaced is counted and warned about, never raised."""
+        self.join_writes(self.LOCK_TIMEOUT_S)
+        err = self._take_error()
+        if err is not None:
+            self._tel.counter("checkpoint/save_failures_total").inc()
+            logger.warning("the last checkpoint write failed (%s: %s)", type(err).__name__, err)
+        with self._cond:
+            writer, self._writer = self._writer, None
+            self._cond.notify_all()
+        if writer is not None:
+            writer.join(self.LOCK_TIMEOUT_S)
+        if self._slot_mgr is not None:
+            self._slot_mgr.close()
 
     # -- save -------------------------------------------------------------------
 
     def save(self, state: Any, config: RunConfig, force: bool = False, pipeline: Optional[Any] = None,
              mark_good: bool = False) -> bool:
-        """Write ``state`` (a ``TrainState``: its step, version, policy
-        params and optimizer state) and ``config`` at ``state.step``, with
-        ``pipeline`` (a tree of tensors and ints) beside it. Copies every
-        tensor to the host, so it reads the device: the learner calls it
-        only between iterations. A step that exists is replaced."""
+        """Save ``state`` (a ``TrainState``: its step, version, policy params
+        and optimizer state) and ``config`` at ``state.step``, with
+        ``pipeline`` (a tree of tensors and ints) beside it. The copy to the
+        host happens here (it reads the device: the learner calls it only
+        between iterations); the write lands after it returns."""
         host_state = {
             "step": int(state.step),
             "version": int(state.version),
@@ -204,23 +347,48 @@ class CheckpointManager:
 
     def save_host(self, host_state: Dict[str, Any], config: RunConfig, force: bool = False,
                   pipeline: Optional[Any] = None, mark_good: bool = False) -> bool:
-        """Write an already-fetched host state dict (``step``, ``version``,
-        ``params``, ``opt_state``), and ``pipeline`` if given. With
-        ``mark_good`` (a health-verified state) the save is mirrored into
-        the ``last_good`` slot."""
-        with self._save_lock:
-            saved = self._save_host_locked(host_state, config, force, pipeline)
-        if saved and mark_good and not self._is_slot:
-            self._save_last_good(host_state, config)
-        return saved
+        """Hand the write of an already-fetched host state dict (``step``,
+        ``version``, ``params``, ``opt_state``; tensors nothing writes into
+        afterwards), and of ``pipeline`` if given, to the writer thread.
+        Returns True when handed over, False when declined (the decline
+        rule) or, for a periodic save, refused. With ``mark_good`` (a
+        health-verified state) the landed save is mirrored into the
+        ``last_good`` slot."""
+        step = int(host_state["step"])
+        if not self._save_lock.acquire(timeout=self.LOCK_TIMEOUT_S):
+            return self._refuse(force, RuntimeError(
+                f"checkpoint writer lock not acquired within {self.LOCK_TIMEOUT_S:.0f}s: a concurrent save appears "
+                f"wedged; step {step} was not written"))
+        try:
+            if not self.join_writes(self.LOCK_TIMEOUT_S):
+                return self._refuse(force, RuntimeError(
+                    f"the previous checkpoint write did not land within {self.LOCK_TIMEOUT_S:.0f}s; step {step} was "
+                    "not written"))
+            prev = self._take_error()
+            if prev is not None:
+                if force:
+                    raise prev
+                self._tel.counter("checkpoint/save_failures_total").inc()
+                logger.warning("an earlier checkpoint write failed (%s: %s); counted; saving step %d anyway",
+                               type(prev).__name__, prev, step)
+            if self._faults is not None and self._faults.fire("checkpoint.fail_write"):
+                return self._refuse(force, OSError("injected fault: checkpoint.fail_write (a full disk)"))
+            steps = self._steps_on_disk()
+            if not force and steps and step < steps[-1] and step not in steps:
+                logger.info("checkpoint save at step %d declined: below the newest step %d", step, steps[-1])
+                return False
+            self._hand_off(lambda: self._write(host_state, config, pipeline, mark_good))
+            return True
+        finally:
+            self._save_lock.release()
 
-    def _save_host_locked(self, host_state: Dict[str, Any], config: RunConfig, force: bool,
-                          pipeline: Optional[Any]) -> bool:
+    def _write(self, host_state: Dict[str, Any], config: RunConfig, pipeline: Optional[Any],
+               mark_good: bool) -> None:
+        """The write itself, on the writer thread: a temporary directory
+        moved into place, the manifest, the retention, the mirror."""
         step = int(host_state["step"])
         tmp = None
         try:
-            if self._faults is not None and self._faults.fire("checkpoint.fail_write"):
-                raise OSError("injected fault: checkpoint.fail_write (a full disk)")
             tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.directory)
             state_path = os.path.join(tmp, STATE_FILE)
             torch.save(host_state, state_path)
@@ -245,26 +413,23 @@ class CheckpointManager:
             os.replace(tmp, final)
             tmp = None
             os.replace(self._manifest_path(step) + ".tmp", self._manifest_path(step))
-        except (OSError, RuntimeError, pickle.PicklingError) as e:
-            if force:
-                raise
-            self._tel.counter("checkpoint/save_failures_total").inc()
-            logger.warning("periodic checkpoint save at step %d failed (%s: %s); training continues",
-                           step, type(e).__name__, e)
-            return False
         finally:
             if tmp is not None:
                 shutil.rmtree(tmp, ignore_errors=True)
         self._retain()
-        return True
+        if mark_good and not self._is_slot:
+            self._save_last_good(host_state, config)
 
     def _save_last_good(self, host_state: Dict[str, Any], config: RunConfig) -> None:
-        """Mirror a health-verified save into the ``last_good`` slot (its
-        own manager, so the main retention never deletes it). An I/O error
-        here is counted and warned about; the main save stands."""
+        """Mirror a landed, health-verified save into the ``last_good`` slot
+        (its own manager, so the main retention never deletes it), and wait
+        for it there. An I/O error here is counted and warned about; the
+        main save stands."""
         step = int(host_state["step"])
         try:
-            self._last_good_slot().save_host({k: host_state[k] for k in STATE_KEYS}, config, force=True)
+            slot = self._last_good_slot()
+            slot.save_host({k: host_state[k] for k in STATE_KEYS}, config, force=True)
+            slot.wait()
             self._tel.gauge("health/last_good_step").set(float(step))
         except Exception as e:  # noqa: BLE001 - a protection layer, never fatal
             self._tel.counter("checkpoint/save_failures_total").inc()
@@ -279,7 +444,8 @@ class CheckpointManager:
 
     def last_good_step(self) -> Optional[int]:
         """The step the ``last_good`` slot holds, or None before the first
-        health-verified save."""
+        health-verified save (after the pending mirror has landed)."""
+        self.join_writes()
         if self._slot_mgr is None and not os.path.isdir(os.path.join(self.directory, LAST_GOOD)):
             return None
         return self._last_good_slot().latest_step()
@@ -296,13 +462,21 @@ class CheckpointManager:
     def discard_steps_above(self, step: int) -> int:
         """Delete every save newer than ``step`` (the rollback: the
         abandoned timeline's saves must not be restorable, and the
-        retrained run reaches their step numbers again). Returns how many
-        were deleted."""
-        with self._save_lock:
-            doomed = [s for s in self.all_steps() if s > step]
+        retrained run reaches their step numbers again), once the pending
+        write has landed. Returns how many were deleted."""
+        if not self._save_lock.acquire(timeout=self.LOCK_TIMEOUT_S):
+            raise RuntimeError(f"checkpoint writer lock not acquired within {self.LOCK_TIMEOUT_S:.0f}s: cannot "
+                               "discard the abandoned timeline's saves")
+        try:
+            if not self.join_writes(self.LOCK_TIMEOUT_S):
+                raise RuntimeError(f"the checkpoint write in flight did not land within "
+                                   f"{self.LOCK_TIMEOUT_S:.0f}s: cannot discard the abandoned timeline's saves")
+            doomed = [s for s in self._steps_on_disk() if s > step]
             for s in doomed:
                 self._delete(s)
             return len(doomed)
+        finally:
+            self._save_lock.release()
 
     def _delete(self, step: int) -> None:
         shutil.rmtree(self._step_dir(step), ignore_errors=True)
@@ -314,7 +488,7 @@ class CheckpointManager:
     def _retain(self) -> None:
         """Delete all but the newest ``max_to_keep`` steps and their
         manifests."""
-        for step in self.all_steps()[: -self.max_to_keep]:
+        for step in self._steps_on_disk()[: -self.max_to_keep]:
             self._delete(step)
 
     # -- restore ----------------------------------------------------------------
@@ -429,6 +603,7 @@ class CheckpointManager:
         against ``template``'s shapes. Returns (state, "") on success,
         (None, "") when the step has no pipeline, and (None, reason) when
         it has one that cannot be restored: a caller must say so loudly."""
+        self.join_writes()
         if step is None:
             step = self.last_restored_step if self.last_restored_step is not None else self.latest_step()
         if step is None or not os.path.isfile(os.path.join(self._step_dir(step), PIPELINE_FILE)):

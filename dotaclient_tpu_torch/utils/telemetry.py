@@ -9,10 +9,13 @@ read:
   ``/ema_s``, ``/p95_s``; spans are timers named ``span/<stage>``.
 
 Everything is host wall clock; recording never touches the device.
-``JsonlSink`` (the serve CLI's ``--serve-metrics-jsonl``, the router CLI's
-``--metrics-jsonl``) writes the same line format, structured events
-(``ALERT``) included. The console and TensorBoard sinks come with the
-port's buffered learner.
+The sinks ``MetricsLogger`` (``utils/metrics.py``) drives, as the
+reference's: ``ConsoleSink`` (the short line, telemetry keys left out),
+``TensorBoardSink`` (tensorboardX, when it is installed) and ``JsonlSink``
+(the learner's ``--metrics-jsonl``, the serve CLI's
+``--serve-metrics-jsonl``, the router CLI's ``--metrics-jsonl``: one line a
+boundary, structured events such as ``ALERT`` included), read back by
+``load_jsonl``.
 """
 
 from __future__ import annotations
@@ -191,6 +194,54 @@ class Registry:
                 {n: g.value for n, g in self._gauges.items()},
             )
 
+    def clear(self) -> None:
+        """Drop every metric (test isolation)."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._timers.clear()
+
+
+class ConsoleSink:
+    """The short console line: only keys without a "/" print (every
+    telemetry key has one), so a log line stays readable."""
+
+    def __init__(self, t0: Optional[float] = None) -> None:
+        self._t0 = t0 if t0 is not None else time.time()
+
+    def emit(self, step: int, scalars: Dict[str, float]) -> None:
+        parts = " ".join(f"{k}={v:.4g}" for k, v in sorted(scalars.items()) if "/" not in k)
+        print(f"[{time.time() - self._t0:8.1f}s] step {step}: {parts}", flush=True)
+
+    def close(self) -> None:
+        pass
+
+
+class TensorBoardSink:
+    """tensorboardX scalars. Build it with :meth:`create`, which returns
+    None with one warning when tensorboardX is not installed: a ``logdir``
+    never stops a run, the other sinks go on."""
+
+    def __init__(self, writer) -> None:
+        self._writer = writer
+
+    @classmethod
+    def create(cls, logdir: str) -> Optional["TensorBoardSink"]:
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            print(f"WARNING: tensorboardX not installed: logdir {logdir!r} ignored; continuing with the console "
+                  "and JSONL sinks only", flush=True)
+            return None
+        return cls(SummaryWriter(logdir))
+
+    def emit(self, step: int, scalars: Dict[str, float]) -> None:
+        for name, v in scalars.items():
+            self._writer.add_scalar(name, v, step)
+
+    def close(self) -> None:
+        self._writer.close()
+
 
 def _json_safe(v: float) -> Optional[float]:
     # NaN/Inf are not JSON: a diverged value becomes null
@@ -269,6 +320,21 @@ def _seal_torn_tail(path: str) -> None:
             f.truncate(0)
     except OSError:
         return
+
+
+def load_jsonl(path: str) -> List[str]:
+    """The complete lines of a JSONL file: an unterminated last line (a
+    write cut by a kill) is dropped, never parsed, and bytes torn inside a
+    UTF-8 sequence are replaced rather than raised on."""
+    with open(path, "r", errors="replace") as f:
+        text = f.read()
+    if not text:
+        return []
+    lines = text.split("\n")
+    # the piece after the last newline: "" when the file ends with one,
+    # else the torn line
+    lines.pop()
+    return lines
 
 
 # One process-wide registry; tests that want isolation construct their own.

@@ -1,23 +1,81 @@
-"""Utilization plane, serve side: phase accounting of the batcher thread.
+"""Utilization plane: phase accounting of the learner's and the batcher's threads.
 
-Copy of the serve part of ``dotaclient_tpu/utils/utilization.py``: every
-wall-clock second of the batcher thread goes to one of ``window_wait``,
-``dispatch``, ``reply`` or the residual ``other``, folded at a cadence into
-the ``util/serve/*`` fraction gauges (which sum to 1.0 by construction).
-The learner and actor planes come with the port's learner.
+Copy of the learner and serve parts of ``dotaclient_tpu/utils/utilization.py``
+(the actor pools' plane comes with ROADMAP queue 1, item 4b). Every
+wall-clock second of a thread goes to one phase of a closed set, from
+intervals measured at the boundaries the code already has, and a fold
+turns the window into fraction gauges that sum to 1.0 by construction (the
+residual phase takes what the others did not claim):
 
-``make_serve`` eager-creates the gauges, so a serve process reports them
-from its start.
+* the learner's train thread: ``dispatch_inflight``, ``ingest_wait``,
+  ``gather``, ``advantage_pass``, ``publish_stall``, ``checkpoint_stall``
+  and the residual ``host_other``, folded at log boundaries
+  (``util/phase/*``). The fold also keeps a steps/s EMA against a slow,
+  warm-up-armed baseline: ``util/throughput_regression`` is 1 while the
+  EMA sits below ``REGRESSION_RATIO`` x the baseline;
+* the serve batcher: ``window_wait``, ``dispatch``, ``reply`` and the
+  residual ``other`` (``util/serve/*``), folded at a cadence.
+
+Every phase is host wall clock, as in the reference. On the card the
+learner issues its work asynchronously, so ``dispatch_inflight`` is the
+host's time issuing an update (a host that runs ahead of the card waits
+only when the allocator or a copy makes it), and ``util/duty_cycle``, its
+share of the window, is the train thread's issue share, not the card's
+busy share, which ``chip_smoke.py`` reads from a profiler window
+(``PERF.md`` section 5).
+
+The factories create their gauges first, so a record carries them from its
+first line (``util/duty_cycle`` starts at the neutral 1.0, ``util/armed``
+at 0). With the module knob ``enabled`` off, ``make_learner`` returns None
+and the learner's call sites cost one ``is not None`` test.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, Optional, Tuple
 
 from dotaclient_tpu_torch.utils import telemetry
 
+# the learner's accountant; the serve plane is always on
+enabled: bool = True
+
+# steps/s smoothing: time-constant weighted EMAs (alpha = 1 - exp(-window /
+# tau)), both seeded during warm-up with the cumulative rate over the whole
+# warm-up span; the sentinel arms after WARMUP_WINDOWS folds
+EMA_TAU_S = 30.0
+BASELINE_TAU_S = 600.0
+WARMUP_WINDOWS = 3
+REGRESSION_RATIO = 0.7
+
+LEARNER_PHASES = (
+    "dispatch_inflight",
+    "ingest_wait",
+    "gather",
+    "advantage_pass",
+    "publish_stall",
+    "checkpoint_stall",
+    "host_other",
+)
 SERVE_PHASES = ("window_wait", "dispatch", "reply", "other")
+
+
+def ensure_learner_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
+    """Create the learner's ``util/*`` gauges (also with the knob off);
+    returns their handles."""
+    handles = {key: reg.gauge(key) for key in (
+        "util/armed",
+        "util/duty_cycle",
+        "util/steps_per_sec_ema",
+        "util/steps_per_sec_baseline",
+        "util/throughput_regression",
+        *(f"util/phase/{p}" for p in LEARNER_PHASES),
+    )}
+    # neutral until the first fold
+    if handles["util/armed"].value == 0.0:
+        handles["util/duty_cycle"].set(1.0)
+    return handles
 
 
 def ensure_serve_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
@@ -69,6 +127,56 @@ class PhaseAccountant:
         return fractions, window
 
 
+class LearnerUtilization:
+    """The learner's accountant and the throughput sentinel's state.
+    ``fold(step)`` runs at log boundaries and at the end of ``train``."""
+
+    def __init__(self, handles: Dict[str, telemetry.Gauge]) -> None:
+        phase_gauges = {p: handles[f"util/phase/{p}"] for p in LEARNER_PHASES}
+        self._acct = PhaseAccountant(phase_gauges, LEARNER_PHASES, residual="host_other")
+        self._armed = handles["util/armed"]
+        self._duty = handles["util/duty_cycle"]
+        self._ema = handles["util/steps_per_sec_ema"]
+        self._baseline = handles["util/steps_per_sec_baseline"]
+        self._regression = handles["util/throughput_regression"]
+        self._last_step: Optional[int] = None
+        self._ema_v = 0.0
+        self._baseline_v = 0.0
+        self._windows = 0
+        self._warm_steps = 0
+        self._warm_span = 0.0
+
+    def phase(self, name: str, seconds: float) -> None:
+        self._acct.phase(name, seconds)
+
+    def fold(self, step: int, now: Optional[float] = None) -> Dict[str, float]:
+        fractions, window = self._acct.fold(now)
+        if not fractions:
+            return {}
+        self._duty.set(fractions["dispatch_inflight"])
+        self._armed.set(1.0)
+        # a window in which the step did not move (the end of train
+        # folding again at the final step) gives no rate sample
+        if self._last_step is not None and step > self._last_step:
+            rate = (step - self._last_step) / window
+            self._windows += 1
+            if self._windows <= WARMUP_WINDOWS:
+                self._warm_steps += step - self._last_step
+                self._warm_span += window
+                self._ema_v = self._warm_steps / self._warm_span
+                self._baseline_v = self._ema_v
+            else:
+                self._ema_v += (1.0 - math.exp(-window / EMA_TAU_S)) * (rate - self._ema_v)
+                self._baseline_v += (1.0 - math.exp(-window / BASELINE_TAU_S)) * (rate - self._baseline_v)
+            self._ema.set(self._ema_v)
+            self._baseline.set(self._baseline_v)
+            regressed = (self._windows > WARMUP_WINDOWS and self._baseline_v > 0.0
+                         and self._ema_v < REGRESSION_RATIO * self._baseline_v)
+            self._regression.set(1.0 if regressed else 0.0)
+        self._last_step = step
+        return fractions
+
+
 class PoolUtilization:
     """Phase fractions with a cadence-gated fold."""
 
@@ -94,6 +202,14 @@ class PoolUtilization:
         self._last_fold = now
         fractions, _ = self._acct.fold(now)
         return fractions or None
+
+
+def make_learner(registry: Optional[telemetry.Registry] = None) -> Optional[LearnerUtilization]:
+    """The learner's accountant; None with the knob ``enabled`` off (the
+    gauges exist either way)."""
+    reg = registry if registry is not None else telemetry.get_registry()
+    handles = ensure_learner_keys(reg)
+    return LearnerUtilization(handles) if enabled else None
 
 
 def make_serve(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:

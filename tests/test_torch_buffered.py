@@ -525,8 +525,7 @@ def test_cli_default_actor_and_override_flags(monkeypatch, capsys):
     assert config.buffer.capacity_rollouts == 16 and config.health.explosion_band == 50.0
     assert config.health.max_rollbacks == 2
     assert config.learner.overlap_advantage is False and config.learner.async_snapshots is False
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["optimizer_steps"] == 1.0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("done: 1 steps, ")
     for bad in (["--buffer", "nope=1"], ["--health", "enabled=maybe"], ["--learner", "x=1"]):
         with pytest.raises(SystemExit) as e:
             plearner.main(["--smoke", "--device", "cpu", *bad])

@@ -105,6 +105,7 @@ def test_every_step_corrupt_raises(tmp_path):
     learner = trained_learner(steps=1)
     mgr = CheckpointManager(str(tmp_path), registry=telemetry.Registry())
     mgr.save(learner.state, learner.config)
+    mgr.wait()   # the write lands after save returns
     flip_param_byte(os.path.join(str(tmp_path), "1", "state.pt"), learner.policy.state_dict()["core.wx"])
     with pytest.raises(CheckpointIntegrityError):
         mgr.restore_weights()
@@ -151,24 +152,35 @@ def test_periodic_save_failure_degrades_and_forced_raises(tmp_path, monkeypatch)
         raise OSError("no space left on device")
 
     monkeypatch.setattr(torch, "save", full_disk)
-    assert mgr.save(learner.state, learner.config) is False
+    # the write fails on the writer thread, after save returned: the next
+    # periodic save counts it and goes on, a forced one raises it
+    assert mgr.save(learner.state, learner.config) is True
+    assert mgr.join_writes() and reg.snapshot()["checkpoint/save_failures_total"] == 0.0
+    assert mgr.save(learner.state, learner.config) is True
     assert reg.snapshot()["checkpoint/save_failures_total"] == 1.0
     with pytest.raises(OSError):
         mgr.save(learner.state, learner.config, force=True)
     assert mgr.all_steps() == [] and not [n for n in os.listdir(str(tmp_path)) if n.startswith(".tmp")]
 
 
+def record(path):
+    """The (step, scalars) rows of a --metrics-jsonl file."""
+    rows = [json.loads(line) for line in telemetry.load_jsonl(path)]
+    return [(r["step"], r["scalars"]) for r in rows if "scalars" in r]
+
+
 def test_learner_cli_checkpoints_and_restores(tmp_path, capsys):
-    d = str(tmp_path / "ckpt")
+    d, first, second = str(tmp_path / "ckpt"), str(tmp_path / "a.jsonl"), str(tmp_path / "b.jsonl")
     assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", d,
-                          "--checkpoint-every", "1"]) == 0
-    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+                          "--checkpoint-every", "1", "--metrics-jsonl", first]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("done: 1 steps, ")
     mgr = CheckpointManager(d, registry=telemetry.Registry())
-    assert mgr.all_steps() == [1] and first["optimizer_steps"] == 1.0
-    assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", d, "--restore"]) == 0
-    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert rows[0]["step"] == 2.0  # the first logged step continues from the saved one
-    assert mgr.all_steps() == [1, 2] and np.isfinite(rows[-1]["loss"])
+    assert mgr.all_steps() == [1] and record(first)[-1][1]["optimizer_steps"] == 1.0
+    assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", d, "--restore",
+                          "--metrics-jsonl", second]) == 0
+    rows = record(second)
+    assert rows[0][0] == 2  # the first logged step continues from the saved one
+    assert mgr.all_steps() == [1, 2] and np.isfinite(rows[-1][1]["loss"])
     with pytest.raises(SystemExit):
         plearner.main(["--smoke", "--device", "cpu", "--restore"])
 
@@ -245,10 +257,10 @@ def test_learner_cli_init_from(tmp_path, capsys):
     src, dst = str(tmp_path / "src"), str(tmp_path / "dst")
     assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", src]) == 0
     capsys.readouterr()
+    path = str(tmp_path / "dst.jsonl")
     assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu", "--checkpoint-dir", dst,
-                          "--init-from", src]) == 0
-    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert rows[0]["step"] == 1.0  # a fresh count, not the source's
+                          "--init-from", src, "--metrics-jsonl", path]) == 0
+    assert record(path)[0][0] == 1  # a fresh count, not the source's
     assert CheckpointManager(dst, registry=telemetry.Registry()).all_steps() == [1]
 
 

@@ -36,7 +36,8 @@ print(len(names))
 """
 
 # modules that must be among those imported with JAX blocked (the league
-# slice's and the buffered learner's, beside the count of all of them)
+# slice's, the buffered learner's and the run record's, beside the count of
+# all of them)
 LEAGUE_MODULES = ("dotaclient_tpu_torch.league", "dotaclient_tpu_torch.league.pool",
                   "dotaclient_tpu_torch.league.evaluation", "dotaclient_tpu_torch.league.__main__",
                   "dotaclient_tpu_torch.train.demo")
@@ -44,6 +45,11 @@ BUFFERED_MODULES = ("dotaclient_tpu_torch.buffer", "dotaclient_tpu_torch.buffer.
                     "dotaclient_tpu_torch.train.advantage", "dotaclient_tpu_torch.train.health",
                     "dotaclient_tpu_torch.train.snapshot", "dotaclient_tpu_torch.transport.queues",
                     "dotaclient_tpu_torch.utils.faults")
+RUNRECORD_MODULES = ("dotaclient_tpu_torch.utils.metrics", "dotaclient_tpu_torch.utils.profiling",
+                     "dotaclient_tpu_torch.utils.schema", "dotaclient_tpu_torch.outcome.aggregator",
+                     "dotaclient_tpu_torch.utils.fleet", "dotaclient_tpu_torch.utils.telemetry",
+                     "dotaclient_tpu_torch.utils.utilization", "dotaclient_tpu_torch.utils.tracing",
+                     "dotaclient_tpu_torch.utils.checkpoint")
 
 
 def port_sources():
@@ -57,8 +63,9 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     names, count = out.stdout.splitlines()[-2:]
-    assert int(count) >= 61  # every module of the port, the league's and the buffered learner's included
-    assert set(LEAGUE_MODULES) <= set(names.split()) and set(BUFFERED_MODULES) <= set(names.split())
+    assert int(count) >= 65  # every module of the port, the league's, the buffered learner's and the run record's
+    for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES):
+        assert set(group) <= set(names.split())
 
 
 # the router and its CLI with torch blocked as well: a router process holds

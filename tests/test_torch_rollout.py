@@ -12,7 +12,6 @@ collect-then-train, as ``tests/test_fused.py`` holds the JAX one.
 import copy
 import dataclasses
 import functools
-import json
 
 import jax
 import jax.numpy as jnp
@@ -266,8 +265,6 @@ def test_learner_smoke_cli_on_cpu(capsys):
     # the default actor is the buffered learner: one step trains one batch
     # of batch_rollouts (8) chunks of rollout_len (8)
     assert plearner.main(["--smoke", "--steps", "1", "--device", "cpu"]) == 0
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["optimizer_steps"] == 1.0 and out["frames_trained"] == 8 * 8
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(f"done: 1 steps, {8 * 8} frames, ")
     assert plearner.main(["--smoke", "--steps", "1", "--actor", "fused", "--device", "cpu"]) == 0
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["optimizer_steps"] == 1.0 and out["frames_trained"] == 4 * 8
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(f"done: 1 steps, {4 * 8} frames, ")

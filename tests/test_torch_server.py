@@ -203,7 +203,9 @@ def save_checkpoint(pcfg, jparams, directory, step=7):
     policy.load_state_dict(convert(jparams))
     state = init_train_state(policy, pcfg.ppo)
     state.step, state.version = step, step
-    assert CheckpointManager(directory, registry=telemetry.Registry()).save(state, pcfg, force=True)
+    mgr = CheckpointManager(directory, registry=telemetry.Registry())
+    assert mgr.save(state, pcfg, force=True)
+    mgr.wait()   # the write lands after save returns
 
 
 def test_checkpoint_and_weights_frame_restore_agree_bitwise(tmp_path):
