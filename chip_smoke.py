@@ -2855,15 +2855,23 @@ def record_inprocess_phase(device, seed, root, smi):
     with_pipeline = timed_saves(timing_mgr, lambda: timing_mgr.save(learner.state, cfg, force=True,
                                                                     pipeline=pipeline))
     timing_mgr.close()
+    # the end-of-train save again, synchronous: the same forced save of the
+    # same state and pipeline into the learner's directory, its write run
+    # on this thread instead of being handed to the writer
+    mark_good = learner._health is not None and learner._health.unhealthy is None
+    learner.ckpt._hand_off = lambda job: job()
+    sync = timed_saves(learner.ckpt, lambda: learner.ckpt.save(learner.state, cfg, force=True, pipeline=pipeline,
+                                                               mark_good=mark_good))
+    del learner.ckpt._hand_off
     ring_bytes = reg.snapshot()["buffer/shard_bytes"]
     timing = {"card": smi, "state": state_only, "state_and_pipeline": with_pipeline, "ring_bytes": ring_bytes,
-              "end_of_train": {"save_ms": tail["save_ms"], "wait_ms": tail["wait_ms"]}}
+              "end_of_train": {"save_ms": tail["save_ms"], "wait_ms": tail["wait_ms"], "sync_ms": sync["save_ms"]}}
     log(f"run record (c) on {smi}: CheckpointManager.save returns / wait lands, median of {SAVE_REPS}: the train "
         f"state {state_only['save_ms']:.2f} / {state_only['wait_ms']:.2f} ms; with the pipeline (the ring of "
         f"{cfg.buffer.capacity_rollouts} chunks, {ring_bytes:.0f} bytes) {with_pipeline['save_ms']:.2f} / "
-        f"{with_pipeline['wait_ms']:.2f} ms; the forced end-of-train save on the train thread "
-        f"{tail['save_ms']:.2f} ms to return, {tail['wait_ms']:.2f} ms more to land (the sync save's time: "
-        f"{tail['save_ms'] + tail['wait_ms']:.2f} ms)")
+        f"{with_pipeline['wait_ms']:.2f} ms; the forced end-of-train save on the train thread, async: "
+        f"{tail['save_ms']:.2f} ms to return, {tail['wait_ms']:.2f} ms more to land; sync (the same save written "
+        f"on the train thread, median of {SAVE_REPS}): {sync['save_ms']:.2f} ms")
     # (d): best/ holds the highest qualifying logged window, saved at the
     # step the train thread applied it
     logged = [h for h in learner.history if h["episodes_recent"] >= BEST_MIN_EPISODES]
@@ -2878,6 +2886,28 @@ def record_inprocess_phase(device, seed, root, smi):
             and first_max["step"] <= step <= learner.state.step and learner.ckpt_best.latest_step() == step):
         raise AssertionError(f"best_meta {meta}: the saves {[s[:2] for s in saved_best]}, qualifying windows "
                              f"{[(h['step'], h['win_rate_recent']) for h in logged]}")
+    # the rotation rule past the run's single qualifying window: a higher
+    # window moves best/, then a lower one, an equal one and a higher one
+    # over too few episodes leave it
+    if win >= 1.0:
+        raise AssertionError(f"the run's best window is already {win}: no higher one to feed")
+    higher, lower = (1.0 + win) / 2, (1.0 + 3 * win) / 4
+    fed = [(higher, BEST_MIN_EPISODES), (lower, BEST_MIN_EPISODES), (higher, BEST_MIN_EPISODES),
+           (1.0, BEST_MIN_EPISODES - 1)]
+    n_saves, last, written = len(saved_best), int(learner.state.step), set()
+    for wr, eps in fed:
+        learner._maybe_save_best({"win_rate_recent": wr, "episodes_recent": float(eps)})
+        learner.ckpt_best.wait()
+        meta_path = os.path.join(best_dir, "best_meta.json")
+        with open(meta_path) as f:
+            fed_meta = json.load(f)
+        # the meta file is replaced on every save: one file means one save
+        written.add((os.stat(meta_path).st_ino, os.stat(meta_path).st_mtime_ns))
+        if (fed_meta != {"win_rate_recent": higher, "step": last} or learner.ckpt_best.all_steps() != [last]
+                or len(saved_best) != n_saves + 1 or len(written) != 1):
+            raise AssertionError(f"rotation after the fed window {(wr, eps)}: best_meta {fed_meta}, steps "
+                                 f"{learner.ckpt_best.all_steps()}, saves {[s[:2] for s in saved_best]}")
+    win, step, params = saved_best[-1]
     learner.close()
     seeded = Learner(cfg, actor="device", seed=seed + 1, device=device, registry=telemetry.Registry(),
                      init_from=best_dir)
@@ -2902,10 +2932,12 @@ def record_inprocess_phase(device, seed, root, smi):
             "outcome": {k: first[k] for k in ("outcome/win_rate/overall", "outcome/win_rate/vs_scripted",
                                                "outcome/episodes_total", "outcome/episode_len_p50",
                                                "outcome/stream_age_s")},
-            "lstm_seq_launches": launches, "optimizer_steps": out["optimizer_steps"]}
+            "fed_windows": fed, "fed_meta": fed_meta, "lstm_seq_launches": launches,
+            "optimizer_steps": out["optimizer_steps"]}
     log(f"run record (d): {BEST_COLLECTS} collects, checkpoint_best_min_episodes {BEST_MIN_EPISODES}; qualifying "
-        f"windows (step, win rate, episodes) {best['qualifying_windows']}; best_meta {meta}; init_from best/ "
-        f"loads those weights bitwise; outcome curves at the first window of ended games {best['outcome']}; "
+        f"windows (step, win rate, episodes) {best['qualifying_windows']}; then fed (win rate, episodes) {fed}: "
+        f"only the first moved best/, best_meta {fed_meta}; init_from best/ loads its weights bitwise; outcome "
+        f"curves at the first window of ended games {best['outcome']}; "
         f"lstm_seq launches {launches} = {BEST_COLLECTS} x {T} + {passes:.0f} + {batches} x "
         f"{cfg.ppo.steps_per_batch}")
     return timing, best

@@ -8,7 +8,7 @@ return dict) and of its CLI. Run on the card::
     python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused]
         [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
         [--league K=V,...] [--ppo K=V,...] [--reward K=V,...] [--serve K=V,...] [--buffer K=V,...]
-        [--health K=V,...] [--learner K=V,...] [--sync-snapshots] [--wire-dtype float32|bfloat16]
+        [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
         [--init-from DIR]
@@ -263,7 +263,7 @@ class Learner:
         self.outcome = OutcomeAggregator(registry=self.registry)
         self.fleet.add_tick_hook(self.outcome.tick)
         self._fleet_started = False
-        self._util = utilization.make_learner(self.registry)   # None with the plane off
+        self._util = utilization.make_learner(self.registry)
         self._mb_rng = np.random.default_rng(config.seed + 1)
         self._mb_draws = 0     # permutations drawn (replayed on restore)
         # the prefetch lane: batch N+1, taken and staged behind batch N's
@@ -443,9 +443,8 @@ class Learner:
                 self.state, m = self.train_step(self.state, batch)
             else:
                 self.state, m = self.epoch_step(self.state, batch, perms)
-        if self._util is not None:
-            # the host's time issuing the updates (utils/utilization.py)
-            self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+        # the host's time issuing the updates (utils/utilization.py)
+        self._util.phase("dispatch_inflight", time.perf_counter() - t0)
         self._dispatch_inflight = True
         self._submit_health(m)
         return m
@@ -463,10 +462,9 @@ class Learner:
         t0 = time.perf_counter()
         batch = self.buffer.take(current_version=self.state.version)
         dt = time.perf_counter() - t0
-        if self._util is not None:
-            # a productive take is staging; an empty one, the ring below
-            # its minimum
-            self._util.phase("gather" if batch is not None else "ingest_wait", dt)
+        # a productive take is staging; an empty one, the ring below
+        # its minimum
+        self._util.phase("gather" if batch is not None else "ingest_wait", dt)
         if batch is None:
             return None
         self._prefetch_serial_s += dt
@@ -485,12 +483,10 @@ class Learner:
         taken = self.buffer.take(current_version=self.state.version, hold=True)
         dt = time.perf_counter() - t0
         if taken is None:
-            if self._util is not None:
-                self._util.phase("ingest_wait", dt)
+            self._util.phase("ingest_wait", dt)
             return
         self._prefetched, self._prefetch_ticket = taken
-        if self._util is not None:
-            self._util.phase("gather", dt)
+        self._util.phase("gather", dt)
         # recorded only when a batch was staged
         self.registry.timer("span/learner/prefetch").observe(dt)
         if self._dispatch_inflight:
@@ -524,8 +520,7 @@ class Learner:
         dt = time.perf_counter() - t0
         self.registry.gauge("advantage/pass_ms").set(dt * 1e3)
         self.registry.counter("advantage/passes_total").inc()
-        if self._util is not None:
-            self._util.phase("advantage_pass", dt)
+        self._util.phase("advantage_pass", dt)
         if self._adv_first:
             # the first pass pays one-time costs (allocations, the kernel
             # library's load)
@@ -698,8 +693,7 @@ class Learner:
                 self._published_version = max(self._published_version, self.state.version)
         stall = time.perf_counter() - t0
         self._stall_s += stall
-        if self._util is not None:
-            self._util.phase("publish_stall", stall)
+        self._util.phase("publish_stall", stall)
         self.registry.gauge("learner/publish_stall_ms").set(stall * 1e3)
 
     def _drain_snapshots(self) -> None:
@@ -814,8 +808,7 @@ class Learner:
         tracing.update_memory_gauges(reg, self.device)
         if not self._fleet_started:
             self.outcome.tick()
-        if self._util is not None:
-            self._util.fold(self.state.step)
+        self._util.fold(self.state.step)
 
     def _checkpoint_boundary(self) -> None:
         """A periodic save of the train state (the pipeline is saved only
@@ -829,8 +822,7 @@ class Learner:
                 self.registry.counter("health/checkpoints_blocked_total").inc()
             else:
                 self.ckpt.save(self.state, self.config, mark_good=self._health is not None)
-        if self._util is not None:
-            self._util.phase("checkpoint_stall", time.perf_counter() - t0)
+        self._util.phase("checkpoint_stall", time.perf_counter() - t0)
 
     def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
         """The boundary work of one loop iteration; returns the optimizer
@@ -877,8 +869,7 @@ class Learner:
                 opp_params, opp_uid = self._league_opponent()
                 t0 = time.perf_counter()
                 self.state, da.state, m, chunk_stats = self.fused_step(self.state, da.state, opp_params)
-                if self._util is not None:
-                    self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+                self._util.phase("dispatch_inflight", time.perf_counter() - t0)
                 self._dispatch_inflight = True
                 self._report_league(opp_uid, chunk_stats)
                 da.env_steps += frames_per
@@ -1014,6 +1005,7 @@ _NOT_PORTED_FLAGS = (
     ("--listen", {"type": str}, _ITEM_4B),
     ("--shm-name", {"type": str}, _ITEM_4B),
     ("--amqp-host", {"type": str}, _ITEM_4B),
+    ("--wire-dtype", {"type": str}, _ITEM_4B),
     ("--rollout-wire-dtype", {"type": str}, _ITEM_4B),
     ("--refresh-every", {"type": int}, _ITEM_4B),
     ("--overlap", {"action": "store_true"}, _ITEM_4B),
@@ -1081,8 +1073,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--transport", type=str, default="inproc", choices=("inproc", "socket", "shm", "amqp"),
                    help="the weights and experience transport: inproc only (socket, shm and amqp: " + _ITEM_4B
                    + ")")
-    p.add_argument("--wire-dtype", type=str, default=None, choices=("float32", "bfloat16"),
-                   help="the weights fanout's wire dtype (transport.wire_dtype)")
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", type=str, default=None,
@@ -1137,9 +1127,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   ("team_size", args.team_size)) if v is not None}
     if env_over:
         config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
-    if args.wire_dtype is not None:
-        config = dataclasses.replace(config, transport=dataclasses.replace(config.transport,
-                                                                           wire_dtype=args.wire_dtype))
     if args.sync_snapshots:
         config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)

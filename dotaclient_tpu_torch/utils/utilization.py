@@ -26,8 +26,9 @@ busy share, which ``chip_smoke.py`` reads from a profiler window
 
 The factories create their gauges first, so a record carries them from its
 first line (``util/duty_cycle`` starts at the neutral 1.0, ``util/armed``
-at 0). With the module knob ``enabled`` off, ``make_learner`` returns None
-and the learner's call sites cost one ``is not None`` test.
+at 0). The reference's module knob ``enabled``, which turns the learner's
+accountant off for its overhead A/B, waits for a port benchmark that
+measures that overhead (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -37,9 +38,6 @@ import time
 from typing import Dict, Optional, Tuple
 
 from dotaclient_tpu_torch.utils import telemetry
-
-# the learner's accountant; the serve plane is always on
-enabled: bool = True
 
 # steps/s smoothing: time-constant weighted EMAs (alpha = 1 - exp(-window /
 # tau)), both seeded during warm-up with the cumulative rate over the whole
@@ -62,8 +60,7 @@ SERVE_PHASES = ("window_wait", "dispatch", "reply", "other")
 
 
 def ensure_learner_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
-    """Create the learner's ``util/*`` gauges (also with the knob off);
-    returns their handles."""
+    """Create the learner's ``util/*`` gauges; returns their handles."""
     handles = {key: reg.gauge(key) for key in (
         "util/armed",
         "util/duty_cycle",
@@ -204,12 +201,10 @@ class PoolUtilization:
         return fractions or None
 
 
-def make_learner(registry: Optional[telemetry.Registry] = None) -> Optional[LearnerUtilization]:
-    """The learner's accountant; None with the knob ``enabled`` off (the
-    gauges exist either way)."""
+def make_learner(registry: Optional[telemetry.Registry] = None) -> LearnerUtilization:
+    """The learner's accountant, its gauges created first."""
     reg = registry if registry is not None else telemetry.get_registry()
-    handles = ensure_learner_keys(reg)
-    return LearnerUtilization(handles) if enabled else None
+    return LearnerUtilization(ensure_learner_keys(reg))
 
 
 def make_serve(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:

@@ -357,13 +357,14 @@ def test_learner_utilization_as_the_reference(name):
         assert preg.snapshot()["util/throughput_regression"] == 1.0
 
 
-def test_make_learner_honours_the_knob(monkeypatch):
-    for mod, tel in ((utilization, telemetry), (jutil, jtel)):
-        monkeypatch.setattr(mod, "enabled", False)
-        reg = tel.Registry()
-        assert mod.make_learner(reg) is None and "util/phase/host_other" in reg.snapshot()
-        monkeypatch.setattr(mod, "enabled", True)
-        assert isinstance(mod.make_learner(tel.Registry()), mod.LearnerUtilization)
+def test_make_learner_matches_the_reference_default():
+    # the port has no ``enabled`` knob: its accountant is the reference's
+    # default, the gauges created at their neutral values (exact)
+    reg, jreg = telemetry.Registry(), jtel.Registry()
+    assert not hasattr(utilization, "enabled") and jutil.enabled
+    assert isinstance(utilization.make_learner(reg), utilization.LearnerUtilization)
+    assert isinstance(jutil.make_learner(jreg), jutil.LearnerUtilization)
+    assert reg.snapshot() == jreg.snapshot() and reg.snapshot()["util/duty_cycle"] == 1.0
 
 
 def test_memory_gauge_on_the_cpu():
@@ -442,7 +443,7 @@ def test_fleet_aggregator_as_the_reference():
 @pytest.mark.parametrize("flag", [(f, v) for f, v in (
     ("--core", "transformer"), ("--moe-experts", "4"), ("--mesh", "data_parallel=2"), ("--multihost", None),
     ("--dcn-slices", "2"), ("--model-parallel", "2"), ("--listen", "127.0.0.1:7777"), ("--shm-name", "x"),
-    ("--amqp-host", "localhost"), ("--rollout-wire-dtype", "bfloat16"), ("--refresh-every", "5"),
+    ("--amqp-host", "localhost"), ("--wire-dtype", "bfloat16"), ("--rollout-wire-dtype", "bfloat16"), ("--refresh-every", "5"),
     ("--overlap", None), ("--no-vec", None), ("--trace-jsonl", "t.jsonl"), ("--trace-sample", "4"),
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag):
@@ -464,11 +465,11 @@ def test_learner_override_flags_reach_the_config(monkeypatch, capsys):
     monkeypatch.setattr(plearner, "Learner", recording)
     with pytest.raises(SystemExit):
         plearner.main(["--smoke", "--device", "cpu", "--ppo", "entropy_coef=0.002", "--reward", "win=25",
-                       "--serve", "max_batch=16", "--team-size", "2", "--wire-dtype", "bfloat16",
+                       "--serve", "max_batch=16", "--team-size", "2",
                        "--logdir", "tb", "--metrics-jsonl", "m.jsonl"])
     config, kw = built[-1]
     assert config.ppo.entropy_coef == 0.002 and config.reward.win == 25.0 and config.serve.max_batch == 16
-    assert config.env.team_size == 2 and config.transport.wire_dtype == "bfloat16"
+    assert config.env.team_size == 2
     assert kw["logdir"] == "tb" and kw["metrics_jsonl"] == "m.jsonl"
 
 
