@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner and run-record paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record and external-actor paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -194,6 +194,37 @@ Phases (any failure exits non-zero and prints no result line):
     off their priors at the totals' rate once games end; ``lstm_seq``
     launched collects x ``rollout_len`` + passes + batches x 4 times there
     (its counts reset just before and read just after).
+15. external actors, BASELINE config 2: (a) ``Learner(cfg, actor="vec")``
+    on the default ``RunConfig`` with 64 self-play games (team size 1: 128
+    lanes) of 20 s, in process: 2 warm and 8 timed optimizer steps
+    alternating with the pool, 4 more under the profiler, then 8 with
+    ``overlap=True`` (the pool on its own thread). Checked: finite loss
+    and ``health_ok`` 1, every param moved, ended episodes, the ring's books
+    (ingested = batches x 32 + size + stale + overflow drops; skew,
+    non-finite and bounds drops 0), and ``lstm_seq`` launched pool steps +
+    updates times in the sequential run (its counts reset just before and
+    read just after). Logged: trained frames/s, the pool's env steps/s,
+    ``span/actor/infer``, the busy share. (b) ``python -m
+    dotaclient_tpu_torch.train.learner --actor external --transport socket
+    --listen 127.0.0.1:PORT --metrics-jsonl`` as a child at the reference's
+    CLI defaults (batches of 32, 1 x 1 updates, ``--refresh-every`` 10)
+    with ``--buffer max_weight_staleness=20`` (at the default staleness
+    limit of 4 steps, publishes every 10 steps starve the learner at its
+    5th step after a publish, in the JAX package too) for EXTERNAL_STEPS
+    steps, fed by EXTERNAL_ACTORS ``python -m dotaclient_tpu_torch.actor
+    --connect 127.0.0.1:PORT --n-envs 64 --opponent selfplay --max-dota-time
+    20 --platform cuda`` children. One actor gets SIGKILL at the learner's
+    step-20 line, the others SIGTERM at its step-30 line; they must flush
+    and exit 0 while it runs, and the learner must go on to its ``done:``
+    line. Checked: each surviving actor's closing lines (weights versions
+    above 0 applied, ``lstm_seq`` launched once a pool step), the record's
+    ``transport/rollout_bytes_total`` above 0, skew, non-finite and
+    malformed drops 0, the chunks' versions above 0 (the last batch's
+    staleness below its step). Logged: trained frames/s, rollouts ingested
+    a second, stale drops, each actor's chunks and env steps/s,
+    ``learner/publish_stall_ms``, the phase's wall time split into the
+    children's starts and the steps. Every child is killed in a
+    ``finally``.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -2582,33 +2613,40 @@ SAVE_REPS = 3
 RECORD_CHILD_S = 300.0
 
 
-class RecordChild:
-    """``python -m dotaclient_tpu_torch.train.learner ARGS`` as a child
-    process, its stdout and stderr into files (so children can run side by
-    side without a pipe filling up). ``result`` waits for its exit within
-    RECORD_CHILD_S: (exit code, stdout lines, stderr, wall seconds).
-    ``kill`` leaves nothing running."""
+class ModuleChild:
+    """``python -m MODULE ARGS`` as a child process, its stdout and stderr
+    into files (so children can run side by side without a pipe filling
+    up); ``lines`` reads its stdout so far, ``wait`` waits for its exit
+    within a bound, ``kill`` leaves nothing running."""
 
-    def __init__(self, args, root, name, env=None):
+    def __init__(self, module, args, root, name, env=None):
         import os
         import pathlib
 
         repo = str(pathlib.Path(__file__).resolve().parent)
-        full_env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {})}
-        self.what, self.t0 = name, time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               "PYTHONUNBUFFERED": "1", **(env or {})}
+        self.name, self.t0 = name, time.perf_counter()
         self._out, self._err = (open(os.path.join(root, f"{name}.{k}"), "w+") for k in ("out", "err"))
-        self.proc = subprocess.Popen([sys.executable, "-m", "dotaclient_tpu_torch.train.learner", *args], cwd=repo,
-                                     env=full_env, stdout=self._out, stderr=self._err, text=True)
+        self.proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=repo, env=env, stdout=self._out,
+                                     stderr=self._err, text=True)
+        self.wall_s = None
 
-    def result(self):
+    def lines(self):
+        with open(self._out.name) as f:
+            return f.read().splitlines()
+
+    def stderr(self):
+        with open(self._err.name) as f:
+            return f.read()
+
+    def wait(self, timeout):
         try:
-            rc = self.proc.wait(timeout=RECORD_CHILD_S)
+            rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            raise AssertionError(f"{self.what} ran past {RECORD_CHILD_S:.0f} s") from None
-        wall_s = time.perf_counter() - self.t0
-        self._out.seek(0)
-        self._err.seek(0)
-        return rc, self._out.read().splitlines(), self._err.read(), wall_s
+            raise AssertionError(f"{self.name} ran past {timeout:.0f} s") from None
+        self.wall_s = time.perf_counter() - self.t0
+        return rc
 
     def kill(self):
         if self.proc.poll() is None:
@@ -2616,6 +2654,19 @@ class RecordChild:
             self.proc.wait(timeout=30)
         self._out.close()
         self._err.close()
+
+
+class RecordChild(ModuleChild):
+    """``python -m dotaclient_tpu_torch.train.learner ARGS`` as a child.
+    ``result`` waits for its exit within RECORD_CHILD_S: (exit code, stdout
+    lines, stderr, wall seconds)."""
+
+    def __init__(self, args, root, name, env=None):
+        super().__init__("dotaclient_tpu_torch.train.learner", args, root, name, env)
+
+    def result(self):
+        rc = self.wait(RECORD_CHILD_S)
+        return rc, self.lines(), self.stderr(), self.wall_s
 
 
 def done_line(lines, what):
@@ -2955,6 +3006,278 @@ def run_record_phase(device, seed, smi):
     return result
 
 
+# -- phase 15: external actors and the socket transport (BASELINE config 2) -----------
+
+# (a): 64 self-play games, team size 1 (128 lanes), 20 s games; optimizer
+# steps: warm, timed, profiled, and the overlap pass
+VEC_ENVS, VEC_MAX_DOTA_TIME = 64, 20.0
+VEC_WARM, VEC_TIMED, VEC_PROFILED, VEC_OVERLAP = 2, 8, 4, 8
+# (b): actor processes, the learner's steps, the step lines at which one
+# actor is killed and the others are stopped (the learner's console logs
+# every 10 steps), and the staleness window. The others stop while the
+# learner runs, so their flushed chunks land: it closes its server before
+# its done: line. The 6 steps after the stop come from the ring (224
+# chunks at step 30 in a CPU rehearsal) and the flushed partial chunks.
+EXTERNAL_ACTORS, EXTERNAL_STEPS, EXTERNAL_KILL_AT, EXTERNAL_STOP_AT = 8, 36, 20, 30
+EXTERNAL_STALENESS = 20
+EXTERNAL_S = 300.0
+
+
+def vec_config(seed):
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env, n_envs=VEC_ENVS, opponent="selfplay", team_size=1,
+                                     max_dota_time=VEC_MAX_DOTA_TIME),
+        log_every=10 ** 9, seed=seed)
+
+
+def ring_books(buf, batches, B):
+    """The ring's books after a run: ingested = consumed + size + drops,
+    with no skew, non-finite or bounds drop."""
+    m = buf.metrics()
+    if not (buf.ingested == batches * B + buf.size + buf.dropped_stale + buf.dropped_overflow
+            and buf.dropped_skew == buf.dropped_nonfinite == buf.dropped_bounds == 0):
+        raise AssertionError(f"ring books: {m} against {batches} batches x {B}")
+    return m
+
+
+def vec_phase(device, seed):
+    """(a) the vec learner in process: sequential, profiled, overlapped."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = vec_config(seed)
+    T, B = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="vec", seed=seed, device=device, registry=reg)
+    pool, buf = learner.vec_pool, learner.buffer
+    if pool.n_lanes != 2 * VEC_ENVS:
+        raise AssertionError(f"{pool.n_lanes} lanes, expected {2 * VEC_ENVS}")
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    metrics, batches_seen = [], []
+    optimize = learner._optimize
+
+    def recording(batch):
+        m = optimize(batch)
+        metrics.append(m)
+        batches_seen.append(batch)
+        return m
+
+    learner._optimize = recording
+    torch.cuda.synchronize()
+    lstm.lstm_sequence_kernel.launches = 0
+    steps0 = pool.steps
+    learner.train(VEC_WARM)
+    torch.cuda.synchronize()
+    env0, t0 = pool.env_steps, time.perf_counter()
+    learner.train(VEC_TIMED)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    env_steps = pool.env_steps - env0
+    pool_steps = pool.steps - steps0
+    launches = lstm.lstm_sequence_kernel.launches
+    updates = len(metrics)   # the warm and timed runs' updates
+    passes = reg.snapshot()["advantage/passes_total"]
+    if launches != pool_steps + updates + passes:
+        raise AssertionError(f"lstm_seq launched {launches} times: expected {pool_steps} pool steps + {updates} "
+                             f"updates + {passes:.0f} advantage passes")
+    infer = reg.timer("span/actor/infer")
+    infer_ms = infer.total / max(infer.count, 1) * 1e3
+    profile = profiled(lambda: learner.train(VEC_PROFILED))
+    t1, env1 = time.perf_counter(), pool.env_steps
+    over = learner.train(VEC_OVERLAP, overlap=True, refresh_every=1)
+    torch.cuda.synchronize()
+    over_s, over_env = time.perf_counter() - t1, pool.env_steps - env1
+    batches = VEC_WARM + VEC_TIMED + VEC_PROFILED + VEC_OVERLAP
+    books = ring_books(buf, batches, B)
+    for i, m in enumerate(metrics):
+        m = {k: float(v) for k, v in m.items()}
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+            raise AssertionError(f"vec batch {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                 f"health_ok {m['health_ok']}")
+    moved, cast_legal, ability_choice = check_params_moved(before, learner.policy, batches_seen)
+    moved = sum(moved.values())
+    illegal, n_actions = check_chunk_actions(batches_seen)
+    stats = pool.stats()
+    if illegal or not (stats["episodes_done"] > 0 and len(metrics) == batches):
+        raise AssertionError(f"vec: {illegal} of {n_actions} trained actions illegal, {stats['episodes_done']} "
+                             f"episodes, {len(metrics)} batches")
+    learner.close()
+    frames = VEC_TIMED * B * T
+    result = {
+        "lanes": pool.n_lanes, "frames_trained": frames, "frames_per_s": frames / loop_s,
+        "env_steps_per_s": env_steps / loop_s, "loop_ms": loop_s * 1e3, "pool_steps": pool_steps,
+        "actor_infer_ms": infer_ms, "lstm_seq_launches": launches, "updates": updates,
+        "overlap": {"frames_per_s": VEC_OVERLAP * B * T / over_s, "env_steps_per_s": over_env / over_s,
+                    "optimizer_steps": over["optimizer_steps"]},
+        "ring": books, "episodes_done": stats["episodes_done"], "params_moved": moved, "params": len(before),
+        "actions_checked": n_actions, "frames_that_could_cast": cast_legal,
+        "profile": {"optimizer_steps": VEC_PROFILED, **profile}, "last_loss": float(metrics[-1]["loss"]),
+    }
+    log(f"vec (a): {pool.n_lanes} lanes, {VEC_TIMED} timed steps alternating with the pool: {frames} trained frames "
+        f"in {loop_s * 1e3:.1f} ms, {result['frames_per_s']:.0f} frames/s, the pool {result['env_steps_per_s']:.0f} env "
+        f"steps/s, span/actor/infer {infer_ms:.3f} ms mean over {infer.count} steps; overlap: "
+        f"{result['overlap']['frames_per_s']:.0f} frames/s, the pool {result['overlap']['env_steps_per_s']:.0f} env "
+        f"steps/s; ring {books}; lstm_seq launches {launches} = {pool_steps} pool steps + {updates} updates + "
+        f"{passes:.0f} passes; {moved} of {len(before)} params moved, {n_actions} trained actions legal, "
+        f"{stats['episodes_done']:.0f} episodes")
+    log_profile(f"vec profile: {VEC_PROFILED} steps", profile)
+    return result
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def learner_step(lines):
+    """The last optimizer step the learner CLI's console lines reached."""
+    import re
+
+    steps = [int(m.group(1)) for m in (re.match(r"\[\s*[\d.]+s\] step (\d+):", x) for x in lines) if m]
+    return max(steps, default=0)
+
+
+def wait_step(learner_child, step, deadline):
+    while learner_step(learner_child.lines()) < step:
+        if learner_child.proc.poll() is not None:
+            raise AssertionError(f"the learner exited ({learner_child.proc.returncode}) before step {step}: "
+                                 f"{learner_child.stderr()[-2000:]}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the learner did not reach step {step} within {EXTERNAL_S:.0f} s")
+        time.sleep(0.05)
+    return time.perf_counter()
+
+
+def actor_closing(child):
+    """An actor child's closing lines: (versions applied, its stats)."""
+    lines = child.lines()
+    seen = [json.loads(x.split(" ", 1)[1]) for x in lines if x.startswith("ACTOR_VERSIONS_SEEN ")]
+    stats = [json.loads(x.split(" ", 1)[1]) for x in lines if x.startswith("ACTOR_STATS ")]
+    if not (seen and stats):
+        raise AssertionError(f"{child.name} printed no closing lines: {lines[-3:]} {child.stderr()[-1500:]}")
+    return seen[-1], stats[-1]
+
+
+def external_phase(device, seed, root):
+    """(b) BASELINE config 2: a learner CLI child fed by actor CLI children
+    over TCP, one actor killed and the rest stopped while it trains."""
+    import os
+    import signal
+
+    port = free_port()
+    addr = f"127.0.0.1:{port}"
+    jsonl = os.path.join(root, "external.jsonl")
+    t0 = time.perf_counter()
+    deadline = t0 + EXTERNAL_S
+    children = []
+    try:
+        learner = ModuleChild("dotaclient_tpu_torch.train.learner", [
+            "--actor", "external", "--transport", "socket", "--listen", addr, "--steps", str(EXTERNAL_STEPS),
+            "--seed", str(seed), "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}"],
+            root, "learner")
+        children.append(learner)
+        while not any(x.startswith("learner: listening for actors on") for x in learner.lines()):
+            if learner.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the learner never listened: {learner.stderr()[-2000:]}")
+            time.sleep(0.05)
+        t_listen = time.perf_counter()
+        actors = [ModuleChild("dotaclient_tpu_torch.actor", [
+            "--connect", addr, "--n-envs", str(VEC_ENVS), "--opponent", "selfplay", "--max-dota-time",
+            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i)], root, f"actor{i}")
+            for i in range(EXTERNAL_ACTORS)]
+        children += actors
+        t_actors = time.perf_counter()
+        t_first = wait_step(learner, 10, deadline)
+        t_kill = wait_step(learner, EXTERNAL_KILL_AT, deadline)
+        actors[0].proc.send_signal(signal.SIGKILL)
+        t_stop = wait_step(learner, EXTERNAL_STOP_AT, deadline)
+        for a in actors[1:]:
+            a.proc.send_signal(signal.SIGTERM)
+        closing = []
+        for a in actors[1:]:
+            rc = a.wait(max(1.0, deadline - time.perf_counter()))
+            if rc != 0 or "graceful stop: flushed" not in a.stderr():
+                raise AssertionError(f"{a.name} exited {rc}: {a.stderr()[-1500:]}")
+            closing.append(actor_closing(a))
+        t_actors_out = time.perf_counter()
+        rc = learner.wait(max(1.0, deadline - time.perf_counter()))
+        t_done = time.perf_counter()
+        if rc != 0:
+            raise AssertionError(f"the learner exited {rc}: {learner.stderr()[-3000:]}")
+        steps, frames, _ = done_line(learner.lines(), "the external learner")
+        if actors[0].proc.wait(timeout=30) != -signal.SIGKILL:
+            raise AssertionError(f"actor0 exit {actors[0].proc.returncode}, expected SIGKILL")
+    finally:
+        for c in children:
+            c.kill()
+    _, rows = read_record(jsonl)
+    last = rows[-1]
+    bad = {k: last[k] for k in ("buffer/dropped_skew", "buffer/dropped_nonfinite", "buffer/dropped_bounds",
+                                "transport/malformed_payloads_total")}
+    if not (steps == EXTERNAL_STEPS and last["transport/rollout_bytes_total"] > 0 and not any(bad.values())
+            and last["buffer/batch_staleness"] < EXTERNAL_STEPS):
+        raise AssertionError(f"the external learner: {steps} steps, rollout bytes "
+                             f"{last['transport/rollout_bytes_total']}, drops {bad}, batch staleness "
+                             f"{last['buffer/batch_staleness']}")
+    for seen, st in closing:
+        if not (max(seen) > 0 and st["lstm_seq_launches"] == st["steps"] > 0 and st["rollouts_shipped"] > 0):
+            raise AssertionError(f"an actor's closing lines: versions {seen}, stats {st}")
+    elapsed = last["elapsed_sec"]
+    ingested = last["buffer/ingested"]
+    frames_per_step = frames / steps
+    # between the step-10 and step-30 lines: every actor up, none stopped
+    # (the kill at step 20 included)
+    steady = (EXTERNAL_STOP_AT - 10) * frames_per_step / (t_stop - t_first)
+    result = {
+        "actors": EXTERNAL_ACTORS, "steps": steps, "frames": frames, "frames_per_s": last["frames_per_sec"],
+        "frames_per_s_steps_10_to_30": steady,
+        "train_elapsed_s": elapsed, "rollouts_ingested": ingested, "rollouts_ingested_per_s": ingested / elapsed,
+        "dropped_stale": last["buffer/dropped_stale"], "dropped_overflow": last["buffer/dropped_overflow"],
+        "transport_dropped": last.get("transport/experience_dropped", 0.0),
+        "rollout_bytes": last["transport/rollout_bytes_total"], "publish_stall_ms": last["learner/publish_stall_ms"],
+        "batch_staleness": last["buffer/batch_staleness"], "weights_published": last["transport/weights_published"],
+        "actors_closing": [{"versions_seen": s, **st} for s, st in closing],
+        "wall_s": {"learner_listening": t_listen - t0, "actors_started": t_actors - t0,
+                   "first_10_steps": t_first - t_actors, "to_kill": t_kill - t0, "to_stop": t_stop - t0,
+                   "actors_out": t_actors_out - t0, "done": t_done - t0},
+    }
+    ships = ", ".join(f"{st['rollouts_shipped']:.0f} chunks at {st['env_steps_per_sec']:.0f} env steps/s "
+                      f"(start {a.wall_s - st['elapsed_sec']:.1f} s)" for a, (_, st) in zip(actors[1:], closing))
+    log(f"external (b), BASELINE config 2: {EXTERNAL_ACTORS} actor processes x {2 * VEC_ENVS} lanes into the learner "
+        f"CLI over 127.0.0.1: {steps} steps, {frames} frames, {result['frames_per_s']:.0f} trained frames/s over "
+        f"{elapsed:.1f} s of train ({steady:.0f} between the step-10 and step-30 lines); {ingested:.0f} rollouts ingested ({result['rollouts_ingested_per_s']:.0f}/s), "
+        f"stale drops {result['dropped_stale']:.0f}, ring overflow {result['dropped_overflow']:.0f}, transport "
+        f"drop-oldest {result['transport_dropped']:.0f}; skew, non-finite, malformed 0; "
+        f"{result['rollout_bytes']:.0f} rollout bytes; {result['weights_published']:.0f} weights publishes, "
+        f"learner/publish_stall_ms {result['publish_stall_ms']:.3f}; last batch staleness "
+        f"{result['batch_staleness']:.1f}; actor0 SIGKILLed at step {EXTERNAL_KILL_AT}, the other "
+        f"{EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed and exited 0: {ships}; wall "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items()))
+    return result
+
+
+def external_actors_phase(device, seed):
+    """Phase 15: the vec learner in process, then BASELINE config 2 across
+    processes."""
+    t0 = time.perf_counter()
+    result = {"vec": vec_phase(device, seed)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_external_") as root:
+        result["external"] = external_phase(device, seed, root)
+    result["wall_s"] = time.perf_counter() - t0
+    result["lstm_seq_launches"] = result["vec"]["lstm_seq_launches"]
+    log(f"external actors: phase 15 in {result['wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2997,6 +3320,7 @@ def main() -> int:
         league = league_phase(device, args.seed, ckpt_dir)
         buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
     record = run_record_phase(device, args.seed, smi)
+    external = external_actors_phase(device, args.seed)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -3004,7 +3328,8 @@ def main() -> int:
                                       "train_league": league["lstm_seq_launches"],
                                       "league_eval": league["eval"]["lstm_seq_launches"],
                                       "train_buffered": buffered["lstm_seq_launches"],
-                                      "train_run_record": record["lstm_seq_launches"]}
+                                      "train_run_record": record["lstm_seq_launches"],
+                                      "train_vec": external["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
@@ -3012,7 +3337,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
-                       "league": league, "buffered": buffered, "run_record": record}, f, indent=2)
+                       "league": league, "buffered": buffered, "run_record": record, "external": external}, f,
+                      indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -2,7 +2,7 @@
 
 Copy of ``connect_with_backoff`` from ``dotaclient_tpu/actor/__main__.py``:
 the serve client's connect path takes the same schedule as the reference
-actors. The actor CLI itself waits for ROADMAP queue 1, item 4.
+actors, and the actor CLI (``actor/__main__.py``) reconnects with it.
 """
 
 from __future__ import annotations

@@ -11,24 +11,37 @@ order is a deque of slot ids, beside a free list, a per-slot producer
 version (staleness is re-checked when a batch is taken: a chunk fresh at
 ingest can go stale in the ring) and held batches (the prefetch lane's
 tickets, out of both the order and the free list until released or
-requeued). Ingest (``add_device``) is one device-to-device ``index_copy_``
-a leaf, and a take is one ``index_select`` a leaf; their slot indices
-reach the device through pinned memory (``device.host_index``), so neither
-reads the device from the host.
+requeued). A take is one ``index_select`` a leaf; its slot indices reach
+the device through pinned memory (``device.host_index``), so it never reads
+the device from the host.
+
+Two ingests. ``add_device`` (the ``device`` mode) puts a device-resident
+chunk batch in with one device-to-device ``index_copy_`` a leaf. ``add``
+(the ``vec`` and ``external`` modes) takes decoded host rows ``(meta,
+arrays)`` through the admission door, in the reference's order: stale
+(``model_version`` past the limit), skew (another tree, shape or dtype:
+an actor with another config; warned once) and non-finite (a NaN or Inf in
+a float leaf, with ``buffer.reject_nonfinite``); each drop is counted. The
+reference's bounds door (a full-width integer row into a narrow ring)
+comes with the narrow ring, so ``dropped_bounds`` stays 0 here, as it does
+in the reference's full-width ring. The rows that pass are copied into the next of
+``buffer.staging_slots`` preallocated host lanes (pinned on CUDA) and
+cross to the card in one non-blocking copy a leaf, then one ``index_copy_``
+a leaf; a lane is reused only after its copy's event has completed.
 
 The staleness limit is counted in optimizer steps: ``max_staleness x
 steps_per_batch``, or ``buffer.max_weight_staleness`` when it is >= 0.
 
-Not ported here: the host-row ``add`` of the ``vec`` and ``external``
-modes, with its staging lanes and its admission checks (non-finite payloads,
-integer bounds, config skew), and the narrow (bf16) ring of
-``transport.rollout_wire_dtype``; both come with ROADMAP queue 1, item 4b.
+Not ported here: the narrow (bf16) ring of ``transport.rollout_wire_dtype``
+(ROADMAP queue 1, item 13). A row that arrives narrow (a bf16 wire) is
+admitted and widened by the staging copy, as the reference admits it.
 """
 
 from __future__ import annotations
 
+import logging
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +50,14 @@ from dotaclient_tpu_torch.actor.device_rollout import tree_map
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.train.ppo import example_batch
+from dotaclient_tpu_torch.transport.serialize import (
+    BF16, _dtype_name, _to_f32, flatten_tree, rollout_cast_plan, rollout_int_bounds,
+)
 from dotaclient_tpu_torch.utils import telemetry
 
-_NOT_PORTED = "ROADMAP queue 1, item 4b (external actors and the learner's transports)"
+logger = logging.getLogger(__name__)
+
+_NOT_PORTED = "ROADMAP queue 1, item 13 (the shm lane, AMQP and the narrow wire)"
 _N_COUNTERS = 7   # warmed, stale, overflow, ingested, skew, nonfinite, bounds
 
 
@@ -90,6 +108,22 @@ class TrajectoryBuffer:
         self.dropped_nonfinite = 0
         self.dropped_bounds = 0
         self.ingested = 0
+        # the host-row door: each leaf's name, row shape and the widths it
+        # may arrive at (its own, or the bf16 wire's narrowing of it)
+        flat = flatten_tree(self._store)
+        names = {n: _dtype_name(t) for n, t in flat.items()}
+        narrow = rollout_cast_plan(names, "bfloat16", rollout_int_bounds(config))
+        self._tmpl: Dict[str, Tuple[Tuple[int, ...], frozenset]] = {
+            n: (tuple(t.shape[1:]), frozenset({names[n], narrow.get(n, names[n])})) for n, t in flat.items()
+        }
+        self._reject_nonfinite = config.buffer.reject_nonfinite
+        self._skew_warned = False
+        # staging lanes, made at the first host-row ingest (the device
+        # path never stages); each with the event of its last copy
+        self._staging_lanes = max(1, config.buffer.staging_slots)
+        self._staging: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._staging_events: List[Optional[torch.cuda.Event]] = [None] * self._staging_lanes
+        self._staging_idx = 0
 
     @property
     def size(self) -> int:
@@ -101,10 +135,115 @@ class TrajectoryBuffer:
 
     # -- ingest ------------------------------------------------------------
 
-    def add(self, rollouts, current_version: int) -> int:
-        """The host-row ingest of decoded rollouts (``vec`` and ``external``
-        modes): not ported yet."""
-        raise NotImplementedError(f"TrajectoryBuffer.add (host rows) is not ported yet: {_NOT_PORTED}")
+    def add(self, rollouts: List[Tuple[Dict[str, Any], Any]], current_version: int) -> int:
+        """Ingest decoded host rows ``(meta, arrays)`` through the door
+        (stale, skew, non-finite, each counted); returns the number
+        kept. One staging copy a row, one host-to-device copy and one
+        ``index_copy_`` a leaf."""
+        fresh = []
+        for meta, arrays in rollouts:
+            if current_version - meta["model_version"] > self._staleness_limit:
+                self.dropped_stale += 1
+                self._tel.counter("buffer/stale_rejected_total").inc()
+                continue
+            flat = self._matches_slot(arrays)
+            if flat is None:
+                self.dropped_skew += 1
+                self._tel.counter("buffer/skew_drops_total").inc()
+                if not self._skew_warned:
+                    self._skew_warned = True
+                    logger.warning("trajectory_buffer: dropping a rollout whose tree, shapes or dtypes do not "
+                                   "match this learner's config (an actor with another rollout_len, obs or "
+                                   "model config?): align the actor's and the learner's configs")
+                continue
+            if self._reject_nonfinite and not self._payload_finite(flat):
+                self.dropped_nonfinite += 1
+                self._tel.counter("buffer/nonfinite_rejected_total").inc()
+                continue
+            fresh.append((meta, flat))
+        if len(fresh) > self.capacity:
+            # one ingest never names a slot twice: keep the newest
+            self.dropped_overflow += len(fresh) - self.capacity
+            fresh = fresh[-self.capacity:]
+        if not fresh:
+            self._publish_telemetry()
+            return 0
+        with self._tel.span("buffer/insert"):
+            slots = self._alloc_slots(len(fresh))
+            fresh = fresh[: len(slots)]
+            if not fresh:
+                self._publish_telemetry()
+                return 0
+            n = len(fresh)
+            lane = self._stage_rows([flat for _, flat in fresh])
+            idx = host_index(slots, self.device)
+            store = flatten_tree(self._store)
+            for name, dst in store.items():
+                dst.index_copy_(0, idx, lane[name][:n].to(self.device, non_blocking=True))
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                self._staging_events[(self._staging_idx - 1) % self._staging_lanes] = ev
+            self._slot_version[slots] = [m["model_version"] for m, _ in fresh]
+            self._order.extend(slots)
+            self.ingested += n
+        self._publish_telemetry()
+        return n
+
+    def _matches_slot(self, arrays: Any) -> Optional[Dict[str, Any]]:
+        """The payload's leaves by name when it has exactly the slot's tree
+        and shapes, every leaf at one of its admissible widths; else None
+        (config skew)."""
+        try:
+            flat = flatten_tree(arrays)
+        except (TypeError, ValueError, AttributeError):
+            return None
+        if flat.keys() != self._tmpl.keys():
+            return None
+        for name, leaf in flat.items():
+            shape, accept = self._tmpl[name]
+            try:
+                if tuple(leaf.shape) != shape or _dtype_name(leaf) not in accept:
+                    return None
+            except (TypeError, AttributeError):
+                return None
+        return flat
+
+    def _payload_finite(self, flat: Dict[str, Any]) -> bool:
+        """True iff every float leaf is finite (bf16 wire leaves, CPU
+        tensors, are scanned as they are)."""
+        for leaf in flat.values():
+            if isinstance(leaf, torch.Tensor):
+                if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+                    return False
+            elif leaf.dtype.kind == "f" and not np.isfinite(leaf).all():
+                return False
+        return True
+
+    def _stage_rows(self, rows: List[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+        """Copy the rows into the next staging lane (host tensors of the
+        ring's capacity, pinned on CUDA) and return it. A lane is rewritten
+        only after the copy that last read it has completed."""
+        if self._staging is None:
+            pin = self.device.type == "cuda"
+            self._staging = [
+                {name: torch.empty((self.capacity,) + tuple(t.shape[1:]), dtype=t.dtype, pin_memory=pin)
+                 for name, t in flatten_tree(self._store).items()}
+                for _ in range(self._staging_lanes)
+            ]
+        k = self._staging_idx
+        self._staging_idx = (k + 1) % self._staging_lanes
+        if self._staging_events[k] is not None:
+            self._staging_events[k].synchronize()
+            self._staging_events[k] = None
+        lane = self._staging[k]
+        with self._tel.span("buffer/stage"):
+            for name, dst in lane.items():
+                view = dst.numpy()
+                for i, flat in enumerate(rows):
+                    src = flat[name]
+                    view[i] = _to_f32(src) if _dtype_name(src) == BF16 else src
+        return lane
 
     def _alloc_slots(self, n: int) -> List[int]:
         """Up to ``n`` writable slots: free slots first, then the oldest

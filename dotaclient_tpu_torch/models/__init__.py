@@ -1,6 +1,6 @@
 """Policy model, action distribution and the Flax param bridge."""
 
-from dotaclient_tpu_torch.models.convert import convert, flax_param_shapes, random_flax_params
+from dotaclient_tpu_torch.models.convert import convert, flax_param_shapes, random_flax_params, to_flax
 from dotaclient_tpu_torch.models.policy import (
     Policy,
     dummy_obs_batch,
@@ -18,4 +18,5 @@ __all__ = [
     "make_policy",
     "mask_carry",
     "random_flax_params",
+    "to_flax",
 ]

@@ -10,6 +10,13 @@ The Flax tree (a nested dict of numpy arrays, with or without the
   (with bias) into ``core.wh [H, 4H]`` and ``core.b [4H]``, gate order
   i, f, g, o, which is the LSTM kernel's layout.
 
+``to_flax`` is the inverse: the port's state dict back to the Flax tree
+(``{"params": {...}}`` of f32 numpy arrays), its keys in the order a Flax
+``init_params`` tree has them (modules in call order, ``kernel`` before
+``bias``, the core's ``i<g>`` before ``h<g>`` gate by gate), because the
+weights frame's byte order follows the tree's (``flatten_tree``): the port's
+learner then publishes the JAX package's frames byte for byte at f32.
+
 ``flax_param_shapes`` gives the Flax tree's shapes from a config alone, and
 ``random_flax_params`` fills it from a seed with numpy, so a run on a machine
 without JAX can build the same kind of tree a checkpoint holds.
@@ -39,6 +46,11 @@ _DENSE = {
     ("target_query",): "target_query",
     ("head_value",): "head_value",
 }
+
+# the top level of a Flax ``init_params`` tree, in its order (the order the
+# modules are first called: trunk, core, target query, heads)
+_FLAX_ORDER = ("unit_encoder", "globals_proj", "hero_embed", "trunk_proj", "core", "target_query",
+               "head_action_type", "head_move_x", "head_move_y", "head_ability", "head_value")
 
 
 def _params_level(params: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -74,6 +86,40 @@ def convert(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out["core.wh"] = torch.cat([_f32(core[f"h{g}"]["kernel"]) for g in GATES], dim=1)
     out["core.b"] = torch.cat([_f32(core[f"h{g}"]["bias"]) for g in GATES])
     return out
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``Policy`` state dict -> the Flax param tree
+    (``{"params": {...}}``, f32 numpy leaves) in ``init_params``' key
+    order; ``head_value`` only where the state dict has it. Exactly the
+    inverse of :func:`convert` (a transpose and a split: no arithmetic)."""
+    sd = state_dict
+    H = sd["core.wh"].shape[0]
+    dense_of = {path: name for path, name in _DENSE.items()}
+    tree: Dict[str, Any] = {}
+    for top in _FLAX_ORDER:
+        if top == "unit_encoder":
+            tree[top] = {sub: {"kernel": _np32(sd[f"{dense_of[(top, sub)]}.weight"].T),
+                               "bias": _np32(sd[f"{dense_of[(top, sub)]}.bias"])}
+                         for sub in ("Dense_0", "Dense_1")}
+        elif top == "hero_embed":
+            tree[top] = {"embedding": _np32(sd["hero_embed.weight"])}
+        elif top == "core":
+            core: Dict[str, Any] = {}
+            for k, g in enumerate(GATES):
+                cols = slice(k * H, (k + 1) * H)
+                core[f"i{g}"] = {"kernel": _np32(sd["core.wx"][:, cols])}
+                core[f"h{g}"] = {"kernel": _np32(sd["core.wh"][:, cols]), "bias": _np32(sd["core.b"][cols])}
+            tree[top] = core
+        elif f"{top}.weight" in sd:
+            tree[top] = {"kernel": _np32(sd[f"{top}.weight"].T), "bias": _np32(sd[f"{top}.bias"])}
+        elif top != "head_value":
+            raise KeyError(f"state dict lacks {top}")
+    return {"params": tree}
 
 
 def flax_param_shapes(config: RunConfig, value_head: bool = True) -> Dict[str, Any]:

@@ -2,9 +2,10 @@
 fold into.
 
 A copy of the names of ``dotaclient_tpu/outcome/records.py`` that the
-device rollout and the learner use: the buckets, ``REWARD_TERMS``,
-``N_LEN_BUCKETS``, ``ensure_actor_metrics`` and ``fold_device_stats`` (with
-``add_reward_terms``), and ``counter_totals``, which the learner's
+device rollout, the host actor pool and the learner use: the buckets,
+``REWARD_TERMS``, ``N_LEN_BUCKETS``, ``opponent_bucket``, ``len_bucket``,
+``ensure_actor_metrics``, ``record_episode`` (a host pool's episode end),
+``fold_device_stats`` (with ``add_reward_terms``), and ``counter_totals``, which the learner's
 ``OutcomeAggregator`` (``outcome/aggregator.py``) reads. Counters live under ``outcome/`` in the telemetry
 registry with the reference's names. Episode length is counted in env steps
 and histogrammed into power-of-two buckets (bucket i covers [2^i, 2^(i+1)),
@@ -31,6 +32,22 @@ REWARD_TERMS = tuple(RewardConfig().as_dict())
 N_LEN_BUCKETS = 12
 
 
+def opponent_bucket(opponent: str) -> str:
+    """The bucket of a pool's games that are not anchor games, from the env
+    opponent mode."""
+    if opponent in ("scripted_easy", "scripted_hard"):
+        return "vs_scripted"
+    if opponent == "selfplay":
+        return "vs_selfplay"
+    return "vs_league"
+
+
+def len_bucket(ep_len_steps: float) -> int:
+    """The histogram bucket of one episode length (env steps)."""
+    n = max(int(ep_len_steps), 1)
+    return min(n.bit_length() - 1, N_LEN_BUCKETS - 1)
+
+
 def ensure_actor_metrics(reg: telemetry.Registry) -> None:
     """Create every actor-side outcome counter up front, so a snapshot
     carries the full (zeroed) set from the first one."""
@@ -44,6 +61,18 @@ def ensure_actor_metrics(reg: telemetry.Registry) -> None:
         reg.counter(f"outcome/ep_len_hist/{i:02d}")
     for term in REWARD_TERMS:
         reg.counter(f"outcome/reward_sum/{term}")
+
+
+def record_episode(reg: telemetry.Registry, bucket: str, won: bool, ep_len_steps: float,
+                   side: str = "radiant") -> None:
+    """One finished episode into the counters (once a game, the owner
+    lane's)."""
+    reg.counter(f"outcome/episodes/{bucket}").inc()
+    if won:
+        reg.counter(f"outcome/wins/{bucket}").inc()
+    reg.counter(f"outcome/episodes_side/{side}").inc()
+    reg.counter("outcome/ep_len_sum").inc(float(max(ep_len_steps, 0.0)))
+    reg.counter(f"outcome/ep_len_hist/{len_bucket(ep_len_steps):02d}").inc()
 
 
 def add_reward_terms(reg: telemetry.Registry, term_sums: Mapping[str, float]) -> None:

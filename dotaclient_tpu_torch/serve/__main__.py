@@ -22,8 +22,8 @@ dotaclient_tpu_torch.serve.router``, each started with
 re-homed.
 
 Accepted but not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: ``--subscribe shm://`` (queue 1, item 4, beside the learner's
-shm publisher), ``--trace-jsonl`` and ``--trace-sample`` (item 8),
+ROADMAP item: ``--subscribe shm://`` (queue 1, item 13, beside the
+learner's shm publisher), ``--trace-jsonl`` and ``--trace-sample`` (item 8),
 ``--fleet-interval`` (item 8).
 """
 
@@ -62,7 +62,7 @@ def main(argv=None) -> int:
     if args.fleet_interval is not None:
         raise NotImplementedError("--fleet-interval is not ported yet: ROADMAP queue 1, item 8")
     if args.subscribe and args.subscribe.startswith("shm://"):
-        raise NotImplementedError("--subscribe shm:// (the shm lane) is not ported yet: ROADMAP queue 1, item 4")
+        raise NotImplementedError("--subscribe shm:// (the shm lane) is not ported yet: ROADMAP queue 1, item 13")
 
     from dotaclient_tpu_torch.config import ServeConfig
     from dotaclient_tpu_torch.device import resolve_device

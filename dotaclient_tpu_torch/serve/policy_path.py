@@ -14,8 +14,7 @@ tensors), and agree bit for bit on the same params:
 * a published ``ModelWeights`` frame (``weights_frame_to_params``): frames
   carry the Flax layout JAX learners publish, so the frame is decoded (bf16
   wire leaves upcast exactly), converted (``models/convert.py``) and sliced.
-  The inverse, the port's params in the Flax layout for the port's own
-  learner to publish, waits for ROADMAP queue 1, item 4.
+  The port's learner publishes that layout too (``models.convert.to_flax``).
 """
 
 from __future__ import annotations

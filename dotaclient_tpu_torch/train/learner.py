@@ -5,15 +5,15 @@ actor=...)``, its training loops, the health guardian, the snapshot
 engine's boundaries, the run record, best-model rotation, ``train``'s
 return dict) and of its CLI. Run on the card::
 
-    python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused]
-        [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
+    python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused|vec|external]
+        [--transport inproc|socket] [--listen HOST:PORT] [--refresh-every N] [--overlap] [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
         [--league K=V,...] [--ppo K=V,...] [--reward K=V,...] [--serve K=V,...] [--buffer K=V,...]
         [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
         [--init-from DIR]
 
-Two actor modes, ``device`` the default as in the reference:
+Four actor modes, ``device`` the default as in the reference:
 
 * ``device``, the buffered learner: each iteration ``DeviceActor.collect``
   rolls out every game on the card, ``TrajectoryBuffer.add_device`` puts
@@ -23,7 +23,23 @@ Two actor modes, ``device`` the default as in the reference:
   x minibatches`` updates (``_optimize``: one epoch-step call), the
   minibatch permutations drawn on the host from ``default_rng(seed + 1)``;
 * ``fused``: one call of ``train/fused.py`` a loop iteration, rollout and
-  update on the same chunk.
+  update on the same chunk;
+* ``vec``: an in-process host pool (``actor/vec_runtime.py``: the numpy
+  simulator, the policy step on the card) whose decoded chunks go through a
+  bounded deque (``4 x capacity_rollouts``, drop-oldest) into the ring's
+  host-row ``add``; the loop alternates a pool phase of ``rollout_len``
+  steps with the updates, or with ``overlap`` runs the pool on its own
+  thread (the staleness filter and version tags then do real work). The
+  pool plays the learner's params, pushed behind the health gate
+  (``_push_pool_params``) every ``refresh_every`` batches;
+* ``external``: no actors in process. ``python -m
+  dotaclient_tpu_torch.actor`` processes feed a ``TransportServer``
+  (``--transport socket --listen HOST:PORT``); ``_ingest_impl`` drains it
+  decoded (``consume_decoded``, with the wire byte accounting) into the
+  ring, and the weights go out every ``refresh_every`` batches in the Flax
+  layout (``encode_weights(to_flax(...))``), so a JAX actor reads them too.
+  Fleet snapshot frames go to the ``FleetAggregator``, whose thread starts
+  in this mode.
 
 Around both loops, as in the reference: the health guardian
 (``train/health.py``; every batch's verdict tensors are queued with no
@@ -65,13 +81,12 @@ past selves (``league/pool.py``): snapshots every ``snapshot_every`` steps,
 draws held for ``opponent_hold`` steps, and PFSP outcomes read in one
 batch at a log boundary or the end of ``train``.
 
-Not ported yet, each with its ROADMAP item: the ``vec``, ``scalar`` and
-``external`` actor modes and the learner's transports (queue 1, items 4b
-and 4c; the in-process transport is here), the weights pushes to
-in-process host pools (with the ``vec`` mode), the transformer and MoE
-cores (item 6), the mesh (item 7), the trace plane and the fleet
-fanout (item 8) and the JAX debug and cache flags (item 12). Their CLI
-flags are accepted and raise ``NotImplementedError`` naming the item.
+Not ported yet, each with its ROADMAP item: the ``scalar`` actor mode
+(queue 1, item 4c), the shm and AMQP transports and the narrow wires
+(item 13), the transformer and MoE cores (item 6), the mesh (item 7), the
+trace plane and the fleet fanout (item 8) and the JAX debug and cache flags
+(item 12). Their CLI flags are accepted and raise ``NotImplementedError``
+naming the item.
 """
 
 from __future__ import annotations
@@ -85,12 +100,14 @@ import signal
 import sys
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, flatten_state, unflatten_state
+from dotaclient_tpu_torch.actor.vec_runtime import VecActorPool
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
 from dotaclient_tpu_torch.config import (
     BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, PPOConfig, RewardConfig, RunConfig, ServeConfig,
@@ -98,6 +115,7 @@ from dotaclient_tpu_torch.config import (
 )
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
 from dotaclient_tpu_torch.league.pool import LIVE, OpponentPool
+from dotaclient_tpu_torch.models.convert import to_flax
 from dotaclient_tpu_torch.models.policy import init_params, make_policy
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.outcome.aggregator import OutcomeAggregator
@@ -107,7 +125,8 @@ from dotaclient_tpu_torch.train.health import VERDICT_KEYS, HealthMonitor
 from dotaclient_tpu_torch.train.ppo import init_train_state, make_epoch_step, make_train_step
 from dotaclient_tpu_torch.train.snapshot import SnapshotEngine, device_copy
 from dotaclient_tpu_torch.transport.queues import InProcTransport
-from dotaclient_tpu_torch.transport.serialize import encode_weights
+from dotaclient_tpu_torch.transport.socket_transport import TransportServer
+from dotaclient_tpu_torch.transport.serialize import decode_rollout, encode_weights
 from dotaclient_tpu_torch.utils import faults, telemetry, tracing, utilization
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager, shape_mismatches
 from dotaclient_tpu_torch.utils.fleet import FleetAggregator
@@ -118,9 +137,7 @@ from dotaclient_tpu_torch.utils.profiling import trace
 ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
 # actor modes of the reference learner that the port does not have yet
 _NOT_PORTED = {
-    "vec": "ROADMAP queue 1, item 4b (external actors and the learner's transports)",
     "scalar": "ROADMAP queue 1, item 4c (the scalar path)",
-    "external": "ROADMAP queue 1, item 4b (external actors and the learner's transports)",
 }
 
 
@@ -128,11 +145,14 @@ class Learner:
     """Params from ``init_params`` with ``seed`` (or, with ``restore``, the
     newest valid checkpoint in ``checkpoint_dir``, pipeline included; or,
     with ``init_from``, the weights alone of the newest valid checkpoint in
-    that other directory), one device actor over ``config.env.n_envs``
-    games, and the ``actor`` mode's loop: ``device`` (the buffered learner)
-    or ``fused``. ``logdir`` and ``metrics_jsonl`` add the tensorboardX and
-    JSONL sinks to the run record; ``close`` lands the pending checkpoint
-    writes and closes the record."""
+    that other directory), the ``actor`` mode's actors (a device actor over
+    ``config.env.n_envs`` games for ``device`` and ``fused``, a host pool
+    for ``vec``, none for ``external``) and its loop. ``transport`` carries
+    the experience and the weights (an ``InProcTransport`` when None;
+    ``external`` needs one, such as a ``TransportServer``). ``logdir`` and
+    ``metrics_jsonl`` add the tensorboardX and JSONL sinks to the run
+    record; ``close`` lands the pending checkpoint writes and closes the
+    record (the caller closes the transport it gave)."""
 
     def __init__(
         self,
@@ -146,6 +166,7 @@ class Learner:
         init_from: Optional[str] = None,
         logdir: Optional[str] = None,
         metrics_jsonl: Optional[str] = None,
+        transport: Any = None,
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
@@ -156,12 +177,15 @@ class Learner:
         if config.steps_per_dispatch > 1 and actor != "fused":
             raise ValueError("steps_per_dispatch > 1 batches iterations inside the fused step; it has no meaning "
                              "for the buffered learner: use actor='fused' or leave it at 1")
-        if actor == "device" and config.ppo.batch_rollouts % max(1, config.ppo.minibatches):
+        if actor == "external" and transport is None:
+            raise ValueError("the external actor mode needs a transport (a TransportServer) for the actor "
+                             "processes to reach")
+        if actor != "fused" and config.ppo.batch_rollouts % max(1, config.ppo.minibatches):
             raise ValueError(f"batch_rollouts {config.ppo.batch_rollouts} not divisible by minibatches "
                              f"{config.ppo.minibatches}")
         league_on = config.league.enabled or config.env.opponent == "league"
         stride = config.steps_per_dispatch * config.ppo.steps_per_batch
-        if league_on and stride > config.league.opponent_hold:
+        if league_on and actor in ("device", "fused") and stride > config.league.opponent_hold:
             # the opponent is redrawn only between calls, so a shorter hold
             # would silently stretch to the stride
             raise ValueError(
@@ -212,8 +236,27 @@ class Learner:
         if config.env.opponent == "league":
             self.league = OpponentPool(config.league, seed=seed)
             self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, 0)
-        self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
-                                        device=self.device)
+        self.transport = transport if transport is not None else InProcTransport(registry=self.registry)
+        # the vec pool's chunks reach the ring through a bounded deque
+        # (drop-oldest: with overlap the pool free-runs past the learner)
+        self._sink: Optional[deque] = deque(maxlen=4 * config.buffer.capacity_rollouts) if actor == "vec" else None
+        self.device_actor: Optional[DeviceActor] = None
+        self.vec_pool: Optional[VecActorPool] = None
+        if actor in ("device", "fused"):
+            self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
+                                            device=self.device)
+        elif actor == "vec":
+            self.vec_pool = VecActorPool(config, self.policy, self._actor_params_copy(), seed=seed,
+                                         version=self.state.version, rollout_sink=self._sink.extend,
+                                         device=self.device, registry=self.registry)
+            if self.league is not None:
+                self.vec_pool.set_opponent(*self.league.sample_indexed(self._actor_params_copy(), 0)[:2])
+                if config.league.matchmaking == "pfsp":
+                    print("WARNING: PFSP matchmaking needs per-draw outcomes, which only the device and fused "
+                          "loops attribute; host-pool league draws keep the 0.5 prior and behave as uniform",
+                          flush=True)
+        # the actors' shared surface (stats, drain_stats): None in external
+        self.pool = self.device_actor if self.device_actor is not None else self.vec_pool
         self.fused_step = None
         self.train_step = self.epoch_step = self.advantage_pass = None
         self.buffer: Optional[TrajectoryBuffer] = None
@@ -233,7 +276,6 @@ class Learner:
         reg.gauge("advantage/pass_ms")
         reg.gauge("advantage/overlap_fraction")
         reg.counter("advantage/passes_total")
-        self.transport = InProcTransport(registry=self.registry)
         self._health: Optional[HealthMonitor] = None
         if config.health.enabled:
             self._health = HealthMonitor(config.health, registry=self.registry)
@@ -249,7 +291,8 @@ class Learner:
         self._snap_engine: Optional[SnapshotEngine] = None
         if config.learner.async_snapshots:
             self._snap_engine = SnapshotEngine(transport=self.transport, wire_dtype=config.transport.wire_dtype,
-                                               ckpt=self.ckpt, registry=self.registry, health=self._health)
+                                               ckpt=self.ckpt, registry=self.registry, health=self._health,
+                                               layout=to_flax)
         for key in ("learner/publish_stall_ms", "learner/stall_fraction", "snapshot/pending", "snapshot/d2h_ms"):
             reg.gauge(key)
         self._stall_s = 0.0   # train-thread seconds spent at boundaries
@@ -262,7 +305,12 @@ class Learner:
         outcome_records.ensure_actor_metrics(self.registry)
         self.outcome = OutcomeAggregator(registry=self.registry)
         self.fleet.add_tick_hook(self.outcome.tick)
+        if hasattr(self.transport, "metrics_handler"):
+            self.transport.metrics_handler = self.fleet.ingest
         self._fleet_started = False
+        if actor == "external" and telemetry.fleet_interval_s > 0:
+            self.fleet.start()
+            self._fleet_started = True
         self._util = utilization.make_learner(self.registry)
         self._mb_rng = np.random.default_rng(config.seed + 1)
         self._mb_draws = 0     # permutations drawn (replayed on restore)
@@ -282,6 +330,9 @@ class Learner:
         # host work then overlaps the card's
         self._dispatch_inflight = False
         self._stop_requested = False
+        self._poll_timeout = config.buffer.consume_poll_timeout_s
+        # the loop options of the running train call
+        self._refresh_every, self._overlap, self._actor_steps, self._midrun_every = 1, False, 0, 0
         self._faults = faults.get()   # None unless fault injection is on
         self._last_metrics: Dict[str, float] = {}
         # each log boundary's scalars, as logged before the registry's
@@ -449,9 +500,32 @@ class Learner:
         self._submit_health(m)
         return m
 
-    def _next_batch(self) -> Optional[Dict[str, Any]]:
+    def _ingest(self) -> int:
+        with self.registry.span("learner/consume"):
+            return self._ingest_impl()
+
+    def _ingest_impl(self) -> int:
+        """Move the ready chunks into the ring: the vec pool's deque, else a
+        drain of the transport (decoded by ``consume_decoded`` where the
+        transport has it, with the wire byte accounting), waiting at most
+        ``buffer.consume_poll_timeout_s`` on an empty one. Returns the
+        chunks kept."""
+        cap = self.config.buffer.capacity_rollouts
+        if self._sink is not None:
+            rollouts = []
+            while self._sink and len(rollouts) < cap:
+                rollouts.append(self._sink.popleft())
+            return self.buffer.add(rollouts, self.state.version) if rollouts else 0
+        if hasattr(self.transport, "consume_decoded"):
+            rollouts = self.transport.consume_decoded(cap, timeout=self._poll_timeout)
+            return self.buffer.add(rollouts, self.state.version) if rollouts else 0
+        protos = self.transport.consume_rollouts(cap, timeout=self._poll_timeout)
+        return self.buffer.add([decode_rollout(r) for r in protos], self.state.version) if protos else 0
+
+    def _next_batch(self, drain_transport: bool = True) -> Optional[Dict[str, Any]]:
         """The batch staged behind the previous update if there is one
-        (its held slots released), else a take from the ring now; with its
+        (its held slots released), else an ingest (with
+        ``drain_transport``) and a take from the ring now; with its
         advantages attached. None when the ring cannot give a batch."""
         batch, self._prefetched = self._prefetched, None
         if batch is not None:
@@ -460,6 +534,8 @@ class Learner:
             self._prefetch_hits += 1
             return self._attach_advantages(batch)
         t0 = time.perf_counter()
+        if drain_transport:
+            self._ingest()
         batch = self.buffer.take(current_version=self.state.version)
         dt = time.perf_counter() - t0
         # a productive take is staging; an empty one, the ring below
@@ -471,15 +547,18 @@ class Learner:
         self._prefetch_misses += 1
         return self._attach_advantages(batch)
 
-    def _prefetch_next(self) -> None:
-        """Take batch N+1 while batch N's updates run on the card: its
-        slots are held (an ingest can neither evict nor overwrite them),
-        and with ``learner.overlap_advantage`` its advantage pass is issued
-        now, behind the updates, so it reads their output params, the
-        params its first update trains from."""
+    def _prefetch_next(self, drain_transport: bool = True) -> None:
+        """Ingest (with ``drain_transport``) and take batch N+1 while batch
+        N's updates run on the card: its slots are held (an ingest can
+        neither evict nor overwrite them), and with
+        ``learner.overlap_advantage`` its advantage pass is issued now,
+        behind the updates, so it reads their output params, the params its
+        first update trains from."""
         if self._prefetched is not None or self.buffer is None:
             return
         t0 = time.perf_counter()
+        if drain_transport:
+            self._ingest()
         taken = self.buffer.take(current_version=self.state.version, hold=True)
         dt = time.perf_counter() - t0
         if taken is None:
@@ -541,8 +620,10 @@ class Learner:
         first so the ring holds every unconsumed chunk."""
         self._flush_prefetch()
         out: Dict[str, Any] = {"buffer": self.buffer.state_dict()} if self.buffer is not None else {}
-        out["actor_leaves"] = {f"{i:04d}": leaf for i, leaf in enumerate(flatten_state(self.device_actor.state))}
-        out["actor_rng"] = self.device_actor.generator.get_state()
+        if self.device_actor is not None:
+            out["actor_leaves"] = {f"{i:04d}": leaf
+                                   for i, leaf in enumerate(flatten_state(self.device_actor.state))}
+            out["actor_rng"] = self.device_actor.generator.get_state()
         out["mb_draws"] = torch.tensor(self._mb_draws, dtype=torch.int64)
         return out
 
@@ -556,10 +637,10 @@ class Learner:
         if self.buffer is not None and "buffer" in restored:
             self.buffer.load_state_dict(restored["buffer"])
         da = self.device_actor
-        if "actor_leaves" in restored:
+        if da is not None and "actor_leaves" in restored:
             leaves = [restored["actor_leaves"][k] for k in sorted(restored["actor_leaves"])]
             da.state = unflatten_state(da.state, [t.to(self.device) for t in leaves])
-        if "actor_rng" in restored:
+        if da is not None and "actor_rng" in restored:
             da.generator.set_state(restored["actor_rng"])
         if "mb_draws" in restored:
             # replay the seeded shuffle stream to its saved position
@@ -649,7 +730,12 @@ class Learner:
         if self.buffer is not None:
             self._flush_prefetch()
             self.buffer.drop_newer_than(restored_version)
-        self.device_actor.reset_recurrent()
+        # carries computed by the poisoned params must not leak into the
+        # restored run
+        if self.device_actor is not None:
+            self.device_actor.reset_recurrent()
+        elif self.vec_pool is not None:
+            self.vec_pool.set_params(self._actor_params_copy(), self.state.version)
         # a distinct minibatch stream: the retry must not replay the one
         # that diverged
         self._mb_rng = np.random.default_rng(self.config.seed + 1 + 7919 * self._rollback_count)
@@ -671,11 +757,38 @@ class Learner:
         return {"step": self.state.step, "version": self.state.version, "params": self.policy.state_dict(),
                 "opt_state": self.state.optimizer.state_dict()}
 
+    def _actor_params_copy(self) -> Dict[str, torch.Tensor]:
+        """A device-to-device copy of the params for an in-process pool:
+        the optimizer updates the live tensors in place."""
+        return {k: v.detach().clone() for k, v in self.policy.state_dict().items()}
+
+    def _push_pool_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Give the vec pool ``params`` behind the publishes' health gate:
+        a latched-unhealthy monitor blocks the push
+        (``health/publish_blocked_total``), so in-process actors keep the
+        last good params too."""
+        if self._health is not None:
+            if self._snap_engine is None:
+                self._sync_fold_latest()
+            if self._health.unhealthy is not None:
+                self.registry.counter("health/publish_blocked_total").inc()
+                return
+        self.vec_pool.set_params(params, self.state.version)
+
+    def _refresh_league_opponent(self) -> None:
+        """Snapshot if due and redraw the vec pool's frozen opponent (the
+        device actor draws at every collect instead)."""
+        if self.league is None or self.vec_pool is None:
+            return
+        self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, self.state.step)
+        params, version, _ = self.league.sample_indexed(self._actor_params_copy(), self.state.version)
+        self.vec_pool.set_opponent(params, version)
+
     def _publish_weights(self) -> None:
         """Hand the params to the transport's weights fanout behind the
-        health gate. Async: an on-device clone, the engine does the rest;
-        sync (``--sync-snapshots``): the read, the encode and the publish
-        here."""
+        health gate, in the Flax layout (``to_flax``). Async: an on-device
+        clone, the engine does the rest; sync (``--sync-snapshots``): the
+        read, the encode and the publish here."""
         t0 = time.perf_counter()
         if self._snap_engine is not None:
             # verdicts for every step <= this version reach the engine first
@@ -686,7 +799,7 @@ class Learner:
             if self._health is not None and self._health.unhealthy is not None:
                 self.registry.counter("health/publish_blocked_total").inc()
             else:
-                host = {k: v.detach().cpu() for k, v in self.policy.state_dict().items()}
+                host = to_flax(self.policy.state_dict())
                 with self.registry.span("transport/publish_weights"):
                     self.transport.publish_weights(
                         encode_weights(host, self.state.version, wire_dtype=self.config.transport.wire_dtype))
@@ -753,14 +866,19 @@ class Learner:
         sync, everything is read here."""
         step, da = self.state.step, self.device_actor
         if self._snap_engine is not None:
-            s_dev, s_fin = da.begin_drain()
-            self._snap_engine.submit_stats(device_copy(s_dev, clone=False), s_fin)
+            if da is not None:
+                s_dev, s_fin = da.begin_drain()
+                self._snap_engine.submit_stats(device_copy(s_dev, clone=False), s_fin)
+            elif self.vec_pool is not None:
+                # a host pool's window is host floats already
+                host_extra = {**host_extra, **self.vec_pool.drain_stats()}
             best_win = self._best_win   # read here: the train thread owns it
 
             def finish(host: Dict[str, Any]) -> None:
                 scalars = {k: float(v) for k, v in host["m"].items()}
-                # host-only: the drain submitted above folded first
-                scalars.update(da.stats())
+                if da is not None:
+                    # host-only: the drain submitted above folded first
+                    scalars.update(da.stats())
                 if not self._fleet_started:
                     self.outcome.tick()
                 scalars.update(host_extra)
@@ -774,7 +892,8 @@ class Learner:
             return
         with self.registry.span("learner/metrics_fetch"):
             scalars = {k: float(v) for k, v in m.items()}
-            scalars.update(da.drain_stats())
+            if self.pool is not None:
+                scalars.update(self.pool.drain_stats())
         # the read waited for the updates issued so far
         self._dispatch_inflight = False
         if self._health is not None:
@@ -789,12 +908,14 @@ class Learner:
 
     def _publish_pipeline_gauges(self) -> None:
         """The cross-stage gauges of a log boundary, host values only: the
-        actor's weight staleness (0: the device actor plays the learner's
-        live params), the transport's queue depth, the prefetch lane's hit
+        actor's weight staleness (the vec pool's versions behind; 0 for the
+        device actor, which plays the live params, and in external mode),
+        the transport's queue depth, the prefetch lane's hit
         rate and overlap fraction, the advantage pass's overlap fraction,
         the memory peak, the outcome tick and the utilization fold."""
         reg = self.registry
-        reg.gauge("actor/weight_staleness").set(0.0)
+        reg.gauge("actor/weight_staleness").set(
+            float(self.state.version - self.vec_pool.version) if self.vec_pool is not None else 0.0)
         reg.gauge("transport/queue_depth").set(float(self.transport.pending_rollouts))
         served = self._prefetch_hits + self._prefetch_misses
         if served:
@@ -826,7 +947,10 @@ class Learner:
 
     def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
         """The boundary work of one loop iteration; returns the optimizer
-        steps a rollback rewound (0 when healthy)."""
+        steps a rollback rewound (0 when healthy). With ``_midrun_every``
+        > 0 (the device and fused loops on a transport other than the
+        in-process one, whose readers are out of process) the weights are
+        published every that many strides."""
         cfg = self.config
         self._frames_trained += frames
         step = self.state.step
@@ -852,18 +976,23 @@ class Learner:
             self._stall_s += time.perf_counter() - t0
             self.registry.gauge("learner/stall_fraction").set(
                 self._stall_s / max(time.time() - self._t_start, 1e-9))
+        if self._midrun_every and step % (self._midrun_every * stride) < stride:
+            self._publish_weights()
         return self._maybe_rollback()
 
     # -- the loops ---------------------------------------------------------------
 
     def _run_mode_loop(self, num_steps: int) -> None:
         """The mode's loop until ``num_steps`` optimizer steps are done or
-        a stop is requested."""
+        a stop is requested, with the options ``train`` set
+        (``_refresh_every``, ``_overlap``, ``_actor_steps``)."""
         cfg = self.config
         da = self.device_actor
+        epochs = cfg.ppo.steps_per_batch
+        refresh_every = self._refresh_every
         if self.fused_step is not None:
             k_iters = cfg.steps_per_dispatch
-            stride = cfg.ppo.steps_per_batch * k_iters
+            stride = epochs * k_iters
             frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
             while self._steps_done < num_steps and not self._stop_requested:
                 opp_params, opp_uid = self._league_opponent()
@@ -878,21 +1007,91 @@ class Learner:
                 self._steps_done += stride
                 self._steps_done -= self._after_step(m, frames_per, stride)
             return
-        epochs = cfg.ppo.steps_per_batch
         frames_per = cfg.ppo.batch_rollouts * cfg.ppo.rollout_len
+        if da is not None:
+            while self._steps_done < num_steps and not self._stop_requested:
+                opp_params, opp_uid = self._league_opponent()
+                chunk, chunk_stats = da.collect(self.policy, opp_params if opp_params is not None else self.policy)
+                self._report_league(opp_uid, chunk_stats)
+                self.buffer.add_device(chunk, self.state.version)
+                while (batch := self._next_batch(drain_transport=False)) is not None:
+                    m = self._optimize(batch)
+                    if self._steps_done + epochs < num_steps:
+                        # a batch staged behind the final update could never be
+                        # trained on
+                        self._prefetch_next(drain_transport=False)
+                    self._steps_done += epochs
+                    self._steps_done -= self._after_step(m, frames_per, epochs)
+                    if self._steps_done >= num_steps or self._stop_requested:
+                        break
+            return
+
+        def train_one(batch: Dict[str, Any]) -> None:
+            m = self._optimize(batch)
+            if self._steps_done + epochs < num_steps:
+                self._prefetch_next()
+            self._steps_done += epochs
+            self._steps_done -= self._after_step(m, frames_per, epochs)
+
+        def refresh_due() -> bool:
+            return bool(refresh_every) and (self._steps_done // epochs) % refresh_every == 0
+
+        if self.vec_pool is None:
+            # external: the actors are other processes; this loop trains and
+            # publishes, the transport drain riding the prefetch lane
+            self._publish_weights()
+            while self._steps_done < num_steps and not self._stop_requested:
+                batch = self._next_batch()
+                if batch is None:
+                    time.sleep(0.005)
+                    self._util.phase("ingest_wait", 0.005)
+                    continue
+                train_one(batch)
+                if refresh_due():
+                    self._publish_weights()
+            return
+        pool = self.vec_pool
+        if self._overlap:
+            stop = threading.Event()
+            actor_error: List[BaseException] = []
+
+            def actor_loop() -> None:
+                try:
+                    while not stop.is_set():
+                        pool.step()
+                except BaseException as e:  # noqa: BLE001 - surfaced on the train thread
+                    actor_error.append(e)
+
+            pool.set_params(self._actor_params_copy(), self.state.version)
+            thread = threading.Thread(target=actor_loop, name="actor", daemon=True)
+            thread.start()
+            try:
+                while self._steps_done < num_steps and not self._stop_requested:
+                    if actor_error:
+                        raise RuntimeError("the actor thread died; the learner cannot make progress") \
+                            from actor_error[0]
+                    batch = self._next_batch()
+                    if batch is None:
+                        time.sleep(0.002)
+                        self._util.phase("ingest_wait", 0.002)
+                        continue
+                    train_one(batch)
+                    if refresh_due():
+                        self._push_pool_params(self._actor_params_copy())
+                        self._refresh_league_opponent()
+            finally:
+                stop.set()
+                thread.join(timeout=30.0)
+            return
         while self._steps_done < num_steps and not self._stop_requested:
-            opp_params, opp_uid = self._league_opponent()
-            chunk, chunk_stats = da.collect(self.policy, opp_params if opp_params is not None else self.policy)
-            self._report_league(opp_uid, chunk_stats)
-            self.buffer.add_device(chunk, self.state.version)
+            # the actor phase plays the live params: it runs to its end on
+            # this thread before the next update changes them
+            self._push_pool_params(self.policy.state_dict())
+            self._refresh_league_opponent()
+            pool.run(self._actor_steps, refresh_every=0)
+            self._ingest()
             while (batch := self._next_batch()) is not None:
-                m = self._optimize(batch)
-                if self._steps_done + epochs < num_steps:
-                    # a batch staged behind the final update could never be
-                    # trained on
-                    self._prefetch_next()
-                self._steps_done += epochs
-                self._steps_done -= self._after_step(m, frames_per, epochs)
+                train_one(batch)
                 if self._steps_done >= num_steps or self._stop_requested:
                     break
 
@@ -915,7 +1114,8 @@ class Learner:
         the exact stop step with the whole pipeline, waited for: a failed
         write raises here. The forced save is never health-blocked, but
         only a verdict-clean state is marked good."""
-        self._maybe_save_best(self.device_actor.drain_stats())
+        if self.pool is not None:
+            self._maybe_save_best(self.pool.drain_stats())
         self._flush_league_reports()
         self._publish_weights()
         self._drain_snapshots()
@@ -925,18 +1125,30 @@ class Learner:
                            mark_good=self._health is not None and self._health.unhealthy is None)
             self.ckpt.wait()
 
-    def train(self, num_steps: int) -> Dict[str, float]:
+    def train(self, num_steps: int, actor_steps_per_iter: Optional[int] = None, overlap: bool = False,
+              refresh_every: int = 1) -> Dict[str, float]:
         """Run until ``num_steps`` optimizer steps have completed (rounded
         up to whole batches or fused calls; a rollback's rewound steps are
         trained again), or until ``request_stop``. Returns the last logged
-        metrics, the actor's stats (``actor_*``), ``optimizer_steps``,
+        metrics, the actors' stats (``actor_*``), ``optimizer_steps``,
         ``frames_trained``, ``frames_per_sec`` and ``elapsed_sec``.
-        Weights are published once, at the end: the in-process transport
-        has no reader in this process before then. The run record gets its
-        closing line."""
+
+        ``refresh_every``: batches between weights publishes (``external``;
+        and the device and fused loops on a transport other than the
+        in-process one) or pushes to the vec pool (``vec`` with
+        ``overlap``). ``overlap`` runs the vec pool on its own thread;
+        without it a pool phase of ``actor_steps_per_iter`` steps
+        (``rollout_len`` by default) alternates with the updates. The final
+        weights are published at the end. The run record gets its closing
+        line."""
         self._t_start = time.time()
         self._frames_trained = self._steps_done = 0
         self._stall_s = 0.0
+        self._refresh_every, self._overlap = refresh_every, overlap
+        self._actor_steps = actor_steps_per_iter or self.config.ppo.rollout_len
+        # the device and fused loops publish mid-run only to readers out of
+        # process: the in-process transport has none
+        self._midrun_every = 0 if isinstance(self.transport, InProcTransport) else refresh_every
         self._run_mode_loop(num_steps)
         while True:
             rewound = self._settle()
@@ -946,7 +1158,7 @@ class Learner:
             self._run_mode_loop(num_steps)
         self._seal()
         elapsed = time.time() - self._t_start
-        actor_stats = self.device_actor.stats()
+        actor_stats = self.pool.stats() if self.pool is not None else {}
         out = {
             **self._last_metrics,
             **{f"actor_{k}": v for k, v in actor_stats.items()},
@@ -987,7 +1199,7 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_4B = "ROADMAP queue 1, item 4b (external actors and the learner's transports)"
+_ITEM_13 = "ROADMAP queue 1, item 13 (the shm lane, AMQP and the narrow wire)"
 _ITEM_6 = "ROADMAP queue 1, item 6 (transformer and MoE cores)"
 _ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
 _ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
@@ -1002,13 +1214,10 @@ _NOT_PORTED_FLAGS = (
     ("--multihost", {"action": "store_true"}, _ITEM_7),
     ("--dcn-slices", {"type": int}, _ITEM_7),
     ("--model-parallel", {"type": int}, _ITEM_7),
-    ("--listen", {"type": str}, _ITEM_4B),
-    ("--shm-name", {"type": str}, _ITEM_4B),
-    ("--amqp-host", {"type": str}, _ITEM_4B),
-    ("--wire-dtype", {"type": str}, _ITEM_4B),
-    ("--rollout-wire-dtype", {"type": str}, _ITEM_4B),
-    ("--refresh-every", {"type": int}, _ITEM_4B),
-    ("--overlap", {"action": "store_true"}, _ITEM_4B),
+    ("--shm-name", {"type": str}, _ITEM_13),
+    ("--amqp-host", {"type": str}, _ITEM_13),
+    ("--wire-dtype", {"type": str}, _ITEM_13),
+    ("--rollout-wire-dtype", {"type": str}, _ITEM_13),
     ("--no-vec", {"action": "store_true"}, "ROADMAP queue 1, item 4c (the scalar path)"),
     ("--trace-jsonl", {"type": str}, _ITEM_8),
     ("--trace-sample", {"type": int}, _ITEM_8),
@@ -1067,12 +1276,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sync-snapshots", action="store_true",
                    help="run the weights publish, periodic checkpoints and log-boundary reads on the train "
                    "thread instead of the snapshot engine's (learner async_snapshots=false)")
-    p.add_argument("--actor", type=str, default="device", choices=ACTOR_MODES,
+    p.add_argument("--actor", type=str, default=None, choices=ACTOR_MODES,
                    help="device: the buffered learner over the on-device rollout (default); fused: rollout "
-                   "and update on the same chunk in one step")
+                   "and update on the same chunk in one step; vec: an in-process host actor pool; external: "
+                   "actor processes (python -m dotaclient_tpu_torch.actor) over --transport socket")
     p.add_argument("--transport", type=str, default="inproc", choices=("inproc", "socket", "shm", "amqp"),
-                   help="the weights and experience transport: inproc only (socket, shm and amqp: " + _ITEM_4B
-                   + ")")
+                   help="the weights and experience transport: socket listens for actor processes on "
+                   "--listen and implies --actor external (shm and amqp: " + _ITEM_13 + ")")
+    p.add_argument("--listen", type=str, default="127.0.0.1:7777", help="HOST:PORT for --transport socket")
+    p.add_argument("--refresh-every", type=int, default=10,
+                   help="publish the weights to the actors every N batches")
+    p.add_argument("--overlap", action="store_true",
+                   help="with --actor vec: run the actor pool on its own thread")
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", type=str, default=None,
@@ -1097,8 +1312,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     for flag, _, item in _NOT_PORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
-    if args.transport != "inproc":
-        raise NotImplementedError(f"--transport {args.transport} is not ported yet: {_ITEM_4B}")
+    if args.transport in ("shm", "amqp"):
+        raise NotImplementedError(f"--transport {args.transport} is not ported yet: {_ITEM_13}")
+    if args.actor is None:
+        args.actor = "external" if args.transport != "inproc" else "device"
 
     config = default_config()
     if args.smoke:
@@ -1131,9 +1348,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)
 
-    learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
-                      checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,
-                      logdir=args.logdir, metrics_jsonl=args.metrics_jsonl)
+    transport = None
+    if args.transport == "socket":
+        host, port = args.listen.rsplit(":", 1)
+        t = config.transport
+        transport = TransportServer(host, int(port), fanout_max_lag=t.fanout_max_lag,
+                                    poison_frame_limit=t.poison_frame_limit,
+                                    heartbeat_interval_s=t.heartbeat_interval_s, idle_timeout_s=t.idle_timeout_s)
+        print(f"learner: listening for actors on {transport.address}", flush=True)
+    try:
+        learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
+                          checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,
+                          logdir=args.logdir, metrics_jsonl=args.metrics_jsonl, transport=transport)
+    except BaseException:
+        if transport is not None:
+            transport.close()
+        raise
 
     # the first SIGTERM or SIGINT drains: the loop stops at its next step
     # boundary and the end of train saves the whole pipeline; the handler
@@ -1153,7 +1383,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         pass  # not the main thread: signals stay with the embedding program
     try:
         with trace(args.profile):
-            out = learner.train(args.steps)
+            out = learner.train(args.steps, overlap=args.overlap, refresh_every=args.refresh_every)
     except BaseException as e:
         if args.on_crash_checkpoint and not isinstance(e, (KeyboardInterrupt, SystemExit)) \
                 and learner.ckpt is not None:
@@ -1161,6 +1391,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise
     finally:
         learner.close()
+        if transport is not None:
+            transport.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
     print(f"done: {out['optimizer_steps']:.0f} steps, {out['frames_trained']:.0f} frames, "

@@ -100,11 +100,15 @@ def device_copy(tree: Any, clone: bool = True) -> DeviceCopy:
 
 class SnapshotEngine:
     """One background thread, three latest-wins job slots and a stats
-    backlog."""
+    backlog. ``layout`` maps the fetched params to the tree the weights
+    frame carries (the learner gives ``models.convert.to_flax``, the
+    reference's layout); by default they are encoded as fetched."""
 
     def __init__(self, transport: Any = None, wire_dtype: str = "float32", ckpt: Any = None,
-                 registry: Optional[telemetry.Registry] = None, health: Any = None) -> None:
+                 registry: Optional[telemetry.Registry] = None, health: Any = None,
+                 layout: Optional[Callable[[Any], Any]] = None) -> None:
         self._transport = transport
+        self._layout = layout
         self._wire_dtype = wire_dtype
         self._ckpt = ckpt
         self._health = health
@@ -271,6 +275,8 @@ class SnapshotEngine:
         from dotaclient_tpu_torch.transport.serialize import encode_weights
 
         host = self._fetch(params)
+        if self._layout is not None:
+            host = self._layout(host)
         msg = encode_weights(host, version, wire_dtype=self._wire_dtype)
         with self._tel.span("transport/publish_weights"):
             self._transport.publish_weights(msg)

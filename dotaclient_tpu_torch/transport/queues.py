@@ -7,7 +7,7 @@ work queue, each rollout consumed by exactly one learner, bounded with
 drop-oldest so an actor never blocks on a slow learner; weights are a
 fanout with replacement, a reader only ever wants the latest version.
 Protos pass by reference, never serialized to bytes. ``AmqpTransport``
-comes with the learner's transports (ROADMAP queue 1, item 4b).
+waits for ROADMAP queue 1, item 13.
 """
 
 from __future__ import annotations

@@ -15,15 +15,22 @@ integer ops on the f32 bits (a NaN becomes the quiet NaN of its sign,
 0x7FC0 or 0xFFC0); bf16 -> f32 is the exact 16-bit shift. Both match
 ``ml_dtypes`` bit for bit, subnormals included.
 
-Not ported here, each waiting for the learner's ingest (ROADMAP queue 1,
-item 4) or a host-speed item: the native C++ codec, the wire byte
-accounting (``meta["wire_bytes"]``/``["raw_bytes"]``) and
-``decode_drained_payloads``.
+The learner's side of the rollout wire: ``decode_drained_payloads`` decodes
+a transport drain (malformed payloads counted and dropped) and keeps the
+wire byte accounting, ``transport/rollout_bytes_total``,
+``transport/rollout_raw_bytes_total`` and
+``transport/rollout_compression_ratio``; a narrowed payload's meta carries
+``wire_bytes`` and ``raw_bytes`` (what the same payload costs at full
+width, to the byte), a full-width one counts its own length for both.
+``rollout_wire_kwargs`` is the one derivation of an encoder's kwargs from a
+config.
+
+Not ported here: the native C++ codec (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +162,14 @@ def rollout_int_bounds(config) -> Dict[str, int]:
     # range before casting
     bounds["obs/unit_handles"] = np.iinfo(np.int16).max
     return bounds
+
+
+def rollout_wire_kwargs(config) -> Dict[str, Any]:
+    """The encode kwargs this config's rollout wire needs: ``{}`` for a
+    full-width wire."""
+    if config.transport.rollout_wire_dtype == "float32":
+        return {}
+    return dict(wire_dtype=config.transport.rollout_wire_dtype, int_bounds=rollout_int_bounds(config))
 
 
 def rollout_cast_plan(
@@ -349,12 +364,102 @@ def encode_rollout_bytes(arrays: Any, model_version: int, env_id: int, rollout_i
 
 
 def decode_rollout_bytes(payload, upcast: bool = False) -> Tuple[Dict[str, Any], Any]:
-    """Decode a serialized ``Rollout`` (bytes-like)."""
+    """Decode a serialized ``Rollout`` (bytes-like). A narrowed payload's
+    meta also gets ``wire_bytes`` and ``raw_bytes``."""
     r = pb.Rollout()
     r.ParseFromString(payload if isinstance(payload, bytes) else bytes(payload))
     if len(r.arrays) > _MAX_TENSORS:
         _raise_too_many_tensors(len(r.arrays), "decode")
-    return decode_rollout(r, upcast=upcast)
+    meta, arrays = decode_rollout(r, upcast=upcast)
+    if meta.get("wire_cast"):
+        meta["wire_bytes"] = len(payload)
+        raw = len(payload) - _wire_cast_overhead(meta["wire_cast"])
+        for name, orig in meta["wire_cast"].items():
+            if name in r.arrays:   # `in` first: a map's __getitem__ inserts
+                t = r.arrays[name]
+                raw += _leaf_raw_delta(name, tuple(t.shape), t.dtype, orig)
+        meta["raw_bytes"] = raw
+    return meta, arrays
+
+
+# -- wire byte accounting ----------------------------------------------------------
+
+
+def _varint_size(n: int) -> int:
+    """Bytes a proto3 varint of ``n`` occupies."""
+    size = 1
+    while n > 0x7F:
+        n >>= 7
+        size += 1
+    return size
+
+
+def _itemsize(dtype_name: str) -> int:
+    return 2 if dtype_name == BF16 else np.dtype(dtype_name).itemsize
+
+
+def _wire_cast_overhead(cast: Mapping[str, str]) -> int:
+    """The exact wire footprint of the ``__wire_cast__`` entry (a
+    full-width payload has none, so ``raw_bytes`` leaves it out): a
+    TensorProto {shape=[blob_len], dtype="marker", data=blob} in a map
+    entry in Rollout field 6, every tag one byte."""
+    blob_len = sum(len(n) + 1 + len(o) for n, o in cast.items()) + max(0, len(cast) - 1)
+    packed = _varint_size(blob_len)
+    tensor = 1 + _varint_size(packed) + packed + 1 + 1 + len("marker") + 1 + _varint_size(blob_len) + blob_len
+    key = len(_WIRE_CAST_MARKER)
+    entry = 1 + _varint_size(key) + key + 1 + _varint_size(tensor) + tensor
+    return 1 + _varint_size(entry) + entry
+
+
+def _leaf_raw_delta(name: str, shape, narrow_name: str, orig_name: str) -> int:
+    """The exact wire-byte difference between a leaf's full-width and narrow
+    map entries: the data shrinks, the dtype string changes length, and
+    every length varint may change width."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    packed = sum(_varint_size(int(d)) for d in shape)
+    shape_field = (1 + _varint_size(packed) + packed) if len(shape) else 0
+    key = len(name)
+
+    def entry_total(dtype_name: str) -> int:
+        dlen = n * _itemsize(dtype_name)
+        ds = len(dtype_name)
+        tensor = shape_field + 1 + _varint_size(ds) + ds + 1 + _varint_size(dlen) + dlen
+        e = 1 + _varint_size(key) + key + 1 + _varint_size(tensor) + tensor
+        return 1 + _varint_size(e) + e
+
+    return entry_total(orig_name) - entry_total(narrow_name)
+
+
+def decode_drained_payloads(payloads: Iterable[Any], tel, totals: List[int]) -> Tuple[list, int]:
+    """Decode a transport drain's payloads with the wire byte accounting:
+    ``totals`` is the server's ``[wire, raw]`` pair, updated in place.
+    Returns ``(decoded (meta, arrays) pairs, malformed count)``: a payload
+    that does not decode (a version-skewed actor, a port scanner) is
+    counted and dropped. Items are payloads or ``(recv_ts, payload)``
+    pairs, as the transports drain them."""
+    out = []
+    bad = 0
+    wire = raw = 0
+    for item in payloads:
+        p = item[1] if isinstance(item, tuple) else item
+        try:
+            meta, arrays = decode_rollout_bytes(p)
+        except Exception:  # noqa: BLE001 - a malformed payload never kills the learner
+            bad += 1
+            continue
+        wire += meta.get("wire_bytes", len(p))
+        raw += meta.get("raw_bytes", len(p))
+        out.append((meta, arrays))
+    if out:
+        totals[0] += wire
+        totals[1] += raw
+        tel.counter("transport/rollout_bytes_total").inc(wire)
+        tel.counter("transport/rollout_raw_bytes_total").inc(raw)
+        if totals[0]:
+            tel.gauge("transport/rollout_compression_ratio").set(totals[1] / totals[0])
+    return out, bad
 
 
 # -- weights ------------------------------------------------------------------------

@@ -18,10 +18,16 @@ Sites wired in the port (grep for the literal to find the hook):
 * ``checkpoint.fail_write`` -- ``CheckpointManager.save_host`` raises an
   injected ``OSError`` (a full disk) on its Nth call;
 * ``checkpoint.corrupt_manifest`` -- the Nth manifest verification at
-  restore fails as if the save were corrupt on disk (the walk-back path).
-
-The transport and actor sites of the reference (``transport.*``,
-``actor.nonfinite_payload``) come with ROADMAP queue 1, item 4b.
+  restore fails as if the save were corrupt on disk (the walk-back path);
+* ``transport.corrupt_frame`` -- ``SocketTransport.publish_rollout_bytes``
+  writes its Nth frame with a wrong CRC trailer;
+* ``transport.drop_conn`` -- ``SocketTransport.publish_rollout_bytes``
+  closes its socket at its Nth frame (a lost connection: that send raises
+  and the actor's reconnect takes over);
+* ``transport.delay_send`` -- a value fault: seconds slept before every
+  rollout frame is sent;
+* ``actor.nonfinite_payload`` -- ``VecActorPool`` ships its Nth chunk with
+  a NaN reward (the learner ring's admission check must drop it).
 
 The registry is None when disabled: hot paths cache ``faults.get()`` once
 at construction and pay one ``is not None`` test. Every firing is counted

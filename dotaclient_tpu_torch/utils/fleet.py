@@ -17,8 +17,8 @@ Copy of ``peer_label``, the snapshot codec (``encode_snapshot``,
   (``utils/alerts.py``) evaluates on the same thread. Its construction
   creates every ``fleet/`` and ``alerts/`` key, so a learner record
   carries them whether or not a fleet reports. The learner builds one on
-  every run; its thread starts only in the external actor modes, which
-  come with ROADMAP queue 1, item 4b.
+  every run; its thread starts only in the external actor mode, where
+  the ``TransportServer`` hands it the actors' kind-5 frames.
 
 ``SessionRouter.status`` names each backend's row with ``peer_label``. The
 peer side (``FleetPublisher``) waits for item 8. This module imports no

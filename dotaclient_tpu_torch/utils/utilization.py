@@ -1,7 +1,7 @@
 """Utilization plane: phase accounting of the learner's and the batcher's threads.
 
 Copy of the learner and serve parts of ``dotaclient_tpu/utils/utilization.py``
-(the actor pools' plane comes with ROADMAP queue 1, item 4b). Every
+(the actor pools' plane waits for ROADMAP queue 1, item 8). Every
 wall-clock second of a thread goes to one phase of a closed set, from
 intervals measured at the boundaries the code already has, and a fold
 turns the window into fraction gauges that sum to 1.0 by construction (the

@@ -178,12 +178,13 @@ def telemetry_registry():
 
 
 def test_ring_host_rows_and_narrow_store_are_not_ported():
+    """The host-row ingest is ported (``tests/test_torch_external.py`` holds
+    it against the reference); the narrow store is not yet."""
     _, pcfg = buffered_configs()
     buf = TrajectoryBuffer(pcfg, device="cpu", registry=telemetry.Registry())
-    with pytest.raises(NotImplementedError, match="4b"):
-        buf.add([], 0)
+    assert buf.add([], 0) == 0 and buf.ingested == 0
     narrow = dataclasses.replace(pcfg, transport=dataclasses.replace(pcfg.transport, rollout_wire_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="4b"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         TrajectoryBuffer(narrow, device="cpu")
 
 

@@ -248,11 +248,13 @@ def test_learner_trains_with_frame_accounting():
 
 def test_learner_refuses_what_is_not_ported():
     _, cfg = rollout_configs("scripted_easy")
-    # the buffered learner (device mode) is ported; the host-pool and
-    # external modes are not
-    for mode in ("vec", "scalar", "external"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plearner.Learner(cfg, actor=mode, device="cpu")
+    # the buffered learner (device mode), the host pool and the external
+    # mode are ported; the scalar mode is not, and the external mode needs
+    # a transport
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        plearner.Learner(cfg, actor="scalar", device="cpu")
+    with pytest.raises(ValueError, match="needs a transport"):
+        plearner.Learner(cfg, actor="external", device="cpu")
     # league mode is ported: it builds its frozen-opponent pool instead
     league = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, opponent="league"))
     assert len(plearner.Learner(league, actor="fused", device="cpu").league) == 1

@@ -241,8 +241,8 @@ def test_jax_bytes_decode_in_the_port_and_back(wire):
         for upcast in (False, True):
             pm, pt = S.decode_rollout_bytes(jax_bytes, upcast=upcast)
             jm, jt = J.decode_rollout_bytes(jax_bytes, upcast=upcast, native=False)
-            # the byte accounting belongs to the learner's ingest, not ported
-            assert pm == {k: v for k, v in jm.items() if k not in ("wire_bytes", "raw_bytes")}
+            # the byte accounting of a narrowed payload included
+            assert pm == jm
             assert_trees_equal(pt, jt)
     # the reverse: the port's bytes through both of the JAX decoders
     port_bytes = S.encode_rollout_bytes(tree, 3, 1, 2, 1, 0.0, **serve_request_wire_kwargs(pcfg))
