@@ -220,11 +220,15 @@ Phases (any failure exits non-zero and prints no result line):
     above 0 applied, ``lstm_seq`` launched once a pool step), the record's
     ``transport/rollout_bytes_total`` above 0, skew, non-finite and
     malformed drops 0, the chunks' versions above 0 (the last batch's
-    staleness below its step). Logged: trained frames/s, rollouts ingested
-    a second, stale drops, each actor's chunks and env steps/s,
-    ``learner/publish_stall_ms``, the phase's wall time split into the
-    children's starts and the steps. Every child is killed in a
-    ``finally``.
+    staleness below its step), and ``lstm_seq`` launched updates + advantage
+    passes times in the learner child (its ``done:`` line). Logged: trained
+    frames/s, rollouts ingested a second, stale drops, each actor's chunks
+    and env steps/s, ``learner/publish_stall_ms``, the phase's wall time
+    split into the children's starts and the steps, and the learner's
+    window between its step-10 and step-20 lines: its train thread's spans
+    and ``util/phase/*`` shares from its record, and the CPU cores the
+    learner process, its train thread and the actors used (``/proc``).
+    Every child is killed in a ``finally``.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -2586,7 +2590,7 @@ def buffered_phase(device, seed, ckpt_dir, fused_frames_per_s):
     cli_jsonl = os.path.join(ckpt_dir, "cli.jsonl")
     lines, cli_s = run_child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3", "--metrics-jsonl",
                               cli_jsonl], "the learner CLI")
-    steps, frames, _ = done_line(lines, "the learner CLI")
+    steps, frames, _, _ = done_line(lines, "the learner CLI")
     cli = read_record(cli_jsonl)[1][-1]
     if not (steps == 3 and cli["optimizer_steps"] == 3.0 and np.isfinite(cli["loss"]) and cli["health_ok"] == 1.0):
         raise AssertionError(f"the learner CLI: {steps} steps, its record's last line {cli}")
@@ -2670,12 +2674,12 @@ class RecordChild(ModuleChild):
 
 
 def done_line(lines, what):
-    """The learner CLI's closing ``done: N steps, F frames, R frames/sec``
-    line as (N, F, R)."""
+    """The learner CLI's closing ``done: N steps, F frames, R frames/sec, L
+    lstm_seq launches`` line as (N, F, R, L)."""
     import re
 
     for line in reversed(lines):
-        m = re.fullmatch(r"done: (\d+) steps, (\d+) frames, (\d+) frames/sec", line)
+        m = re.fullmatch(r"done: (\d+) steps, (\d+) frames, (\d+) frames/sec, (\d+) lstm_seq launches", line)
         if m:
             return tuple(int(g) for g in m.groups())
     raise AssertionError(f"{what} printed no done: line: {lines[-5:]}")
@@ -2746,7 +2750,7 @@ def check_recorded(device, d, jsonl, logdir, prof, ran):
     rc, lines, err, wall_s = ran
     if rc != 0:
         raise AssertionError(f"the recorded learner CLI exited {rc}: {lines[-10:]}\n{err[-3000:]}")
-    steps, frames, _ = done_line(lines, "the recorded learner CLI")
+    steps, frames, _, launched = done_line(lines, "the recorded learner CLI")
     raw, rows = read_record(jsonl)
     errors = schema.validate_lines(raw, schema.LEARNER_TIERS)
     if errors or steps != RECORD_STEPS or [len(raw), len(rows)] != [2, 2]:
@@ -2767,8 +2771,9 @@ def check_recorded(device, d, jsonl, logdir, prof, ran):
     trace_bytes, traced = profile_kernel_launches(prof)
     collects = RECORD_STEPS * 32 // RECORD_ENVS
     expected = collects * 16 + RECORD_STEPS   # the rollout steps, and one update a batch
-    if traced != expected:
-        raise AssertionError(f"the child's trace holds {traced} lstm_seq kernels, expected {expected}")
+    if not traced == launched == expected:
+        raise AssertionError(f"the child's trace holds {traced} lstm_seq kernels and its done: line counts "
+                             f"{launched}, expected {expected}")
     reg = telemetry.Registry()
     mgr = CheckpointManager(d, registry=reg)
     step16, ok = mgr.restore_weights()[1], os.path.isfile(os.path.join(d, str(RECORD_STEPS), "pipeline.pt"))
@@ -3157,6 +3162,71 @@ def wait_step(learner_child, step, deadline):
     return time.perf_counter()
 
 
+def cpu_seconds(pid):
+    """(CPU seconds of a process, of its main thread) from ``/proc``: user
+    plus system time, every thread's in the first. None where ``/proc``
+    does not have them."""
+    import os
+
+    tick = os.sysconf("SC_CLK_TCK")
+
+    def read(path):
+        with open(path) as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / tick
+
+    try:
+        return read(f"/proc/{pid}/stat"), read(f"/proc/{pid}/task/{pid}/stat")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def host_sample(learner_child, actors):
+    """A sample of the children's CPU clocks: (wall, the learner's, the
+    learner's main (train) thread's, the actors' summed), None if any is
+    unreadable."""
+    learner, main = cpu_seconds(learner_child.proc.pid) or (None, None)
+    each = [cpu_seconds(a.proc.pid) for a in actors]
+    if learner is None or any(c is None for c in each):
+        return None
+    return time.perf_counter(), learner, main, sum(c[0] for c in each)
+
+
+# the spans of the learner's train thread whose share of a window phase 15
+# reports: the ingest (the transport's drain, the decode, the ring's host
+# rows) and the host's time launching the update
+TRAIN_SPANS = ("learner/consume", "transport/consume", "buffer/stage", "buffer/insert", "learner/dispatch")
+
+
+def learner_window(raw, step_a, step_b, cpu_a, cpu_b):
+    """The external learner child's window between its log lines at
+    ``step_a`` and ``step_b``: each TRAIN_SPANS span's share of the
+    record's wall clock, the train thread's ``util/phase/*`` at ``step_b``,
+    and the CPU cores the learner process, its train thread and the actors
+    used (from two ``host_sample``s; "not measured" without them)."""
+    import os
+
+    at = {}
+    for line in raw:
+        row = json.loads(line)
+        if "scalars" in row and row.get("step") in (step_a, step_b):
+            at[row["step"]] = row
+    a, b = at[step_a], at[step_b]
+    wall = b["ts"] - a["ts"]
+    shares = {name: (b["scalars"].get(f"span/{name}/total_s", 0.0) - a["scalars"].get(f"span/{name}/total_s", 0.0))
+              / wall for name in TRAIN_SPANS}
+    phases = {k[len("util/phase/"):]: v for k, v in b["scalars"].items() if k.startswith("util/phase/")}
+    out = {"steps": [step_a, step_b], "record_wall_s": wall, "span_shares": shares, "util_phases": phases}
+    if cpu_a is None or cpu_b is None:
+        out["cores"] = "not measured"
+        return out
+    dt = cpu_b[0] - cpu_a[0]
+    learner, main, actors = ((cpu_b[i] - cpu_a[i]) / dt for i in (1, 2, 3))
+    out["cores"] = {"wall_s": dt, "learner": learner, "train_thread": main, "learner_other_threads": learner - main,
+                    "actors": actors, "host_cores": os.cpu_count()}
+    return out
+
+
 def actor_closing(child):
     """An actor child's closing lines: (versions applied, its stats)."""
     lines = child.lines()
@@ -3172,6 +3242,8 @@ def external_phase(device, seed, root):
     over TCP, one actor killed and the rest stopped while it trains."""
     import os
     import signal
+
+    from dotaclient_tpu_torch.config import RunConfig
 
     port = free_port()
     addr = f"127.0.0.1:{port}"
@@ -3197,7 +3269,9 @@ def external_phase(device, seed, root):
         children += actors
         t_actors = time.perf_counter()
         t_first = wait_step(learner, 10, deadline)
+        cpu_first = host_sample(learner, actors)
         t_kill = wait_step(learner, EXTERNAL_KILL_AT, deadline)
+        cpu_kill = host_sample(learner, actors)
         actors[0].proc.send_signal(signal.SIGKILL)
         t_stop = wait_step(learner, EXTERNAL_STOP_AT, deadline)
         for a in actors[1:]:
@@ -3213,14 +3287,21 @@ def external_phase(device, seed, root):
         t_done = time.perf_counter()
         if rc != 0:
             raise AssertionError(f"the learner exited {rc}: {learner.stderr()[-3000:]}")
-        steps, frames, _ = done_line(learner.lines(), "the external learner")
+        steps, frames, _, launched = done_line(learner.lines(), "the external learner")
         if actors[0].proc.wait(timeout=30) != -signal.SIGKILL:
             raise AssertionError(f"actor0 exit {actors[0].proc.returncode}, expected SIGKILL")
     finally:
         for c in children:
             c.kill()
-    _, rows = read_record(jsonl)
+    raw, rows = read_record(jsonl)
     last = rows[-1]
+    window = learner_window(raw, 10, EXTERNAL_KILL_AT, cpu_first, cpu_kill)
+    cfg = RunConfig()
+    updates = steps * cfg.ppo.epochs_per_batch * max(1, cfg.ppo.minibatches)
+    passes = last["advantage/passes_total"]
+    if launched != updates + passes:
+        raise AssertionError(f"the external learner launched lstm_seq {launched} times: expected {updates} "
+                             f"updates + {passes:.0f} advantage passes")
     bad = {k: last[k] for k in ("buffer/dropped_skew", "buffer/dropped_nonfinite", "buffer/dropped_bounds",
                                 "transport/malformed_payloads_total")}
     if not (steps == EXTERNAL_STEPS and last["transport/rollout_bytes_total"] > 0 and not any(bad.values())
@@ -3246,6 +3327,9 @@ def external_phase(device, seed, root):
         "rollout_bytes": last["transport/rollout_bytes_total"], "publish_stall_ms": last["learner/publish_stall_ms"],
         "batch_staleness": last["buffer/batch_staleness"], "weights_published": last["transport/weights_published"],
         "actors_closing": [{"versions_seen": s, **st} for s, st in closing],
+        "lstm_seq_launches": launched, "advantage_passes": passes,
+        "actors_lstm_seq_launches": sum(st["lstm_seq_launches"] for _, st in closing),
+        "window_steps_10_to_20": window,
         "wall_s": {"learner_listening": t_listen - t0, "actors_started": t_actors - t0,
                    "first_10_steps": t_first - t_actors, "to_kill": t_kill - t0, "to_stop": t_stop - t0,
                    "actors_out": t_actors_out - t0, "done": t_done - t0},
@@ -3260,8 +3344,15 @@ def external_phase(device, seed, root):
         f"{result['rollout_bytes']:.0f} rollout bytes; {result['weights_published']:.0f} weights publishes, "
         f"learner/publish_stall_ms {result['publish_stall_ms']:.3f}; last batch staleness "
         f"{result['batch_staleness']:.1f}; actor0 SIGKILLed at step {EXTERNAL_KILL_AT}, the other "
-        f"{EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed and exited 0: {ships}; wall "
+        f"{EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed and exited 0: {ships}; lstm_seq "
+        f"launches {launched} in the learner = {updates} updates + {passes:.0f} passes, "
+        f"{result['actors_lstm_seq_launches']:.0f} in the {EXTERNAL_ACTORS - 1} closed actors; wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items()))
+    cores = window["cores"]
+    log(f"external (b), the learner's steps 10-20 ({window['record_wall_s']:.2f} s by its record): span shares "
+        + ", ".join(f"{k} {v:.4f}" for k, v in window["span_shares"].items()) + "; util/phase "
+        + ", ".join(f"{k} {v:.4f}" for k, v in window["util_phases"].items()) + "; CPU cores "
+        + (", ".join(f"{k} {v:.3f}" for k, v in cores.items()) if isinstance(cores, dict) else cores))
     return result
 
 
@@ -3273,7 +3364,6 @@ def external_actors_phase(device, seed):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_external_") as root:
         result["external"] = external_phase(device, seed, root)
     result["wall_s"] = time.perf_counter() - t0
-    result["lstm_seq_launches"] = result["vec"]["lstm_seq_launches"]
     log(f"external actors: phase 15 in {result['wall_s']:.1f} s")
     return result
 
@@ -3329,7 +3419,9 @@ def main() -> int:
                                       "league_eval": league["eval"]["lstm_seq_launches"],
                                       "train_buffered": buffered["lstm_seq_launches"],
                                       "train_run_record": record["lstm_seq_launches"],
-                                      "train_vec": external["lstm_seq_launches"]}
+                                      "train_vec": external["vec"]["lstm_seq_launches"],
+                                      "external_learner": external["external"]["lstm_seq_launches"],
+                                      "external_actors": external["external"]["actors_lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}

@@ -291,8 +291,7 @@ class Learner:
         self._snap_engine: Optional[SnapshotEngine] = None
         if config.learner.async_snapshots:
             self._snap_engine = SnapshotEngine(transport=self.transport, wire_dtype=config.transport.wire_dtype,
-                                               ckpt=self.ckpt, registry=self.registry, health=self._health,
-                                               layout=to_flax)
+                                               ckpt=self.ckpt, registry=self.registry, health=self._health)
         for key in ("learner/publish_stall_ms", "learner/stall_fraction", "snapshot/pending", "snapshot/d2h_ms"):
             reg.gauge(key)
         self._stall_s = 0.0   # train-thread seconds spent at boundaries
@@ -1147,8 +1146,10 @@ class Learner:
         self._refresh_every, self._overlap = refresh_every, overlap
         self._actor_steps = actor_steps_per_iter or self.config.ppo.rollout_len
         # the device and fused loops publish mid-run only to readers out of
-        # process: the in-process transport has none
-        self._midrun_every = 0 if isinstance(self.transport, InProcTransport) else refresh_every
+        # process: the in-process transport has none (the other loops
+        # publish on their own refresh cadence)
+        self._midrun_every = (refresh_every if self.device_actor is not None
+                              and not isinstance(self.transport, InProcTransport) else 0)
         self._run_mode_loop(num_steps)
         while True:
             rewound = self._settle()
@@ -1381,6 +1382,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             previous[sig] = signal.signal(sig, graceful)
     except ValueError:
         pass  # not the main thread: signals stay with the embedding program
+    from dotaclient_tpu_torch.ops import lstm
+
+    launches0 = lstm.lstm_sequence_kernel.launches
     try:
         with trace(args.profile):
             out = learner.train(args.steps, overlap=args.overlap, refresh_every=args.refresh_every)
@@ -1395,8 +1399,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             transport.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+    # the kernel's launches in this run (0 on the CPU, where the plain
+    # version runs), read by chip_smoke.py against the steps
     print(f"done: {out['optimizer_steps']:.0f} steps, {out['frames_trained']:.0f} frames, "
-          f"{out['frames_per_sec']:.0f} frames/sec", flush=True)
+          f"{out['frames_per_sec']:.0f} frames/sec, "
+          f"{lstm.lstm_sequence_kernel.launches - launches0} lstm_seq launches", flush=True)
     return 0
 
 

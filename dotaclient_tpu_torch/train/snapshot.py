@@ -100,15 +100,11 @@ def device_copy(tree: Any, clone: bool = True) -> DeviceCopy:
 
 class SnapshotEngine:
     """One background thread, three latest-wins job slots and a stats
-    backlog. ``layout`` maps the fetched params to the tree the weights
-    frame carries (the learner gives ``models.convert.to_flax``, the
-    reference's layout); by default they are encoded as fetched."""
+    backlog."""
 
     def __init__(self, transport: Any = None, wire_dtype: str = "float32", ckpt: Any = None,
-                 registry: Optional[telemetry.Registry] = None, health: Any = None,
-                 layout: Optional[Callable[[Any], Any]] = None) -> None:
+                 registry: Optional[telemetry.Registry] = None, health: Any = None) -> None:
         self._transport = transport
-        self._layout = layout
         self._wire_dtype = wire_dtype
         self._ckpt = ckpt
         self._health = health
@@ -144,7 +140,8 @@ class SnapshotEngine:
         return sum(j is not None for j in self._jobs.values()) + len(self._stats_jobs) + (1 if self._busy else 0)
 
     def submit_publish(self, params: DeviceCopy, version: int) -> None:
-        """``params``: a :func:`device_copy` of the policy's state dict."""
+        """``params``: a :func:`device_copy` of the policy's state dict; the
+        frame carries it in the Flax layout (``models.convert.to_flax``)."""
         self._submit("publish", (params, version))
 
     def submit_checkpoint(self, state: DeviceCopy, config: Any) -> None:
@@ -272,12 +269,10 @@ class SnapshotEngine:
             return
         if version <= self._last_published:
             return  # a stale re-submit: published versions stay monotonic
+        from dotaclient_tpu_torch.models.convert import to_flax
         from dotaclient_tpu_torch.transport.serialize import encode_weights
 
-        host = self._fetch(params)
-        if self._layout is not None:
-            host = self._layout(host)
-        msg = encode_weights(host, version, wire_dtype=self._wire_dtype)
+        msg = encode_weights(to_flax(self._fetch(params)), version, wire_dtype=self._wire_dtype)
         with self._tel.span("transport/publish_weights"):
             self._transport.publish_weights(msg)
         self._last_published = version

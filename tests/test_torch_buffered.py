@@ -473,19 +473,20 @@ def test_snapshot_clone_is_taken_before_the_update():
 
 
 def test_snapshot_publishes_are_monotonic_and_gated():
-    _, pcfg = buffered_configs()
+    jcfg, pcfg = buffered_configs()
     transport = InProcTransport(registry=telemetry.Registry())
     health = HealthMonitor(pcfg.health, registry=telemetry.Registry())
     reg = telemetry.Registry()
     engine = psnap.SnapshotEngine(transport=transport, registry=reg, health=health)
-    params = {"w": torch.arange(3, dtype=torch.float32)}
+    params = port_policy(pcfg, flax_params(jcfg, seed=3)).state_dict()
     engine.submit_publish(psnap.device_copy(params), 5)
     engine.drain()
     engine.submit_publish(psnap.device_copy(params), 3)    # an older version: never published
     engine.drain()
     assert transport.latest_weights().version == 5 == engine.last_published
     version, tree = decode_weights(transport.latest_weights())
-    np.testing.assert_array_equal(np.asarray(tree["w"]), params["w"].numpy())
+    for name, w in convert(tree).items():   # the frame is the Flax layout of the params
+        assert torch.equal(w, params[name]), name
     health.fold_host(6, 6, {"loss": float("nan"), "grad_norm": 1.0, "health_ok": 0.0})
     engine.submit_publish(psnap.device_copy(params), 7)
     engine.drain()

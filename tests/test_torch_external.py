@@ -10,7 +10,8 @@ package's, and the actor process into the learner over localhost.
   ``test_torch_train``'s f32 bounds.
 * The port alone: a ``vec`` learner, sequential and overlapped; the weights
   frames it publishes are the Flax layout; the health gate of the pool
-  pushes; mid-run publishes to a transport out of process; and the actor
+  pushes; mid-run publishes to a transport out of process (the device
+  loop's, and the external loop's one a refresh); and the actor
   CLI into the learner over a ``TransportServer`` on 127.0.0.1, in-process
   and through the learner's CLI (threads: every wait bounded, every server
   closed in a ``finally``).
@@ -39,7 +40,7 @@ from dotaclient_tpu_torch.protos import dota_pb2 as pb
 from dotaclient_tpu_torch.train import learner as plearner
 from dotaclient_tpu_torch.transport import serialize as S
 from dotaclient_tpu_torch.transport.queues import InProcTransport
-from dotaclient_tpu_torch.transport.socket_transport import TransportServer
+from dotaclient_tpu_torch.transport.socket_transport import SocketTransport, TransportServer
 from dotaclient_tpu_torch.utils import faults, telemetry
 from tests.test_torch_buffered import (
     assert_params_close, assert_rows_equal, books, buffered_configs, capture_grads, chunk, noisy_mask,
@@ -234,6 +235,35 @@ def test_device_learner_publishes_mid_run_to_an_out_of_process_transport():
         # steps 2 and 4, and the final publish
         assert reg.snapshot()["transport/weights_published"] == 3.0
         assert srv.latest_weights().version == 4
+        learner.close()
+    finally:
+        srv.close()
+
+
+def test_external_learner_publishes_once_a_refresh_to_a_server():
+    """On a ``TransportServer`` the external loop's own refresh cadence is
+    the only mid-run publish (the device loops' boundary publish stays
+    off): the start, every ``refresh_every`` batches and the end."""
+    cfg = dataclasses.replace(buffered_configs(T=3, batch=4, capacity=8, min_fill=4)[1],
+                              learner=dataclasses.replace(default_config().learner, async_snapshots=False))
+    reg = telemetry.Registry()
+    srv = TransportServer(port=0, registry=reg)
+    try:
+        learner = plearner.Learner(cfg, actor="external", device="cpu", registry=reg, transport=srv)
+        actor = SocketTransport(*srv.address)
+        try:
+            for meta, arrays in rows_of(chunk(cfg, 8, 23), [0] * 8):
+                actor.publish_rollout_bytes(S.encode_rollout(arrays, **meta).SerializeToString())
+            deadline = time.time() + WAIT_S
+            while srv.pending_rollouts < 8 and time.time() < deadline:
+                time.sleep(0.01)
+        finally:
+            actor.close()
+        steps, refresh_every = 2, 1
+        out = learner.train(steps, refresh_every=refresh_every)
+        assert out["optimizer_steps"] == steps
+        assert reg.snapshot()["transport/weights_published"] == 1 + steps // refresh_every + 1
+        assert srv.latest_weights().version == steps
         learner.close()
     finally:
         srv.close()
