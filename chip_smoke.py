@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record and external-actor paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor and scalar paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no result line):
    T=1 and T=17, the parity digest's B=1 T=1, the 5v5 league's B=1,280
    at T=1 and T=17, its 64-game evaluation's B=320 T=1, and the buffered
    learner's advantage pass B=32 T=17 and minibatch updates B=16 at T=16
-   (on precomputed advantages) and T=17 (the in-step estimator)), with the f32
+   (on precomputed advantages) and T=17 (the in-step estimator), and the
+   scalar pool's step B=8 T=1), with the f32
    tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
@@ -229,6 +230,36 @@ Phases (any failure exits non-zero and prints no result line):
     and ``util/phase/*`` shares from its record, and the CPU cores the
     learner process, its train thread and the actors used (``/proc``).
     Every child is killed in a ``finally``.
+16. the scalar path, BASELINE config 1, and the shm lane: where ``grpc`` is
+    installed (``importlib.util.find_spec``; printed either way), one
+    reset/act/observe cycle of the gRPC fake dotaservice over 127.0.0.1.
+    (a) ``Learner(cfg, actor="scalar")`` at the reference's defaults
+    (``RunConfig()``: 8 games against the easy bot, hero Shadow Fiend,
+    LSTM(128), batches of 32, 1 x 1 updates) with games of 20 s: 2 warm and
+    4 timed optimizer steps alternating with the scalar pool, then 4 with
+    the pool on its own thread. Checked: finite loss and ``health_ok`` 1,
+    every param moved, every trained action legal, ended episodes, chunk
+    versions above 0 (the pool plays pushed params), the ring's books, and
+    ``lstm_seq`` launched pool steps + updates + advantage passes times
+    (counts reset just before and read just after). Logged: trained
+    frames/s, the pool's env steps/s, ``span/actor/step`` against
+    ``span/actor/infer``. (a') ``python -m dotaclient_tpu_torch.train.learner
+    --actor scalar --checkpoint-dir --metrics-jsonl`` for 16 steps and, beside
+    it, ``--no-vec`` for 10: exit 0, their ``done:`` lines' launches against
+    pool steps + updates + passes from their records. (b) ``evaluate_served``
+    in this process: 8 games against the hard bot, games of 20 s, through a
+    ``python -m dotaclient_tpu_torch.serve`` child on (a')'s checkpoint
+    (episodes >= 8, a win rate in [0, 1], the child's launches = its
+    dispatches, SIGINT, exit 0). (c) phase 15 (b)'s topology on the shm
+    lane: the learner CLI with ``--transport shm --shm-name NAME``, the
+    actor CLIs with ``--connect shm://NAME``, the same steps, kill, stop and
+    staleness window, and a serve CLI child with ``--subscribe shm://NAME``
+    on (a')'s checkpoint that must apply a version the learner published.
+    Checked as phase 15 (b), and the SIGKILLed actor's slot reaped
+    (``shm/slots_reaped``) and no segment or lockfile of NAME left in
+    /dev/shm after the phase (the phase unlinks any it finds, and fails).
+    Logged as phase 15 (b), with the ring-full drops and the ratio of the
+    trained frames/s to phase 15 (b)'s in the same run.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -389,12 +420,16 @@ BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
 # advantage pass over a batch (B=32 T=17, forward only), a minibatch's
 # update on precomputed advantages (B=16 over the T=16 transition steps,
 # the path phase 13 runs) and a minibatch's update with the in-step
-# estimator (B=16 T=17: one_pass_advantage off, or V-trace)
+# estimator (B=16 T=17: one_pass_advantage off, or V-trace), and the
+# scalar pool's step (BASELINE config 1: the default 8 games against a
+# scripted bot, one lane each, at T=1)
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
+SCALAR_LANES = 8
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
                (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
                (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128),
-               (BUFFERED_BATCH, 17, 128, 128), (BUFFERED_MB, 16, 128, 128), (BUFFERED_MB, 17, 128, 128))
+               (BUFFERED_BATCH, 17, 128, 128), (BUFFERED_MB, 16, 128, 128), (BUFFERED_MB, 17, 128, 128),
+               (SCALAR_LANES, 1, 128, 128))
 
 
 def max_err(got, want):
@@ -495,6 +530,7 @@ def check_lstm_kernel(device, seed):
     league_eval_step = shapes[(LEAGUE_EVAL_LANES, 1)]
     adv_seq, mb_seq, mb_seq_instep = (shapes[(BUFFERED_BATCH, 17)], shapes[(BUFFERED_MB, 16)],
                                       shapes[(BUFFERED_MB, 17)])
+    scalar_step = shapes[(SCALAR_LANES, 1)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -518,12 +554,13 @@ def check_lstm_kernel(device, seed):
         "buffered_advantage_sequence_ms": adv_seq["ms"],
         "buffered_minibatch_sequence_ms": mb_seq["ms"],
         "buffered_minibatch_instep_sequence_ms": mb_seq_instep["ms"],
+        "scalar_pool_step_ms": scalar_step["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
                    "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
                    "league_eval_step": league_eval_step, "buffered_advantage_sequence": adv_seq,
                    "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
-                   "shapes": list(shapes.values())}
+                   "scalar_pool_step": scalar_step, "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -3060,7 +3097,7 @@ def vec_phase(device, seed):
     T, B = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts
     reg = telemetry.Registry()
     learner = Learner(cfg, actor="vec", seed=seed, device=device, registry=reg)
-    pool, buf = learner.vec_pool, learner.buffer
+    pool, buf = learner.host_pool, learner.buffer
     if pool.n_lanes != 2 * VEC_ENVS:
         raise AssertionError(f"{pool.n_lanes} lanes, expected {2 * VEC_ENVS}")
     before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
@@ -3237,34 +3274,57 @@ def actor_closing(child):
     return seen[-1], stats[-1]
 
 
-def external_phase(device, seed, root):
+def shm_leftovers(name):
+    """The files of shm lane ``name`` (segments and slot lockfiles) in
+    /dev/shm."""
+    import os
+
+    return sorted(f for f in os.listdir("/dev/shm") if f.startswith(f"{name}-"))
+
+
+def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
     """(b) BASELINE config 2: a learner CLI child fed by actor CLI children
-    over TCP, one actor killed and the rest stopped while it trains."""
+    over TCP (``lane`` "socket"), or over its shared-memory lane on this
+    host ("shm", phase 16 (c)), one actor killed and the rest stopped while
+    it trains. With ``subscriber_ckpt``, a serve CLI child on that
+    checkpoint subscribes to the lane's weights and must apply a version the
+    learner published."""
     import os
     import signal
 
     from dotaclient_tpu_torch.config import RunConfig
 
-    port = free_port()
-    addr = f"127.0.0.1:{port}"
-    jsonl = os.path.join(root, "external.jsonl")
+    if lane == "socket":
+        connect = f"127.0.0.1:{free_port()}"
+        lane_args, ready = ["--transport", "socket", "--listen", connect], "learner: listening for actors on"
+    else:
+        name = f"chip-smoke-{os.getpid()}-{seed}"
+        connect = f"shm://{name}"
+        lane_args, ready = ["--transport", "shm", "--shm-name", name], "learner: shm lane"
+    jsonl = os.path.join(root, f"external_{lane}.jsonl")
     t0 = time.perf_counter()
     deadline = t0 + EXTERNAL_S
     children = []
+    serve = None
     try:
         learner = ModuleChild("dotaclient_tpu_torch.train.learner", [
-            "--actor", "external", "--transport", "socket", "--listen", addr, "--steps", str(EXTERNAL_STEPS),
-            "--seed", str(seed), "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}"],
-            root, "learner")
+            "--actor", "external", *lane_args, "--steps", str(EXTERNAL_STEPS), "--seed", str(seed),
+            "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}"],
+            root, f"learner_{lane}")
         children.append(learner)
-        while not any(x.startswith("learner: listening for actors on") for x in learner.lines()):
+        while not any(x.startswith(ready) for x in learner.lines()):
             if learner.proc.poll() is not None or time.perf_counter() > deadline:
-                raise AssertionError(f"the learner never listened: {learner.stderr()[-2000:]}")
+                raise AssertionError(f"the learner never served its lane: {learner.stderr()[-2000:]}")
             time.sleep(0.05)
         t_listen = time.perf_counter()
+        if subscriber_ckpt is not None:
+            serve = ModuleChild("dotaclient_tpu_torch.serve", [
+                "--checkpoint", subscriber_ckpt, "--subscribe", connect, "--serve-listen", "127.0.0.1:0"],
+                root, f"serve_{lane}")
+            children.append(serve)
         actors = [ModuleChild("dotaclient_tpu_torch.actor", [
-            "--connect", addr, "--n-envs", str(VEC_ENVS), "--opponent", "selfplay", "--max-dota-time",
-            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i)], root, f"actor{i}")
+            "--connect", connect, "--n-envs", str(VEC_ENVS), "--opponent", "selfplay", "--max-dota-time",
+            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i)], root, f"actor{i}_{lane}")
             for i in range(EXTERNAL_ACTORS)]
         children += actors
         t_actors = time.perf_counter()
@@ -3273,6 +3333,9 @@ def external_phase(device, seed, root):
         t_kill = wait_step(learner, EXTERNAL_KILL_AT, deadline)
         cpu_kill = host_sample(learner, actors)
         actors[0].proc.send_signal(signal.SIGKILL)
+        # reaped at once: a lane sees the pid gone only once its zombie is
+        if actors[0].proc.wait(timeout=30) != -signal.SIGKILL:
+            raise AssertionError(f"actor0 exit {actors[0].proc.returncode}, expected SIGKILL")
         t_stop = wait_step(learner, EXTERNAL_STOP_AT, deadline)
         for a in actors[1:]:
             a.proc.send_signal(signal.SIGTERM)
@@ -3287,12 +3350,23 @@ def external_phase(device, seed, root):
         t_done = time.perf_counter()
         if rc != 0:
             raise AssertionError(f"the learner exited {rc}: {learner.stderr()[-3000:]}")
-        steps, frames, _, launched = done_line(learner.lines(), "the external learner")
-        if actors[0].proc.wait(timeout=30) != -signal.SIGKILL:
-            raise AssertionError(f"actor0 exit {actors[0].proc.returncode}, expected SIGKILL")
+        steps, frames, _, launched = done_line(learner.lines(), f"the external learner ({lane})")
+        subscribed = None
+        if serve is not None:
+            serve.proc.send_signal(signal.SIGINT)
+            rc = serve.wait(max(1.0, deadline - time.perf_counter()))
+            if rc != 0:
+                raise AssertionError(f"the subscribed serve CLI exited {rc}: {serve.stderr()[-2000:]}")
+            subscribed = json.loads(serve.lines()[-1])
     finally:
         for c in children:
             c.kill()
+        leftovers = shm_leftovers(name) if lane == "shm" else []
+        for f in leftovers:
+            # cleanup only: the check below fails the phase all the same
+            os.unlink(os.path.join("/dev/shm", f))
+    if leftovers:
+        raise AssertionError(f"shm lane {name!r} left {leftovers} in /dev/shm")
     raw, rows = read_record(jsonl)
     last = rows[-1]
     window = learner_window(raw, 10, EXTERNAL_KILL_AT, cpu_first, cpu_kill)
@@ -3312,6 +3386,20 @@ def external_phase(device, seed, root):
     for seen, st in closing:
         if not (max(seen) > 0 and st["lstm_seq_launches"] == st["steps"] > 0 and st["rollouts_shipped"] > 0):
             raise AssertionError(f"an actor's closing lines: versions {seen}, stats {st}")
+    reaped = last.get("shm/slots_reaped", 0.0)
+    if lane == "shm" and reaped < 1:
+        raise AssertionError(f"the SIGKILLed actor's shm slot was not reaped (shm/slots_reaped {reaped})")
+    ckpt_step = None
+    if subscribed is not None:
+        from dotaclient_tpu_torch.utils import telemetry
+        from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+        ckpt_step = CheckpointManager(subscriber_ckpt, registry=telemetry.Registry()).latest_step()
+        # its checkpoint's step is its first version: a later one came from the lane
+        if not (subscribed["serve_weights_version"] > ckpt_step
+                and subscribed["lstm_seq_launches"] - 1 == subscribed["serve_dispatches_total"]):
+            raise AssertionError(f"the subscribed serve CLI's last line {subscribed}: expected a version above "
+                                 f"its checkpoint's {ckpt_step}, launches = dispatches + its warm-up")
     elapsed = last["elapsed_sec"]
     ingested = last["buffer/ingested"]
     frames_per_step = frames / steps
@@ -3319,11 +3407,12 @@ def external_phase(device, seed, root):
     # (the kill at step 20 included)
     steady = (EXTERNAL_STOP_AT - 10) * frames_per_step / (t_stop - t_first)
     result = {
-        "actors": EXTERNAL_ACTORS, "steps": steps, "frames": frames, "frames_per_s": last["frames_per_sec"],
-        "frames_per_s_steps_10_to_30": steady,
+        "lane": lane, "actors": EXTERNAL_ACTORS, "steps": steps, "frames": frames,
+        "frames_per_s": last["frames_per_sec"], "frames_per_s_steps_10_to_30": steady,
         "train_elapsed_s": elapsed, "rollouts_ingested": ingested, "rollouts_ingested_per_s": ingested / elapsed,
         "dropped_stale": last["buffer/dropped_stale"], "dropped_overflow": last["buffer/dropped_overflow"],
         "transport_dropped": last.get("transport/experience_dropped", 0.0),
+        "ring_full_dropped": last.get("shm/ring_dropped_total", 0.0), "slots_reaped": reaped,
         "rollout_bytes": last["transport/rollout_bytes_total"], "publish_stall_ms": last["learner/publish_stall_ms"],
         "batch_staleness": last["buffer/batch_staleness"], "weights_published": last["transport/weights_published"],
         "actors_closing": [{"versions_seen": s, **st} for s, st in closing],
@@ -3334,22 +3423,28 @@ def external_phase(device, seed, root):
                    "first_10_steps": t_first - t_actors, "to_kill": t_kill - t0, "to_stop": t_stop - t0,
                    "actors_out": t_actors_out - t0, "done": t_done - t0},
     }
+    if subscribed is not None:
+        result["subscriber"] = {"checkpoint_step": ckpt_step, **subscribed}
     ships = ", ".join(f"{st['rollouts_shipped']:.0f} chunks at {st['env_steps_per_sec']:.0f} env steps/s "
                       f"(start {a.wall_s - st['elapsed_sec']:.1f} s)" for a, (_, st) in zip(actors[1:], closing))
-    log(f"external (b), BASELINE config 2: {EXTERNAL_ACTORS} actor processes x {2 * VEC_ENVS} lanes into the learner "
-        f"CLI over 127.0.0.1: {steps} steps, {frames} frames, {result['frames_per_s']:.0f} trained frames/s over "
-        f"{elapsed:.1f} s of train ({steady:.0f} between the step-10 and step-30 lines); {ingested:.0f} rollouts ingested ({result['rollouts_ingested_per_s']:.0f}/s), "
-        f"stale drops {result['dropped_stale']:.0f}, ring overflow {result['dropped_overflow']:.0f}, transport "
-        f"drop-oldest {result['transport_dropped']:.0f}; skew, non-finite, malformed 0; "
-        f"{result['rollout_bytes']:.0f} rollout bytes; {result['weights_published']:.0f} weights publishes, "
-        f"learner/publish_stall_ms {result['publish_stall_ms']:.3f}; last batch staleness "
-        f"{result['batch_staleness']:.1f}; actor0 SIGKILLed at step {EXTERNAL_KILL_AT}, the other "
-        f"{EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed and exited 0: {ships}; lstm_seq "
-        f"launches {launched} in the learner = {updates} updates + {passes:.0f} passes, "
-        f"{result['actors_lstm_seq_launches']:.0f} in the {EXTERNAL_ACTORS - 1} closed actors; wall "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items()))
+    drops = (f"transport drop-oldest {result['transport_dropped']:.0f}" if lane == "socket" else
+             f"ring-full drops {result['ring_full_dropped']:.0f}, slots reaped {reaped:.0f}")
+    log(f"external ({lane}): {EXTERNAL_ACTORS} actor processes x {2 * VEC_ENVS} lanes into the learner CLI over "
+        f"{'127.0.0.1' if lane == 'socket' else 'shared memory'}: {steps} steps, {frames} frames, "
+        f"{result['frames_per_s']:.0f} trained frames/s over {elapsed:.1f} s of train ({steady:.0f} between the "
+        f"step-10 and step-30 lines); {ingested:.0f} rollouts ingested ({result['rollouts_ingested_per_s']:.0f}/s), "
+        f"stale drops {result['dropped_stale']:.0f}, ring overflow {result['dropped_overflow']:.0f}, {drops}; "
+        f"skew, non-finite, malformed 0; {result['rollout_bytes']:.0f} rollout bytes; "
+        f"{result['weights_published']:.0f} weights publishes, learner/publish_stall_ms "
+        f"{result['publish_stall_ms']:.3f}; last batch staleness {result['batch_staleness']:.1f}; actor0 SIGKILLed "
+        f"at step {EXTERNAL_KILL_AT}, the other {EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed "
+        f"and exited 0: {ships}; lstm_seq launches {launched} in the learner = {updates} updates + {passes:.0f} "
+        f"passes, {result['actors_lstm_seq_launches']:.0f} in the {EXTERNAL_ACTORS - 1} closed actors; wall "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items())
+        + (f"; the subscribed serve CLI applied version {subscribed['serve_weights_version']:.0f} (its checkpoint "
+           f"step {ckpt_step}), {subscribed['serve_dispatches_total']:.0f} dispatches" if subscribed else ""))
     cores = window["cores"]
-    log(f"external (b), the learner's steps 10-20 ({window['record_wall_s']:.2f} s by its record): span shares "
+    log(f"external ({lane}), the learner's steps 10-20 ({window['record_wall_s']:.2f} s by its record): span shares "
         + ", ".join(f"{k} {v:.4f}" for k, v in window["span_shares"].items()) + "; util/phase "
         + ", ".join(f"{k} {v:.4f}" for k, v in window["util_phases"].items()) + "; CPU cores "
         + (", ".join(f"{k} {v:.3f}" for k, v in cores.items()) if isinstance(cores, dict) else cores))
@@ -3365,6 +3460,274 @@ def external_actors_phase(device, seed):
         result["external"] = external_phase(device, seed, root)
     result["wall_s"] = time.perf_counter() - t0
     log(f"external actors: phase 15 in {result['wall_s']:.1f} s")
+    return result
+
+
+# -- phase 16: the scalar path (BASELINE config 1) and the shm lane ----------------------
+
+# (a): the reference's defaults (8 games, the easy bot, batches of 32, 1 x 1
+# updates) with games of 20 s; optimizer steps: warm, timed alternating with
+# the pool, overlapped. (a'): the CLI's steps, and the --no-vec child's.
+# (b): served games against the hard bot.
+SCALAR_MAX_DOTA_TIME = 20.0
+SCALAR_WARM, SCALAR_TIMED, SCALAR_OVERLAP = 2, 4, 4
+SCALAR_CLI_STEPS, SCALAR_NOVEC_STEPS = 16, 10   # 10: one log line (log_every 10)
+EVAL_SERVED_GAMES = 8
+
+
+def grpc_check():
+    """The gRPC fake dotaservice where this machine has ``grpc``: one
+    reset, five acts and an observe over 127.0.0.1. Its parity with the
+    JAX package's is held in the CPU tests."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        log("grpc: not installed here; the gRPC fake dotaservice is not driven on this machine")
+        return {"grpc": False}
+    import asyncio
+
+    from dotaclient_tpu_torch.envs import service
+    from dotaclient_tpu_torch.protos import dota_pb2 as pb
+
+    async def cycle():
+        server, port = await service.serve_env()
+        client = service.DotaServiceClient.connect(f"127.0.0.1:{port}")
+        try:
+            init = await client.reset(pb.GameConfig(seed=1))
+            for _ in range(5):
+                await client.act(pb.Actions(team_id=2, actions=[pb.Action(player_id=0, type=pb.ACTION_MOVE,
+                                                                          move_x=8, move_y=4)]))
+            return init, await client.observe(2)
+        finally:
+            await client.close()
+            await server.stop(None)
+
+    t0 = time.perf_counter()
+    init, obs = asyncio.run(cycle())
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (init.status == pb.STATUS_OK and obs.status == pb.STATUS_OK and obs.world_state.tick == 5 * 6):
+        raise AssertionError(f"gRPC cycle: reset {init.status}, observe {obs.status} at tick {obs.world_state.tick}")
+    log(f"grpc: installed; a reset, 5 acts and an observe over 127.0.0.1 in {ms:.1f} ms")
+    return {"grpc": True, "cycle_ms": ms}
+
+
+def scalar_config(seed):
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, max_dota_time=SCALAR_MAX_DOTA_TIME),
+                               log_every=10 ** 9, seed=seed)
+
+
+def scalar_phase(device, seed):
+    """(a) BASELINE config 1 in process: ``Learner(actor="scalar")``,
+    sequential then overlapped."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = scalar_config(seed)
+    T, B = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="scalar", seed=seed, device=device, registry=reg)
+    pool, buf = learner.host_pool, learner.buffer
+    if pool.n_lanes != SCALAR_LANES:
+        raise AssertionError(f"{pool.n_lanes} lanes, expected {SCALAR_LANES}")
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    metrics, batches_seen, versions = [], [], []
+    optimize, add = learner._optimize, buf.add
+
+    def recording(batch):
+        m = optimize(batch)
+        metrics.append(m)
+        batches_seen.append(batch)
+        return m
+
+    def adding(rows, version):
+        versions.extend(meta["model_version"] for meta, _ in rows)
+        return add(rows, version)
+
+    learner._optimize, buf.add = recording, adding
+    torch.cuda.synchronize()
+    lstm.lstm_sequence_kernel.launches = 0
+    steps0 = pool.steps
+    learner.train(SCALAR_WARM)
+    torch.cuda.synchronize()
+    step_t, infer_t = reg.timer("span/actor/step"), reg.timer("span/actor/infer")
+    env0, pool0, t0 = pool.env_steps, pool.steps, time.perf_counter()
+    step0, infer0 = (step_t.total, step_t.count), (infer_t.total, infer_t.count)
+    learner.train(SCALAR_TIMED)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    env_steps, timed_pool_steps = pool.env_steps - env0, pool.steps - pool0
+    step_ms = (step_t.total - step0[0]) / max(step_t.count - step0[1], 1) * 1e3
+    infer_ms = (infer_t.total - infer0[0]) / max(infer_t.count - infer0[1], 1) * 1e3
+    t1, env1 = time.perf_counter(), pool.env_steps
+    over = learner.train(SCALAR_OVERLAP, overlap=True, refresh_every=1)
+    torch.cuda.synchronize()
+    over_s, over_env = time.perf_counter() - t1, pool.env_steps - env1
+    pool_steps = pool.steps - steps0   # the overlap's thread has joined
+    launches = lstm.lstm_sequence_kernel.launches
+    updates = len(metrics)
+    passes = reg.snapshot()["advantage/passes_total"]
+    if launches != pool_steps + updates + passes:
+        raise AssertionError(f"lstm_seq launched {launches} times: expected {pool_steps} pool steps + {updates} "
+                             f"updates + {passes:.0f} advantage passes")
+    batches = SCALAR_WARM + SCALAR_TIMED + SCALAR_OVERLAP
+    books = ring_books(buf, batches, B)
+    for i, m in enumerate(metrics):
+        m = {k: float(v) for k, v in m.items()}
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+            raise AssertionError(f"scalar batch {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                 f"health_ok {m['health_ok']}")
+    moved, cast_legal, _ = check_params_moved(before, learner.policy, batches_seen)
+    moved = sum(moved.values())
+    illegal, n_actions = check_chunk_actions(batches_seen)
+    stats = pool.stats()
+    if illegal or not (stats["episodes_done"] > 0 and len(metrics) == batches and max(versions) > 0):
+        raise AssertionError(f"scalar: {illegal} of {n_actions} trained actions illegal, {stats['episodes_done']} "
+                             f"episodes, {len(metrics)} batches, chunk versions up to {max(versions)}")
+    learner.close()
+    frames = SCALAR_TIMED * B * T
+    result = {
+        "lanes": pool.n_lanes, "frames_trained": frames, "frames_per_s": frames / loop_s,
+        "env_steps_per_s": env_steps / loop_s, "loop_ms": loop_s * 1e3, "timed_pool_steps": timed_pool_steps,
+        "actor_step_ms": step_ms, "actor_infer_ms": infer_ms, "infer_share_of_step": infer_ms / step_ms,
+        "pool_steps": pool_steps, "lstm_seq_launches": launches, "updates": updates, "advantage_passes": passes,
+        "overlap": {"frames_per_s": SCALAR_OVERLAP * B * T / over_s, "env_steps_per_s": over_env / over_s,
+                    "optimizer_steps": over["optimizer_steps"]},
+        "ring": books, "episodes_done": stats["episodes_done"], "win_rate": stats["win_rate"],
+        "params_moved": moved, "params": len(before), "actions_checked": n_actions,
+        "frames_that_could_cast": cast_legal, "chunk_versions_max": max(versions),
+        "last_loss": float(metrics[-1]["loss"]),
+    }
+    log(f"scalar (a), BASELINE config 1: {pool.n_lanes} lanes, {SCALAR_TIMED} timed steps alternating with the pool: "
+        f"{frames} trained frames in {loop_s * 1e3:.1f} ms, {result['frames_per_s']:.0f} frames/s, the pool "
+        f"{result['env_steps_per_s']:.0f} env steps/s ({timed_pool_steps} pool steps), span/actor/step "
+        f"{step_ms:.3f} ms of which span/actor/infer {infer_ms:.3f} ms ({infer_ms / step_ms:.3f}); overlap: "
+        f"{result['overlap']['frames_per_s']:.0f} frames/s, the pool {result['overlap']['env_steps_per_s']:.0f} env "
+        f"steps/s; ring {books}; lstm_seq launches {launches} = {pool_steps} pool steps + {updates} updates + "
+        f"{passes:.0f} passes; {moved} of {len(before)} params moved, {n_actions} trained actions legal, "
+        f"{stats['episodes_done']:.0f} episodes, chunk versions up to {max(versions)}")
+    return result
+
+
+def scalar_cli_phase(seed, root):
+    """(a') the learner CLI with ``--actor scalar`` (its checkpoint feeds
+    (b)) and, beside it, with ``--no-vec``; each one's launches from its
+    ``done:`` line against its pool steps + updates + advantage passes."""
+    import os
+
+    from dotaclient_tpu_torch.config import RunConfig
+
+    ckpt = os.path.join(root, "scalar_ckpt")
+    runs = {"scalar": (["--actor", "scalar", "--checkpoint-dir", ckpt], SCALAR_CLI_STEPS),
+            "no_vec": (["--no-vec"], SCALAR_NOVEC_STEPS)}
+    children = {}
+    try:
+        for name, (flags, steps) in runs.items():
+            jsonl = os.path.join(root, f"{name}.jsonl")
+            children[name] = (RecordChild([*flags, "--steps", str(steps), "--seed", str(seed), "--metrics-jsonl",
+                                           jsonl], root, f"cli_{name}"), jsonl)
+        out = {}
+        for name, (child, jsonl) in children.items():
+            rc, lines, err, wall = child.result()
+            if rc != 0:
+                raise AssertionError(f"the {name} learner CLI exited {rc}: {err[-2000:]}")
+            steps, frames, fps, launched = done_line(lines, f"the {name} learner CLI")
+            _, rows = read_record(jsonl)
+            last = rows[-1]
+            cfg = RunConfig()
+            pool_steps = last["actor_env_steps"] / SCALAR_LANES
+            updates = steps * cfg.ppo.epochs_per_batch * max(1, cfg.ppo.minibatches)
+            passes = last["advantage/passes_total"]
+            if not (steps == runs[name][1] and launched == pool_steps + updates + passes
+                    and np.isfinite(last["loss"]) and last["health_ok"] == 1.0):
+                raise AssertionError(f"the {name} learner CLI: {steps} steps, lstm_seq launched {launched} times "
+                                     f"against {pool_steps:.0f} pool steps + {updates} updates + {passes:.0f} passes, "
+                                     f"loss {last['loss']}, health_ok {last['health_ok']}")
+            out[name] = {"steps": steps, "frames": frames, "frames_per_s": last["frames_per_sec"],
+                         "elapsed_s": last["elapsed_sec"], "wall_s": wall, "pool_steps": pool_steps,
+                         "lstm_seq_launches": launched, "updates": updates, "advantage_passes": passes,
+                         "env_steps": last["actor_env_steps"]}
+            log(f"scalar (a'), the learner CLI {' '.join(runs[name][0])}: {steps} steps, {frames} frames, "
+                f"{out[name]['frames_per_s']:.0f} frames/s over {last['elapsed_sec']:.1f} s of train, {wall:.1f} s "
+                f"with its start; lstm_seq launches {launched} = {pool_steps:.0f} pool steps + {updates} updates + "
+                f"{passes:.0f} passes")
+    finally:
+        for child, _ in children.values():
+            child.kill()
+    out["ckpt_dir"] = ckpt
+    return out
+
+
+def eval_served_phase(ckpt_dir, seed, root):
+    """(b) ``evaluate_served``: games against the hard bot through a serve
+    CLI child on (a')'s checkpoint, in this process's scalar games."""
+    import signal
+
+    from dotaclient_tpu_torch.league.evaluation import evaluate_served
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    serve = ModuleChild("dotaclient_tpu_torch.serve", ["--checkpoint", ckpt_dir, "--serve-listen", "127.0.0.1:0"],
+                        root, "serve_eval")
+    try:
+        deadline = time.perf_counter() + WAIT_S
+        while not any(x.startswith("SERVE_LISTENING ") for x in serve.lines()):
+            if serve.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the serve CLI never listened: {serve.stderr()[-2000:]}")
+            time.sleep(0.05)
+        start_s = time.perf_counter() - serve.t0
+        addr = json.loads(next(x for x in serve.lines() if x.startswith("SERVE_LISTENING "))[len("SERVE_LISTENING "):])
+        cfg = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
+        cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, max_dota_time=SCALAR_MAX_DOTA_TIME))
+        t0 = time.perf_counter()
+        out = evaluate_served(cfg, (addr["host"], addr["port"]), opponent="scripted_hard", n_games=EVAL_SERVED_GAMES,
+                              seed=seed)
+        eval_s = time.perf_counter() - t0
+        serve.proc.send_signal(signal.SIGINT)
+        rc = serve.wait(WAIT_S)
+        if rc != 0:
+            raise AssertionError(f"the serve CLI exited {rc}: {serve.stderr()[-2000:]}")
+        final = json.loads(serve.lines()[-1])
+    finally:
+        serve.kill()
+    if not (out["episodes"] >= EVAL_SERVED_GAMES and 0.0 <= out["win_rate"] <= 1.0
+            and np.isfinite(out["episode_reward_mean"])):
+        raise AssertionError(f"evaluate_served: {out}")
+    # the CLI's count includes its warm-up dispatch
+    launches = final["lstm_seq_launches"] - 1
+    if not (launches == final["serve_dispatches_total"] > 0 and final["serve_requests_total"] > 0):
+        raise AssertionError(f"the serve CLI's last line {final}: launches = dispatches + its warm-up expected")
+    result = {**out, "eval_s": eval_s, "serve_start_s": start_s, "serve": final, "lstm_seq_launches": launches}
+    log(f"eval_served (b): {out['episodes']:.0f} games against scripted_hard through the serve CLI in {eval_s:.2f} s, "
+        f"win rate {out['win_rate']:.3f}, reward mean {out['episode_reward_mean']:.3f}; the server "
+        f"{final['serve_requests_total']:.0f} requests in {final['serve_dispatches_total']:.0f} dispatches, p99 "
+        f"{final['serve_p99_latency_ms']:.2f} ms, lstm_seq launches {launches} (and the warm-up's); its start "
+        f"{start_s:.1f} s")
+    return result
+
+
+def scalar_path_phase(device, seed, socket_frames_per_s):
+    """Phase 16: BASELINE config 1 in process and through the CLI, the
+    served evaluation, and phase 15 (b)'s topology on the shm lane."""
+    import tempfile as tf
+
+    t0 = time.perf_counter()
+    result = {"grpc": grpc_check(), "scalar": scalar_phase(device, seed)}
+    with tf.TemporaryDirectory(prefix="chip_smoke_scalar_") as root:
+        result["cli"] = scalar_cli_phase(seed, root)
+        result["eval_served"] = eval_served_phase(result["cli"]["ckpt_dir"], seed, root)
+        result["shm"] = external_phase(device, seed, root, lane="shm", subscriber_ckpt=result["cli"]["ckpt_dir"])
+    shm = result["shm"]["frames_per_s_steps_10_to_30"]
+    result["shm"]["ratio_to_socket"] = shm / socket_frames_per_s
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"scalar path and shm lane: phase 16 in {result['wall_s']:.1f} s; the shm learner {shm:.0f} trained "
+        f"frames/s between its step-10 and step-30 lines, {result['shm']['ratio_to_socket']:.3f}x phase 15 (b)'s "
+        f"socket learner ({socket_frames_per_s:.0f}) in this run")
     return result
 
 
@@ -3411,6 +3774,7 @@ def main() -> int:
         buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
     record = run_record_phase(device, args.seed, smi)
     external = external_actors_phase(device, args.seed)
+    scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"])
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -3421,7 +3785,13 @@ def main() -> int:
                                       "train_run_record": record["lstm_seq_launches"],
                                       "train_vec": external["vec"]["lstm_seq_launches"],
                                       "external_learner": external["external"]["lstm_seq_launches"],
-                                      "external_actors": external["external"]["actors_lstm_seq_launches"]}
+                                      "external_actors": external["external"]["actors_lstm_seq_launches"],
+                                      "train_scalar": scalar["scalar"]["lstm_seq_launches"],
+                                      "train_scalar_cli": sum(scalar["cli"][k]["lstm_seq_launches"]
+                                                              for k in ("scalar", "no_vec")),
+                                      "eval_served": scalar["eval_served"]["lstm_seq_launches"],
+                                      "shm_learner": scalar["shm"]["lstm_seq_launches"],
+                                      "shm_actors": scalar["shm"]["actors_lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
@@ -3429,7 +3799,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
-                       "league": league, "buffered": buffered, "run_record": record, "external": external}, f,
+                       "league": league, "buffered": buffered, "run_record": record, "external": external,
+                       "scalar": scalar}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

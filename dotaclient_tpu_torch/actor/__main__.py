@@ -1,17 +1,19 @@
 """The actor process: one rollout worker of the scale-out topology.
 
 Counterpart of ``dotaclient_tpu/actor/__main__.py``. N such processes feed one
-learner over TCP::
+learner over TCP or, on the learner's host, over shared memory::
 
-    python -m dotaclient_tpu_torch.actor --connect HOST:PORT [--n-envs 64] [--opponent selfplay]
+    python -m dotaclient_tpu_torch.actor --connect HOST:PORT|shm://NAME [--n-envs 64] [--opponent selfplay]
         [--team-size 1] [--max-dota-time S] [--rollout-len T] [--seed S] [--steps N]
         [--refresh-every N] [--max-reconnects N] [--idle-timeout S] [--platform cuda|cpu]
 
 It connects to the learner's ``TransportServer`` (``python -m
-dotaclient_tpu_torch.train.learner --actor external --listen HOST:PORT``),
-waits up to 60 s for the first weights frame (the Flax layout, converted),
-runs ``VecActorPool`` and ships protobuf rollouts, applying newer weights
-every ``--refresh-every`` env steps. It reads a JAX learner's frames too,
+dotaclient_tpu_torch.train.learner --transport socket --listen HOST:PORT``)
+or claims a ring slot of its ``ShmTransportServer`` (``--transport shm
+--shm-name NAME``, then ``--connect shm://NAME``), waits up to 60 s for
+the first weights frame (the Flax layout, converted), runs
+``VecActorPool`` and ships protobuf rollouts, applying newer weights every
+``--refresh-every`` env steps. It reads a JAX learner's frames too,
 and a JAX learner reads its rollouts. Actors are disposable: a lost
 connection is retried with bounded exponential backoff and full jitter
 (``actor/backoff.py``), then the process exits 1 for its supervisor to
@@ -31,9 +33,8 @@ card admits many processes. ``--platform cpu`` runs the policy on the CPU
 replicas of a fleet stream different experience.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--connect shm://NAME`` and ``--amqp`` (item 13), ``--rollout-wire-
-dtype bfloat16`` (item 13), ``--trace-jsonl``, ``--trace-sample`` and
-``--fleet-interval`` (item 8).
+item: ``--amqp`` and ``--rollout-wire-dtype bfloat16`` (item 13),
+``--trace-jsonl``, ``--trace-sample`` and ``--fleet-interval`` (item 8).
 """
 
 from __future__ import annotations
@@ -49,12 +50,31 @@ import zlib
 from typing import List, Optional
 
 _ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
-_ITEM_13 = "ROADMAP queue 1, item 13 (the shm lane, AMQP and the narrow wire)"
+_ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
+
+
+def transport_factory(connect: str, idle_timeout: Optional[float], transport_config):
+    """The (re)connect callable for ``--connect``: a ``ShmTransport`` on
+    lane NAME for ``shm://NAME``, else a ``SocketTransport`` to HOST:PORT
+    with the config's liveness and poison knobs (the wire carries no config
+    handshake, so they must match the learner's)."""
+    if connect.startswith("shm://"):
+        from dotaclient_tpu_torch.transport.shm_transport import ShmTransport
+
+        name = connect[len("shm://"):]
+        return lambda: ShmTransport(name)
+    from dotaclient_tpu_torch.transport.socket_transport import SocketTransport
+
+    host, port = connect.rsplit(":", 1)
+    idle = idle_timeout if idle_timeout is not None else transport_config.idle_timeout_s
+    return lambda: SocketTransport(host, int(port), idle_timeout_s=idle,
+                                   poison_frame_limit=transport_config.poison_frame_limit)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    p = argparse.ArgumentParser(description="One rollout worker feeding a learner over TCP.")
-    p.add_argument("--connect", type=str, default=None, help="the learner's TransportServer, HOST:PORT")
+    p = argparse.ArgumentParser(description="One rollout worker feeding a learner over TCP or shared memory.")
+    p.add_argument("--connect", type=str, default=None,
+                   help="the learner's TransportServer, HOST:PORT, or shm://NAME for its same-host shm lane")
     p.add_argument("--amqp", type=str, default=None, help="not ported yet: " + _ITEM_13)
     p.add_argument("--n-envs", type=int, default=64)
     p.add_argument("--opponent", type=str, default="scripted_easy",
@@ -88,9 +108,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.rollout_wire_dtype not in (None, "float32"):
         raise NotImplementedError(f"--rollout-wire-dtype {args.rollout_wire_dtype} is not ported yet: {_ITEM_13}")
     if not args.connect:
-        p.error("--connect HOST:PORT is required")
-    if args.connect.startswith("shm://"):
-        raise NotImplementedError(f"--connect shm:// is not ported yet: {_ITEM_13}")
+        p.error("--connect HOST:PORT or shm://NAME is required")
     if args.seed is None:
         pod = os.environ.get("POD_NAME", "")
         args.seed = zlib.crc32(pod.encode()) & 0x7FFFFFFF if pod else 0
@@ -121,7 +139,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dotaclient_tpu_torch.models.policy import init_params, make_policy
     from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.transport.serialize import decode_weights
-    from dotaclient_tpu_torch.transport.socket_transport import SocketTransport
 
     device = resolve_device(None if args.platform == "cuda" else "cpu")
     config = default_config()
@@ -132,12 +149,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.rollout_len is not None:
         config = dataclasses.replace(config, ppo=dataclasses.replace(config.ppo, rollout_len=args.rollout_len))
 
-    host, port = args.connect.rsplit(":", 1)
-    idle = args.idle_timeout if args.idle_timeout is not None else config.transport.idle_timeout_s
-
-    def factory():
-        return SocketTransport(host, int(port), idle_timeout_s=idle,
-                               poison_frame_limit=config.transport.poison_frame_limit)
+    factory = transport_factory(args.connect, args.idle_timeout, config.transport)
 
     try:
         transport = connect_with_backoff(factory, max_attempts=args.max_reconnects,

@@ -88,6 +88,11 @@ def make_device_step(policy: Policy) -> Callable[..., Tuple[torch.Tensor, Tuple[
     return step
 
 
+def obs_to_device(obs: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host pool's stacked observation leaves onto ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+
+
 def _unpack(host: np.ndarray, hidden: int) -> Tuple[np.ndarray, np.ndarray, Tuple[np.ndarray, np.ndarray]]:
     """The host copy of ``packed`` -> (actions int32 [L, 5], logp [L],
     carry (c, h) f32)."""
@@ -225,7 +230,7 @@ class VecActorPool(WindowedStatsMixin):
     # -- stepping -------------------------------------------------------------------
 
     def _to_device(self, obs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}
+        return obs_to_device(obs, self.device)
 
     def step(self, noise: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Advance every game one step: one policy dispatch, one copy to

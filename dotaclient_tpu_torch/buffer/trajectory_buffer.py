@@ -57,7 +57,7 @@ from dotaclient_tpu_torch.utils import telemetry
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "ROADMAP queue 1, item 13 (the shm lane, AMQP and the narrow wire)"
+_NOT_PORTED = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _N_COUNTERS = 7   # warmed, stale, overflow, ingested, skew, nonfinite, bounds
 
 

@@ -5,6 +5,8 @@
         --serve batch_window_ms=4,max_batch=128 --serve-listen 0.0.0.0:7788
     python -m dotaclient_tpu_torch.serve --checkpoint runs/ckpt \\
         --subscribe 10.0.0.5:7777          # hot weight refresh from a learner
+    python -m dotaclient_tpu_torch.serve --checkpoint runs/ckpt \
+        --subscribe shm://NAME             # ... from a learner's shm lane on this host
     python -m dotaclient_tpu_torch.serve --checkpoint runs/ckpt --device cpu
 
 Counterpart of ``dotaclient_tpu/serve/__main__.py``. Loads a checkpoint the
@@ -21,9 +23,11 @@ dotaclient_tpu_torch.serve.router``, each started with
 ``--serve carry_shadow=true`` where sessions must resume bit-exact when
 re-homed.
 
+``--subscribe shm://NAME`` reads the weights slab of a learner's shm lane
+on this host (it claims one of the lane's actor slots while it runs).
+
 Accepted but not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: ``--subscribe shm://`` (queue 1, item 13, beside the
-learner's shm publisher), ``--trace-jsonl`` and ``--trace-sample`` (item 8),
+ROADMAP item: ``--trace-jsonl`` and ``--trace-sample`` (queue 1, item 8),
 ``--fleet-interval`` (item 8).
 """
 
@@ -45,7 +49,8 @@ def main(argv=None) -> int:
     p.add_argument("--serve", type=str, default=None, metavar="K=V,...",
                    help="comma-separated ServeConfig overrides, e.g. 'batch_window_ms=4,max_batch=128'")
     p.add_argument("--subscribe", type=str, default=None, metavar="ADDR",
-                   help="weights fanout to subscribe to: 'host:port' of a learner's socket lane")
+                   help="weights fanout to subscribe to: 'host:port' of a learner's socket lane, or "
+                   "'shm://NAME' of its shm lane on this host")
     p.add_argument("--serve-metrics-jsonl", type=str, default=None, metavar="PATH",
                    help="append a serve-telemetry snapshot to PATH every 5 s and at exit")
     p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH")
@@ -61,8 +66,6 @@ def main(argv=None) -> int:
         raise NotImplementedError("--trace-jsonl/--trace-sample are not ported yet: ROADMAP queue 1, item 8")
     if args.fleet_interval is not None:
         raise NotImplementedError("--fleet-interval is not ported yet: ROADMAP queue 1, item 8")
-    if args.subscribe and args.subscribe.startswith("shm://"):
-        raise NotImplementedError("--subscribe shm:// (the shm lane) is not ported yet: ROADMAP queue 1, item 13")
 
     from dotaclient_tpu_torch.config import ServeConfig
     from dotaclient_tpu_torch.device import resolve_device
@@ -109,10 +112,15 @@ def main(argv=None) -> int:
 
     source = None
     if args.subscribe:
-        from dotaclient_tpu_torch.transport.socket_transport import SocketTransport
+        if args.subscribe.startswith("shm://"):
+            from dotaclient_tpu_torch.transport.shm_transport import ShmTransport
 
-        sub_host, sub_port = args.subscribe.rsplit(":", 1)
-        source = SocketTransport(sub_host, int(sub_port))
+            source = ShmTransport(args.subscribe[len("shm://"):])
+        else:
+            from dotaclient_tpu_torch.transport.socket_transport import SocketTransport
+
+            sub_host, sub_port = args.subscribe.rsplit(":", 1)
+            source = SocketTransport(sub_host, int(sub_port))
         server.attach_weights_source(source)
         print(f"serve: subscribed to weights fanout {args.subscribe}", flush=True)
 

@@ -5,15 +5,16 @@ actor=...)``, its training loops, the health guardian, the snapshot
 engine's boundaries, the run record, best-model rotation, ``train``'s
 return dict) and of its CLI. Run on the card::
 
-    python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused|vec|external]
-        [--transport inproc|socket] [--listen HOST:PORT] [--refresh-every N] [--overlap] [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
+    python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused|vec|scalar|external]
+        [--no-vec] [--transport inproc|socket|shm] [--listen HOST:PORT] [--shm-name NAME] [--refresh-every N]
+        [--overlap] [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
         [--league K=V,...] [--ppo K=V,...] [--reward K=V,...] [--serve K=V,...] [--buffer K=V,...]
         [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
         [--init-from DIR]
 
-Four actor modes, ``device`` the default as in the reference:
+Five actor modes, ``device`` the default as in the reference:
 
 * ``device``, the buffered learner: each iteration ``DeviceActor.collect``
   rolls out every game on the card, ``TrajectoryBuffer.add_device`` puts
@@ -32,9 +33,19 @@ Four actor modes, ``device`` the default as in the reference:
   thread (the staleness filter and version tags then do real work). The
   pool plays the learner's params, pushed behind the health gate
   (``_push_pool_params``) every ``refresh_every`` batches;
+* ``scalar`` (``--no-vec``), the proto path of BASELINE config 1: the
+  scalar ``ActorPool`` (``actor/runtime.py``: ``LocalDotaEnv`` games over
+  the proto ``LaneSim``, one batched policy step on the card) in the
+  ``vec`` mode's loops, sequential or ``overlap``; its chunks are
+  ``Rollout`` protos published to ``transport`` (the ``InProcTransport``),
+  which ``_ingest_impl``'s drain decodes into the ring. It has no opponent
+  lanes, so league mode refuses it;
 * ``external``: no actors in process. ``python -m
   dotaclient_tpu_torch.actor`` processes feed a ``TransportServer``
-  (``--transport socket --listen HOST:PORT``); ``_ingest_impl`` drains it
+  (``--transport socket --listen HOST:PORT``) or, on the same host, a
+  ``ShmTransportServer`` (``--transport shm --shm-name NAME``: one
+  shared-memory ring a slot, drained on the train thread, and a seqlocked
+  weights slab); ``_ingest_impl`` drains it
   decoded (``consume_decoded``, with the wire byte accounting) into the
   ring, and the weights go out every ``refresh_every`` batches in the Flax
   layout (``encode_weights(to_flax(...))``), so a JAX actor reads them too.
@@ -81,11 +92,10 @@ past selves (``league/pool.py``): snapshots every ``snapshot_every`` steps,
 draws held for ``opponent_hold`` steps, and PFSP outcomes read in one
 batch at a log boundary or the end of ``train``.
 
-Not ported yet, each with its ROADMAP item: the ``scalar`` actor mode
-(queue 1, item 4c), the shm and AMQP transports and the narrow wires
-(item 13), the transformer and MoE cores (item 6), the mesh (item 7), the
-trace plane and the fleet fanout (item 8) and the JAX debug and cache flags
-(item 12). Their CLI flags are accepted and raise ``NotImplementedError``
+Not ported yet, each with its ROADMAP item: the AMQP transport and the
+narrow wires (queue 1, item 13), the transformer and MoE cores (item 6),
+the mesh (item 7), the trace plane and the fleet fanout (item 8) and the
+JAX debug and cache flags (item 12). Their CLI flags are accepted and raise ``NotImplementedError``
 naming the item.
 """
 
@@ -107,6 +117,7 @@ import numpy as np
 import torch
 
 from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, flatten_state, unflatten_state
+from dotaclient_tpu_torch.actor.runtime import ActorPool
 from dotaclient_tpu_torch.actor.vec_runtime import VecActorPool
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
 from dotaclient_tpu_torch.config import (
@@ -135,10 +146,6 @@ from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 from dotaclient_tpu_torch.utils.profiling import trace
 
 ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
-# actor modes of the reference learner that the port does not have yet
-_NOT_PORTED = {
-    "scalar": "ROADMAP queue 1, item 4c (the scalar path)",
-}
 
 
 class Learner:
@@ -147,9 +154,10 @@ class Learner:
     with ``init_from``, the weights alone of the newest valid checkpoint in
     that other directory), the ``actor`` mode's actors (a device actor over
     ``config.env.n_envs`` games for ``device`` and ``fused``, a host pool
-    for ``vec``, none for ``external``) and its loop. ``transport`` carries
-    the experience and the weights (an ``InProcTransport`` when None;
-    ``external`` needs one, such as a ``TransportServer``). ``logdir`` and
+    for ``vec`` and ``scalar``, none for ``external``) and its loop.
+    ``transport`` carries the experience and the weights (an
+    ``InProcTransport`` when None; ``external`` needs one, such as a
+    ``TransportServer`` or a ``ShmTransportServer``). ``logdir`` and
     ``metrics_jsonl`` add the tensorboardX and JSONL sinks to the run
     record; ``close`` lands the pending checkpoint writes and closes the
     record (the caller closes the transport it gave)."""
@@ -170,8 +178,9 @@ class Learner:
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
-        if actor in _NOT_PORTED:
-            raise NotImplementedError(f"actor mode {actor!r} is not ported yet: {_NOT_PORTED[actor]}")
+        if actor == "scalar" and config.env.opponent == "league":
+            raise NotImplementedError("league mode needs frozen-opponent lanes; the scalar pool has none: use "
+                                      "actor='device' or 'vec'")
         if config.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {config.steps_per_dispatch}")
         if config.steps_per_dispatch > 1 and actor != "fused":
@@ -241,22 +250,27 @@ class Learner:
         # (drop-oldest: with overlap the pool free-runs past the learner)
         self._sink: Optional[deque] = deque(maxlen=4 * config.buffer.capacity_rollouts) if actor == "vec" else None
         self.device_actor: Optional[DeviceActor] = None
-        self.vec_pool: Optional[VecActorPool] = None
+        # the host pool of the vec and scalar modes
+        self.host_pool: Optional[Any] = None
         if actor in ("device", "fused"):
             self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                             device=self.device)
+        elif actor == "scalar":
+            self.host_pool = ActorPool(config, self.policy, self._actor_params_copy(), transport=self.transport,
+                                       seed=seed, version=self.state.version, device=self.device,
+                                       registry=self.registry)
         elif actor == "vec":
-            self.vec_pool = VecActorPool(config, self.policy, self._actor_params_copy(), seed=seed,
-                                         version=self.state.version, rollout_sink=self._sink.extend,
-                                         device=self.device, registry=self.registry)
+            self.host_pool = VecActorPool(config, self.policy, self._actor_params_copy(), seed=seed,
+                                          version=self.state.version, rollout_sink=self._sink.extend,
+                                          device=self.device, registry=self.registry)
             if self.league is not None:
-                self.vec_pool.set_opponent(*self.league.sample_indexed(self._actor_params_copy(), 0)[:2])
+                self.host_pool.set_opponent(*self.league.sample_indexed(self._actor_params_copy(), 0)[:2])
                 if config.league.matchmaking == "pfsp":
                     print("WARNING: PFSP matchmaking needs per-draw outcomes, which only the device and fused "
                           "loops attribute; host-pool league draws keep the 0.5 prior and behave as uniform",
                           flush=True)
         # the actors' shared surface (stats, drain_stats): None in external
-        self.pool = self.device_actor if self.device_actor is not None else self.vec_pool
+        self.pool = self.device_actor if self.device_actor is not None else self.host_pool
         self.fused_step = None
         self.train_step = self.epoch_step = self.advantage_pass = None
         self.buffer: Optional[TrajectoryBuffer] = None
@@ -505,7 +519,8 @@ class Learner:
 
     def _ingest_impl(self) -> int:
         """Move the ready chunks into the ring: the vec pool's deque, else a
-        drain of the transport (decoded by ``consume_decoded`` where the
+        drain of the transport (the scalar pool's protos, the actor
+        processes' frames; decoded by ``consume_decoded`` where the
         transport has it, with the wire byte accounting), waiting at most
         ``buffer.consume_poll_timeout_s`` on an empty one. Returns the
         chunks kept."""
@@ -733,8 +748,8 @@ class Learner:
         # restored run
         if self.device_actor is not None:
             self.device_actor.reset_recurrent()
-        elif self.vec_pool is not None:
-            self.vec_pool.set_params(self._actor_params_copy(), self.state.version)
+        elif self.host_pool is not None:
+            self.host_pool.set_params(self._actor_params_copy(), self.state.version)
         # a distinct minibatch stream: the retry must not replay the one
         # that diverged
         self._mb_rng = np.random.default_rng(self.config.seed + 1 + 7919 * self._rollback_count)
@@ -762,7 +777,7 @@ class Learner:
         return {k: v.detach().clone() for k, v in self.policy.state_dict().items()}
 
     def _push_pool_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Give the vec pool ``params`` behind the publishes' health gate:
+        """Give the host pool ``params`` behind the publishes' health gate:
         a latched-unhealthy monitor blocks the push
         (``health/publish_blocked_total``), so in-process actors keep the
         last good params too."""
@@ -772,16 +787,16 @@ class Learner:
             if self._health.unhealthy is not None:
                 self.registry.counter("health/publish_blocked_total").inc()
                 return
-        self.vec_pool.set_params(params, self.state.version)
+        self.host_pool.set_params(params, self.state.version)
 
     def _refresh_league_opponent(self) -> None:
         """Snapshot if due and redraw the vec pool's frozen opponent (the
         device actor draws at every collect instead)."""
-        if self.league is None or self.vec_pool is None:
+        if self.league is None or self.host_pool is None:
             return
         self.league.maybe_snapshot(self.policy.state_dict(), self.state.version, self.state.step)
         params, version, _ = self.league.sample_indexed(self._actor_params_copy(), self.state.version)
-        self.vec_pool.set_opponent(params, version)
+        self.host_pool.set_opponent(params, version)
 
     def _publish_weights(self) -> None:
         """Hand the params to the transport's weights fanout behind the
@@ -868,9 +883,9 @@ class Learner:
             if da is not None:
                 s_dev, s_fin = da.begin_drain()
                 self._snap_engine.submit_stats(device_copy(s_dev, clone=False), s_fin)
-            elif self.vec_pool is not None:
+            elif self.host_pool is not None:
                 # a host pool's window is host floats already
-                host_extra = {**host_extra, **self.vec_pool.drain_stats()}
+                host_extra = {**host_extra, **self.host_pool.drain_stats()}
             best_win = self._best_win   # read here: the train thread owns it
 
             def finish(host: Dict[str, Any]) -> None:
@@ -907,14 +922,14 @@ class Learner:
 
     def _publish_pipeline_gauges(self) -> None:
         """The cross-stage gauges of a log boundary, host values only: the
-        actor's weight staleness (the vec pool's versions behind; 0 for the
+        actor's weight staleness (the host pool's versions behind; 0 for the
         device actor, which plays the live params, and in external mode),
         the transport's queue depth, the prefetch lane's hit
         rate and overlap fraction, the advantage pass's overlap fraction,
         the memory peak, the outcome tick and the utilization fold."""
         reg = self.registry
         reg.gauge("actor/weight_staleness").set(
-            float(self.state.version - self.vec_pool.version) if self.vec_pool is not None else 0.0)
+            float(self.state.version - self.host_pool.version) if self.host_pool is not None else 0.0)
         reg.gauge("transport/queue_depth").set(float(self.transport.pending_rollouts))
         served = self._prefetch_hits + self._prefetch_misses
         if served:
@@ -1035,7 +1050,7 @@ class Learner:
         def refresh_due() -> bool:
             return bool(refresh_every) and (self._steps_done // epochs) % refresh_every == 0
 
-        if self.vec_pool is None:
+        if self.host_pool is None:
             # external: the actors are other processes; this loop trains and
             # publishes, the transport drain riding the prefetch lane
             self._publish_weights()
@@ -1049,7 +1064,7 @@ class Learner:
                 if refresh_due():
                     self._publish_weights()
             return
-        pool = self.vec_pool
+        pool = self.host_pool
         if self._overlap:
             stop = threading.Event()
             actor_error: List[BaseException] = []
@@ -1134,8 +1149,8 @@ class Learner:
 
         ``refresh_every``: batches between weights publishes (``external``;
         and the device and fused loops on a transport other than the
-        in-process one) or pushes to the vec pool (``vec`` with
-        ``overlap``). ``overlap`` runs the vec pool on its own thread;
+        in-process one) or pushes to the host pool (``vec`` and ``scalar``
+        with ``overlap``). ``overlap`` runs the host pool on its own thread;
         without it a pool phase of ``actor_steps_per_iter`` steps
         (``rollout_len`` by default) alternates with the updates. The final
         weights are published at the end. The run record gets its closing
@@ -1200,7 +1215,7 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_13 = "ROADMAP queue 1, item 13 (the shm lane, AMQP and the narrow wire)"
+_ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _ITEM_6 = "ROADMAP queue 1, item 6 (transformer and MoE cores)"
 _ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
 _ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
@@ -1215,11 +1230,9 @@ _NOT_PORTED_FLAGS = (
     ("--multihost", {"action": "store_true"}, _ITEM_7),
     ("--dcn-slices", {"type": int}, _ITEM_7),
     ("--model-parallel", {"type": int}, _ITEM_7),
-    ("--shm-name", {"type": str}, _ITEM_13),
     ("--amqp-host", {"type": str}, _ITEM_13),
     ("--wire-dtype", {"type": str}, _ITEM_13),
     ("--rollout-wire-dtype", {"type": str}, _ITEM_13),
-    ("--no-vec", {"action": "store_true"}, "ROADMAP queue 1, item 4c (the scalar path)"),
     ("--trace-jsonl", {"type": str}, _ITEM_8),
     ("--trace-sample", {"type": int}, _ITEM_8),
     ("--fleet-interval", {"type": float}, _ITEM_8),
@@ -1279,12 +1292,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "thread instead of the snapshot engine's (learner async_snapshots=false)")
     p.add_argument("--actor", type=str, default=None, choices=ACTOR_MODES,
                    help="device: the buffered learner over the on-device rollout (default); fused: rollout "
-                   "and update on the same chunk in one step; vec: an in-process host actor pool; external: "
-                   "actor processes (python -m dotaclient_tpu_torch.actor) over --transport socket")
+                   "and update on the same chunk in one step; vec: an in-process host actor pool over the numpy "
+                   "sim; scalar: the proto actor pool over the scalar sim; external: actor processes (python -m "
+                   "dotaclient_tpu_torch.actor) over --transport socket or shm")
+    p.add_argument("--no-vec", action="store_true",
+                   help="use the scalar (proto) actor pool instead of the vectorized sim (--actor scalar)")
     p.add_argument("--transport", type=str, default="inproc", choices=("inproc", "socket", "shm", "amqp"),
                    help="the weights and experience transport: socket listens for actor processes on "
-                   "--listen and implies --actor external (shm and amqp: " + _ITEM_13 + ")")
+                   "--listen, shm serves actors on this host over shared memory (--shm-name); either implies "
+                   "--actor external (amqp: " + _ITEM_13 + ")")
     p.add_argument("--listen", type=str, default="127.0.0.1:7777", help="HOST:PORT for --transport socket")
+    p.add_argument("--shm-name", type=str, default=None,
+                   help="the shared-memory lane's name for --transport shm (default tpu-dota-<pid>; actors "
+                   "connect with --connect shm://NAME)")
     p.add_argument("--refresh-every", type=int, default=10,
                    help="publish the weights to the actors every N batches")
     p.add_argument("--overlap", action="store_true",
@@ -1313,10 +1333,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     for flag, _, item in _NOT_PORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
-    if args.transport in ("shm", "amqp"):
-        raise NotImplementedError(f"--transport {args.transport} is not ported yet: {_ITEM_13}")
+    if args.transport == "amqp":
+        raise NotImplementedError(f"--transport amqp is not ported yet: {_ITEM_13}")
     if args.actor is None:
-        args.actor = "external" if args.transport != "inproc" else "device"
+        args.actor = "scalar" if args.no_vec else "external" if args.transport != "inproc" else "device"
 
     config = default_config()
     if args.smoke:
@@ -1357,6 +1377,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                                     poison_frame_limit=t.poison_frame_limit,
                                     heartbeat_interval_s=t.heartbeat_interval_s, idle_timeout_s=t.idle_timeout_s)
         print(f"learner: listening for actors on {transport.address}", flush=True)
+    elif args.transport == "shm":
+        from dotaclient_tpu_torch.transport.shm_transport import ShmTransportServer
+
+        t = config.transport
+        transport = ShmTransportServer(name=args.shm_name, slots=t.shm_slots, ring_bytes=t.shm_ring_bytes,
+                                       weights_bytes=t.shm_weights_bytes, poison_frame_limit=t.poison_frame_limit)
+        print(f"learner: shm lane {transport.address!r} ({transport.slots} actor slots; actors: --connect "
+              f"shm://{transport.address})", flush=True)
     try:
         learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
                           checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,

@@ -1,17 +1,18 @@
-"""The wire: the protobuf codec, the framed TCP lane and the in-process
-transport.
+"""The wire: the protobuf codec, the framed TCP lane, the same-host
+shared-memory lane and the in-process transport.
 
 Exports the names of the JAX package's ``transport`` package that the port
 has, resolved on first use: the session router imports the framing of
 ``socket_transport`` without loading torch, so this package imports
-nothing up front. ``AmqpTransport``, ``ShmTransport`` and
-``ShmTransportServer`` wait for ROADMAP queue 1, item 13.
+nothing up front. ``AmqpTransport`` waits for ROADMAP queue 1, item 13.
 """
 
 import importlib
 
 _EXPORTS = {
     "InProcTransport": "queues",
+    "ShmTransport": "shm_transport",
+    "ShmTransportServer": "shm_transport",
     "SocketTransport": "socket_transport",
     "TransportServer": "socket_transport",
     **{name: "serialize" for name in (

@@ -18,6 +18,7 @@ package's, and the actor process into the learner over localhost.
 """
 
 import dataclasses
+import os
 import threading
 import time
 
@@ -163,10 +164,12 @@ def test_external_mode_needs_a_transport_and_vec_and_external_are_ported():
     _, pcfg = buffered_configs()
     with pytest.raises(ValueError, match="needs a transport"):
         plearner.Learner(pcfg, actor="external", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        plearner.Learner(pcfg, actor="scalar", device="cpu")
+    scalar = plearner.Learner(pcfg, actor="scalar", device="cpu", registry=telemetry.Registry())
+    assert scalar.pool is scalar.host_pool and scalar.device_actor is None and scalar._sink is None
+    assert scalar.host_pool.transport is scalar.transport   # its protos reach the ring by the drain
+    scalar.close()
     vec = plearner.Learner(pcfg, actor="vec", device="cpu", registry=telemetry.Registry())
-    assert vec.pool is vec.vec_pool and vec.device_actor is None and vec._sink.maxlen == 4 * 8
+    assert vec.pool is vec.host_pool and vec.device_actor is None and vec._sink.maxlen == 4 * 8
     vec.close()
 
 
@@ -188,7 +191,7 @@ def test_vec_learner_trains_and_keeps_its_books(overlap):
     assert buf.dropped_skew == buf.dropped_nonfinite == buf.dropped_bounds == 0
     assert out["actor_env_steps"] > 0 and out["actor_rollouts_shipped"] >= buf.ingested
     assert any(not torch.equal(v, before[k]) for k, v in learner.policy.state_dict().items())
-    assert learner.vec_pool.version >= (2 if overlap else 3)   # pushed params
+    assert learner.host_pool.version >= (2 if overlap else 3)   # pushed params
     learner.close()
 
 
@@ -199,11 +202,11 @@ def test_pool_pushes_wait_behind_the_health_gate():
     learner = plearner.Learner(cfg, actor="vec", device="cpu", registry=reg)
     learner.state.version = 5
     learner._push_pool_params(learner._actor_params_copy())
-    assert learner.vec_pool.version == 5
+    assert learner.host_pool.version == 5
     learner._health.fold_host(6, 6, {"loss": float("nan"), "grad_norm": 1.0, "health_ok": 0.0})
     learner.state.version = 6
     learner._push_pool_params(learner._actor_params_copy())
-    assert learner.vec_pool.version == 5 and reg.snapshot()["health/publish_blocked_total"] == 1.0
+    assert learner.host_pool.version == 5 and reg.snapshot()["health/publish_blocked_total"] == 1.0
     learner.close()
 
 
@@ -336,9 +339,31 @@ def test_learner_cli_listens_for_actor_processes(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("transport", ["shm", "amqp"])
-def test_learner_cli_refuses_the_transports_of_item_13(transport):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13 "):
-        plearner.main(["--smoke", "--device", "cpu", "--transport", transport])
+def test_learner_cli_refuses_the_transports_of_item_13(transport, capsys):
+    if transport == "amqp":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13 "):
+            plearner.main(["--smoke", "--device", "cpu", "--transport", transport])
+        return
+    # the shm lane is ported: the learner CLI serves it (implying --actor
+    # external) and an actor CLI feeds it; the lane is gone afterwards
+    name = f"t-cli-{os.getpid()}"
+    done, rc = [], []
+    learner = threading.Thread(target=lambda: done.append(plearner.main(
+        ["--smoke", "--device", "cpu", "--transport", "shm", "--shm-name", name, "--steps", "2",
+         "--refresh-every", "1"])), daemon=True)
+    learner.start()
+    args = actor_args(0, 4, 64)
+    args[1] = f"shm://{name}"
+    actor = threading.Thread(target=lambda: rc.append(actor_cli.main(args)), daemon=True)
+    actor.start()
+    learner.join(WAIT_S)
+    actor.join(WAIT_S)
+    assert done == [0] and rc == [0]
+    out = capsys.readouterr().out
+    assert f"learner: shm lane {name!r} (16 actor slots" in out and "done: 2 steps" in out
+    seen = [x for x in out.splitlines() if x.startswith("ACTOR_VERSIONS_SEEN ")]
+    assert len(seen) == 1 and max(eval(seen[0].split(" ", 1)[1])) > 0
+    assert not [f for f in os.listdir("/dev/shm") if f.startswith(name)]
 
 
 def test_the_nonfinite_fault_is_dropped_at_the_ring_door():

@@ -381,8 +381,11 @@ def test_evaluate_counts_full_games_as_the_reference(mode):
     assert 0.0 <= got["win_rate"] <= 1.0 and np.isfinite(got["episode_reward_mean"])
     snap = telemetry.get_registry().snapshot()
     assert snap["league/eval_episodes"] == got["episodes"] and snap["league/eval_win_rate"] == got["win_rate"]
-    with pytest.raises(NotImplementedError, match="4c"):
-        pleague.evaluate_served(pcfg, ("127.0.0.1", 1))
+    # evaluate_served is ported: with no server at the address its first
+    # client fails to connect
+    with pytest.raises((ConnectionError, OSError)):
+        pleague.evaluate_served(dataclasses.replace(pcfg, serve=dataclasses.replace(
+            pcfg.serve, request_deadline_s=0.5)), ("127.0.0.1", 1), n_games=1)
 
 
 def save_checkpoint(path, seed, **model):

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package."""
 
+import importlib.util
 import json
 import os
 import pathlib
@@ -15,7 +16,7 @@ PORT = ROOT / "dotaclient_tpu_torch"
 # an importer that refuses jax, flax, ml_dtypes and the JAX package,
 # installed before anything of the port is imported
 _BLOCKER = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "dotaclient_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BANNED:
@@ -28,6 +29,8 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 import dotaclient_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dotaclient_tpu_torch.__path__, "dotaclient_tpu_torch.")]
+if importlib.util.find_spec("grpc") is None:   # the gRPC service alone needs grpc
+    names.remove("dotaclient_tpu_torch.envs.service")
 for name in names:
     importlib.import_module(name)
 assert not any(n.split(".")[0] in BANNED for n in sys.modules), "a banned module got in"
@@ -56,6 +59,11 @@ EXTERNAL_MODULES = ("dotaclient_tpu_torch.actor.__main__", "dotaclient_tpu_torch
                     "dotaclient_tpu_torch.transport.socket_transport", "dotaclient_tpu_torch.transport.serialize",
                     "dotaclient_tpu_torch.transport", "dotaclient_tpu_torch.models.convert",
                     "dotaclient_tpu_torch.outcome.records")
+SCALAR_MODULES = ("dotaclient_tpu_torch.envs.lane_sim", "dotaclient_tpu_torch.envs.env_api",
+                  "dotaclient_tpu_torch.envs.service", "dotaclient_tpu_torch.features",
+                  "dotaclient_tpu_torch.features.featurizer", "dotaclient_tpu_torch.features.reward",
+                  "dotaclient_tpu_torch.actor", "dotaclient_tpu_torch.actor.runtime",
+                  "dotaclient_tpu_torch.transport.shm_transport")
 
 
 def port_sources():
@@ -70,10 +78,39 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     names, count = out.stdout.splitlines()[-2:]
     # every module of the port: the league's, the buffered learner's, the
-    # run record's and the external actors'
-    assert int(count) >= 68
-    for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES):
-        assert set(group) <= set(names.split())
+    # run record's, the external actors' and the scalar path's (the gRPC
+    # service's only where grpc is installed)
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    assert int(count) >= 71 + has_grpc
+    for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES):
+        assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
+
+
+# the card's paths with grpc blocked: the card machine may lack it, and only
+# the gRPC service imports it
+_NO_GRPC = r"""
+import sys
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "grpc":
+            raise ImportError(f"banned import: {name}")
+        return None
+sys.meta_path.insert(0, Blocker())
+import dotaclient_tpu_torch.envs, dotaclient_tpu_torch.actor.runtime, dotaclient_tpu_torch.actor.__main__
+import dotaclient_tpu_torch.train.learner, dotaclient_tpu_torch.league.evaluation, dotaclient_tpu_torch.serve.__main__
+import dotaclient_tpu_torch.transport.shm_transport
+assert not any(n.split(".")[0] == "grpc" for n in sys.modules)
+print("card paths without grpc")
+"""
+
+
+def test_card_paths_import_without_grpc():
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_GRPC], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines()[-1] == "card paths without grpc"
 
 
 # the router and its CLI with torch blocked as well: a router process holds

@@ -248,11 +248,12 @@ def test_learner_trains_with_frame_accounting():
 
 def test_learner_refuses_what_is_not_ported():
     _, cfg = rollout_configs("scripted_easy")
-    # the buffered learner (device mode), the host pool and the external
-    # mode are ported; the scalar mode is not, and the external mode needs
-    # a transport
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plearner.Learner(cfg, actor="scalar", device="cpu")
+    # every actor mode is ported: the scalar pool is built (it refuses
+    # league mode, which needs opponent lanes), and the external mode
+    # needs a transport
+    scalar = plearner.Learner(cfg, actor="scalar", device="cpu")
+    assert scalar.pool is scalar.host_pool and scalar.host_pool.n_lanes == cfg.env.n_envs
+    scalar.close()
     with pytest.raises(ValueError, match="needs a transport"):
         plearner.Learner(cfg, actor="external", device="cpu")
     # league mode is ported: it builds its frozen-opponent pool instead

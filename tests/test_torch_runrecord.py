@@ -447,12 +447,13 @@ def test_fleet_aggregator_as_the_reference():
     ("--overlap", None), ("--no-vec", None), ("--trace-jsonl", "t.jsonl"), ("--trace-sample", "4"),
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
-    """Each flag raises naming its item, but the four the external-actor
-    slice ported (``--listen``, ``--refresh-every``, ``--overlap``,
-    ``--transport socket``), which now reach the learner they configure."""
+    """Each flag raises naming its item, but those the external-actor and
+    scalar slices ported (``--listen``, ``--refresh-every``, ``--overlap``,
+    ``--transport socket``, ``--no-vec``, ``--shm-name``), which now reach
+    the learner they configure."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
-    if name in ("--listen", "--refresh-every", "--overlap", "--transport"):
+    if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name"):
         built = []
 
         def recording(config, actor, **kw):
@@ -465,11 +466,11 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         with pytest.raises(SystemExit):
             plearner.main(argv)
         actor, kw = built[-1]
-        assert actor == ("external" if name == "--transport" else "device")
+        assert actor == {"--transport": "external", "--no-vec": "scalar"}.get(name, "device")
         assert (kw["transport"] is not None) == (name == "--transport")
         return
     item = {"--core": "6", "--moe-experts": "6", "--mesh": "7", "--multihost": "7", "--dcn-slices": "7",
-            "--model-parallel": "7", "--no-vec": "4c", "--trace-jsonl": "8", "--trace-sample": "8",
+            "--model-parallel": "7", "--trace-jsonl": "8", "--trace-sample": "8",
             "--fleet-interval": "8", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
         plearner.main(argv)

@@ -18,6 +18,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import socket
 import sys
 import threading
@@ -54,6 +55,7 @@ from dotaclient_tpu_torch.serve import __main__ as serve_cli
 from dotaclient_tpu_torch.serve.server import ATTACH_REQUEST_ID, KIND_SERVE_REPLY, KIND_SERVE_REQUEST, encode_reply
 from dotaclient_tpu_torch.train.ppo import init_train_state
 from dotaclient_tpu_torch.transport.serialize import encode_rollout_bytes, frame_crc32
+from dotaclient_tpu_torch.transport.shm_transport import ShmTransportServer
 from dotaclient_tpu_torch.transport.socket_transport import SocketTransport, _send_frame
 from dotaclient_tpu_torch.utils import telemetry
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
@@ -617,9 +619,22 @@ def test_serve_cli_refuses_what_is_not_there(tmp_path, monkeypatch):
     jcfg, pcfg = configs()
     save_checkpoint(pcfg, flax_params(jcfg, seed=17), str(tmp_path / "ckpt"))
     ck = ["--checkpoint", str(tmp_path / "ckpt")]
-    for extra in (["--subscribe", "shm://x"], ["--trace-jsonl", "t.jsonl"], ["--fleet-interval", "1"]):
+    for extra in (["--trace-jsonl", "t.jsonl"], ["--fleet-interval", "1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve_cli.main(ck + ["--device", "cpu"] + extra)
+    # --subscribe shm:// is ported: the CLI applies the version a learner's
+    # shm lane publishes
+    lane = ShmTransportServer(name=f"t-serve-{os.getpid()}", slots=2, ring_bytes=1 << 14, weights_bytes=1 << 22)
+    try:
+        lane.publish_weights(jax_encode_weights(flax_params(jcfg, seed=18), version=21))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert serve_cli.main(ck + ["--device", "cpu", "--subscribe", f"shm://{lane.address}",
+                                        "--duration", "1.5"]) == 0
+        assert json.loads(out.getvalue().splitlines()[-1])["serve_weights_version"] == 21.0
+        assert lane.n_connected == 0   # the subscriber's slot released at exit
+    finally:
+        lane.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(ck)
