@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor and scalar paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar and transformer paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -260,6 +260,34 @@ Phases (any failure exits non-zero and prints no result line):
     /dev/shm after the phase (the phase unlinks any it finds, and fails).
     Logged as phase 15 (b), with the ring-full drops and the ratio of the
     trained frames/s to phase 15 (b)'s in the same run.
+17. the transformer and MoE cores (``ModelConfig(core="transformer")`` at
+    the reference's widths: H 128, 2 layers, 4 heads, a window of 16, bf16
+    compute, f32 params; no kernel of its own, so ``lstm_seq`` must launch
+    0 times on this path, which shows the core switch took). (a) BASELINE
+    config 5 at phase 12's league shape and cuts (256 5v5 games, 1,280
+    learner and 1,280 opponent lanes): 2 warm and 8 timed fused iterations
+    under the sync guard, 2 profiled. Checked: finite loss and
+    ``health_ok`` 1, params moved, both sides' actions legal, snapshots
+    bitwise as taken, the chunks' and both sides' carry leaves (valid [L,
+    16], k and v [L, 16, 128] a layer, f32). Logged: trained frames/s and
+    its ratio to phase 12's LSTM league in the same run, rollout and update
+    ms (CUDA events), kernels and copies an iteration and the busy share
+    (profiler); then one 64-game evaluation against the hard bot. (b) 4
+    Switch experts a layer (capacity factor 2), fused at 128 games of 1v1
+    against the easy bot (the demo's recipe, 20 s games): 2 warm and 4
+    timed iterations under the sync guard; ``moe_aux`` finite and above 0
+    in each, the actions legal; the share of tokens dropped at capacity per
+    layer logged (the last chunk's sequence forward), while (c) starts
+    beside it. (c) ``python -m
+    dotaclient_tpu_torch.train.learner --core transformer --smoke --steps 4
+    --checkpoint-dir`` as a child: its ``done:`` line (4 steps, 0
+    launches), the checkpoint's step and core, a ring of its config holding
+    [W] and [W, H] carry leaves. (d) ``python -m dotaclient_tpu_torch.serve``
+    on (c)'s checkpoint with ``--serve carry_shadow=true``: 16 ``ServeClient``
+    games x 10 steps over TCP, every action legal, shadow rows named c0..c4,
+    each step replayed on the CPU from the row the server shadowed the step
+    before (the bounds and controls at ``SOCKET_LOGP_ATOL``), SIGINT, exit 0,
+    0 launches in its last line.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -294,6 +322,13 @@ SERVE_LOGP_ATOL = 0.1
 # old carry: 0.0552); the same run's controls, replays of a server that
 # mixes carries between games or never zeroes one, must read above it
 SOCKET_LOGP_ATOL = 0.01
+# phase 17 (d)'s replay of the bf16 transformer from the served carry rows:
+# its core rounds to bf16 some 40 times a layer where the LSTM's runs in
+# f32, so a sound request lands above SOCKET_LOGP_ATOL now and then (a
+# logit one bf16 ulp apart). Its 95th percentile is held to
+# SOCKET_LOGP_ATOL and every request to SERVE_LOGP_ATOL, and the same run's
+# controls (each step from another game's row or from a zero row) must read
+# above SERVE_LOGP_ATOL
 # the recompute backward is autograd through the plain version on the
 # saved inputs, so it should equal the plain version's gradients
 BACKWARD_RTOL = 1e-5
@@ -1425,8 +1460,9 @@ def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None, router=Fals
     the session router at (host, port). ``before_round={round: fn}``: fn runs
     once all games are ready for that round, before any of them steps.
     Returns per game the (obs, reset, packed, logp, version, latency,
-    backend address, re-home count, monotonic time of the reply) of each
-    step and, per game, the slots it held."""
+    backend address, re-home count, monotonic time of the reply, the
+    reply's carry-shadow row or None) of each step and, per game, the slots
+    it held."""
     import threading
 
     from dotaclient_tpu_torch.serve import ServeClient
@@ -1461,7 +1497,7 @@ def lockstep_clients(host, port, cfg, rngs, n_steps, reconnect=None, router=Fals
                 client.step(obs, reset=reset)
                 records[g].append((obs, reset, client.last_packed.copy(), client.last_logp, client.last_version,
                                    client.last_latency_s, tuple(client.backend_addr), client.rehomed_count,
-                                   time.monotonic()))
+                                   time.monotonic(), client.last_carry))
                 if reconnect is not None and g == reconnect[0] and r == reconnect[1]:
                     client.close()
                     reconnect[2]()
@@ -1502,6 +1538,7 @@ def replay_logps_on_cpu(cfg, params, records, zeroed, fault=None):
     from dotaclient_tpu_torch.models import distributions as D
     from dotaclient_tpu_torch.models.policy import mask_carry
     from dotaclient_tpu_torch.serve import make_inference_policy
+    from dotaclient_tpu_torch.utils.tree import tree_map
 
     policy = make_inference_policy(cfg, device="cpu")
     policy.load_state_dict(params)
@@ -1520,7 +1557,7 @@ def replay_logps_on_cpu(cfg, params, records, zeroed, fault=None):
                                  for g, row in enumerate(rows)])
             carry = mask_carry(carry, keep)
             if fault == "permuted":
-                carry = tuple(torch.roll(c, 1, 0) for c in carry)
+                carry = tree_map(lambda c: torch.roll(c, 1, 0), carry)
             logits, _, carry = policy.step(obs, carry)
             ref = D.log_prob(logits, obs, actions).numpy()
             worst = max(worst, float(np.abs(ref - np.asarray([row[3] for row in rows], np.float32)).max()))
@@ -2456,7 +2493,7 @@ def buffered_resume(device, seed, ckpt_dir):
     uninterrupted run draws."""
     import torch
 
-    from dotaclient_tpu_torch.actor.device_rollout import flatten_state
+    from dotaclient_tpu_torch.utils.tree import tree_leaves
     from dotaclient_tpu_torch.train.learner import Learner
     from dotaclient_tpu_torch.utils import telemetry
 
@@ -2474,7 +2511,7 @@ def buffered_resume(device, seed, ckpt_dir):
 
     a._after_step = stop_at
     out = a.train(10 * RESUME_STOP_STEP)
-    saved = {"buffer": a.buffer.state_dict(), "actor": [t.detach().cpu() for t in flatten_state(a.device_actor.state)],
+    saved = {"buffer": a.buffer.state_dict(), "actor": [t.detach().cpu() for t in tree_leaves(a.device_actor.state)],
              "rng": a.device_actor.generator.get_state(), "mb_draws": a._mb_draws,
              "params": {k: v.detach().cpu() for k, v in a.policy.state_dict().items()}}
     if not (out["optimizer_steps"] == RESUME_STOP_STEP and saved["buffer"]["order"].ge(0).sum() > 0):
@@ -2484,11 +2521,10 @@ def buffered_resume(device, seed, ckpt_dir):
     b = make(checkpoint_dir=ckpt_dir, restore=True)
     got = b.buffer.state_dict()
     bad = [k for k in ("order", "free", "slot_version", "counters") if not torch.equal(got[k], saved["buffer"][k])]
-    from dotaclient_tpu_torch.buffer.trajectory_buffer import tree_leaves
 
     bad += ["store"] * (not all(torch.equal(x, y) for x, y in zip(tree_leaves(got["store"]),
                                                                    tree_leaves(saved["buffer"]["store"]))))
-    bad += ["actor"] * (not all(torch.equal(x.cpu(), y) for x, y in zip(flatten_state(b.device_actor.state),
+    bad += ["actor"] * (not all(torch.equal(x.cpu(), y) for x, y in zip(tree_leaves(b.device_actor.state),
                                                                       saved["actor"])))
     bad += ["rng"] * (not torch.equal(b.device_actor.generator.get_state(), saved["rng"]))
     bad += ["mb_draws"] * (b._mb_draws != saved["mb_draws"])
@@ -3731,6 +3767,366 @@ def scalar_path_phase(device, seed, socket_frames_per_s):
     return result
 
 
+# -- phase 17: the transformer and MoE cores ---------------------------------------
+
+
+TF_WARM, TF_TIMED, TF_PROFILED = 2, 8, 2
+MOE_ENVS, MOE_MAX_DOTA_TIME, MOE_WARM, MOE_TIMED, MOE_EXPERTS = 128, 20.0, 2, 4, 4
+TF_CLI_STEPS = 4
+TF_SERVE_GAMES, TF_SERVE_STEPS = 16, 10
+
+
+def with_transformer(cfg, moe=0):
+    """``cfg`` with the transformer core at the reference's widths (H 128,
+    2 layers, 4 heads, a window of 16, bf16 compute, f32 params) and
+    ``moe`` Switch experts a layer (capacity factor 2)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, core="transformer", moe_experts=moe))
+
+
+def carry_layout(carry, lanes, model, what):
+    """The carry tree's leaves are (valid [lanes, W], then k and v [lanes,
+    W, H] a layer), all f32; returns their shapes."""
+    import torch
+
+    from dotaclient_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(carry)
+    want = [(lanes, model.context_window)] + [(lanes, model.context_window, model.hidden_dim)] * (2 * model.n_layers)
+    got = [tuple(t.shape) for t in leaves]
+    if got != want or any(t.dtype != torch.float32 for t in leaves):
+        raise AssertionError(f"{what}: carry leaves {got} {[str(t.dtype) for t in leaves]}, expected {want} f32")
+    return got
+
+
+def transformer_league(device, seed, lstm_frames_per_s):
+    """(a) BASELINE config 5 at phase 12's league shape with the transformer
+    core: warm-up, the timed iterations under the sync guard, a profiled
+    window, then a 64-game evaluation."""
+    import torch
+
+    from dotaclient_tpu_torch.league import evaluate
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = with_transformer(league_config(seed))
+    T = cfg.ppo.rollout_len
+    updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    da, pool = learner.device_actor, learner.league
+    rec = LeagueRecorder(learner)
+    unguarded_end(learner)
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        learner.train(TF_WARM * updates)
+        torch.cuda.synchronize()
+        rec.clear()
+        out, wall_s = guarded_train(learner, TF_TIMED * updates)
+        launches = lstm.lstm_sequence_kernel.launches
+        if launches != 0:
+            raise AssertionError(f"lstm_seq launched {launches} times on the transformer path: the core switch "
+                                 "did not take")
+        metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+        for i, m in enumerate(metrics):
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+                raise AssertionError(f"transformer iteration {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                     f"health_ok {m['health_ok']}")
+        frames = TF_TIMED * da.n_lanes * T
+        if out["frames_trained"] != frames or len(metrics) != TF_TIMED:
+            raise AssertionError(f"{out['frames_trained']} frames in {len(metrics)} iterations, expected {frames}")
+        rollout_ms = statistics.mean(a.elapsed_time(b) for a, b, _ in rec.marks)
+        update_ms = statistics.mean(b.elapsed_time(c) for _, b, c in rec.marks)
+        for snap in pool.snapshots:
+            if not all(torch.equal(v, rec.witness[snap.uid][k]) for k, v in snap.params.items()):
+                raise AssertionError(f"snapshot {snap.uid} (step {snap.step}) changed after it was taken")
+        if len(pool) < 2:
+            raise AssertionError(f"{len(pool)} snapshot(s) in the pool")
+        chunks, samples = list(rec.chunks), list(rec.samples)
+        rec.close()
+        profile = profiled(lambda: learner.train(TF_PROFILED * updates))
+    finally:
+        rec.close()
+    layout = carry_layout(chunks[-1]["carry0"], da.n_lanes, cfg.model, "the chunk's carry0")
+    carry_layout(da.state.carry, da.n_lanes, cfg.model, "the learner lanes' carry")
+    carry_layout(da.state.opp_carry, da.n_opp_lanes, cfg.model, "the opponent lanes' carry")
+    moved, _, _ = check_params_moved(before, learner.policy, chunks)
+    iters = TF_WARM + TF_TIMED
+    if len(samples) != 2 * iters * T:
+        raise AssertionError(f"{len(samples)} sample calls in {iters} iterations, expected {2 * iters * T}")
+    illegal, n_actions = [0, 0], [0, 0]
+    for i, (masks, acts) in enumerate(samples):
+        good = actions_legal(masks, acts)
+        illegal[i % 2] += int((~good).sum())
+        n_actions[i % 2] += good.numel()
+    if any(illegal):
+        raise AssertionError(f"illegal actions: learner lanes {illegal[0]} of {n_actions[0]}, "
+                             f"opponent lanes {illegal[1]} of {n_actions[1]}")
+    stats = da.drain_stats()
+    frames_per_s = frames / wall_s
+    launches_per_iteration = profile["device_events"] / TF_PROFILED
+    result = {
+        "n_envs": cfg.env.n_envs, "team_size": cfg.env.team_size, "lanes": da.n_lanes,
+        "opponent_lanes": da.n_opp_lanes, "rollout_len": T, "hidden_dim": cfg.model.hidden_dim,
+        "n_layers": cfg.model.n_layers, "n_heads": cfg.model.n_heads, "context_window": cfg.model.context_window,
+        "warm_iterations": TF_WARM, "timed_iterations": TF_TIMED, "frames_trained": frames,
+        "frames_per_s": frames_per_s, "iteration_ms": wall_s * 1e3 / TF_TIMED,
+        "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "ratio_to_lstm_league": frames_per_s / lstm_frames_per_s,
+        "launches_per_iteration": launches_per_iteration,
+        "device_busy_share": profile["device_busy_share"],
+        "lstm_seq_launches": launches, "carry0_leaves": layout,
+        "actions_checked": {"learner": n_actions[0], "opponent": n_actions[1]},
+        "params_moved": sum(moved.values()), "params": len(moved),
+        "episodes_done": stats["episodes_done"], "snapshots": len(pool), "last_metrics": metrics[-1],
+        "sync_debug_mode": "error", "profile": {"iterations": TF_PROFILED, **profile},
+    }
+    log(
+        f"transformer league: {TF_TIMED} timed fused iterations x {da.n_lanes} learner lanes (and "
+        f"{da.n_opp_lanes} opponent lanes) x {T} steps = {frames} trained frames in {wall_s * 1e3:.1f} ms: "
+        f"{frames_per_s:.0f} frames/s, {frames_per_s / lstm_frames_per_s:.3f} of phase 12's LSTM league in this "
+        f"run; {result['iteration_ms']:.2f} ms an iteration (rollout {rollout_ms:.2f} ms, update {update_ms:.2f} "
+        f"ms between CUDA events); {launches_per_iteration:.0f} kernels and copies an iteration; no host sync "
+        f"inside the iterations; loss {metrics[-1]['loss']:.4g}, health_ok 1 in all; {n_actions[0]} learner and "
+        f"{n_actions[1]} opponent actions legal; {sum(moved.values())} of {len(moved)} param tensors moved; "
+        f"{len(pool)} snapshots, each bitwise as taken; carry0 leaves {layout} f32; lstm_seq launches {launches}"
+    )
+    log_profile(f"transformer league profile: {TF_PROFILED} iterations", profile)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = evaluate(cfg, learner.policy, learner.policy.state_dict(), "scripted_hard", n_games=LEAGUE_EVAL_GAMES,
+                  seed=seed, device=device)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if lstm.lstm_sequence_kernel.launches != 0:
+        raise AssertionError("lstm_seq launched in the transformer evaluation")
+    if not (ev["episodes"] >= LEAGUE_EVAL_GAMES and 0.0 <= ev["win_rate"] <= 1.0):
+        raise AssertionError(f"the transformer evaluation: {ev} for {LEAGUE_EVAL_GAMES} games")
+    log(f"transformer evaluate vs scripted_hard: {LEAGUE_EVAL_GAMES} games, {ev['episodes']:.0f} episodes, win rate "
+        f"{ev['win_rate']:.4f}; {eval_s:.2f} s wall")
+    result["eval"] = {**ev, "wall_s": eval_s}
+    learner.close()
+    return result
+
+
+def moe_fused(device, seed):
+    """(b) The MoE transformer (4 experts a layer) fused at 128 games of 1v1
+    against the easy bot, the demo's recipe, cut to 20 s games."""
+    import torch
+
+    from dotaclient_tpu_torch.config import RunConfig
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    base = RunConfig()
+    cfg = with_transformer(dataclasses.replace(
+        base, env=dataclasses.replace(base.env, n_envs=MOE_ENVS, opponent="scripted_easy",
+                                      max_dota_time=MOE_MAX_DOTA_TIME),
+        log_every=10 ** 9, seed=seed), moe=MOE_EXPERTS)
+    T = cfg.ppo.rollout_len
+    updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    rec = Recorder(learner)
+    unguarded_end(learner)
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        learner.train(MOE_WARM * updates)
+        torch.cuda.synchronize()
+        rec.clear()
+        out, wall_s = guarded_train(learner, MOE_TIMED * updates)
+    finally:
+        rec.close()
+    metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+    for i, m in enumerate(metrics):
+        if not (np.isfinite(m["loss"]) and m["health_ok"] == 1.0 and np.isfinite(m["moe_aux"]) and m["moe_aux"] > 0):
+            raise AssertionError(f"MoE iteration {i}: loss {m['loss']}, health_ok {m['health_ok']}, "
+                                 f"moe_aux {m['moe_aux']}")
+    if lstm.lstm_sequence_kernel.launches != 0:
+        raise AssertionError("lstm_seq launched on the MoE path")
+    illegal, n_actions = check_chunk_actions(rec.chunks)
+    if illegal:
+        raise AssertionError(f"{illegal} of {n_actions} MoE actions illegal")
+    chunk = rec.chunks[-1]
+    with torch.no_grad():
+        _, _, _, moe = learner.policy.sequence(chunk["obs"], chunk["carry0"], chunk["dones"], return_moe=True)
+    dropped = [1.0 - float(frac.sum()) / (frac.shape[0] * frac.shape[1]) for _, frac in moe]
+    load = [[float(x) for x in frac.sum(dim=(0, 1)) / (frac.shape[0] * frac.shape[1])] for _, frac in moe]
+    frames = MOE_TIMED * learner.device_actor.n_lanes * T
+    result = {"n_envs": MOE_ENVS, "experts": MOE_EXPERTS, "capacity_factor": cfg.model.moe_capacity_factor,
+              "frames_per_s": frames / wall_s, "iteration_ms": wall_s * 1e3 / MOE_TIMED,
+              "moe_aux": [m["moe_aux"] for m in metrics], "dropped_share_by_layer": dropped,
+              "expert_load_by_layer": load, "actions_checked": n_actions, "last_metrics": metrics[-1],
+              "sync_debug_mode": "error"}
+    log(f"MoE: {MOE_TIMED} timed fused iterations x {learner.device_actor.n_lanes} lanes x {T} steps: "
+        f"{result['frames_per_s']:.0f} frames/s, {result['iteration_ms']:.2f} ms an iteration, no host sync inside; "
+        f"moe_aux {', '.join(f'{a:.4f}' for a in result['moe_aux'])}; tokens dropped at capacity by layer "
+        f"{', '.join(f'{d:.4f}' for d in dropped)} (the last chunk's sequence forward, C = ceil(B/E x "
+        f"{cfg.model.moe_capacity_factor}) a step); expert load {load}; {n_actions} actions legal")
+    learner.close()
+    return result
+
+
+class TransformerCLI:
+    """(c) ``python -m dotaclient_tpu_torch.train.learner --core transformer
+    --smoke`` as a child writing checkpoints into ``ckpt``, started here and
+    read by ``result`` (its exit within CHILD_S, 0 required: its lines and
+    wall seconds)."""
+
+    def __init__(self, seed, ckpt):
+        self.ckpt = ckpt
+        self.child = Child(["dotaclient_tpu_torch.train.learner", "--core", "transformer", "--smoke", "--steps",
+                            str(TF_CLI_STEPS), "--checkpoint-dir", ckpt, "--seed", str(seed)])
+
+    def result(self):
+        child = self.child
+        try:
+            rc = child.proc.wait(timeout=CHILD_S)
+            child._reader.join(30)
+            lines = child.drain()
+        except BaseException:
+            log("the transformer learner CLI's output so far:\n" + "\n".join(child.drain()[-20:]))
+            raise
+        finally:
+            child.kill()
+        if rc != 0:
+            raise AssertionError(f"the transformer learner CLI exited {rc}: {lines[-10:]}")
+        return lines, time.perf_counter() - child.t0
+
+
+def transformer_cli_and_serve(device, seed, cli):
+    """(c) The buffered learner CLI with ``--core transformer`` (``cli``, a
+    started ``TransformerCLI``); (d) a serve CLI child on its checkpoint
+    with carry shadow: 16 games x 10 steps over TCP, every action legal,
+    and each step's log-prob replayed on the CPU from the carry row the
+    server shadowed at the step before."""
+    import signal
+
+    import torch
+
+    from dotaclient_tpu_torch.buffer import TrajectoryBuffer
+    from dotaclient_tpu_torch.models import distributions as D
+    from dotaclient_tpu_torch.serve import load_inference_params, make_inference_policy
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    lines, cli_s = cli.result()
+    steps, frames, fps, launches = done_line(lines, "the transformer learner CLI")
+    ckpt = cli.ckpt
+    config, params, step = load_inference_params(ckpt)
+    if not (steps == TF_CLI_STEPS == step and launches == 0 and config.model.core == "transformer"):
+        raise AssertionError(f"the transformer learner CLI: done {steps} steps, {launches} lstm_seq launches, "
+                             f"checkpoint step {step}, core {config.model.core}")
+    ring = TrajectoryBuffer(config, device=device, registry=telemetry.Registry())
+    ring_layout = carry_layout(ring._store["carry0"], config.buffer.capacity_rollouts, config.model, "the ring")
+    log(f"transformer learner CLI: done: {steps} steps, {frames} frames, {fps} frames/sec, {launches} lstm_seq "
+        f"launches in {cli_s:.1f} s wall; checkpoint step {step}; the ring's carry0 leaves {ring_layout}")
+
+    cfg = dataclasses.replace(config, serve=dataclasses.replace(config.serve, carry_shadow=True))
+    child = Child(["dotaclient_tpu_torch.serve", "--checkpoint", ckpt, "--serve-listen", "127.0.0.1:0",
+                   "--serve", "carry_shadow=true"])
+    try:
+        addr, start_s = child.wait_line("SERVE_LISTENING ", "the transformer serve CLI")
+        records, _ = lockstep_clients(addr["host"], addr["port"], cfg,
+                                      [np.random.default_rng(seed + 4000 + g) for g in range(TF_SERVE_GAMES)],
+                                      TF_SERVE_STEPS)
+        rc, seen = child.stop(signal.SIGINT)
+    except BaseException:
+        log("the transformer serve CLI's output so far:\n" + "\n".join(child.drain()[-20:]))
+        raise
+    finally:
+        child.kill()
+    if rc != 0:
+        raise AssertionError(f"the transformer serve CLI exited {rc}: {seen[-10:]}")
+    final = json.loads(seen[-1])
+    n = TF_SERVE_GAMES * TF_SERVE_STEPS
+    if final["serve_requests_total"] != n or final["lstm_seq_launches"] != 0:
+        raise AssertionError(f"the transformer serve CLI's last line {final}: expected {n} requests, 0 launches")
+    flat = [rec for game in records for rec in game]
+    if not rows_legal([rec[0] for rec in flat], [rec[2] for rec in flat]).all():
+        raise AssertionError("an illegal action from the transformer serve CLI")
+    names = sorted(flat[0][9])
+    if names != [f"c{i}" for i in range(1 + 2 * cfg.model.n_layers)]:
+        raise AssertionError(f"shadow rows named {names}")
+    # each step on the CPU from the row the server shadowed after the step
+    # before (zeros at a reset): the served log-prob, and the next row; and
+    # two controls, every step from another game's row and from a zero row
+    policy = make_inference_policy(cfg, device="cpu")
+    policy.load_state_dict(params)
+    tmpl = policy.initial_state(TF_SERVE_GAMES)
+    errs, controls, worst_carry = [], {"permuted": 0.0, "zeroed": 0.0}, 0.0
+    with torch.no_grad():
+        for r in range(TF_SERVE_STEPS):
+            rows = [records[g][r] for g in range(TF_SERVE_GAMES)]
+            leaves = [torch.stack([torch.zeros(t.shape[1:]) if rows[g][1] else
+                                   torch.from_numpy(np.asarray(records[g][r - 1][9][f"c{i}"])).reshape(t.shape[1:])
+                                   for g in range(TF_SERVE_GAMES)]) for i, t in enumerate(tree_leaves(tmpl))]
+            obs = {k: torch.from_numpy(np.stack([np.asarray(row[0][k]) for row in rows])) for k in rows[0][0]}
+            actions = {h: torch.tensor([int(row[2][i]) for row in rows]) for i, h in enumerate(D.HEADS)}
+            served = np.asarray([row[3] for row in rows], np.float32)
+            logits, _, carry = policy.step(obs, tree_unflatten(tmpl, leaves))
+            errs.extend(np.abs(D.log_prob(logits, obs, actions).numpy() - served))
+            for i, t in enumerate(tree_leaves(carry)):
+                shadow = np.stack([np.asarray(row[9][f"c{i}"]) for row in rows]).reshape(t.shape)
+                worst_carry = max(worst_carry, float(np.abs(t.numpy() - shadow).max()))
+            for name, fault in (("permuted", [torch.roll(x, 1, 0) for x in leaves]),
+                                ("zeroed", [torch.zeros_like(x) for x in leaves])):
+                clogits, _, _ = policy.step(obs, tree_unflatten(tmpl, fault))
+                controls[name] = max(controls[name],
+                                     float(np.abs(D.log_prob(clogits, obs, actions).numpy() - served).max()))
+    errs = np.asarray(errs)
+    worst_logp, p95 = float(errs.max()), float(np.quantile(errs, 0.95))
+    beyond = int((errs > SOCKET_LOGP_ATOL).sum())
+    if not (p95 <= SOCKET_LOGP_ATOL and worst_logp <= SERVE_LOGP_ATOL):
+        raise AssertionError(f"the CPU replay from the shadowed carry rows: 95th percentile {p95:.3g} (bound "
+                             f"{SOCKET_LOGP_ATOL}), largest {worst_logp:.3g} (bound {SERVE_LOGP_ATOL}) from the "
+                             "served log-probs")
+    if not min(controls.values()) > SERVE_LOGP_ATOL:
+        raise AssertionError(f"the replay's controls {controls} do not read above {SERVE_LOGP_ATOL}: the check "
+                             "cannot tell a right carry from a wrong one")
+    log(f"transformer serve CLI (carry shadow): SERVE_LISTENING after {start_s:.1f} s; {n} requests from "
+        f"{TF_SERVE_GAMES} games x {TF_SERVE_STEPS} steps, every action legal, shadow rows {names}; the CPU "
+        f"replay from the shadowed rows: 95th percentile {p95:.3g} of the served log-probs (bound "
+        f"{SOCKET_LOGP_ATOL}), largest {worst_logp:.3g} (bound {SERVE_LOGP_ATOL}), {beyond} of {n} above "
+        f"{SOCKET_LOGP_ATOL}; its next rows within {worst_carry:.3g} of the shadowed ones; controls from another "
+        f"game's row {controls['permuted']:.3g}, from a zero row {controls['zeroed']:.3g}; exit 0 on SIGINT; "
+        f"lstm_seq launches {final['lstm_seq_launches']}")
+    return {"cli": {"steps": steps, "frames": frames, "frames_per_s": fps, "lstm_seq_launches": launches,
+                    "wall_s": cli_s, "ring_carry0_leaves": ring_layout},
+            "serve": {"requests": n, "start_s": start_s, "logp_max_err": worst_logp, "logp_p95_err": p95,
+                      "logp_above_socket_atol": beyond, "carry_max_err": worst_carry, "controls": controls,
+                      "shadow_leaves": names, "final": final}}
+
+
+def transformer_phase(device, seed, lstm_league_frames_per_s):
+    """Phase 17: the transformer core at BASELINE config 5's league shape,
+    the MoE core fused, the buffered learner CLI and the serve CLI on its
+    checkpoint."""
+    import torch
+
+    import os
+
+    t0 = time.perf_counter()
+    result = {"league": transformer_league(device, seed, lstm_league_frames_per_s)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as root:
+        # the learner CLI child starts (a CUDA context, its imports) while
+        # the MoE learner runs here
+        cli = TransformerCLI(seed, os.path.join(root, "transformer_ckpt"))
+        try:
+            result["moe"] = moe_fused(device, seed)
+        except BaseException:
+            cli.child.kill()
+            raise
+        torch.cuda.empty_cache()
+        result.update(transformer_cli_and_serve(device, seed, cli))
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17 (transformer and MoE cores): {result['wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3775,6 +4171,7 @@ def main() -> int:
     record = run_record_phase(device, args.seed, smi)
     external = external_actors_phase(device, args.seed)
     scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"])
+    phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -3791,7 +4188,8 @@ def main() -> int:
                                                               for k in ("scalar", "no_vec")),
                                       "eval_served": scalar["eval_served"]["lstm_seq_launches"],
                                       "shm_learner": scalar["shm"]["lstm_seq_launches"],
-                                      "shm_actors": scalar["shm"]["actors_lstm_seq_launches"]}
+                                      "shm_actors": scalar["shm"]["actors_lstm_seq_launches"],
+                                      "train_transformer": phase17["league"]["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     kernels = {"kernels": [lstm_entry]}
@@ -3800,7 +4198,7 @@ def main() -> int:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
-                       "scalar": scalar}, f,
+                       "scalar": scalar, "phase17": phase17}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -5,7 +5,7 @@ learner over TCP or, on the learner's host, over shared memory::
 
     python -m dotaclient_tpu_torch.actor --connect HOST:PORT|shm://NAME [--n-envs 64] [--opponent selfplay]
         [--team-size 1] [--max-dota-time S] [--rollout-len T] [--seed S] [--steps N]
-        [--refresh-every N] [--max-reconnects N] [--idle-timeout S] [--platform cuda|cpu]
+        [--refresh-every N] [--max-reconnects N] [--idle-timeout S] [--fleet-interval S] [--platform cuda|cpu]
 
 It connects to the learner's ``TransportServer`` (``python -m
 dotaclient_tpu_torch.train.learner --transport socket --listen HOST:PORT``)
@@ -23,6 +23,12 @@ lane's partial chunk and exits 0; a second one kills. The last lines are
 ``ACTOR_STATS {...}`` (env steps, steps, chunks shipped, steps/s, the
 version, the policy steps the ``lstm_seq`` kernel ran).
 
+The process ships its registry's fleet snapshot (``utils/fleet.py``
+``FleetPublisher``, peer ``a<seed>``) over the same transport at each
+weights refresh, at most once every ``--fleet-interval`` seconds
+(``telemetry.fleet_interval_s``, 5 s, by default; 0 turns it off): the
+learner's ``FleetAggregator`` reads the actors' episode outcomes from them.
+
 ``--platform`` is ``cuda`` by default, as every entry point of the port:
 the policy steps on the card, and with no card the process raises. The JAX
 actor defaults to its CPU because there the learner owns the one TPU; a
@@ -34,7 +40,7 @@ replicas of a fleet stream different experience.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: ``--amqp`` and ``--rollout-wire-dtype bfloat16`` (item 13),
-``--trace-jsonl``, ``--trace-sample`` and ``--fleet-interval`` (item 8).
+``--trace-jsonl`` and ``--trace-sample`` (item 8).
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import time
 import zlib
 from typing import List, Optional
 
-_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
+_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane)"
 _ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 
 
@@ -98,11 +104,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "(default transport.idle_timeout_s; 0 disables)")
     p.add_argument("--trace-jsonl", type=str, default=None, help="not ported yet: " + _ITEM_8)
     p.add_argument("--trace-sample", type=int, default=None, help="not ported yet: " + _ITEM_8)
-    p.add_argument("--fleet-interval", type=float, default=None, help="not ported yet: " + _ITEM_8)
+    p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
+                   help="ship a fleet metrics snapshot at most every S seconds, at weights refreshes "
+                   "(default telemetry.fleet_interval_s = 5; 0 disables)")
     args = p.parse_args(argv)
     for flag, value, item in (("--amqp", args.amqp, _ITEM_13), ("--trace-jsonl", args.trace_jsonl, _ITEM_8),
-                              ("--trace-sample", args.trace_sample, _ITEM_8),
-                              ("--fleet-interval", args.fleet_interval, _ITEM_8)):
+                              ("--trace-sample", args.trace_sample, _ITEM_8)):
         if value is not None:
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
     if args.rollout_wire_dtype not in (None, "float32"):
@@ -139,6 +146,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dotaclient_tpu_torch.models.policy import init_params, make_policy
     from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.transport.serialize import decode_weights
+    from dotaclient_tpu_torch.utils import fleet
 
     device = resolve_device(None if args.platform == "cuda" else "cpu")
     config = default_config()
@@ -196,54 +204,62 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr, flush=True)
         params = {k: v.detach().clone() for k, v in local.items()}
 
-    pool = VecActorPool(config, policy, params, transport=transport, seed=args.seed, version=version,
-                        device=device)
-    launches0 = lstm.lstm_sequence_kernel.launches
-    t0 = time.time()
-    steps = 0
-    while (not args.steps or steps < args.steps) and not stop["stop"]:
-        try:
-            pool.run(args.refresh_every, refresh_every=args.refresh_every)
-        except (ConnectionError, OSError) as e:
-            if stop["stop"]:
-                break   # stopping anyway: drain instead of reconnecting
-            print(f"actor: transport lost ({e}); reconnecting", file=sys.stderr, flush=True)
-            transport.close()
+    # before the pool, which takes fleet.get() at init; the peer id is the
+    # seed, so a restarted actor reports under the same fleet row
+    fleet.configure(peer_id=args.seed, kind="actor", interval_s=args.fleet_interval)
+    try:
+        pool = VecActorPool(config, policy, params, transport=transport, seed=args.seed, version=version,
+                            device=device)
+        launches0 = lstm.lstm_sequence_kernel.launches
+        t0 = time.time()
+        steps = 0
+        while (not args.steps or steps < args.steps) and not stop["stop"]:
             try:
-                transport = connect_with_backoff(factory, max_attempts=args.max_reconnects,
-                                                 should_abort=lambda: stop["stop"])
-            except (ConnectionError, OSError) as e2:
+                pool.run(args.refresh_every, refresh_every=args.refresh_every)
+            except (ConnectionError, OSError) as e:
                 if stop["stop"]:
-                    break   # a stop during the backoff: a clean drain
-                print(f"actor: reconnect failed ({e2}); exiting for a restart", file=sys.stderr, flush=True)
-                return 1
-            pool.transport = transport
-            continue
-        steps += args.refresh_every
-        if steps % 256 == 0:
-            s = pool.stats()
-            print(f"[actor {args.seed}] {s['env_steps']:.0f} env steps, {s['rollouts_shipped']:.0f} rollouts, "
-                  f"{s['env_steps'] / max(time.time() - t0, 1e-9):.0f} steps/s, version {pool.version}",
-                  flush=True)
-    elapsed = time.time() - t0
-    if stop["stop"]:
-        # every lane's partial chunk is real experience; best effort: a
-        # transport that died with the stop must not fail a clean drain
-        try:
-            n = pool.flush_partial()
-            print(f"actor: graceful stop: flushed {n} partial rollouts", file=sys.stderr, flush=True)
-        except (ConnectionError, OSError) as e:
-            print(f"actor: graceful stop: flush failed ({e})", file=sys.stderr, flush=True)
-    s = pool.stats()
-    print("ACTOR_VERSIONS_SEEN " + json.dumps(sorted(pool.versions_applied)), flush=True)
-    print("ACTOR_STATS " + json.dumps({
-        "seed": args.seed, "env_steps": s["env_steps"], "steps": pool.steps, "rollouts_shipped": s["rollouts_shipped"],
-        "episodes_done": s["episodes_done"], "env_steps_per_sec": s["env_steps"] / max(elapsed, 1e-9),
-        "elapsed_sec": elapsed, "version": pool.version,
-        "lstm_seq_launches": lstm.lstm_sequence_kernel.launches - launches0,
-    }, sort_keys=True), flush=True)
-    transport.close()
-    return 0
+                    break   # stopping anyway: drain instead of reconnecting
+                print(f"actor: transport lost ({e}); reconnecting", file=sys.stderr, flush=True)
+                transport.close()
+                try:
+                    transport = connect_with_backoff(factory, max_attempts=args.max_reconnects,
+                                                     should_abort=lambda: stop["stop"])
+                except (ConnectionError, OSError) as e2:
+                    if stop["stop"]:
+                        break   # a stop during the backoff: a clean drain
+                    print(f"actor: reconnect failed ({e2}); exiting for a restart", file=sys.stderr,
+                          flush=True)
+                    return 1
+                pool.transport = transport
+                continue
+            steps += args.refresh_every
+            if steps % 256 == 0:
+                s = pool.stats()
+                print(f"[actor {args.seed}] {s['env_steps']:.0f} env steps, {s['rollouts_shipped']:.0f} "
+                      f"rollouts, {s['env_steps'] / max(time.time() - t0, 1e-9):.0f} steps/s, version "
+                      f"{pool.version}", flush=True)
+        elapsed = time.time() - t0
+        if stop["stop"]:
+            # every lane's partial chunk is real experience; best effort: a
+            # transport that died with the stop must not fail a clean drain
+            try:
+                n = pool.flush_partial()
+                print(f"actor: graceful stop: flushed {n} partial rollouts", file=sys.stderr, flush=True)
+            except (ConnectionError, OSError) as e:
+                print(f"actor: graceful stop: flush failed ({e})", file=sys.stderr, flush=True)
+        s = pool.stats()
+        print("ACTOR_VERSIONS_SEEN " + json.dumps(sorted(pool.versions_applied)), flush=True)
+        print("ACTOR_STATS " + json.dumps({
+            "seed": args.seed, "env_steps": s["env_steps"], "steps": pool.steps,
+            "rollouts_shipped": s["rollouts_shipped"],
+            "episodes_done": s["episodes_done"], "env_steps_per_sec": s["env_steps"] / max(elapsed, 1e-9),
+            "elapsed_sec": elapsed, "version": pool.version,
+            "lstm_seq_launches": lstm.lstm_sequence_kernel.launches - launches0,
+        }, sort_keys=True), flush=True)
+        transport.close()
+        return 0
+    finally:
+        fleet.shutdown()
 
 
 if __name__ == "__main__":

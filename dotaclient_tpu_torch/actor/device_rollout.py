@@ -39,10 +39,11 @@ from dotaclient_tpu_torch.envs.vec_lane_sim import VecSimSpec, apply_anchor_game
 from dotaclient_tpu_torch.features.reward import fold_terms
 from dotaclient_tpu_torch.features.torch_featurizer import TorchFeaturizer, shaped_reward_terms
 from dotaclient_tpu_torch.models import distributions as D
-from dotaclient_tpu_torch.models.policy import Policy, mask_carry
+from dotaclient_tpu_torch.models.policy import Carry, Policy, mask_carry
 from dotaclient_tpu_torch.outcome import ingraph as outcome_ingraph
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -50,8 +51,8 @@ class DeviceActorState:
     """Everything the rollout loop carries across chunks, on the device."""
 
     sim: sim_mod.SimState
-    carry: Tuple[torch.Tensor, torch.Tensor]   # learner lanes' LSTM state (c, h)
-    opp_carry: Tuple[torch.Tensor, torch.Tensor]  # opponent lanes' (a 1-row dummy without them)
+    carry: Carry        # learner lanes' recurrent carry (the policy's tree)
+    opp_carry: Carry    # opponent lanes' (a 1-row dummy without them)
     ep_return: torch.Tensor                    # f32 [L] running episode return
     ep_steps: torch.Tensor                     # i32 [N] env steps into each game's episode
     # cumulative episode stats as per-game/per-lane partials; drain_stats
@@ -72,46 +73,6 @@ def reduce_device_stats(stats: Mapping[str, Any]) -> Dict[str, Any]:
             out[k] = a.sum(axis=0) if a.ndim == 2 else a
         else:
             out[k] = np.asarray(v).sum()
-    return out
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts and tuples of one structure."""
-    if isinstance(trees[0], Mapping):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    if isinstance(trees[0], tuple):
-        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
-
-
-def flatten_state(state: Any) -> list:
-    """The tensor leaves of a ``DeviceActorState`` (dataclasses, tuples and
-    dicts), in a fixed order: the checkpointed form of the actor."""
-    if dataclasses.is_dataclass(state):
-        return [leaf for f in dataclasses.fields(state) for leaf in flatten_state(getattr(state, f.name))]
-    if isinstance(state, Mapping):
-        return [leaf for k in state for leaf in flatten_state(state[k])]
-    if isinstance(state, tuple):
-        return [leaf for v in state for leaf in flatten_state(v)]
-    return [state]
-
-
-def unflatten_state(template: Any, leaves: list) -> Any:
-    """``template``'s structure with ``leaves`` (``flatten_state``'s order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if dataclasses.is_dataclass(t):
-            return dataclasses.replace(t, **{f.name: build(getattr(t, f.name)) for f in dataclasses.fields(t)})
-        if isinstance(t, Mapping):
-            return {k: build(v) for k, v in t.items()}
-        if isinstance(t, tuple):
-            return tuple(build(v) for v in t)
-        return next(it)
-
-    out = build(template)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the template holds")
     return out
 
 
@@ -272,15 +233,16 @@ class DeviceActor:
         if opp_feat is not None and opp_params is None:
             raise ValueError("opponent lanes exist (league mode): pass opp_params, e.g. from OpponentPool.sample_indexed")
 
-        carry0 = tuple(t.to(torch.float32) for t in state.carry)
-        sim, lstm, ep_ret, ep_steps = state.sim, state.carry, state.ep_return, state.ep_steps
-        opp_lstm = state.opp_carry
+        # the chunk's carry is f32 leaf by leaf (the LSTM's is bf16 in the loop)
+        carry0 = tree_map(lambda t: t.to(torch.float32), state.carry)
+        sim, carry, ep_ret, ep_steps = state.sim, state.carry, state.ep_return, state.ep_steps
+        opp_carry = state.opp_carry
         seq: Dict[str, list] = {k: [] for k in (
             "obs", "packed", "logp", "reward", "done_lane", "ep_done", "win", "ep_len",
             "ep_return", "rew_terms")}
         for t in range(T):
             obs = feat.featurize(sim)
-            logits, _, lstm2 = self._policy_step(params, obs, lstm)
+            logits, _, carry2 = self._policy_step(params, obs, carry)
             acts, logp = D.sample(
                 logits, obs, generator=gen,
                 noise=None if noise is None else {h: noise[h][t] for h in D.HEADS},
@@ -289,7 +251,7 @@ class DeviceActor:
             sim_acts = feat.actions_to_sim(packed)
             if opp_feat is not None:
                 oobs = opp_feat.featurize(sim)
-                ologits, _, opp_lstm2 = self._policy_step(opp_params, oobs, opp_lstm)
+                ologits, _, opp_carry2 = self._policy_step(opp_params, oobs, opp_carry)
                 oacts, _ = D.sample(
                     ologits, oobs, generator=gen,
                     noise=None if opp_noise is None else {h: opp_noise[h][t] for h in D.HEADS},
@@ -315,11 +277,11 @@ class DeviceActor:
                 spec, sim2, done_g, jitter=None if jitter is None else jitter["reset"][t], generator=gen,
             )
             done_lane = done_g[:, None].expand(N, A).reshape(L)
-            lstm = mask_carry(lstm2, 1.0 - done_lane.to(torch.float32))
+            carry = mask_carry(carry2, 1.0 - done_lane.to(torch.float32))
             if opp_feat is not None:
                 n_opp = len(self.opponent_players)
                 opp_done = done_g[:, None].expand(N, n_opp).reshape(N * n_opp)
-                opp_lstm = mask_carry(opp_lstm2, 1.0 - opp_done.to(torch.float32))
+                opp_carry = mask_carry(opp_carry2, 1.0 - opp_done.to(torch.float32))
             # completed-episode returns leave through stats (owner lane of
             # each game); the accumulator resets on done
             owner_ret = ep_ret.reshape(-1, A)[:, 0]
@@ -363,7 +325,7 @@ class DeviceActor:
             for term in outcome_records.REWARD_TERMS
         }
         new_state = DeviceActorState(
-            sim=sim, carry=lstm, opp_carry=opp_lstm, ep_return=ep_ret, ep_steps=ep_steps,
+            sim=sim, carry=carry, opp_carry=opp_carry, ep_return=ep_ret, ep_steps=ep_steps,
             stats=tree_map(torch.add, state.stats, stats),
         )
         return new_state, chunk, stats

@@ -137,7 +137,7 @@ class ActorPool(WindowedStatsMixin):
         if config.model.core != "lstm":
             raise NotImplementedError(
                 "ActorPool (the scalar path) supports the LSTM core only, as the reference's; the vec and device "
-                "actors take the other cores once they are ported"
+                "actors run any core"
             )
         if config.transport.rollout_wire_dtype != "float32":
             raise NotImplementedError(
@@ -297,7 +297,7 @@ class ActorPool(WindowedStatsMixin):
             packed, self._carry_dev = self._step_fn(
                 params, obs_to_device(obs_batch, self.device), self._carry_dev,
                 torch.from_numpy(self._reset_mask).to(self.device), generator=self._generator, noise=noise)
-            actions_np, logp_np, carry_np = _unpack(packed.cpu().numpy(), self._hidden)
+            actions_np, logp_np, carry_np = _unpack(packed.cpu().numpy(), self._carry_dev)
         self._reset_mask[:] = False
         self.steps += 1
 

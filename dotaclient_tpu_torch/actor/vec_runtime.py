@@ -24,8 +24,11 @@ with frozen params; its experience never ships.
 
 The pool steps its own copy of the policy module with ``functional_call``,
 so a learner training the module it was given on another thread is never
-disturbed. Not here: the reference's trace stamps, fleet publisher and
-utilization plane (ROADMAP queue 1, item 8).
+disturbed. With a process fleet publisher installed (``utils/fleet.py``
+``configure``, as the actor CLI does) ``run`` ships the registry's snapshot
+over the transport after each weights refresh, at the publisher's cadence.
+Not here: the reference's trace stamps and utilization plane (ROADMAP
+queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from dotaclient_tpu_torch.envs.vec_lane_sim import (
 from dotaclient_tpu_torch.features.vec_featurizer import VecFeaturizer, VecRewards
 from dotaclient_tpu_torch.models import distributions as D
 from dotaclient_tpu_torch.models.convert import convert
-from dotaclient_tpu_torch.models.policy import Policy, mask_carry
+from dotaclient_tpu_torch.models.policy import Carry, Policy, mask_carry
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.transport.serialize import (
     decode_weights,
@@ -60,20 +63,22 @@ from dotaclient_tpu_torch.transport.serialize import (
     encode_rollout_bytes,
     rollout_wire_kwargs,
 )
-from dotaclient_tpu_torch.utils import faults, telemetry
+from dotaclient_tpu_torch.utils import faults, fleet, telemetry
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DecodedRollout = Tuple[Dict[str, Any], Any]
 Params = Dict[str, torch.Tensor]
 
 
-def make_device_step(policy: Policy) -> Callable[..., Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+def make_device_step(policy: Policy) -> Callable[..., Tuple[torch.Tensor, Carry]]:
     """The pool's device step: ``step(params, obs, carry, reset_mask,
     generator=None, noise=None) -> (packed, new_carry)``. ``params`` is a
     state dict applied to ``policy`` with ``functional_call``; ``obs`` and
     ``reset_mask`` are device tensors. ``packed`` is one f32 tensor
-    ``[L, 5 + 1 + 2H]``: the five head indices (exact in f32), the joint
-    log-prob and the new carry (c, h) in f32, for the one copy to the
-    host."""
+    ``[L, 5 + 1 + C]``: the five head indices (exact in f32), the joint
+    log-prob and every leaf of the new carry in f32, flattened to ``[L, -1]``
+    in ``tree_leaves`` order (C values a row: 2H for the LSTM's (c, h)), for
+    the one copy to the host."""
 
     @torch.no_grad()
     def step(params: Params, obs: Dict[str, torch.Tensor], carry, reset_mask: torch.Tensor,
@@ -81,8 +86,9 @@ def make_device_step(policy: Policy) -> Callable[..., Tuple[torch.Tensor, Tuple[
         carry = mask_carry(carry, 1.0 - reset_mask.float())
         logits, _, new_carry = functional_call(policy, params, (obs, carry))
         actions, logp = D.sample(logits, obs, generator=generator, noise=noise)
+        L = logp.shape[0]
         packed = torch.cat([torch.stack([actions[h] for h in D.HEADS], dim=1).float(), logp[:, None].float(),
-                            new_carry[0].float(), new_carry[1].float()], dim=1)
+                            *(t.float().reshape(L, -1) for t in tree_leaves(new_carry))], dim=1)
         return packed, new_carry
 
     return step
@@ -93,12 +99,17 @@ def obs_to_device(obs: Dict[str, np.ndarray], device: torch.device) -> Dict[str,
     return {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
 
 
-def _unpack(host: np.ndarray, hidden: int) -> Tuple[np.ndarray, np.ndarray, Tuple[np.ndarray, np.ndarray]]:
-    """The host copy of ``packed`` -> (actions int32 [L, 5], logp [L],
-    carry (c, h) f32)."""
+def _unpack(host: np.ndarray, template: Any) -> Tuple[np.ndarray, np.ndarray, Any]:
+    """The host copy of ``packed`` -> (actions int32 [L, 5], logp [L], the
+    carry in f32 with ``template``'s tree and row shapes)."""
     n = len(D.HEADS)
-    return (host[:, :n].astype(np.int32), host[:, n],
-            (host[:, n + 1:n + 1 + hidden], host[:, n + 1 + hidden:n + 1 + 2 * hidden]))
+    L, col = host.shape[0], n + 1
+    leaves = []
+    for t in tree_leaves(template):
+        size = int(np.prod(t.shape[1:], dtype=np.int64))
+        leaves.append(host[:, col:col + size].reshape((L,) + tuple(t.shape[1:])))
+        col += size
+    return host[:, :n].astype(np.int32), host[:, n], tree_unflatten(template, leaves)
 
 
 class VecActorPool(WindowedStatsMixin):
@@ -148,7 +159,6 @@ class VecActorPool(WindowedStatsMixin):
         self.feat = VecFeaturizer(self.sim, config.obs, config.actions, learner_players)
         self.rewards = VecRewards(self.sim, learner_players, weights=dict(config.reward.as_dict()))
         self._step_fn = make_device_step(self.policy)
-        self._hidden = config.model.hidden_dim
         self._opponent: Optional[_OpponentLanes] = None
         if opponent_players:
             self._opponent = _OpponentLanes(self, opponent_players, params, version)
@@ -169,8 +179,9 @@ class VecActorPool(WindowedStatsMixin):
         self._rew_buf = np.zeros((L, T), np.float32)
         self._done_buf = np.zeros((L, T), np.float32)
         self._cursor = np.zeros((L,), np.int64)
-        # the carry at each lane's chunk start, f32 (c, h)
-        self._carry0 = tuple(np.zeros((L, self._hidden), np.float32) for _ in range(2))
+        # the carry at each lane's chunk start: host f32 buffers mirroring
+        # the policy's carry tree
+        self._carry0 = tree_map(lambda t: np.zeros(tuple(t.shape), np.float32), self._carry_dev)
         self._version0 = np.full((L,), version, np.int64)
         self._lane_reward = np.zeros((L,), np.float64)
 
@@ -186,6 +197,7 @@ class VecActorPool(WindowedStatsMixin):
         self._outcome_bucket = outcome_records.opponent_bucket(env.opponent)
         self._ep_game_steps = np.zeros((N,), np.int64)
         self._faults = faults.get()   # None unless fault injection is on
+        self._fleet = fleet.get()     # None unless the process ships fleet snapshots
         self._wire_kwargs = rollout_wire_kwargs(config)
         # every weights version this pool applied
         self.versions_applied = {version}
@@ -255,7 +267,7 @@ class VecActorPool(WindowedStatsMixin):
         infer_s = time.perf_counter() - t0
         opp_actions = self._opponent.step() if self._opponent is not None else None
         t1 = time.perf_counter()
-        actions_np, logp_np, carry_np = _unpack(packed.cpu().numpy(), self._hidden)
+        actions_np, logp_np, carry_np = _unpack(packed.cpu().numpy(), self._carry_dev)
         infer_s += time.perf_counter() - t1
         self._tel.timer("span/actor/infer").observe(infer_s)
         self._reset_mask[:] = False
@@ -302,7 +314,7 @@ class VecActorPool(WindowedStatsMixin):
         self._pending_obs = obs_next
 
     def _emit_chunks(self, lanes: np.ndarray, done_lane: np.ndarray, obs_next: Dict[str, np.ndarray],
-                     carry_np: Tuple[np.ndarray, np.ndarray], version: int) -> None:
+                     carry_np: Any, version: int) -> None:
         """Ship the finished lanes' chunks and restart their accumulators."""
         T = self.config.ppo.rollout_len
         out: List[DecodedRollout] = []
@@ -325,7 +337,7 @@ class VecActorPool(WindowedStatsMixin):
                 "rewards": self._rew_buf[lane].copy(),
                 "dones": self._done_buf[lane].copy(),
                 "valid": valid,
-                "carry0": tuple(b[lane].copy() for b in self._carry0),
+                "carry0": tree_map(lambda b: b[lane].copy(), self._carry0),
             }
             meta = {
                 "model_version": int(self._version0[lane]),
@@ -342,7 +354,7 @@ class VecActorPool(WindowedStatsMixin):
             out.append((meta, arrays))
             self._cursor[lane] = 0
             self._version0[lane] = version
-            for buf, src in zip(self._carry0, carry_np):
+            for buf, src in zip(tree_leaves(self._carry0), tree_leaves(carry_np)):
                 buf[lane] = 0.0 if done else src[lane]
         self._tel.counter("actor/rollouts_shipped").inc(len(out))
         self._tel.counter("actor/frames_shipped").inc(float(sum(m["length"] for m, _ in out)))
@@ -382,6 +394,10 @@ class VecActorPool(WindowedStatsMixin):
         for t in range(n_steps):
             if refresh_every and t % refresh_every == 0:
                 self.refresh_weights()
+                if self._fleet is not None and self.transport is not None:
+                    # cadence-gated inside; a send error propagates like a
+                    # failed rollout publish, to the caller's reconnect
+                    self._fleet.maybe_publish(self.transport)
             self.step()
         return self.stats()
 
@@ -392,7 +408,7 @@ class VecActorPool(WindowedStatsMixin):
         lanes = np.nonzero(self._cursor > 0)[0]
         if len(lanes) == 0:
             return 0
-        carry_np = tuple(t.float().cpu().numpy() for t in self._carry_dev)
+        carry_np = tree_map(lambda t: t.float().cpu().numpy(), self._carry_dev)
         self._emit_chunks(lanes, np.zeros(self.n_lanes, dtype=bool), self._pending_obs, carry_np, self.version)
         return len(lanes)
 

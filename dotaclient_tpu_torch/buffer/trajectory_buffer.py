@@ -3,8 +3,10 @@
 Counterpart of ``dotaclient_tpu/buffer/trajectory_buffer.py``, its device
 path. One slot holds one rollout chunk laid out as a row of
 ``train.ppo.example_batch`` (obs ``[T+1, ...]``, actions, rewards, ...
-``[T]``, ``carry0`` ``([H], [H])``), so a consumed batch of B slots is a
-train batch. The store is one tensor a leaf on the learner's device.
+``[T]``, and ``carry0`` in f32: ``([H], [H])`` for the LSTM core, ``([W],
+(([W, H], [W, H]),) x n_layers)`` for the transformer core), so a consumed
+batch of B slots is a train batch. The store is one tensor a leaf on the
+learner's device.
 
 The bookkeeping is host-side and reads only host ints: the consumption
 order is a deque of slot ids, beside a free list, a per-slot producer
@@ -46,7 +48,6 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dotaclient_tpu_torch.actor.device_rollout import tree_map
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.train.ppo import example_batch
@@ -54,19 +55,12 @@ from dotaclient_tpu_torch.transport.serialize import (
     BF16, _dtype_name, _to_f32, flatten_tree, rollout_cast_plan, rollout_int_bounds,
 )
 from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _N_COUNTERS = 7   # warmed, stale, overflow, ingested, skew, nonfinite, bounds
-
-
-def tree_leaves(tree) -> List[Any]:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    if isinstance(tree, tuple):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
 
 
 class TrajectoryBuffer:
@@ -416,4 +410,4 @@ class TrajectoryBuffer:
         }
 
 
-__all__ = ["TrajectoryBuffer", "tree_leaves"]
+__all__ = ["TrajectoryBuffer"]

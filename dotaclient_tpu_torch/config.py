@@ -52,7 +52,7 @@ class ModelConfig:
     hidden_dim: int = 128        # LSTM hidden size
     n_hero_ids: int = 32         # hero-embedding vocabulary
     hero_embed_dim: int = 16
-    core: str = "lstm"           # "lstm" | "transformer" (port: lstm only)
+    core: str = "lstm"           # "lstm" | "transformer"
     n_layers: int = 2
     n_heads: int = 4
     context_window: int = 16

@@ -1,4 +1,4 @@
-"""Policy: unit encoder -> masked pooling -> LSTM core -> action heads.
+"""Policy: unit encoder -> masked pooling -> recurrent core -> action heads.
 
 Counterpart of ``dotaclient_tpu/models/policy.py``, module for module, so a
 Flax param tree converts one to one (``models/convert.py``):
@@ -7,8 +7,13 @@ Flax param tree converts one to one (``models/convert.py``):
 * ``_trunk``: masked mean and max pooling over the unit axis (an
   all-padding row pools to 0), the globals projection and the hero
   embedding, concatenated and projected to the core width;
-* the core: ``LSTMCore``, which runs ``ops.lstm.lstm_sequence`` (the
-  Hopper kernel on CUDA) with T=1 in ``step`` and T>1 in ``sequence``;
+* the core, by ``ModelConfig.core``: ``LSTMCore``, which runs
+  ``ops.lstm.lstm_sequence`` (the Hopper kernel on CUDA) with T=1 in
+  ``step`` and T>1 in ``sequence``; or ``WindowedTransformerCore``
+  (``models/transformer.py``, plain tensor ops, with ``moe.MoEMLP`` FFNs
+  when ``moe_experts > 0``), which ``sequence`` steps T times, zeroing the
+  carry of the rows whose episode ended the step before, as the reference's
+  ``nn.scan`` does;
 * ``_heads``: per-head logits in f32, the target head a dot-product
   attention over unit embeddings scaled by sqrt(E), and an f32 value head
   that ``value_head=False`` (the serving path) leaves out.
@@ -20,13 +25,16 @@ carry to f32 at the kernel boundary and its outputs back to bf16; Flax
 instead rounds the weights and gates to bf16, so the two agree to bf16
 precision, not bitwise.
 
-The carry keeps Flax's order, ``(c, h)``; the kernel takes ``(h0, c0)``.
+The LSTM carry keeps Flax's order, ``(c, h)``, in the compute dtype; the
+kernel takes ``(h0, c0)``. The transformer carry is the reference's nested
+f32 tuple ``(valid, ((k, v), ...))``. Code that holds a carry treats it as a
+tree (``utils/tree.py``), never by unpacking it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,24 +43,45 @@ from torch import nn
 
 from dotaclient_tpu_torch.config import ActionSpec, ModelConfig, ObsSpec
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
+from dotaclient_tpu_torch.models.moe import MoEMLP
+from dotaclient_tpu_torch.models.transformer import (
+    Block,
+    GRUGate,
+    LayerNorm,
+    MoEStats,
+    WindowedTransformerCore,
+    dense,
+    transformer_initial_state,
+)
 from dotaclient_tpu_torch.ops.lstm import lstm_sequence
+from dotaclient_tpu_torch.utils.tree import tree_map
 
-Carry = Tuple[torch.Tensor, torch.Tensor]  # (c, h), Flax's order
+# (c, h) for the LSTM core, Flax's order; (valid, ((k, v), ...)) for the
+# transformer core. Leaves have the batch axis first.
+Carry = Any
 Obs = Mapping[str, torch.Tensor]
+CORES = ("lstm", "transformer")
 
 
 def mask_carry(carry: Carry, keep: torch.Tensor) -> Carry:
     """Multiply every carry leaf by ``keep`` ([B], 0 resets that row)."""
-    return tuple(t * keep.reshape((-1,) + (1,) * (t.dim() - 1)).to(t.dtype) for t in carry)
+    return tree_map(lambda t: t * keep.reshape((-1,) + (1,) * (t.dim() - 1)).to(t.dtype), carry)
 
 
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Apply an f32-param Linear in ``x``'s (compute) dtype."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+def initial_carry(model: ModelConfig, batch_size: int, device: DeviceLike = None) -> Carry:
+    """The zero carry of ``batch_size`` rows: ``(c, h)`` in the compute
+    dtype for the LSTM core, the f32 ``(valid, ((k, v), ...))`` for the
+    transformer's."""
+    dev = resolve_device(device)
+    if model.core == "transformer":
+        return transformer_initial_state(model, batch_size, dev)
+    shape = (batch_size, model.hidden_dim)
+    dtype = _dtype(model.dtype)
+    return (torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
 
 
 class UnitEncoder(nn.Module):
@@ -64,7 +93,7 @@ class UnitEncoder(nn.Module):
         self.dense1 = nn.Linear(embed_dim, embed_dim, device=device)
 
     def forward(self, units: torch.Tensor) -> torch.Tensor:
-        return F.relu(_dense(self.dense1, F.relu(_dense(self.dense0, units))))
+        return F.relu(dense(self.dense1, F.relu(dense(self.dense0, units))))
 
 
 class LSTMCore(nn.Module):
@@ -93,7 +122,7 @@ class LSTMCore(nn.Module):
 
 
 class Policy(nn.Module):
-    """Actor-critic policy with an LSTM core.
+    """Actor-critic policy with an LSTM or a transformer core.
 
     ``value_head=False`` is the inference-only path: the same trunk, core and
     action heads, no value head, and a constant-zero value placeholder."""
@@ -107,8 +136,8 @@ class Policy(nn.Module):
         device: DeviceLike = None,
     ) -> None:
         super().__init__()
-        if model.core != "lstm":
-            raise ValueError(f"the port has only the lstm core (got {model.core!r})")
+        if model.core not in CORES:
+            raise ValueError(f"unknown core {model.core!r} (one of {CORES})")
         dev = resolve_device(device)
         self.model = model
         self.obs_spec = obs_spec
@@ -120,7 +149,9 @@ class Policy(nn.Module):
         self.hero_embed = nn.Embedding(model.n_hero_ids, model.hero_embed_dim, device=dev)
         self.globals_proj = nn.Linear(obs_spec.global_features, E, device=dev)
         self.trunk_proj = nn.Linear(3 * E + model.hero_embed_dim, H, device=dev)
-        self.core = LSTMCore(H, H, dev)
+        self.core: nn.Module = (
+            LSTMCore(H, H, dev) if model.core == "lstm" else WindowedTransformerCore(model, dev)
+        )
         hs = action_spec.head_sizes
         self.head_action_type = nn.Linear(H, hs["action_type"], device=dev)
         self.head_move_x = nn.Linear(H, hs["move_x"], device=dev)
@@ -132,7 +163,7 @@ class Policy(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.core.wx.device
+        return self.trunk_proj.weight.device
 
     # -- shared trunk ------------------------------------------------------
 
@@ -147,27 +178,27 @@ class Policy(nn.Module):
         mean_pool = unit_emb.sum(dim=-2) / torch.clamp(n_units, min=1.0)
         max_pool = torch.where(unit_mask > 0, unit_emb, -1e9).amax(dim=-2)
         max_pool = torch.where(n_units > 0, max_pool, 0.0)      # all-padding row
-        g = F.relu(_dense(self.globals_proj, obs["globals"].to(dtype)))
+        g = F.relu(dense(self.globals_proj, obs["globals"].to(dtype)))
         hero = F.embedding(obs["hero_id"].long(), self.hero_embed.weight).to(dtype)
         x = torch.cat([mean_pool, max_pool, g, hero], dim=-1)
-        return F.relu(_dense(self.trunk_proj, x)), unit_emb
+        return F.relu(dense(self.trunk_proj, x)), unit_emb
 
     def _heads(
         self, y: torch.Tensor, unit_emb: torch.Tensor
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Core output [..., H] -> per-head f32 logits + value [...]."""
-        q = _dense(self.target_query, y)                          # [..., E]
+        q = dense(self.target_query, y)                          # [..., E]
         scale = math.sqrt(q.shape[-1])
         target_logits = torch.einsum("...e,...ue->...u", q, unit_emb).float() / scale
         logits = {
-            "action_type": _dense(self.head_action_type, y).float(),
-            "move_x": _dense(self.head_move_x, y).float(),
-            "move_y": _dense(self.head_move_y, y).float(),
+            "action_type": dense(self.head_action_type, y).float(),
+            "move_x": dense(self.head_move_x, y).float(),
+            "move_y": dense(self.head_move_y, y).float(),
             "target_unit": target_logits,
-            "ability": _dense(self.head_ability, y).float(),
+            "ability": dense(self.head_ability, y).float(),
         }
         if self.value_head:
-            value = _dense(self.head_value, y.float())[..., 0]
+            value = dense(self.head_value, y.float())[..., 0]
         else:
             value = torch.zeros(y.shape[:-1], dtype=torch.float32, device=y.device)
         return logits, value
@@ -175,37 +206,55 @@ class Policy(nn.Module):
     # -- public modes ------------------------------------------------------
 
     def initial_state(self, batch_size: int) -> Carry:
-        shape = (batch_size, self.model.hidden_dim)
-        return (
-            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
-            torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
-        )
+        return initial_carry(self.model, batch_size, self.device)
 
     def step(
         self, obs: Obs, carry: Carry
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
-        """Single batched step: obs ``[B, ...]``; the core runs with T=1."""
+        """Single batched step: obs ``[B, ...]``; the LSTM core runs with T=1."""
         x, unit_emb = self._trunk(obs)
-        resets = torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)
-        carry, ys = self.core(x[:, None], carry, resets)
-        logits, value = self._heads(ys[:, 0], unit_emb)
+        if self.model.core == "lstm":
+            resets = torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)
+            carry, ys = self.core(x[:, None], carry, resets)
+            y = ys[:, 0]
+        else:
+            carry, y, _ = self.core(carry, x)
+        logits, value = self._heads(y, unit_emb)
         return logits, value, carry
 
     def sequence(
         self, obs: Obs, carry: Carry, dones: Optional[torch.Tensor] = None,
-        use_kernel: bool = True,
-    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
+        use_kernel: bool = True, return_moe: bool = False,
+    ):
         """Teacher-forced sequence mode: obs ``[B, T, ...]`` from the stored
-        initial carry. ``dones`` ([B, T'] with T' <= T, episode ended AT step
-        t) zeroes the carry before step t+1, as the actor's reset does."""
+        initial carry -> ``(logits, value, carry)``. ``dones`` ([B, T'] with
+        T' <= T, episode ended AT step t) zeroes the carry before step t+1,
+        as the actor's reset does. ``return_moe`` appends the MoE routing
+        stats: per MoE layer ``(probs, frac)``, each ``[T, B, E]`` (an empty
+        tuple for the dense and LSTM cores)."""
         x, unit_emb = self._trunk(obs)                            # [B, T, H]
         B, T = x.shape[:2]
         resets = torch.zeros(B, T, dtype=torch.float32, device=x.device)
         if dones is not None:
             # step 0 is reset by carry0 itself; step t>0 resets if t-1 done
             resets[:, 1:] = dones[:, : T - 1].float()
-        carry, ys = self.core(x, carry, resets, use_kernel=use_kernel)
+        moe: MoEStats = ()
+        if self.model.core == "lstm":
+            carry, ys = self.core(x, carry, resets, use_kernel=use_kernel)
+        else:
+            outs: List[torch.Tensor] = []
+            steps: List[MoEStats] = []
+            for t in range(T):
+                carry = mask_carry(carry, 1.0 - resets[:, t])
+                carry, y, stats = self.core(carry, x[:, t])
+                outs.append(y)
+                steps.append(stats)
+            ys = torch.stack(outs, dim=1)
+            moe = tuple((torch.stack([s[layer][0] for s in steps]), torch.stack([s[layer][1] for s in steps]))
+                        for layer in range(len(steps[0])))
         logits, value = self._heads(ys, unit_emb)
+        if return_moe:
+            return logits, value, carry, moe
         return logits, value, carry
 
     def forward(self, obs: Obs, carry: Carry):
@@ -219,10 +268,12 @@ def make_policy(
     action_spec: ActionSpec,
     device: DeviceLike = None,
 ) -> Policy:
-    if model.moe_experts > 0:
+    if model.moe_experts > 0 and model.core != "transformer":
+        # only the transformer core routes an FFN: an "N-expert" LSTM would
+        # mislabel every result
         raise ValueError(
-            f"moe_experts={model.moe_experts} requires core='transformer'; "
-            "the LSTM core has no FFN to route"
+            f"moe_experts={model.moe_experts} requires core='transformer' "
+            f"(got core={model.core!r}); the LSTM core has no FFN to route"
         )
     return Policy(model, obs_spec, action_spec, device=device)
 
@@ -234,10 +285,14 @@ def init_params(policy: Policy, generator: torch.Generator) -> Policy:
     lecun-normal (a normal truncated at 2 standard deviations, variance
     1/fan_in after truncation), biases zero, the hero embedding normal with
     variance 1/embed_dim (Flax's ``variance_scaling(1, fan_in, normal,
-    out_axis=0)``), and the LSTM cell's input kernels lecun-normal and its
+    out_axis=0)``). The LSTM cell's input kernels are lecun-normal and its
     four recurrent kernels orthogonal, each [H, H] gate block on its own,
-    with a zero bias. The draws are made on the CPU and copied, so a seed
-    gives the same params on every device. Returns ``policy``."""
+    with a zero bias. The transformer's LayerNorms start at scale 1 and bias
+    0, its attention position bias at 0, each GTrXL gate's ``bg`` at 2 (the
+    near-identity start), and an MoE layer's gate and experts lecun-normal
+    with each expert's fan-in its own (D for ``w1``, 4H for ``w2``). The
+    draws are made on the CPU and copied, so a seed gives the same params on
+    every device. Returns ``policy``."""
 
     def lecun(fan_in: int, *shape: int) -> torch.Tensor:
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -250,10 +305,28 @@ def init_params(policy: Policy, generator: torch.Generator) -> Policy:
             # Linear weight [out, in] is the transposed Flax kernel [in, out]
             module.weight.copy_(lecun(module.in_features, module.in_features,
                                       module.out_features).t())
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.scale.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, GRUGate):
+            module.bg.fill_(module.bias_init)
+        elif isinstance(module, MoEMLP):
+            D, E = module.gate.shape
+            Fh = module.expert_w1.shape[2]
+            module.gate.copy_(lecun(D, D, E))
+            module.expert_w1.copy_(lecun(D, E, D, Fh))
+            module.expert_w2.copy_(lecun(Fh, E, Fh, D))
+            module.expert_b1.zero_()
+            module.expert_b2.zero_()
+        elif isinstance(module, Block):
+            module.pos_bias.zero_()
     emb = policy.hero_embed.weight
     emb.copy_(torch.randn(emb.shape, generator=generator) / math.sqrt(emb.shape[1]))
     core = policy.core
+    if not isinstance(core, LSTMCore):
+        return policy
     D, G = core.wx.shape
     H = G // 4
     core.wx.copy_(torch.cat([lecun(D, D, H) for _ in range(4)], dim=1))

@@ -25,10 +25,13 @@ re-homed.
 
 ``--subscribe shm://NAME`` reads the weights slab of a learner's shm lane
 on this host (it claims one of the lane's actor slots while it runs).
+With ``--subscribe`` the server also ships its registry's fleet snapshot
+(``utils/fleet.py`` ``FleetPublisher``, peer ``s<listen port>``) back over
+that lane every ``--fleet-interval`` seconds (``telemetry.fleet_interval_s``,
+5 s, by default; 0 turns it off), the first at once.
 
 Accepted but not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: ``--trace-jsonl`` and ``--trace-sample`` (queue 1, item 8),
-``--fleet-interval`` (item 8).
+ROADMAP item: ``--trace-jsonl`` and ``--trace-sample`` (queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -55,7 +58,9 @@ def main(argv=None) -> int:
                    help="append a serve-telemetry snapshot to PATH every 5 s and at exit")
     p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH")
     p.add_argument("--trace-sample", type=int, default=None, metavar="N")
-    p.add_argument("--fleet-interval", type=float, default=None, metavar="S")
+    p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
+                   help="with --subscribe: ship a fleet metrics snapshot on the subscription lane every S "
+                   "seconds (default telemetry.fleet_interval_s = 5; 0 disables)")
     p.add_argument("--duration", type=float, default=0.0,
                    help="serve for this many seconds then exit (0 = until SIGINT)")
     p.add_argument("--device", type=str, default=None,
@@ -64,8 +69,6 @@ def main(argv=None) -> int:
 
     if args.trace_jsonl is not None or args.trace_sample is not None:
         raise NotImplementedError("--trace-jsonl/--trace-sample are not ported yet: ROADMAP queue 1, item 8")
-    if args.fleet_interval is not None:
-        raise NotImplementedError("--fleet-interval is not ported yet: ROADMAP queue 1, item 8")
 
     from dotaclient_tpu_torch.config import ServeConfig
     from dotaclient_tpu_torch.device import resolve_device
@@ -124,14 +127,33 @@ def main(argv=None) -> int:
         server.attach_weights_source(source)
         print(f"serve: subscribed to weights fanout {args.subscribe}", flush=True)
 
+    publisher = None
+    if source is not None:
+        from dotaclient_tpu_torch.utils.fleet import FleetPublisher
+
+        interval = telemetry.fleet_interval_s if args.fleet_interval is None else args.fleet_interval
+        if interval > 0:
+            # the peer id is the listen port, not the pid: a restarted
+            # server reuses its fleet row
+            publisher = FleetPublisher(peer_id=int(server.address[1]) & 0xFFFF, kind="serve",
+                                       interval_s=interval)
+
     sink = telemetry.JsonlSink(args.serve_metrics_jsonl) if args.serve_metrics_jsonl else None
     tel = telemetry.get_registry()
     t_end = time.time() + args.duration if args.duration else None
-    wake = 5.0
+    # the wake follows the fleet cadence; the JSONL sink keeps its own 5 s
+    wake = min(5.0, publisher.interval_s) if publisher is not None else 5.0
+    sink_every, last_sink = 5.0, time.monotonic()
     try:
         while t_end is None or time.time() < t_end:
+            if publisher is not None:
+                try:
+                    publisher.maybe_publish(source)
+                except (ConnectionError, OSError):
+                    pass   # the learner is gone: serving goes on with the last weights
             time.sleep(max(0.0, min(wake, t_end - time.time())) if t_end else wake)
-            if sink is not None:
+            if sink is not None and time.monotonic() - last_sink >= sink_every:
+                last_sink = time.monotonic()
                 snap = tel.snapshot()
                 sink.emit(int(snap.get("serve/dispatches_total", 0)), snap)
     except KeyboardInterrupt:

@@ -300,6 +300,12 @@ class ServeClient:
         """The raw packed ``[5]`` int32 action row of the last reply."""
         return self._last_packed
 
+    @property
+    def last_carry(self) -> Optional[Dict[str, np.ndarray]]:
+        """The carry-shadow row (the opaque wire dict ``c0..``) of the last
+        reply; None unless the server runs ``serve.carry_shadow``."""
+        return self._carry_stash
+
     def close(self) -> None:
         if self._router and self.session is not None:
             try:

@@ -8,8 +8,10 @@ per-game step requests into preallocated staging lanes until
 requester.
 
 Carry residency: recurrent state never rides the wire. Each attached game
-owns a carry SLOT in a device-resident store ``[max_slots + 1, H]`` per
-carry leaf; a dispatch gathers the batch's rows, zeroes the rows of new
+owns a carry SLOT in a device-resident store ``[max_slots + 1, ...]`` per
+leaf of the policy's carry tree (``(c, h)`` for the LSTM core; ``valid``
+and each layer's ``k``, ``v`` for the transformer core), kept as the flat
+tuple of leaves in ``tree_leaves`` order; a dispatch gathers the batch's rows, zeroes the rows of new
 episodes (and of padding), steps the policy, and writes the new rows back in
 place with ``index_copy_``. Row ``max_slots`` is a scratch slot: padding rows
 gather and scatter it, so they never touch a live game, and a window never
@@ -71,6 +73,7 @@ from dotaclient_tpu_torch.models.policy import (
     obs_layout,
 )
 from dotaclient_tpu_torch.utils import telemetry, tracing, utilization
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 logger = logging.getLogger(__name__)
 
@@ -146,9 +149,11 @@ class ServeEngine:
         self._slots_dev = torch.empty_like(self._slots_host, device=self._device)
         self._reset_dev = torch.empty_like(self._reset_host, device=self._device)
         # Server-resident carries: one row per attached game + the scratch
-        # row, updated in place by every dispatch.
+        # row, updated in place by every dispatch; the leaves of the carry
+        # tree, whose structure the one-row template keeps
         with torch.no_grad():
-            self._carries: Carry = policy.initial_state(S + 1)
+            self._carry_tmpl: Carry = policy.initial_state(1)
+            self._carries: Tuple[torch.Tensor, ...] = tuple(tree_leaves(policy.initial_state(S + 1)))
         self._params = self._params_to_device(params)
         self._version = version
         self._seed = scfg.seed
@@ -350,18 +355,19 @@ class ServeEngine:
         obs: Dict[str, torch.Tensor],
         slots: torch.Tensor,
         reset: torch.Tensor,
-        carries: Carry,
+        carries: Tuple[torch.Tensor, ...],
         generator: torch.Generator,
-    ) -> Tuple[torch.Tensor, Carry]:
-        """Gather, reset, step, sample, scatter (in place into ``carries``).
-        Returns (out [B, 6] int32: five actions then the f32 log-prob's
-        bits, new carry rows)."""
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Gather, reset, step, sample, scatter (in place into ``carries``,
+        the store's leaves). Returns (out [B, 6] int32: five actions then the
+        f32 log-prob's bits, the new carry rows' leaves)."""
         with torch.no_grad():
-            carry = tuple(c.index_select(0, slots) for c in carries)
+            carry = tree_unflatten(self._carry_tmpl, [c.index_select(0, slots) for c in carries])
             # reset rows (fresh episodes AND padding rows) start from zeros
             carry = mask_carry(carry, 1.0 - reset)
             with self._call_lock:
                 logits, _, carry2 = functional_call(self._policy, params, (obs, carry))
+            carry2 = tuple(tree_leaves(carry2))
             acts, logp = D.sample(logits, obs, generator=generator)
             packed = torch.stack([acts[h] for h in D.HEADS], dim=1).to(torch.int32)
             for store, new in zip(carries, carry2):
@@ -540,20 +546,20 @@ class ServeEngine:
 
     # -- parity probe --------------------------------------------------------
 
-    def initial_carries(self) -> Carry:
-        """A fresh all-zero carry store (for ``reference_step``)."""
+    def initial_carries(self) -> Tuple[torch.Tensor, ...]:
+        """A fresh all-zero carry store, its leaves (for ``reference_step``)."""
         with torch.no_grad():
-            return self._policy.initial_state(self._scfg.max_slots + 1)
+            return tuple(tree_leaves(self._policy.initial_state(self._scfg.max_slots + 1)))
 
     def reference_step(
         self,
         obs_rows: List[Dict[str, np.ndarray]],
         slots: List[int],
         resets: List[float],
-        carries: Carry,
+        carries: Tuple[torch.Tensor, ...],
         dispatch_idx: int,
         params: Optional[Params] = None,
-    ) -> Tuple[np.ndarray, np.ndarray, Carry]:
+    ) -> Tuple[np.ndarray, np.ndarray, Tuple[torch.Tensor, ...]]:
         """Replay one dispatch through the same dispatch function the
         batcher runs. Updates ``carries`` (the caller's own store, never the
         live one) in place and returns ``(packed [B, 5], logp [B],
@@ -584,8 +590,11 @@ class ServeEngine:
     # -- carry-shadow wire form ----------------------------------------------
 
     def carry_row_to_wire(self, row: Tuple[np.ndarray, ...]) -> Dict[str, np.ndarray]:
-        """One carry row (c, h) -> the flat wire dict replies ship
-        (``{"c0": c, "c1": h}``, f32: the bf16 rows upcast exactly)."""
+        """One carry row's leaves -> the flat wire dict replies ship,
+        ``{"c<i>": leaf i}`` in ``tree_leaves`` order, which is the
+        reference's tree leaf order: ``c0, c1`` = c, h for the LSTM
+        core (the bf16 rows upcast exactly to f32), ``c0..c4`` = valid, k0,
+        v0, k1, v1 for a two-layer transformer."""
         return {f"c{i}": np.asarray(leaf) for i, leaf in enumerate(row)}
 
     def wire_to_carry_row(self, wire: Dict[str, np.ndarray]) -> Tuple[np.ndarray, ...]:

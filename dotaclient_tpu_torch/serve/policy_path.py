@@ -37,7 +37,7 @@ TRAIN_ONLY_PARAM_KEYS = ("head_value",)
 
 def make_inference_policy(config: RunConfig, device: DeviceLike = None) -> Policy:
     """The serving-plane policy: identical architecture, no value head."""
-    if config.model.moe_experts > 0:
+    if config.model.moe_experts > 0 and config.model.core != "transformer":
         raise ValueError(
             f"moe_experts={config.model.moe_experts} requires "
             f"core='transformer' (got core={config.model.core!r})"

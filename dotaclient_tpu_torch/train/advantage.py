@@ -10,7 +10,8 @@ bf16 by default). ``train/ppo.ppo_loss`` sees the ``advantages`` leaf, skips
 its estimator and shortens its forward to the T transition steps.
 
 The pass runs ``Policy.sequence`` under ``torch.no_grad()``, so on the card
-its LSTM core is the ``lstm_seq`` kernel (forward only). It reads nothing
+an LSTM core is the ``lstm_seq`` kernel (forward only); ``carry0`` is
+whichever tree the core carries. It reads nothing
 on the host and issues behind the update in flight when the learner's
 prefetch lane calls it.
 

@@ -21,9 +21,11 @@ Protocol:
 ``--log-every`` for dense outcome curves), ``--logdir`` its tensorboardX
 scalars. With neither, no log boundary falls inside a block: a boundary
 drains the windowed stats each block prints (the reference's default
-``--log-every``: 10,000 with ``--logdir``, else never). The reference's
-``--core`` and ``--moe-experts`` (ROADMAP queue 1, item 6) are accepted
-and raise, naming their item. ``--actor`` picks the learner's mode as the
+``--log-every``: 10,000 with ``--logdir``, else never). ``--core
+transformer`` trains the windowed-attention core and ``--moe-experts N``
+gives its FFNs N routed experts (``--core transformer --moe-experts 4
+--steps 3 --n-envs 4 --eval-games 4 --device cpu`` runs it on the CPU).
+``--actor`` picks the learner's mode as the
 reference's does: ``fused`` (the default) or ``device``, the buffered
 learner (``--actor device --n-envs 8 --eval-games 4 --device cpu`` runs it
 on the CPU).
@@ -37,13 +39,6 @@ import json
 import sys
 import time
 from typing import List, Optional
-
-# flags of the reference demo whose features the port does not have yet
-_NOT_PORTED = {
-    "core": "ROADMAP queue 1, item 6 (transformer and MoE cores)",
-    "moe_experts": "ROADMAP queue 1, item 6 (transformer and MoE cores)",
-}
-
 
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -80,8 +75,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="with --actor fused: rollout and update iterations in one fused call")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
-    p.add_argument("--core", type=str, default=None, help="not ported yet: " + _NOT_PORTED["core"])
-    p.add_argument("--moe-experts", type=int, default=None, help="not ported yet: " + _NOT_PORTED["moe_experts"])
+    p.add_argument("--core", type=str, default="lstm", choices=("lstm", "transformer"),
+                   help="policy core: the LSTM(128), or the windowed-attention transformer (rolling KV-cache "
+                   "carry)")
+    p.add_argument("--moe-experts", type=int, default=0, help="with --core transformer: experts per MoE FFN layer")
     p.add_argument("--logdir", type=str, default=None, help="tensorboardX scalars of the learner here")
     p.add_argument("--metrics-jsonl", type=str, default=None, metavar="PATH",
                    help="append the learner's log-boundary records as JSON lines to PATH (pair with --log-every "
@@ -90,9 +87,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="log-boundary cadence in optimizer steps (default: 10,000 with --logdir, else none: a "
                    "boundary inside a block resets the windowed stats the demo prints)")
     args = p.parse_args(argv)
-    for name, item in _NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet: {item}")
     if args.steps_per_dispatch > 1 and args.actor != "fused":
         p.error("--steps-per-dispatch needs --actor fused")
     if args.restore and not args.checkpoint_dir:
@@ -128,6 +122,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         config,
         reward=dataclasses.replace(config.reward, **reward_over),
         ppo=dataclasses.replace(config.ppo, **ppo_over),
+        model=dataclasses.replace(config.model, core=args.core, moe_experts=args.moe_experts),
         env=dataclasses.replace(config.env, n_envs=args.n_envs, opponent=args.opponent,
                                 max_dota_time=args.max_dota_time, team_size=args.team_size,
                                 hero_pool=hero_pool),
@@ -181,7 +176,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     summary = {
         "steps": args.steps,
         "team_size": args.team_size,
-        "core": "lstm",
+        "core": args.core,
         "actor": args.actor,
         "device": str(device),
         "restored_step": restored_step,

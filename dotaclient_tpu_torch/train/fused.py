@@ -27,10 +27,11 @@ from typing import Dict, List, Optional
 
 import torch
 
-from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, DeviceActorState, PolicyParams, tree_map
+from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, DeviceActorState, PolicyParams
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.models.policy import Policy
 from dotaclient_tpu_torch.train.ppo import Batch, TrainState, _train_step, fold_scan_metrics, take_rows
+from dotaclient_tpu_torch.utils.tree import tree_map
 
 
 def lane_minibatches(chunk: Batch, step: int, seed: int, n_lanes: int, n_mb: int) -> List[Batch]:

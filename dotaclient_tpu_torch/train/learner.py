@@ -92,11 +92,16 @@ past selves (``league/pool.py``): snapshots every ``snapshot_every`` steps,
 draws held for ``opponent_hold`` steps, and PFSP outcomes read in one
 batch at a log boundary or the end of ``train``.
 
+The CLI's ``--core transformer`` trains the GTrXL-gated windowed-attention
+core (``models/transformer.py``) in every actor mode but ``scalar``, and
+``--moe-experts N`` routes its FFNs through N Switch experts
+(``models/moe.py``). ``--fleet-interval S`` sets the aggregator's cadence
+(``telemetry.fleet_interval_s``; 0 keeps its thread off).
+
 Not ported yet, each with its ROADMAP item: the AMQP transport and the
-narrow wires (queue 1, item 13), the transformer and MoE cores (item 6),
-the mesh (item 7), the trace plane and the fleet fanout (item 8) and the
-JAX debug and cache flags (item 12). Their CLI flags are accepted and raise ``NotImplementedError``
-naming the item.
+narrow wires (queue 1, item 13), the mesh (item 7), the trace plane (item
+8) and the JAX debug and cache flags (item 12). Their CLI flags are
+accepted and raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -116,7 +121,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dotaclient_tpu_torch.actor.device_rollout import DeviceActor, flatten_state, unflatten_state
+from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
 from dotaclient_tpu_torch.actor.runtime import ActorPool
 from dotaclient_tpu_torch.actor.vec_runtime import VecActorPool
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
@@ -144,6 +149,7 @@ from dotaclient_tpu_torch.utils.fleet import FleetAggregator
 from dotaclient_tpu_torch.utils.metrics import MetricsLogger
 from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 from dotaclient_tpu_torch.utils.profiling import trace
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
 
@@ -636,7 +642,7 @@ class Learner:
         out: Dict[str, Any] = {"buffer": self.buffer.state_dict()} if self.buffer is not None else {}
         if self.device_actor is not None:
             out["actor_leaves"] = {f"{i:04d}": leaf
-                                   for i, leaf in enumerate(flatten_state(self.device_actor.state))}
+                                   for i, leaf in enumerate(tree_leaves(self.device_actor.state))}
             out["actor_rng"] = self.device_actor.generator.get_state()
         out["mb_draws"] = torch.tensor(self._mb_draws, dtype=torch.int64)
         return out
@@ -653,7 +659,7 @@ class Learner:
         da = self.device_actor
         if da is not None and "actor_leaves" in restored:
             leaves = [restored["actor_leaves"][k] for k in sorted(restored["actor_leaves"])]
-            da.state = unflatten_state(da.state, [t.to(self.device) for t in leaves])
+            da.state = tree_unflatten(da.state, [t.to(self.device) for t in leaves])
         if da is not None and "actor_rng" in restored:
             da.generator.set_state(restored["actor_rng"])
         if "mb_draws" in restored:
@@ -1216,16 +1222,13 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
 
 
 _ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
-_ITEM_6 = "ROADMAP queue 1, item 6 (transformer and MoE cores)"
 _ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
-_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane and the fleet fanout)"
+_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane)"
 _ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
 # flags of the reference learner whose features the port does not have
 # yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
 # given
 _NOT_PORTED_FLAGS = (
-    ("--core", {"type": str}, _ITEM_6),
-    ("--moe-experts", {"type": int}, _ITEM_6),
     ("--mesh", {"type": str}, _ITEM_7),
     ("--multihost", {"action": "store_true"}, _ITEM_7),
     ("--dcn-slices", {"type": int}, _ITEM_7),
@@ -1235,7 +1238,6 @@ _NOT_PORTED_FLAGS = (
     ("--rollout-wire-dtype", {"type": str}, _ITEM_13),
     ("--trace-jsonl", {"type": str}, _ITEM_8),
     ("--trace-sample", {"type": int}, _ITEM_8),
-    ("--fleet-interval", {"type": float}, _ITEM_8),
     ("--checkify", {"action": "store_true"}, _ITEM_12),
     ("--compile-cache", {"type": str}, _ITEM_12),
 )
@@ -1311,6 +1313,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="with --actor vec: run the actor pool on its own thread")
     p.add_argument("--steps-per-dispatch", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--core", type=str, default=None, choices=("lstm", "transformer"),
+                   help="policy core: the LSTM(128) (default) or the GTrXL-gated windowed-attention transformer")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="with --core transformer: experts per MoE FFN layer (0 = dense FFN)")
+    p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
+                   help="merge the actors' and servers' fleet snapshots and evaluate the alert rules every S "
+                   "seconds in the external modes (default telemetry.fleet_interval_s = 5; 0 disables)")
     p.add_argument("--checkpoint-dir", type=str, default=None,
                    help="write checkpoints here (every --checkpoint-every steps and at the end)")
     p.add_argument("--checkpoint-every", type=int, default=None,
@@ -1339,6 +1348,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.actor = "scalar" if args.no_vec else "external" if args.transport != "inproc" else "device"
 
     config = default_config()
+    model_over = {k: v for k, v in (("core", args.core), ("moe_experts", args.moe_experts)) if v is not None}
+    if model_over:
+        config = dataclasses.replace(config, model=dataclasses.replace(config.model, **model_over))
     if args.smoke:
         config = smoke_config(config)
         args.steps = min(args.steps, 5)
@@ -1368,7 +1380,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.sync_snapshots:
         config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)
+    fleet_interval0 = telemetry.fleet_interval_s
+    if args.fleet_interval is not None:
+        # before the Learner: its FleetAggregator reads the knob at
+        # construction (restored at the end, for embedding programs)
+        telemetry.fleet_interval_s = args.fleet_interval
+    try:
+        return _run_cli(args, config)
+    finally:
+        telemetry.fleet_interval_s = fleet_interval0
 
+
+def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
+    """The CLI's transport, learner, signal handlers, run and last line."""
     transport = None
     if args.transport == "socket":
         host, port = args.listen.rsplit(":", 1)

@@ -35,7 +35,10 @@ minibatches`` updates of one consumed batch over the minibatch rows that
 host-drawn permutations select. ``example_batch`` is a zero batch of the
 ring's layout.
 
-The MoE aux term is 0: the port has no MoE core. There is no sharding (one
+An MoE core adds the Switch load-balancing term (``_moe_aux_loss``: per
+layer ``E x sum_e mean_prob_e x mean_frac_e`` over the valid steps, from the
+routing stats ``Policy.sequence`` returns), under the warmup gate with the
+other policy terms; a dense or LSTM core's is 0. There is no sharding (one
 card).
 """
 
@@ -50,13 +53,17 @@ import torch
 from dotaclient_tpu_torch.config import ADV_NORM_MODES, ADVANTAGE_MODES, PPOConfig, RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.models import distributions as D
-from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch
+from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch, initial_carry
+from dotaclient_tpu_torch.models.transformer import MoEStats
 from dotaclient_tpu_torch.train.gae import gae, vtrace
+from dotaclient_tpu_torch.utils.tree import tree_map
 
 # A training batch of rollout chunks:
 #   obs tensors           [B, T+1, ...], the bootstrap observation last
 #   actions/logp/...      [B, T]
-#   carry0                (c [B, H], h [B, H]) f32, the rollout's initial carry
+#   carry0                the rollout's initial carry, f32: (c [B, H], h [B, H])
+#                         for the LSTM core, (valid [B, W], ((k, v) [B, W, H],)
+#                         x n_layers) for the transformer core
 #   valid                 [B, T]
 Batch = Dict[str, Any]
 
@@ -111,6 +118,25 @@ def _masked_mean(x: torch.Tensor, valid: torch.Tensor, n_valid: torch.Tensor) ->
     return (x * valid).sum() / n_valid
 
 
+def _moe_aux_loss(moe: MoEStats, valid: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss from an MoE core's routing stats:
+    per layer ``(probs, frac)``, each ``[T', B, E]`` with T' >= T (the
+    bootstrap slot, when the forward ran it, is cut off), masked by
+    ``valid [B, T]`` like every other term. 0 for a core without MoE."""
+    if not moe:
+        return torch.zeros((), device=valid.device)
+    T = valid.shape[1]
+    w = valid.t()[..., None]                                   # [T, B, 1]
+    denom = torch.clamp(valid.sum(), min=1.0)
+    aux = torch.zeros((), device=valid.device)
+    for probs, frac in moe:
+        E = probs.shape[-1]
+        mean_p = (probs[:T] * w).sum(dim=(0, 1)) / denom       # [E] masked importance
+        mean_f = (frac[:T] * w).sum(dim=(0, 1)) / denom        # [E] masked load
+        aux = aux + E * torch.sum(mean_p * mean_f)
+    return aux
+
+
 def ppo_loss(
     policy: Policy,
     batch: Batch,
@@ -138,8 +164,9 @@ def ppo_loss(
     if precomputed:
         obs = {k: v[:, :T] for k, v in obs.items()}
 
-    logits, values, _ = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel)
-    moe_aux = torch.zeros((), device=values.device)
+    logits, values, _, moe = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel,
+                                             return_moe=True)
+    moe_aux = _moe_aux_loss(moe, valid)
     # the trailing slot is the bootstrap step: its value is used, its
     # policy outputs are not
     logits_t = {k: v[:, :T] for k, v in logits.items()}
@@ -195,7 +222,7 @@ def ppo_loss(
     detached = lambda t: t.detach()  # noqa: E731 - metrics carry no graph
     metrics = {
         "loss": detached(loss),
-        "moe_aux": moe_aux,
+        "moe_aux": detached(moe_aux),
         **({"anchor_kl": detached(anchor_kl)} if cfg.anchor_kl_coef > 0 and anchor is not None else {}),
         # kept for _train_step's post-update KL (popped there)
         **({"_logp": detached(logp)} if cfg.kl_target > 0 else {}),
@@ -377,9 +404,10 @@ def example_batch(config: RunConfig, batch: int, device: DeviceLike = None) -> B
     """A zero batch of ``batch`` rows in the layout of a rollout chunk and
     of the trajectory ring: obs ``[batch, T+1, ...]`` (all-legal masks),
     int32 actions, f32 ``behavior_logp``/``rewards``/``dones``, ``valid``
-    ones, and an f32 ``carry0`` (c, h)."""
+    ones, and ``carry0`` laid out as the policy's ``initial_state``, in
+    f32 (the wire's and the ring's carry is always f32)."""
     dev = resolve_device(device)
-    T, H = config.ppo.rollout_len, config.model.hidden_dim
+    T = config.ppo.rollout_len
     f32 = dict(dtype=torch.float32, device=dev)
     return {
         "obs": dummy_obs_batch(batch, config.obs, config.actions, time=T + 1, device=dev),
@@ -388,5 +416,5 @@ def example_batch(config: RunConfig, batch: int, device: DeviceLike = None) -> B
         "rewards": torch.zeros((batch, T), **f32),
         "dones": torch.zeros((batch, T), **f32),
         "valid": torch.ones((batch, T), **f32),
-        "carry0": (torch.zeros((batch, H), **f32), torch.zeros((batch, H), **f32)),
+        "carry0": tree_map(lambda t: torch.zeros(t.shape, **f32), initial_carry(config.model, batch, dev)),
     }

@@ -1,8 +1,9 @@
-"""Fleet health plane: peer labels, metric snapshots and the learner's aggregator.
+"""Fleet health plane: peer labels, metric snapshots, the peers' publisher
+and the learner's aggregator.
 
 Copy of ``peer_label``, the snapshot codec (``encode_snapshot``,
-``decode_snapshot``) and ``FleetAggregator`` of
-``dotaclient_tpu/utils/fleet.py``:
+``decode_snapshot``), ``FleetPublisher`` with ``configure``, ``get`` and
+``shutdown``, and ``FleetAggregator`` of ``dotaclient_tpu/utils/fleet.py``:
 
 * a snapshot is one peer's counter totals and gauge values, filtered to the
   fleet's namespaces, carried by the rollout codec (scalar float64 leaves
@@ -20,9 +21,17 @@ Copy of ``peer_label``, the snapshot codec (``encode_snapshot``,
   every run; its thread starts only in the external actor mode, where
   the ``TransportServer`` hands it the actors' kind-5 frames.
 
-``SessionRouter.status`` names each backend's row with ``peer_label``. The
-peer side (``FleetPublisher``) waits for item 8. This module imports no
-torch at load: the router CLI, which holds no CUDA context, imports it.
+* ``FleetPublisher`` is the peer side: an actor (the actor CLI's
+  ``VecActorPool``, after each weights refresh) or a serve CLI with
+  ``--subscribe`` ships its registry's snapshot over the transport it
+  already holds, at most once every ``interval_s``. Its first call always
+  ships: the reference starts its clock at 0.0 and compares it with
+  ``time.monotonic()``, so on a host up less than ``interval_s`` its first
+  snapshot waits a whole interval.
+
+``SessionRouter.status`` names each backend's row with ``peer_label``. This
+module imports no torch at load: the router CLI, which holds no CUDA
+context, imports it.
 """
 
 from __future__ import annotations
@@ -130,6 +139,77 @@ def decode_snapshot(payload: Any) -> Optional[Dict[str, Any]]:
         }
     except Exception:  # noqa: BLE001 - a peer's bad frame is dropped, never raised
         return None
+
+
+class FleetPublisher:
+    """Peer-side snapshot shipper. ``maybe_publish`` is the only hot-path
+    entry: one clock compare a call, the encode and send only at cadence.
+    Send errors propagate: on the actor they engage the same reconnect
+    path as a failed rollout publish."""
+
+    def __init__(
+        self,
+        peer_id: int,
+        kind: str = "actor",
+        interval_s: Optional[float] = None,
+        registry: Optional[telemetry.Registry] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        if kind not in PEER_KINDS:
+            raise ValueError(f"unknown fleet peer kind {kind!r}")
+        self.peer_id = int(peer_id)
+        self.kind = kind
+        self.interval_s = telemetry.fleet_interval_s if interval_s is None else interval_s
+        self._reg = registry if registry is not None else telemetry.get_registry()
+        self._clock = clock
+        self._last: Optional[float] = None   # None: nothing shipped yet, so the first call ships
+        self._seq = 0
+
+    def maybe_publish(self, transport: Any, force: bool = False) -> bool:
+        now = self._clock()
+        if not force and self._last is not None and now - self._last < self.interval_s:
+            return False
+        publish = getattr(transport, "publish_metrics_bytes", None)
+        if publish is None:
+            return False   # a lane without a metrics channel (in-process)
+        self._last = now
+        counters, gauges = self._reg.counters_and_gauges()
+        publish(encode_snapshot(self.peer_id, self.kind, self._seq, counters, gauges))
+        self._seq += 1
+        return True
+
+
+_PUBLISHER: Optional[FleetPublisher] = None
+
+
+def get() -> Optional[FleetPublisher]:
+    """The process's fleet publisher, or None when the fanout is off.
+    Pools take it once at construction, so the disabled cost is one
+    ``is not None`` test."""
+    return _PUBLISHER
+
+
+def configure(
+    peer_id: int,
+    kind: str = "actor",
+    interval_s: Optional[float] = None,
+    registry: Optional[telemetry.Registry] = None,
+) -> Optional[FleetPublisher]:
+    """Install the process's publisher (before the pools are built: they
+    take ``get()`` at init). ``interval_s`` defaults to
+    ``telemetry.fleet_interval_s``; <= 0 removes the publisher."""
+    global _PUBLISHER
+    iv = telemetry.fleet_interval_s if interval_s is None else interval_s
+    if iv is None or iv <= 0:
+        _PUBLISHER = None
+        return None
+    _PUBLISHER = FleetPublisher(peer_id, kind, iv, registry)
+    return _PUBLISHER
+
+
+def shutdown() -> None:
+    global _PUBLISHER
+    _PUBLISHER = None
 
 
 class _PeerState:

@@ -37,7 +37,7 @@ from dotaclient_tpu.buffer import TrajectoryBuffer as JaxTrajectoryBuffer
 from dotaclient_tpu.parallel import make_mesh
 from dotaclient_tpu.train import advantage as jadv
 from dotaclient_tpu.train.learner import Learner as JaxLearner
-from dotaclient_tpu_torch.actor.device_rollout import flatten_state, tree_map
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
 from dotaclient_tpu_torch.models import convert
 from dotaclient_tpu_torch.train import advantage as padv
@@ -434,7 +434,7 @@ def test_stop_then_restore_resumes_the_pipeline(tmp_path):
     a._after_step = stop_at_8
     out = a.train(40)
     assert out["optimizer_steps"] == 8.0 and a.state.step == 8
-    saved = {"buffer": a.buffer.state_dict(), "actor": [t.clone() for t in flatten_state(a.device_actor.state)],
+    saved = {"buffer": a.buffer.state_dict(), "actor": [t.clone() for t in tree_leaves(a.device_actor.state)],
              "rng": a.device_actor.generator.get_state(), "mb_draws": a._mb_draws}
     b = port_learner(cfg, seed=5, checkpoint_dir=str(tmp_path), restore=True)
     assert b.state.step == 8 and b._mb_draws == saved["mb_draws"] == 4
@@ -442,7 +442,7 @@ def test_stop_then_restore_resumes_the_pipeline(tmp_path):
     for key in ("order", "free", "slot_version", "counters"):
         assert torch.equal(got[key], saved["buffer"][key]), key
     tree_map(lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=0), got["store"], saved["buffer"]["store"])
-    for x, y in zip(flatten_state(b.device_actor.state), saved["actor"]):
+    for x, y in zip(tree_leaves(b.device_actor.state), saved["actor"]):
         assert torch.equal(x, y)
     assert torch.equal(b.device_actor.generator.get_state(), saved["rng"])
     for (name, x), y in zip(b.policy.state_dict().items(), a.policy.state_dict().values()):

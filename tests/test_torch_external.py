@@ -376,3 +376,127 @@ def test_the_nonfinite_fault_is_dropped_at_the_ring_door():
     learner.train(2)
     assert learner.buffer.dropped_nonfinite == 1
     learner.close()
+
+
+# -- the fleet publisher: the actor CLI at its defaults arms the learner's curves ----------------------
+
+
+def test_first_maybe_publish_ships_on_a_low_clock():
+    """The reference starts its clock at 0.0 against ``time.monotonic()``,
+    so on a host up less than ``interval_s`` its first snapshot waits a
+    whole interval; the port's first call ships whatever the clock reads."""
+    from dotaclient_tpu_torch.utils import fleet
+
+    now = [5.0]   # a host up 5 s, an interval of an hour
+    reg = telemetry.Registry()
+    reg.counter("actor/env_steps").inc(12)
+    sent = []
+    pub = fleet.FleetPublisher(peer_id=3, interval_s=3600.0, registry=reg, clock=lambda: now[0])
+    lane = type("Lane", (), {"publish_metrics_bytes": lambda self, b: sent.append(b)})()
+    assert pub.maybe_publish(lane) and len(sent) == 1
+    assert not pub.maybe_publish(lane)                     # within the interval
+    now[0] += 3600.0
+    assert pub.maybe_publish(lane) and len(sent) == 2
+    assert pub.maybe_publish(lane, force=True) and len(sent) == 3
+    assert not pub.maybe_publish(object(), force=True)     # a lane without a metrics channel
+    snaps = [fleet.decode_snapshot(b) for b in sent]
+    assert [s["seq"] for s in snaps] == [0, 1, 2] and {s["peer"] for s in snaps} == {"a3"}
+    assert snaps[0]["counters"]["actor/env_steps"] == 12.0
+    # configure / get / shutdown, and an interval of 0 turns it off
+    try:
+        assert fleet.configure(peer_id=4, interval_s=0.0) is None and fleet.get() is None
+        assert fleet.configure(peer_id=4, registry=reg) is fleet.get()
+        assert fleet.get().interval_s == telemetry.fleet_interval_s and fleet.get().kind == "actor"
+    finally:
+        fleet.shutdown()
+    assert fleet.get() is None
+
+
+@pytest.mark.parametrize("lane", ["socket", "shm"])
+def test_actor_cli_at_defaults_arms_the_learners_fleet_and_outcome_curves(lane):
+    """An actor process at the CLI's defaults (a snapshot every 5 s from
+    its first weights refresh) into an external learner: the learner sees
+    one peer with its ``fleet/a7/*`` keys, and the vs-scripted win-rate
+    curve armed, as a JAX actor process gives it."""
+    import signal
+    import subprocess
+    import sys
+
+    from dotaclient_tpu_torch.transport.shm_transport import ShmTransportServer
+
+    reg = telemetry.Registry()
+    if lane == "socket":
+        srv = TransportServer(port=0, registry=reg)
+        connect = f"127.0.0.1:{srv.address[1]}"
+    else:
+        srv = ShmTransportServer(name=f"t-fleet-{os.getpid()}", slots=2, ring_bytes=1 << 20, weights_bytes=1 << 22,
+                                 registry=reg)
+        connect = f"shm://{srv.address}"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    actor = None
+    try:
+        learner = plearner.Learner(smoke_external_config(), actor="external", device="cpu", transport=srv,
+                                   registry=reg)
+        actor = subprocess.Popen(
+            [sys.executable, "-m", "dotaclient_tpu_torch.actor", "--connect", connect, "--n-envs", "2",
+             "--rollout-len", "8", "--opponent", "scripted_easy", "--max-dota-time", "2", "--seed", "7",
+             "--platform", "cpu"],
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        out = learner.train(2, refresh_every=1)
+        deadline = time.time() + WAIT_S
+        while time.time() < deadline:
+            snap = reg.snapshot()
+            if snap["fleet/peers"] == 1.0 and snap["outcome/stream_age_s"] >= 0.0:
+                break
+            if lane == "shm":
+                srv.consume_decoded(64, timeout=0.05)   # the shm drain is the receive: metrics frames too
+            else:
+                time.sleep(0.05)
+        learner.close()
+    finally:
+        if actor is not None:
+            actor.send_signal(signal.SIGTERM)
+            err = actor.communicate(timeout=WAIT_S)[1].decode()
+        srv.close()
+    assert out["optimizer_steps"] == 2.0 and actor.returncode == 0, err[-2000:]
+    snap = reg.snapshot()
+    assert snap["fleet/snapshots_total"] >= 2 and snap["fleet/peers"] == 1.0
+    assert snap["fleet/a7/actor/env_steps"] > 0 and snap["fleet/a7/outcome/episodes/vs_scripted"] > 0
+    assert snap["outcome/stream_age_s"] >= 0.0 and snap["outcome/episodes_total"] > 0
+    assert 0.0 <= snap["outcome/win_rate/vs_scripted"] <= 1.0
+
+
+def test_serve_cli_with_subscribe_ships_serve_snapshots(tmp_path):
+    """``--subscribe`` with ``--fleet-interval``: the serve process's
+    snapshots (peer ``s<listen port>``) reach the learner's side of the
+    lane, the first at once."""
+    import contextlib
+    import io
+    import json
+
+    from dotaclient_tpu_torch.serve import __main__ as serve_cli
+    from dotaclient_tpu_torch.utils import fleet
+    from tests.test_torch_common import flax_params
+    from tests.test_torch_server import configs, save_checkpoint
+
+    jcfg, pcfg = configs()
+    ck = str(tmp_path / "ckpt")
+    save_checkpoint(pcfg, flax_params(jcfg, seed=4), ck)
+    reg = telemetry.Registry()
+    srv = TransportServer(port=0, registry=reg)
+    got = []
+    srv.metrics_handler = lambda b: got.append(fleet.decode_snapshot(b))
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert serve_cli.main(["--checkpoint", ck, "--device", "cpu", "--subscribe",
+                                   f"127.0.0.1:{srv.address[1]}", "--fleet-interval", "0.5",
+                                   "--serve-listen", "127.0.0.1:0", "--duration", "1.2"]) == 0
+        deadline = time.time() + WAIT_S
+        while len(got) < 2 and time.time() < deadline:
+            time.sleep(0.02)
+    finally:
+        srv.close()
+    port = json.loads(out.getvalue().split("SERVE_LISTENING ", 1)[1].splitlines()[0])["port"]
+    assert len(got) >= 2 and {s["kind"] for s in got} == {"serve"} and {s["peer"] for s in got} == {f"s{port}"}
+    assert [s["seq"] for s in got] == list(range(len(got)))

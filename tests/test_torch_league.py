@@ -426,10 +426,17 @@ def test_demo_cli_on_cpu(capsys):
         assert 0.0 <= summary[k] <= 1.0, k
 
 
-@pytest.mark.parametrize("flag", [["--core", "transformer"], ["--moe-experts", "4"]])
+@pytest.mark.parametrize("flag", [["--core", "gru"], ["--moe-experts", "4"]])
 def test_demo_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        pdemo.main(["--device", "cpu", *flag])
+    """The transformer and MoE cores are ported; the demo still refuses a
+    core neither package has and experts without the transformer core
+    (``make_policy``'s ValueError, as in the JAX package)."""
+    if flag[0] == "--core":
+        with pytest.raises(SystemExit):
+            pdemo.main(["--device", "cpu", *flag])
+        return
+    with pytest.raises(ValueError, match="requires core='transformer'"):
+        pdemo.main(["--device", "cpu", "--n-envs", "2", "--eval-games", "2", *flag])
 
 
 def test_no_device_and_no_card_raises():

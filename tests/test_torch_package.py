@@ -64,6 +64,9 @@ SCALAR_MODULES = ("dotaclient_tpu_torch.envs.lane_sim", "dotaclient_tpu_torch.en
                   "dotaclient_tpu_torch.features.featurizer", "dotaclient_tpu_torch.features.reward",
                   "dotaclient_tpu_torch.actor", "dotaclient_tpu_torch.actor.runtime",
                   "dotaclient_tpu_torch.transport.shm_transport")
+CORE_MODULES = ("dotaclient_tpu_torch.parallel", "dotaclient_tpu_torch.parallel.expert",
+                "dotaclient_tpu_torch.models.moe", "dotaclient_tpu_torch.models.transformer",
+                "dotaclient_tpu_torch.utils.tree")
 
 
 def port_sources():
@@ -78,11 +81,13 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     names, count = out.stdout.splitlines()[-2:]
     # every module of the port: the league's, the buffered learner's, the
-    # run record's, the external actors' and the scalar path's (the gRPC
-    # service's only where grpc is installed)
+    # run record's, the external actors', the scalar path's (the gRPC
+    # service's only where grpc is installed) and the transformer and MoE
+    # cores'
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 71 + has_grpc
-    for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES):
+    assert int(count) >= 76 + has_grpc
+    for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
+                  CORE_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -145,6 +150,9 @@ def test_router_runs_without_torch():
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bflax\b", r"dotaclient_tpu\.", r"from dotaclient_tpu import"])
 def test_no_port_source_names_jax(pattern):
+    # the transformer and MoE cores' modules among them
+    assert {PORT / "parallel" / "expert.py", PORT / "models" / "moe.py", PORT / "models" / "transformer.py",
+            PORT / "utils" / "tree.py"} <= set(port_sources())
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in port_sources()

@@ -447,17 +447,23 @@ def test_fleet_aggregator_as_the_reference():
     ("--overlap", None), ("--no-vec", None), ("--trace-jsonl", "t.jsonl"), ("--trace-sample", "4"),
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
-    """Each flag raises naming its item, but those the external-actor and
-    scalar slices ported (``--listen``, ``--refresh-every``, ``--overlap``,
-    ``--transport socket``, ``--no-vec``, ``--shm-name``), which now reach
+    """Each flag raises naming its item, but those the external-actor,
+    scalar and core slices ported (``--listen``, ``--refresh-every``,
+    ``--overlap``, ``--transport socket``, ``--no-vec``, ``--shm-name``,
+    ``--core``, ``--moe-experts``, ``--fleet-interval``), which now reach
     the learner they configure."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
-    if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name"):
+    if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
+                "--moe-experts", "--fleet-interval"):
         built = []
+        interval0 = telemetry.fleet_interval_s
 
         def recording(config, actor, **kw):
             built.append((actor, kw))
+            assert config.model.core == ("transformer" if name == "--core" else "lstm")
+            assert config.model.moe_experts == (4 if name == "--moe-experts" else 0)
+            assert telemetry.fleet_interval_s == (1.0 if name == "--fleet-interval" else interval0)
             raise SystemExit(0)
 
         monkeypatch.setattr(plearner, "Learner", recording)
@@ -468,10 +474,10 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         actor, kw = built[-1]
         assert actor == {"--transport": "external", "--no-vec": "scalar"}.get(name, "device")
         assert (kw["transport"] is not None) == (name == "--transport")
+        assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
         return
-    item = {"--core": "6", "--moe-experts": "6", "--mesh": "7", "--multihost": "7", "--dcn-slices": "7",
-            "--model-parallel": "7", "--trace-jsonl": "8", "--trace-sample": "8",
-            "--fleet-interval": "8", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
+    item = {"--mesh": "7", "--multihost": "7", "--dcn-slices": "7", "--model-parallel": "7", "--trace-jsonl": "8",
+            "--trace-sample": "8", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
         plearner.main(argv)
 

@@ -380,12 +380,13 @@ def test_pool_published_weights_round_trip_through_to_flax():
 @pytest.mark.parametrize("extra,item", [
     (["--connect", "shm://lane"], None), (["--amqp", "broker:5672"], "13"),
     (["--connect", "h:1", "--rollout-wire-dtype", "bfloat16"], "13"), (["--connect", "h:1", "--trace-jsonl", "t"], "8"),
-    (["--connect", "h:1", "--trace-sample", "4"], "8"), (["--connect", "h:1", "--fleet-interval", "1"], "8"),
+    (["--connect", "h:1", "--trace-sample", "4"], "8"), (["--connect", "shm://lane", "--fleet-interval", "1"], None),
 ])
 def test_actor_cli_refuses_what_is_not_ported(extra, item, capsys):
     if item is None:
-        # ported: shm://NAME attaches to the learner's lane; with no lane
-        # the connect fails like a refused TCP dial and the actor exits 1
+        # ported: shm://NAME attaches to the learner's lane (and
+        # --fleet-interval sets the snapshot cadence); with no lane the
+        # connect fails like a refused TCP dial and the actor exits 1
         assert actor_cli.main(extra + ["--platform", "cpu", "--max-reconnects", "1"]) == 1
         assert "cannot reach the learner" in capsys.readouterr().err
         return
