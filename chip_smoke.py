@@ -205,7 +205,18 @@ Phases (any failure exits non-zero and prints no result line):
     non-finite and bounds drops 0), and ``lstm_seq`` launched pool steps +
     updates times in the sequential run (its counts reset just before and
     read just after). Logged: trained frames/s, the pool's env steps/s,
-    ``span/actor/infer``, the busy share. (b) ``python -m
+    ``span/actor/infer``, the busy share. (a') a second vec learner, built
+    after this process's tracer is configured at sample 1, for
+    VEC_TRACED optimizer steps with its train loop under
+    ``torch.cuda.set_sync_debug_mode("error")``: the learner-side hops
+    (the ring's ``admit`` after its ``index_copy_``, ``gather`` at
+    ``take``, ``dispatch`` after the epoch step) run beside the card's work
+    with the guard on; the pool's steps (its copies to and from the card,
+    by design) and the end of ``train`` run with it lifted, and the
+    snapshot engine's copies wait for the lift. Checked: at least one
+    chunk timeline, every complete one with hops collect <= encode <=
+    admit <= gather <= dispatch, ``trace/dropped_total`` 0, ``lstm_seq``
+    launched (counts reset just before, read just after). (b) ``python -m
     dotaclient_tpu_torch.train.learner --actor external --transport socket
     --listen 127.0.0.1:PORT --metrics-jsonl`` as a child at the reference's
     CLI defaults (batches of 32, 1 x 1 updates, ``--refresh-every`` 10)
@@ -229,6 +240,14 @@ Phases (any failure exits non-zero and prints no result line):
     window between its step-10 and step-20 lines: its train thread's spans
     and ``util/phase/*`` shares from its record, and the CPU cores the
     learner process, its train thread and the actors used (``/proc``).
+    The learner and the actors run ``--fleet-interval 1``; on the learner's
+    last record line before the kill (its step-20 line) the fleet plane is
+    held: ``fleet/peers`` equal to the live peers, each actor's
+    ``fleet/a<seed>/util/actor/{env_step,featurize,encode,ship_wait,other}``
+    present, each in [0, 1] and folded (summing to 1 within 0.01), and
+    ``outcome/win_rate/overall`` off its prior (the window holds at least 8
+    episodes), logged with the card's name and power limit. The run is
+    untraced, so its frames/s stays comparable across runs.
     Every child is killed in a ``finally``.
 16. the scalar path, BASELINE config 1, and the shm lane: where ``grpc`` is
     installed (``importlib.util.find_spec``; printed either way), one
@@ -250,16 +269,30 @@ Phases (any failure exits non-zero and prints no result line):
     in this process: 8 games against the hard bot, games of 20 s, through a
     ``python -m dotaclient_tpu_torch.serve`` child on (a')'s checkpoint
     (episodes >= 8, a win rate in [0, 1], the child's launches = its
-    dispatches, SIGINT, exit 0). (c) phase 15 (b)'s topology on the shm
+    dispatches, SIGINT, exit 0), every request traced: the child with
+    ``--trace-jsonl``, this process's tracer at sample 1 around the games
+    under the sync guard; every request's timeline joins with hops
+    encode <= recv <= reply <= done, one a request the server counted, and
+    the median server share of the round trip is logged. (c) phase 15 (b)'s
+    topology on the shm
     lane: the learner CLI with ``--transport shm --shm-name NAME``, the
     actor CLIs with ``--connect shm://NAME``, the same steps, kill, stop and
     staleness window, and a serve CLI child with ``--subscribe shm://NAME``
     on (a')'s checkpoint that must apply a version the learner published.
-    Checked as phase 15 (b), and the SIGKILLed actor's slot reaped
+    Checked as phase 15 (b) (the fleet plane's peers include the serve
+    CLI), and the SIGKILLed actor's slot reaped
     (``shm/slots_reaped``) and no segment or lockfile of NAME left in
     /dev/shm after the phase (the phase unlinks any it finds, and fails).
-    Logged as phase 15 (b), with the ring-full drops and the ratio of the
-    trained frames/s to phase 15 (b)'s in the same run.
+    The learner and the actors run with ``--trace-jsonl`` at the default
+    sample of 16, and ``utils/trace_report.py`` joins their logs: at least
+    one complete chunk timeline, every complete one with hops collect <=
+    encode <= recv <= consume <= admit <= gather <= dispatch,
+    ``trace/dropped_total`` 0 (the learner's, and each actor's fleet row),
+    and an ``apply`` event with a publish stamp in each surviving actor's
+    log. Logged as phase 15 (b), with the ring-full drops, the ratio of the
+    trained frames/s to phase 15 (b)'s in the same run, and the median ms of
+    each leg (wire, decode, ring residency, gather -> dispatch, publish ->
+    apply) with the card's name and power limit.
 17. the transformer and MoE cores (``ModelConfig(core="transformer")`` at
     the reference's widths: H 128, 2 layers, 4 heads, a window of 16, bf16
     compute, f32 params; no kernel of its own, so ``lstm_seq`` must launch
@@ -3090,6 +3123,7 @@ def run_record_phase(device, seed, smi):
 # steps: warm, timed, profiled, and the overlap pass
 VEC_ENVS, VEC_MAX_DOTA_TIME = 64, 20.0
 VEC_WARM, VEC_TIMED, VEC_PROFILED, VEC_OVERLAP = 2, 8, 4, 8
+VEC_TRACED = 8
 # (b): actor processes, the learner's steps, the step lines at which one
 # actor is killed and the others are stopped (the learner's console logs
 # every 10 steps), and the staleness window. The others stop while the
@@ -3099,6 +3133,17 @@ VEC_WARM, VEC_TIMED, VEC_PROFILED, VEC_OVERLAP = 2, 8, 4, 8
 EXTERNAL_ACTORS, EXTERNAL_STEPS, EXTERNAL_KILL_AT, EXTERNAL_STOP_AT = 8, 36, 20, 30
 EXTERNAL_STALENESS = 20
 EXTERNAL_S = 300.0
+# the fleet plane's cadence in (b) and 16 (c), seconds: the actors' (and the
+# subscribed serve CLI's) snapshots, the actors' utilization folds and the
+# learner's aggregator ticks, so the plane is folded and merged well before
+# the kill (at the default 5 s an actor's first folded snapshot would land
+# after it)
+FLEET_INTERVAL = "1"
+# the pipeline's hops in order (utils/trace_report.py)
+CHUNK_HOPS = ("collect", "encode", "recv", "consume", "admit", "gather", "dispatch")
+# in process a record rides the chunk's meta: no wire hops
+IN_PROCESS_HOPS = ("collect", "encode", "admit", "gather", "dispatch")
+SERVE_HOPS = ("encode", "recv", "reply", "done")
 
 
 def vec_config(seed):
@@ -3205,6 +3250,70 @@ def vec_phase(device, seed):
         f"{passes:.0f} passes; {moved} of {len(before)} params moved, {n_actions} trained actions legal, "
         f"{stats['episodes_done']:.0f} episodes")
     log_profile(f"vec profile: {VEC_PROFILED} steps", profile)
+    return result
+
+
+def traced_vec_phase(device, seed, root):
+    """(a') the vec learner traced at sample 1, its train loop under the
+    sync guard: the learner-side trace sites run beside the card's work
+    with the guard on. The pool's steps copy to and from the card by
+    design, so the guard is lifted around them; the snapshot engine's
+    copies to the host wait until the end of ``train`` lifts it."""
+    import os
+    import threading
+
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry, trace_report, tracing
+
+    path = os.path.join(root, "trace_vec.jsonl")
+    reg = telemetry.Registry()
+    gate = threading.Event()
+    tracing.configure(path, sample_n=1, registry=reg)
+    try:
+        learner = Learner(vec_config(seed), actor="vec", seed=seed, device=device, registry=reg)
+        pool, engine = learner.host_pool, learner._snap_engine
+        run, fetch = pool.run, engine._fetch
+
+        def lifted_run(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return run(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        def held_fetch(copy):
+            if not gate.wait(WAIT_S):
+                raise AssertionError(f"the snapshot engine's copy was held past {WAIT_S:.0f} s")
+            return fetch(copy)
+
+        pool.run, engine._fetch = lifted_run, held_fetch
+        unguarded_end(learner, on_lift=gate.set)
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        _, loop_s = guarded_train(learner, VEC_TRACED)
+        launches = lstm.lstm_sequence_kernel.launches
+        learner.close()
+    finally:
+        gate.set()
+        tracing.shutdown()
+    dropped = reg.snapshot()["trace/dropped_total"]
+    events, skipped = trace_report.load_events([path])
+    chunks = trace_report.merge_chunks(events)
+    complete = [c["hops"] for c in chunks.values() if all(h in c["hops"] for h in IN_PROCESS_HOPS)]
+    disordered = [h for h in complete if not ordered(h, IN_PROCESS_HOPS)]
+    if not complete or disordered or dropped != 0.0 or skipped or launches == 0:
+        raise AssertionError(f"traced vec learner: {len(complete)} complete chunk timelines of {len(chunks)}, "
+                             f"{len(disordered)} out of order {disordered[:2]}, trace/dropped_total {dropped}, "
+                             f"{skipped} lines skipped, lstm_seq launches {launches}")
+    result = {"optimizer_steps": VEC_TRACED, "loop_ms": loop_s * 1e3, "chunks_traced": len(chunks),
+              "chunks_complete": len(complete), "events": len(events), "lstm_seq_launches": launches}
+    log(f"vec (a'), traced at sample 1 under the sync guard: {VEC_TRACED} optimizer steps in {loop_s * 1e3:.1f} ms, "
+        f"{len(complete)} of {len(chunks)} chunk timelines complete (collect <= encode <= admit <= gather <= "
+        f"dispatch), {len(events)} events, trace/dropped_total 0; lstm_seq launches {launches}")
     return result
 
 
@@ -3318,13 +3427,97 @@ def shm_leftovers(name):
     return sorted(f for f in os.listdir("/dev/shm") if f.startswith(f"{name}-"))
 
 
-def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
+def fleet_plane(raw, seed, n_peers):
+    """The learner record's fleet plane on its last line at or before the
+    kill's step (ROADMAP item 8's card check): ``fleet/peers`` equal to the
+    live peers (the actors, and a subscribed serve CLI), each actor's
+    ``fleet/a<seed>/util/actor/*`` keys present, each in [0, 1] and folded
+    (summing to 1 within 0.01), and the outcome window armed (at least 8
+    episodes) with the win rate at the counters' rate: rate x episodes a
+    whole number of wins, no more than the line's win counters hold (the
+    learner's own and every ``fleet/<peer>/outcome/wins/*`` mirror), so a
+    curve left at its 0.5 prior with no win counted fails."""
+    from dotaclient_tpu_torch.outcome.records import BUCKETS
+    from dotaclient_tpu_torch.utils.utilization import ACTOR_PHASES
+
+    lines = [json.loads(x) for x in raw if '"scalars"' in x]
+    before = [x for x in lines if 0 < x.get("step", 0) <= EXTERNAL_KILL_AT]
+    if not before:
+        raise AssertionError(f"no record line at or before step {EXTERNAL_KILL_AT}")
+    step, s = before[-1]["step"], before[-1]["scalars"]
+    labels = [f"a{seed + 1 + i}" for i in range(EXTERNAL_ACTORS)]
+    util = {p: [s.get(f"fleet/{p}/util/actor/{ph}") for ph in ACTOR_PHASES] for p in labels}
+    bad = {p: v for p, v in util.items()
+           if None in v or not (all(0.0 <= x <= 1.0 for x in v) and 0.99 <= sum(v) <= 1.01)}
+    if bad or s.get("fleet/peers") != n_peers:
+        raise AssertionError(f"the fleet plane at step {step}: fleet/peers {s.get('fleet/peers')} (expected "
+                             f"{n_peers}), util/actor of the actors not present or folded: {bad}")
+    ends = tuple(f"outcome/wins/{b}" for b in BUCKETS)
+    wins = sum(v for k, v in s.items() if k in ends or (k.startswith("fleet/") and k.endswith(ends)))
+    rate, eps = s["outcome/win_rate/overall"], s["outcome/episodes_recent"]
+    missing = [p for p in labels if f"fleet/{p}/outcome/wins/vs_selfplay" not in s]
+    if missing or not (eps >= 8 and 0.0 <= rate <= 1.0 and abs(rate * eps - round(rate * eps)) < 1e-6
+                       and round(rate * eps) <= wins):
+        raise AssertionError(f"the outcome window at step {step}: {eps} episodes, win rate {rate}, the win "
+                             f"counters {wins}, actors without one {missing}")
+    mean = {ph: float(np.mean([util[p][i] for p in labels])) for i, ph in enumerate(ACTOR_PHASES)}
+    return {"step": step, "peers": s["fleet/peers"], "util_actor_mean": mean,
+            "util_actor_ship_wait_max": s["fleet/agg/ship_wait/max"],
+            "win_rate_overall": rate, "episodes_recent": eps, "wins_counted": wins}
+
+
+def ordered(hops, names):
+    """True iff ``hops`` (name -> stamp) holds every name, stamps in order."""
+    return all(n in hops for n in names) and all(hops[a] <= hops[b] for a, b in zip(names, names[1:]))
+
+
+def chunk_traces(trace_dir, last, actors, labels):
+    """Phase 16 (c)'s trace logs joined (``utils/trace_report.py``): at least
+    one complete chunk timeline, every complete one in hop order; no trace
+    event dropped (the learner's ``trace/dropped_total``, and
+    ``fleet/<label>/trace/dropped_total`` of each surviving actor's fleet
+    row, each present and 0); an ``apply`` event with a publish stamp in
+    each surviving actor's log. Returns each leg's median ms."""
+    from dotaclient_tpu_torch.utils import trace_report
+
+    events, _ = trace_report.load_events([trace_dir])
+    report = trace_report.build_report([trace_dir])
+    chunks = trace_report.merge_chunks(events)
+    complete = [c["hops"] for c in chunks.values() if all(h in c["hops"] for h in CHUNK_HOPS)]
+    disordered = [h for h in complete if not ordered(h, CHUNK_HOPS)]
+    if not complete or disordered:
+        raise AssertionError(f"{len(complete)} complete chunk timelines, {len(disordered)} out of order: "
+                             f"{disordered[:2]}")
+    keys = ["trace/dropped_total", *(f"fleet/{p}/trace/dropped_total" for p in labels)]
+    dropped = {k: last.get(k) for k in keys}
+    if any(v != 0.0 for v in dropped.values()):
+        raise AssertionError(f"trace events dropped, or a counter missing (None): {dropped}")
+    lags = []
+    for a in actors:
+        applies = [e for e in events if e["event"] == "apply" and e["pid"] == a.proc.pid
+                   and isinstance(e.get("publish_ts"), float)]
+        if not applies:
+            raise AssertionError(f"{a.name}'s trace log holds no apply event with a publish stamp")
+        lags += [e["ts"] - e["publish_ts"] for e in applies]
+    cp = report["critical_path"]
+    legs = {"actor compute": cp["actor compute"]["p50"], "wire": cp["wire"]["p50"],
+            "decode": cp["drain wait"]["p50"], "admission": cp["admission"]["p50"],
+            "ring residency": cp["ring residency"]["p50"], "gather->dispatch": cp["dispatch wait"]["p50"],
+            "publish->apply": float(np.median(lags)), "collect->dispatch": report["e2e_latency_s"]["p50"]}
+    return {"chunks_complete": len(complete), "chunks_seen": report["chunks_seen"], "events": report["events"],
+            "lines_skipped": report["lines_skipped"], "applies": len(lags), "dropped": dropped,
+            "legs_p50_ms": {k: v * 1e3 for k, v in legs.items()}}
+
+
+def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None, traced=False, smi=""):
     """(b) BASELINE config 2: a learner CLI child fed by actor CLI children
     over TCP (``lane`` "socket"), or over its shared-memory lane on this
     host ("shm", phase 16 (c)), one actor killed and the rest stopped while
     it trains. With ``subscriber_ckpt``, a serve CLI child on that
     checkpoint subscribes to the lane's weights and must apply a version the
-    learner published."""
+    learner published. Every run reads the fleet plane (``fleet_plane``);
+    with ``traced`` the learner and the actors write trace logs, joined by
+    ``chunk_traces``."""
     import os
     import signal
 
@@ -3338,6 +3531,13 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
         connect = f"shm://{name}"
         lane_args, ready = ["--transport", "shm", "--shm-name", name], "learner: shm lane"
     jsonl = os.path.join(root, f"external_{lane}.jsonl")
+    trace_dir = os.path.join(root, f"trace_{lane}")
+    if traced:
+        os.makedirs(trace_dir)
+
+    def trace_args(name):
+        return ["--trace-jsonl", os.path.join(trace_dir, f"{name}.jsonl")] if traced else []
+
     t0 = time.perf_counter()
     deadline = t0 + EXTERNAL_S
     children = []
@@ -3345,7 +3545,8 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
     try:
         learner = ModuleChild("dotaclient_tpu_torch.train.learner", [
             "--actor", "external", *lane_args, "--steps", str(EXTERNAL_STEPS), "--seed", str(seed),
-            "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}"],
+            "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}",
+            "--fleet-interval", FLEET_INTERVAL, *trace_args(f"learner_{lane}")],
             root, f"learner_{lane}")
         children.append(learner)
         while not any(x.startswith(ready) for x in learner.lines()):
@@ -3355,12 +3556,13 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
         t_listen = time.perf_counter()
         if subscriber_ckpt is not None:
             serve = ModuleChild("dotaclient_tpu_torch.serve", [
-                "--checkpoint", subscriber_ckpt, "--subscribe", connect, "--serve-listen", "127.0.0.1:0"],
-                root, f"serve_{lane}")
+                "--checkpoint", subscriber_ckpt, "--subscribe", connect, "--serve-listen", "127.0.0.1:0",
+                "--fleet-interval", FLEET_INTERVAL], root, f"serve_{lane}")
             children.append(serve)
         actors = [ModuleChild("dotaclient_tpu_torch.actor", [
             "--connect", connect, "--n-envs", str(VEC_ENVS), "--opponent", "selfplay", "--max-dota-time",
-            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i)], root, f"actor{i}_{lane}")
+            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i), "--fleet-interval",
+            FLEET_INTERVAL, *trace_args(f"actor{i}_{lane}")], root, f"actor{i}_{lane}")
             for i in range(EXTERNAL_ACTORS)]
         children += actors
         t_actors = time.perf_counter()
@@ -3406,6 +3608,9 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
     raw, rows = read_record(jsonl)
     last = rows[-1]
     window = learner_window(raw, 10, EXTERNAL_KILL_AT, cpu_first, cpu_kill)
+    plane = fleet_plane(raw, seed, EXTERNAL_ACTORS + (serve is not None))
+    traces = (chunk_traces(trace_dir, last, actors[1:], [f"a{seed + 1 + i}" for i in range(1, EXTERNAL_ACTORS)])
+              if traced else None)
     cfg = RunConfig()
     updates = steps * cfg.ppo.epochs_per_batch * max(1, cfg.ppo.minibatches)
     passes = last["advantage/passes_total"]
@@ -3454,7 +3659,7 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
         "actors_closing": [{"versions_seen": s, **st} for s, st in closing],
         "lstm_seq_launches": launched, "advantage_passes": passes,
         "actors_lstm_seq_launches": sum(st["lstm_seq_launches"] for _, st in closing),
-        "window_steps_10_to_20": window,
+        "window_steps_10_to_20": window, "fleet_plane": plane, "traces": traces,
         "wall_s": {"learner_listening": t_listen - t0, "actors_started": t_actors - t0,
                    "first_10_steps": t_first - t_actors, "to_kill": t_kill - t0, "to_stop": t_stop - t0,
                    "actors_out": t_actors_out - t0, "done": t_done - t0},
@@ -3479,6 +3684,16 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
         + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items())
         + (f"; the subscribed serve CLI applied version {subscribed['serve_weights_version']:.0f} (its checkpoint "
            f"step {ckpt_step}), {subscribed['serve_dispatches_total']:.0f} dispatches" if subscribed else ""))
+    log(f"external ({lane}), the fleet plane on the learner's step-{plane['step']} line (before the kill): "
+        f"fleet/peers {plane['peers']:.0f}; util/actor, the actors' mean: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in plane["util_actor_mean"].items())
+        + f"; ship_wait max {plane['util_actor_ship_wait_max']:.4f}; outcome/win_rate/overall "
+        f"{plane['win_rate_overall']:.4f} over {plane['episodes_recent']:.0f} episodes; {smi}")
+    if traces is not None:
+        log(f"external ({lane}), traced (sample 16): {traces['chunks_complete']} complete chunk timelines in hop "
+            f"order of {traces['chunks_seen']} traced, {traces['events']} events, {traces['lines_skipped']} lines "
+            f"skipped, {traces['applies']} applies with a publish stamp, trace/dropped_total 0; median ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in traces["legs_p50_ms"].items()) + f"; {smi}")
     cores = window["cores"]
     log(f"external ({lane}), the learner's steps 10-20 ({window['record_wall_s']:.2f} s by its record): span shares "
         + ", ".join(f"{k} {v:.4f}" for k, v in window["span_shares"].items()) + "; util/phase "
@@ -3487,13 +3702,14 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None):
     return result
 
 
-def external_actors_phase(device, seed):
-    """Phase 15: the vec learner in process, then BASELINE config 2 across
-    processes."""
+def external_actors_phase(device, seed, smi=""):
+    """Phase 15: the vec learner in process, untraced and then traced under
+    the sync guard, then BASELINE config 2 across processes (untraced)."""
     t0 = time.perf_counter()
     result = {"vec": vec_phase(device, seed)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_external_") as root:
-        result["external"] = external_phase(device, seed, root)
+        result["vec_traced"] = traced_vec_phase(device, seed, root)
+        result["external"] = external_phase(device, seed, root, smi=smi)
     result["wall_s"] = time.perf_counter() - t0
     log(f"external actors: phase 15 in {result['wall_s']:.1f} s")
     return result
@@ -3699,17 +3915,23 @@ def scalar_cli_phase(seed, root):
     return out
 
 
-def eval_served_phase(ckpt_dir, seed, root):
+def eval_served_phase(ckpt_dir, seed, root, smi=""):
     """(b) ``evaluate_served``: games against the hard bot through a serve
-    CLI child on (a')'s checkpoint, in this process's scalar games."""
+    CLI child on (a')'s checkpoint, in this process's scalar games, every
+    request traced: the child with ``--trace-jsonl``, this process's tracer
+    at sample 1 around the games, under the sync guard."""
+    import os
     import signal
 
+    import torch
+
     from dotaclient_tpu_torch.league.evaluation import evaluate_served
-    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils import telemetry, trace_report, tracing
     from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
 
-    serve = ModuleChild("dotaclient_tpu_torch.serve", ["--checkpoint", ckpt_dir, "--serve-listen", "127.0.0.1:0"],
-                        root, "serve_eval")
+    server_log, client_log = os.path.join(root, "serve_eval.jsonl"), os.path.join(root, "eval_client.jsonl")
+    serve = ModuleChild("dotaclient_tpu_torch.serve", ["--checkpoint", ckpt_dir, "--serve-listen", "127.0.0.1:0",
+                                                       "--trace-jsonl", server_log], root, "serve_eval")
     try:
         deadline = time.perf_counter() + WAIT_S
         while not any(x.startswith("SERVE_LISTENING ") for x in serve.lines()):
@@ -3720,10 +3942,17 @@ def eval_served_phase(ckpt_dir, seed, root):
         addr = json.loads(next(x for x in serve.lines() if x.startswith("SERVE_LISTENING "))[len("SERVE_LISTENING "):])
         cfg = CheckpointManager(ckpt_dir, registry=telemetry.Registry()).restore_config()
         cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, max_dota_time=SCALAR_MAX_DOTA_TIME))
+        # the tracer reads no device tensor: the guard holds it to that
+        tracing.configure(client_log, sample_n=1)
+        torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
-        out = evaluate_served(cfg, (addr["host"], addr["port"]), opponent="scripted_hard", n_games=EVAL_SERVED_GAMES,
-                              seed=seed)
-        eval_s = time.perf_counter() - t0
+        try:
+            out = evaluate_served(cfg, (addr["host"], addr["port"]), opponent="scripted_hard",
+                                  n_games=EVAL_SERVED_GAMES, seed=seed)
+        finally:
+            eval_s = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(0)
+            tracing.shutdown()
         serve.proc.send_signal(signal.SIGINT)
         rc = serve.wait(WAIT_S)
         if rc != 0:
@@ -3738,7 +3967,24 @@ def eval_served_phase(ckpt_dir, seed, root):
     launches = final["lstm_seq_launches"] - 1
     if not (launches == final["serve_dispatches_total"] > 0 and final["serve_requests_total"] > 0):
         raise AssertionError(f"the serve CLI's last line {final}: launches = dispatches + its warm-up expected")
-    result = {**out, "eval_s": eval_s, "serve_start_s": start_s, "serve": final, "lstm_seq_launches": launches}
+    # every request's timeline joined and in hop order; the server logged
+    # each one it stamped
+    events, skipped = trace_report.load_events([client_log, server_log])
+    rtts = [dict(e["hops"]) for e in events if e["event"] == "chunk"]
+    served = sum(1 for e in events if e["event"] == "serve_request")
+    disordered = [h for h in rtts if not ordered(h, SERVE_HOPS)]
+    if disordered or not (len(rtts) == served == final["serve_requests_total"] > 0) or skipped:
+        raise AssertionError(f"served requests' traces: {len(rtts)} client timelines ({len(disordered)} out of "
+                             f"order: {disordered[:2]}), {served} serve_request events, "
+                             f"{final['serve_requests_total']:.0f} requests, {skipped} lines skipped")
+    share = float(np.median([(h["reply"] - h["recv"]) / (h["done"] - h["encode"]) for h in rtts]))
+    rtt_ms = float(np.median([h["done"] - h["encode"] for h in rtts])) * 1e3
+    traces = {"requests": len(rtts), "server_share_p50": share, "rtt_p50_ms": rtt_ms}
+    result = {**out, "eval_s": eval_s, "serve_start_s": start_s, "serve": final, "lstm_seq_launches": launches,
+              "traces": traces}
+    log(f"eval_served (b), traced: {len(rtts)} request timelines joined, every one encode <= recv <= reply <= "
+        f"done; median round trip {rtt_ms:.3f} ms, median server share (recv->reply of encode->done) "
+        f"{share:.4f}; {smi}")
     log(f"eval_served (b): {out['episodes']:.0f} games against scripted_hard through the serve CLI in {eval_s:.2f} s, "
         f"win rate {out['win_rate']:.3f}, reward mean {out['episode_reward_mean']:.3f}; the server "
         f"{final['serve_requests_total']:.0f} requests in {final['serve_dispatches_total']:.0f} dispatches, p99 "
@@ -3747,17 +3993,19 @@ def eval_served_phase(ckpt_dir, seed, root):
     return result
 
 
-def scalar_path_phase(device, seed, socket_frames_per_s):
+def scalar_path_phase(device, seed, socket_frames_per_s, smi=""):
     """Phase 16: BASELINE config 1 in process and through the CLI, the
-    served evaluation, and phase 15 (b)'s topology on the shm lane."""
+    served evaluation (traced), and phase 15 (b)'s topology on the shm lane
+    (traced)."""
     import tempfile as tf
 
     t0 = time.perf_counter()
     result = {"grpc": grpc_check(), "scalar": scalar_phase(device, seed)}
     with tf.TemporaryDirectory(prefix="chip_smoke_scalar_") as root:
         result["cli"] = scalar_cli_phase(seed, root)
-        result["eval_served"] = eval_served_phase(result["cli"]["ckpt_dir"], seed, root)
-        result["shm"] = external_phase(device, seed, root, lane="shm", subscriber_ckpt=result["cli"]["ckpt_dir"])
+        result["eval_served"] = eval_served_phase(result["cli"]["ckpt_dir"], seed, root, smi)
+        result["shm"] = external_phase(device, seed, root, lane="shm", subscriber_ckpt=result["cli"]["ckpt_dir"],
+                                       traced=True, smi=smi)
     shm = result["shm"]["frames_per_s_steps_10_to_30"]
     result["shm"]["ratio_to_socket"] = shm / socket_frames_per_s
     result["wall_s"] = time.perf_counter() - t0
@@ -4169,8 +4417,8 @@ def main() -> int:
         league = league_phase(device, args.seed, ckpt_dir)
         buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
     record = run_record_phase(device, args.seed, smi)
-    external = external_actors_phase(device, args.seed)
-    scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"])
+    external = external_actors_phase(device, args.seed, smi)
+    scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"], smi)
     phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
@@ -4181,6 +4429,7 @@ def main() -> int:
                                       "train_buffered": buffered["lstm_seq_launches"],
                                       "train_run_record": record["lstm_seq_launches"],
                                       "train_vec": external["vec"]["lstm_seq_launches"],
+                                      "train_vec_traced": external["vec_traced"]["lstm_seq_launches"],
                                       "external_learner": external["external"]["lstm_seq_launches"],
                                       "external_actors": external["external"]["actors_lstm_seq_launches"],
                                       "train_scalar": scalar["scalar"]["lstm_seq_launches"],

@@ -6,6 +6,7 @@ learner over TCP or, on the learner's host, over shared memory::
     python -m dotaclient_tpu_torch.actor --connect HOST:PORT|shm://NAME [--n-envs 64] [--opponent selfplay]
         [--team-size 1] [--max-dota-time S] [--rollout-len T] [--seed S] [--steps N]
         [--refresh-every N] [--max-reconnects N] [--idle-timeout S] [--fleet-interval S] [--platform cuda|cpu]
+        [--trace-jsonl PATH] [--trace-sample N]
 
 It connects to the learner's ``TransportServer`` (``python -m
 dotaclient_tpu_torch.train.learner --transport socket --listen HOST:PORT``)
@@ -27,7 +28,17 @@ The process ships its registry's fleet snapshot (``utils/fleet.py``
 ``FleetPublisher``, peer ``a<seed>``) over the same transport at each
 weights refresh, at most once every ``--fleet-interval`` seconds
 (``telemetry.fleet_interval_s``, 5 s, by default; 0 turns it off): the
-learner's ``FleetAggregator`` reads the actors' episode outcomes from them.
+learner's ``FleetAggregator`` reads the actors' episode outcomes and their
+``util/actor/*`` phases from them. The pool's utilization plane folds at
+the same cadence (the reference's actor folds every 5 s whatever
+``--fleet-interval`` says).
+
+``--trace-jsonl PATH`` installs the process tracer before the pool is
+built (``utils/tracing.py``; ``--trace-sample N``, default
+``telemetry.trace_sample_n``): every Nth shipped chunk carries a trace
+record, emitted to PATH with the pool's weights ``apply`` events; the log
+is drained and closed at exit. ``utils/trace_report.py`` joins it with the
+learner's.
 
 ``--platform`` is ``cuda`` by default, as every entry point of the port:
 the policy steps on the card, and with no card the process raises. The JAX
@@ -39,8 +50,7 @@ card admits many processes. ``--platform cpu`` runs the policy on the CPU
 replicas of a fleet stream different experience.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--amqp`` and ``--rollout-wire-dtype bfloat16`` (item 13),
-``--trace-jsonl`` and ``--trace-sample`` (item 8).
+item: ``--amqp`` and ``--rollout-wire-dtype bfloat16`` (item 13).
 """
 
 from __future__ import annotations
@@ -55,7 +65,6 @@ import time
 import zlib
 from typing import List, Optional
 
-_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane)"
 _ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 
 
@@ -102,16 +111,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--idle-timeout", type=float, default=None,
                    help="seconds of learner silence before the connection counts as lost "
                    "(default transport.idle_timeout_s; 0 disables)")
-    p.add_argument("--trace-jsonl", type=str, default=None, help="not ported yet: " + _ITEM_8)
-    p.add_argument("--trace-sample", type=int, default=None, help="not ported yet: " + _ITEM_8)
+    p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH",
+                   help="append sampled trace events (shipped chunks' records, weights applies) as JSON lines to "
+                   "PATH; join them with the learner's by python -m dotaclient_tpu_torch.utils.trace_report")
+    p.add_argument("--trace-sample", type=int, default=None, metavar="N",
+                   help="with --trace-jsonl: trace every Nth shipped chunk (default telemetry.trace_sample_n = 16)")
     p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
                    help="ship a fleet metrics snapshot at most every S seconds, at weights refreshes "
                    "(default telemetry.fleet_interval_s = 5; 0 disables)")
     args = p.parse_args(argv)
-    for flag, value, item in (("--amqp", args.amqp, _ITEM_13), ("--trace-jsonl", args.trace_jsonl, _ITEM_8),
-                              ("--trace-sample", args.trace_sample, _ITEM_8)):
-        if value is not None:
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    if args.amqp is not None:
+        raise NotImplementedError(f"--amqp is not ported yet: {_ITEM_13}")
     if args.rollout_wire_dtype not in (None, "float32"):
         raise NotImplementedError(f"--rollout-wire-dtype {args.rollout_wire_dtype} is not ported yet: {_ITEM_13}")
     if not args.connect:
@@ -120,6 +130,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         pod = os.environ.get("POD_NAME", "")
         args.seed = zlib.crc32(pod.encode()) & 0x7FFFFFFF if pod else 0
 
+    from dotaclient_tpu_torch.utils import telemetry, tracing
+
+    fleet_interval0 = telemetry.fleet_interval_s
+    if args.fleet_interval is not None:
+        # the pool's utilization plane folds at the snapshot cadence
+        # (restored at the end, for embedding programs)
+        telemetry.fleet_interval_s = args.fleet_interval
+    if args.trace_jsonl:
+        # before the pool, which takes tracing.get() at init
+        tracing.configure(args.trace_jsonl, sample_n=args.trace_sample)
+    try:
+        return _run(args)
+    finally:
+        telemetry.fleet_interval_s = fleet_interval0
+        if args.trace_jsonl:
+            # drain and fsync the log (a SIGKILL skips this: the writer's
+            # per-batch flush leaves at most a torn last line)
+            tracing.shutdown()
+
+
+def _run(args: argparse.Namespace) -> int:
+    """Connect, wait for the first weights, run the pool, print the closing
+    lines."""
     # the first SIGTERM or SIGINT drains: flush the partial chunks, exit 0;
     # the handler then restores the default, so a second one kills
     stop = {"stop": False}

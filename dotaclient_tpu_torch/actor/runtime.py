@@ -27,15 +27,21 @@ weights frame (the Flax layout, converted, moved to the card);
 
 The pool steps its own copy of the policy module with ``functional_call``,
 so a learner training the module it was given on another thread is never
-touched. It runs the LSTM core only, as the reference's. Not here: the
-reference's utilization plane (ROADMAP queue 1, item 8) and the narrow
-rollout wire (item 13).
+touched. It runs the LSTM core only, as the reference's. Its utilization
+plane (``utils/utilization.py`` ``make_actor``) is the vec pool's:
+``env_step`` (the actions' protos, the games' act and observe, the reward),
+``featurize`` (the per-lane featurize), ``encode`` (a chunk's assembly),
+``ship_wait`` (its encode and publish) and the residual ``other``, folded at
+the weights refreshes of ``run``. The reference's scalar pool stamps no
+trace and ships no fleet snapshot, and neither does this one. Not here: the
+narrow rollout wire (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,7 +67,7 @@ from dotaclient_tpu_torch.models.policy import Policy
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
 from dotaclient_tpu_torch.transport.serialize import decode_weights, encode_rollout
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import telemetry, utilization
 
 Params = Dict[str, torch.Tensor]
 
@@ -191,6 +197,7 @@ class ActorPool(WindowedStatsMixin):
         self.episode_rewards: List[float] = []
         self.wins = 0
         outcome_records.ensure_actor_metrics(self._tel)
+        self._util = utilization.make_actor(self._tel)
         # every weights version this pool applied
         self.versions_applied = {version}
 
@@ -301,6 +308,10 @@ class ActorPool(WindowedStatsMixin):
         self._reset_mask[:] = False
         self.steps += 1
 
+        # from here to the end of the observe and reward loop is env_step,
+        # but the per-lane featurize calls (counted apart)
+        t_env = time.perf_counter()
+        feat_s = 0.0
         # actions grouped by (game, team): a game steps once all its agent
         # teams have acted
         by_env_team: Dict[Tuple[int, int], List[pb.Action]] = {}
@@ -331,7 +342,9 @@ class ActorPool(WindowedStatsMixin):
             lane.dones.append(1.0 if done else 0.0)
             lane.episode_reward += r
             lane.prev_ws = ws
+            t_f = time.perf_counter()
             lane.obs = self._featurize(ws, lane.player_id)
+            feat_s += time.perf_counter() - t_f
             self.env_steps += 1
             if done:
                 # a fresh episode, a fresh carry: the device step zeroes
@@ -343,6 +356,8 @@ class ActorPool(WindowedStatsMixin):
             if done and lane is self._env_owner(lane.env_idx):
                 self._on_episode_end(lane.env_idx, ws)
         outcome_records.add_reward_terms(self._tel, step_terms)
+        self._util.phase("featurize", feat_s)
+        self._util.phase("env_step", time.perf_counter() - t_env - feat_s)
 
         if finished:
             zeros_row = np.zeros((self._hidden,), np.float32)
@@ -372,6 +387,7 @@ class ActorPool(WindowedStatsMixin):
 
     def _finish_chunk(self, lane: _Lane) -> None:
         """Pad, pack and ship one lane's chunk."""
+        t_enc = time.perf_counter()
         T = self.config.ppo.rollout_len
         n = len(lane.actions)
         if not 0 < n <= T:
@@ -393,10 +409,14 @@ class ActorPool(WindowedStatsMixin):
         meta = dict(model_version=lane.version0, env_id=lane.env_idx, rollout_id=self._next_rollout_id, length=n,
                     total_reward=float(np.sum(lane.rewards)))
         self._next_rollout_id += 1
+        t_ship = time.perf_counter()
+        # the chunk's assembly is encode; its proto and publish, ship_wait
+        self._util.phase("encode", t_ship - t_enc)
         if self.rollout_sink is not None:
             self.rollout_sink(encode_rollout(arrays, **meta))
         elif self.transport is not None:
             self.transport.publish_rollout(encode_rollout(arrays, **meta))
+        self._util.phase("ship_wait", time.perf_counter() - t_ship)
         self.rollouts_shipped += 1
         self._tel.counter("actor/rollouts_shipped").inc()
         self._tel.counter("actor/frames_shipped").inc(n)
@@ -409,6 +429,7 @@ class ActorPool(WindowedStatsMixin):
         for t in range(n_steps):
             if refresh_every and t % refresh_every == 0:
                 self.refresh_weights()
+                self._util.maybe_fold()   # cadence-gated: one clock compare
             self.step()
         return self.stats()
 

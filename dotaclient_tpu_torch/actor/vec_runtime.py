@@ -27,8 +27,18 @@ so a learner training the module it was given on another thread is never
 disturbed. With a process fleet publisher installed (``utils/fleet.py``
 ``configure``, as the actor CLI does) ``run`` ships the registry's snapshot
 over the transport after each weights refresh, at the publisher's cadence.
-Not here: the reference's trace stamps and utilization plane (ROADMAP
-queue 1, item 8).
+
+The utilization plane (``utils/utilization.py`` ``make_actor``) splits the
+pool's wall clock into ``env_step`` (the sim and the reward),
+``featurize``, ``encode`` (chunk assembly and trace stamps), ``ship_wait``
+(the publish: a socket send, or an shm slot claim and copy) and the
+residual ``other`` (the policy step among it), folded into
+``util/actor/*`` at the weights refreshes of ``run``. With a tracer
+configured when the pool is built (``utils/tracing.py``), every
+``trace_sample_n``-th chunk gets a record with its ``collect`` (the lane's
+chunk start) and ``encode`` hops, emitted here and carried as a padded
+blob on the wire or as ``meta["trace"]`` in process, and a weights refresh
+emits an ``apply`` event with the frame's publish stamp.
 """
 
 from __future__ import annotations
@@ -62,8 +72,9 @@ from dotaclient_tpu_torch.transport.serialize import (
     encode_rollout,
     encode_rollout_bytes,
     rollout_wire_kwargs,
+    weights_trace,
 )
-from dotaclient_tpu_torch.utils import faults, fleet, telemetry
+from dotaclient_tpu_torch.utils import faults, fleet, telemetry, tracing, utilization
 from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DecodedRollout = Tuple[Dict[str, Any], Any]
@@ -198,6 +209,12 @@ class VecActorPool(WindowedStatsMixin):
         self._ep_game_steps = np.zeros((N,), np.int64)
         self._faults = faults.get()   # None unless fault injection is on
         self._fleet = fleet.get()     # None unless the process ships fleet snapshots
+        # captured once: tracing off costs one pointer test a ship; the
+        # lanes' chunk-start stamps exist only when tracing is on
+        self._tracer = tracing.get()
+        self._actor_tag = seed & 0xFFFF
+        self._chunk_start = np.full((L,), tracing.now()) if self._tracer is not None else None
+        self._util = utilization.make_actor(self._tel)
         self._wire_kwargs = rollout_wire_kwargs(config)
         # every weights version this pool applied
         self.versions_applied = {version}
@@ -237,6 +254,12 @@ class VecActorPool(WindowedStatsMixin):
         version, tree = decode_weights(msg)
         self._weights = ({k: v.to(self.device) for k, v in convert(tree).items()}, version)
         self.versions_applied.add(version)
+        if self._tracer is not None:
+            # the publish->apply leg: the frame's publish stamp, when the
+            # learner traces too
+            rec = tracing.parse_blob(weights_trace(msg) or b"")
+            publish_ts = rec["hops"][0][1] if rec and rec["hops"] else None
+            self._tracer.emit("apply", version=int(version), publish_ts=publish_ts)
         return True
 
     # -- stepping -------------------------------------------------------------------
@@ -283,8 +306,10 @@ class VecActorPool(WindowedStatsMixin):
         if opp_actions is not None:
             for k in sim_actions:
                 np.copyto(sim_actions[k], opp_actions[k], where=self._opponent.player_mask[None, :])
+        t_env = time.perf_counter()
         self.sim.step(sim_actions)
         r = self.rewards.compute()                                 # [L]
+        self._util.phase("env_step", time.perf_counter() - t_env)
         self._ep_game_steps += 1
         outcome_records.add_reward_terms(self._tel, self.rewards.last_term_sums)
         done_game = self.sim.done                                  # [N]
@@ -296,7 +321,9 @@ class VecActorPool(WindowedStatsMixin):
         self.env_steps += L
         self.steps += 1
 
+        t_feat = time.perf_counter()
         obs_next = self.feat.featurize_all()
+        self._util.phase("featurize", time.perf_counter() - t_feat)
         finished = (self._cursor >= T) | done_lane
         if finished.any():
             self._emit_chunks(np.nonzero(finished)[0], done_lane, obs_next, carry_np, version)
@@ -310,7 +337,9 @@ class VecActorPool(WindowedStatsMixin):
             if self._opponent is not None:
                 self._opponent.on_reset(games)
             self._reset_mask |= done_lane
+            t_feat = time.perf_counter()
             obs_next = self.feat.featurize_all()   # the fresh episodes'
+            self._util.phase("featurize", time.perf_counter() - t_feat)
         self._pending_obs = obs_next
 
     def _emit_chunks(self, lanes: np.ndarray, done_lane: np.ndarray, obs_next: Dict[str, np.ndarray],
@@ -318,6 +347,8 @@ class VecActorPool(WindowedStatsMixin):
         """Ship the finished lanes' chunks and restart their accumulators."""
         T = self.config.ppo.rollout_len
         out: List[DecodedRollout] = []
+        blobs: List[Optional[bytes]] = []   # a chunk's wire trace blob
+        t_enc = time.perf_counter()
         for lane in lanes:
             n = int(self._cursor[lane])
             done = bool(done_lane[lane])
@@ -347,6 +378,25 @@ class VecActorPool(WindowedStatsMixin):
                 "total_reward": float(self._rew_buf[lane, :n].sum()),
             }
             self._next_rollout_id += 1
+            blob = None
+            if self._tracer is not None:
+                # collect: when this lane's chunk began (its last ship, or
+                # the pool's start)
+                collect_ts = float(self._chunk_start[lane])
+                self._chunk_start[lane] = tracing.now()
+                if self._tracer.should_sample():
+                    rec = tracing.new_record(self._tracer.next_tid(self._actor_tag), self._actor_tag,
+                                             meta["model_version"])
+                    rec["hops"].append(["collect", collect_ts])
+                    tracing.append_hop(rec, "encode")
+                    # the actor's side of the record, kept even when this
+                    # process is SIGKILLed later
+                    self._tracer.emit_chunk(rec)
+                    if self.rollout_sink is not None:
+                        meta["trace"] = rec   # in process the record rides the meta
+                    else:
+                        blob = tracing.record_to_blob(rec)
+            blobs.append(blob)
             if self._faults is not None and self._faults.fire("actor.nonfinite_payload"):
                 # a NaN reward in a well-formed frame: the learner ring's
                 # admission check must drop it
@@ -356,17 +406,22 @@ class VecActorPool(WindowedStatsMixin):
             self._version0[lane] = version
             for buf, src in zip(tree_leaves(self._carry0), tree_leaves(carry_np)):
                 buf[lane] = 0.0 if done else src[lane]
+        # encode: the chunks' assembly and trace stamps; the publish below
+        # is ship_wait
+        self._util.phase("encode", time.perf_counter() - t_enc)
         self._tel.counter("actor/rollouts_shipped").inc(len(out))
         self._tel.counter("actor/frames_shipped").inc(float(sum(m["length"] for m, _ in out)))
+        t_ship = time.perf_counter()
         if self.rollout_sink is not None:
             self.rollout_sink(out)
         elif self.transport is not None:
             publish_bytes = getattr(self.transport, "publish_rollout_bytes", None)
-            for meta, arrays in out:
+            for (meta, arrays), blob in zip(out, blobs):
                 if publish_bytes is not None:
-                    publish_bytes(encode_rollout_bytes(arrays, **meta, **self._wire_kwargs))
+                    publish_bytes(encode_rollout_bytes(arrays, **meta, **self._wire_kwargs, trace=blob))
                 else:
-                    self.transport.publish_rollout(encode_rollout(arrays, **meta, **self._wire_kwargs))
+                    self.transport.publish_rollout(encode_rollout(arrays, **meta, **self._wire_kwargs, trace=blob))
+        self._util.phase("ship_wait", time.perf_counter() - t_ship)
         self.rollouts_shipped += len(out)
 
     def _record_episodes(self, games: np.ndarray) -> None:
@@ -398,6 +453,7 @@ class VecActorPool(WindowedStatsMixin):
                     # cadence-gated inside; a send error propagates like a
                     # failed rollout publish, to the caller's reconnect
                     self._fleet.maybe_publish(self.transport)
+                self._util.maybe_fold()   # cadence-gated: one clock compare
             self.step()
         return self.stats()
 

@@ -34,6 +34,14 @@ a leaf; a lane is reused only after its copy's event has completed.
 The staleness limit is counted in optimizer steps: ``max_staleness x
 steps_per_batch``, or ``buffer.max_weight_staleness`` when it is >= 0.
 
+Tracing (``utils/tracing.py``): with a tracer configured when the ring is
+built, a traced row's record (``meta["trace"]``) gets its ``admit`` hop at
+insertion and stays with its slot; ``take`` stamps ``gather`` and parks
+the records until the learner's ``drain_traces`` stamps ``dispatch``. An
+untraced row, a device chunk and a restore clear the slots they write, so
+a reused slot never carries an evicted chunk's record. A requeued batch's
+records go with the next dispatch, as in the reference.
+
 Not ported here: the narrow (bf16) ring of ``transport.rollout_wire_dtype``
 (ROADMAP queue 1, item 13). A row that arrives narrow (a bf16 wire) is
 admitted and widened by the staging copy, as the reference admits it.
@@ -54,7 +62,7 @@ from dotaclient_tpu_torch.train.ppo import example_batch
 from dotaclient_tpu_torch.transport.serialize import (
     BF16, _dtype_name, _to_f32, flatten_tree, rollout_cast_plan, rollout_int_bounds,
 )
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import telemetry, tracing
 from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
@@ -118,6 +126,11 @@ class TrajectoryBuffer:
         self._staging: Optional[List[Dict[str, torch.Tensor]]] = None
         self._staging_events: List[Optional[torch.cuda.Event]] = [None] * self._staging_lanes
         self._staging_idx = 0
+        # captured once: with tracing off every ingest and take pays one
+        # pointer test
+        self._tracer = tracing.get()
+        self._slot_trace: Optional[List[Optional[dict]]] = [None] * cap if self._tracer is not None else None
+        self._pending_traces: List[dict] = []
 
     @property
     def size(self) -> int:
@@ -179,6 +192,14 @@ class TrajectoryBuffer:
                 ev.record()
                 self._staging_events[(self._staging_idx - 1) % self._staging_lanes] = ev
             self._slot_version[slots] = [m["model_version"] for m, _ in fresh]
+            if self._tracer is not None:
+                # the admit hop: the row passed the door and owns a slot
+                ts = tracing.now()
+                for (m, _), s in zip(fresh, slots):
+                    rec = m.get("trace")
+                    if rec is not None:
+                        rec["hops"].append(["admit", ts])
+                    self._slot_trace[s] = rec
             self._order.extend(slots)
             self.ingested += n
         self._publish_telemetry()
@@ -274,6 +295,11 @@ class TrajectoryBuffer:
             idx = host_index(slots, self.device)
             tree_map(lambda s, r: s.index_copy_(0, idx, r[:take].to(s.dtype)), self._store, chunk)
             self._slot_version[slots] = version
+            if self._slot_trace is not None:
+                # device chunks carry no record, but their slots may have
+                # held a traced row's
+                for s in slots:
+                    self._slot_trace[s] = None
             self._order.extend(slots)
             self.ingested += take
         self._publish_telemetry()
@@ -316,6 +342,16 @@ class TrajectoryBuffer:
                 self._held[ticket] = slots
             else:
                 self._free.extend(slots)
+            if self._tracer is not None:
+                # the gather hop (ring residency = gather - admit); the
+                # records wait for the dispatch that consumes the batch
+                ts = tracing.now()
+                for s in slots:
+                    rec = self._slot_trace[s]
+                    if rec is not None:
+                        self._slot_trace[s] = None
+                        rec["hops"].append(["gather", ts])
+                        self._pending_traces.append(rec)
         if current_version is not None:
             # how far behind the optimizer the batch's experience is, in
             # optimizer steps (host ints)
@@ -323,6 +359,14 @@ class TrajectoryBuffer:
                 float(current_version - self._slot_version[slots].mean()))
         self._publish_telemetry()
         return (batch, ticket) if hold else batch
+
+    def drain_traces(self) -> List[dict]:
+        """The records of every batch taken since the last call, for the
+        learner to stamp ``dispatch`` on; empty when tracing is off."""
+        if not self._pending_traces:
+            return self._pending_traces
+        out, self._pending_traces = self._pending_traces, []
+        return out
 
     def release(self, ticket: int) -> None:
         """The held batch was trained on: its slots become reusable. An
@@ -388,6 +432,10 @@ class TrajectoryBuffer:
         (warmed, self.dropped_stale, self.dropped_overflow, self.ingested, self.dropped_skew,
          self.dropped_nonfinite, self.dropped_bounds) = counters[:_N_COUNTERS]
         self._warmed = bool(warmed)
+        if self._slot_trace is not None:
+            # restored slots carry no live record
+            self._slot_trace = [None] * self.capacity
+            self._pending_traces = []
         self._publish_telemetry()
 
     def _publish_telemetry(self) -> None:

@@ -7,8 +7,8 @@ actor's stat drains fold into, and every ``fleet/<peer>/outcome/...``
 mirror) into a sliding window and publishes the curves as gauges. It has
 no thread and reads nothing from the device. The in-process learner ticks
 it at log boundaries (after the stat drain, so a line's curves match its
-counters); in the external modes, which are not ported yet, the fleet
-aggregator's thread would tick it. Both callers go through one lock.
+counters); in the external mode the fleet aggregator's thread ticks it.
+Both callers go through one lock.
 
 Gauges, created at construction so every learner record carries them:
 

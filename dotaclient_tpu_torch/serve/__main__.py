@@ -30,8 +30,12 @@ With ``--subscribe`` the server also ships its registry's fleet snapshot
 that lane every ``--fleet-interval`` seconds (``telemetry.fleet_interval_s``,
 5 s, by default; 0 turns it off), the first at once.
 
-Accepted but not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: ``--trace-jsonl`` and ``--trace-sample`` (queue 1, item 8).
+``--trace-jsonl PATH`` installs the process tracer before the engine and
+server are built (``utils/tracing.py``; ``--trace-sample N``, default
+``telemetry.trace_sample_n``): a traced request's record gets its
+``recv`` and ``reply`` hops here and a ``serve_request`` event in PATH;
+the log is drained and closed at exit. ``utils/trace_report.py`` joins it
+with the clients' logs.
 """
 
 from __future__ import annotations
@@ -56,8 +60,12 @@ def main(argv=None) -> int:
                    "'shm://NAME' of its shm lane on this host")
     p.add_argument("--serve-metrics-jsonl", type=str, default=None, metavar="PATH",
                    help="append a serve-telemetry snapshot to PATH every 5 s and at exit")
-    p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH")
-    p.add_argument("--trace-sample", type=int, default=None, metavar="N")
+    p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH",
+                   help="append sampled trace events (traced requests' serve_request events) as JSON lines to PATH; "
+                   "join them with the clients' by python -m dotaclient_tpu_torch.utils.trace_report")
+    p.add_argument("--trace-sample", type=int, default=None, metavar="N",
+                   help="with --trace-jsonl: the sample cadence of this process's own sampling decisions "
+                   "(default telemetry.trace_sample_n = 16); the server stamps every traced request it receives")
     p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
                    help="with --subscribe: ship a fleet metrics snapshot on the subscription lane every S "
                    "seconds (default telemetry.fleet_interval_s = 5; 0 disables)")
@@ -66,9 +74,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
     args = p.parse_args(argv)
-
-    if args.trace_jsonl is not None or args.trace_sample is not None:
-        raise NotImplementedError("--trace-jsonl/--trace-sample are not ported yet: ROADMAP queue 1, item 8")
 
     from dotaclient_tpu_torch.config import ServeConfig
     from dotaclient_tpu_torch.device import resolve_device
@@ -79,7 +84,7 @@ def main(argv=None) -> int:
         load_inference_params,
         make_inference_policy,
     )
-    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils import telemetry, tracing
     from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 
     device = resolve_device(args.device)  # raises without a card unless asked for the CPU
@@ -98,6 +103,9 @@ def main(argv=None) -> int:
             p.error(str(e))
         config = dataclasses.replace(config, serve=dataclasses.replace(config.serve, **over))
 
+    if args.trace_jsonl:
+        # before the engine and the server exist
+        tracing.configure(args.trace_jsonl, sample_n=args.trace_sample)
     engine = ServeEngine(config, make_inference_policy(config, device=device), params,
                          version=version, device=device)
     # the device's first calls happen here, not inside a game's first request
@@ -163,6 +171,8 @@ def main(argv=None) -> int:
         engine.stop()
         if source is not None:
             source.close()
+        if args.trace_jsonl:
+            tracing.shutdown()   # drain and fsync the trace log
         snap = tel.snapshot()
         if sink is not None:
             sink.emit(int(snap.get("serve/dispatches_total", 0)), snap)

@@ -23,7 +23,10 @@ it was re-homed to (``rehomed_count``, ``last_rehomed``). Until the router
 declares the old backend dead, ``where`` answers with the old address and
 the client polls inside its deadline. ``close`` detaches the session.
 
-Request tracing waits for ROADMAP queue 1, item 8.
+Tracing (``utils/tracing.py``): with a process tracer configured, every
+``trace_sample_n``-th request carries a record with its ``encode`` hop as
+an unpadded ``__trace__`` blob; the server stamps ``recv`` and ``reply``
+and echoes it, and the client stamps ``done`` and emits it.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from dotaclient_tpu_torch.transport.serialize import (
     rollout_int_bounds,
 )
 from dotaclient_tpu_torch.transport.socket_transport import _recv_frame, _send_frame
+from dotaclient_tpu_torch.utils import tracing
 
 
 class ServeDeadlineError(ConnectionError):
@@ -245,17 +249,29 @@ class ServeClient:
                 send_carry = self._carry_stash  # resume exactly on the new slot
             else:
                 send_reset = True  # the new slot's carry is zeros: say so
+        trace_blob = None
+        tracer = tracing.get()
+        if tracer is not None and tracer.should_sample():
+            # the server stamps recv and reply and echoes the record; done
+            # below closes the round trip
+            rec = tracing.append_hop(tracing.new_record(tracer.next_tid(self.slot), self.slot, self.last_version),
+                                     "encode")
+            trace_blob = tracing.record_to_blob(rec, pad=False)
         arrays: Dict[str, Any] = {"obs": obs, "reset": np.asarray(1.0 if send_reset else 0.0, np.float32)}
         if send_carry is not None:
             arrays["carry"] = send_carry
         payload = encode_rollout_bytes(
             arrays, model_version=self.last_version, env_id=self.slot, rollout_id=request_id,
-            length=1, total_reward=0.0, **self._wire_kwargs,
+            length=1, total_reward=0.0, **self._wire_kwargs, trace=trace_blob,
         )
         t0 = time.perf_counter()
         _send_frame(self._sock, KIND_SERVE_REQUEST, payload)
         meta, reply = self._recv_reply_on(self._sock, request_id, deadline)
         self.last_latency_s = time.perf_counter() - t0
+        if tracer is not None and "trace_blob" in meta:
+            rec = tracing.parse_blob(meta["trace_blob"])
+            if rec is not None:
+                tracer.emit_chunk(tracing.append_hop(rec, "done"))
         if self._pending_restore:
             self._pending_restore = False
             if send_carry is None:

@@ -15,8 +15,10 @@ A request is ``encode_rollout_bytes({"obs": ..., "reset": ...})`` (with
 ``env_id`` the client's slot and ``rollout_id`` the request id the reply
 echoes. A reply carries the packed per-head actions, the joint log-prob,
 the dispatch index, and the weights version that sampled it
-(``model_version``). A request's ``__trace__`` entry is accepted and
-ignored: trace hops wait for ROADMAP queue 1, item 8.
+(``model_version``). With a process tracer configured
+(``utils/tracing.py``), a request's ``__trace__`` record gets its ``recv``
+hop on receive (a ``serve_request`` event is emitted) and its ``reply`` hop
+when the writer sends the answer, which carries it back unpadded.
 
 Threads: one accept loop; per connection a reader, which decodes and calls
 ``ServeEngine.submit`` with host numpy only, and a writer, the only thread
@@ -55,7 +57,7 @@ from dotaclient_tpu_torch.transport.socket_transport import (
     _recv_frame,
     _send_frame,
 )
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import telemetry, tracing
 
 # kinds 0-2 belong to the training transport; the serve lane extends them
 KIND_SERVE_REQUEST = 3
@@ -67,11 +69,12 @@ ATTACH_REQUEST_ID = 0
 
 def encode_reply(
     actions: np.ndarray, logp: float, version: int, slot: int, request_id: int,
-    dispatch_idx: int = 0, carry: Optional[dict] = None,
+    trace: Optional[bytes] = None, dispatch_idx: int = 0, carry: Optional[dict] = None,
 ) -> bytes:
     """One reply's wire bytes: packed head indices, joint log-prob and the
     dispatch index; the version in ``model_version``, the slot in
-    ``env_id``, the echoed request id in ``rollout_id``. ``carry`` is the
+    ``env_id``, the echoed request id in ``rollout_id``. ``trace`` is a
+    traced request's record with its server hops; ``carry`` is the
     carry-shadow row (``ServeEngine.carry_row_to_wire``) on shadow-mode
     engines."""
     arrays = {
@@ -82,15 +85,15 @@ def encode_reply(
     if carry is not None:
         arrays["carry"] = carry
     return encode_rollout_bytes(
-        arrays, model_version=version, env_id=slot, rollout_id=request_id, length=1, total_reward=0.0,
+        arrays, model_version=version, env_id=slot, rollout_id=request_id, length=1, total_reward=0.0, trace=trace,
     )
 
 
 class _ServeConn:
-    """One attached game: socket, slot, and the reply queue its writer
-    drains."""
+    """One attached game: socket, slot, the reply queue its writer drains,
+    and the records of its traced requests awaiting their reply."""
 
-    __slots__ = ("sock", "slot", "cond", "replies", "dead", "bad_streak")
+    __slots__ = ("sock", "slot", "cond", "replies", "dead", "bad_streak", "traces")
 
     def __init__(self, sock: socket.socket, slot: int) -> None:
         self.sock = sock
@@ -101,6 +104,7 @@ class _ServeConn:
         self.replies: Deque[Tuple] = deque()
         self.dead = False
         self.bad_streak = 0
+        self.traces: dict = {}   # request id -> record, under cond
 
 
 class PolicyServer:
@@ -194,6 +198,15 @@ class PolicyServer:
                     continue  # other kinds: skip, stay in sync
                 try:
                     meta, arrays = decode_rollout_bytes(payload, upcast=True)
+                    tracer = tracing.get()
+                    if tracer is not None and "trace_blob" in meta:
+                        # receive and CRC check happened in _recv_frame just
+                        # above; the record waits for the writer's reply hop
+                        rec = tracing.stamp_serve_recv(meta)
+                        if rec is not None:
+                            tracer.emit("serve_request", tid=rec["tid"], slot=conn.slot)
+                            with conn.cond:
+                                conn.traces[meta["rollout_id"]] = rec
                     reset = bool(np.asarray(arrays["reset"]).reshape(-1)[0])
                     # submit validates the obs tree (and a shadow carry row)
                     # here, so a request that cannot be dispatched takes the
@@ -232,11 +245,18 @@ class PolicyServer:
                     return
                 batch = list(conn.replies)
                 conn.replies.clear()
+                reply_traces = {rid: conn.traces.pop(rid) for _a, _l, _v, rid, _d, _c in batch
+                                if rid in conn.traces} if conn.traces else {}
             try:
                 for actions, logp, version, request_id, didx, carry in batch:
+                    blob = None
+                    rec = reply_traces.get(request_id)
+                    if rec is not None:
+                        blob = tracing.record_to_blob(tracing.append_hop(rec, "reply"), pad=False)
                     _send_frame(
                         conn.sock, KIND_SERVE_REPLY,
-                        encode_reply(actions, logp, version, conn.slot, request_id, dispatch_idx=didx, carry=carry),
+                        encode_reply(actions, logp, version, conn.slot, request_id, trace=blob, dispatch_idx=didx,
+                                     carry=carry),
                     )
             except (OSError, ValueError):
                 self._drop(conn)

@@ -98,10 +98,17 @@ core (``models/transformer.py``) in every actor mode but ``scalar``, and
 (``models/moe.py``). ``--fleet-interval S`` sets the aggregator's cadence
 (``telemetry.fleet_interval_s``; 0 keeps its thread off).
 
+Tracing (``utils/tracing.py``): ``--trace-jsonl PATH`` installs the
+process tracer before the learner is built (``--trace-sample N``, default
+``telemetry.trace_sample_n``). The learner stamps ``dispatch`` on the
+records of the batch an update consumes and emits them, with a sampled
+``dispatch`` event; a publish carries a ``weights_record``. Join a run's
+logs with ``utils/trace_report.py``.
+
 Not ported yet, each with its ROADMAP item: the AMQP transport and the
-narrow wires (queue 1, item 13), the mesh (item 7), the trace plane (item
-8) and the JAX debug and cache flags (item 12). Their CLI flags are
-accepted and raise ``NotImplementedError`` naming the item.
+narrow wires (queue 1, item 13), the mesh (item 7) and the JAX debug and
+cache flags (item 12). Their CLI flags are accepted and raise
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -213,6 +220,9 @@ class Learner:
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else telemetry.get_registry()
         tracing.ensure_metrics(self.registry)
+        # captured once (configure before building the learner): tracing
+        # off costs one pointer test a dispatch and a publish
+        self._tracer = tracing.get()
         self.policy = make_policy(config.model, config.obs, config.actions, device=self.device)
         init_params(self.policy, torch.Generator().manual_seed(seed))
         self.init_from_step = 0  # the source's step when seeded by init_from
@@ -517,7 +527,23 @@ class Learner:
         self._util.phase("dispatch_inflight", time.perf_counter() - t0)
         self._dispatch_inflight = True
         self._submit_health(m)
+        if self._tracer is not None:
+            self._emit_dispatch_traces()
         return m
+
+    def _emit_dispatch_traces(self) -> None:
+        """The chunk timeline's last hop: the records the batch's ``take``
+        parked in the ring get ``dispatch`` and are emitted, beside a
+        sampled ``dispatch`` event. Host dict appends only; the caller
+        tests ``self._tracer``."""
+        tracer = self._tracer
+        ts = tracing.now()
+        if self.buffer is not None:
+            for rec in self.buffer.drain_traces():
+                rec["hops"].append(["dispatch", ts])
+                tracer.emit_chunk(rec)
+        if tracer.should_sample():
+            tracer.emit("dispatch", step=self.state.step)
 
     def _ingest(self) -> int:
         with self.registry.span("learner/consume"):
@@ -820,9 +846,14 @@ class Learner:
                 self.registry.counter("health/publish_blocked_total").inc()
             else:
                 host = to_flax(self.policy.state_dict())
+                trace_blob = None
+                if self._tracer is not None:
+                    trace_blob = tracing.record_to_blob(tracing.weights_record(self.state.version), pad=False)
+                    self._tracer.emit("publish", version=self.state.version)
                 with self.registry.span("transport/publish_weights"):
                     self.transport.publish_weights(
-                        encode_weights(host, self.state.version, wire_dtype=self.config.transport.wire_dtype))
+                        encode_weights(host, self.state.version, wire_dtype=self.config.transport.wire_dtype,
+                                       trace=trace_blob))
                 self._published_version = max(self._published_version, self.state.version)
         stall = time.perf_counter() - t0
         self._stall_s += stall
@@ -1024,6 +1055,8 @@ class Learner:
                 da.env_steps += frames_per
                 da.rollouts_shipped += da.n_lanes * k_iters
                 self._submit_health(m)
+                if self._tracer is not None:
+                    self._emit_dispatch_traces()
                 self._steps_done += stride
                 self._steps_done -= self._after_step(m, frames_per, stride)
             return
@@ -1223,7 +1256,6 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
 
 _ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
-_ITEM_8 = "ROADMAP queue 1, item 8 (the trace plane)"
 _ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
 # flags of the reference learner whose features the port does not have
 # yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
@@ -1236,8 +1268,6 @@ _NOT_PORTED_FLAGS = (
     ("--amqp-host", {"type": str}, _ITEM_13),
     ("--wire-dtype", {"type": str}, _ITEM_13),
     ("--rollout-wire-dtype", {"type": str}, _ITEM_13),
-    ("--trace-jsonl", {"type": str}, _ITEM_8),
-    ("--trace-sample", {"type": int}, _ITEM_8),
     ("--checkify", {"action": "store_true"}, _ITEM_12),
     ("--compile-cache", {"type": str}, _ITEM_12),
 )
@@ -1317,6 +1347,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="policy core: the LSTM(128) (default) or the GTrXL-gated windowed-attention transformer")
     p.add_argument("--moe-experts", type=int, default=None,
                    help="with --core transformer: experts per MoE FFN layer (0 = dense FFN)")
+    p.add_argument("--trace-jsonl", type=str, default=None, metavar="PATH",
+                   help="append sampled trace events (chunk hop timelines, publishes, dispatches) as JSON lines "
+                   "to PATH; join a run's logs with python -m dotaclient_tpu_torch.utils.trace_report")
+    p.add_argument("--trace-sample", type=int, default=None, metavar="N",
+                   help="with --trace-jsonl: trace every Nth sampling decision (default "
+                   "telemetry.trace_sample_n = 16; 1 traces every chunk)")
     p.add_argument("--fleet-interval", type=float, default=None, metavar="S",
                    help="merge the actors' and servers' fleet snapshots and evaluate the alert rules every S "
                    "seconds in the external modes (default telemetry.fleet_interval_s = 5; 0 disables)")
@@ -1385,10 +1421,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         # before the Learner: its FleetAggregator reads the knob at
         # construction (restored at the end, for embedding programs)
         telemetry.fleet_interval_s = args.fleet_interval
+    if args.trace_jsonl:
+        # before the Learner: the learner, its ring and its snapshot engine
+        # capture tracing.get() at construction
+        tracing.configure(args.trace_jsonl, sample_n=args.trace_sample)
     try:
         return _run_cli(args, config)
     finally:
         telemetry.fleet_interval_s = fleet_interval0
+        if args.trace_jsonl:
+            # drain and fsync the trace log (a SIGKILL leaves at most a
+            # torn last line, which the report skips)
+            tracing.shutdown()
 
 
 def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:

@@ -33,6 +33,10 @@ Semantics, as the reference's:
   ``snapshot/errors_total`` and the engine goes on (a failed write
   surfaces at the manager's next save or ``wait``).
 
+With a tracer configured when the engine is built (``utils/tracing.py``),
+a publish stamps its weights frame with a ``weights_record`` blob after
+the copy to the host, and emits a ``publish`` event.
+
 Telemetry: ``snapshot/pending``, ``snapshot/d2h_ms`` (the last batched
 device-to-host copy), ``snapshot/errors_total``,
 ``span/transport/publish_weights`` and ``span/learner/metrics_fetch``.
@@ -48,7 +52,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import telemetry, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -115,6 +119,7 @@ class SnapshotEngine:
         self._busy = False
         self._stopped = False
         self._last_published = -1
+        self._tracer = tracing.get()   # captured once: tracing off costs one pointer test a publish
         self._streams: Dict[Any, Any] = {}   # the engine thread's copy stream per card
         self._tel.gauge("snapshot/pending")
         self._tel.gauge("snapshot/d2h_ms")
@@ -272,7 +277,14 @@ class SnapshotEngine:
         from dotaclient_tpu_torch.models.convert import to_flax
         from dotaclient_tpu_torch.transport.serialize import encode_weights
 
-        msg = encode_weights(to_flax(self._fetch(params)), version, wire_dtype=self._wire_dtype)
+        host = to_flax(self._fetch(params))
+        trace_blob = None
+        if self._tracer is not None:
+            # stamped after the copy: the hop dates the version's fanout,
+            # which an actor's apply lag is measured against
+            trace_blob = tracing.record_to_blob(tracing.weights_record(version), pad=False)
+            self._tracer.emit("publish", version=version)
+        msg = encode_weights(host, version, wire_dtype=self._wire_dtype, trace=trace_blob)
         with self._tel.span("transport/publish_weights"):
             self._transport.publish_weights(msg)
         self._last_published = version

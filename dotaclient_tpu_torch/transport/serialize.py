@@ -25,6 +25,13 @@ width, to the byte), a full-width one counts its own length for both.
 ``rollout_wire_kwargs`` is the one derivation of an encoder's kwargs from a
 config.
 
+Trace records (``utils/tracing.py``) ride as the in-band ``__trace__``
+entry: ``encode_rollout(trace=)`` on a sampled chunk or serve frame,
+``encode_weights(trace=)`` on a tracing learner's weights frame, read back
+by ``decode_rollout`` into ``meta["trace_blob"]`` and by ``weights_trace``.
+A tracing learner's ``decode_drained_payloads`` stamps a chunk's ``recv``
+and ``consume`` hops.
+
 Not ported here: the native C++ codec (ROADMAP queue 1, item 9).
 """
 
@@ -37,6 +44,7 @@ import torch
 
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
 from dotaclient_tpu_torch.transport.socket_transport import frame_crc32  # noqa: F401  (re-exported)
+from dotaclient_tpu_torch.utils import tracing
 
 BF16 = "bfloat16"
 
@@ -438,17 +446,22 @@ def decode_drained_payloads(payloads: Iterable[Any], tel, totals: List[int]) -> 
     Returns ``(decoded (meta, arrays) pairs, malformed count)``: a payload
     that does not decode (a version-skewed actor, a port scanner) is
     counted and dropped. Items are payloads or ``(recv_ts, payload)``
-    pairs, as the transports drain them."""
+    pairs, as the transports drain them. With a tracer configured, a traced
+    payload gets its ``recv`` (the pair's stamp) and ``consume`` hops in
+    ``meta["trace"]``; without one, a drain pays one pointer test."""
+    tracer = tracing.get()
     out = []
     bad = 0
     wire = raw = 0
     for item in payloads:
-        p = item[1] if isinstance(item, tuple) else item
+        recv_ts, p = item if isinstance(item, tuple) else (None, item)
         try:
             meta, arrays = decode_rollout_bytes(p)
         except Exception:  # noqa: BLE001 - a malformed payload never kills the learner
             bad += 1
             continue
+        if tracer is not None and "trace_blob" in meta:
+            tracing.stamp_wire_hops(meta, recv_ts)
         wire += meta.get("wire_bytes", len(p))
         raw += meta.get("raw_bytes", len(p))
         out.append((meta, arrays))
@@ -465,12 +478,22 @@ def decode_drained_payloads(payloads: Iterable[Any], tel, totals: List[int]) -> 
 # -- weights ------------------------------------------------------------------------
 
 
+def weights_trace(msg: "pb.ModelWeights") -> Optional[bytes]:
+    """The trace blob a tracing learner put on this weights frame, or None.
+    ``in`` before indexing: a protobuf map's ``__getitem__`` inserts."""
+    if _TRACE_MARKER in msg.params:
+        return msg.params[_TRACE_MARKER].data
+    return None
+
+
 def encode_weights(
     params: Any, version: int, wire_dtype: str = "float32", trace: Optional[bytes] = None
 ) -> "pb.ModelWeights":
     """Serialize a param tree (host arrays or CPU tensors) for the weights
     fanout. ``wire_dtype="bfloat16"`` casts f32 leaves to bf16 and lists
-    them in the ``__wire_cast__`` entry; other leaves pass unchanged."""
+    them in the ``__wire_cast__`` entry; other leaves pass unchanged.
+    ``trace`` (a ``tracing.weights_record`` blob) rides as the
+    ``__trace__`` entry."""
     if wire_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown wire_dtype {wire_dtype!r}")
     msg = pb.ModelWeights(version=version)

@@ -66,7 +66,7 @@ from typing import List, Optional, Tuple
 
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
 from dotaclient_tpu_torch.transport.socket_transport import frame_crc32
-from dotaclient_tpu_torch.utils import faults, telemetry
+from dotaclient_tpu_torch.utils import faults, telemetry, tracing
 
 _U64 = struct.Struct("<Q")
 _I64 = struct.Struct("<q")
@@ -467,7 +467,7 @@ class ShmTransportServer:
             if deadline is not None and time.perf_counter() >= deadline:
                 break
             time.sleep(0.0005)
-        recv_ts = time.time()
+        recv_ts = tracing.now()   # the recv hop
         out = [(recv_ts, v) for v in views]
         if out:
             self._tel.timer("span/transport/consume").observe(

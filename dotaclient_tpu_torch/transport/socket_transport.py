@@ -56,7 +56,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
-from dotaclient_tpu_torch.utils import faults, telemetry
+from dotaclient_tpu_torch.utils import faults, telemetry, tracing
 
 # -- wire-frame integrity ----------------------------------------------------
 #
@@ -343,7 +343,7 @@ class TransportServer:
             self._drop(conn)
 
     def _enqueue_rollouts(self, frames: List[bytes]) -> None:
-        ts = time.time()   # one receive stamp a parse batch
+        ts = tracing.now()   # one receive stamp a parse batch (the recv hop)
         with self._roll_cond:
             self._rollouts.extend((ts, f) for f in frames)
             over = len(self._rollouts) - self._max_rollouts

@@ -1,12 +1,14 @@
 """Runbook-encoded alert engine: a rule table over telemetry values.
 
-Copy of ``AlertRule``, ``RULES`` and ``AlertEngine`` from the reference's
-``utils/alerts.py``, with the same rule names, thresholds and runbook
-anchors (``rb:<name>``, rows of the "Failure modes" table in
-``docs/OPERATIONS.md``). The router CLI runs the engine over its own
-registry, so ``serve_peer_dead`` pages and ``sessions_rehomed_burst`` warns
-as ``ALERT`` lines in its metrics JSONL; the learner's use of it waits for
-ROADMAP queue 1, item 8.
+Copy of ``AlertRule``, ``RULES``, ``ALERT_WAIVERS`` and ``AlertEngine``
+from the reference's ``utils/alerts.py``, with the same rule names,
+thresholds and runbook anchors (``rb:<name>``, rows of the "Failure modes"
+table in ``docs/OPERATIONS.md``). The learner's ``FleetAggregator``
+(``utils/fleet.py``) runs the engine over the learner's registry at its
+cadence, and the router CLI over its own, so ``serve_peer_dead`` pages and
+``sessions_rehomed_burst`` warns as ``ALERT`` lines in its metrics JSONL.
+``ALERT_WAIVERS`` names each documented failure mode that has no rule, with
+the reason, as a plain dict literal.
 
 Rule predicates (``AlertRule.kind``):
 
@@ -35,7 +37,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 from dotaclient_tpu_torch.utils import telemetry
 
-__all__ = ["AlertRule", "AlertEngine", "RULES"]
+__all__ = ["ALERT_WAIVERS", "AlertRule", "AlertEngine", "RULES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +204,72 @@ RULES: Tuple[AlertRule, ...] = (
         summary="sessions re-homing off dead serve backends",
     ),
 )
+
+
+# Documented failure modes with no alert rule, by runbook anchor, each with
+# the reason it is not watchable from a registry. A plain dict literal.
+ALERT_WAIVERS: Dict[str, str] = {
+    "rb:actor-death": (
+        "supervisor-restarted churn is steady state; sustained silence "
+        "pages via rb:fleet-peer-stale instead"
+    ),
+    "rb:graceful-drain": "clean-exit path; exit code is the signal",
+    "rb:half-open-conn": (
+        "idle drops auto-heal per connection; a fleet-wide stall also "
+        "surfaces as rb:fleet-peer-stale silence"
+    ),
+    "rb:garbage-sender": (
+        "covered by the rb:corrupt-frames rules (same counters)"
+    ),
+    "rb:crash-pending-snapshot": (
+        "post-mortem signal read from the LAST line after death; nothing "
+        "to watch while alive"
+    ),
+    "rb:stall-diagnostics": (
+        "diagnostic gauge pair with no universal threshold; compared "
+        "against bench stages by a human"
+    ),
+    "rb:advantage-speedup": (
+        "bench-time capability gate; the runtime overlap fraction varies "
+        "legitimately with consume patterns (serial consume-time passes "
+        "are correct, just unoverlapped) — compared against bench stages "
+        "by a human"
+    ),
+    "rb:divergence-exhausted": (
+        "terminal non-zero exit is its own page; the precursor pages via "
+        "rb:divergence"
+    ),
+    "rb:divergence-no-ckpt": (
+        "config-time condition warned once at startup, not a runtime level"
+    ),
+    "rb:cross-process-latency": (
+        "needs a traced run and trace_report's critical path; no single "
+        "registry level encodes it"
+    ),
+    "rb:tpu-preflight": "startup tool (run_multichip.py), not a live signal",
+    "rb:fused-lane-divisibility": (
+        "construction-time ValueError before any compile; the process "
+        "never reaches a runtime level to watch"
+    ),
+    "rb:serve-stuck-window": (
+        "needs a cross-rate comparison (requests vs dispatches) the rule "
+        "grammar deliberately excludes; p99 blowups page via "
+        "rb:serve-latency"
+    ),
+    "rb:serve-version-skew": (
+        "surfaces as the serve server's corrupt-frame/quarantine "
+        "counters — rb:corrupt-frames covers the watchable half"
+    ),
+    "rb:serve-slots": (
+        "capacity planning, not an incident: rejects are by design at "
+        "the configured ceiling"
+    ),
+    "rb:lint-ci": "CI-time failure; never reachable from a running fleet",
+    "rb:alerts-stuck": (
+        "the alert plane cannot page on itself; operator row for reading "
+        "alerts/active directly"
+    ),
+}
 
 
 def _match_keys(pattern: str, snapshot: Mapping[str, float]) -> List[float]:

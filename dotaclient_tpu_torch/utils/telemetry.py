@@ -28,6 +28,12 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional, TextIO, Tuple
 
+# Pipeline tracing's sample cadence (``utils/tracing.py``): with a trace log
+# configured, every Nth sampling decision (a chunk's encode, a dispatch, a
+# serve request) carries or emits a record; ``--trace-sample`` overrides it
+# a process.
+trace_sample_n = 16
+
 # Fleet-health snapshot cadence in seconds (the utilization plane's fold
 # interval defaults to it).
 fleet_interval_s = 5.0

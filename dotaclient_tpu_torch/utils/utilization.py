@@ -1,8 +1,7 @@
-"""Utilization plane: phase accounting of the learner's and the batcher's threads.
+"""Utilization plane: phase accounting of the learner's, the actor pools' and
+the batcher's threads.
 
-Copy of the learner and serve parts of ``dotaclient_tpu/utils/utilization.py``
-(the actor pools' plane waits for ROADMAP queue 1, item 8). Every
-wall-clock second of a thread goes to one phase of a closed set, from
+Copy of ``dotaclient_tpu/utils/utilization.py``. Every wall-clock second of a thread goes to one phase of a closed set, from
 intervals measured at the boundaries the code already has, and a fold
 turns the window into fraction gauges that sum to 1.0 by construction (the
 residual phase takes what the others did not claim):
@@ -13,6 +12,11 @@ residual phase takes what the others did not claim):
   (``util/phase/*``). The fold also keeps a steps/s EMA against a slow,
   warm-up-armed baseline: ``util/throughput_regression`` is 1 while the
   EMA sits below ``REGRESSION_RATIO`` x the baseline;
+* the actor pools (the vec and the scalar one): ``env_step``,
+  ``featurize``, ``encode``, ``ship_wait`` and the residual ``other``
+  (``util/actor/*``), folded at a cadence at the pools' weights refreshes;
+  an actor process ships them to the learner in its fleet snapshot
+  (``fleet/<peer>/util/actor/*``);
 * the serve batcher: ``window_wait``, ``dispatch``, ``reply`` and the
   residual ``other`` (``util/serve/*``), folded at a cadence.
 
@@ -26,9 +30,9 @@ busy share, which ``chip_smoke.py`` reads from a profiler window
 
 The factories create their gauges first, so a record carries them from its
 first line (``util/duty_cycle`` starts at the neutral 1.0, ``util/armed``
-at 0). The reference's module knob ``enabled``, which turns the learner's
-accountant off for its overhead A/B, waits for a port benchmark that
-measures that overhead (ROADMAP queue 1, item 8).
+at 0). The reference's module knob ``enabled``, which turns the accountants
+off for its overhead A/B, waits for a port benchmark that measures that
+overhead (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ LEARNER_PHASES = (
     "checkpoint_stall",
     "host_other",
 )
+ACTOR_PHASES = ("env_step", "featurize", "encode", "ship_wait", "other")
 SERVE_PHASES = ("window_wait", "dispatch", "reply", "other")
 
 
@@ -73,6 +78,11 @@ def ensure_learner_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
     if handles["util/armed"].value == 0.0:
         handles["util/duty_cycle"].set(1.0)
     return handles
+
+
+def ensure_actor_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
+    """Eager-create the actor pools' ``util/actor/*`` phase gauges."""
+    return {f"util/actor/{p}": reg.gauge(f"util/actor/{p}") for p in ACTOR_PHASES}
 
 
 def ensure_serve_keys(reg: telemetry.Registry) -> Dict[str, telemetry.Gauge]:
@@ -205,6 +215,14 @@ def make_learner(registry: Optional[telemetry.Registry] = None) -> LearnerUtiliz
     """The learner's accountant, its gauges created first."""
     reg = registry if registry is not None else telemetry.get_registry()
     return LearnerUtilization(ensure_learner_keys(reg))
+
+
+def make_actor(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:
+    """An actor pool's accountant, folding every ``telemetry.fleet_interval_s``."""
+    reg = registry if registry is not None else telemetry.get_registry()
+    return PoolUtilization(
+        ensure_actor_keys(reg), ACTOR_PHASES, "util/actor/", telemetry.fleet_interval_s
+    )
 
 
 def make_serve(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:

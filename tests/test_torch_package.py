@@ -52,7 +52,7 @@ RUNRECORD_MODULES = ("dotaclient_tpu_torch.utils.metrics", "dotaclient_tpu_torch
                      "dotaclient_tpu_torch.utils.schema", "dotaclient_tpu_torch.outcome.aggregator",
                      "dotaclient_tpu_torch.utils.fleet", "dotaclient_tpu_torch.utils.telemetry",
                      "dotaclient_tpu_torch.utils.utilization", "dotaclient_tpu_torch.utils.tracing",
-                     "dotaclient_tpu_torch.utils.checkpoint")
+                     "dotaclient_tpu_torch.utils.checkpoint", "dotaclient_tpu_torch.utils.trace_report")
 EXTERNAL_MODULES = ("dotaclient_tpu_torch.actor.__main__", "dotaclient_tpu_torch.actor.vec_runtime",
                     "dotaclient_tpu_torch.actor.window_stats", "dotaclient_tpu_torch.actor.backoff",
                     "dotaclient_tpu_torch.envs.vec_lane_sim", "dotaclient_tpu_torch.features.vec_featurizer",
@@ -81,11 +81,11 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     names, count = out.stdout.splitlines()[-2:]
     # every module of the port: the league's, the buffered learner's, the
-    # run record's, the external actors', the scalar path's (the gRPC
-    # service's only where grpc is installed) and the transformer and MoE
-    # cores'
+    # run record's (the trace plane's among them), the external actors',
+    # the scalar path's (the gRPC service's only where grpc is installed)
+    # and the transformer and MoE cores'
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 76 + has_grpc
+    assert int(count) >= 77 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
                   CORE_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
@@ -119,7 +119,8 @@ def test_card_paths_import_without_grpc():
 
 
 # the router and its CLI with torch blocked as well: a router process holds
-# no CUDA context
+# no CUDA context (nor do the trace plane and its report, which the socket
+# lane imports)
 _NO_TORCH = r"""
 import sys
 BANNED = ("torch", "jax", "jaxlib", "flax", "dotaclient_tpu")
@@ -131,7 +132,7 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 from dotaclient_tpu_torch.serve import SessionRouter, route_call
 from dotaclient_tpu_torch.serve import router
-from dotaclient_tpu_torch.utils import alerts, fleet
+from dotaclient_tpu_torch.utils import alerts, fleet, trace_report, tracing
 assert router.main(["--backends", "127.0.0.1:9", "--interval", "0.05", "--duration", "0.3"]) == 0
 assert not any(n.split(".")[0] in BANNED for n in sys.modules)
 print("router without torch")

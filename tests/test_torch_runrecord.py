@@ -448,22 +448,32 @@ def test_fleet_aggregator_as_the_reference():
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
     """Each flag raises naming its item, but those the external-actor,
-    scalar and core slices ported (``--listen``, ``--refresh-every``,
-    ``--overlap``, ``--transport socket``, ``--no-vec``, ``--shm-name``,
-    ``--core``, ``--moe-experts``, ``--fleet-interval``), which now reach
-    the learner they configure."""
+    scalar, core and trace slices ported (``--listen``,
+    ``--refresh-every``, ``--overlap``, ``--transport socket``,
+    ``--no-vec``, ``--shm-name``, ``--core``, ``--moe-experts``,
+    ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``), which now
+    reach the learner they configure; the trace flags reach
+    ``tracing.configure`` before the learner is built, and its shutdown
+    after."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
+    if name == "--trace-sample":
+        argv += ["--trace-jsonl", "t.jsonl"]   # the sample rate needs a log
     if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
-                "--moe-experts", "--fleet-interval"):
+                "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample"):
         built = []
         interval0 = telemetry.fleet_interval_s
+        traced = []
+        monkeypatch.setattr(tracing, "configure", lambda path, sample_n=None, registry=None: traced.append(
+            (path, sample_n)))
+        want_trace = [("t.jsonl", 4 if name == "--trace-sample" else None)] if name.startswith("--trace") else []
 
         def recording(config, actor, **kw):
             built.append((actor, kw))
             assert config.model.core == ("transformer" if name == "--core" else "lstm")
             assert config.model.moe_experts == (4 if name == "--moe-experts" else 0)
             assert telemetry.fleet_interval_s == (1.0 if name == "--fleet-interval" else interval0)
+            assert traced == want_trace
             raise SystemExit(0)
 
         monkeypatch.setattr(plearner, "Learner", recording)
@@ -475,9 +485,10 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         assert actor == {"--transport": "external", "--no-vec": "scalar"}.get(name, "device")
         assert (kw["transport"] is not None) == (name == "--transport")
         assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
+        assert traced == want_trace + [(None, None)] * bool(want_trace)   # the log shut down at the end
         return
-    item = {"--mesh": "7", "--multihost": "7", "--dcn-slices": "7", "--model-parallel": "7", "--trace-jsonl": "8",
-            "--trace-sample": "8", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
+    item = {"--mesh": "7", "--multihost": "7", "--dcn-slices": "7", "--model-parallel": "7", "--checkify": "12",
+            "--compile-cache": "12"}.get(name, "13")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
         plearner.main(argv)
 

@@ -58,6 +58,7 @@ from dotaclient_tpu_torch.transport.serialize import encode_rollout_bytes, frame
 from dotaclient_tpu_torch.transport.shm_transport import ShmTransportServer
 from dotaclient_tpu_torch.transport.socket_transport import SocketTransport, _send_frame
 from dotaclient_tpu_torch.utils import telemetry
+from dotaclient_tpu_torch.utils import tracing as ptracing
 from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
 from tests.test_torch_common import flax_params, jax_policy, obs_row, random_obs, tiny_configs
 
@@ -620,8 +621,12 @@ def test_serve_cli_refuses_what_is_not_there(tmp_path, monkeypatch):
     save_checkpoint(pcfg, flax_params(jcfg, seed=17), str(tmp_path / "ckpt"))
     ck = ["--checkpoint", str(tmp_path / "ckpt")]
     # (--fleet-interval is ported: tests/test_torch_external.py drives it)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cli.main(ck + ["--device", "cpu", "--trace-jsonl", "t.jsonl"])
+    # --trace-jsonl and --trace-sample are ported: they reach
+    # tracing.configure, and its shutdown at exit (tests/test_torch_tracing.py
+    # serves traced requests)
+    traced = []
+    monkeypatch.setattr(ptracing, "configure", lambda path, sample_n=None, registry=None: traced.append(
+        (path, sample_n)))
     # --subscribe shm:// is ported: the CLI applies the version a learner's
     # shm lane publishes
     lane = ShmTransportServer(name=f"t-serve-{os.getpid()}", slots=2, ring_bytes=1 << 14, weights_bytes=1 << 22)
@@ -630,11 +635,12 @@ def test_serve_cli_refuses_what_is_not_there(tmp_path, monkeypatch):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             assert serve_cli.main(ck + ["--device", "cpu", "--subscribe", f"shm://{lane.address}",
-                                        "--duration", "1.5"]) == 0
+                                        "--duration", "1.5", "--trace-jsonl", "t.jsonl", "--trace-sample", "3"]) == 0
         assert json.loads(out.getvalue().splitlines()[-1])["serve_weights_version"] == 21.0
         assert lane.n_connected == 0   # the subscriber's slot released at exit
     finally:
         lane.close()
+    assert traced == [("t.jsonl", 3), (None, None)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(ck)

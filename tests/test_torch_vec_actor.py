@@ -379,10 +379,24 @@ def test_pool_published_weights_round_trip_through_to_flax():
 
 @pytest.mark.parametrize("extra,item", [
     (["--connect", "shm://lane"], None), (["--amqp", "broker:5672"], "13"),
-    (["--connect", "h:1", "--rollout-wire-dtype", "bfloat16"], "13"), (["--connect", "h:1", "--trace-jsonl", "t"], "8"),
-    (["--connect", "h:1", "--trace-sample", "4"], "8"), (["--connect", "shm://lane", "--fleet-interval", "1"], None),
+    (["--connect", "h:1", "--rollout-wire-dtype", "bfloat16"], "13"),
+    (["--connect", "shm://lane", "--trace-jsonl", "t"], "8"),
+    (["--connect", "shm://lane", "--trace-jsonl", "t", "--trace-sample", "4"], "8"),
+    (["--connect", "shm://lane", "--fleet-interval", "1"], None),
 ])
-def test_actor_cli_refuses_what_is_not_ported(extra, item, capsys):
+def test_actor_cli_refuses_what_is_not_ported(extra, item, capsys, monkeypatch):
+    if item == "8":
+        # the trace plane is ported: the flags reach tracing.configure
+        # before the connect (and the pool), and the log shuts down at exit
+        from dotaclient_tpu_torch.utils import tracing
+
+        traced = []
+        monkeypatch.setattr(tracing, "configure", lambda path, sample_n=None, registry=None: traced.append(
+            (path, sample_n)))
+        assert actor_cli.main(extra + ["--platform", "cpu", "--max-reconnects", "1"]) == 1
+        assert "cannot reach the learner" in capsys.readouterr().err
+        assert traced == [("t", 4 if "--trace-sample" in extra else None), (None, None)]
+        return
     if item is None:
         # ported: shm://NAME attaches to the learner's lane (and
         # --fleet-interval sets the snapshot cadence); with no lane the
