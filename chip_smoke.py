@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar and transformer paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer and wire paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -321,6 +321,32 @@ Phases (any failure exits non-zero and prints no result line):
     each step replayed on the CPU from the row the server shadowed the step
     before (the bounds and controls at ``SOCKET_LOGP_ATOL``), SIGINT, exit 0,
     0 launches in its last line.
+18. the wire: the rollout codec runs native in every process (the port's
+    C++ codec, built at first use into ``native/_build/``): each learner
+    CLI's ``done:`` line, each actor's ``ACTOR_STATS`` and each serve CLI's
+    last line count its calls by path, and any protobuf fallback fails the
+    run, as it does in this process at the end. (a) the chunks one pool
+    phase of a ``VecActorPool`` ships at BASELINE config 2 (64 self-play
+    games, 128 chunks), encoded and decoded CODEC_REPS times by the native
+    codec and by protobuf, at f32 and on the bf16 wire: payloads/s and MB/s
+    of each (host clock), a chunk's bytes at each width, the bf16 leaves'
+    one copy at decode; checked: native bytes parse to protobuf's message,
+    both decodes give the same arrays, every call native. (b) phase 15 (b)'s
+    topology over TCP with ``--rollout-wire-dtype bfloat16`` on the learner
+    CLI and its 8 actors and ``--wire-dtype bfloat16`` on the learner,
+    WIRE_STEPS steps, the actors stopped at the step-20 line (no kill);
+    checked: ``transport/rollout_compression_ratio`` above 1.5, the ring's
+    resident bytes those of the narrow layout, every actor applied bf16
+    weights frames, loss finite and ``health_ok`` 1, the codec's calls
+    native, ``lstm_seq`` = updates + passes; logged with phase 15 (b)'s
+    frames/s of the same run. (c) the buffered learner with
+    ``transport.rollout_wire_dtype="bfloat16"`` in process, NARROW_COLLECTS
+    collects under the sync guard: the ring's store bf16, int8 and int16,
+    ``lstm_seq`` as phase 13 derives it; then a collect's chunk into a
+    narrow ring and, widened, into an f32 ring, whose takes must be equal
+    bit for bit; and a bf16 weights frame through the shm slab, equal to
+    the params rounded to bf16. AMQP is not driven here: neither machine
+    has ``pika`` (its tests run on a fake broker).
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -1848,7 +1874,7 @@ def cli_phase(ckpt_dir, step, seed):
         child.kill()
     if rc != 0:
         raise AssertionError(f"the serve CLI exited {rc}: {seen[-10:]}")
-    final = json.loads(seen[-1])
+    final = no_codec_fallback(json.loads(seen[-1]), "the serve CLI")
     n = CLI_GAMES * CLI_STEPS
     if final["serve_requests_total"] != n or final["serve_weights_version"] != step:
         raise AssertionError(f"the serve CLI's last line {final}: expected {n} requests at version {step}")
@@ -1998,6 +2024,8 @@ def fleet_cli_phase(ckpt_dir, step, seed):
     if bad_rc:
         raise AssertionError(f"fleet: exit codes {bad_rc}: " + "; ".join(f"{n}: {ends[n][1][-5:]}" for n in bad_rc))
     finals = {name: json.loads(lines[-1]) for name, (_, lines) in ends.items()}
+    for name in ("B", "C"):
+        no_codec_fallback(finals[name], f"serve CLI {name}")
     A, B, C = addrs
     on_a = [g for g in range(FLEET_GAMES) if records[g][FLEET_KILL_ROUND - 1][6] == A]
     flat = [rec for game in records for rec in game]
@@ -2779,16 +2807,38 @@ class RecordChild(ModuleChild):
         return rc, self.lines(), self.stderr(), self.wall_s
 
 
-def done_line(lines, what):
-    """The learner CLI's closing ``done: N steps, F frames, R frames/sec, L
-    lstm_seq launches`` line as (N, F, R, L)."""
+def done_fields(lines, what):
+    """The learner CLI's closing ``done: N steps, F frames, R frames/sec, D
+    native decodes, E native encodes, P proto fallbacks, L lstm_seq
+    launches`` line as a dict; a run whose rollout codec fell back to
+    protobuf fails."""
     import re
 
+    keys = ("steps", "frames", "frames_per_s", "native_decodes", "native_encodes", "proto_fallbacks", "launches")
     for line in reversed(lines):
-        m = re.fullmatch(r"done: (\d+) steps, (\d+) frames, (\d+) frames/sec, (\d+) lstm_seq launches", line)
+        m = re.fullmatch(r"done: (\d+) steps, (\d+) frames, (\d+) frames/sec, (\d+) native decodes, (\d+) native "
+                         r"encodes, (\d+) proto fallbacks, (\d+) lstm_seq launches", line)
         if m:
-            return tuple(int(g) for g in m.groups())
+            out = dict(zip(keys, (int(g) for g in m.groups())))
+            if out["proto_fallbacks"]:
+                raise AssertionError(f"{what}'s rollout codec fell back to protobuf: {line}")
+            return out
     raise AssertionError(f"{what} printed no done: line: {lines[-5:]}")
+
+
+def done_line(lines, what):
+    """The ``done:`` line's (N steps, F frames, R frames/sec, L lstm_seq
+    launches)."""
+    d = done_fields(lines, what)
+    return d["steps"], d["frames"], d["frames_per_s"], d["launches"]
+
+
+def no_codec_fallback(last_line, what):
+    """A serve CLI's last line: its rollout codec ran native, no call fell
+    back to protobuf."""
+    if last_line.get("proto_fallbacks", 1) != 0:
+        raise AssertionError(f"{what}'s rollout codec fell back to protobuf (or did not say): {last_line}")
+    return last_line
 
 
 def read_record(path):
@@ -3416,6 +3466,8 @@ def actor_closing(child):
     stats = [json.loads(x.split(" ", 1)[1]) for x in lines if x.startswith("ACTOR_STATS ")]
     if not (seen and stats):
         raise AssertionError(f"{child.name} printed no closing lines: {lines[-3:]} {child.stderr()[-1500:]}")
+    if not (stats[-1]["native_encodes"] > 0 and stats[-1]["proto_fallbacks"] == 0):
+        raise AssertionError(f"{child.name}'s rollout codec: {stats[-1]} (native encodes and no fallback expected)")
     return seen[-1], stats[-1]
 
 
@@ -3588,14 +3640,15 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None, trac
         t_done = time.perf_counter()
         if rc != 0:
             raise AssertionError(f"the learner exited {rc}: {learner.stderr()[-3000:]}")
-        steps, frames, _, launched = done_line(learner.lines(), f"the external learner ({lane})")
+        done = done_fields(learner.lines(), f"the external learner ({lane})")
+        steps, frames, launched = done["steps"], done["frames"], done["launches"]
         subscribed = None
         if serve is not None:
             serve.proc.send_signal(signal.SIGINT)
             rc = serve.wait(max(1.0, deadline - time.perf_counter()))
             if rc != 0:
                 raise AssertionError(f"the subscribed serve CLI exited {rc}: {serve.stderr()[-2000:]}")
-            subscribed = json.loads(serve.lines()[-1])
+            subscribed = no_codec_fallback(json.loads(serve.lines()[-1]), "the subscribed serve CLI")
     finally:
         for c in children:
             c.kill()
@@ -3620,7 +3673,7 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None, trac
     bad = {k: last[k] for k in ("buffer/dropped_skew", "buffer/dropped_nonfinite", "buffer/dropped_bounds",
                                 "transport/malformed_payloads_total")}
     if not (steps == EXTERNAL_STEPS and last["transport/rollout_bytes_total"] > 0 and not any(bad.values())
-            and last["buffer/batch_staleness"] < EXTERNAL_STEPS):
+            and last["buffer/batch_staleness"] < EXTERNAL_STEPS and done["native_decodes"] > 0):
         raise AssertionError(f"the external learner: {steps} steps, rollout bytes "
                              f"{last['transport/rollout_bytes_total']}, drops {bad}, batch staleness "
                              f"{last['buffer/batch_staleness']}")
@@ -3659,6 +3712,9 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None, trac
         "actors_closing": [{"versions_seen": s, **st} for s, st in closing],
         "lstm_seq_launches": launched, "advantage_passes": passes,
         "actors_lstm_seq_launches": sum(st["lstm_seq_launches"] for _, st in closing),
+        "ring_bytes": last["buffer/shard_bytes"],
+        "codec": {k: done[k] for k in ("native_decodes", "native_encodes", "proto_fallbacks")},
+        "actors_codec": {k: sum(st[k] for _, st in closing) for k in ("native_encodes", "proto_fallbacks")},
         "window_steps_10_to_20": window, "fleet_plane": plane, "traces": traces,
         "wall_s": {"learner_listening": t_listen - t0, "actors_started": t_actors - t0,
                    "first_10_steps": t_first - t_actors, "to_kill": t_kill - t0, "to_stop": t_stop - t0,
@@ -3680,7 +3736,8 @@ def external_phase(device, seed, root, lane="socket", subscriber_ckpt=None, trac
         f"{result['publish_stall_ms']:.3f}; last batch staleness {result['batch_staleness']:.1f}; actor0 SIGKILLed "
         f"at step {EXTERNAL_KILL_AT}, the other {EXTERNAL_ACTORS - 1} stopped at step {EXTERNAL_STOP_AT}, flushed "
         f"and exited 0: {ships}; lstm_seq launches {launched} in the learner = {updates} updates + {passes:.0f} "
-        f"passes, {result['actors_lstm_seq_launches']:.0f} in the {EXTERNAL_ACTORS - 1} closed actors; wall "
+        f"passes, {result['actors_lstm_seq_launches']:.0f} in the {EXTERNAL_ACTORS - 1} closed actors; the rollout "
+        f"codec: the learner {result['codec']}, the closed actors {result['actors_codec']}; wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in result["wall_s"].items())
         + (f"; the subscribed serve CLI applied version {subscribed['serve_weights_version']:.0f} (its checkpoint "
            f"step {ckpt_step}), {subscribed['serve_dispatches_total']:.0f} dispatches" if subscribed else ""))
@@ -3957,7 +4014,7 @@ def eval_served_phase(ckpt_dir, seed, root, smi=""):
         rc = serve.wait(WAIT_S)
         if rc != 0:
             raise AssertionError(f"the serve CLI exited {rc}: {serve.stderr()[-2000:]}")
-        final = json.loads(serve.lines()[-1])
+        final = no_codec_fallback(json.loads(serve.lines()[-1]), "the evaluate_served serve CLI")
     finally:
         serve.kill()
     if not (out["episodes"] >= EVAL_SERVED_GAMES and 0.0 <= out["win_rate"] <= 1.0
@@ -4288,7 +4345,7 @@ def transformer_cli_and_serve(device, seed, cli):
         child.kill()
     if rc != 0:
         raise AssertionError(f"the transformer serve CLI exited {rc}: {seen[-10:]}")
-    final = json.loads(seen[-1])
+    final = no_codec_fallback(json.loads(seen[-1]), "the transformer serve CLI")
     n = TF_SERVE_GAMES * TF_SERVE_STEPS
     if final["serve_requests_total"] != n or final["lstm_seq_launches"] != 0:
         raise AssertionError(f"the transformer serve CLI's last line {final}: expected {n} requests, 0 launches")
@@ -4375,6 +4432,352 @@ def transformer_phase(device, seed, lstm_league_frames_per_s):
     return result
 
 
+# -- phase 18: the wire (the native codec, the narrow wires) ------------------------------
+
+# (a): passes over the chunks of one pool phase, each codec and wire timed
+CODEC_REPS = 3
+# (b): phase 15 (b)'s topology on the narrow wires: the learner's steps, and
+# the step line at which the actors are stopped (no kill); the steps after
+# the stop come from the ring and the flushed chunks
+WIRE_STEPS, WIRE_STOP_AT = 24, 20
+# (c): the buffered learner's collects on a narrow ring
+NARROW_COLLECTS = 3
+
+
+def codec_phase(device, seed):
+    """(a) the chunks a ``VecActorPool`` ships at BASELINE config 2 (64
+    self-play games: one chunk a lane after one pool phase), encoded and
+    decoded by the native codec and by protobuf, at f32 and on the bf16
+    wire, in this process; the rates on the host clock."""
+    import torch
+
+    from dotaclient_tpu_torch.actor.vec_runtime import VecActorPool
+    from dotaclient_tpu_torch.models.policy import init_params, make_policy
+    from dotaclient_tpu_torch.transport import serialize as S
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = vec_config(seed)
+    policy = make_policy(cfg.model, cfg.obs, cfg.actions, device=device)
+    init_params(policy, torch.Generator().manual_seed(seed))
+    chunks = []
+    pool = VecActorPool(cfg, policy, dict(policy.state_dict()), seed=seed, version=1, rollout_sink=chunks.extend,
+                        device=device, registry=telemetry.Registry())
+    pool.run(cfg.ppo.rollout_len)
+    if len(chunks) < pool.n_lanes:
+        raise AssertionError(f"{len(chunks)} chunks from a pool phase of {pool.n_lanes} lanes")
+    narrow = S.rollout_wire_kwargs(dataclasses.replace(
+        cfg, transport=dataclasses.replace(cfg.transport, rollout_wire_dtype="bfloat16")))
+    calls0 = S.codec_calls()
+    out = {"chunks": len(chunks)}
+    for wire, kw in (("float32", {}), ("bfloat16", narrow)):
+        payloads = {}
+        for codec, native in (("native", True), ("protobuf", False)):
+            t0 = time.perf_counter()
+            for _ in range(CODEC_REPS):
+                encoded = [S.encode_rollout_bytes(a, **m, native=native, **kw) for m, a in chunks]
+            enc_s = (time.perf_counter() - t0) / CODEC_REPS
+            payloads[codec] = [bytes(p) for p in encoded]
+            nbytes = sum(len(p) for p in payloads[codec])
+            t0 = time.perf_counter()
+            for _ in range(CODEC_REPS):
+                decoded = [S.decode_rollout_bytes(p, native=native) for p in payloads[codec]]
+            dec_s = (time.perf_counter() - t0) / CODEC_REPS
+            out[f"{wire}/{codec}"] = {
+                "encode_payloads_per_s": len(chunks) / enc_s, "encode_mb_per_s": nbytes / enc_s / 1e6,
+                "decode_payloads_per_s": len(chunks) / dec_s, "decode_mb_per_s": nbytes / dec_s / 1e6,
+                "chunk_bytes": nbytes / len(chunks)}
+            if codec == "protobuf":
+                proto_decoded = decoded
+            else:
+                native_decoded = decoded
+        # the two codecs agree: native bytes parse to protobuf's message,
+        # and each payload decodes to the same arrays either way
+        for (m, a), nat, pro in zip(chunks, payloads["native"], payloads["protobuf"]):
+            if S.pb.Rollout.FromString(nat) != S.pb.Rollout.FromString(pro):
+                raise AssertionError(f"{wire}: native bytes parse to another message than protobuf's")
+        for (mn, an), (mp, ap) in zip(native_decoded, proto_decoded):
+            fn, fp = S.flatten_tree(an), S.flatten_tree(ap)
+            if mn != mp or sorted(fn) != sorted(fp) or not all(
+                    (torch.equal(fn[k], fp[k]) if isinstance(fn[k], torch.Tensor) else np.array_equal(fn[k], fp[k]))
+                    for k in fn):
+                raise AssertionError(f"{wire}: the native and protobuf decodes differ")
+        if wire == "bfloat16":
+            # the one copy of the bf16 leaves a native decode makes
+            leaves = [t for t in S.flatten_tree(native_decoded[0][1]).values() if isinstance(t, torch.Tensor)]
+            bits = [S.bf16_tensor_to_bits(t) for t in leaves]
+            t0 = time.perf_counter()
+            for _ in range(100):
+                for b in bits:
+                    S.bits_to_bf16_tensor(b)
+            out["bf16_copy_us_per_chunk"] = (time.perf_counter() - t0) / 100 * 1e6
+            out["bf16_leaves"] = len(leaves)
+            out["wire_bytes_ratio"] = native_decoded[0][0]["raw_bytes"] / native_decoded[0][0]["wire_bytes"]
+    calls = {k: v - calls0[k] for k, v in S.codec_calls().items()}
+    n = len(chunks) * CODEC_REPS * 2
+    if calls != {"native_encodes": n, "native_decodes": n, "proto_fallbacks": 0}:
+        raise AssertionError(f"the codec's calls {calls}: expected {n} native encodes and decodes, no fallback")
+    for wire in ("float32", "bfloat16"):
+        nat, pro = out[f"{wire}/native"], out[f"{wire}/protobuf"]
+        out[f"{wire}/native_over_protobuf"] = {
+            "encode": nat["encode_payloads_per_s"] / pro["encode_payloads_per_s"],
+            "decode": nat["decode_payloads_per_s"] / pro["decode_payloads_per_s"]}
+    log(f"wire (a): {len(chunks)} chunks of a pool phase at config 2, {CODEC_REPS} passes a codec, host clock: "
+        + "; ".join(f"{w} {c}: encode {out[f'{w}/{c}']['encode_payloads_per_s']:.0f} payloads/s "
+                    f"{out[f'{w}/{c}']['encode_mb_per_s']:.1f} MB/s, decode {out[f'{w}/{c}']['decode_payloads_per_s']:.0f} "
+                    f"payloads/s {out[f'{w}/{c}']['decode_mb_per_s']:.1f} MB/s"
+                    for w in ("float32", "bfloat16") for c in ("native", "protobuf"))
+        + f"; a chunk {out['float32/native']['chunk_bytes']:.0f} bytes at f32, "
+        f"{out['bfloat16/native']['chunk_bytes']:.0f} on the bf16 wire (raw/wire {out['wire_bytes_ratio']:.4f}); "
+        f"native over protobuf: f32 encode {out['float32/native_over_protobuf']['encode']:.2f}x decode "
+        f"{out['float32/native_over_protobuf']['decode']:.2f}x, bf16 encode "
+        f"{out['bfloat16/native_over_protobuf']['encode']:.2f}x decode {out['bfloat16/native_over_protobuf']['decode']:.2f}x; "
+        f"the bf16 leaves' one copy ({out['bf16_leaves']} leaves) {out['bf16_copy_us_per_chunk']:.1f} us a chunk; "
+        "native and protobuf agree")
+    return out
+
+
+def narrow_ring_bytes(cfg):
+    """The resident bytes of a ring of ``cfg``, from its layout on the CPU
+    (one row, times the capacity), at the wire dtypes."""
+    from dotaclient_tpu_torch.train.ppo import example_batch
+    from dotaclient_tpu_torch.transport import serialize as S
+
+    flat = S.flatten_tree(example_batch(cfg, 1, device="cpu"))
+    plan = S.rollout_cast_plan({n: S._dtype_name(t) for n, t in flat.items()}, cfg.transport.rollout_wire_dtype,
+                               S.rollout_int_bounds(cfg))
+    size = {"bfloat16": 2, "int8": 1, "int16": 2}
+    return cfg.buffer.capacity_rollouts * sum(t.numel() * size.get(plan.get(n), t.element_size())
+                                              for n, t in flat.items())
+
+
+def narrow_external_phase(seed, root, socket_result, smi=""):
+    """(b) phase 15 (b)'s topology over TCP on the narrow wires: the learner
+    CLI with ``--rollout-wire-dtype bfloat16 --wire-dtype bfloat16``, 8
+    actor CLIs with ``--rollout-wire-dtype bfloat16``, stopped at the
+    learner's step-20 line (no kill)."""
+    import os
+    import signal
+
+    from dotaclient_tpu_torch.config import RunConfig
+
+    connect = f"127.0.0.1:{free_port()}"
+    jsonl = os.path.join(root, "external_narrow.jsonl")
+    wire = ["--rollout-wire-dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    deadline = t0 + EXTERNAL_S
+    children = []
+    try:
+        learner = ModuleChild("dotaclient_tpu_torch.train.learner", [
+            "--actor", "external", "--transport", "socket", "--listen", connect, "--steps", str(WIRE_STEPS),
+            "--seed", str(seed), "--metrics-jsonl", jsonl, "--buffer", f"max_weight_staleness={EXTERNAL_STALENESS}",
+            "--fleet-interval", FLEET_INTERVAL, *wire, "--wire-dtype", "bfloat16"], root, "learner_narrow")
+        children.append(learner)
+        while not any(x.startswith("learner: listening for actors on") for x in learner.lines()):
+            if learner.proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the narrow learner never listened: {learner.stderr()[-2000:]}")
+            time.sleep(0.05)
+        actors = [ModuleChild("dotaclient_tpu_torch.actor", [
+            "--connect", connect, "--n-envs", str(VEC_ENVS), "--opponent", "selfplay", "--max-dota-time",
+            str(VEC_MAX_DOTA_TIME), "--platform", "cuda", "--seed", str(seed + 1 + i), "--fleet-interval",
+            FLEET_INTERVAL, *wire], root, f"actor{i}_narrow") for i in range(EXTERNAL_ACTORS)]
+        children += actors
+        t_first = wait_step(learner, 10, deadline)
+        t_stop = wait_step(learner, WIRE_STOP_AT, deadline)
+        for a in actors:
+            a.proc.send_signal(signal.SIGTERM)
+        closing = []
+        for a in actors:
+            rc = a.wait(max(1.0, deadline - time.perf_counter()))
+            if rc != 0 or "graceful stop: flushed" not in a.stderr():
+                raise AssertionError(f"{a.name} exited {rc}: {a.stderr()[-1500:]}")
+            closing.append(actor_closing(a))
+        rc = learner.wait(max(1.0, deadline - time.perf_counter()))
+        if rc != 0:
+            raise AssertionError(f"the narrow learner exited {rc}: {learner.stderr()[-3000:]}")
+        done = done_fields(learner.lines(), "the narrow external learner")
+    finally:
+        for c in children:
+            c.kill()
+    raw, rows = read_record(jsonl)
+    last = rows[-1]
+    trained = [r for r in rows if "loss" in r]
+    cfg = RunConfig()
+    narrow_cfg = dataclasses.replace(cfg, transport=dataclasses.replace(cfg.transport, rollout_wire_dtype="bfloat16"))
+    want_bytes = narrow_ring_bytes(narrow_cfg)
+    updates = done["steps"] * cfg.ppo.epochs_per_batch * max(1, cfg.ppo.minibatches)
+    passes = last["advantage/passes_total"]
+    bad = {k: last[k] for k in ("buffer/dropped_skew", "buffer/dropped_nonfinite", "buffer/dropped_bounds",
+                                "transport/malformed_payloads_total")}
+    ratio = last["transport/rollout_compression_ratio"]
+    if not (done["steps"] == WIRE_STEPS and done["native_decodes"] > 0 and done["launches"] == updates + passes
+            and not any(bad.values()) and ratio > 1.5 and last["buffer/shard_bytes"] == want_bytes
+            and trained and np.isfinite(trained[-1]["loss"]) and trained[-1]["health_ok"] == 1.0):
+        raise AssertionError(f"the narrow learner: {done}, drops {bad}, compression ratio {ratio}, ring bytes "
+                             f"{last['buffer/shard_bytes']} (a narrow ring: {want_bytes}), last metrics "
+                             f"{trained[-1] if trained else None}, lstm_seq {done['launches']} against {updates} "
+                             f"updates + {passes:.0f} passes")
+    for seen, st in closing:
+        if not (max(seen) > 0 and st["lstm_seq_launches"] == st["steps"] > 0 and st["native_encodes"] > 0):
+            raise AssertionError(f"a narrow actor's closing lines: versions {seen}, stats {st}")
+    steady = (WIRE_STOP_AT - 10) * done["frames"] / done["steps"] / (t_stop - t_first)
+    window = learner_window(raw, 10, WIRE_STOP_AT, None, None)
+    result = {
+        "steps": done["steps"], "frames": done["frames"], "frames_per_s": last["frames_per_sec"],
+        "frames_per_s_steps_10_to_20": steady, "compression_ratio": ratio,
+        "rollout_bytes": last["transport/rollout_bytes_total"],
+        "rollout_raw_bytes": last["transport/rollout_raw_bytes_total"],
+        "ring_bytes": last["buffer/shard_bytes"], "ring_bytes_f32": socket_result["ring_bytes"],
+        "codec": {k: done[k] for k in ("native_decodes", "native_encodes", "proto_fallbacks")},
+        "actors_codec": {k: sum(st[k] for _, st in closing) for k in ("native_encodes", "proto_fallbacks")},
+        "lstm_seq_launches": done["launches"], "advantage_passes": passes,
+        "actors_lstm_seq_launches": sum(st["lstm_seq_launches"] for _, st in closing),
+        "last_loss": trained[-1]["loss"], "socket_frames_per_s": socket_result["frames_per_s_steps_10_to_30"],
+        "actors_env_steps_per_s": float(np.mean([st["env_steps_per_sec"] for _, st in closing])),
+        "window_steps_10_to_20": window, "wall_s": time.perf_counter() - t0,
+    }
+    log(f"wire (b): phase 15 (b)'s topology on the bf16 wires ({EXTERNAL_ACTORS} actors, no kill, stopped at step "
+        f"{WIRE_STOP_AT}): {done['steps']} steps, {result['frames_per_s']:.0f} trained frames/s, {steady:.0f} between "
+        f"the step-10 and step-20 lines (phase 15 (b) in this run {result['socket_frames_per_s']:.0f}); "
+        f"transport/rollout_compression_ratio {ratio:.4f} ({result['rollout_raw_bytes']:.0f} full-width bytes over "
+        f"{result['rollout_bytes']:.0f} on the wire); the ring {result['ring_bytes']:.0f} bytes resident (narrow; "
+        f"phase 15 (b)'s f32 ring {result['ring_bytes_f32']:.0f}); the learner's codec {result['codec']}, the actors' "
+        f"{result['actors_codec']}; every actor applied bf16 weights frames; loss {result['last_loss']:.4g}, health_ok "
+        f"1; lstm_seq {done['launches']} = {updates} updates + {passes:.0f} passes, "
+        f"{result['actors_lstm_seq_launches']:.0f} in the actors; the actors' mean "
+        f"{result['actors_env_steps_per_s']:.0f} env steps/s; {result['wall_s']:.1f} s; {smi}")
+    log(f"wire (b), the learner's steps 10-20 ({window['record_wall_s']:.2f} s by its record): span shares "
+        + ", ".join(f"{k} {v:.4f}" for k, v in window["span_shares"].items()) + "; util/phase "
+        + ", ".join(f"{k} {v:.4f}" for k, v in window["util_phases"].items()))
+    return result
+
+
+def narrow_buffered_phase(device, seed):
+    """(c) the buffered learner on a narrow ring in this process: a few
+    collects under the sync guard; a take of the narrow ring against an f32
+    ring fed the same chunk widened; a bf16 weights frame through the shm
+    slab."""
+    import os
+
+    import torch
+
+    from dotaclient_tpu_torch.buffer import TrajectoryBuffer
+    from dotaclient_tpu_torch.models.convert import convert, to_flax
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.transport import serialize as S
+    from dotaclient_tpu_torch.transport.shm_transport import ShmTransport, ShmTransportServer
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    f32_cfg = buffered_config(seed)
+    cfg = dataclasses.replace(f32_cfg, transport=dataclasses.replace(f32_cfg.transport,
+                                                                        rollout_wire_dtype="bfloat16"))
+    T, B, updates = cfg.ppo.rollout_len, cfg.ppo.batch_rollouts, cfg.ppo.steps_per_batch
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="device", seed=seed, device=device, registry=reg)
+    da, buf = learner.device_actor, learner.buffer
+    metrics = []
+    optimize = learner._optimize
+
+    def recording(batch):
+        m = optimize(batch)
+        metrics.append(m)
+        return m
+
+    learner._optimize = recording
+    unguarded_end(learner)
+    torch.cuda.synchronize()
+    lstm.lstm_sequence_kernel.launches = 0
+    _, loop_s = guarded_train(learner, NARROW_COLLECTS * STEPS_PER_COLLECT)
+    torch.cuda.synchronize()
+    launches = lstm.lstm_sequence_kernel.launches
+    passes = reg.snapshot()["advantage/passes_total"]
+    batches = NARROW_COLLECTS * da.n_lanes // B
+    expected = NARROW_COLLECTS * T + passes + batches * updates
+    store = S.flatten_tree(buf._store)
+    dtypes = {n: str(store[n].dtype)[6:] for n in ("obs/units", "actions/move_x", "obs/unit_handles",
+                                                    "behavior_logp", "carry0/0")}
+    if launches != expected or dtypes != {"obs/units": "bfloat16", "actions/move_x": "int8",
+                                          "obs/unit_handles": "int16", "behavior_logp": "float32",
+                                          "carry0/0": "float32"}:
+        raise AssertionError(f"the narrow buffered learner: lstm_seq {launches} (expected {expected:.0f}), the "
+                             f"ring's dtypes {dtypes}")
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if len(metrics) != batches or not all(np.isfinite(m["loss"]) and m["health_ok"] == 1.0 for m in metrics):
+        raise AssertionError(f"the narrow buffered learner's {len(metrics)} batches: {metrics[-1:]}")
+    # the narrow ring's take against an f32 ring fed the same chunk widened
+    chunk, _ = da.collect(learner.policy)
+    narrow = TrajectoryBuffer(cfg, device=device, registry=telemetry.Registry())
+    wide = TrajectoryBuffer(f32_cfg, device=device, registry=telemetry.Registry())
+    narrow.add_device(chunk, 0)
+    wide.add_device(tree_map(lambda c, s: c.to(s.dtype), chunk, wide._store), 0)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    got = narrow.take(B)
+    mid.record()
+    want = wide.take(B)
+    end.record()
+    torch.cuda.synchronize()
+    leaves = list(zip(tree_leaves(got), tree_leaves(want)))
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in leaves):
+        raise AssertionError("the narrow ring's take differs from the f32 ring's fed the same rows widened")
+    ring_bytes = {"narrow": narrow._tel.snapshot()["buffer/shard_bytes"],
+                  "f32": wide._tel.snapshot()["buffer/shard_bytes"]}
+    # a bf16 weights frame through the shm slab
+    name = f"chip-smoke-wire-{os.getpid()}-{seed}"
+    host = {k: v.detach().cpu() for k, v in learner.policy.state_dict().items()}
+    frames = {w: S.encode_weights(to_flax(host), learner.state.version, wire_dtype=w)
+              for w in ("float32", "bfloat16")}
+    server = ShmTransportServer(name=name, slots=1, ring_bytes=1 << 20, weights_bytes=cfg.transport.shm_weights_bytes,
+                                registry=telemetry.Registry())
+    try:
+        actor = ShmTransport(name)
+        try:
+            server.publish_weights(frames["bfloat16"])
+            version, tree = S.decode_weights(actor.latest_weights())
+        finally:
+            actor.close()
+    finally:
+        server.close()
+        leftovers = shm_leftovers(name)
+    got_params = convert(tree)
+    rounded = {k: torch.from_numpy(S.bf16_bits_to_f32(S.f32_to_bf16_bits(v.numpy()))) if v.is_floating_point()
+               else v for k, v in host.items()}
+    if leftovers or version != learner.state.version or not all(
+            torch.equal(got_params[k], rounded[k]) for k in host):
+        raise AssertionError(f"the bf16 weights frame through the slab: version {version}, leftovers {leftovers}, "
+                             f"params equal to the bf16-rounded ones: "
+                             f"{sum(torch.equal(got_params[k], rounded[k]) for k in host)} of {len(host)}")
+    learner.close()
+    result = {
+        "collects": NARROW_COLLECTS, "batches": batches, "frames_per_s": batches * B * T / loop_s,
+        "lstm_seq_launches": launches, "advantage_passes": passes, "ring_dtypes": dtypes, "ring_bytes": ring_bytes,
+        "take_ms": {"narrow": start.elapsed_time(mid), "f32": mid.elapsed_time(end)},
+        "weights_frame_bytes": {w: f.ByteSize() for w, f in frames.items()}, "last_loss": metrics[-1]["loss"],
+    }
+    log(f"wire (c): the buffered learner on a bf16 ring, {NARROW_COLLECTS} collects under the sync guard, {batches} "
+        f"batches: {result['frames_per_s']:.0f} trained frames/s, loss {result['last_loss']:.4g}, health_ok 1, "
+        f"lstm_seq {launches} = {NARROW_COLLECTS} x {T} + {passes:.0f} + {batches} x {updates}; the ring {dtypes}, "
+        f"{ring_bytes['narrow']:.0f} bytes resident against {ring_bytes['f32']:.0f} at f32; take of {B} equal bit for "
+        f"bit to the f32 ring's ({result['take_ms']['narrow']:.3f} / {result['take_ms']['f32']:.3f} ms issue to issue); "
+        f"a bf16 weights frame ({result['weights_frame_bytes']['bfloat16']} bytes, f32 "
+        f"{result['weights_frame_bytes']['float32']}) through the shm slab equal to the params rounded to bf16")
+    return result
+
+
+def wire_phase(device, seed, socket_result, smi=""):
+    """Phase 18: the codec in process, the narrow wires across processes,
+    the narrow ring in process."""
+    t0 = time.perf_counter()
+    result = {"codec": codec_phase(device, seed)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as root:
+        result["external"] = narrow_external_phase(seed, root, socket_result, smi)
+    result["buffered"] = narrow_buffered_phase(device, seed)
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"phase 18 (the wire): {result['wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4420,6 +4823,7 @@ def main() -> int:
     external = external_actors_phase(device, args.seed, smi)
     scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"], smi)
     phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
+    phase18 = wire_phase(device, args.seed, external["external"], smi)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -4438,8 +4842,18 @@ def main() -> int:
                                       "eval_served": scalar["eval_served"]["lstm_seq_launches"],
                                       "shm_learner": scalar["shm"]["lstm_seq_launches"],
                                       "shm_actors": scalar["shm"]["actors_lstm_seq_launches"],
-                                      "train_transformer": phase17["league"]["lstm_seq_launches"]}
+                                      "train_transformer": phase17["league"]["lstm_seq_launches"],
+                                      "wire_learner": phase18["external"]["lstm_seq_launches"],
+                                      "wire_actors": phase18["external"]["actors_lstm_seq_launches"],
+                                      "train_buffered_narrow": phase18["buffered"]["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
+
+    from dotaclient_tpu_torch.transport import serialize
+
+    calls = serialize.codec_calls()
+    if calls["proto_fallbacks"] or not calls["native_decodes"]:
+        raise AssertionError(f"this process's rollout codec: {calls} (native calls and no fallback expected)")
+    log(f"this process's rollout codec over every phase: {calls}")
 
     kernels = {"kernels": [lstm_entry]}
     if args.out:
@@ -4447,7 +4861,7 @@ def main() -> int:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
-                       "scalar": scalar, "phase17": phase17}, f,
+                       "scalar": scalar, "phase17": phase17, "phase18": phase18}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -3,18 +3,23 @@
 Counterpart of ``dotaclient_tpu/actor/__main__.py``. N such processes feed one
 learner over TCP or, on the learner's host, over shared memory::
 
-    python -m dotaclient_tpu_torch.actor --connect HOST:PORT|shm://NAME [--n-envs 64] [--opponent selfplay]
-        [--team-size 1] [--max-dota-time S] [--rollout-len T] [--seed S] [--steps N]
+    python -m dotaclient_tpu_torch.actor --connect HOST:PORT|shm://NAME | --amqp HOST[:PORT] [--n-envs 64]
+        [--opponent selfplay] [--team-size 1] [--max-dota-time S] [--rollout-len T]
+        [--rollout-wire-dtype float32|bfloat16] [--seed S] [--steps N]
         [--refresh-every N] [--max-reconnects N] [--idle-timeout S] [--fleet-interval S] [--platform cuda|cpu]
         [--trace-jsonl PATH] [--trace-sample N]
 
 It connects to the learner's ``TransportServer`` (``python -m
 dotaclient_tpu_torch.train.learner --transport socket --listen HOST:PORT``)
 or claims a ring slot of its ``ShmTransportServer`` (``--transport shm
---shm-name NAME``, then ``--connect shm://NAME``), waits up to 60 s for
-the first weights frame (the Flax layout, converted), runs
-``VecActorPool`` and ships protobuf rollouts, applying newer weights every
-``--refresh-every`` env steps. It reads a JAX learner's frames too,
+--shm-name NAME``, then ``--connect shm://NAME``), or, with ``--amqp
+HOST[:PORT]`` (exclusive with ``--connect``), reaches it through a RabbitMQ
+broker (``--transport amqp``; needs ``pika``). It waits up to 60 s for the
+first weights frame (the Flax layout, converted, a bf16 frame widened),
+runs ``VecActorPool`` and ships rollouts encoded by the native codec
+(``--rollout-wire-dtype bfloat16`` narrows them as
+``transport.rollout_wire_dtype`` does: give the learner the same), applying
+newer weights every ``--refresh-every`` env steps. It reads a JAX learner's frames too,
 and a JAX learner reads its rollouts. Actors are disposable: a lost
 connection is retried with bounded exponential backoff and full jitter
 (``actor/backoff.py``), then the process exits 1 for its supervisor to
@@ -22,7 +27,9 @@ restart. The first SIGTERM or SIGINT stops at the next slice, ships every
 lane's partial chunk and exits 0; a second one kills. The last lines are
 ``ACTOR_VERSIONS_SEEN [...]`` (every weights version applied) and
 ``ACTOR_STATS {...}`` (env steps, steps, chunks shipped, steps/s, the
-version, the policy steps the ``lstm_seq`` kernel ran).
+version, the policy steps the ``lstm_seq`` kernel ran, and the rollout
+codec's calls by path: ``native_encodes``, ``native_decodes``,
+``proto_fallbacks``).
 
 The process ships its registry's fleet snapshot (``utils/fleet.py``
 ``FleetPublisher``, peer ``a<seed>``) over the same transport at each
@@ -47,10 +54,8 @@ card admits many processes. ``--platform cpu`` runs the policy on the CPU
 (a try without a card).
 
 ``--seed`` defaults to the CRC32 of ``$POD_NAME`` (0 outside k8s), so the
-replicas of a fleet stream different experience.
-
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--amqp`` and ``--rollout-wire-dtype bfloat16`` (item 13).
+replicas of a fleet stream different experience; it also seeds the
+reconnect backoff's jitter.
 """
 
 from __future__ import annotations
@@ -65,14 +70,18 @@ import time
 import zlib
 from typing import List, Optional
 
-_ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
+def transport_factory(connect: Optional[str], idle_timeout: Optional[float], transport_config,
+                      amqp: Optional[str] = None):
+    """The (re)connect callable: an ``AmqpTransport`` to broker HOST[:PORT]
+    for ``amqp``, a ``ShmTransport`` on lane NAME for ``shm://NAME``, else a
+    ``SocketTransport`` to HOST:PORT with the config's liveness and poison
+    knobs (the wire carries no config handshake, so they must match the
+    learner's)."""
+    if amqp is not None:
+        from dotaclient_tpu_torch.transport.queues import AmqpTransport
 
-
-def transport_factory(connect: str, idle_timeout: Optional[float], transport_config):
-    """The (re)connect callable for ``--connect``: a ``ShmTransport`` on
-    lane NAME for ``shm://NAME``, else a ``SocketTransport`` to HOST:PORT
-    with the config's liveness and poison knobs (the wire carries no config
-    handshake, so they must match the learner's)."""
+        host, _, port = amqp.partition(":")
+        return lambda: AmqpTransport(host, int(port or 5672))
     if connect.startswith("shm://"):
         from dotaclient_tpu_torch.transport.shm_transport import ShmTransport
 
@@ -90,7 +99,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description="One rollout worker feeding a learner over TCP or shared memory.")
     p.add_argument("--connect", type=str, default=None,
                    help="the learner's TransportServer, HOST:PORT, or shm://NAME for its same-host shm lane")
-    p.add_argument("--amqp", type=str, default=None, help="not ported yet: " + _ITEM_13)
+    p.add_argument("--amqp", type=str, default=None, metavar="HOST[:PORT]",
+                   help="a RabbitMQ broker instead of --connect (the learner's --transport amqp; needs pika)")
     p.add_argument("--n-envs", type=int, default=64)
     p.add_argument("--opponent", type=str, default="scripted_easy",
                    choices=("scripted_easy", "scripted_hard", "selfplay", "league"))
@@ -100,7 +110,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--rollout-len", type=int, default=None,
                    help="chunk length T; must match the learner's ppo.rollout_len (skewed chunks are dropped)")
     p.add_argument("--rollout-wire-dtype", type=str, default=None, choices=("float32", "bfloat16"),
-                   help="float32 only (bfloat16: " + _ITEM_13 + ")")
+                   help="the rollouts' wire dtype (transport.rollout_wire_dtype; the learner's value): bfloat16 "
+                   "about halves the shipped bytes, behavior_logp, rewards, dones, values and the carries stay f32")
     p.add_argument("--seed", type=int, default=None, help="default: CRC32 of $POD_NAME, or 0")
     p.add_argument("--steps", type=int, default=0, help="stop after N env steps (0: run until stopped)")
     p.add_argument("--refresh-every", type=int, default=8, help="poll for new weights every N env steps")
@@ -120,12 +131,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="ship a fleet metrics snapshot at most every S seconds, at weights refreshes "
                    "(default telemetry.fleet_interval_s = 5; 0 disables)")
     args = p.parse_args(argv)
-    if args.amqp is not None:
-        raise NotImplementedError(f"--amqp is not ported yet: {_ITEM_13}")
-    if args.rollout_wire_dtype not in (None, "float32"):
-        raise NotImplementedError(f"--rollout-wire-dtype {args.rollout_wire_dtype} is not ported yet: {_ITEM_13}")
-    if not args.connect:
-        p.error("--connect HOST:PORT or shm://NAME is required")
+    if bool(args.connect) == bool(args.amqp):
+        p.error("exactly one of --connect HOST:PORT (or shm://NAME) and --amqp HOST[:PORT] is required")
     if args.seed is None:
         pod = os.environ.get("POD_NAME", "")
         args.seed = zlib.crc32(pod.encode()) & 0x7FFFFFFF if pod else 0
@@ -169,6 +176,8 @@ def _run(args: argparse.Namespace) -> int:
     except ValueError:
         pass   # not the main thread: signals stay with the embedding program
 
+    import random
+
     import torch
 
     from dotaclient_tpu_torch.actor.backoff import connect_with_backoff
@@ -178,6 +187,7 @@ def _run(args: argparse.Namespace) -> int:
     from dotaclient_tpu_torch.models.convert import convert
     from dotaclient_tpu_torch.models.policy import init_params, make_policy
     from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.transport import serialize
     from dotaclient_tpu_torch.transport.serialize import decode_weights
     from dotaclient_tpu_torch.utils import fleet
 
@@ -189,11 +199,16 @@ def _run(args: argparse.Namespace) -> int:
     config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
     if args.rollout_len is not None:
         config = dataclasses.replace(config, ppo=dataclasses.replace(config.ppo, rollout_len=args.rollout_len))
+    if args.rollout_wire_dtype is not None:
+        config = dataclasses.replace(config, transport=dataclasses.replace(
+            config.transport, rollout_wire_dtype=args.rollout_wire_dtype))
 
-    factory = transport_factory(args.connect, args.idle_timeout, config.transport)
+    factory = transport_factory(args.connect, args.idle_timeout, config.transport, amqp=args.amqp)
+    # the backoff's jitter from the seed, as the reference's
+    backoff_rng = random.Random(args.seed)
 
     try:
-        transport = connect_with_backoff(factory, max_attempts=args.max_reconnects,
+        transport = connect_with_backoff(factory, max_attempts=args.max_reconnects, rng=backoff_rng,
                                          should_abort=lambda: stop["stop"])
     except (ConnectionError, OSError) as e:
         print(f"actor: cannot reach the learner ({e}); exiting for a restart", file=sys.stderr, flush=True)
@@ -244,6 +259,7 @@ def _run(args: argparse.Namespace) -> int:
         pool = VecActorPool(config, policy, params, transport=transport, seed=args.seed, version=version,
                             device=device)
         launches0 = lstm.lstm_sequence_kernel.launches
+        calls0 = serialize.codec_calls()
         t0 = time.time()
         steps = 0
         while (not args.steps or steps < args.steps) and not stop["stop"]:
@@ -255,7 +271,7 @@ def _run(args: argparse.Namespace) -> int:
                 print(f"actor: transport lost ({e}); reconnecting", file=sys.stderr, flush=True)
                 transport.close()
                 try:
-                    transport = connect_with_backoff(factory, max_attempts=args.max_reconnects,
+                    transport = connect_with_backoff(factory, max_attempts=args.max_reconnects, rng=backoff_rng,
                                                      should_abort=lambda: stop["stop"])
                 except (ConnectionError, OSError) as e2:
                     if stop["stop"]:
@@ -288,6 +304,7 @@ def _run(args: argparse.Namespace) -> int:
             "episodes_done": s["episodes_done"], "env_steps_per_sec": s["env_steps"] / max(elapsed, 1e-9),
             "elapsed_sec": elapsed, "version": pool.version,
             "lstm_seq_launches": lstm.lstm_sequence_kernel.launches - launches0,
+            **{k: v - calls0[k] for k, v in serialize.codec_calls().items()},
         }, sort_keys=True), flush=True)
         transport.close()
         return 0

@@ -20,6 +20,13 @@ lanes' heads, those of the opponent lanes' heads (league mode), the sim
 step's wave jitter, then the reset's. ``_rollout_impl`` also takes that
 noise as inputs, so a test can hand in what the JAX package drew from its
 per-game keys.
+
+With ``transport.rollout_wire_dtype="bfloat16"`` ``collect`` casts its
+chunk to the wire dtypes (``serialize.apply_cast_plan``: bf16 for the f32
+leaves off the pinned list, int8 or int16 for the bounded int leaves) on
+the device, so ``add_device`` copies narrow rows into the narrow ring. The
+fused path calls ``_rollout_impl`` itself and keeps full width: it trains
+on the chunk at once and stores nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +49,9 @@ from dotaclient_tpu_torch.models import distributions as D
 from dotaclient_tpu_torch.models.policy import Carry, Policy, mask_carry
 from dotaclient_tpu_torch.outcome import ingraph as outcome_ingraph
 from dotaclient_tpu_torch.outcome import records as outcome_records
+from dotaclient_tpu_torch.transport.serialize import (
+    _dtype_name, apply_cast_plan, flatten_tree, rollout_cast_plan, rollout_int_bounds, unflatten_tree,
+)
 from dotaclient_tpu_torch.utils import telemetry
 from dotaclient_tpu_torch.utils.tree import tree_map
 
@@ -178,6 +188,9 @@ class DeviceActor:
         self._recent: Dict[str, float] = {}
         self._tel = registry if registry is not None else telemetry.get_registry()
         outcome_records.ensure_actor_metrics(self._tel)
+        # the collect's cast plan, made from its first chunk's leaves (None
+        # until then; empty at full width)
+        self._chunk_cast: Optional[Dict[str, str]] = None if config.transport.rollout_wire_dtype != "float32" else {}
 
     def reset_recurrent(self) -> None:
         """Zero every lane's recurrent carry, the learner's and the
@@ -342,6 +355,12 @@ class DeviceActor:
         would silently turn the league into mirror self-play."""
         with self._tel.span("actor/collect"), torch.no_grad():
             self.state, chunk, stats = self._rollout_impl(params, self.state, opp_params)
+            if self._chunk_cast is None:
+                self._chunk_cast = rollout_cast_plan(
+                    {n: _dtype_name(t) for n, t in flatten_tree(chunk).items()},
+                    self.config.transport.rollout_wire_dtype, rollout_int_bounds(self.config))
+            if self._chunk_cast:
+                chunk = unflatten_tree(apply_cast_plan(flatten_tree(chunk), self._chunk_cast))
         T = self.config.ppo.rollout_len
         self.env_steps += self.n_lanes * T
         self.rollouts_shipped += self.n_lanes

@@ -21,7 +21,9 @@ the T+1 observations repeat the bootstrap one over the pad, and a chunk is
 tagged with the oldest weights version that contributed to it. A chunk
 goes to ``rollout_sink`` as a full-width ``Rollout`` proto, else to
 ``transport.publish_rollout`` (the learner's ``scalar`` mode hands it an
-``InProcTransport``). ``refresh_weights`` applies the transport's newest
+``InProcTransport``) at ``transport.rollout_wire_dtype``: a bf16 wire's
+proto carries the narrow leaves and the ``__wire_cast__`` marker, as the
+reference's does. ``refresh_weights`` applies the transport's newest
 weights frame (the Flax layout, converted, moved to the card);
 ``set_params`` swaps the params and version as one tuple.
 
@@ -33,8 +35,7 @@ plane (``utils/utilization.py`` ``make_actor``) is the vec pool's:
 ``featurize`` (the per-lane featurize), ``encode`` (a chunk's assembly),
 ``ship_wait`` (its encode and publish) and the residual ``other``, folded at
 the weights refreshes of ``run``. The reference's scalar pool stamps no
-trace and ships no fleet snapshot, and neither does this one. Not here: the
-narrow rollout wire (ROADMAP queue 1, item 13).
+trace and ships no fleet snapshot, and neither does this one.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from dotaclient_tpu_torch.models.convert import convert
 from dotaclient_tpu_torch.models.policy import Policy
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
-from dotaclient_tpu_torch.transport.serialize import decode_weights, encode_rollout
+from dotaclient_tpu_torch.transport.serialize import decode_weights, encode_rollout, rollout_wire_kwargs
 from dotaclient_tpu_torch.utils import telemetry, utilization
 
 Params = Dict[str, torch.Tensor]
@@ -145,12 +146,9 @@ class ActorPool(WindowedStatsMixin):
                 "ActorPool (the scalar path) supports the LSTM core only, as the reference's; the vec and device "
                 "actors run any core"
             )
-        if config.transport.rollout_wire_dtype != "float32":
-            raise NotImplementedError(
-                f"rollout_wire_dtype={config.transport.rollout_wire_dtype!r} (a narrow rollout wire) is not "
-                "ported yet: ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
-            )
         self.config = config
+        # the encode kwargs of the rollout wire, derived once
+        self._wire_kwargs = rollout_wire_kwargs(config)
         self.device = resolve_device(device)
         # the pool's own module: functional_call swaps a module's params
         # for the call, which must never touch a module another thread
@@ -413,9 +411,10 @@ class ActorPool(WindowedStatsMixin):
         # the chunk's assembly is encode; its proto and publish, ship_wait
         self._util.phase("encode", t_ship - t_enc)
         if self.rollout_sink is not None:
+            # in process: full width, no wire to save bytes on
             self.rollout_sink(encode_rollout(arrays, **meta))
         elif self.transport is not None:
-            self.transport.publish_rollout(encode_rollout(arrays, **meta))
+            self.transport.publish_rollout(encode_rollout(arrays, **meta, **self._wire_kwargs))
         self._util.phase("ship_wait", time.perf_counter() - t_ship)
         self.rollouts_shipped += 1
         self._tel.counter("actor/rollouts_shipped").inc()

@@ -8,6 +8,14 @@ path. One slot holds one rollout chunk laid out as a row of
 batch of B slots is a train batch. The store is one tensor a leaf on the
 learner's device.
 
+With ``transport.rollout_wire_dtype="bfloat16"`` the ring stores the wire
+dtypes (``serialize.rollout_cast_plan``: bf16 for the f32 leaves off the
+pinned list, int8 or int16 for the bounded int leaves), about half the
+resident bytes, and ``take`` widens each leaf on the device right after its
+``index_select``, so the train step sees f32 and int32 bit for bit what
+decoding the wire with ``upcast`` gives (bf16 -> f32 and int8 -> int32 are
+exact).
+
 The bookkeeping is host-side and reads only host ints: the consumption
 order is a deque of slot ids, beside a free list, a per-slot producer
 version (staleness is re-checked when a batch is taken: a chunk fresh at
@@ -22,14 +30,17 @@ chunk batch in with one device-to-device ``index_copy_`` a leaf. ``add``
 (the ``vec`` and ``external`` modes) takes decoded host rows ``(meta,
 arrays)`` through the admission door, in the reference's order: stale
 (``model_version`` past the limit), skew (another tree, shape or dtype:
-an actor with another config; warned once) and non-finite (a NaN or Inf in
-a float leaf, with ``buffer.reject_nonfinite``); each drop is counted. The
-reference's bounds door (a full-width integer row into a narrow ring)
-comes with the narrow ring, so ``dropped_bounds`` stays 0 here, as it does
-in the reference's full-width ring. The rows that pass are copied into the next of
-``buffer.staging_slots`` preallocated host lanes (pinned on CUDA) and
-cross to the card in one non-blocking copy a leaf, then one ``index_copy_``
-a leaf; a lane is reused only after its copy's event has completed.
+an actor with another config; warned once; a leaf may arrive at its full
+width or at its bf16 wire's narrow one, whatever the ring stores), bounds
+(a full-width int row into a narrow ring whose values do not fit the
+narrow dtype, which the cast would wrap; warned once) and non-finite (a NaN
+or Inf in a float leaf, bf16 ones scanned as they are, with
+``buffer.reject_nonfinite``); each drop is counted. The rows that pass are
+copied into the next of ``buffer.staging_slots`` preallocated host lanes
+of the store's dtypes (pinned on CUDA; a full-width row into a narrow lane
+rounds as the wire does) and cross to the card in one non-blocking copy a
+leaf, then one ``index_copy_`` a leaf; a lane is reused only after its
+copy's event has completed.
 
 The staleness limit is counted in optimizer steps: ``max_staleness x
 steps_per_batch``, or ``buffer.max_weight_staleness`` when it is >= 0.
@@ -42,9 +53,10 @@ untraced row, a device chunk and a restore clear the slots they write, so
 a reused slot never carries an evicted chunk's record. A requeued batch's
 records go with the next dispatch, as in the reference.
 
-Not ported here: the narrow (bf16) ring of ``transport.rollout_wire_dtype``
-(ROADMAP queue 1, item 13). A row that arrives narrow (a bf16 wire) is
-admitted and widened by the staging copy, as the reference admits it.
+``state_dict`` holds the store at its dtypes; ``load_state_dict`` restores
+a snapshot of either wire dtype into this ring's (floats rounded as a fresh
+ingest), and frees, counted in ``dropped_bounds``, the slots whose int
+values would wrap in a narrow ring.
 """
 
 from __future__ import annotations
@@ -60,15 +72,16 @@ from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.train.ppo import example_batch
 from dotaclient_tpu_torch.transport.serialize import (
-    BF16, _dtype_name, _to_f32, flatten_tree, rollout_cast_plan, rollout_int_bounds,
+    BF16, _dtype_name, _to_f32, apply_cast_plan, bf16_tensor_to_bits, f32_to_bf16_bits, flatten_tree,
+    rollout_cast_plan, rollout_int_bounds, unflatten_tree,
 )
 from dotaclient_tpu_torch.utils import telemetry, tracing
 from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _N_COUNTERS = 7   # warmed, stale, overflow, ingested, skew, nonfinite, bounds
+_FINITE_SLICE = 1 << 16   # elements a bf16 leaf's finiteness scan takes at once
 
 
 class TrajectoryBuffer:
@@ -77,11 +90,6 @@ class TrajectoryBuffer:
 
     def __init__(self, config: RunConfig, device: DeviceLike = None,
                  registry: Optional[telemetry.Registry] = None) -> None:
-        if config.transport.rollout_wire_dtype != "float32":
-            raise NotImplementedError(
-                f"a narrow ring (rollout_wire_dtype={config.transport.rollout_wire_dtype!r}) is not ported "
-                f"yet: {_NOT_PORTED}"
-            )
         self.config = config
         self.device = resolve_device(device)
         self._tel = registry if registry is not None else telemetry.get_registry()
@@ -95,7 +103,15 @@ class TrajectoryBuffer:
         for key in ("buffer/stale_rejected_total", "buffer/nonfinite_rejected_total",
                     "buffer/poison_dropped_total", "buffer/intbound_rejected_total"):
             self._tel.counter(key)
-        self._store = example_batch(config, cap, device=self.device)
+        # the train batch's layout and dtypes (take's widening targets), and
+        # the wire's cast plan: empty for a full-width ring
+        template = example_batch(config, cap, device=self.device)
+        flat = flatten_tree(template)
+        names = {n: _dtype_name(t) for n, t in flat.items()}
+        int_bounds = rollout_int_bounds(config)
+        self._wire_plan = rollout_cast_plan(names, config.transport.rollout_wire_dtype, int_bounds)
+        self._consume_dtypes = tree_map(lambda t: t.dtype, template)
+        self._store = unflatten_tree(apply_cast_plan(flat, self._wire_plan)) if self._wire_plan else template
         self._tel.gauge("buffer/shard_bytes").set(
             float(sum(t.numel() * t.element_size() for t in tree_leaves(self._store))))
         self._order: Deque[int] = deque()
@@ -111,15 +127,17 @@ class TrajectoryBuffer:
         self.dropped_bounds = 0
         self.ingested = 0
         # the host-row door: each leaf's name, row shape and the widths it
-        # may arrive at (its own, or the bf16 wire's narrowing of it)
-        flat = flatten_tree(self._store)
-        names = {n: _dtype_name(t) for n, t in flat.items()}
-        narrow = rollout_cast_plan(names, "bfloat16", rollout_int_bounds(config))
+        # may arrive at (its full width, or the bf16 wire's narrowing of it)
+        narrow = self._wire_plan or rollout_cast_plan(names, "bfloat16", int_bounds)
         self._tmpl: Dict[str, Tuple[Tuple[int, ...], frozenset]] = {
             n: (tuple(t.shape[1:]), frozenset({names[n], narrow.get(n, names[n])})) for n, t in flat.items()
         }
+        # the bounds door: each int leaf the ring stores narrow, with the
+        # range of its narrow dtype
+        self._int_guards: Dict[str, np.iinfo] = {n: np.iinfo(d) for n, d in self._wire_plan.items() if d != BF16}
         self._reject_nonfinite = config.buffer.reject_nonfinite
         self._skew_warned = False
+        self._bounds_warned = False
         # staging lanes, made at the first host-row ingest (the device
         # path never stages); each with the event of its last copy
         self._staging_lanes = max(1, config.buffer.staging_slots)
@@ -162,6 +180,15 @@ class TrajectoryBuffer:
                     logger.warning("trajectory_buffer: dropping a rollout whose tree, shapes or dtypes do not "
                                    "match this learner's config (an actor with another rollout_len, obs or "
                                    "model config?): align the actor's and the learner's configs")
+                continue
+            if self._int_guards and not self._payload_in_bounds(flat):
+                self.dropped_bounds += 1
+                self._tel.counter("buffer/intbound_rejected_total").inc()
+                if not self._bounds_warned:
+                    self._bounds_warned = True
+                    logger.warning("trajectory_buffer: dropping a full-width rollout whose int leaves do not fit "
+                                   "this learner's narrow ring (an actor breaking rollout_int_bounds?): fix the "
+                                   "actor or widen the bounds")
                 continue
             if self._reject_nonfinite and not self._payload_finite(flat):
                 self.dropped_nonfinite += 1
@@ -224,12 +251,29 @@ class TrajectoryBuffer:
                 return None
         return flat
 
+    def _payload_in_bounds(self, flat: Dict[str, Any]) -> bool:
+        """True iff every int leaf arriving wider than its narrow store
+        dtype fits that dtype's range (a row at the narrow width fits by
+        its dtype)."""
+        for name, info in self._int_guards.items():
+            a = np.asarray(flat[name])
+            if a.dtype.itemsize > info.bits // 8 and a.size and (a.min() < info.min or a.max() > info.max):
+                return False
+        return True
+
     def _payload_finite(self, flat: Dict[str, Any]) -> bool:
-        """True iff every float leaf is finite (bf16 wire leaves, CPU
-        tensors, are scanned as they are)."""
+        """True iff every float leaf is finite. A bf16 wire leaf (a CPU
+        tensor) is scanned at its own width, never widened."""
         for leaf in flat.values():
             if isinstance(leaf, torch.Tensor):
-                if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+                if leaf.dtype == torch.bfloat16:
+                    # in slices: the scan's temporaries stay small beside
+                    # the leaf, and nothing is widened to f32
+                    flat_leaf = leaf.reshape(-1)
+                    for i in range(0, flat_leaf.numel(), _FINITE_SLICE):
+                        if not bool(torch.isfinite(flat_leaf[i:i + _FINITE_SLICE]).all()):
+                            return False
+                elif leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
                     return False
             elif leaf.dtype.kind == "f" and not np.isfinite(leaf).all():
                 return False
@@ -254,10 +298,18 @@ class TrajectoryBuffer:
         lane = self._staging[k]
         with self._tel.span("buffer/stage"):
             for name, dst in lane.items():
-                view = dst.numpy()
-                for i, flat in enumerate(rows):
-                    src = flat[name]
-                    view[i] = _to_f32(src) if _dtype_name(src) == BF16 else src
+                if dst.dtype == torch.bfloat16:
+                    # a bf16 lane by its bits: a bf16 row copies them, a
+                    # full-width row rounds as the wire would
+                    view = dst.view(torch.int16).numpy().view(np.uint16)
+                    for i, flat in enumerate(rows):
+                        src = flat[name]
+                        view[i] = bf16_tensor_to_bits(src) if _dtype_name(src) == BF16 else f32_to_bf16_bits(src)
+                else:
+                    view = dst.numpy()
+                    for i, flat in enumerate(rows):
+                        src = flat[name]
+                        view[i] = _to_f32(src) if _dtype_name(src) == BF16 else src
         return lane
 
     def _alloc_slots(self, n: int) -> List[int]:
@@ -335,7 +387,9 @@ class TrajectoryBuffer:
         with self._tel.span("buffer/sample"):
             slots = [self._order.popleft() for _ in range(b)]
             idx = host_index(slots, self.device)
-            batch = tree_map(lambda s: s.index_select(0, idx), self._store)
+            # the one widening of a narrow ring, on the device (a no-op .to
+            # for a leaf already at its train dtype)
+            batch = tree_map(lambda s, d: s.index_select(0, idx).to(d), self._store, self._consume_dtypes)
             if hold:
                 ticket = self._next_ticket
                 self._next_ticket += 1
@@ -421,8 +475,20 @@ class TrajectoryBuffer:
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self._store = tree_map(lambda s, x: torch.as_tensor(x).to(device=self.device, dtype=s.dtype).clone(),
-                               self._store, state["store"])
+        """Restore a ``state_dict``, written under either wire dtype: the
+        store is cast to this ring's dtypes (exact upward, rounded as a
+        fresh ingest downward), and a slot whose int values would wrap in
+        this ring's narrow dtype is freed and counted in ``dropped_bounds``
+        instead."""
+        saved = flatten_tree(state["store"])
+        bad = np.zeros((self.capacity,), bool)
+        for name, info in self._int_guards.items():
+            a = np.asarray(torch.as_tensor(saved[name]))
+            if a.dtype.itemsize > info.bits // 8:
+                bad |= ((a < info.min) | (a > info.max)).reshape(self.capacity, -1).any(axis=1)
+        store = flatten_tree(self._store)
+        self._store = unflatten_tree({
+            n: self._restored_leaf(saved[n], s.dtype).to(self.device) for n, s in store.items()})
         self._order = deque(int(s) for s in np.asarray(state["order"]) if s >= 0)
         self._free = [int(s) for s in np.asarray(state["free"]) if s >= 0]
         self._held = {}
@@ -436,7 +502,24 @@ class TrajectoryBuffer:
             # restored slots carry no live record
             self._slot_trace = [None] * self.capacity
             self._pending_traces = []
+        dropped = [s for s in self._order if bad[s]]
+        if dropped:
+            self._order = deque(s for s in self._order if not bad[s])
+            self._free.extend(dropped)
+            self.dropped_bounds += len(dropped)
+            self._tel.counter("buffer/intbound_rejected_total").inc(len(dropped))
+            logger.warning("trajectory_buffer: freed %d restored slot(s) whose int values do not fit this ring's "
+                           "narrow dtypes (a snapshot of a full-width ring?): casting them would wrap", len(dropped))
         self._publish_telemetry()
+
+    @staticmethod
+    def _restored_leaf(x: Any, dtype: torch.dtype) -> torch.Tensor:
+        """A saved store leaf (a CPU tensor or array) as a CPU tensor of
+        ``dtype``: f32 into bf16 rounds as the wire does."""
+        t = torch.as_tensor(x).detach().cpu()
+        if dtype == torch.bfloat16 and t.dtype != torch.bfloat16:
+            return torch.from_numpy(f32_to_bf16_bits(_to_f32(t)).view(np.int16)).view(torch.bfloat16)
+        return t.to(dtype).clone()
 
     def _publish_telemetry(self) -> None:
         """Mirror the host bookkeeping into the registry (host writes)."""

@@ -17,7 +17,9 @@ weights frames from a learner's fanout between dispatches. Prints
 ``serve: listening on ...`` and ``SERVE_LISTENING {"host", "port"}`` at
 start, after one warm-up dispatch, and one JSON line of serve totals when it stops (``--duration`` or
 SIGINT), with the ``lstm_seq`` kernel's launches in this process (the
-warm-up's included). Without a card it raises unless ``--device cpu`` is
+warm-up's included) and the rollout codec's calls by path in the run
+(``native_decodes``, ``native_encodes``, ``proto_fallbacks``: the requests
+and replies). Without a card it raises unless ``--device cpu`` is
 given. A fleet is several of these behind ``python -m
 dotaclient_tpu_torch.serve.router``, each started with
 ``--serve carry_shadow=true`` where sessions must resume bit-exact when
@@ -84,8 +86,11 @@ def main(argv=None) -> int:
         load_inference_params,
         make_inference_policy,
     )
+    from dotaclient_tpu_torch.transport import serialize
     from dotaclient_tpu_torch.utils import telemetry, tracing
     from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
+
+    calls0 = serialize.codec_calls()
 
     device = resolve_device(args.device)  # raises without a card unless asked for the CPU
     if device.type == "cuda":
@@ -183,6 +188,7 @@ def main(argv=None) -> int:
             "serve_p99_latency_ms": snap.get("serve/p99_latency_ms", 0.0),
             "serve_weights_version": snap.get("serve/weights_version", 0.0),
             "lstm_seq_launches": lstm.lstm_sequence_kernel.launches,
+            **{k: v - calls0[k] for k, v in serialize.codec_calls().items()},
         }), flush=True)
     return 0
 

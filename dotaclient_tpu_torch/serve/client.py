@@ -12,7 +12,11 @@ budget (``serve.request_deadline_s``) across at most
 ``connect_with_backoff``, and raises :class:`ServeDeadlineError` when the
 budget is spent. A reconnect lands on a fresh slot, so the next request
 either resends the stashed carry row (``serve.carry_shadow``) or is sent
-with ``reset=True``, counted in ``carry_resets``.
+with ``reset=True``, counted in ``carry_resets``. ``retries_total`` counts
+the failed attempts that were retried or ended a request. The caller's
+stop hook (``should_abort``, a SIGTERM latch, say) ends a step, its
+recovery and every backoff between reconnects within one sleep, raising
+``ConnectionError``.
 
 Fleet mode (``router=True``): ``(host, port)`` names a
 :class:`~dotaclient_tpu_torch.serve.router.SessionRouter`. The client
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import socket
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -76,6 +80,7 @@ class ServeClient:
         timeout_s: float = 30.0,
         router: bool = False,
         max_reconnects: int = 6,
+        should_abort: Optional[Callable[[], bool]] = None,
     ) -> None:
         scfg = config.serve
         self._timeout_s = timeout_s
@@ -83,6 +88,7 @@ class ServeClient:
         self._retries = max(0, int(scfg.request_retries))
         self._shadow = bool(scfg.carry_shadow)
         self._max_reconnects = max(1, int(max_reconnects))
+        self._should_abort = should_abort
         self._wire_kwargs = serve_request_wire_kwargs(config)
         self._next_id = 1  # 0 is the attach frame's id
         self.slot = -1
@@ -101,6 +107,7 @@ class ServeClient:
         self.rehomed_count = 0
         self.last_rehomed = False
         self.carry_resets = 0
+        self.retries_total = 0
         self._carry_stash: Optional[Dict[str, np.ndarray]] = None
         self._pending_restore = False
         self._sock: Optional[socket.socket] = None
@@ -122,6 +129,17 @@ class ServeClient:
 
     # -- connection ------------------------------------------------------------
 
+    def _abort_by(self, deadline: float) -> Callable[[], bool]:
+        """The backoff's stop predicate: the caller's stop hook, or the
+        request deadline."""
+        def abort() -> bool:
+            return (self._should_abort is not None and self._should_abort()) or time.monotonic() >= deadline
+        return abort
+
+    def _stop_requested(self) -> None:
+        if self._should_abort is not None and self._should_abort():
+            raise ConnectionError("serve client stopping: stop requested")
+
     def _connect_backend(self, deadline: float) -> None:
         """Connect and read the attach frame."""
 
@@ -142,7 +160,7 @@ class ServeClient:
 
         self._sock = connect_with_backoff(
             factory, max_attempts=self._max_reconnects, base_delay=0.1, max_delay=1.0,
-            should_abort=lambda: time.monotonic() >= deadline,
+            should_abort=self._abort_by(deadline),
         )
 
     def _close_backend(self) -> None:
@@ -174,7 +192,7 @@ class ServeClient:
 
                 self._route_sock = connect_with_backoff(
                     factory, max_attempts=self._max_reconnects, base_delay=0.1, max_delay=1.0,
-                    should_abort=lambda: time.monotonic() >= deadline,
+                    should_abort=self._abort_by(deadline),
                 )
             try:
                 remaining = deadline - time.monotonic()
@@ -197,6 +215,7 @@ class ServeClient:
         # the old slot is gone: the next request restores or resets
         self._pending_restore = True
         while True:
+            self._stop_requested()
             if time.monotonic() >= deadline:
                 raise ServeDeadlineError("recovery exceeded the request deadline budget")
             try:
@@ -296,6 +315,7 @@ class ServeClient:
         deadline = time.monotonic() + self._deadline_s
         attempts = 0
         while True:
+            self._stop_requested()
             try:
                 return self._step_once(obs, reset, deadline)
             except ServeDeadlineError:
@@ -304,6 +324,7 @@ class ServeClient:
                 # socket.timeout is an OSError, FrameCorrupt a ValueError
                 last_err = e
             attempts += 1
+            self.retries_total += 1
             if time.monotonic() >= deadline or attempts > self._retries:
                 raise ServeDeadlineError(
                     f"serve request failed after {attempts} attempt(s) inside the {self._deadline_s:.1f}s "

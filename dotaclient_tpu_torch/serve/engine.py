@@ -408,7 +408,8 @@ class ServeEngine:
                 # after zeroes (a reclaimed slot re-attached with a shadow
                 # row keeps the row), before the window of its request
                 for c, leaf in zip(self._carries, row):
-                    c[slot] = torch.as_tensor(leaf).to(self._device, c.dtype)
+                    # a copy: the decoded row may view a read-only payload
+                    c[slot] = torch.as_tensor(np.array(leaf)).to(self._device, c.dtype)
                 self._tel.counter("serve/carry_installs_total").inc()
             self._apply_pending_weights()
             if rows:

@@ -6,7 +6,9 @@ engine's boundaries, the run record, best-model rotation, ``train``'s
 return dict) and of its CLI. Run on the card::
 
     python -m dotaclient_tpu_torch.train.learner [--smoke] [--steps N] [--actor device|fused|vec|scalar|external]
-        [--no-vec] [--transport inproc|socket|shm] [--listen HOST:PORT] [--shm-name NAME] [--refresh-every N]
+        [--no-vec] [--transport inproc|socket|shm|amqp] [--listen HOST:PORT] [--shm-name NAME]
+        [--amqp-host HOST[:PORT]] [--wire-dtype float32|bfloat16] [--rollout-wire-dtype float32|bfloat16]
+        [--refresh-every N]
         [--overlap] [--n-envs N] [--team-size N] [--opponent scripted_easy|scripted_hard|selfplay|league]
         [--league K=V,...] [--ppo K=V,...] [--reward K=V,...] [--serve K=V,...] [--buffer K=V,...]
         [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
@@ -45,10 +47,12 @@ Five actor modes, ``device`` the default as in the reference:
   (``--transport socket --listen HOST:PORT``) or, on the same host, a
   ``ShmTransportServer`` (``--transport shm --shm-name NAME``: one
   shared-memory ring a slot, drained on the train thread, and a seqlocked
-  weights slab); ``_ingest_impl`` drains it
-  decoded (``consume_decoded``, with the wire byte accounting) into the
-  ring, and the weights go out every ``refresh_every`` batches in the Flax
-  layout (``encode_weights(to_flax(...))``), so a JAX actor reads them too.
+  weights slab) or, through a RabbitMQ broker, an ``AmqpTransport``
+  (``--transport amqp --amqp-host HOST[:PORT]``); ``_ingest_impl`` drains it
+  decoded (``consume_decoded``, with the wire byte accounting; the AMQP
+  queue's protos through ``decode_rollout``) into the ring, and the weights
+  go out every ``refresh_every`` batches in the Flax layout
+  (``encode_weights(to_flax(...))``), so a JAX actor reads them too.
   Fleet snapshot frames go to the ``FleetAggregator``, whose thread starts
   in this mode.
 
@@ -105,10 +109,18 @@ records of the batch an update consumes and emits them, with a sampled
 ``dispatch`` event; a publish carries a ``weights_record``. Join a run's
 logs with ``utils/trace_report.py``.
 
-Not ported yet, each with its ROADMAP item: the AMQP transport and the
-narrow wires (queue 1, item 13), the mesh (item 7) and the JAX debug and
-cache flags (item 12). Their CLI flags are accepted and raise
-``NotImplementedError`` naming the item.
+The narrow wires: ``--wire-dtype bfloat16`` publishes bf16 weights frames
+(``transport.wire_dtype``; actors widen them on apply), and
+``--rollout-wire-dtype bfloat16`` (``transport.rollout_wire_dtype``, the
+actors' value too) makes the ring store the wire dtypes and the device
+actor collect them. The CLI's closing line is ``done: N steps, F frames, R
+frames/sec, D native decodes, E native encodes, P proto fallbacks, L
+lstm_seq launches``: the rollout codec's calls by path
+(``serialize.CODEC_CALLS``) and the kernel's launches in the run.
+
+Not ported yet, each with its ROADMAP item: the mesh (queue 1, item 7) and
+the JAX debug and cache flags (item 12). Their CLI flags are accepted and
+raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -147,7 +159,8 @@ from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.health import VERDICT_KEYS, HealthMonitor
 from dotaclient_tpu_torch.train.ppo import init_train_state, make_epoch_step, make_train_step
 from dotaclient_tpu_torch.train.snapshot import SnapshotEngine, device_copy
-from dotaclient_tpu_torch.transport.queues import InProcTransport
+from dotaclient_tpu_torch.transport import serialize
+from dotaclient_tpu_torch.transport.queues import AmqpTransport, InProcTransport
 from dotaclient_tpu_torch.transport.socket_transport import TransportServer
 from dotaclient_tpu_torch.transport.serialize import decode_rollout, encode_weights
 from dotaclient_tpu_torch.utils import faults, telemetry, tracing, utilization
@@ -1254,7 +1267,6 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_13 = "ROADMAP queue 1, item 13 (AMQP and the narrow wire)"
 _ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
 _ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
 # flags of the reference learner whose features the port does not have
@@ -1265,9 +1277,6 @@ _NOT_PORTED_FLAGS = (
     ("--multihost", {"action": "store_true"}, _ITEM_7),
     ("--dcn-slices", {"type": int}, _ITEM_7),
     ("--model-parallel", {"type": int}, _ITEM_7),
-    ("--amqp-host", {"type": str}, _ITEM_13),
-    ("--wire-dtype", {"type": str}, _ITEM_13),
-    ("--rollout-wire-dtype", {"type": str}, _ITEM_13),
     ("--checkify", {"action": "store_true"}, _ITEM_12),
     ("--compile-cache", {"type": str}, _ITEM_12),
 )
@@ -1331,12 +1340,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="use the scalar (proto) actor pool instead of the vectorized sim (--actor scalar)")
     p.add_argument("--transport", type=str, default="inproc", choices=("inproc", "socket", "shm", "amqp"),
                    help="the weights and experience transport: socket listens for actor processes on "
-                   "--listen, shm serves actors on this host over shared memory (--shm-name); either implies "
-                   "--actor external (amqp: " + _ITEM_13 + ")")
+                   "--listen, shm serves actors on this host over shared memory (--shm-name), amqp goes through "
+                   "the RabbitMQ broker at --amqp-host (needs pika); each implies --actor external")
     p.add_argument("--listen", type=str, default="127.0.0.1:7777", help="HOST:PORT for --transport socket")
     p.add_argument("--shm-name", type=str, default=None,
                    help="the shared-memory lane's name for --transport shm (default tpu-dota-<pid>; actors "
                    "connect with --connect shm://NAME)")
+    p.add_argument("--amqp-host", type=str, default="localhost", help="HOST[:PORT] of the broker for --transport amqp")
+    p.add_argument("--wire-dtype", type=str, default=None, choices=("float32", "bfloat16"),
+                   help="the weights frames' dtype (transport.wire_dtype): bfloat16 halves the fanout's bytes, "
+                   "actors widen on apply")
+    p.add_argument("--rollout-wire-dtype", type=str, default=None, choices=("float32", "bfloat16"),
+                   help="the rollouts' wire dtype (transport.rollout_wire_dtype; give the actors the same): "
+                   "bfloat16 about halves the wire's and the ring's bytes, the ring widening on the card at take; "
+                   "behavior_logp, rewards, dones, values and the carries stay f32")
     p.add_argument("--refresh-every", type=int, default=10,
                    help="publish the weights to the actors every N batches")
     p.add_argument("--overlap", action="store_true",
@@ -1378,8 +1395,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     for flag, _, item in _NOT_PORTED_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
-    if args.transport == "amqp":
-        raise NotImplementedError(f"--transport amqp is not ported yet: {_ITEM_13}")
     if args.actor is None:
         args.actor = "scalar" if args.no_vec else "external" if args.transport != "inproc" else "device"
 
@@ -1413,6 +1428,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   ("team_size", args.team_size)) if v is not None}
     if env_over:
         config = dataclasses.replace(config, env=dataclasses.replace(config.env, **env_over))
+    wire_over = {k: v for k, v in (("wire_dtype", args.wire_dtype),
+                                   ("rollout_wire_dtype", args.rollout_wire_dtype)) if v is not None}
+    if wire_over:
+        config = dataclasses.replace(config, transport=dataclasses.replace(config.transport, **wire_over))
     if args.sync_snapshots:
         config = dataclasses.replace(config, learner=dataclasses.replace(config.learner, async_snapshots=False))
     config = dataclasses.replace(config, seed=args.seed)
@@ -1453,6 +1472,10 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
                                        weights_bytes=t.shm_weights_bytes, poison_frame_limit=t.poison_frame_limit)
         print(f"learner: shm lane {transport.address!r} ({transport.slots} actor slots; actors: --connect "
               f"shm://{transport.address})", flush=True)
+    elif args.transport == "amqp":
+        host, _, port = args.amqp_host.partition(":")
+        transport = AmqpTransport(host, int(port or 5672))
+        print(f"learner: AMQP broker {host}:{port or 5672} (actors: --amqp {args.amqp_host})", flush=True)
     try:
         learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
                           checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,
@@ -1481,6 +1504,7 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
     from dotaclient_tpu_torch.ops import lstm
 
     launches0 = lstm.lstm_sequence_kernel.launches
+    calls0 = serialize.codec_calls()
     try:
         with trace(args.profile):
             out = learner.train(args.steps, overlap=args.overlap, refresh_every=args.refresh_every)
@@ -1495,10 +1519,13 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
             transport.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
-    # the kernel's launches in this run (0 on the CPU, where the plain
-    # version runs), read by chip_smoke.py against the steps
+    # the rollout codec's calls by path and the kernel's launches in this
+    # run (0 on the CPU, where the plain version runs), read by
+    # chip_smoke.py
+    calls = {k: v - calls0[k] for k, v in serialize.codec_calls().items()}
     print(f"done: {out['optimizer_steps']:.0f} steps, {out['frames_trained']:.0f} frames, "
-          f"{out['frames_per_sec']:.0f} frames/sec, "
+          f"{out['frames_per_sec']:.0f} frames/sec, {calls['native_decodes']} native decodes, "
+          f"{calls['native_encodes']} native encodes, {calls['proto_fallbacks']} proto fallbacks, "
           f"{lstm.lstm_sequence_kernel.launches - launches0} lstm_seq launches", flush=True)
     return 0
 

@@ -1,19 +1,21 @@
-"""The wire: the protobuf codec, the framed TCP lane, the same-host
-shared-memory lane and the in-process transport.
+"""The wire: the rollout codec (native and protobuf), the framed TCP lane,
+the same-host shared-memory lane, the in-process transport and the AMQP
+one.
 
-Exports the names of the JAX package's ``transport`` package that the port
-has, resolved on first use: the session router imports the framing of
-``socket_transport`` without loading torch, so this package imports
-nothing up front. ``AmqpTransport`` waits for ROADMAP queue 1, item 13.
+Exports the names of the JAX package's ``transport`` package, resolved on
+first use: the session router imports the framing of ``socket_transport``
+without loading torch, so this package imports nothing up front.
 """
 
 import importlib
 
 _EXPORTS = {
+    "AmqpTransport": "queues",
     "InProcTransport": "queues",
     "ShmTransport": "shm_transport",
     "ShmTransportServer": "shm_transport",
     "SocketTransport": "socket_transport",
+    "Transport": "queues",
     "TransportServer": "socket_transport",
     **{name: "serialize" for name in (
         "decode_rollout", "decode_rollout_bytes", "decode_weights", "encode_rollout", "encode_rollout_bytes",

@@ -1,13 +1,22 @@
-"""The in-process transport: the experience queue and the weights fanout in
-one process.
+"""The in-process transport and the AMQP one: the experience queue and the
+weights fanout.
 
-Counterpart of ``InProcTransport`` in ``dotaclient_tpu/transport/queues.py``
-(the learner builds one when it is given no transport). Experience is a
-work queue, each rollout consumed by exactly one learner, bounded with
-drop-oldest so an actor never blocks on a slow learner; weights are a
+Counterpart of ``dotaclient_tpu/transport/queues.py``. Experience is a
+work queue, each rollout consumed by exactly one learner; weights are a
 fanout with replacement, a reader only ever wants the latest version.
-Protos pass by reference, never serialized to bytes. ``AmqpTransport``
-waits for ROADMAP queue 1, item 13.
+
+``InProcTransport`` (the learner builds one when it is given no transport)
+holds both in one process, bounded with drop-oldest so an actor never
+blocks on a slow learner; protos pass by reference, never serialized.
+
+``AmqpTransport`` puts them on a RabbitMQ broker with the reference's
+topology and names: a durable queue ``experience`` and a fanout exchange
+``weights`` that each transport binds its own exclusive queue to, so a
+transport that binds after a publish waits for the next one. ``pika`` is
+imported when one is built; without it the constructor raises
+``RuntimeError`` naming it. ``publish_rollout_bytes`` takes the native
+encoder's bytes. The learner's ``--transport amqp --amqp-host H[:P]`` and
+the actor's ``--amqp H[:P]`` build one.
 """
 
 from __future__ import annotations
@@ -15,10 +24,19 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Protocol
 
 from dotaclient_tpu_torch.protos import dota_pb2 as pb
 from dotaclient_tpu_torch.utils import telemetry
+
+
+class Transport(Protocol):
+    """Both directions of the actor <-> learner channel."""
+
+    def publish_rollout(self, rollout: "pb.Rollout") -> None: ...
+    def consume_rollouts(self, max_count: int, timeout: Optional[float] = None) -> List["pb.Rollout"]: ...
+    def publish_weights(self, weights: "pb.ModelWeights") -> None: ...
+    def latest_weights(self) -> Optional["pb.ModelWeights"]: ...
 
 
 class InProcTransport:
@@ -83,3 +101,89 @@ class InProcTransport:
     @property
     def pending_rollouts(self) -> int:
         return self._rollouts.qsize()
+
+
+class AmqpTransport:
+    """RabbitMQ-backed transport with the reference's topology: a durable
+    experience queue and a fanout weights exchange."""
+
+    EXPERIENCE_QUEUE = "experience"
+    WEIGHTS_EXCHANGE = "weights"
+
+    def __init__(self, host: str, port: int = 5672, registry: Optional[telemetry.Registry] = None) -> None:
+        try:
+            import pika  # type: ignore[import-not-found]
+        except ImportError as e:
+            raise RuntimeError(
+                "AmqpTransport requires pika (and a reachable RabbitMQ broker); use InProcTransport in "
+                "broker-less environments"
+            ) from e
+        self._tel = registry if registry is not None else telemetry.get_registry()
+        self._conn = pika.BlockingConnection(pika.ConnectionParameters(host=host, port=port))
+        self._ch = self._conn.channel()
+        self._ch.queue_declare(queue=self.EXPERIENCE_QUEUE, durable=True)
+        self._ch.exchange_declare(exchange=self.WEIGHTS_EXCHANGE, exchange_type="fanout")
+        self._weights_queue = self._ch.queue_declare(queue="", exclusive=True).method.queue
+        self._ch.queue_bind(exchange=self.WEIGHTS_EXCHANGE, queue=self._weights_queue)
+
+    def publish_rollout(self, rollout: "pb.Rollout") -> None:
+        self.publish_rollout_bytes(rollout.SerializeToString())
+
+    def publish_rollout_bytes(self, payload) -> None:
+        """Ship serialized rollout bytes (the native encoder's memoryview
+        included: pika takes only bytes)."""
+        self._ch.basic_publish(exchange="", routing_key=self.EXPERIENCE_QUEUE, body=bytes(payload))
+        self._tel.counter("transport/experience_published").inc()
+
+    def consume_rollouts(self, max_count: int, timeout: Optional[float] = None) -> List["pb.Rollout"]:
+        """Up to ``max_count`` rollouts, each acked as it is taken; the
+        consumer is cancelled after, which requeues anything delivered and
+        not acked. Timed only when something drained."""
+        out: List[pb.Rollout] = []
+        t0 = time.perf_counter()
+        for method, _props, body in self._ch.consume(self.EXPERIENCE_QUEUE, inactivity_timeout=timeout):
+            if body is None:
+                break
+            r = pb.Rollout()
+            r.ParseFromString(body)
+            out.append(r)
+            self._ch.basic_ack(method.delivery_tag)
+            if len(out) >= max_count:
+                break
+        self._ch.cancel()
+        if out:
+            self._tel.timer("span/transport/consume").observe(time.perf_counter() - t0)
+            self._tel.counter("transport/experience_consumed").inc(len(out))
+        return out
+
+    def publish_weights(self, weights: "pb.ModelWeights") -> None:
+        self._ch.basic_publish(exchange=self.WEIGHTS_EXCHANGE, routing_key="", body=weights.SerializeToString())
+        self._tel.counter("transport/weights_published").inc()
+        self._tel.gauge("transport/weights_version").set(weights.version)
+
+    def latest_weights(self) -> Optional["pb.ModelWeights"]:
+        """The newest weights frame in this transport's fanout queue, the
+        older ones drained; None when nothing arrived since the last call."""
+        latest: Optional[bytes] = None
+        while True:
+            _method, _props, body = self._ch.basic_get(self._weights_queue, auto_ack=True)
+            if body is None:
+                break
+            latest = body
+        if latest is None:
+            return None
+        msg = pb.ModelWeights()
+        msg.ParseFromString(latest)
+        return msg
+
+    @property
+    def pending_rollouts(self) -> int:
+        """The broker's experience backlog: one passive declare, a round
+        trip (read at log boundaries only)."""
+        return int(self._ch.queue_declare(queue=self.EXPERIENCE_QUEUE, passive=True).method.message_count)
+
+    def close(self) -> None:
+        try:
+            self._conn.close()
+        except Exception:  # noqa: BLE001 - a broker already gone has nothing to close
+            pass

@@ -52,8 +52,9 @@ owned them, which would unlink a live learner's segments when an actor
 exits; attachments here are unregistered (the server, the creator, is the
 only unlinker).
 
-Not ported here: a bf16 weights frame (the narrow wire, ROADMAP queue 1,
-item 13), which ``publish_weights`` refuses.
+The slab carries any weights frame, a bf16 one (``transport.wire_dtype``)
+as well: its ``__wire_cast__`` entry rides inside the frame, and the
+actor's ``decode_weights`` widens the leaves it names.
 """
 
 from __future__ import annotations
@@ -571,13 +572,7 @@ class ShmTransportServer:
     def publish_weights(self, weights: pb.ModelWeights) -> None:
         """The seqlocked slab write (one writer by contract: the snapshot
         engine's thread, or with ``--sync-snapshots`` the train thread,
-        never both). A bf16 frame is refused: the narrow wire is ROADMAP
-        queue 1, item 13."""
-        from dotaclient_tpu_torch.transport.serialize import _WIRE_CAST_MARKER
-
-        if _WIRE_CAST_MARKER in weights.params:
-            raise NotImplementedError("a bf16 weights frame on the shm slab is not ported yet: ROADMAP queue 1, "
-                                      "item 13 (AMQP and the narrow wire)")
+        never both)."""
         payload = weights.SerializeToString()
         mv = self._weights.buf
         cap = self._weights.size - _SLAB_HDR

@@ -2,8 +2,10 @@
 
 Copy of the tier tuples of ``scripts/check_telemetry_schema.py`` that a
 port learner's ``--metrics-jsonl`` record meets (the base tier and the
-snapshot, health, trace, advantage, fleet, outcome and utilization tiers),
-and of its ``validate_lines``, so ``chip_smoke.py`` checks a record on the
+snapshot, health, trace, advantage, fleet, outcome, utilization and wire
+tiers), and of its ``validate_lines`` (a record of a learner serving actor
+processes, marked by its transport server's gauges, is not held to the keys
+only an in-process actor emits), so ``chip_smoke.py`` checks a record on the
 card without the script, which reads the JAX package's telemetry module.
 ``tests/test_torch_runrecord.py`` holds these tuples equal to the
 script's. The multichip tier (``mesh/*``, ``fused/lanes_per_shard``,
@@ -175,6 +177,28 @@ UTILIZATION_KEYS = (
     "util/phase/host_other",
 )
 
+# the wire tier: a socket or shm learner's rollout bytes, at their full
+# width, and the ratio (both servers make them at construction, the gauge
+# at 1.0)
+WIRE_KEYS = (
+    "transport/rollout_bytes_total",
+    "transport/rollout_raw_bytes_total",
+    "transport/rollout_compression_ratio",
+)
+
+# keys only an in-process actor emits, waived for a record that carries an
+# external transport's marker
+IN_PROC_ACTOR_KEYS = (
+    "span/actor/collect/mean_s",
+    "span/actor/drain/mean_s",
+    "actor/frames_shipped",
+    "actor/rollouts_shipped",
+)
+EXTERNAL_TRANSPORT_MARKERS = (
+    "transport/actors_connected",
+    "shm/ring_occupancy",
+)
+
 # every tier a port learner's record meets
 LEARNER_TIERS = (SNAPSHOT_KEYS + HEALTH_KEYS + TRACE_KEYS + ADVANTAGE_KEYS + FLEET_KEYS + OUTCOME_KEYS
                  + UTILIZATION_KEYS)
@@ -213,7 +237,10 @@ def validate_lines(lines: Sequence[str], extra_required: tuple = ()) -> List[str
             if v is not None and not isinstance(v, (int, float)):
                 errors.append(f"line {i}: scalar {k!r} is {type(v).__name__}")
         union.update(scalars)
-    missing = [k for k in (*REQUIRED_KEYS, *extra_required) if k not in union]
+    required = (*REQUIRED_KEYS, *extra_required)
+    if any(m in union for m in EXTERNAL_TRANSPORT_MARKERS):
+        required = tuple(k for k in required if k not in IN_PROC_ACTOR_KEYS)
+    missing = [k for k in required if k not in union]
     if missing:
         errors.append("required telemetry keys never emitted: " + ", ".join(missing))
     roots = {k.rsplit("/", 1)[0] for k in union if k.startswith("span/") and k.rsplit("/", 1)[1] in TIMER_LEAVES}

@@ -46,6 +46,7 @@ from dotaclient_tpu_torch.train import ppo as pppo
 from dotaclient_tpu_torch.train import snapshot as psnap
 from dotaclient_tpu_torch.train.health import HealthMonitor
 from dotaclient_tpu_torch.transport.queues import InProcTransport
+from dotaclient_tpu_torch.transport import serialize as S
 from dotaclient_tpu_torch.transport.serialize import decode_weights
 from dotaclient_tpu_torch.utils import faults, telemetry
 from tests.test_torch_common import flax_params, jax_policy, port_policy, random_obs, small_configs
@@ -178,14 +179,18 @@ def telemetry_registry():
 
 
 def test_ring_host_rows_and_narrow_store_are_not_ported():
-    """The host-row ingest is ported (``tests/test_torch_external.py`` holds
-    it against the reference); the narrow store is not yet."""
+    """Both are ported: the host-row ingest (``tests/test_torch_external.py``
+    holds it against the reference) and the narrow store, built here at the
+    wire dtypes (``tests/test_torch_quantize.py`` holds it against the
+    reference's), its take widened to the f32 ring's dtypes."""
     _, pcfg = buffered_configs()
     buf = TrajectoryBuffer(pcfg, device="cpu", registry=telemetry.Registry())
     assert buf.add([], 0) == 0 and buf.ingested == 0
     narrow = dataclasses.replace(pcfg, transport=dataclasses.replace(pcfg.transport, rollout_wire_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TrajectoryBuffer(narrow, device="cpu")
+    nbuf = TrajectoryBuffer(narrow, device="cpu", registry=telemetry.Registry())
+    stored = S.flatten_tree(nbuf._store)
+    assert stored["obs/units"].dtype == torch.bfloat16 and stored["behavior_logp"].dtype == torch.float32
+    assert nbuf._tel.snapshot()["buffer/shard_bytes"] < buf._tel.snapshot()["buffer/shard_bytes"]
 
 
 # -- the advantage pass ---------------------------------------------------------

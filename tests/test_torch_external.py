@@ -43,6 +43,7 @@ from dotaclient_tpu_torch.transport import serialize as S
 from dotaclient_tpu_torch.transport.queues import InProcTransport
 from dotaclient_tpu_torch.transport.socket_transport import SocketTransport, TransportServer
 from dotaclient_tpu_torch.utils import faults, telemetry
+from tests.test_torch_amqp import install_fake_pika
 from tests.test_torch_buffered import (
     assert_params_close, assert_rows_equal, books, buffered_configs, capture_grads, chunk, noisy_mask,
     telemetry_registry,
@@ -339,10 +340,32 @@ def test_learner_cli_listens_for_actor_processes(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("transport", ["shm", "amqp"])
-def test_learner_cli_refuses_the_transports_of_item_13(transport, capsys):
+def test_learner_cli_refuses_the_transports_of_item_13(transport, capsys, monkeypatch):
     if transport == "amqp":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13 "):
-            plearner.main(["--smoke", "--device", "cpu", "--transport", transport])
+        # ported: the learner CLI on a broker (the fake pika of
+        # tests/test_torch_amqp.py), an actor CLI with --amqp feeding it. The
+        # actor binds its fanout queue first: the learner's first publish
+        # goes only to queues bound before it, as on RabbitMQ
+        broker = install_fake_pika(monkeypatch)
+        done, rc = [], []
+        args = actor_args(0, 4, 64)
+        args[:2] = ["--amqp", "broker"]
+        actor = threading.Thread(target=lambda: rc.append(actor_cli.main(args)), daemon=True)
+        actor.start()
+        deadline = time.time() + WAIT_S
+        while not broker.exchanges.get("weights") and time.time() < deadline:
+            time.sleep(0.01)
+        learner = threading.Thread(target=lambda: done.append(plearner.main(
+            ["--smoke", "--device", "cpu", "--transport", "amqp", "--amqp-host", "broker", "--steps", "2",
+             "--refresh-every", "1"])), daemon=True)
+        learner.start()
+        learner.join(WAIT_S)
+        actor.join(WAIT_S)
+        assert done == [0] and rc == [0]
+        out = capsys.readouterr().out
+        assert "learner: AMQP broker broker:5672" in out and "done: 2 steps" in out
+        seen = [x for x in out.splitlines() if x.startswith("ACTOR_VERSIONS_SEEN ")]
+        assert len(seen) == 1 and max(eval(seen[0].split(" ", 1)[1])) > 0
         return
     # the shm lane is ported: the learner CLI serves it (implying --actor
     # external) and an actor CLI feeds it; the lane is gone afterwards

@@ -67,10 +67,11 @@ SCALAR_MODULES = ("dotaclient_tpu_torch.envs.lane_sim", "dotaclient_tpu_torch.en
 CORE_MODULES = ("dotaclient_tpu_torch.parallel", "dotaclient_tpu_torch.parallel.expert",
                 "dotaclient_tpu_torch.models.moe", "dotaclient_tpu_torch.models.transformer",
                 "dotaclient_tpu_torch.utils.tree")
+WIRE_MODULES = ("dotaclient_tpu_torch.native", "dotaclient_tpu_torch.native.build")
 
 
 def port_sources():
-    return sorted(p for p in PORT.rglob("*") if p.suffix in {".py", ".cu", ".cuh"}) + [ROOT / "chip_smoke.py"]
+    return sorted(p for p in PORT.rglob("*") if p.suffix in {".py", ".cu", ".cuh", ".cc"}) + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_without_jax():
@@ -87,7 +88,7 @@ def test_port_imports_without_jax():
     has_grpc = importlib.util.find_spec("grpc") is not None
     assert int(count) >= 77 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
-                  CORE_MODULES):
+                  CORE_MODULES, WIRE_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -173,3 +174,43 @@ def test_kernels_build_for_hopper_from_package_sources():
         assert pathlib.Path(path).is_file()
         assert pathlib.Path(path).resolve().is_relative_to(PORT)
     assert pathlib.Path(build.BUILD_DIR).resolve().is_relative_to(PORT)
+
+
+# the wire with JAX and the JAX package blocked: the native codec builds
+# from the port's own source and loads from the port's build directory,
+# and AMQP imports; nothing under dotaclient_tpu/native is mapped
+_NATIVE = _BLOCKER.split("import dotaclient_tpu_torch\n")[0] + r"""
+import json
+import numpy as np
+import dotaclient_tpu_torch.native as native
+from dotaclient_tpu_torch.transport import AmqpTransport, serialize
+lib = native.load_library()
+assert lib is not None, native.build.load_error
+payload = serialize.encode_rollout_bytes({"x": np.arange(4, dtype=np.float32)}, 1, 0, 0, 1, 0.0)
+assert serialize.decode_rollout_bytes(payload)[1]["x"].tolist() == [0.0, 1.0, 2.0, 3.0]
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert not any(n.split(".")[0] in BANNED for n in sys.modules)
+print(json.dumps({"lib": lib._name, "reference_mapped": "dotaclient_tpu/native" in maps,
+                  "calls": serialize.codec_calls(), "amqp": AmqpTransport.EXPERIENCE_QUEUE}))
+"""
+
+
+def test_native_codec_and_amqp_import_without_jax_from_the_ports_own_files():
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert pathlib.Path(got["lib"]).resolve().is_relative_to(PORT / "native" / "_build")
+    assert not got["reference_mapped"] and got["amqp"] == "experience"
+    assert got["calls"] == {"native_encodes": 1, "native_decodes": 1, "proto_fallbacks": 0}
+    from dotaclient_tpu_torch.native import build
+
+    assert pathlib.Path(build.SOURCE).resolve().is_relative_to(PORT)
+    # no port source names the reference's library or its directory's files
+    offenders = [f"{p.relative_to(ROOT)}:{i}" for p in port_sources()
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if "libdota_native" in line or re.search(r"[\"']dotaclient_tpu[\"'], *[\"']native", line)]
+    assert not offenders, offenders

@@ -448,19 +448,24 @@ def test_fleet_aggregator_as_the_reference():
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
     """Each flag raises naming its item, but those the external-actor,
-    scalar, core and trace slices ported (``--listen``,
+    scalar, core, trace and wire slices ported (``--listen``,
     ``--refresh-every``, ``--overlap``, ``--transport socket``,
     ``--no-vec``, ``--shm-name``, ``--core``, ``--moe-experts``,
-    ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``), which now
-    reach the learner they configure; the trace flags reach
-    ``tracing.configure`` before the learner is built, and its shutdown
-    after."""
+    ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``,
+    ``--amqp-host``, ``--wire-dtype``, ``--rollout-wire-dtype``), which now
+    reach the learner, config or transport they configure; the trace flags
+    reach ``tracing.configure`` before the learner is built, and its
+    shutdown after; ``--amqp-host`` reaches the ``AmqpTransport`` of
+    ``--transport amqp``."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
     if name == "--trace-sample":
         argv += ["--trace-jsonl", "t.jsonl"]   # the sample rate needs a log
+    if name == "--amqp-host":
+        argv += ["--transport", "amqp"]   # the broker's address is the AMQP transport's
     if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
-                "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample"):
+                "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample", "--amqp-host",
+                "--wire-dtype", "--rollout-wire-dtype"):
         built = []
         interval0 = telemetry.fleet_interval_s
         traced = []
@@ -474,16 +479,23 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
             assert config.model.moe_experts == (4 if name == "--moe-experts" else 0)
             assert telemetry.fleet_interval_s == (1.0 if name == "--fleet-interval" else interval0)
             assert traced == want_trace
+            assert config.transport.wire_dtype == ("bfloat16" if name == "--wire-dtype" else "float32")
+            assert config.transport.rollout_wire_dtype == ("bfloat16" if name == "--rollout-wire-dtype" else "float32")
             raise SystemExit(0)
 
         monkeypatch.setattr(plearner, "Learner", recording)
         monkeypatch.setattr(plearner, "TransportServer", lambda host, port, **kw: type(
             "Server", (), {"address": (host, int(port)), "close": lambda self: None})())
+        brokers = []
+        monkeypatch.setattr(plearner, "AmqpTransport", lambda host, port: brokers.append((host, port)) or type(
+            "Broker", (), {"close": lambda self: None})())
         with pytest.raises(SystemExit):
             plearner.main(argv)
         actor, kw = built[-1]
-        assert actor == {"--transport": "external", "--no-vec": "scalar"}.get(name, "device")
-        assert (kw["transport"] is not None) == (name == "--transport")
+        assert actor == {"--transport": "external", "--no-vec": "scalar", "--amqp-host": "external"}.get(
+            name, "device")
+        assert (kw["transport"] is not None) == (name in ("--transport", "--amqp-host"))
+        assert brokers == ([("localhost", 5672)] if name == "--amqp-host" else [])
         assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
         assert traced == want_trace + [(None, None)] * bool(want_trace)   # the log shut down at the end
         return

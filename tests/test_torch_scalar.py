@@ -50,6 +50,7 @@ from dotaclient_tpu_torch.serve import PolicyServer, ServeEngine, make_inference
 from dotaclient_tpu_torch.serve import client as port_client
 from dotaclient_tpu_torch.train import learner as plearner
 from dotaclient_tpu_torch.transport import serialize as S
+from dotaclient_tpu_torch.transport.queues import InProcTransport
 from dotaclient_tpu_torch.utils import telemetry
 from tests.test_torch_buffered import assert_params_close, books, buffered_configs, capture_grads, noisy_mask
 from tests.test_torch_common import flax_params, jax_policy, port_policy, small_configs, tiny_configs
@@ -325,9 +326,20 @@ def test_actor_pool_refuses_what_it_cannot_run(monkeypatch):
     with pytest.raises(NotImplementedError, match="LSTM core only"):
         ActorPool(dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, core="transformer")), policy, sd,
                   device="cpu")
+    # the narrow rollout wire is ported: the pool ships narrow protos (the
+    # bf16 leaves, int8 actions and the marker) to its transport, full
+    # width to an in-process sink
     narrow = dataclasses.replace(pcfg, transport=dataclasses.replace(pcfg.transport, rollout_wire_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13 "):
-        ActorPool(narrow, policy, sd, device="cpu")
+    transport = InProcTransport(registry=telemetry.Registry())
+    pool = ActorPool(narrow, policy, sd, transport=transport, device="cpu", registry=telemetry.Registry())
+    pool.run(pcfg.ppo.rollout_len)
+    protos = transport.consume_rollouts(64, timeout=0.1)
+    assert protos and all(p.arrays["__wire_cast__"].data for p in protos)
+    meta, arrays = S.decode_rollout(protos[0])
+    assert meta["wire_cast"]["obs/units"] == "float32" and arrays["obs"]["units"].dtype == torch.bfloat16
+    assert arrays["actions"]["move_x"].dtype == np.int8 and arrays["rewards"].dtype == np.float32
+    _, wide = S.decode_rollout(protos[0], upcast=True)
+    assert wide["obs"]["units"].dtype == np.float32 and wide["actions"]["move_x"].dtype == np.int32
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ActorPool(pcfg, policy, sd)

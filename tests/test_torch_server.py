@@ -475,6 +475,103 @@ def test_connect_with_backoff_retries_counts_and_stops():
         connect_with_backoff(flaky(0), should_abort=lambda: True)
 
 
+def test_connect_with_backoff_takes_the_callers_sleep_and_rng():
+    """The caller's ``sleep`` and ``rng`` (the actor CLI seeds one from
+    ``--seed``): the same seeded schedule in both packages, each retry k a
+    draw from (0, min(max_delay, base_delay * 2^(k-1))]."""
+    import random
+
+    from dotaclient_tpu.actor.__main__ import connect_with_backoff as jax_backoff
+    from dotaclient_tpu_torch.actor.backoff import connect_with_backoff
+
+    def flaky(fails):
+        calls = []
+
+        def factory():
+            calls.append(1)
+            if len(calls) <= fails:
+                raise ConnectionRefusedError("down")
+            return len(calls)
+
+        return factory
+
+    slept = {}
+    for name, fn in (("port", connect_with_backoff), ("jax", jax_backoff)):
+        slept[name] = []
+        assert fn(flaky(4), max_attempts=5, base_delay=0.5, max_delay=1.5, sleep=slept[name].append,
+                  rng=random.Random(7)) == 5
+    want_rng = random.Random(7)
+    assert slept["port"] == slept["jax"] == [want_rng.uniform(0.0, d) for d in (0.5, 1.0, 1.5, 1.5)]
+
+
+@contextlib.contextmanager
+def hanging_up_server():
+    """Attaches every connection, then closes it on its first request: each
+    attempt of a step fails at once. Yields (address, connections seen)."""
+    from dotaclient_tpu_torch.transport.socket_transport import _recv_frame
+
+    listener = socket.create_server(("127.0.0.1", 0))
+    listener.settimeout(0.2)
+    stop = threading.Event()
+    seen = [0]
+
+    def serve():
+        while not stop.is_set():
+            try:
+                sock, _ = listener.accept()
+            except OSError:
+                continue
+            seen[0] += 1
+            with sock:
+                _send_frame(sock, KIND_SERVE_REPLY, encode_reply(np.zeros(5, np.int32), 0.0, 0, 0, ATTACH_REQUEST_ID))
+                sock.settimeout(TIMEOUT_S)
+                try:
+                    _recv_frame(sock)
+                except OSError:
+                    pass
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    try:
+        yield listener.getsockname(), seen
+    finally:
+        stop.set()
+        thread.join(TIMEOUT_S)
+        listener.close()
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_serve_client_counts_retries_and_stops_on_the_callers_hook(package):
+    """``retries_total`` counts every failed attempt: request_retries + 1
+    of them before the deadline error. The caller's stop hook ends the
+    step between attempts with a ConnectionError, the retries left unspent;
+    the JAX client does the same."""
+    from dotaclient_tpu.serve.client import ServeDeadlineError as JaxServeDeadlineError
+
+    jcfg, pcfg = configs(request_deadline_s=5.0, request_retries=3)
+    cls, cfg, deadline_error = ((ServeClient, pcfg, ServeDeadlineError) if package == "port"
+                                else (JaxServeClient, jcfg, JaxServeDeadlineError))
+    row = stream(pcfg, 1, seed=101)[0]
+    with hanging_up_server() as (addr, seen):
+        client = cls(*addr, cfg, timeout_s=TIMEOUT_S)
+        try:
+            with pytest.raises(deadline_error, match="after 4 attempt"):
+                client.step(row, reset=True)
+            assert client.retries_total == 4 and seen[0] == 4
+        finally:
+            client.close()
+        n0 = seen[0]
+        client = cls(*addr, cfg, timeout_s=TIMEOUT_S, should_abort=lambda: seen[0] >= n0 + 2)
+        try:
+            t0 = time.monotonic()
+            with pytest.raises(ConnectionError, match="stop requested") as err:
+                client.step(row, reset=True)
+            assert not isinstance(err.value, deadline_error) and time.monotonic() - t0 < 5.0
+            assert client.retries_total == 1 and seen[0] == n0 + 2
+        finally:
+            client.close()
+
+
 def test_router_mode_is_not_ported():
     """``router=True`` needs a router: pointed at a plain backend, which
     skips route frames, the attach fails with a ConnectionError inside its
@@ -586,7 +683,11 @@ def test_serve_cli_serves_a_checkpoint_on_the_cpu(tmp_path):
     final = json.loads(out.lines()[-1])
     assert final["serve_weights_version"] == 12.0 and final["serve_requests_total"] >= 3.0
     assert set(final) == {"serve_requests_total", "serve_dispatches_total", "serve_p99_latency_ms",
-                          "serve_weights_version", "lstm_seq_launches"}
+                          "serve_weights_version", "lstm_seq_launches", "native_decodes", "native_encodes",
+                          "proto_fallbacks"}
+    # the requests and replies ran the native codec (the client's in this
+    # process too)
+    assert final["native_decodes"] >= 3 and final["native_encodes"] >= 3 and final["proto_fallbacks"] == 0
     assert final["lstm_seq_launches"] == 0  # CPU tensors take the plain version
     snaps = [json.loads(l) for l in (tmp_path / "serve.jsonl").read_text().splitlines()]
     assert snaps and snaps[-1]["scalars"]["serve/weights_version"] == 12.0

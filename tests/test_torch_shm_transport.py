@@ -222,13 +222,20 @@ def test_latest_wins_and_cache():
 
 
 def test_bf16_wire_through_slab_is_refused():
-    """The narrow weights frame is ROADMAP queue 1, item 13."""
+    """No longer refused: a bf16 weights frame crosses the slab byte for
+    byte, its CRC checked, and the actor's decode widens it to the params
+    rounded to bf16."""
     server, actor, _ = make_lane("wb")
+    params = {"k": np.linspace(0, 1, 9, dtype=np.float32), "n": np.arange(3, dtype=np.int32)}
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13 "):
-            server.publish_weights(S.encode_weights({"k": np.linspace(0, 1, 9, dtype=np.float32)}, 4,
-                                                    wire_dtype="bfloat16"))
-        assert actor.latest_weights() is None
+        frame = S.encode_weights(params, 4, wire_dtype="bfloat16")
+        server.publish_weights(frame)
+        msg = actor.latest_weights()
+        assert msg.version == 4 and msg.SerializeToString() == frame.SerializeToString()
+        version, tree = S.decode_weights(msg)
+        assert version == 4 and tree["k"].dtype == np.float32
+        np.testing.assert_array_equal(tree["k"], S.bf16_bits_to_f32(S.f32_to_bf16_bits(params["k"])))
+        np.testing.assert_array_equal(tree["n"], params["n"])
     finally:
         actor.close()
         server.close()

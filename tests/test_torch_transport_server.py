@@ -464,7 +464,6 @@ def test_transport_package_exports_the_references_names():
     import dotaclient_tpu.transport as jt
     import dotaclient_tpu_torch.transport as pt
 
-    missing = {"AmqpTransport", "Transport"}   # ROADMAP item 13
-    assert set(pt.__all__) == set(jt.__all__) - missing | {"InProcTransport"}
+    assert set(pt.__all__) == set(jt.__all__)
     for name in pt.__all__:
         assert getattr(pt, name) is not None

@@ -16,6 +16,7 @@ wire bytes are the JAX encoder's.
 
 import dataclasses
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -229,9 +230,13 @@ def test_vec_pool_chunks_encode_to_the_jax_packages_bytes():
     jcfg, jpool, ppool, jout, pout = pools("selfplay", seed=11)
     step_both(jcfg, jpool, ppool, 4)
     for meta, arrays in pout:
-        port = S.encode_rollout_bytes(arrays, **meta)
-        assert port == J.encode_rollout(arrays, **meta).SerializeToString()
-        # and the JAX package's single-pass native encoder parses alike
+        port = bytes(S.encode_rollout_bytes(arrays, **meta))
+        # the two native writers byte for byte; the protobuf codecs' bytes
+        # by parse (a map's wire order follows its hash table)
+        assert port == bytes(J.encode_rollout_bytes(arrays, **meta))
+        want = J.encode_rollout(arrays, **meta)
+        assert S.encode_rollout_bytes(arrays, **meta, native=False) == want.SerializeToString()
+        assert S.pb.Rollout.FromString(port) == want
         jm, ja = J.decode_rollout_bytes(bytes(J.encode_rollout_bytes(arrays, **meta)), native=False)
         pm, pa = S.decode_rollout_bytes(port)
         assert pm == jm
@@ -379,7 +384,7 @@ def test_pool_published_weights_round_trip_through_to_flax():
 
 @pytest.mark.parametrize("extra,item", [
     (["--connect", "shm://lane"], None), (["--amqp", "broker:5672"], "13"),
-    (["--connect", "h:1", "--rollout-wire-dtype", "bfloat16"], "13"),
+    (["--connect", "shm://lane", "--rollout-wire-dtype", "bfloat16"], "13"),
     (["--connect", "shm://lane", "--trace-jsonl", "t"], "8"),
     (["--connect", "shm://lane", "--trace-jsonl", "t", "--trace-sample", "4"], "8"),
     (["--connect", "shm://lane", "--fleet-interval", "1"], None),
@@ -404,8 +409,28 @@ def test_actor_cli_refuses_what_is_not_ported(extra, item, capsys, monkeypatch):
         assert actor_cli.main(extra + ["--platform", "cpu", "--max-reconnects", "1"]) == 1
         assert "cannot reach the learner" in capsys.readouterr().err
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
-        actor_cli.main(extra)
+    # item 13's flags are ported: --amqp and --rollout-wire-dtype reach the
+    # transport factory (the broker's address, the config's rollout wire);
+    # without pika the AMQP transport raises the reference's error
+    seen = []
+
+    def factory(connect, idle_timeout, transport_config, amqp=None):
+        seen.append((connect, amqp, transport_config.rollout_wire_dtype))
+
+        def dial():
+            raise ConnectionError("no learner here")
+        return dial
+
+    monkeypatch.setattr(actor_cli, "transport_factory", factory)
+    assert actor_cli.main(extra + ["--platform", "cpu", "--max-reconnects", "1"]) == 1
+    assert "cannot reach the learner" in capsys.readouterr().err
+    amqp = extra[1] if extra[0] == "--amqp" else None
+    assert seen == [(None if amqp else extra[1], amqp, "bfloat16" if "--rollout-wire-dtype" in extra else "float32")]
+    if amqp:
+        monkeypatch.undo()
+        monkeypatch.setitem(sys.modules, "pika", None)
+        with pytest.raises(RuntimeError, match="requires pika"):
+            actor_cli.main(extra + ["--platform", "cpu", "--max-reconnects", "1"])
 
 
 def test_actor_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -203,6 +203,9 @@ def carry_row(seed, H=8):
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])
 @pytest.mark.parametrize("frame", ["request", "request_with_carry", "reply", "reply_with_carry"])
 def test_serve_frames_bytes_identical(wire, frame):
+    """Each package's protobuf encode writes the other's bytes, and so do
+    the two native writers; across codecs the bytes are held by parse (a
+    protobuf map's wire order follows its hash table)."""
     jcfg, pcfg = tiny_configs(request_wire_dtype=wire)
     if frame.startswith("request"):
         tree = request_tree(pcfg, seed=3, carry=carry_row(4) if frame.endswith("carry") else None)
@@ -210,20 +213,25 @@ def test_serve_frames_bytes_identical(wire, frame):
         assert kw == jkw
         port = S.encode_rollout(tree, 7, 2, 11, 1, 0.0, **kw).SerializeToString()
         jax_ = J.encode_rollout(tree, 7, 2, 11, 1, 0.0, **jkw).SerializeToString()
-        assert S.encode_rollout_bytes(tree, 7, 2, 11, 1, 0.0, **kw) == port
+        assert S.encode_rollout_bytes(tree, 7, 2, 11, 1, 0.0, native=False, **kw) == port
+        native = bytes(S.encode_rollout_bytes(tree, 7, 2, 11, 1, 0.0, **kw))
+        assert native == bytes(J.encode_rollout_bytes(tree, 7, 2, 11, 1, 0.0, **jkw))
+        assert S.pb.Rollout.FromString(native) == S.pb.Rollout.FromString(port)
         assert ("__wire_cast__" in S.decode_rollout_bytes(port)[0].get("wire_cast", {"__wire_cast__": 0})) == (
             wire == "float32")
     else:
         carry = carry_row(5) if frame.endswith("carry") else None
         args = (np.array([1, 4, 2, 9, 3], np.int32), -2.75, 12, 5, 33)
-        port = encode_reply(*args, dispatch_idx=8, carry=carry)
-        jax_ = bytes(J.encode_rollout(
-            {"actions": args[0], "logp": np.asarray(args[1], np.float32), "dispatch_idx": np.asarray(8, np.int32),
-             **({"carry": carry} if carry is not None else {})},
-            model_version=12, env_id=5, rollout_id=33, length=1, total_reward=0.0,
-        ).SerializeToString())
-        # the JAX server's own reply encoder (native codec) parses to the same message
+        reply = {"actions": args[0], "logp": np.asarray(args[1], np.float32), "dispatch_idx": np.asarray(8, np.int32),
+                 **({"carry": carry} if carry is not None else {})}
+        port = S.encode_rollout(reply, model_version=12, env_id=5, rollout_id=33, length=1,
+                                total_reward=0.0).SerializeToString()
+        jax_ = bytes(J.encode_rollout(reply, model_version=12, env_id=5, rollout_id=33, length=1,
+                                      total_reward=0.0).SerializeToString())
+        # each server's reply encoder (the native codec on both sides)
         native = bytes(jax_encode_reply(*args, dispatch_idx=8, carry=carry))
+        assert bytes(encode_reply(*args, dispatch_idx=8, carry=carry)) == native
+        assert S.pb.Rollout.FromString(native) == S.pb.Rollout.FromString(port)
         assert S.decode_rollout_bytes(native)[0] == S.decode_rollout_bytes(port)[0]
         assert_trees_equal(S.decode_rollout_bytes(native)[1], S.decode_rollout_bytes(port)[1])
     assert port == jax_
