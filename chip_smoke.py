@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer and wire paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire and data-parallel paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -347,6 +347,31 @@ Phases (any failure exits non-zero and prints no result line):
     bit for bit; and a bf16 weights frame through the shm slab, equal to
     the params rounded to bf16. AMQP is not driven here: neither machine
     has ``pika`` (its tests run on a fake broker).
+19. data parallel over ``torch.distributed``: (a) ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 --no-python
+    python -c ...`` running the learner CLI's ``main`` (``--multihost
+    --mesh data_parallel=-1``) at phase 14's traffic for DP_CLI_STEPS
+    steps, every ``train`` call's loop under the sync guard once the
+    learner is built (``dp_guarded_learner``): its runtime line (world 1
+    over NCCL), its ``done:`` line's ``lstm_seq`` launches, and its record
+    against every learner tier, the multichip one among them (``mesh/*`` 1,
+    ``learner/psum_ms`` above 0). (b) two spawned ranks on the one card
+    over gloo (NCCL refuses two ranks on a device), each a fused
+    ``Learner`` at phase 6's traffic (64 of the 128 games a rank), DP_WARM
+    + DP_TIMED iterations, beside a world of 1 in this process: the first
+    chunk, the ranks' shards concatenated, bit for bit world 1's; the
+    ranks' params bit for bit equal, after the first update and the last;
+    the first update against world 1's by the CPU tests' rule (the loss
+    within DP_RTOL, at most DP_MAX_PAST of the param elements past DP_RTOL;
+    ``grad_norm`` within DP_GRAD_RTOL, two bf16 roundings of the gradient); ``lstm_seq`` launched iterations x (rollout_len + 1)
+    times on each rank. Logged for information: the params' distance from
+    world 1's after every iteration, both runs' frames/s and the update's
+    all-reduces' share of the loop (gloo's CUDA all-reduce goes through the host, so (b) runs
+    without the sync guard; two ranks on one card say nothing of scaling).
+    The collective primitives (ring and Ulysses attention, the pipeline,
+    the expert dispatch) are not driven here: on one card a world above 1
+    needs gloo, which has no CUDA send, receive or all-to-all; their
+    evidence is the CPU tests.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -516,14 +541,16 @@ BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
 # the path phase 13 runs) and a minibatch's update with the in-step
 # estimator (B=16 T=17: one_pass_advantage off, or V-trace), and the
 # scalar pool's step (BASELINE config 1: the default 8 games against a
-# scripted bot, one lane each, at T=1)
+# scripted bot, one lane each, at T=1), and phase 19's rank of a world of
+# 2 (64 of the 128 games) at the update (its rollout step is the serving
+# step's shape)
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 SCALAR_LANES = 8
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
                (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
                (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128),
                (BUFFERED_BATCH, 17, 128, 128), (BUFFERED_MB, 16, 128, 128), (BUFFERED_MB, 17, 128, 128),
-               (SCALAR_LANES, 1, 128, 128))
+               (SCALAR_LANES, 1, 128, 128), (TRAIN_ENVS // 2, 17, 128, 128))
 
 
 def max_err(got, want):
@@ -4778,6 +4805,347 @@ def wire_phase(device, seed, socket_result, smi=""):
     return result
 
 
+# -- phase 19: data-parallel training over torch.distributed ---------------------------
+
+# (a): the learner CLI under torch.distributed.run at world 1 over NCCL, at
+# phase 14's traffic (128 games against the easy bot, the default batch of
+# 32 chunks), DP_CLI_STEPS steps: a log line at step 10 and the closing one
+DP_CLI_STEPS, DP_CLI_S = 12, 300.0
+# (b): phase 6's fused traffic (128 games, one update an iteration) at
+# world 2 on the one card over gloo (64 games a rank) and at world 1 in
+# this process: DP_WARM, then DP_TIMED timed iterations
+DP_WARM, DP_TIMED, DP_RANK_S = 1, 4, 600.0
+# world 2 against world 1 after the first update (the chunk it trains on is
+# bitwise equal): the CPU tests' rule, the loss within DP_RTOL, params within
+# DP_RTOL / DP_ATOL but for at most DP_MAX_PAST of the elements (the
+# gradient sum is reassociated over the ranks, and a coordinate whose
+# gradient is within rounding of 0 may flip its Adam step); grad_norm within
+# DP_GRAD_RTOL, two bf16 roundings: at bf16 compute the backward rounds each
+# rank's partial gradient to bf16 before the sum, where world 1 rounds the
+# whole gradient once (at f32 compute the norms agree to rounding)
+DP_RTOL, DP_ATOL, DP_MAX_PAST, DP_GRAD_RTOL = 1e-4, 1e-6, 0.01, 2.0 ** -7
+
+
+def dp_train(device, seed, timed_psum):
+    """Phase 6's fused learner at the world this process is in (a world of
+    1 without a process group): its first chunk, its params and metrics
+    after the first update, its params after DP_WARM + DP_TIMED iterations
+    on the host, the timed loop's frames/s
+    (host clock around synchronised loops) and, with ``timed_psum``, the
+    host seconds inside the update's all-reduces (synchronised around
+    each). Every frame counts the job's lanes."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train import ppo as pppo
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    cfg = train_config(seed)
+    T, updates = cfg.ppo.rollout_len, cfg.ppo.steps_per_batch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    actor = learner.device_actor
+    first, metrics, spent, loop_s = [], [], [0.0, 0], []
+    rollout, fused, psum, loop = actor._rollout_impl, learner.fused_step, pppo.psum, learner._run_mode_loop
+
+    def recording(params, state, opp_params=None, **kw):
+        out = rollout(params, state, opp_params, **kw)
+        if not first:
+            first.append(tree_map(lambda t: t.detach().float().cpu().numpy() if t.is_floating_point()
+                                  else t.detach().cpu().numpy(), out[1]))
+        return out
+
+    def recorded_fused(state, actor_state, opp_params=None):
+        out = fused(state, actor_state, opp_params)
+        metrics.append(out[2])
+        return out
+
+    def timed(x, group):
+        if group is None or not timed_psum:
+            return psum(x, group)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = psum(x, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return y
+
+    def timed_loop(num_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(num_steps)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+
+    actor._rollout_impl, learner.fused_step, pppo.psum = recording, recorded_fused, timed
+    learner._run_mode_loop = timed_loop
+    try:
+        torch.cuda.synchronize()
+        lstm.lstm_sequence_kernel.launches = 0
+        learner.train(updates)
+        first_params = host_params(learner)
+        first_metrics = {k: float(v) for k, v in metrics[0].items()}
+        if DP_WARM > 1:
+            learner.train((DP_WARM - 1) * updates)
+        spent[:] = [0.0, 0]
+        loop_s.clear()
+        learner.train(DP_TIMED * updates)
+        launches = lstm.lstm_sequence_kernel.launches
+    finally:
+        pppo.psum = psum
+        learner.close()
+    iters = DP_WARM + DP_TIMED
+    if launches != iters * (T + updates):
+        raise AssertionError(f"lstm_seq launched {launches} times in {iters} iterations, "
+                             f"expected {iters * (T + updates)}")
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    if not (np.isfinite(last["loss"]) and last["health_ok"] == 1.0):
+        raise AssertionError(f"last iteration: loss {last['loss']}, health_ok {last['health_ok']}")
+    frames = DP_TIMED * actor.n_lanes * actor.lane_shards * T
+    return {"chunk": first[0], "params": host_params(learner), "first_params": first_params,
+            "first_metrics": first_metrics,
+            "lanes": actor.n_lanes, "lane_shards": actor.lane_shards, "games": [actor._games.start, actor._games.stop],
+            "frames_per_s": frames / sum(loop_s), "loop_s": sum(loop_s), "psum_s": spent[0], "psum_calls": spent[1],
+            "lstm_seq_launches": launches, "last_metrics": last, "learning_rate": cfg.ppo.learning_rate,
+            "iterations": iters}
+
+
+def host_params(learner):
+    return {k: v.detach().cpu().numpy().copy() for k, v in learner.policy.state_dict().items()}
+
+
+def dp_params_past(got, want):
+    """The CPU tests' rule: the elements of ``got`` past rtol DP_RTOL, atol
+    DP_ATOL of ``want``, and all elements."""
+    past = sum(int((np.abs(got[k] - w) > DP_ATOL + DP_RTOL * np.abs(w)).sum()) for k, w in want.items())
+    return past, sum(w.size for w in want.values())
+
+
+def dp_rank_main(rank, addr, seed, out):
+    """One gloo rank of (b), spawned: cuda:0 for both ranks (NCCL refuses
+    two ranks on one device)."""
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        from dotaclient_tpu_torch.ops import build
+        from dotaclient_tpu_torch.parallel import initialize_runtime
+
+        build.kernel_library()   # the parent's build, loaded
+        initialize_runtime(addr, 2, rank, backend="gloo", timeout_s=DP_RANK_S)
+        out.put((rank, True, dp_train(device, seed, timed_psum=True)))
+    except BaseException:  # noqa: BLE001 - the parent fails the phase with it
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_world2(seed):
+    """(b)'s two ranks, spawned; their results in rank order."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=dp_rank_main, args=(r, addr, seed, out), daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    results, end = {}, time.monotonic() + DP_RANK_S
+    try:
+        while len(results) < 2:
+            try:
+                rank, ok, value = out.get(timeout=max(1.0, min(10.0, end - time.monotonic())))
+            except queue.Empty:
+                if time.monotonic() > end:
+                    raise AssertionError(f"world 2 ran past {DP_RANK_S:.0f} s (ranks done: {sorted(results)})")
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise AssertionError(f"rank(s) {dead} died: exit codes {[procs[r].exitcode for r in dead]}")
+                continue
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [results[0], results[1]]
+
+
+def dp_guarded_learner(argv):
+    """(a)'s rank: the learner CLI's ``main(argv)`` with every ``train``
+    call's loop under the sync guard once the learner is built (the
+    runtime, the mesh and its probe stay outside it); the end of the call
+    runs unguarded (``unguarded_end``) and the snapshot engine's copies
+    wait for the guard to lift, as in phase 13."""
+    import threading
+
+    import torch
+
+    from dotaclient_tpu_torch.train import learner as learner_mod
+
+    cls = learner_mod.Learner
+    init, train = cls.__init__, cls.train
+
+    def guarded_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._sync_gate = gate = threading.Event()
+        gate.set()
+        engine = self._snap_engine
+        if engine is not None:
+            fetch = engine._fetch
+
+            def held_fetch(copy):
+                if not gate.wait(WAIT_S):
+                    raise AssertionError(f"the snapshot engine's copy was held past {WAIT_S:.0f} s")
+                return fetch(copy)
+
+            engine._fetch = held_fetch
+        unguarded_end(self, on_lift=gate.set)
+
+    def guarded(self, *args, **kwargs):
+        self._sync_gate.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return train(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            self._sync_gate.set()
+
+    cls.__init__, cls.train = guarded_init, guarded
+    return learner_mod.main(argv)
+
+
+def dp_cli_phase(seed, root):
+    """(a): the learner CLI as ``torch.distributed.run`` launches it, world
+    1 over NCCL, its train loop under the sync guard (``dp_guarded_learner``),
+    its record against every learner tier (the multichip one among them)."""
+    import os
+
+    jsonl = os.path.join(root, "dp.jsonl")
+    rank = "import sys, chip_smoke; sys.exit(chip_smoke.dp_guarded_learner(sys.argv[1:]))"
+    child = ModuleChild("torch.distributed.run", [
+        "--standalone", "--nproc-per-node", "1", "--no-python", sys.executable, "-c", rank, "--multihost",
+        "--mesh", "data_parallel=-1", "--n-envs", str(RECORD_ENVS), "--opponent", "scripted_easy", "--steps",
+        str(DP_CLI_STEPS), "--seed", str(seed), "--metrics-jsonl", jsonl], root, "dp_cli")
+    try:
+        rc = child.wait(DP_CLI_S)
+        lines = child.lines()
+        if rc != 0:
+            raise AssertionError(f"the learner under torch.distributed.run exited {rc}: {child.stderr()[-3000:]}")
+    finally:
+        child.kill()
+    up = [ln for ln in lines if ln.startswith("learner: distributed runtime up:")]
+    want = ("{'process_index': 0, 'process_count': 1, 'local_devices': 1, 'global_devices': 1} over nccl")
+    if len(up) != 1 or not up[0].endswith(want):
+        raise AssertionError(f"expected one runtime line ending {want!r}: {up}")
+    steps, frames, fps, launches = done_line(lines, "the torch.distributed.run learner")
+    if steps != DP_CLI_STEPS or launches <= 0:
+        raise AssertionError(f"the torch.distributed.run learner: {steps} steps, {launches} lstm_seq launches")
+    from dotaclient_tpu_torch.utils import schema
+
+    raw, scalars = read_record(jsonl)
+    errors = schema.validate_lines(raw, schema.LEARNER_TIERS)
+    if errors:
+        raise AssertionError(f"the torch.distributed.run learner's record: {errors}")
+    last = scalars[-1]
+    gauges = {k: last[k] for k in schema.MULTICHIP_KEYS}
+    if not (gauges["mesh/n_devices"] == gauges["mesh/data_shards"] == gauges["mesh/lane_shards"] == 1.0
+            and gauges["learner/psum_ms"] > 0 and gauges["buffer/shard_bytes"] > 0):
+        raise AssertionError(f"the torch.distributed.run learner's multichip gauges: {gauges}")
+    return {"steps": steps, "frames": frames, "frames_per_s": fps, "lstm_seq_launches": launches,
+            "runtime_line": up[0], "multichip": gauges, "record_lines": len(raw), "sync_debug_mode": "error",
+            "wall_s": child.wall_s}
+
+
+def data_parallel_phase(device, seed, smi=""):
+    """Phase 19: (a) the CLI under torch.distributed.run over NCCL, then (b)
+    world 2 over gloo on the one card against world 1 in this process."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        cli = dp_cli_phase(seed, root)
+    log(f"data parallel (a): torch.distributed.run, world 1 over NCCL: {cli['steps']} steps, "
+        f"{cli['frames_per_s']} frames/s, {cli['lstm_seq_launches']} lstm_seq launches, record of "
+        f"{cli['record_lines']} lines meets every learner tier, multichip {cli['multichip']}, train loop "
+        f"under the sync guard, "
+        f"{cli['wall_s']:.1f} s with the launcher; {smi}")
+    ranks = dp_world2(seed)
+    one = dp_train(device, seed, timed_psum=False)
+    for r, res in enumerate(ranks):
+        half = TRAIN_ENVS // 2
+        if res["lane_shards"] != 2 or res["lanes"] != one["lanes"] // 2 or res["games"] != [half * r, half * (r + 1)]:
+            raise AssertionError(f"rank {r}: {res['lane_shards']} lane shards, {res['lanes']} lanes, "
+                                 f"games {res['games']}")
+    # the first chunk: the ranks' shards, concatenated, bit for bit world 1's
+    from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    joined = tree_map(lambda a, b: np.concatenate([a, b]), ranks[0]["chunk"], ranks[1]["chunk"])
+    chunk_diff = [float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+                  for a, b in zip(tree_leaves(joined), tree_leaves(one["chunk"]))]
+    chunk_bitwise = all(np.array_equal(a, b) for a, b in zip(tree_leaves(joined), tree_leaves(one["chunk"])))
+    if not chunk_bitwise:
+        raise AssertionError(f"the first chunk at world 2 differs from world 1's: max abs diff a leaf {chunk_diff}")
+    # the ranks' params equal bit for bit, after the first update and the last
+    names = list(one["params"])
+    ranks_equal = all(np.array_equal(ranks[0][w][k], ranks[1][w][k]) for w in ("first_params", "params")
+                      for k in names)
+    if not ranks_equal:
+        raise AssertionError("the two ranks' params differ")
+    # the first update against world 1's, by the CPU tests' rule
+    first_rel = {k: abs(ranks[0]["first_metrics"][k] - one["first_metrics"][k]) / abs(one["first_metrics"][k])
+                 for k in ("loss", "grad_norm")}
+    if not (first_rel["loss"] <= DP_RTOL and first_rel["grad_norm"] <= DP_GRAD_RTOL):
+        raise AssertionError(f"world 2's first update's metrics differ from world 1's: relative {first_rel}, "
+                             f"world 2 {ranks[0]['first_metrics']}, world 1 {one['first_metrics']}")
+    past, total = dp_params_past(ranks[0]["first_params"], one["first_params"])
+    if past > DP_MAX_PAST * total:
+        raise AssertionError(f"world 2's params after the first update: {past} of {total} elements past "
+                             f"rtol {DP_RTOL} of world 1's (at most {DP_MAX_PAST} of them may be)")
+    # after every iteration: logged, not held (two Adam trajectories drift
+    # apart by about lr a step once a coordinate's step has flipped)
+    atol = 2 * one["learning_rate"] * one["iterations"]
+    diffs = np.concatenate([np.abs(ranks[0]["params"][k] - one["params"][k]).ravel() for k in names])
+    result = {
+        "cli": cli,
+        "world2": {k: v for k, v in ranks[0].items() if k not in ("chunk", "params", "first_params")},
+        "world2_rank1": {k: v for k, v in ranks[1].items() if k not in ("chunk", "params", "first_params")},
+        "world1": {k: v for k, v in one.items() if k not in ("chunk", "params", "first_params")},
+        "chunk_bitwise": chunk_bitwise, "ranks_params_bitwise": ranks_equal,
+        "first_update_metrics_rel_diff_vs_world1": first_rel,
+        "first_update_params_past_vs_world1": past, "params_elements": total,
+        "params_max_abs_diff_vs_world1": float(diffs.max()), "params_two_lr_steps": atol,
+        "params_bitwise_share_vs_world1": float((diffs == 0).mean()),
+        "psum_share_of_loop": ranks[0]["psum_s"] / ranks[0]["loop_s"],
+        "lstm_seq_launches": {"cli_world1": cli["lstm_seq_launches"], "world1": one["lstm_seq_launches"],
+                              "world2_rank0": ranks[0]["lstm_seq_launches"],
+                              "world2_rank1": ranks[1]["lstm_seq_launches"]},
+    }
+    result["wall_s"] = time.perf_counter() - t0
+    log(f"data parallel (b): world 2 over gloo on one card ({ranks[0]['lanes']} lanes a rank): "
+        f"{ranks[0]['frames_per_s']:.0f} frames/s (the job's), the update's all-reduces "
+        f"{result['psum_share_of_loop']:.3f} of the timed loop ({ranks[0]['psum_calls']} calls, "
+        f"{ranks[0]['psum_s'] * 1e3:.1f} ms); world 1 in process {one['frames_per_s']:.0f} frames/s; first chunk "
+        f"bitwise; the ranks' params bitwise equal; the first update vs world 1: loss and grad_norm relative "
+        f"{first_rel} (tolerances {DP_RTOL}, {DP_GRAD_RTOL}), params {past} of {total} elements past rtol {DP_RTOL}; after {one['iterations']} "
+        f"iterations (logged only): max abs diff {result['params_max_abs_diff_vs_world1']:.3g} (2 x lr x "
+        f"iterations {atol:.3g}), {result['params_bitwise_share_vs_world1']:.4f} of elements bitwise; "
+        f"lstm_seq launches "
+        f"{result['lstm_seq_launches']}; two ranks on one card say nothing of scaling; {smi}")
+    log(f"phase 19 (data parallel): {result['wall_s']:.1f} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4824,6 +5192,7 @@ def main() -> int:
     scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"], smi)
     phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
     phase18 = wire_phase(device, args.seed, external["external"], smi)
+    phase19 = data_parallel_phase(device, args.seed, smi)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -4845,7 +5214,9 @@ def main() -> int:
                                       "train_transformer": phase17["league"]["lstm_seq_launches"],
                                       "wire_learner": phase18["external"]["lstm_seq_launches"],
                                       "wire_actors": phase18["external"]["actors_lstm_seq_launches"],
-                                      "train_buffered_narrow": phase18["buffered"]["lstm_seq_launches"]}
+                                      "train_buffered_narrow": phase18["buffered"]["lstm_seq_launches"],
+                                      **{f"data_parallel_{k}": v
+                                         for k, v in phase19["lstm_seq_launches"].items()}}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     from dotaclient_tpu_torch.transport import serialize
@@ -4861,7 +5232,7 @@ def main() -> int:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
-                       "scalar": scalar, "phase17": phase17, "phase18": phase18}, f,
+                       "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -15,7 +15,7 @@ before the sim steps. Anchor games pin their opponent side to a scripted
 bot, whose control the sim applies over those actions.
 
 Randomness comes from the actor's own ``torch.Generator`` on the device,
-drawn in a fixed order each step: the five Gumbel arrays of the learner
+drawn for the whole chunk before its first step, in a fixed order each step: the five Gumbel arrays of the learner
 lanes' heads, those of the opponent lanes' heads (league mode), the sim
 step's wave jitter, then the reset's. ``_rollout_impl`` also takes that
 noise as inputs, so a test can hand in what the JAX package drew from its
@@ -27,12 +27,27 @@ leaves off the pinned list, int8 or int16 for the bounded int leaves) on
 the device, so ``add_device`` copies narrow rows into the narrow ring. The
 fused path calls ``_rollout_impl`` itself and keeps full width: it trains
 on the chunk at once and stores nothing.
+
+Lane sharding (``mesh`` with more than one batch shard): rank r steps games
+``[r N/n, (r+1) N/n)`` and their lanes (lanes are game-major, so whole
+games move together), as the reference's ``actor_state_sharding`` lays the
+state out. The world is made whole from the seed and cut, and each step's
+randomness (the heads' Gumbel noise, the opponent heads', the step's and
+the reset's jitter) is drawn for the whole batch, as at one shard, and
+sliced: the generator is seeded by the run, not the rank, so a rollout
+is the same whatever the world size. When N does not divide by n, every
+rank runs every game on the same stream (``lane_shards`` 1), the
+reference's replicated layout. ``drain_stats`` and ``begin_drain`` sum the
+stat partials over the ranks first (the partials are per game, so the
+totals do not depend on the shard count); ``host_state`` and
+``load_host_state`` gather the state to the whole-batch layout and cut it
+back, for a checkpoint that any world size restores.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,11 +64,13 @@ from dotaclient_tpu_torch.models import distributions as D
 from dotaclient_tpu_torch.models.policy import Carry, Policy, mask_carry
 from dotaclient_tpu_torch.outcome import ingraph as outcome_ingraph
 from dotaclient_tpu_torch.outcome import records as outcome_records
+from dotaclient_tpu_torch.parallel.collectives import all_gather_rows, psum
+from dotaclient_tpu_torch.parallel.mesh import Mesh, batch_index, batch_shard_count
 from dotaclient_tpu_torch.transport.serialize import (
     _dtype_name, apply_cast_plan, flatten_tree, rollout_cast_plan, rollout_int_bounds, unflatten_tree,
 )
 from dotaclient_tpu_torch.utils import telemetry
-from dotaclient_tpu_torch.utils.tree import tree_map
+from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -126,6 +143,7 @@ class DeviceActor:
         seed: int = 0,
         registry: Optional[telemetry.Registry] = None,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config
@@ -170,12 +188,37 @@ class DeviceActor:
             torch.from_numpy(control).to(self.device),
             generator=self.generator,
         )
+        # lane sharding: the effective shard count is 1 unless the games
+        # and their lanes split evenly over the batch shards
+        n = batch_shard_count(mesh, config.mesh) if mesh is not None else 1
+        self.lane_shards = n if n > 1 and self.n_lanes % n == 0 and N % n == 0 else 1
+        self.lane_shard = batch_index(mesh, config.mesh) if self.lane_shards > 1 else 0
+        # the groups the update and the stat sums run over (None unsharded)
+        self.batch_group = mesh.batch_group if self.lane_shards > 1 else None
+        self.host_group = mesh.batch_host_group if self.lane_shards > 1 else None
+        self.global_spec = self.spec
+        self._global_lanes, self._global_opp_lanes = self.n_lanes, self.n_opp_lanes
+        self._games = slice(0, N)
+        if self.lane_shards > 1:
+            Nl = N // self.lane_shards
+            self._games = slice(self.lane_shard * Nl, (self.lane_shard + 1) * Nl)
+            self.spec = dataclasses.replace(self.spec, n_games=Nl)
+            self.feat = TorchFeaturizer(self.spec, config.obs, config.actions, learner_players, self.device)
+            if opponent_players:
+                self._opp_feat = TorchFeaturizer(self.spec, config.obs, config.actions, opponent_players,
+                                                 self.device)
+            self.n_lanes = self.feat.n_lanes
+            self.n_opp_lanes = max(len(opponent_players) * Nl, 1)
+            self._league_game_mask = self._league_game_mask[self._games]
+            self._outcome_masks = {k: v[self._games] for k, v in self._outcome_masks.items()}
+            sim0 = sim_mod.SimState(**{k: getattr(sim0, k)[self._games] for k in sim_mod.FIELDS})
+        self.lanes_per_shard = self.n_lanes
         self.state = DeviceActorState(
             sim=sim0,
             carry=policy.initial_state(self.n_lanes),
             opp_carry=policy.initial_state(self.n_opp_lanes),
             ep_return=torch.zeros((self.n_lanes,), dtype=torch.float32, device=self.device),
-            ep_steps=torch.zeros((N,), dtype=torch.int32, device=self.device),
+            ep_steps=torch.zeros((self.spec.n_games,), dtype=torch.int32, device=self.device),
             stats=self._zero_stats(),
         )
         # host-side counters, updated by the caller and from drained stats
@@ -236,12 +279,14 @@ class DeviceActor:
         ``Policy`` or a state dict for the actor's policy. Returns (the new
         state, the chunk, this chunk's stat partials). ``noise`` and
         ``opp_noise`` (per head, [T, lanes, n]) and ``jitter`` ({"step",
-        "reset"}, each [T, 2, N, C]) replace the generator's draws. Call it
-        under ``torch.no_grad()``."""
+        "reset"}, each [T, 2, N, C]) replace the generator's draws; they are
+        the whole batch's (every game's lanes), which a lane-sharded actor
+        slices to its own. Call it under ``torch.no_grad()``."""
         cfg, spec = self.config, self.spec
         T = cfg.ppo.rollout_len
+        noise, opp_noise, jitter = self._randomness(T, noise, opp_noise, jitter)
         N, A, L = spec.n_games, len(self.learner_players), self.n_lanes
-        feat, opp_feat, gen = self.feat, self._opp_feat, self.generator
+        feat, opp_feat = self.feat, self._opp_feat
         weights = cfg.reward.as_dict()
         if opp_feat is not None and opp_params is None:
             raise ValueError("opponent lanes exist (league mode): pass opp_params, e.g. from OpponentPool.sample_indexed")
@@ -256,25 +301,17 @@ class DeviceActor:
         for t in range(T):
             obs = feat.featurize(sim)
             logits, _, carry2 = self._policy_step(params, obs, carry)
-            acts, logp = D.sample(
-                logits, obs, generator=gen,
-                noise=None if noise is None else {h: noise[h][t] for h in D.HEADS},
-            )
+            acts, logp = D.sample(logits, obs, noise={h: noise[h][t] for h in D.HEADS})
             packed = torch.stack([acts[h] for h in D.HEADS], dim=1).to(torch.int32)
             sim_acts = feat.actions_to_sim(packed)
             if opp_feat is not None:
                 oobs = opp_feat.featurize(sim)
                 ologits, _, opp_carry2 = self._policy_step(opp_params, oobs, opp_carry)
-                oacts, _ = D.sample(
-                    ologits, oobs, generator=gen,
-                    noise=None if opp_noise is None else {h: opp_noise[h][t] for h in D.HEADS},
-                )
+                oacts, _ = D.sample(ologits, oobs, noise={h: opp_noise[h][t] for h in D.HEADS})
                 osim = opp_feat.actions_to_sim(torch.stack([oacts[h] for h in D.HEADS], dim=1))
                 sim_acts = {k: torch.where(self._opp_mask[None, :], osim[k], v) for k, v in sim_acts.items()}
-            sim2 = sim_mod.step(
-                spec, sim, sim_acts, scripted_possible=self._scripted_possible,
-                jitter=None if jitter is None else jitter["step"][t], generator=gen,
-            )
+            sim2 = sim_mod.step(spec, sim, sim_acts, scripted_possible=self._scripted_possible,
+                                jitter=jitter["step"][t])
             r_terms = shaped_reward_terms(spec, self.learner_players, sim, sim2, weights=weights)
             # the table-order fold: bit-identical to the reference's sum
             r = fold_terms(r_terms)
@@ -286,9 +323,7 @@ class DeviceActor:
             ep_len_g = torch.where(done_g, ep_steps2, 0)
             ep_steps = torch.where(done_g, 0, ep_steps2).to(torch.int32)
 
-            sim = sim_mod.reset_where(
-                spec, sim2, done_g, jitter=None if jitter is None else jitter["reset"][t], generator=gen,
-            )
+            sim = sim_mod.reset_where(spec, sim2, done_g, jitter=jitter["reset"][t])
             done_lane = done_g[:, None].expand(N, A).reshape(L)
             carry = mask_carry(carry2, 1.0 - done_lane.to(torch.float32))
             if opp_feat is not None:
@@ -343,6 +378,77 @@ class DeviceActor:
         )
         return new_state, chunk, stats
 
+    def _randomness(self, T: int, noise, opp_noise, jitter):
+        """This shard's slices of the whole batch's randomness for T steps
+        (the identity at one shard), each a sequence indexed by step: the
+        given arrays, or the generator's draws for every game, step by step
+        in one order (the heads, the opponent heads, the step jitter, the
+        reset jitter), so a rollout is the same whatever the world size."""
+        sizes = self.config.actions.head_sizes
+        gen, dev, spec = self.generator, self.device, self.global_spec
+        n_opp = len(self.opponent_players) * spec.n_games if self._opp_feat is not None else 0
+        # the draws not given, in that order
+        draw_heads, draw_opp, draw_jitter = noise is None, n_opp > 0 and opp_noise is None, jitter is None
+        if draw_heads:
+            noise = {h: [] for h in D.HEADS}
+        if draw_opp:
+            opp_noise = {h: [] for h in D.HEADS}
+        if draw_jitter:
+            jitter = {"step": [], "reset": []}
+        for _ in range(T):
+            for h in D.HEADS if draw_heads else ():
+                noise[h].append(D.gumbel((self._global_lanes, sizes[h]), gen, dev))
+            for h in D.HEADS if draw_opp else ():
+                opp_noise[h].append(D.gumbel((n_opp, sizes[h]), gen, dev))
+            for k in ("step", "reset") if draw_jitter else ():
+                jitter[k].append(sim_mod.draw_jitter(spec, gen, dev))
+        r = self.lane_shard
+        lanes = slice(r * self.n_lanes, (r + 1) * self.n_lanes)
+        noise = {h: [v[t][lanes] for t in range(T)] for h, v in noise.items()}
+        if opp_noise is not None:
+            olanes = slice(r * self.n_opp_lanes, (r + 1) * self.n_opp_lanes)
+            opp_noise = {h: [v[t][olanes] for t in range(T)] for h, v in opp_noise.items()}
+        jitter = {k: [v[t][:, self._games] for t in range(T)] for k, v in jitter.items()}
+        return noise, opp_noise, jitter
+
+    # -- the whole-batch layout (checkpoints) --------------------------------
+
+    def _sharded_leaves(self) -> List[bool]:
+        """Per leaf of the state: cut over the shards (a game or lane
+        leading axis) or whole on every rank (the opponent carry's 1-row
+        stand-in)."""
+        if self.lane_shards == 1:
+            return [False] * len(tree_leaves(self.state))
+        opp_dummy = self._opp_feat is None
+        flags = []
+        for path_leaf in _leaf_owners(self.state):
+            flags.append(not (opp_dummy and path_leaf == "opp_carry"))
+        return flags
+
+    def host_state(self) -> List[torch.Tensor]:
+        """The state's leaves in the whole-batch layout, on the CPU: the
+        shards' rows gathered in rank order over the host group (gloo), so
+        a save is the same whatever the world size. Every rank must call
+        it (a collective when sharded)."""
+        out = []
+        for leaf, cut in zip(tree_leaves(self.state), self._sharded_leaves()):
+            host = leaf.detach().cpu()
+            out.append(all_gather_rows(host, self.host_group) if cut else host.clone())
+        return out
+
+    def load_host_state(self, leaves: List[torch.Tensor]) -> None:
+        """Restore :meth:`host_state`'s whole-batch leaves: each rank keeps
+        its games' rows."""
+        flags = self._sharded_leaves()
+        n, r = self.lane_shards, self.lane_shard
+        local = []
+        for leaf, cut in zip(leaves, flags):
+            if cut:
+                per = leaf.shape[0] // n
+                leaf = leaf[r * per:(r + 1) * per]
+            local.append(leaf.to(self.device))
+        self.state = tree_unflatten(self.state, local)
+
     # -- host surface ------------------------------------------------------
 
     def collect(
@@ -362,10 +468,11 @@ class DeviceActor:
             if self._chunk_cast:
                 chunk = unflatten_tree(apply_cast_plan(flatten_tree(chunk), self._chunk_cast))
         T = self.config.ppo.rollout_len
-        self.env_steps += self.n_lanes * T
-        self.rollouts_shipped += self.n_lanes
-        self._tel.counter("actor/frames_shipped").inc(self.n_lanes * T)
-        self._tel.counter("actor/rollouts_shipped").inc(self.n_lanes)
+        lanes = self.n_lanes * self.lane_shards   # every rank's: the job's count
+        self.env_steps += lanes * T
+        self.rollouts_shipped += lanes
+        self._tel.counter("actor/frames_shipped").inc(lanes * T)
+        self._tel.counter("actor/rollouts_shipped").inc(lanes)
         return chunk, stats
 
     def begin_drain(self):
@@ -376,7 +483,19 @@ class DeviceActor:
         returns :meth:`stats`; the caller (the snapshot engine's thread, or
         :meth:`drain_stats`) feeds it the one copy of ``device_stats``."""
         dev, self.state.stats = self.state.stats, self._zero_stats()
+        if self.lane_shards > 1:
+            dev = self._sum_over_ranks(dev)
         return dev, self._finish_drain
+
+    def _sum_over_ranks(self, stats: Dict[str, Any]) -> Dict[str, Any]:
+        """The partials summed over their game (or lane) axis here, then
+        over the ranks in one all-reduce of the batch group; each leaf keeps
+        a leading axis of 1, which ``reduce_device_stats`` sums away."""
+        local = tree_map(lambda t: t.sum(dim=0, keepdim=True), stats)
+        leaves = tree_leaves(local)
+        flat = psum(torch.cat([t.reshape(-1) for t in leaves]), self.batch_group)
+        parts = [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in leaves]), leaves)]
+        return tree_unflatten(local, parts)
 
     def drain_stats(self) -> Dict[str, float]:
         """Read the accumulated episode stats (the one read of the device,
@@ -416,3 +535,11 @@ class DeviceActor:
             "win_rate_recent": self._recent.get("wins", 0.0) / r_eps if r_eps else 0.0,
             "ep_reward_recent": self._recent.get("ep_return_sum", 0.0) / r_eps if r_eps else 0.0,
         }
+
+
+def _leaf_owners(state: DeviceActorState) -> List[str]:
+    """The top-level field of each of ``state``'s leaves, in leaf order."""
+    out: List[str] = []
+    for f in dataclasses.fields(state):
+        out.extend([f.name] * len(tree_leaves(getattr(state, f.name))))
+    return out

@@ -57,6 +57,19 @@ records go with the next dispatch, as in the reference.
 a snapshot of either wire dtype into this ring's (floats rounded as a fresh
 ingest), and frees, counted in ``dropped_bounds``, the slots whose int
 values would wrap in a narrow ring.
+
+Data parallelism (``mesh`` with more than one batch shard): each rank's
+ring is its shard, ``capacity_rollouts / n`` slots, and a take is its
+``batch_rollouts / n`` oldest chunks (both must divide, with the
+reference's messages); ``buffer/shard_bytes`` is the rank's resident bytes.
+``state_dict`` is then the whole ring's, gathered over the host group
+(gloo; every rank calls it): the ranks' slots end to end, and an order that
+takes each rank's next batch share in rank order, so a ring of one rank
+restoring it takes the same batches. ``load_state_dict`` cuts such a
+snapshot back: order positions go to ranks a batch share at a time, and
+each rank copies its chunks into its own slots, oldest first (a snapshot
+whose chunks do not split evenly drops the newest few, counted in
+``dropped_overflow``).
 """
 
 from __future__ import annotations
@@ -70,6 +83,8 @@ import torch
 
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
+from dotaclient_tpu_torch.parallel.collectives import all_gather_rows
+from dotaclient_tpu_torch.parallel.mesh import Mesh, batch_index, batch_shard_count
 from dotaclient_tpu_torch.train.ppo import example_batch
 from dotaclient_tpu_torch.transport.serialize import (
     BF16, _dtype_name, _to_f32, apply_cast_plan, bf16_tensor_to_bits, f32_to_bf16_bits, flatten_tree,
@@ -89,12 +104,27 @@ class TrajectoryBuffer:
     with version-based staleness checks."""
 
     def __init__(self, config: RunConfig, device: DeviceLike = None,
-                 registry: Optional[telemetry.Registry] = None) -> None:
+                 registry: Optional[telemetry.Registry] = None, mesh: Optional[Mesh] = None) -> None:
         self.config = config
         self.device = resolve_device(device)
         self._tel = registry if registry is not None else telemetry.get_registry()
         cap = config.buffer.capacity_rollouts
-        self.capacity = cap
+        n = batch_shard_count(mesh, config.mesh) if mesh is not None else 1
+        if n > 1:
+            desc = "×".join(f"{a}={mesh.shape[a]}" for a in mesh.batch_axis_names)
+            if cap % n:
+                raise ValueError(f"buffer capacity {cap} not divisible by the batch shard count {n} ({desc})")
+            if config.ppo.batch_rollouts % n:
+                raise ValueError(
+                    f"batch_rollouts {config.ppo.batch_rollouts} not divisible by the batch shard count {n} "
+                    f"({desc}; batches are sharded over these axes)")
+        self._n_shards = n
+        self._shard = batch_index(mesh, config.mesh) if n > 1 else 0
+        self._host_group = mesh.batch_host_group if n > 1 else None
+        cap //= n
+        self.capacity = cap                                   # this rank's slots
+        self.batch_size = config.ppo.batch_rollouts // n      # this rank's share of a batch
+        self._min_fill = -(-config.buffer.min_fill // n)
         self._staleness_limit = (
             config.buffer.max_weight_staleness
             if config.buffer.max_weight_staleness >= 0
@@ -156,7 +186,7 @@ class TrajectoryBuffer:
 
     @property
     def ready(self) -> bool:
-        return self.size >= max(self.config.buffer.min_fill, self.config.ppo.batch_rollouts)
+        return self.size >= max(self._min_fill, self.batch_size)
 
     # -- ingest ------------------------------------------------------------
 
@@ -368,7 +398,7 @@ class TrajectoryBuffer:
         ship order is not version order). With ``hold`` the return is
         ``(batch, ticket)`` and the slots are parked until :meth:`release`
         (trained on) or :meth:`requeue` (returned untrained to the front)."""
-        b = batch_size or self.config.ppo.batch_rollouts
+        b = batch_size or self.batch_size
         if current_version is not None:
             max_st = self._staleness_limit
             stale = [s for s in self._order if current_version - self._slot_version[s] > max_st]
@@ -456,22 +486,75 @@ class TrajectoryBuffer:
 
     def state_dict(self) -> Dict[str, Any]:
         """The ring's contents and bookkeeping as CPU tensors (a read of
-        the device). Held batches are folded back into the order first."""
-        def padded(vals) -> torch.Tensor:
-            out = torch.full((self.capacity,), -1, dtype=torch.int64)
-            vals = list(vals)
-            out[: len(vals)] = torch.as_tensor(vals, dtype=torch.int64)
-            return out
+        the device). Held batches are folded back into the order first. A
+        sharded ring's is the whole ring's (a collective)."""
+        local = self._local_state_dict()
+        return self._gather_state(local) if self._n_shards > 1 else local
 
+    def _local_state_dict(self) -> Dict[str, Any]:
         self.requeue_all_held()
         return {
             "store": tree_map(lambda t: t.detach().cpu().clone(), self._store),
-            "order": padded(self._order),
-            "free": padded(self._free),
+            "order": self._padded(self._order, self.capacity),
+            "free": self._padded(self._free, self.capacity),
             "slot_version": torch.from_numpy(self._slot_version.copy()),
             "counters": torch.as_tensor(
                 [int(self._warmed), self.dropped_stale, self.dropped_overflow, self.ingested,
                  self.dropped_skew, self.dropped_nonfinite, self.dropped_bounds], dtype=torch.int64),
+        }
+
+    def _gather_state(self, local: Dict[str, Any]) -> Dict[str, Any]:
+        """The ranks' snapshots as one ring's: slots end to end, the order
+        a batch share of each rank in turn."""
+        n, cap, b, g = self._n_shards, self.capacity, self.batch_size, self._host_group
+        store = tree_map(lambda t: all_gather_rows(t, g), local["store"])
+        orders = all_gather_rows(local["order"][None], g)          # [n, cap], -1 padded
+        frees = all_gather_rows(local["free"][None], g)
+        versions = all_gather_rows(local["slot_version"], g)
+        counters = all_gather_rows(local["counters"][None], g)
+        per_rank = [[int(x) + r * cap for x in orders[r] if x >= 0] for r in range(n)]
+        order: List[int] = []
+        for lo in range(0, max(len(o) for o in per_rank), b):
+            for o in per_rank:
+                order.extend(o[lo:lo + b])
+        free = [int(x) + r * cap for r in range(n) for x in frees[r] if x >= 0]
+        total = counters.sum(dim=0)
+        total[0] = counters[:, 0].max()                           # warmed: any rank's
+        return {"store": store, "order": self._padded(order, n * cap), "free": self._padded(free, n * cap),
+                "slot_version": versions, "counters": total}
+
+    @staticmethod
+    def _padded(vals, size: int) -> torch.Tensor:
+        out = torch.full((size,), -1, dtype=torch.int64)
+        vals = list(vals)
+        out[: len(vals)] = torch.as_tensor(vals, dtype=torch.int64)
+        return out
+
+    def _cut_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's part of a whole ring's snapshot, in its own slots:
+        order position p belongs to rank ``(p // share) % n``; the ranks
+        keep as many chunks each as the fewest holds (at most a ring's
+        worth), oldest first."""
+        n, r, cap, b = self._n_shards, self._shard, self.capacity, self.batch_size
+        order = [int(x) for x in np.asarray(state["order"]) if x >= 0]
+        mine = [[] for _ in range(n)]
+        for p, slot in enumerate(order):
+            mine[(p // b) % n].append(slot)
+        keep = min(min(len(m) for m in mine), cap)
+        dropped = len(order) - n * keep
+        rows = mine[r][:keep]
+        idx = torch.as_tensor(rows + [0] * (cap - keep), dtype=torch.int64)
+        counters = torch.as_tensor(state["counters"], dtype=torch.int64).clone()
+        if r != 0:
+            counters[1:] = 0                                      # the totals stay with rank 0
+        elif dropped:
+            counters[2] += dropped
+        return {
+            "store": tree_map(lambda t: torch.as_tensor(t)[idx], state["store"]),
+            "order": self._padded(range(keep), cap),
+            "free": self._padded(range(cap - 1, keep - 1, -1), cap),
+            "slot_version": torch.as_tensor(np.asarray(state["slot_version"])[rows + [0] * (cap - keep)]),
+            "counters": counters,
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -479,7 +562,10 @@ class TrajectoryBuffer:
         store is cast to this ring's dtypes (exact upward, rounded as a
         fresh ingest downward), and a slot whose int values would wrap in
         this ring's narrow dtype is freed and counted in ``dropped_bounds``
-        instead."""
+        instead. A sharded ring takes its part of a whole ring's snapshot
+        (:meth:`_cut_state`), whatever world size wrote it."""
+        if self._n_shards > 1:
+            state = self._cut_state(state)
         saved = flatten_tree(state["store"])
         bad = np.zeros((self.capacity,), bool)
         for name, info in self._int_guards.items():

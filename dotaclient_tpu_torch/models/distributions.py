@@ -69,8 +69,14 @@ def _gumbel(
 ) -> torch.Tensor:
     """Standard Gumbel noise of ``like``'s shape: -log(-log(u)), with u
     uniform on [tiny, 1), as JAX's ``random.gumbel`` draws it."""
+    return gumbel(like.shape, generator, like.device)
+
+
+def gumbel(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
+    """:func:`_gumbel` of a shape: the same draw from ``generator``, so a
+    caller that draws a whole batch ahead gets what ``sample`` would."""
     u = torch.rand(
-        like.shape, generator=generator, device=like.device, dtype=torch.float32
+        shape, generator=generator, device=device, dtype=torch.float32
     )
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))

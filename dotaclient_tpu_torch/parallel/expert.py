@@ -1,10 +1,16 @@
-"""Capacity-limited top-1 (Switch) routing, the math ``models/moe.py`` runs.
+"""Expert parallelism: capacity-limited top-1 (Switch) routing, and the
+explicit expert dispatch over a mesh axis.
 
-Counterpart of ``expert_capacity`` and ``route_top1`` of
-``dotaclient_tpu/parallel/expert.py``. The reference's ``moe_shard`` and
-``make_expert_dispatch`` (a ``shard_map`` with two ``all_to_all`` exchanges
-a layer) spread the experts over several devices; on one card every expert
-is local, so they wait for the multi-GPU item (ROADMAP queue 1, item 7).
+Counterpart of ``dotaclient_tpu/parallel/expert.py``. ``expert_capacity``
+and ``route_top1`` are the routing math ``models/moe.py`` runs.
+``moe_shard`` and ``make_expert_dispatch`` are the GShard/Switch plan with
+the experts spread over the ranks of one axis: tokens cut over the axis
+(each rank ``B/n``), experts cut over the same axis (each rank ``E/n`` whole
+expert FFNs), and the dispatched token blocks cross the axis twice a layer
+with ``all_to_all`` (token shard to expert shard, and back). A token past
+its expert's capacity is dropped: its output row is zeros. The learner's
+MoE core keeps every expert on each rank (GSPMD's ``"expert"`` rule inside
+``models/moe.py`` is ROADMAP queue 1, item 7b).
 
 The routing reads nothing on the host: a token's slot in its expert's queue
 is a ``cumsum`` of one-hot rows over the batch axis, so the tokens that
@@ -20,6 +26,12 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+
+from dotaclient_tpu_torch.parallel.collectives import Group, all_gather_rows, all_to_all, group_size
+from dotaclient_tpu_torch.parallel.mesh import Mesh, axis_group
+
+AXIS = "data"
 
 
 def expert_capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
@@ -49,3 +61,52 @@ def route_top1(
     dispatch = onehot[..., None] * keep[..., None] * slot
     combine = dispatch * prob[:, None, None]
     return dispatch, combine, probs
+
+
+def moe_shard(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, group: Group = None, capacity_factor: float = 2.0) -> torch.Tensor:
+    """One rank's MoE layer: ``x`` its token shard ``[Bl, D]``, ``gate_w``
+    ``[D, E]`` whole, ``w1 [El, D, F]``, ``b1 [El, F]``, ``w2 [El, F, D]``,
+    ``b2 [El, D]`` its expert shard (El = E / n). Returns ``[Bl, D]``: each
+    token's chosen expert's output times its gate probability, zeros for a
+    dropped token."""
+    n = group_size(group)
+    Bl, D = x.shape
+    El = w1.shape[0]
+    E = El * n
+    capacity = expert_capacity(Bl, E, capacity_factor)
+    dispatch, combine, _ = route_top1(x, gate_w, E, capacity)
+    # this rank's contribution to every expert's queue [E, C, D]
+    xin = torch.einsum("bec,bd->ecd", dispatch, x.to(torch.float32))
+    # token shard -> expert shard: expert group j to rank j; the queues from
+    # every rank concatenated along C in rank order: [El, n*C, D]
+    got = all_to_all(xin.reshape(n, El, capacity, D), group)
+    xin = got.permute(1, 0, 2, 3).reshape(El, n * capacity, D)
+    h = torch.einsum("ecd,edf->ecf", xin, w1.to(torch.float32)) + b1.to(torch.float32)[:, None]
+    h = F.gelu(h, approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", h, w2.to(torch.float32)) + b2.to(torch.float32)[:, None]
+    # expert shard -> token shard: the inverse exchange, back to [E, C, D]
+    back = all_to_all(out.reshape(El, n, capacity, D).permute(1, 0, 2, 3), group)
+    out = back.reshape(E, capacity, D)
+    return torch.einsum("bec,ecd->bd", combine, out).to(x.dtype)
+
+
+def make_expert_dispatch(mesh: Mesh, axis: str = AXIS, capacity_factor: float = 2.0, gather: bool = False):
+    """The MoE layer over ``axis``: ``(x [B, D], gate_w [D, E], w1 [E, D, F],
+    b1 [E, F], w2 [E, F, D], b2 [E, D])``, each whole on every rank, ->
+    this rank's ``[B/n, D]`` (the whole ``[B, D]`` with ``gather``); tokens
+    and experts cut over the same axis."""
+    group, n, me = axis_group(mesh, axis)
+
+    def local(t: torch.Tensor) -> torch.Tensor:
+        if t.shape[0] % n:
+            raise ValueError(f"leading axis {t.shape[0]} not divisible by the {axis!r} axis size {n}")
+        per = t.shape[0] // n
+        return t[me * per:(me + 1) * per]
+
+    def layer(x, gate_w, w1, b1, w2, b2) -> torch.Tensor:
+        y = moe_shard(local(x), gate_w, local(w1), local(b1), local(w2), local(b2), group=group,
+                      capacity_factor=capacity_factor)
+        return all_gather_rows(y, group) if gather else y
+
+    return layer

@@ -14,7 +14,7 @@ return dict) and of its CLI. Run on the card::
         [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
-        [--init-from DIR]
+        [--init-from DIR] [--multihost] [--mesh K=V,...] [--dcn-slices N]
 
 Five actor modes, ``device`` the default as in the reference:
 
@@ -118,9 +118,31 @@ frames/sec, D native decodes, E native encodes, P proto fallbacks, L
 lstm_seq launches``: the rollout codec's calls by path
 (``serialize.CODEC_CALLS``) and the kernel's launches in the run.
 
-Not ported yet, each with its ROADMAP item: the mesh (queue 1, item 7) and
-the JAX debug and cache flags (item 12). Their CLI flags are accepted and
-raise ``NotImplementedError`` naming the item.
+Data parallelism (``parallel/``): one process a card, each a rank of the
+job's process group. ``Learner(..., mesh=None)`` builds the mesh from the
+group (a world of 1 without one), broadcasts the initial or restored train
+state from rank 0, sets the ``mesh/*``, ``fused/lanes_per_shard``,
+``buffer/shard_bytes`` and ``learner/psum_ms`` gauges, and runs the
+reference's minibatch divisibility preflight. The device actor is
+lane-sharded, the ring sharded, and every update sums its statistics and
+gradients over the batch group, so the params stay equal on every rank;
+the stat drains and the league's outcomes are summed over the ranks
+before rank 0 logs them. Rank 0 alone publishes, writes checkpoints (of
+the whole-batch layout, which any world size restores), the run record and
+the trace; every rank reads the checkpoint directory, which must be shared.
+The ranks agree on stopping and on a health rollback with one host
+all-reduce of two flags a loop iteration (gloo), so they always leave the
+loop and roll back at the same step; no branch taken on one rank alone
+calls a collective. A job::
+
+    python -m torch.distributed.run --nproc-per-node K -m dotaclient_tpu_torch.train.learner --multihost \
+        [--mesh data_parallel=-1] [--dcn-slices D] ...
+
+Not ported yet, each with its ROADMAP item: tensor parallelism in the
+learner (``--model-parallel`` above 1), an MoE core and the host-fed actor
+modes (``external``, ``vec``, ``scalar``) on a world above 1 (queue 1, item
+7b), and the JAX debug and cache flags (item 12). They raise
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -145,8 +167,8 @@ from dotaclient_tpu_torch.actor.runtime import ActorPool
 from dotaclient_tpu_torch.actor.vec_runtime import VecActorPool
 from dotaclient_tpu_torch.buffer import TrajectoryBuffer
 from dotaclient_tpu_torch.config import (
-    BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, PPOConfig, RewardConfig, RunConfig, ServeConfig,
-    default_config,
+    BufferConfig, HealthConfig, LeagueConfig, LearnerConfig, MeshConfig, PPOConfig, RewardConfig, RunConfig,
+    ServeConfig, default_config,
 )
 from dotaclient_tpu_torch.device import DeviceLike, resolve_device
 from dotaclient_tpu_torch.league.pool import LIVE, OpponentPool
@@ -154,6 +176,9 @@ from dotaclient_tpu_torch.models.convert import to_flax
 from dotaclient_tpu_torch.models.policy import init_params, make_policy
 from dotaclient_tpu_torch.outcome import records as outcome_records
 from dotaclient_tpu_torch.outcome.aggregator import OutcomeAggregator
+from dotaclient_tpu_torch.parallel import distributed as pdist
+from dotaclient_tpu_torch.parallel.collectives import psum
+from dotaclient_tpu_torch.parallel.mesh import Mesh, batch_index, batch_shard_count, collective_probe_ms, make_mesh
 from dotaclient_tpu_torch.train.advantage import make_advantage_pass, one_pass_enabled
 from dotaclient_tpu_torch.train.fused import make_fused_step
 from dotaclient_tpu_torch.train.health import VERDICT_KEYS, HealthMonitor
@@ -169,7 +194,7 @@ from dotaclient_tpu_torch.utils.fleet import FleetAggregator
 from dotaclient_tpu_torch.utils.metrics import MetricsLogger
 from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 from dotaclient_tpu_torch.utils.profiling import trace
-from dotaclient_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+from dotaclient_tpu_torch.utils.tree import tree_map
 
 ACTOR_MODES = ("device", "fused", "vec", "scalar", "external")
 
@@ -201,9 +226,32 @@ class Learner:
         logdir: Optional[str] = None,
         metrics_jsonl: Optional[str] = None,
         transport: Any = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
+        if config.mesh.model_parallel > 1:
+            raise NotImplementedError(f"model_parallel {config.mesh.model_parallel}: tensor parallelism in the "
+                                      f"learner is not ported yet: {_ITEM_7B}")
+        mesh = mesh if mesh is not None else make_mesh(config.mesh)
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh.shape}: launch as many ranks as the mesh "
+                             "holds, or give data_parallel=-1")
+        n_shards = batch_shard_count(mesh, config.mesh)
+        if n_shards > 1 and actor in ("external", "vec", "scalar"):
+            raise NotImplementedError(f"the {actor!r} actor mode on a world of {n_shards} ranks (its chunks reach "
+                                      f"one rank and would have to be scattered): {_ITEM_7B}")
+        if n_shards > 1 and config.model.moe_experts > 0:
+            raise NotImplementedError(f"an MoE core on a world of {n_shards} ranks: {_ITEM_7B}")
+        self.mesh = mesh
+        self.n_shards = n_shards
+        self.is_chief = mesh.rank == 0
+        # the gloo group of the ranks' host agreements and gathers (None
+        # on a world of 1)
+        self._host_group = mesh.batch_host_group if n_shards > 1 else None
+        if not self.is_chief:
+            # rank 0 alone writes the record
+            logdir = metrics_jsonl = None
         if actor == "scalar" and config.env.opponent == "league":
             raise NotImplementedError("league mode needs frozen-opponent lanes; the scalar pool has none: use "
                                       "actor='device' or 'vec'")
@@ -218,6 +266,23 @@ class Learner:
         if actor != "fused" and config.ppo.batch_rollouts % max(1, config.ppo.minibatches):
             raise ValueError(f"batch_rollouts {config.ppo.batch_rollouts} not divisible by minibatches "
                              f"{config.ppo.minibatches}")
+        if config.ppo.minibatches > 1:
+            # each minibatch is itself a batch cut over the ranks: in fused
+            # mode the chunk is the lane set, split along lanes; the
+            # buffered modes split batch_rollouts
+            if actor == "fused":
+                from dotaclient_tpu_torch.actor.device_rollout import lane_split
+
+                total = config.env.n_envs * len(lane_split(config)[0])
+                what = f"lane count {total}"
+            else:
+                total = config.ppo.batch_rollouts
+                what = f"batch_rollouts {total}"
+            mb = total // config.ppo.minibatches
+            if total % config.ppo.minibatches or mb % n_shards:
+                raise ValueError(
+                    f"{what} must split into minibatches ({config.ppo.minibatches}) of a size divisible by the "
+                    f"batch shard count {n_shards} (minibatches are data-sharded batches); got minibatch size {mb}")
         league_on = config.league.enabled or config.env.opponent == "league"
         stride = config.steps_per_dispatch * config.ppo.steps_per_batch
         if league_on and actor in ("device", "fused") and stride > config.league.opponent_hold:
@@ -230,7 +295,9 @@ class Learner:
             )
         self.actor_mode = actor
         self.config = config
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if device is not None or mesh.world_size == 1 else pdist.rank_device()
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self.registry = registry if registry is not None else telemetry.get_registry()
         tracing.ensure_metrics(self.registry)
         # captured once (configure before building the learner): tracing
@@ -243,6 +310,7 @@ class Learner:
             self.init_from_step = self._seed_from(init_from, checkpoint_dir, restore)
         self.state = init_train_state(self.policy, config.ppo)
         self.ckpt: Optional[CheckpointManager] = None
+        self._ckpt_dir = checkpoint_dir
         # best-model rotation: <checkpoint_dir>/best at the best windowed
         # win rate; its manager is made at the first qualifying save (a
         # run that never qualifies leaves no empty tree), but the best so
@@ -255,11 +323,13 @@ class Learner:
             self.ckpt = CheckpointManager(checkpoint_dir, registry=self.registry)
             if restore and self.ckpt.latest_step() is not None:
                 self.state, _ = self.ckpt.restore(config, self.state)
-            if config.checkpoint_best_min_episodes > 0:
+            if config.checkpoint_best_min_episodes > 0 and self.is_chief:
                 self._best_dir = os.path.join(checkpoint_dir, "best")
                 self._best_win = self._load_best_win()
         elif restore:
             raise ValueError("restore needs a checkpoint_dir")
+        # every rank starts from rank 0's state (the seed's or the restore's)
+        self._broadcast_train_state()
         # the anchor of anchor_kl is the policy as constructed (after
         # init_from or restore), frozen
         self.anchor = None
@@ -283,7 +353,7 @@ class Learner:
         self.host_pool: Optional[Any] = None
         if actor in ("device", "fused"):
             self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
-                                            device=self.device)
+                                            device=self.device, mesh=mesh)
         elif actor == "scalar":
             self.host_pool = ActorPool(config, self.policy, self._actor_params_copy(), transport=self.transport,
                                        seed=seed, version=self.state.version, device=self.device,
@@ -303,18 +373,39 @@ class Learner:
         self.fused_step = None
         self.train_step = self.epoch_step = self.advantage_pass = None
         self.buffer: Optional[TrajectoryBuffer] = None
+        # a buffered rank whose actor runs every game keeps its share of
+        # the chunk's lanes (the ring is sharded whatever the actor's layout)
+        self._lane_keep: Optional[slice] = None
         if actor == "fused":
             self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
         else:
-            self.train_step = make_train_step(config, anchor=self.anchor)
+            group = mesh.batch_group if n_shards > 1 else None
+            self.train_step = make_train_step(config, anchor=self.anchor, group=group)
             # ppo.fused_epoch picks nothing here: the reference's staged
             # loop and its scanned epoch are the same Python loop in torch
             if config.ppo.steps_per_batch > 1:
-                self.epoch_step = make_epoch_step(config, anchor=self.anchor)
+                self.epoch_step = make_epoch_step(config, anchor=self.anchor, group=group)
             if one_pass_enabled(config):
                 self.advantage_pass = make_advantage_pass(self.policy, config)
-            self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry)
+            self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry, mesh=mesh)
+            da = self.device_actor
+            if da is not None and n_shards > 1 and da.lane_shards == 1:
+                if da.n_lanes % n_shards:
+                    raise ValueError(f"the buffered learner's chunk of {da.n_lanes} lanes must split over the "
+                                     f"{n_shards} batch shards")
+                per = da.n_lanes // n_shards
+                i = batch_index(mesh, config.mesh)
+                self._lane_keep = slice(i * per, (i + 1) * per)
         reg = self.registry
+        # the mesh's gauges, eager so any record meets the multichip tier;
+        # the psum probe is one blocking all-reduce at construction
+        reg.gauge("mesh/n_devices").set(float(mesh.size))
+        reg.gauge("mesh/data_shards").set(float(n_shards))
+        reg.gauge("buffer/shard_bytes")
+        reg.gauge("mesh/lane_shards").set(float(self.device_actor.lane_shards) if self.device_actor else 0.0)
+        reg.gauge("fused/lanes_per_shard").set(
+            float(self.device_actor.lanes_per_shard) if self.device_actor else 0.0)
+        reg.gauge("learner/psum_ms").set(collective_probe_ms(mesh, config.mesh, self.device))
         reg.gauge("advantage/one_pass").set(1.0 if self.advantage_pass is not None else 0.0)
         reg.gauge("advantage/pass_ms")
         reg.gauge("advantage/overlap_fraction")
@@ -342,7 +433,7 @@ class Learner:
         # (built on every run for its keys; its thread starts only in the
         # external modes) and the outcome curves, ticked here at log
         # boundaries
-        self.metrics = MetricsLogger(logdir, jsonl=metrics_jsonl, registry=self.registry)
+        self.metrics = MetricsLogger(logdir, jsonl=metrics_jsonl, registry=self.registry, console=self.is_chief)
         self.fleet = FleetAggregator(registry=self.registry, emit_event=self.metrics.emit_event)
         outcome_records.ensure_actor_metrics(self.registry)
         self.outcome = OutcomeAggregator(registry=self.registry)
@@ -371,7 +462,10 @@ class Learner:
         # True between an update's issue and the next read of the device:
         # host work then overlaps the card's
         self._dispatch_inflight = False
+        # the loop's stop flag; on a world above 1 a signal sets
+        # _stop_signal and the ranks agree on the stop (_agree)
         self._stop_requested = False
+        self._stop_signal = False
         self._poll_timeout = config.buffer.consume_poll_timeout_s
         # the loop options of the running train call
         self._refresh_every, self._overlap, self._actor_steps, self._midrun_every = 1, False, 0, 0
@@ -433,9 +527,58 @@ class Learner:
 
     def request_stop(self) -> None:
         """Make the running ``train`` leave its loop at the next step
-        boundary; its end then saves the whole pipeline, so the run resumes
+        boundary (on a world above 1, the step at which the ranks next
+        agree); its end then saves the whole pipeline, so the run resumes
         at that exact step. One flag write: safe in a signal handler."""
-        self._stop_requested = True
+        self._stop_signal = True
+        if self.n_shards == 1:
+            self._stop_requested = True
+
+    # -- the ranks ------------------------------------------------------------
+
+    def _broadcast_train_state(self) -> None:
+        """Rank 0's params, Adam moments and counters to every rank: device
+        tensors over the batch group, host ones over its gloo twin."""
+        if self.n_shards == 1:
+            return
+        import torch.distributed as dist
+
+        def bcast(t: torch.Tensor) -> None:
+            dist.broadcast(t, src=0, group=self._host_group if t.device.type == "cpu" else self.mesh.batch_group)
+
+        with torch.no_grad():
+            for t in self.policy.state_dict().values():
+                bcast(t)
+            opt = self.state.optimizer
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    for k in sorted(opt.state.get(p, {})):
+                        if isinstance(opt.state[p][k], torch.Tensor):
+                            bcast(opt.state[p][k])
+        counters = torch.tensor([self.state.step, self.state.version], dtype=torch.int64)
+        bcast(counters)
+        self.state.step, self.state.version = int(counters[0]), int(counters[1])
+
+    def _barrier(self) -> None:
+        if self.n_shards > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._host_group)
+
+    def _agree(self) -> bool:
+        """On a world above 1: one host all-reduce (MAX) of this rank's stop
+        signal and health latch, at the same point of every rank's loop;
+        sets the agreed stop and returns whether any rank latched. On a
+        world of 1, the local latch."""
+        latched = self._health is not None and self._health.unhealthy is not None
+        if self.n_shards == 1:
+            return latched
+        import torch.distributed as dist
+
+        flags = torch.tensor([float(self._stop_signal), float(latched)])
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._host_group)
+        self._stop_requested = self._stop_requested or bool(flags[0])
+        return bool(flags[1])
 
     def close(self) -> None:
         """Finish the snapshot engine's pending jobs and stop its thread,
@@ -484,7 +627,10 @@ class Learner:
             return
         pending, self._league_pending = self._league_pending, []
         stacked = torch.stack([torch.stack([st["league_wins"].sum(), st["league_episodes"].sum()])
-                               for _, st in pending]).cpu().numpy()
+                               for _, st in pending])
+        # every rank's games (the same draws on every rank)
+        group = self.device_actor.batch_group if self.device_actor is not None else None
+        stacked = psum(stacked, group).cpu().numpy()
         for (uid, _), (wins, games) in zip(pending, stacked):
             self.league.report(uid, float(wins), float(games))
 
@@ -675,13 +821,14 @@ class Learner:
         """What a restore needs beyond the train state to resume the exact
         pipeline: the ring and its bookkeeping, the device actor's state
         (sim worlds, carries, episode accumulators) as flat leaves and its
-        RNG, and the minibatch draw count. The prefetch lane is flushed
-        first so the ring holds every unconsumed chunk."""
+        RNG, and the minibatch draw count, each in the whole batch's layout
+        (gathered over the ranks: every rank calls this). The prefetch lane
+        is flushed first so the ring holds every unconsumed chunk."""
         self._flush_prefetch()
         out: Dict[str, Any] = {"buffer": self.buffer.state_dict()} if self.buffer is not None else {}
         if self.device_actor is not None:
-            out["actor_leaves"] = {f"{i:04d}": leaf
-                                   for i, leaf in enumerate(tree_leaves(self.device_actor.state))}
+            leaves = self.device_actor.host_state()
+            out["actor_leaves"] = {f"{i:04d}": leaf for i, leaf in enumerate(leaves)}
             out["actor_rng"] = self.device_actor.generator.get_state()
         out["mb_draws"] = torch.tensor(self._mb_draws, dtype=torch.int64)
         return out
@@ -697,8 +844,7 @@ class Learner:
             self.buffer.load_state_dict(restored["buffer"])
         da = self.device_actor
         if da is not None and "actor_leaves" in restored:
-            leaves = [restored["actor_leaves"][k] for k in sorted(restored["actor_leaves"])]
-            da.state = tree_unflatten(da.state, [t.to(self.device) for t in leaves])
+            da.load_host_state([restored["actor_leaves"][k] for k in sorted(restored["actor_leaves"])])
         if da is not None and "actor_rng" in restored:
             da.generator.set_state(restored["actor_rng"])
         if "mb_draws" in restored:
@@ -747,9 +893,20 @@ class Learner:
         minibatch stream, and return the optimizer steps rewound (0 when
         healthy) so the caller's budget covers the retraining. Bounded by
         ``health.max_rollbacks``; without a checkpoint directory the
-        publishes stay blocked and the run carries on."""
-        if self._health is None or self._health.unhealthy is None:
+        publishes stay blocked and the run carries on. On a world above 1
+        the ranks first agree (``_agree``): a rank whose engine has not yet
+        folded the (global, so equal) verdict folds it now, and all of them
+        roll back together, every rank reading the shared directory after
+        rank 0's writes have landed."""
+        if not self._agree():
             return 0
+        if self._health.unhealthy is None:
+            # another rank latched first: fold this rank's backlog
+            self._flush_health()
+            self._drain_snapshots()
+            if self._health.unhealthy is None:
+                raise RuntimeError("training health guardian: another rank latched a divergence this rank's "
+                                   "verdicts do not show: the ranks' updates have diverged")
         ev = self._health.unhealthy
         if self.ckpt is None:
             if self._health.note_unrecoverable():
@@ -768,6 +925,7 @@ class Learner:
         # drain with the monitor still latched: a pending publish or
         # checkpoint of the poisoned timeline meets the gate and is refused
         self._drain_snapshots()
+        self._barrier()   # rank 0's writes have landed
         published_floor = (self._snap_engine.last_published if self._snap_engine is not None
                            else self._published_version)
         from_step, from_version = self.state.step, self.state.version
@@ -780,12 +938,15 @@ class Learner:
             except (FileNotFoundError, ValueError, RuntimeError) as e:
                 raise RuntimeError(f"training health guardian: divergence at step {ev.step} ({ev.reason}) and no "
                                    f"checkpoint to roll back to ({type(e).__name__}: {e})") from e
+        self._broadcast_train_state()
         restored_version = self.state.version
         # the version counter skips the poisoned range: no version the
         # poisoned steps made is ever reused; the steps rewind
         self.state.version = from_version + 1
         rewound = from_step - self.state.step
-        self.ckpt.discard_steps_above(self.state.step)
+        self._barrier()   # every rank has read before rank 0 deletes
+        if self.is_chief:
+            self.ckpt.discard_steps_above(self.state.step)
         if self.buffer is not None:
             self._flush_prefetch()
             self.buffer.drop_newer_than(restored_version)
@@ -802,6 +963,8 @@ class Learner:
         self._last_verdict_m = None
         self._health.clear()
         self.registry.gauge("health/last_good_step").set(float(self.state.step))
+        if not self.is_chief:
+            return rewound
         print("HEALTH_ROLLBACK " + json.dumps({
             "reason": ev.reason, "detected_step": ev.step, "detected_version": ev.version,
             "from_step": from_step, "to_step": self.state.step, "restored_version": restored_version,
@@ -847,7 +1010,9 @@ class Learner:
         """Hand the params to the transport's weights fanout behind the
         health gate, in the Flax layout (``to_flax``). Async: an on-device
         clone, the engine does the rest; sync (``--sync-snapshots``): the
-        read, the encode and the publish here."""
+        read, the encode and the publish here. Rank 0 alone publishes."""
+        if not self.is_chief:
+            return
         t0 = time.perf_counter()
         if self._snap_engine is not None:
             # verdicts for every step <= this version reach the engine first
@@ -997,7 +1162,9 @@ class Learner:
 
     def _checkpoint_boundary(self) -> None:
         """A periodic save of the train state (the pipeline is saved only
-        at the end of ``train``), behind the health gate."""
+        at the end of ``train``), behind the health gate; rank 0's."""
+        if not self.is_chief:
+            return
         t0 = time.perf_counter()
         if self._snap_engine is not None:
             self._snap_engine.submit_checkpoint(device_copy(self._train_state_tree()), self.config)
@@ -1057,7 +1224,7 @@ class Learner:
         if self.fused_step is not None:
             k_iters = cfg.steps_per_dispatch
             stride = epochs * k_iters
-            frames_per = da.n_lanes * cfg.ppo.rollout_len * k_iters
+            frames_per = da.n_lanes * da.lane_shards * cfg.ppo.rollout_len * k_iters
             while self._steps_done < num_steps and not self._stop_requested:
                 opp_params, opp_uid = self._league_opponent()
                 t0 = time.perf_counter()
@@ -1066,7 +1233,7 @@ class Learner:
                 self._dispatch_inflight = True
                 self._report_league(opp_uid, chunk_stats)
                 da.env_steps += frames_per
-                da.rollouts_shipped += da.n_lanes * k_iters
+                da.rollouts_shipped += da.n_lanes * da.lane_shards * k_iters
                 self._submit_health(m)
                 if self._tracer is not None:
                     self._emit_dispatch_traces()
@@ -1079,6 +1246,8 @@ class Learner:
                 opp_params, opp_uid = self._league_opponent()
                 chunk, chunk_stats = da.collect(self.policy, opp_params if opp_params is not None else self.policy)
                 self._report_league(opp_uid, chunk_stats)
+                if self._lane_keep is not None:
+                    chunk = tree_map(lambda t: t[self._lane_keep], chunk)
                 self.buffer.add_device(chunk, self.state.version)
                 while (batch := self._next_batch(drain_transport=False)) is not None:
                     m = self._optimize(batch)
@@ -1186,10 +1355,13 @@ class Learner:
         self._publish_weights()
         self._drain_snapshots()
         if self.ckpt is not None:
-            self._sync_fold_latest()
-            self.ckpt.save(self.state, self.config, force=True, pipeline=self._pipeline_state(),
-                           mark_good=self._health is not None and self._health.unhealthy is None)
-            self.ckpt.wait()
+            # every rank gathers its part; rank 0 writes
+            pipeline = self._pipeline_state()
+            if self.is_chief:
+                self._sync_fold_latest()
+                self.ckpt.save(self.state, self.config, force=True, pipeline=pipeline,
+                               mark_good=self._health is not None and self._health.unhealthy is None)
+                self.ckpt.wait()
 
     def train(self, num_steps: int, actor_steps_per_iter: Optional[int] = None, overlap: bool = False,
               refresh_every: int = 1) -> Dict[str, float]:
@@ -1267,16 +1439,13 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_7 = "ROADMAP queue 1, item 7 (multi-GPU)"
+_ITEM_7B = ("ROADMAP queue 1, item 7b (tensor parallelism in the learner, and the host-fed actor modes on a "
+            "world above 1)")
 _ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
 # flags of the reference learner whose features the port does not have
 # yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
 # given
 _NOT_PORTED_FLAGS = (
-    ("--mesh", {"type": str}, _ITEM_7),
-    ("--multihost", {"action": "store_true"}, _ITEM_7),
-    ("--dcn-slices", {"type": int}, _ITEM_7),
-    ("--model-parallel", {"type": int}, _ITEM_7),
     ("--checkify", {"action": "store_true"}, _ITEM_12),
     ("--compile-cache", {"type": str}, _ITEM_12),
 )
@@ -1388,7 +1557,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--profile", "--profile-dir", dest="profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run (CPU and CUDA activity) into DIR")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the current CUDA card; 'cpu' must be asked for)")
+                   help="torch device (default: the current CUDA card, cuda:LOCAL_RANK under --multihost; 'cpu' "
+                   "must be asked for)")
+    p.add_argument("--mesh", type=str, default=None, metavar="K=V,...",
+                   help="comma-separated MeshConfig overrides, e.g. 'data_parallel=2' or 'dcn_slices=2'; "
+                   "data_parallel=-1 (default) takes every rank of the job; --dcn-slices and --model-parallel are "
+                   "shorthands for the same fields (explicit --mesh keys win)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the job's process group before anything else (env:// as torch.distributed.run "
+                   "sets it: NCCL on cards, gloo on the CPU); run every rank with it")
+    p.add_argument("--dcn-slices", type=int, default=None, help="slices (hosts) of the job: the mesh's dcn axis")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="tensor-parallel width (the model axis); above 1 not ported yet: " + _ITEM_7B)
     for flag, kw, item in _NOT_PORTED_FLAGS:
         p.add_argument(flag, **{"default": None, **kw}, help="not ported yet: " + item)
     args = p.parse_args(argv)
@@ -1398,7 +1578,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.actor is None:
         args.actor = "scalar" if args.no_vec else "external" if args.transport != "inproc" else "device"
 
+    if args.multihost:
+        # before any other collective or device work of this process
+        pdist.initialize_runtime()
+        import torch.distributed as dist
+
+        backend = dist.get_backend() if pdist.is_initialized() else "no process group"
+        print(f"learner: distributed runtime up: {pdist.process_info()} over {backend}", flush=True)
     config = default_config()
+    mesh_over = {k: v for k, v in (("dcn_slices", args.dcn_slices), ("model_parallel", args.model_parallel))
+                 if v is not None}
+    if args.mesh:
+        try:
+            mesh_over.update(parse_dataclass_overrides(MeshConfig, args.mesh, "--mesh"))
+        except ValueError as e:
+            p.error(str(e))
+    if mesh_over:
+        config = dataclasses.replace(config, mesh=dataclasses.replace(config.mesh, **mesh_over))
+    if config.mesh.model_parallel > 1:
+        raise NotImplementedError(f"--model-parallel {config.mesh.model_parallel}: tensor parallelism in the "
+                                  f"learner is not ported yet: {_ITEM_7B}")
     model_over = {k: v for k, v in (("core", args.core), ("moe_experts", args.moe_experts)) if v is not None}
     if model_over:
         config = dataclasses.replace(config, model=dataclasses.replace(config.model, **model_over))
@@ -1440,7 +1639,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         # before the Learner: its FleetAggregator reads the knob at
         # construction (restored at the end, for embedding programs)
         telemetry.fleet_interval_s = args.fleet_interval
-    if args.trace_jsonl:
+    # rank 0 alone writes the trace, the profile and the last line
+    traced = bool(args.trace_jsonl) and pdist.process_info()["process_index"] == 0
+    if traced:
         # before the Learner: the learner, its ring and its snapshot engine
         # capture tracing.get() at construction
         tracing.configure(args.trace_jsonl, sample_n=args.trace_sample)
@@ -1448,10 +1649,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _run_cli(args, config)
     finally:
         telemetry.fleet_interval_s = fleet_interval0
-        if args.trace_jsonl:
+        if traced:
             # drain and fsync the trace log (a SIGKILL leaves at most a
             # torn last line, which the report skips)
             tracing.shutdown()
+        if args.multihost and pdist.is_initialized():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
@@ -1506,11 +1711,11 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
     launches0 = lstm.lstm_sequence_kernel.launches
     calls0 = serialize.codec_calls()
     try:
-        with trace(args.profile):
+        with trace(args.profile if learner.is_chief else None):
             out = learner.train(args.steps, overlap=args.overlap, refresh_every=args.refresh_every)
     except BaseException as e:
         if args.on_crash_checkpoint and not isinstance(e, (KeyboardInterrupt, SystemExit)) \
-                and learner.ckpt is not None:
+                and learner.ckpt is not None and learner.is_chief:
             crash_checkpoint(learner)
         raise
     finally:
@@ -1523,6 +1728,8 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
     # run (0 on the CPU, where the plain version runs), read by
     # chip_smoke.py
     calls = {k: v - calls0[k] for k, v in serialize.codec_calls().items()}
+    if not learner.is_chief:
+        return 0
     print(f"done: {out['optimizer_steps']:.0f} steps, {out['frames_trained']:.0f} frames, "
           f"{out['frames_per_sec']:.0f} frames/sec, {calls['native_decodes']} native decodes, "
           f"{calls['native_encodes']} native encodes, {calls['proto_fallbacks']} proto fallbacks, "

@@ -38,8 +38,22 @@ ring's layout.
 An MoE core adds the Switch load-balancing term (``_moe_aux_loss``: per
 layer ``E x sum_e mean_prob_e x mean_frac_e`` over the valid steps, from the
 routing stats ``Policy.sequence`` returns), under the warmup gate with the
-other policy terms; a dense or LSTM core's is 0. There is no sharding (one
-card).
+other policy terms; a dense or LSTM core's is 0.
+
+Data parallelism: ``_train_step`` and the step makers take a ``group``, the
+mesh's batch group, each rank holding its rows of the global batch. The
+reference's statistics are global over the batch because GSPMD sees one
+array; here they are sums all-reduced over the group and divided by the
+global count: the valid count, the advantage's mean and variance, every
+masked mean of the loss and its metrics, and the ``kl_target`` controller's
+post-update KL. A rank's loss is its own numerators over the global count,
+so the gradients summed over the group (one all-reduce of the flattened
+gradient) are the global loss's, and the global norm of the clip is taken
+after that sum: every rank clips and steps the same tensor, and the params
+stay equal across ranks. With no group every reduction is skipped and the
+update is the one-card update, bit for bit. An MoE core's load-balancing
+term is not reduced (its routing is per rank): an MoE core on a group of
+more than one rank raises (ROADMAP queue 1, item 7b).
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
 from dotaclient_tpu_torch.models import distributions as D
 from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch, initial_carry
 from dotaclient_tpu_torch.models.transformer import MoEStats
+from dotaclient_tpu_torch.parallel.collectives import Group, all_gather_rows, group_rank, group_size, psum
 from dotaclient_tpu_torch.train.gae import gae, vtrace
 from dotaclient_tpu_torch.utils.tree import tree_map
 
@@ -144,6 +159,7 @@ def ppo_loss(
     step: Optional[int] = None,
     anchor: Optional[Policy] = None,
     use_kernel: bool = True,
+    group: Group = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped-surrogate PPO loss over a batch of rollout chunks.
 
@@ -155,17 +171,23 @@ def ppo_loss(
     frozen anchor policy. ``use_kernel=False`` runs the LSTM core's plain
     version on CUDA tensors too. A batch with precomputed ``advantages``
     and ``returns`` skips the estimator and runs the forward over the T
-    transition steps only (the bootstrap slot fed the estimator alone)."""
+    transition steps only (the bootstrap slot fed the estimator alone).
+    With a ``group`` the batch is this rank's rows: the returned loss is
+    its share of the global loss (its numerators over the global count),
+    and the metrics are global."""
     obs = batch["obs"]
     T = batch["rewards"].shape[1]
     valid = batch["valid"].to(torch.float32)
-    n_valid = torch.clamp(valid.sum(), min=1.0)
+    n_valid = torch.clamp(psum(valid.sum(), group), min=1.0)
     precomputed = "advantages" in batch
     if precomputed:
         obs = {k: v[:, :T] for k, v in obs.items()}
 
     logits, values, _, moe = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel,
                                              return_moe=True)
+    if moe and group_size(group) > 1:
+        raise NotImplementedError("the MoE core's routing and load-balancing term over a data-parallel group: "
+                                  "ROADMAP queue 1, item 7b")
     moe_aux = _moe_aux_loss(moe, valid)
     # the trailing slot is the bootstrap step: its value is used, its
     # policy outputs are not
@@ -191,9 +213,9 @@ def ppo_loss(
         raise ValueError(f"unknown advantage {cfg.advantage!r} (one of {ADVANTAGE_MODES})")
     # advantage normalisation over the valid batch: always centred, and
     # rescaled per cfg.adv_norm with the floor on the scale
-    adv = adv - _masked_mean(adv, valid, n_valid)
+    adv = adv - psum((adv * valid).sum(), group) / n_valid
     if cfg.adv_norm == "batch":
-        adv_std = torch.sqrt(_masked_mean(torch.square(adv), valid, n_valid) + 1e-8)
+        adv_std = torch.sqrt(psum((torch.square(adv) * valid).sum(), group) / n_valid + 1e-8)
         adv = adv / torch.clamp(adv_std, min=cfg.adv_norm_floor)
     elif cfg.adv_norm not in ADV_NORM_MODES:
         raise ValueError(f"unknown adv_norm {cfg.adv_norm!r} (one of {ADV_NORM_MODES})")
@@ -234,6 +256,11 @@ def ppo_loss(
         "value_mean": detached(_masked_mean(values_t, valid, n_valid)),
         "reward_mean": _masked_mean(batch["rewards"], valid, n_valid),
     }
+    if group_size(group) > 1:
+        # every reported mean is a sum of the ranks' shares: one all-reduce
+        names = [k for k in metrics if k not in ("_logp", "moe_aux")]
+        summed = psum(torch.stack([metrics[k] for k in names]), group)
+        metrics.update(zip(names, summed.unbind(0)))
     return loss, metrics
 
 
@@ -250,6 +277,15 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, g_norm: torc
     return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
 
 
+def _sum_grads(grads: List[torch.Tensor], group: Group) -> List[torch.Tensor]:
+    """The gradients summed over the group: one all-reduce of them
+    flattened into one buffer."""
+    if group_size(group) == 1:
+        return grads
+    flat = psum(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def _train_step(
     cfg: PPOConfig,
     state: TrainState,
@@ -257,18 +293,22 @@ def _train_step(
     anchor: Optional[Policy] = None,
     probe: bool = True,
     use_kernel: bool = True,
+    group: Group = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One PPO update of ``state`` (in place) on ``batch``; returns the
     state and the update's metrics (0-d tensors). ``use_kernel=False``
     runs the LSTM core's plain version on CUDA tensors too, to hold the
-    kernel against it."""
+    kernel against it. With a ``group`` (the mesh's batch group) ``batch``
+    is this rank's rows of the global batch, and the update is the global
+    batch's on every rank."""
     policy, opt = state.policy, state.optimizer
     warm = cfg.value_warmup_steps
     policy_on = 1.0 if not warm or state.step >= warm else 0.0
-    loss, metrics = ppo_loss(policy, batch, cfg, step=state.step, anchor=anchor, use_kernel=use_kernel)
+    loss, metrics = ppo_loss(policy, batch, cfg, step=state.step, anchor=anchor, use_kernel=use_kernel,
+                             group=group)
     named = [(n, p) for n, p in policy.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
-    grads = list(torch.autograd.grad(loss, params))
+    grads = _sum_grads(list(torch.autograd.grad(loss, params)), group)
     if warm:
         # critic-only warmup: zero every gradient outside the value head,
         # so the behaviour policy stays exactly frozen
@@ -289,8 +329,7 @@ def _train_step(
         # KL-adaptive lr: the post-update policy shift on this batch's
         # actions (k3 estimator) rescales the lr for the next step
         logp_pre = metrics.pop("_logp")
-        group = opt.param_groups[0]
-        lr = group["lr"]
+        lr = opt.param_groups[0]["lr"]
         lr_t = lr.clone() if isinstance(lr, torch.Tensor) else torch.tensor(lr, device=loss.device)
         if warm and state.step < warm:
             # the frozen-policy window has post-KL 0 by construction: skip
@@ -309,7 +348,8 @@ def _train_step(
                                        {k: v[:, :T] for k, v in obs.items()}, batch["actions"])
                 d = logp_post - logp_pre
                 valid = batch["valid"].to(torch.float32)
-                post_kl = _masked_mean((torch.exp(d) - 1.0) - d, valid, torch.clamp(valid.sum(), min=1.0))
+                post_kl = (psum((((torch.exp(d) - 1.0) - d) * valid).sum(), group)
+                           / torch.clamp(psum(valid.sum(), group), min=1.0))
             t = cfg.kl_target
             factor = torch.where(post_kl > 2.0 * t, cfg.kl_lr_down,
                                  torch.where(post_kl < 0.5 * t, cfg.kl_lr_up, 1.0))
@@ -352,21 +392,22 @@ def take_rows(tree: Any, idx: torch.Tensor) -> Any:
     return tree.index_select(0, idx)
 
 
-def make_train_step(config: RunConfig, anchor: Optional[Policy] = None):
+def make_train_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None):
     """``train_step(state, batch) -> (state, metrics)``: one update (in
     place) with the health probe on when ``config.health.enabled``.
-    ``anchor`` is required exactly when ``ppo.anchor_kl_coef > 0``."""
+    ``anchor`` is required exactly when ``ppo.anchor_kl_coef > 0``. With a
+    ``group`` the batch is this rank's rows of the global batch."""
     if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
         raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
     cfg, probe = config.ppo, config.health.enabled
 
     def train_step(state: TrainState, batch: Batch):
-        return _train_step(cfg, state, batch, anchor=anchor, probe=probe)
+        return _train_step(cfg, state, batch, anchor=anchor, probe=probe, group=group)
 
     return train_step
 
 
-def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None):
+def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None):
     """``epoch_step(state, batch, perms) -> (state, metrics)``: all
     ``epochs_per_batch x minibatches`` updates of one consumed batch.
 
@@ -375,7 +416,14 @@ def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None):
     ``[E*M, B/M]``, row r is the minibatch of update r, the rows the
     reference's staged loop (``ppo.fused_epoch=False``) gathers. With ``minibatches == 1`` every update trains on
     the whole batch and ``perms`` is ignored. Metrics fold by
-    ``fold_scan_metrics``: the last update's, ``health_ok`` the minimum."""
+    ``fold_scan_metrics``: the last update's, ``health_ok`` the minimum.
+
+    With a ``group`` of n ranks, ``batch`` is this rank's ``B / n`` rows
+    (rank k holds global rows ``[k B/n, (k+1) B/n)``) and ``perms`` is over
+    the global batch, the same on every rank. A minibatch of the reference
+    is ``B / M`` global rows cut evenly over the ranks, so with ``M > 1``
+    the ranks first gather the whole batch (one all-gather a leaf a call)
+    and rank k trains on its k-th block of each minibatch's rows."""
     if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
         raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
     cfg, probe = config.ppo, config.health.enabled
@@ -383,17 +431,24 @@ def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None):
     if B % M:
         raise ValueError(f"batch_rollouts {B} not divisible by minibatches {M}")
     mb = B // M
+    n, k = group_size(group), group_rank(group)
+    if mb % n:
+        raise ValueError(f"minibatch size {mb} not divisible by the batch shard count {n}")
 
     def epoch_step(state: TrainState, batch: Batch, perms: Any):
         metric_seq = []
         if M == 1:
             for _ in range(E):
-                state, m = _train_step(cfg, state, batch, anchor=anchor, probe=probe)
+                state, m = _train_step(cfg, state, batch, anchor=anchor, probe=probe, group=group)
                 metric_seq.append(m)
         else:
             idx = host_index(perms, batch["rewards"].device).reshape(E * M, mb)
+            if n > 1:
+                batch = tree_map(lambda t: all_gather_rows(t, group), batch)
+                idx = idx[:, k * (mb // n):(k + 1) * (mb // n)]
             for r in range(E * M):
-                state, m = _train_step(cfg, state, take_rows(batch, idx[r]), anchor=anchor, probe=probe)
+                state, m = _train_step(cfg, state, take_rows(batch, idx[r]), anchor=anchor, probe=probe,
+                                       group=group)
                 metric_seq.append(m)
         return state, fold_scan_metrics(metric_seq)
 

@@ -196,7 +196,13 @@ _OWNED_BY_THIS_PROCESS: set = set()
 
 
 def _attach(name: str) -> shared_memory.SharedMemory:
-    shm = shared_memory.SharedMemory(name=name)
+    try:
+        shm = shared_memory.SharedMemory(name=name)
+    except ValueError as e:
+        # its server has created it and not yet sized it (``shm_open``
+        # before ``ftruncate``): refused like a TCP connect, so the actor's
+        # reconnect loop tries again
+        raise ConnectionError(f"shm segment {name!r} is not sized yet") from e
     if name not in _OWNED_BY_THIS_PROCESS:
         try:
             # attachments are registered like creations; without this

@@ -3,14 +3,14 @@
 Copy of the tier tuples of ``scripts/check_telemetry_schema.py`` that a
 port learner's ``--metrics-jsonl`` record meets (the base tier and the
 snapshot, health, trace, advantage, fleet, outcome, utilization and wire
-tiers), and of its ``validate_lines`` (a record of a learner serving actor
+tiers, and the multichip tier), and of its ``validate_lines`` (a record of a learner serving actor
 processes, marked by its transport server's gauges, is not held to the keys
 only an in-process actor emits), so ``chip_smoke.py`` checks a record on the
 card without the script, which reads the JAX package's telemetry module.
 ``tests/test_torch_runrecord.py`` holds these tuples equal to the
-script's. The multichip tier (``mesh/*``, ``fused/lanes_per_shard``,
-``buffer/shard_bytes``, ``learner/psum_ms``) waits for ROADMAP queue 1,
-item 7.
+script's. ``validate_lines(lines, MULTICHIP_KEYS)`` is the script's
+``--require-multichip``; every port learner's record meets it, at every
+world size.
 """
 
 from __future__ import annotations
@@ -177,6 +177,17 @@ UTILIZATION_KEYS = (
     "util/phase/host_other",
 )
 
+# --require-multichip: the mesh's geometry, the lane split, the ring's
+# resident bytes a rank and the startup all-reduce probe
+MULTICHIP_KEYS = (
+    "mesh/n_devices",
+    "mesh/data_shards",
+    "mesh/lane_shards",
+    "fused/lanes_per_shard",
+    "buffer/shard_bytes",
+    "learner/psum_ms",
+)
+
 # the wire tier: a socket or shm learner's rollout bytes, at their full
 # width, and the ratio (both servers make them at construction, the gauge
 # at 1.0)
@@ -201,7 +212,7 @@ EXTERNAL_TRANSPORT_MARKERS = (
 
 # every tier a port learner's record meets
 LEARNER_TIERS = (SNAPSHOT_KEYS + HEALTH_KEYS + TRACE_KEYS + ADVANTAGE_KEYS + FLEET_KEYS + OUTCOME_KEYS
-                 + UTILIZATION_KEYS)
+                 + UTILIZATION_KEYS + MULTICHIP_KEYS)
 
 
 def validate_lines(lines: Sequence[str], extra_required: tuple = ()) -> List[str]:

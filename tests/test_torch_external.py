@@ -219,7 +219,9 @@ def test_published_frames_carry_the_flax_layout(sync):
     learner.train(4)
     msg = learner.transport.latest_weights()
     sd = {k: v.detach() for k, v in learner.policy.state_dict().items()}
-    assert msg.SerializeToString() == S.encode_weights(to_flax(sd), learner.state.version).SerializeToString()
+    # a map's entries serialize in hash order unless asked for a canonical one
+    assert msg.SerializeToString(deterministic=True) == S.encode_weights(
+        to_flax(sd), learner.state.version).SerializeToString(deterministic=True)
     version, tree = J.decode_weights(J.pb.ModelWeights.FromString(msg.SerializeToString()))
     assert version == learner.state.version and set(tree["params"]) >= {"core", "unit_encoder", "head_value"}
     learner.close()

@@ -68,6 +68,9 @@ CORE_MODULES = ("dotaclient_tpu_torch.parallel", "dotaclient_tpu_torch.parallel.
                 "dotaclient_tpu_torch.models.moe", "dotaclient_tpu_torch.models.transformer",
                 "dotaclient_tpu_torch.utils.tree")
 WIRE_MODULES = ("dotaclient_tpu_torch.native", "dotaclient_tpu_torch.native.build")
+DATA_PARALLEL_MODULES = ("dotaclient_tpu_torch.parallel.distributed", "dotaclient_tpu_torch.parallel.mesh",
+                         "dotaclient_tpu_torch.parallel.sharding", "dotaclient_tpu_torch.parallel.sequence",
+                         "dotaclient_tpu_torch.parallel.pipeline", "dotaclient_tpu_torch.parallel.collectives")
 
 
 def port_sources():
@@ -84,11 +87,11 @@ def test_port_imports_without_jax():
     # every module of the port: the league's, the buffered learner's, the
     # run record's (the trace plane's among them), the external actors',
     # the scalar path's (the gRPC service's only where grpc is installed)
-    # and the transformer and MoE cores'
+    # the transformer and MoE cores' and the data-parallel slice's
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 77 + has_grpc
+    assert int(count) >= 83 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
-                  CORE_MODULES, WIRE_MODULES):
+                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -152,9 +155,10 @@ def test_router_runs_without_torch():
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bflax\b", r"dotaclient_tpu\.", r"from dotaclient_tpu import"])
 def test_no_port_source_names_jax(pattern):
-    # the transformer and MoE cores' modules among them
+    # the transformer and MoE cores' modules and the data-parallel slice's among them
     assert {PORT / "parallel" / "expert.py", PORT / "models" / "moe.py", PORT / "models" / "transformer.py",
             PORT / "utils" / "tree.py"} <= set(port_sources())
+    assert {PORT / "parallel" / f"{m.rsplit('.', 1)[1]}.py" for m in DATA_PARALLEL_MODULES} <= set(port_sources())
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in port_sources()

@@ -32,16 +32,13 @@ from tests.test_torch_common import tiny_configs
 
 # keys of the JAX learner's record that the port's has not, each with its
 # ROADMAP item: the per-program compile counters of instrument_jit (item 8:
-# a recompile and CUDA-event timer in torch) and the mesh's keys (item 7)
+# a recompile and CUDA-event timer in torch)
 WAIVED = {
     "compile/": "ROADMAP queue 1, item 8",
-    "mesh/": "ROADMAP queue 1, item 7",
-    "fused/lanes_per_shard": "ROADMAP queue 1, item 7",
-    "learner/psum_ms": "ROADMAP queue 1, item 7",
 }
 PORTED_COMPILE_KEYS = ("compile/compiles_total", "compile/retraces_total", "compile/compile_time_s_total")
 TIERS = ("REQUIRED_KEYS", "SNAPSHOT_KEYS", "HEALTH_KEYS", "TRACE_KEYS", "ADVANTAGE_KEYS", "FLEET_KEYS",
-         "OUTCOME_KEYS", "UTILIZATION_KEYS")
+         "OUTCOME_KEYS", "UTILIZATION_KEYS", "MULTICHIP_KEYS")
 
 
 def waived(key):
@@ -133,8 +130,8 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("tier", TIERS)
 def test_port_smoke_record_passes_each_tier(runs, tier):
     """`--smoke --steps 2 --metrics-jsonl` at the base tier plus each of
-    the snapshot, health, trace, advantage, fleet, outcome and utilization
-    tiers, by the script's own check."""
+    the snapshot, health, trace, advantage, fleet, outcome, utilization and
+    multichip tiers, by the script's own check."""
     extra = () if tier == "REQUIRED_KEYS" else getattr(script, tier)
     assert script.validate_lines(runs["port_lines"], extra_required=extra) == []
     assert schema.validate_lines(runs["port_lines"], extra) == []
@@ -160,7 +157,8 @@ def test_best_rotation_as_the_reference(runs):
 
 
 @pytest.mark.parametrize("name", ("REQUIRED_KEYS", "TIMER_LEAVES", "SNAPSHOT_KEYS", "HEALTH_KEYS", "TRACE_KEYS",
-                                  "ADVANTAGE_KEYS", "FLEET_KEYS", "OUTCOME_KEYS", "UTILIZATION_KEYS"))
+                                  "ADVANTAGE_KEYS", "FLEET_KEYS", "OUTCOME_KEYS", "UTILIZATION_KEYS",
+                                  "MULTICHIP_KEYS"))
 def test_schema_copy_equals_the_script(name):
     assert getattr(schema, name) == getattr(script, name)
 
@@ -452,11 +450,14 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
     ``--refresh-every``, ``--overlap``, ``--transport socket``,
     ``--no-vec``, ``--shm-name``, ``--core``, ``--moe-experts``,
     ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``,
-    ``--amqp-host``, ``--wire-dtype``, ``--rollout-wire-dtype``), which now
-    reach the learner, config or transport they configure; the trace flags
-    reach ``tracing.configure`` before the learner is built, and its
-    shutdown after; ``--amqp-host`` reaches the ``AmqpTransport`` of
-    ``--transport amqp``."""
+    ``--amqp-host``, ``--wire-dtype``, ``--rollout-wire-dtype``) and the
+    data-parallel slice (``--mesh``, ``--multihost``, ``--dcn-slices``),
+    which now reach the learner, config, runtime or transport they
+    configure; the trace flags reach ``tracing.configure`` before the
+    learner is built, and its shutdown after; ``--amqp-host`` reaches the
+    ``AmqpTransport`` of ``--transport amqp``; ``--multihost`` reaches
+    ``initialize_runtime`` (and the process group's teardown); and
+    ``--model-parallel 2`` raises naming item 7b."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
     if name == "--trace-sample":
@@ -465,8 +466,11 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         argv += ["--transport", "amqp"]   # the broker's address is the AMQP transport's
     if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
                 "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample", "--amqp-host",
-                "--wire-dtype", "--rollout-wire-dtype"):
+                "--wire-dtype", "--rollout-wire-dtype", "--mesh", "--multihost", "--dcn-slices"):
         built = []
+        runtime = []
+        monkeypatch.setattr(plearner.pdist, "initialize_runtime", lambda: runtime.append("init"))
+        want_mesh = {"--mesh": (2, 1), "--dcn-slices": (-1, 2)}.get(name, (-1, 1))
         interval0 = telemetry.fleet_interval_s
         traced = []
         monkeypatch.setattr(tracing, "configure", lambda path, sample_n=None, registry=None: traced.append(
@@ -481,6 +485,9 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
             assert traced == want_trace
             assert config.transport.wire_dtype == ("bfloat16" if name == "--wire-dtype" else "float32")
             assert config.transport.rollout_wire_dtype == ("bfloat16" if name == "--rollout-wire-dtype" else "float32")
+            assert (config.mesh.data_parallel, config.mesh.dcn_slices) == want_mesh
+            assert config.mesh.model_parallel == 1
+            assert runtime == (["init"] if name == "--multihost" else [])
             raise SystemExit(0)
 
         monkeypatch.setattr(plearner, "Learner", recording)
@@ -499,8 +506,7 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
         assert traced == want_trace + [(None, None)] * bool(want_trace)   # the log shut down at the end
         return
-    item = {"--mesh": "7", "--multihost": "7", "--dcn-slices": "7", "--model-parallel": "7", "--checkify": "12",
-            "--compile-cache": "12"}.get(name, "13")
+    item = {"--model-parallel": "7b", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
         plearner.main(argv)
 

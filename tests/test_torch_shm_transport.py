@@ -231,7 +231,9 @@ def test_bf16_wire_through_slab_is_refused():
         frame = S.encode_weights(params, 4, wire_dtype="bfloat16")
         server.publish_weights(frame)
         msg = actor.latest_weights()
-        assert msg.version == 4 and msg.SerializeToString() == frame.SerializeToString()
+        # a map's entries serialize in hash order unless asked for a canonical one
+        assert msg.version == 4 and msg.SerializeToString(deterministic=True) == frame.SerializeToString(
+            deterministic=True)
         version, tree = S.decode_weights(msg)
         assert version == 4 and tree["k"].dtype == np.float32
         np.testing.assert_array_equal(tree["k"], S.bf16_bits_to_f32(S.f32_to_bf16_bits(params["k"])))
@@ -239,6 +241,21 @@ def test_bf16_wire_through_slab_is_refused():
     finally:
         actor.close()
         server.close()
+
+
+def test_attach_to_a_segment_not_yet_sized_is_refused_like_a_connect():
+    """A segment its server has opened and not yet sized is a refused
+    connect (the actor's backoff retries it), not a crash of the actor."""
+    import _posixshmem
+
+    name = f"t-unsized-{os.getpid()}"
+    fd = _posixshmem.shm_open("/" + name, os.O_CREAT | os.O_EXCL | os.O_RDWR, mode=0o600)
+    try:
+        with pytest.raises(ConnectionError, match="not sized yet"):
+            PS._attach(name)
+    finally:
+        os.close(fd)
+        _posixshmem.shm_unlink("/" + name)
 
 
 def test_oversized_weights_rejected():
