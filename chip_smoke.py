@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire and data-parallel paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -372,6 +372,32 @@ Phases (any failure exits non-zero and prints no result line):
     the expert dispatch) are not driven here: on one card a world above 1
     needs gloo, which has no CUDA send, receive or all-to-all; their
     evidence is the CPU tests.
+20. the rest of multi-GPU (``multigpu_rest_phase``): two spawned ranks on
+    the one card over gloo, each part against world 1 in this process.
+    (a) the ``external`` learner fed the same 160-chunk stream (drawn
+    with numpy from the seed, mixed versions) through rank 0's in-process
+    transport: the ring's single door on rank 0, a stale drop and 32
+    evictions between admission and take; every batch, the ranks' shares
+    joined, bit for bit world 1's, rank 0's books world 1's, each rank's
+    ``buffer/shard_bytes`` half world 1's, rows crossing shards counted,
+    the first update by 19 (b)'s rule, the ranks' params bitwise equal;
+    both loops under the sync guard, lifted (and counted) only around
+    gloo's all-reduces and broadcasts of CUDA tensors and the door's row
+    moves (``TrajectoryBuffer._move_rows``). Then the ``vec`` learner for
+    MG_VEC_STEPS updates: rank 0's ``lstm_seq`` launches its pool steps
+    plus its updates, rank 1's its updates alone. (b) the MoE transformer
+    (4 experts, capacity factor MG_MOE_CF) fused at data 2, with cuBLAS's
+    reduced-precision bf16 reductions off in both worlds (with them on, a
+    bf16 GEMM's reduction split may change with its rows, and the
+    transformer's rollout at 32 lanes a rank is not world 1's at 64): the
+    first chunk bitwise, each layer's kept and routed tokens an expert over the first
+    iteration (the ranks' summed) equal to world 1's with tokens dropped,
+    the first update by 19 (b)'s rule and ``moe_aux`` within 1e-4. (c)
+    LSTM(128) fused at data 1 x model 2: ``trunk_proj``'s stored master the
+    cut shape, the gathered params bitwise equal on both ranks, the first
+    update's loss and ``grad_norm`` within 1e-4 of world 1's, the params
+    after MG_TP_ITERS iterations within rtol 2e-4, atol 2e-5, and
+    ``lstm_seq`` iterations x (rollout_len + 1) on each rank.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -630,7 +656,7 @@ def check_lstm_kernel(device, seed):
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128 and B in (BUFFERED_MB, 32, 128, LEAGUE_LANES):
+        if T > 1 and D == H == 128 and B in (BUFFERED_MB, 32, 128, LEAGUE_LANES, TRAIN_ENVS // 2):
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -1176,27 +1202,37 @@ class Recorder:
         self._restore()
 
 
+def lifted(fn, on_lift=None):
+    """``fn`` with the sync guard lifted around each call; ``on_lift`` runs
+    as it is lifted."""
+    import torch
+
+    def call(*args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        if on_lift is not None:
+            on_lift()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return call
+
+
+def counted(counts, key):
+    """An ``on_lift`` that counts the lifts in ``counts[key]``."""
+    def bump():
+        counts[key] += 1
+    return bump
+
+
 def unguarded_end(learner, on_lift=None):
     """Run the end of each ``train`` call (``_settle`` and ``_seal``: the
     snapshot engine's copies to the host, the final publish, the forced
     save) with the sync guard lifted, so that a guarded ``train`` call holds
     only its loop to the no-host-read rule. ``on_lift`` runs as the guard
     is lifted."""
-    import torch
-
-    def lifted(fn):
-        def call(*args, **kwargs):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            if on_lift is not None:
-                on_lift()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        return call
-
-    learner._settle, learner._seal = lifted(learner._settle), lifted(learner._seal)
+    learner._settle, learner._seal = lifted(learner._settle, on_lift), lifted(learner._seal, on_lift)
 
 
 def guarded_train(learner, steps, rec=None):
@@ -4923,9 +4959,15 @@ def dp_params_past(got, want):
     return past, sum(w.size for w in want.values())
 
 
-def dp_rank_main(rank, addr, seed, out):
-    """One gloo rank of (b), spawned: cuda:0 for both ranks (NCCL refuses
-    two ranks on one device)."""
+def dp_rank_work(device, seed):
+    """Phase 19 (b)'s work on a rank."""
+    return dp_train(device, seed, timed_psum=True)
+
+
+def dp_rank_main(rank, addr, seed, out, work="dp_rank_work"):
+    """One gloo rank of phase 19 (b) or phase 20, spawned: cuda:0 for both
+    ranks (NCCL refuses two ranks on one device); ``work(device, seed)``
+    (a function of this module, by name) is its result."""
     try:
         import torch
 
@@ -4938,7 +4980,7 @@ def dp_rank_main(rank, addr, seed, out):
 
         build.kernel_library()   # the parent's build, loaded
         initialize_runtime(addr, 2, rank, backend="gloo", timeout_s=DP_RANK_S)
-        out.put((rank, True, dp_train(device, seed, timed_psum=True)))
+        out.put((rank, True, globals()[work](device, seed)))
     except BaseException:  # noqa: BLE001 - the parent fails the phase with it
         out.put((rank, False, traceback.format_exc()))
     finally:
@@ -4948,15 +4990,15 @@ def dp_rank_main(rank, addr, seed, out):
             dist.destroy_process_group()
 
 
-def dp_world2(seed):
-    """(b)'s two ranks, spawned; their results in rank order."""
+def dp_world2(seed, work="dp_rank_work"):
+    """Two ranks spawned to run ``work``; their results in rank order."""
     import multiprocessing as mp
     import queue
 
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     addr = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=dp_rank_main, args=(r, addr, seed, out), daemon=True) for r in range(2)]
+    procs = [ctx.Process(target=dp_rank_main, args=(r, addr, seed, out, work), daemon=True) for r in range(2)]
     for p in procs:
         p.start()
     results, end = {}, time.monotonic() + DP_RANK_S
@@ -4983,14 +5025,33 @@ def dp_world2(seed):
     return [results[0], results[1]]
 
 
+def hold_engine_copies(learner):
+    """Make the snapshot engine's copies to the host wait for the returned
+    gate (set: open), so that none runs on its thread while the train
+    thread holds the sync guard."""
+    import threading
+
+    gate = threading.Event()
+    gate.set()
+    engine = learner._snap_engine
+    if engine is not None:
+        fetch = engine._fetch
+
+        def held_fetch(copy):
+            if not gate.wait(WAIT_S):
+                raise AssertionError(f"the snapshot engine's copy was held past {WAIT_S:.0f} s")
+            return fetch(copy)
+
+        engine._fetch = held_fetch
+    return gate
+
+
 def dp_guarded_learner(argv):
     """(a)'s rank: the learner CLI's ``main(argv)`` with every ``train``
     call's loop under the sync guard once the learner is built (the
     runtime, the mesh and its probe stay outside it); the end of the call
     runs unguarded (``unguarded_end``) and the snapshot engine's copies
     wait for the guard to lift, as in phase 13."""
-    import threading
-
     import torch
 
     from dotaclient_tpu_torch.train import learner as learner_mod
@@ -5000,18 +5061,7 @@ def dp_guarded_learner(argv):
 
     def guarded_init(self, *args, **kwargs):
         init(self, *args, **kwargs)
-        self._sync_gate = gate = threading.Event()
-        gate.set()
-        engine = self._snap_engine
-        if engine is not None:
-            fetch = engine._fetch
-
-            def held_fetch(copy):
-                if not gate.wait(WAIT_S):
-                    raise AssertionError(f"the snapshot engine's copy was held past {WAIT_S:.0f} s")
-                return fetch(copy)
-
-            engine._fetch = held_fetch
+        self._sync_gate = gate = hold_engine_copies(self)
         unguarded_end(self, on_lift=gate.set)
 
     def guarded(self, *args, **kwargs):
@@ -5146,6 +5196,446 @@ def data_parallel_phase(device, seed, smi=""):
     return result
 
 
+# phase 20: the rest of multi-GPU, each part a world of 2 over gloo on the one
+# card against world 1 in this process. (a) the external learner: the
+# mg_versions() chunks from the seed into a ring of MG_EXT_CAPACITY, MG_EXT_STEPS
+# updates; the vec learner MG_VEC_STEPS updates; (b) the
+# MoE transformer fused at MG_MOE_ENVS games with capacity factor MG_MOE_CF
+# (tokens drop); (c) LSTM(128) fused at model 2, MG_TP_ITERS iterations,
+# held to the reference's tp2 tolerance (tests/test_parallel.py)
+MG_EXT_CAPACITY, MG_EXT_STEPS, MG_VEC_STEPS = 64, 3, 4
+MG_MOE_ENVS, MG_MOE_CF, MG_TP_ITERS = 64, 0.5, 2
+TP_RTOL, TP_ATOL = 2e-4, 2e-5
+
+
+def mg_external_config(seed):
+    """The default learner with a ring of MG_EXT_CAPACITY chunks (min_fill
+    one batch of 32) and a staleness limit of 1 optimizer step."""
+    from dotaclient_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    return dataclasses.replace(
+        cfg, buffer=dataclasses.replace(cfg.buffer, capacity_rollouts=MG_EXT_CAPACITY, min_fill=32,
+                                        max_weight_staleness=1),
+        log_every=10 ** 9, seed=seed)
+
+
+def mg_versions():
+    """The chunks' model versions, in publish order. The first ingest (at
+    version 0) takes 64; the prefetch at version 1 takes the next 64 into 32
+    free slots (32 evictions); chunk 100 (version 0) is admitted then and
+    stale at the third take (version 2), whose batch the last 32 fill."""
+    versions = [i % 2 for i in range(64)] + [1] * 64 + [2] * 32
+    versions[100] = 0
+    return versions
+
+
+def mg_blobs(cfg, seed):
+    """The chunks as wire bytes: obs features, actions, log-probs, rewards,
+    dones and carries drawn with numpy from the seed (all-legal masks)."""
+    from dotaclient_tpu_torch.train.ppo import example_batch
+    from dotaclient_tpu_torch.transport import serialize as S
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    rng = np.random.default_rng(seed + 20)
+    T = cfg.ppo.rollout_len
+    tmpl = tree_map(lambda t: t[0].numpy(), example_batch(cfg, 1, device="cpu"))
+    blobs = []
+    for i, v in enumerate(mg_versions()):
+        row = tree_map(lambda a: a.copy(), tmpl)
+        for k in ("units", "globals"):
+            row["obs"][k] = rng.standard_normal(row["obs"][k].shape).astype(np.float32)
+        row["actions"] = {h: rng.integers(0, n, size=(T,)).astype(np.int32) for h, n in cfg.actions.head_sizes.items()}
+        row["behavior_logp"] = (rng.standard_normal(T) * 0.3 - 1.0).astype(np.float32)
+        row["rewards"] = rng.standard_normal(T).astype(np.float32)
+        row["dones"] = (rng.random(T) < 0.1).astype(np.float32)
+        row["carry0"] = tree_map(lambda a: (rng.standard_normal(a.shape) * 0.5).astype(np.float32), row["carry0"])
+        blobs.append(bytes(S.encode_rollout_bytes(row, v, i, i, T, 0.0)))
+    return blobs
+
+
+def lift_cuda_collectives(counts):
+    """Lift the sync guard around each all-reduce and broadcast of a CUDA
+    tensor (gloo stages it through the host), counted in
+    ``counts["collectives"]``; returns the undo."""
+    import torch.distributed as dist
+
+    saved = dist.all_reduce, dist.broadcast
+
+    def wrap(fn):
+        guarded = lifted(fn, counted(counts, "collectives"))
+
+        def call(tensor, *args, **kwargs):
+            return (guarded if tensor.is_cuda else fn)(tensor, *args, **kwargs)
+        return call
+
+    dist.all_reduce, dist.broadcast = wrap(saved[0]), wrap(saved[1])
+
+    def undo():
+        dist.all_reduce, dist.broadcast = saved
+    return undo
+
+
+def host_tree(tree):
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().float().cpu().numpy() if t.is_floating_point() else t.detach().cpu().numpy(),
+                    tree)
+
+
+def mg_external(device, seed):
+    """(a) the external learner at the world this process is in, fed
+    ``mg_blobs`` through rank 0's in-process transport, its loop under the
+    sync guard lifted at the named sites: each all-reduce or broadcast of a
+    CUDA tensor (gloo's, through the host) and each cross-shard row move of
+    the ring's door (``TrajectoryBuffer._move_rows``)."""
+    import torch
+    import torch.distributed as dist
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.protos import dota_pb2 as pb
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.transport.queues import InProcTransport
+    from dotaclient_tpu_torch.utils import telemetry
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    cfg = mg_external_config(seed)
+    transport = None
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        transport = InProcTransport(registry=telemetry.Registry())
+        for blob in mg_blobs(cfg, seed):
+            transport.publish_rollout(pb.Rollout.FromString(blob))
+    reg = telemetry.Registry()
+    learner = Learner(cfg, actor="external", seed=seed, device=device, registry=reg, transport=transport)
+    ring = learner.buffer
+    batches, metrics, counts = [], [], {"collectives": 0, "moves": 0}
+    take, step = ring.take, learner.train_step
+
+    def taking(*args, **kwargs):
+        got = take(*args, **kwargs)
+        if got is not None:
+            batches.append(tree_map(lambda t: t.clone(), got[0] if isinstance(got, tuple) else got))
+        return got
+
+    def stepping(state, batch):
+        state, m = step(state, batch)
+        metrics.append(m)
+        if len(metrics) == 1:
+            first.update({k: v.detach().clone() for k, v in learner.policy.state_dict().items()})
+        return state, m
+
+    first = {}
+    ring.take, learner.train_step = taking, stepping
+    ring._move_rows = lifted(ring._move_rows, counted(counts, "moves"))
+    gate = hold_engine_copies(learner)
+    unguarded_end(learner, on_lift=gate.set)
+    undo = lift_cuda_collectives(counts)
+    try:
+        torch.cuda.synchronize()
+        launches0 = lstm.lstm_sequence_kernel.launches
+        gate.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = learner.train(MG_EXT_STEPS, refresh_every=0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            gate.set()
+        torch.cuda.synchronize()
+        launches = lstm.lstm_sequence_kernel.launches - launches0
+    finally:
+        undo()
+    result = {"batches": [host_tree(b) for b in batches], "first_metrics": {k: float(v) for k, v in metrics[0].items()},
+              "first_params": {k: v.cpu().numpy() for k, v in first.items()}, "params": host_params(learner), "counters": ring.metrics(), "rows_moved": ring.rows_moved,
+              "shard_bytes": reg.snapshot()["buffer/shard_bytes"], "lstm_seq_launches": launches,
+              "guard_lifted": counts, "steps": out["optimizer_steps"], "updates": len(metrics),
+              "learning_rate": cfg.ppo.learning_rate}
+    learner.close()
+    return result
+
+
+def mg_vec(device, seed):
+    """(a) the vec learner at this world: rank 0 runs the pool."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = vec_config(seed)
+    learner = Learner(cfg, actor="vec", seed=seed, device=device, registry=telemetry.Registry())
+    metrics, step = [], learner.train_step
+
+    def stepping(state, batch):
+        state, m = step(state, batch)
+        metrics.append(m)
+        return state, m
+
+    learner.train_step = stepping
+    torch.cuda.synchronize()
+    launches0 = lstm.lstm_sequence_kernel.launches
+    learner.train(MG_VEC_STEPS)
+    torch.cuda.synchronize()
+    pool = learner.host_pool
+    result = {"lstm_seq_launches": lstm.lstm_sequence_kernel.launches - launches0,
+              "pool_steps": pool.steps if pool is not None else 0, "updates": len(metrics),
+              "losses": [float(m["loss"]) for m in metrics], "params": host_params(learner),
+              "counters": learner.buffer.metrics()}
+    learner.close()
+    return result
+
+
+def mg_moe_config(seed):
+    from dotaclient_tpu_torch.config import RunConfig
+
+    base = RunConfig()
+    cfg = with_transformer(dataclasses.replace(
+        base, env=dataclasses.replace(base.env, n_envs=MG_MOE_ENVS, opponent="scripted_easy",
+                                      max_dota_time=MOE_MAX_DOTA_TIME),
+        log_every=10 ** 9, seed=seed), moe=MOE_EXPERTS)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, moe_capacity_factor=MG_MOE_CF))
+
+
+def mg_tp_config(seed, model_parallel):
+    from dotaclient_tpu_torch.config import MeshConfig
+
+    return dataclasses.replace(train_config(seed), mesh=MeshConfig(data_parallel=1, model_parallel=model_parallel))
+
+
+def mg_fused(device, seed, cfg, iters, count_moe=False):
+    """A fused learner at this world: its first chunk, its metrics and
+    params after the first iteration, its params after ``iters``, its
+    tensor-parallel layout, and (``count_moe``) each MoE layer's kept and
+    routed tokens an expert over the first iteration (this rank's
+    tokens)."""
+    import torch
+
+    from dotaclient_tpu_torch.models.moe import MoEMLP
+    from dotaclient_tpu_torch.ops import lstm
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    actor = learner.device_actor
+    rollout, fused, forward = actor._rollout_impl, learner.fused_step, MoEMLP.forward
+    first, metrics, tallies, counting = [], [], {}, [count_moe]
+    layers = [m for m in learner.policy.modules() if isinstance(m, MoEMLP)]
+
+    def recording(params, state, opp_params=None, **kw):
+        out = rollout(params, state, opp_params, **kw)
+        if not first:
+            first.append(host_tree(out[1]))
+        return out
+
+    def recorded(state, actor_state, opp_params=None):
+        out = fused(state, actor_state, opp_params)
+        metrics.append(out[2])
+        counting[0] = False
+        return out
+
+    def tallying(self, x, group=None):
+        y, (probs, frac) = forward(self, x, group)
+        if counting[0] and self in layers:
+            E = probs.shape[-1]
+            routed = (probs.argmax(dim=-1)[:, None] == torch.arange(E, device=x.device)).float().sum(dim=0)
+            i = layers.index(self)
+            tallies[i] = tallies.get(i, 0) + torch.stack([frac.sum(dim=0), routed])
+        return y, (probs, frac)
+
+    actor._rollout_impl, learner.fused_step, MoEMLP.forward = recording, recorded, tallying
+    updates = cfg.ppo.steps_per_batch
+    try:
+        torch.cuda.synchronize()
+        launches0 = lstm.lstm_sequence_kernel.launches
+        learner.train(updates)
+        first_params = host_params(learner)
+        if iters > 1:
+            learner.train((iters - 1) * updates)
+        torch.cuda.synchronize()
+        launches = lstm.lstm_sequence_kernel.launches - launches0
+    finally:
+        MoEMLP.forward = forward
+    layout = {}
+    if learner.state.shards is not None:
+        s = learner.state.shards
+        layout = {name: {"master": list(m.shape), "whole": list(q.shape), "dim": d}
+                  for (name, q, d), m in zip(s.named, s.masters)}
+    result = {"chunk": first[0], "first_metrics": {k: float(v) for k, v in metrics[0].items()},
+              "last_metrics": {k: float(v) for k, v in metrics[-1].items()}, "first_params": first_params,
+              "params": host_params(learner), "lstm_seq_launches": launches, "iterations": iters,
+              "lanes": actor.n_lanes, "lane_shards": actor.lane_shards, "layout": layout,
+              "moe_counts": {i: t.cpu().numpy().astype(np.int64).tolist() for i, t in sorted(tallies.items())},
+              "rollout_len": cfg.ppo.rollout_len, "updates": updates, "learning_rate": cfg.ppo.learning_rate}
+    learner.close()
+    return result
+
+
+def mg_moe(device, seed):
+    """(b) the MoE fused learner with cuBLAS's reduced-precision bf16
+    reductions off: with them on (PyTorch's default) a bf16 GEMM's split of
+    its reduction may change with the batch's rows, so a transformer's
+    rollout at 32 lanes a rank differs from world 1's at 64 in the last
+    bits, and its sampled actions with them (measured on an H100); with
+    them off the rollout does not depend on the world size."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return mg_fused(device, seed, mg_moe_config(seed), 1, count_moe=True)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def mg_rank_work(device, seed):
+    """Phase 20's parts on a rank of the world of 2."""
+    return {"external": mg_external(device, seed), "vec": mg_vec(device, seed), "moe": mg_moe(device, seed),
+            "tp": mg_fused(device, seed, mg_tp_config(seed, 2), MG_TP_ITERS)}
+
+
+def tree_bitwise(a, b):
+    from dotaclient_tpu_torch.utils.tree import tree_leaves
+
+    return all(np.array_equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def joined(a, b):
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x, y: np.concatenate([x, y]), a, b)
+
+
+def first_update_vs_world1(got, one, what, grad_rtol=DP_GRAD_RTOL, keys=("loss", "grad_norm")):
+    """19 (b)'s rule on the first update: the loss within DP_RTOL,
+    ``grad_norm`` within ``grad_rtol``, at most DP_MAX_PAST of the params'
+    elements past DP_RTOL. Returns the relative differences and the count."""
+    rel = {k: abs(got["first_metrics"][k] - one["first_metrics"][k]) / abs(one["first_metrics"][k]) for k in keys}
+    tol = {"grad_norm": grad_rtol}
+    bad = {k: v for k, v in rel.items() if v > tol.get(k, DP_RTOL)}
+    if bad:
+        raise AssertionError(f"{what}: the first update's metrics differ from world 1's: relative {rel}")
+    past, total = dp_params_past(got["first_params"], one["first_params"])
+    if past > DP_MAX_PAST * total:
+        raise AssertionError(f"{what}: {past} of {total} param elements past rtol {DP_RTOL} of world 1's")
+    return rel, past
+
+
+def multigpu_rest_phase(device, seed, smi=""):
+    """Phase 20: (a) the host-fed modes, (b) the MoE core at data 2 and (c)
+    tensor parallelism at model 2, each a world of 2 over gloo on the one
+    card against world 1 in this process."""
+    t0 = time.perf_counter()
+    ranks = dp_world2(seed, work="mg_rank_work")
+    world_s = time.perf_counter() - t0
+    one = {"external": mg_external(device, seed), "moe": mg_moe(device, seed),
+           "tp": mg_fused(device, seed, mg_tp_config(seed, 1), MG_TP_ITERS)}
+    out = {"world2_s": world_s}
+    # (a) external: world 1's batches, books and first update, half the ring
+    e0, e1, e = ranks[0]["external"], ranks[1]["external"], one["external"]
+    if not (len(e0["batches"]) == len(e1["batches"]) == len(e["batches"]) == MG_EXT_STEPS):
+        raise AssertionError(f"external: batches {len(e0['batches'])}, {len(e1['batches'])}, world 1 "
+                             f"{len(e['batches'])}")
+    for i, (a, b, w) in enumerate(zip(e0["batches"], e1["batches"], e["batches"])):
+        if not tree_bitwise(joined(a, b), w):
+            raise AssertionError(f"external: batch {i}, the ranks' shares joined, differs from world 1's")
+    c = e["counters"]
+    if e0["counters"] != c or not (c["buffer_dropped_stale"] >= 1 and c["buffer_dropped_overflow"] >= 1):
+        raise AssertionError(f"external: rank 0's books {e0['counters']}, world 1's {c}")
+    if not (e0["shard_bytes"] == e1["shard_bytes"] == e["shard_bytes"] / 2):
+        raise AssertionError(f"external: shard bytes {e0['shard_bytes']}, {e1['shard_bytes']}, world 1 "
+                             f"{e['shard_bytes']}")
+    if not all(np.array_equal(e0["params"][k], e1["params"][k]) for k in e["params"]):
+        raise AssertionError("external: the ranks' params differ")
+    ext_rel, ext_past = first_update_vs_world1(e0, e, "external")
+    for r, res in ((0, e0), (1, e1), ("world 1", e)):
+        if res["lstm_seq_launches"] != res["updates"] or res["updates"] != MG_EXT_STEPS:
+            raise AssertionError(f"external {r}: {res['lstm_seq_launches']} lstm_seq launches, {res['updates']} "
+                                 f"updates")
+    if e0["rows_moved"] != e1["rows_moved"] or e0["rows_moved"] < 1:
+        raise AssertionError(f"external: rows moved {e0['rows_moved']}, {e1['rows_moved']}")
+    out["external"] = {"counters": c, "rows_moved": e0["rows_moved"], "shard_bytes": [e0["shard_bytes"],
+                                                                                      e["shard_bytes"]],
+                       "first_update_rel_diff": ext_rel, "params_past": ext_past,
+                       "guard_lifted_rank0": e0["guard_lifted"], "guard_lifted_rank1": e1["guard_lifted"],
+                       "guard_lifted_world1": e["guard_lifted"], "batches_bitwise": MG_EXT_STEPS}
+    # (a) vec: rank 0's pool and updates, rank 1's updates alone
+    v0, v1 = ranks[0]["vec"], ranks[1]["vec"]
+    if not (v0["pool_steps"] > 0 and v1["pool_steps"] == 0
+            and v0["lstm_seq_launches"] == v0["pool_steps"] + v0["updates"]
+            and v1["lstm_seq_launches"] == v1["updates"] == v0["updates"] == MG_VEC_STEPS):
+        raise AssertionError(f"vec: rank 0 {v0['pool_steps']} pool steps, {v0['updates']} updates, "
+                             f"{v0['lstm_seq_launches']} launches; rank 1 {v1['pool_steps']}, {v1['updates']}, "
+                             f"{v1['lstm_seq_launches']}")
+    if not (all(np.isfinite(v0["losses"])) and all(np.array_equal(v0["params"][k], v1["params"][k])
+                                                  for k in v0["params"])):
+        raise AssertionError(f"vec: losses {v0['losses']}, or the ranks' params differ")
+    out["vec"] = {k: [v0[k], v1[k]] for k in ("pool_steps", "updates", "lstm_seq_launches")}
+    # (b) MoE at data 2: the chunk, the drops, the first update
+    m0, m1, m = ranks[0]["moe"], ranks[1]["moe"], one["moe"]
+    if not tree_bitwise(joined(m0["chunk"], m1["chunk"]), m["chunk"]):
+        raise AssertionError("MoE: the first chunk at world 2 differs from world 1's")
+    counts = {i: (np.array(m0["moe_counts"][i]) + np.array(m1["moe_counts"][i])).tolist() for i in m["moe_counts"]}
+    if counts != m["moe_counts"]:
+        raise AssertionError(f"MoE: kept and routed tokens an expert {counts}, world 1's {m['moe_counts']}")
+    dropped = {i: int(np.sum(np.array(c[1]) - np.array(c[0]))) for i, c in m["moe_counts"].items()}
+    if not all(d > 0 for d in dropped.values()):
+        raise AssertionError(f"MoE: no token dropped at capacity factor {MG_MOE_CF}: {dropped}")
+    moe_rel, moe_past = first_update_vs_world1(m0, m, "MoE", keys=("loss", "grad_norm", "moe_aux"))
+    if moe_rel["moe_aux"] > 1e-4:
+        raise AssertionError(f"MoE: moe_aux relative {moe_rel['moe_aux']}")
+    if not all(np.array_equal(m0["params"][k], m1["params"][k]) for k in m["params"]):
+        raise AssertionError("MoE: the ranks' params differ")
+    if m0["lstm_seq_launches"] or m1["lstm_seq_launches"] or m["lstm_seq_launches"]:
+        raise AssertionError("MoE: lstm_seq launched on the transformer path")
+    out["moe"] = {"counts_kept_routed": m["moe_counts"], "dropped": dropped, "first_update_rel_diff": moe_rel,
+                  "params_past": moe_past, "moe_aux": m0["first_metrics"]["moe_aux"], "chunk_bitwise": True,
+                  "bf16_reduced_precision_reductions": False}
+    # (c) LSTM(128) at model 2: the cut, the gather, the updates
+    t0_, t1_, t = ranks[0]["tp"], ranks[1]["tp"], one["tp"]
+    for r, res in ((0, t0_), (1, t1_)):
+        trunk = res["layout"].get("trunk_proj.weight")
+        if not trunk or trunk["dim"] != 0 or trunk["master"] != [trunk["whole"][0] // 2, trunk["whole"][1]]:
+            raise AssertionError(f"TP rank {r}: trunk_proj's stored shard {trunk}")
+        want = MG_TP_ITERS * (res["rollout_len"] + res["updates"])
+        if res["lstm_seq_launches"] != want:
+            raise AssertionError(f"TP rank {r}: {res['lstm_seq_launches']} lstm_seq launches, expected {want}")
+    if not all(np.array_equal(t0_[w][k], t1_[w][k]) for w in ("first_params", "params") for k in t["params"]):
+        raise AssertionError("TP: the ranks' gathered params differ")
+    tp_rel = {k: abs(t0_["first_metrics"][k] - t["first_metrics"][k]) / abs(t["first_metrics"][k])
+              for k in ("loss", "grad_norm")}
+    if max(tp_rel.values()) > DP_RTOL:
+        raise AssertionError(f"TP: the first update against world 1's: relative {tp_rel}")
+    worst = max(float(np.max(np.abs(t0_["params"][k] - w) - (TP_ATOL + TP_RTOL * np.abs(w))))
+                for k, w in t["params"].items())
+    if worst > 0:
+        raise AssertionError(f"TP: params after {MG_TP_ITERS} iterations past rtol {TP_RTOL}, atol {TP_ATOL} of "
+                             f"world 1's by {worst}")
+    cut = sum(1 for v in t0_["layout"].values() if v["dim"] is not None)
+    out["tp"] = {"first_update_rel_diff": tp_rel, "params_worst_excess": worst, "cut_tensors": cut,
+                 "tensors": len(t0_["layout"]), "trunk_master": t0_["layout"]["trunk_proj.weight"]["master"]}
+    out["lstm_seq_launches"] = {
+        "external_world1": e["lstm_seq_launches"], "external_rank0": e0["lstm_seq_launches"],
+        "external_rank1": e1["lstm_seq_launches"], "vec_rank0": v0["lstm_seq_launches"],
+        "vec_rank1": v1["lstm_seq_launches"], "tp_world1": t["lstm_seq_launches"],
+        "tp_rank0": t0_["lstm_seq_launches"], "tp_rank1": t1_["lstm_seq_launches"]}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"multi-GPU (a): external at world 2 over gloo: {MG_EXT_STEPS} batches bitwise world 1's, books {c}, "
+        f"{e0['rows_moved']} rows crossed shards, shard bytes {e0['shard_bytes']:.0f} (world 1 "
+        f"{e['shard_bytes']:.0f}), first update vs world 1 {ext_rel}, params past {ext_past}; the loop under the "
+        f"sync guard, lifted at gloo's CUDA collectives and the door's row moves {e0['guard_lifted']} / "
+        f"{e1['guard_lifted']}; vec: rank 0 {v0['pool_steps']} pool steps + {v0['updates']} updates = "
+        f"{v0['lstm_seq_launches']} lstm_seq launches, rank 1 {v1['lstm_seq_launches']}; {smi}")
+    log(f"multi-GPU (b): MoE at data 2 (cuBLAS's reduced-precision bf16 reductions off): first chunk bitwise, "
+        f"kept/routed an expert {m['moe_counts']} (dropped "
+        f"{dropped}) equal to world 1's, first update vs world 1 {moe_rel}, params past {moe_past}; {smi}")
+    log(f"multi-GPU (c): LSTM(128) fused at model 2: trunk_proj stored {out['tp']['trunk_master']}, {cut} of "
+        f"{len(t0_['layout'])} tensors cut, gathered params bitwise on both ranks, first update vs world 1 "
+        f"{tp_rel}, params after {MG_TP_ITERS} iterations within rtol {TP_RTOL} atol {TP_ATOL} (worst excess "
+        f"{worst:.3g}); lstm_seq {out['lstm_seq_launches']}; {smi}")
+    log(f"phase 20 (the rest of multi-GPU): {out['wall_s']:.1f} s (world 2 {world_s:.1f} s)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5193,6 +5683,7 @@ def main() -> int:
     phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
     phase18 = wire_phase(device, args.seed, external["external"], smi)
     phase19 = data_parallel_phase(device, args.seed, smi)
+    phase20 = multigpu_rest_phase(device, args.seed, smi)
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
@@ -5216,7 +5707,8 @@ def main() -> int:
                                       "wire_actors": phase18["external"]["actors_lstm_seq_launches"],
                                       "train_buffered_narrow": phase18["buffered"]["lstm_seq_launches"],
                                       **{f"data_parallel_{k}": v
-                                         for k, v in phase19["lstm_seq_launches"].items()}}
+                                         for k, v in phase19["lstm_seq_launches"].items()},
+                                      **{f"multigpu_{k}": v for k, v in phase20["lstm_seq_launches"].items()}}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     from dotaclient_tpu_torch.transport import serialize
@@ -5232,7 +5724,8 @@ def main() -> int:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
-                       "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19}, f,
+                       "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19,
+                       "phase20": phase20}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -41,7 +41,9 @@ reference's replicated layout. ``drain_stats`` and ``begin_drain`` sum the
 stat partials over the ranks first (the partials are per game, so the
 totals do not depend on the shard count); ``host_state`` and
 ``load_host_state`` gather the state to the whole-batch layout and cut it
-back, for a checkpoint that any world size restores.
+back, for a checkpoint that any world size restores. An MoE core's policy
+steps route over the batch group, so a token's expert slot and its drop
+are the whole batch's.
 """
 
 from __future__ import annotations
@@ -259,10 +261,11 @@ class DeviceActor:
     def _policy_step(self, params: PolicyParams, obs, carry):
         """``Policy.step`` of one side: a module steps with its own params,
         a state dict through ``functional_call`` on the actor's policy
-        (``Policy.forward`` is ``step``)."""
+        (``Policy.forward`` is ``step``). A lane-sharded actor's MoE core
+        routes over the job's lanes (the batch group), as world 1's does."""
         if isinstance(params, torch.nn.Module):
-            return params.step(obs, carry)
-        return functional_call(self.policy, params, (obs, carry))
+            return params.step(obs, carry, self.batch_group)
+        return functional_call(self.policy, params, (obs, carry), {"group": self.batch_group})
 
     def _rollout_impl(
         self,

@@ -70,6 +70,31 @@ snapshot back: order positions go to ranks a batch share at a time, and
 each rank copies its chunks into its own slots, oldest first (a snapshot
 whose chunks do not split evenly drops the newest few, counted in
 ``dropped_overflow``).
+
+The single door (``host_fed`` on a mesh of more than one rank: the
+``external``, ``vec`` and ``scalar`` modes). Host rows arrive one by one
+with their own versions, so per-rank FIFOs would let one rank's stale drop
+or eviction shift which rows form the next global batch. The reference has
+one ring, one door and one FIFO, and so does this mode: rank 0 alone runs
+the door and the whole ring's bookkeeping (order, versions, free slots,
+held tickets, every counter) over the global slots ``[0, capacity)``,
+exactly as a world-1 ring does, drops included; a global slot ``g`` lives
+on batch shard ``g // (capacity / n)`` (on every model rank of that
+shard), so each rank's device holds ``capacity / n`` slots
+(``buffer/shard_bytes``). An admitted row takes a free slot on the shard
+whose batch share its order position falls in (position ``p`` goes to
+shard ``(p // (B/n)) % n``; a take moves every position by whole batches,
+so the choice holds until a stale drop or an eviction shifts it), and its
+bytes go from rank 0 to that shard's ranks alone (a gloo scatter of
+packed rows). A take is one decision on rank 0, broadcast with the slots
+it gathers (every rank learns whether there is a batch, and the prefetch
+lane's holds, releases and requeues stay rank 0's); a rank gathers its
+share from its own slots, and a row whose position has moved to another
+shard crosses through the host (a copy to the host, a gloo send, a copy
+to the card). Every rank calls ``add``, ``take`` and ``state_dict`` at the
+same point (the others' rows are ignored), from the train thread. A
+snapshot is the whole ring's in the world-1 layout (the global slots end
+to end), so any world size restores it.
 """
 
 from __future__ import annotations
@@ -83,7 +108,9 @@ import torch
 
 from dotaclient_tpu_torch.config import RunConfig
 from dotaclient_tpu_torch.device import DeviceLike, host_index, resolve_device
-from dotaclient_tpu_torch.parallel.collectives import all_gather_rows
+from dotaclient_tpu_torch.parallel.collectives import (
+    all_gather_rows, broadcast_host, exchange_host, scatter_host,
+)
 from dotaclient_tpu_torch.parallel.mesh import Mesh, batch_index, batch_shard_count
 from dotaclient_tpu_torch.train.ppo import example_batch
 from dotaclient_tpu_torch.transport.serialize import (
@@ -104,12 +131,15 @@ class TrajectoryBuffer:
     with version-based staleness checks."""
 
     def __init__(self, config: RunConfig, device: DeviceLike = None,
-                 registry: Optional[telemetry.Registry] = None, mesh: Optional[Mesh] = None) -> None:
+                 registry: Optional[telemetry.Registry] = None, mesh: Optional[Mesh] = None,
+                 host_fed: bool = False) -> None:
         self.config = config
         self.device = resolve_device(device)
         self._tel = registry if registry is not None else telemetry.get_registry()
         cap = config.buffer.capacity_rollouts
         n = batch_shard_count(mesh, config.mesh) if mesh is not None else 1
+        # the single door: host rows on a mesh of more than one rank
+        self._door = host_fed and mesh is not None and mesh.size > 1
         if n > 1:
             desc = "×".join(f"{a}={mesh.shape[a]}" for a in mesh.batch_axis_names)
             if cap % n:
@@ -121,10 +151,23 @@ class TrajectoryBuffer:
         self._n_shards = n
         self._shard = batch_index(mesh, config.mesh) if n > 1 else 0
         self._host_group = mesh.batch_host_group if n > 1 else None
-        cap //= n
-        self.capacity = cap                                   # this rank's slots
-        self.batch_size = config.ppo.batch_rollouts // n      # this rank's share of a batch
-        self._min_fill = -(-config.buffer.min_fill // n)
+        self._local_cap = cap // n                            # this rank's slots
+        self._share = config.ppo.batch_rollouts // n          # this rank's share of a batch
+        # rank 0 keeps the bookkeeping of the door's whole ring; elsewhere it
+        # stays empty
+        self._leader = not self._door or mesh.rank == 0
+        if self._door:
+            self._all_group = mesh.all_host_group
+            self._rank = mesh.rank
+            self._model_ranks = mesh.size // n                # the ranks of one batch shard
+            self.capacity = cap                               # the ledger's slots
+            self.batch_size = config.ppo.batch_rollouts
+            self._min_fill = config.buffer.min_fill
+        else:
+            self.capacity = self._local_cap
+            self.batch_size = self._share
+            self._min_fill = -(-config.buffer.min_fill // n)
+        cap = self.capacity
         self._staleness_limit = (
             config.buffer.max_weight_staleness
             if config.buffer.max_weight_staleness >= 0
@@ -135,7 +178,7 @@ class TrajectoryBuffer:
             self._tel.counter(key)
         # the train batch's layout and dtypes (take's widening targets), and
         # the wire's cast plan: empty for a full-width ring
-        template = example_batch(config, cap, device=self.device)
+        template = example_batch(config, self._local_cap, device=self.device)
         flat = flatten_tree(template)
         names = {n: _dtype_name(t) for n, t in flat.items()}
         int_bounds = rollout_int_bounds(config)
@@ -145,7 +188,7 @@ class TrajectoryBuffer:
         self._tel.gauge("buffer/shard_bytes").set(
             float(sum(t.numel() * t.element_size() for t in tree_leaves(self._store))))
         self._order: Deque[int] = deque()
-        self._free: List[int] = list(range(cap - 1, -1, -1))
+        self._free: List[int] = list(range(cap - 1, -1, -1)) if self._leader else []
         self._held: Dict[int, List[int]] = {}
         self._next_ticket = 0
         self._warmed = False       # min_fill reached at least once
@@ -156,6 +199,9 @@ class TrajectoryBuffer:
         self.dropped_nonfinite = 0
         self.dropped_bounds = 0
         self.ingested = 0
+        # the single door: rows that crossed shards at a take (every rank's
+        # count of the job's)
+        self.rows_moved = 0
         # the host-row door: each leaf's name, row shape and the widths it
         # may arrive at (its full width, or the bf16 wire's narrowing of it)
         narrow = self._wire_plan or rollout_cast_plan(names, "bfloat16", int_bounds)
@@ -179,6 +225,11 @@ class TrajectoryBuffer:
         self._tracer = tracing.get()
         self._slot_trace: Optional[List[Optional[dict]]] = [None] * cap if self._tracer is not None else None
         self._pending_traces: List[dict] = []
+        # a row's packed bytes (the door's scatter and moves): each leaf's
+        # name, row shape, dtype and bytes, in the store's leaf order
+        self._row_layout = [(name, tuple(t.shape[1:]), t.dtype, t[0].numel() * t.element_size())
+                            for name, t in flatten_tree(self._store).items()]
+        self._row_bytes = sum(nb for *_, nb in self._row_layout)
 
     @property
     def size(self) -> int:
@@ -194,7 +245,29 @@ class TrajectoryBuffer:
         """Ingest decoded host rows ``(meta, arrays)`` through the door
         (stale, skew, non-finite, each counted); returns the number
         kept. One staging copy a row, one host-to-device copy and one
-        ``index_copy_`` a leaf."""
+        ``index_copy_`` a leaf. Through the single door every rank calls
+        it; rank 0's rows are the ones ingested."""
+        if self._door:
+            return self._door_add(rollouts, current_version)
+        fresh = self._admit(rollouts, current_version)
+        if not fresh:
+            self._publish_telemetry()
+            return 0
+        with self._tel.span("buffer/insert"):
+            slots = self._alloc_slots(len(fresh))
+            fresh = fresh[: len(slots)]
+            if not fresh:
+                self._publish_telemetry()
+                return 0
+            self._copy_in(self._stage_rows([flat for _, flat in fresh]), slots)
+            self._book_rows(fresh, slots)
+        self._publish_telemetry()
+        return len(fresh)
+
+    def _admit(self, rollouts: List[Tuple[Dict[str, Any], Any]], current_version: int) -> List[Tuple[Dict, Dict]]:
+        """The door, in the reference's order: the rows that pass as ``(meta,
+        leaves by name)``, at most a ring's worth (the newest), each drop
+        counted."""
         fresh = []
         for meta, arrays in rollouts:
             if current_version - meta["model_version"] > self._staleness_limit:
@@ -229,38 +302,172 @@ class TrajectoryBuffer:
             # one ingest never names a slot twice: keep the newest
             self.dropped_overflow += len(fresh) - self.capacity
             fresh = fresh[-self.capacity:]
-        if not fresh:
+        return fresh
+
+    def _book_rows(self, fresh: List[Tuple[Dict, Dict]], slots: List[int]) -> None:
+        """The bookkeeping of rows written into ``slots``: versions, the
+        trace records' admit hop, the order, the count."""
+        self._slot_version[slots] = [m["model_version"] for m, _ in fresh]
+        if self._tracer is not None:
+            # the admit hop: the row passed the door and owns a slot
+            ts = tracing.now()
+            for (m, _), s in zip(fresh, slots):
+                rec = m.get("trace")
+                if rec is not None:
+                    rec["hops"].append(["admit", ts])
+                self._slot_trace[s] = rec
+        self._order.extend(slots)
+        self.ingested += len(slots)
+
+    def _copy_in(self, lane: Dict[str, torch.Tensor], slots: List[int]) -> None:
+        """The lane's first ``len(slots)`` rows into this rank's store slots
+        ``slots``: one non-blocking host-to-device copy and one
+        ``index_copy_`` a leaf, the lane's event recorded after them."""
+        n = len(slots)
+        idx = host_index(slots, self.device)
+        for name, dst in flatten_tree(self._store).items():
+            dst.index_copy_(0, idx, lane[name][:n].to(self.device, non_blocking=True))
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self._staging_events[(self._staging_idx - 1) % self._staging_lanes] = ev
+
+    # -- the single door ------------------------------------------------------
+
+    def _shard_of(self, slot: int) -> int:
+        return slot // self._local_cap
+
+    def _door_add(self, rollouts: List[Tuple[Dict[str, Any], Any]], current_version: int) -> int:
+        """Rank 0 admits and places the rows; its plan (the global slots, in
+        admission order) is broadcast and each shard's rows scattered to its
+        ranks, which stage them into their own slots."""
+        plan = torch.full((1 + self.capacity,), -1, dtype=torch.int64)
+        fresh: List[Tuple[Dict, Dict]] = []
+        if self._leader:
+            fresh = self._admit(rollouts, current_version)
+            slots = self._alloc_slots(len(fresh), placed=True) if fresh else []
+            fresh = fresh[: len(slots)]
+            plan[0] = len(slots)
+            plan[1:1 + len(slots)] = torch.as_tensor(slots, dtype=torch.int64)
+        broadcast_host(plan, self._all_group)
+        k = int(plan[0])
+        if not k:
             self._publish_telemetry()
             return 0
         with self._tel.span("buffer/insert"):
-            slots = self._alloc_slots(len(fresh))
-            fresh = fresh[: len(slots)]
-            if not fresh:
-                self._publish_telemetry()
-                return 0
-            n = len(fresh)
-            lane = self._stage_rows([flat for _, flat in fresh])
-            idx = host_index(slots, self.device)
-            store = flatten_tree(self._store)
-            for name, dst in store.items():
-                dst.index_copy_(0, idx, lane[name][:n].to(self.device, non_blocking=True))
-            if self.device.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record()
-                self._staging_events[(self._staging_idx - 1) % self._staging_lanes] = ev
-            self._slot_version[slots] = [m["model_version"] for m, _ in fresh]
-            if self._tracer is not None:
-                # the admit hop: the row passed the door and owns a slot
-                ts = tracing.now()
-                for (m, _), s in zip(fresh, slots):
-                    rec = m.get("trace")
-                    if rec is not None:
-                        rec["hops"].append(["admit", ts])
-                    self._slot_trace[s] = rec
-            self._order.extend(slots)
-            self.ingested += n
+            slots = plan[1:1 + k].tolist()
+            by_shard = [[j for j, g in enumerate(slots) if self._shard_of(g) == s] for s in range(self._n_shards)]
+            width = max(len(x) for x in by_shard)
+            parts = None
+            if self._leader:
+                host = {name: torch.empty((k,) + shape, dtype=dtype) for name, shape, dtype, _ in self._row_layout}
+                self._fill(host, [flat for _, flat in fresh])
+                packed = [self._pack(host, rows, width) for rows in by_shard]
+                parts = [packed[r // self._model_ranks] for r in range(self._n_shards * self._model_ranks)]
+            got = scatter_host(parts, (width, self._row_bytes), torch.uint8, self._all_group)
+            mine = by_shard[self._shard]
+            if mine:
+                lane = self._next_lane()
+                for name, t in self._unpack(got[:len(mine)]).items():
+                    lane[name][:len(mine)].copy_(t)
+                self._copy_in(lane, [slots[j] % self._local_cap for j in mine])
+            if self._leader:
+                self._book_rows(fresh, slots)
         self._publish_telemetry()
-        return n
+        return k
+
+    def _pack(self, host: Dict[str, torch.Tensor], rows: List[int], width: int) -> torch.Tensor:
+        """Rows ``rows`` of host leaves as ``[width, row bytes]`` uint8, the
+        leaves end to end in the store's order, zero-padded to ``width``."""
+        out = torch.zeros((width, self._row_bytes), dtype=torch.uint8)
+        if rows:
+            idx = torch.as_tensor(rows, dtype=torch.int64)
+            out[:len(rows)] = torch.cat([host[name].index_select(0, idx).reshape(len(rows), -1).view(torch.uint8)
+                                         for name, *_ in self._row_layout], dim=1)
+        return out
+
+    def _unpack(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``_pack``'s inverse: host leaves of ``buf``'s rows."""
+        out, off = {}, 0
+        for name, shape, dtype, nb in self._row_layout:
+            out[name] = buf[:, off:off + nb].contiguous().view(dtype).reshape((buf.shape[0],) + shape)
+            off += nb
+        return out
+
+    def _door_take(self, b: int, current_version: Optional[int], hold: bool) -> Optional[Any]:
+        """Rank 0 decides (``_take_slots``) and broadcasts the batch's global
+        slots; every rank gathers its share."""
+        plan = torch.full((1 + b,), -1, dtype=torch.int64)
+        plan[0] = 0
+        ticket = -1
+        if self._leader:
+            slots = self._take_slots(b, current_version)
+            if slots is not None:
+                plan[0] = 1
+                plan[1:] = torch.as_tensor(slots, dtype=torch.int64)
+                ticket = self._hold_or_free(slots, hold)
+        broadcast_host(plan, self._all_group)
+        if not int(plan[0]):
+            self._publish_telemetry()
+            return None
+        slots = plan[1:].tolist()
+        with self._tel.span("buffer/sample"):
+            batch = self._gather_share(slots)
+            if self._leader:
+                self._trace_gather(slots)
+        if self._leader:
+            self._staleness_gauge(slots, current_version)
+        self._publish_telemetry()
+        return (batch, ticket) if hold else batch
+
+    def _gather_share(self, slots: List[int]) -> Any:
+        """This rank's share of the batch at global slots ``slots``: its own
+        slots gathered on the device, and the rows whose slots lie on
+        another shard received from that shard's rank of this rank's model
+        coordinate (a copy to the host there, a gloo send, a copy to the
+        card here), one message a (home, target) shard pair."""
+        lcap, share, me, M = self._local_cap, self._share, self._shard, self._model_ranks
+        m = self._rank % M
+        target = [i // share for i in range(len(slots))]
+        home = [self._shard_of(g) for g in slots]
+        moved = [i for i in range(len(slots)) if home[i] != target[i]]
+        self.rows_moved += len(moved)
+        pairs = sorted({(home[i], target[i]) for i in moved})
+        moves, sends, where = [], {}, {}
+        for h, t in pairs:
+            pos = [i for i in moved if (home[i], target[i]) == (h, t)]
+            for mm in range(M):
+                moves.append(((h, t, mm), h * M + mm, t * M + mm))
+            if h == me:
+                sends[(h, t, m)] = [slots[i] % lcap for i in pos]
+            if t == me:
+                where[(h, t, m)] = [i - me * share for i in pos]
+        got = self._move_rows(moves, sends, {k: len(v) for k, v in where.items()}) if moves else {}
+        mine = range(me * share, (me + 1) * share)
+        idx = host_index([slots[i] % lcap if home[i] == me else 0 for i in mine], self.device)
+        flat = {name: leaf.index_select(0, idx) for name, leaf in flatten_tree(self._store).items()}
+        for key, rows in got.items():
+            at = host_index(where[key], self.device)
+            for name, leaf in rows.items():
+                flat[name].index_copy_(0, at, leaf)
+        # the one widening of a narrow ring, on the device
+        return tree_map(lambda t, d: t.to(d), unflatten_tree(flat), self._consume_dtypes)
+
+    def _move_rows(self, moves: List[Tuple[Any, int, int]], sends: Dict[Any, List[int]],
+                   recv_counts: Dict[Any, int]) -> Dict[Any, Dict[str, torch.Tensor]]:
+        """The rows that cross shards at a take: this rank's store rows
+        ``sends[key]`` copied to the host and sent, and ``recv_counts[key]``
+        rows received and copied to the card (device leaves by key). The
+        door's one read of the device and its one copy to the card outside
+        the staging lanes."""
+        packed = {}
+        for key, local_slots in sends.items():
+            idx = host_index(local_slots, self.device)
+            host = {name: leaf.index_select(0, idx).cpu() for name, leaf in flatten_tree(self._store).items()}
+            packed[key] = self._pack(host, list(range(len(local_slots))), len(local_slots))
+        like = {key: ((n, self._row_bytes), torch.uint8) for key, n in recv_counts.items()}
+        got = exchange_host(moves, packed, like, self._all_group)
+        return {key: {name: t.to(self.device) for name, t in self._unpack(buf).items()} for key, buf in got.items()}
 
     def _matches_slot(self, arrays: Any) -> Optional[Dict[str, Any]]:
         """The payload's leaves by name when it has exactly the slot's tree
@@ -310,13 +517,19 @@ class TrajectoryBuffer:
         return True
 
     def _stage_rows(self, rows: List[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
-        """Copy the rows into the next staging lane (host tensors of the
-        ring's capacity, pinned on CUDA) and return it. A lane is rewritten
-        only after the copy that last read it has completed."""
+        """Copy the rows into the next staging lane and return it."""
+        lane = self._next_lane()
+        self._fill(lane, rows)
+        return lane
+
+    def _next_lane(self) -> Dict[str, torch.Tensor]:
+        """The next staging lane (host tensors of this rank's slot count,
+        pinned on CUDA), rewritten only after the copy that last read it
+        has completed."""
         if self._staging is None:
             pin = self.device.type == "cuda"
             self._staging = [
-                {name: torch.empty((self.capacity,) + tuple(t.shape[1:]), dtype=t.dtype, pin_memory=pin)
+                {name: torch.empty((self._local_cap,) + tuple(t.shape[1:]), dtype=t.dtype, pin_memory=pin)
                  for name, t in flatten_tree(self._store).items()}
                 for _ in range(self._staging_lanes)
             ]
@@ -325,7 +538,11 @@ class TrajectoryBuffer:
         if self._staging_events[k] is not None:
             self._staging_events[k].synchronize()
             self._staging_events[k] = None
-        lane = self._staging[k]
+        return self._staging[k]
+
+    def _fill(self, lane: Dict[str, torch.Tensor], rows: List[Dict[str, Any]]) -> None:
+        """Rows (leaves by name, at either admissible width) into host
+        tensors of the store's dtypes."""
         with self._tel.span("buffer/stage"):
             for name, dst in lane.items():
                 if dst.dtype == torch.bfloat16:
@@ -340,16 +557,26 @@ class TrajectoryBuffer:
                     for i, flat in enumerate(rows):
                         src = flat[name]
                         view[i] = _to_f32(src) if _dtype_name(src) == BF16 else src
-        return lane
 
-    def _alloc_slots(self, n: int) -> List[int]:
+    def _alloc_slots(self, n: int, placed: bool = False) -> List[int]:
         """Up to ``n`` writable slots: free slots first, then the oldest
         unconsumed (counted in ``dropped_overflow``). Held slots are in
-        neither pool, so when both run dry the rest is dropped (counted)."""
+        neither pool, so when both run dry the rest is dropped (counted).
+        With ``placed`` (the single door) a free slot is taken, where there
+        is one, on the shard whose batch share the row's order position
+        falls in; which free slot is taken changes no drop."""
         slots: List[int] = []
+        if placed:
+            # the order position the first row will take (after the evictions)
+            first = len(self._order) - min(max(0, n - len(self._free)), len(self._order))
         for k in range(n):
             if self._free:
-                slots.append(self._free.pop())
+                at = len(self._free) - 1
+                if placed:
+                    want = ((first + k) // self._share) % self._n_shards
+                    at = next((i for i in range(len(self._free) - 1, -1, -1)
+                               if self._shard_of(self._free[i]) == want), at)
+                slots.append(self._free.pop(at))
             elif self._order:
                 slots.append(self._order.popleft())
                 self.dropped_overflow += 1
@@ -397,8 +624,30 @@ class TrajectoryBuffer:
         the staleness limit behind is dropped first (all slots are scanned:
         ship order is not version order). With ``hold`` the return is
         ``(batch, ticket)`` and the slots are parked until :meth:`release`
-        (trained on) or :meth:`requeue` (returned untrained to the front)."""
+        (trained on) or :meth:`requeue` (returned untrained to the front).
+        Through the single door every rank calls it and gets its share of
+        rank 0's batch."""
         b = batch_size or self.batch_size
+        if self._door:
+            return self._door_take(b, current_version, hold)
+        slots = self._take_slots(b, current_version)
+        if slots is None:
+            return None
+        with self._tel.span("buffer/sample"):
+            idx = host_index(slots, self.device)
+            # the one widening of a narrow ring, on the device (a no-op .to
+            # for a leaf already at its train dtype)
+            batch = tree_map(lambda s, d: s.index_select(0, idx).to(d), self._store, self._consume_dtypes)
+            ticket = self._hold_or_free(slots, hold)
+            self._trace_gather(slots)
+        self._staleness_gauge(slots, current_version)
+        self._publish_telemetry()
+        return (batch, ticket) if hold else batch
+
+    def _take_slots(self, b: int, current_version: Optional[int]) -> Optional[List[int]]:
+        """The take's bookkeeping: the stale scan, the warm-up, and the
+        oldest ``b`` slots out of the order (None when there is no
+        batch)."""
         if current_version is not None:
             max_st = self._staleness_limit
             stale = [s for s in self._order if current_version - self._slot_version[s] > max_st]
@@ -414,35 +663,38 @@ class TrajectoryBuffer:
             self._warmed = True
         if self.size < b:
             return None
-        with self._tel.span("buffer/sample"):
-            slots = [self._order.popleft() for _ in range(b)]
-            idx = host_index(slots, self.device)
-            # the one widening of a narrow ring, on the device (a no-op .to
-            # for a leaf already at its train dtype)
-            batch = tree_map(lambda s, d: s.index_select(0, idx).to(d), self._store, self._consume_dtypes)
-            if hold:
-                ticket = self._next_ticket
-                self._next_ticket += 1
-                self._held[ticket] = slots
-            else:
-                self._free.extend(slots)
-            if self._tracer is not None:
-                # the gather hop (ring residency = gather - admit); the
-                # records wait for the dispatch that consumes the batch
-                ts = tracing.now()
-                for s in slots:
-                    rec = self._slot_trace[s]
-                    if rec is not None:
-                        self._slot_trace[s] = None
-                        rec["hops"].append(["gather", ts])
-                        self._pending_traces.append(rec)
+        return [self._order.popleft() for _ in range(b)]
+
+    def _hold_or_free(self, slots: List[int], hold: bool) -> int:
+        """Park the taken slots under a new ticket (returned), or free them
+        (-1)."""
+        if not hold:
+            self._free.extend(slots)
+            return -1
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._held[ticket] = slots
+        return ticket
+
+    def _trace_gather(self, slots: List[int]) -> None:
+        """The gather hop (ring residency = gather - admit); the records
+        wait for the dispatch that consumes the batch."""
+        if self._tracer is None:
+            return
+        ts = tracing.now()
+        for s in slots:
+            rec = self._slot_trace[s]
+            if rec is not None:
+                self._slot_trace[s] = None
+                rec["hops"].append(["gather", ts])
+                self._pending_traces.append(rec)
+
+    def _staleness_gauge(self, slots: List[int], current_version: Optional[int]) -> None:
         if current_version is not None:
             # how far behind the optimizer the batch's experience is, in
             # optimizer steps (host ints)
             self._tel.gauge("buffer/batch_staleness").set(
                 float(current_version - self._slot_version[slots].mean()))
-        self._publish_telemetry()
-        return (batch, ticket) if hold else batch
 
     def drain_traces(self) -> List[dict]:
         """The records of every batch taken since the last call, for the
@@ -489,6 +741,8 @@ class TrajectoryBuffer:
         the device). Held batches are folded back into the order first. A
         sharded ring's is the whole ring's (a collective)."""
         local = self._local_state_dict()
+        if self._door:
+            return self._door_state(local)
         return self._gather_state(local) if self._n_shards > 1 else local
 
     def _local_state_dict(self) -> Dict[str, Any]:
@@ -522,6 +776,13 @@ class TrajectoryBuffer:
         total[0] = counters[:, 0].max()                           # warmed: any rank's
         return {"store": store, "order": self._padded(order, n * cap), "free": self._padded(free, n * cap),
                 "slot_version": versions, "counters": total}
+
+    def _door_state(self, local: Dict[str, Any]) -> Dict[str, Any]:
+        """The single door's snapshot: the shards' slots end to end (the
+        global slots in order) and rank 0's bookkeeping, on every rank."""
+        store = tree_map(lambda t: all_gather_rows(t, self._host_group), local["store"])
+        books = {k: broadcast_host(local[k], self._all_group) for k in ("order", "free", "slot_version", "counters")}
+        return {"store": store, **books}
 
     @staticmethod
     def _padded(vals, size: int) -> torch.Tensor:
@@ -564,7 +825,7 @@ class TrajectoryBuffer:
         this ring's narrow dtype is freed and counted in ``dropped_bounds``
         instead. A sharded ring takes its part of a whole ring's snapshot
         (:meth:`_cut_state`), whatever world size wrote it."""
-        if self._n_shards > 1:
+        if self._n_shards > 1 and not self._door:
             state = self._cut_state(state)
         saved = flatten_tree(state["store"])
         bad = np.zeros((self.capacity,), bool)
@@ -573,13 +834,18 @@ class TrajectoryBuffer:
             if a.dtype.itemsize > info.bits // 8:
                 bad |= ((a < info.min) | (a > info.max)).reshape(self.capacity, -1).any(axis=1)
         store = flatten_tree(self._store)
+        # the single door: this shard's slots of the whole ring; its
+        # bookkeeping stays rank 0's
+        lo = self._shard * self._local_cap if self._door else 0
         self._store = unflatten_tree({
-            n: self._restored_leaf(saved[n], s.dtype).to(self.device) for n, s in store.items()})
-        self._order = deque(int(s) for s in np.asarray(state["order"]) if s >= 0)
-        self._free = [int(s) for s in np.asarray(state["free"]) if s >= 0]
+            n: self._restored_leaf(torch.as_tensor(saved[n])[lo:lo + self._local_cap], s.dtype).to(self.device)
+            for n, s in store.items()})
+        lead = self._leader
+        self._order = deque(int(s) for s in np.asarray(state["order"]) if s >= 0 and lead)
+        self._free = [int(s) for s in np.asarray(state["free"]) if s >= 0 and lead]
         self._held = {}
         self._slot_version = np.asarray(state["slot_version"], dtype=np.int64).copy()
-        counters = [int(v) for v in np.asarray(state["counters"])]
+        counters = [int(v) * lead for v in np.asarray(state["counters"])]
         counters += [0] * (_N_COUNTERS - len(counters))
         (warmed, self.dropped_stale, self.dropped_overflow, self.ingested, self.dropped_skew,
          self.dropped_nonfinite, self.dropped_bounds) = counters[:_N_COUNTERS]

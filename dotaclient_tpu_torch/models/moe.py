@@ -14,6 +14,11 @@ collection; the port has none, so ``forward`` returns them: ``probs [B, E]``
 (the whole gate softmax) and ``frac [B, E]`` (1 at the expert that took the
 token, 0 where it was dropped), which ``train/ppo.py``'s ``_moe_aux_loss``
 masks and averages.
+
+On a data-parallel world the call takes the batch group (``group``): the
+routing is then the global batch's, as the reference's MoE layer sees it
+(``parallel/expert.py``). Every caller that holds a rank's share of a
+batch passes it: the lane-sharded rollout, the update, the advantage pass.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dotaclient_tpu_torch.parallel.collectives import Group
 from dotaclient_tpu_torch.parallel.expert import expert_capacity, route_top1
 
 
@@ -41,12 +47,13 @@ class MoEMLP(nn.Module):
         self.expert_w2 = nn.Parameter(torch.zeros(E, Fh, D, device=device))
         self.expert_b2 = nn.Parameter(torch.zeros(E, D, device=device))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """x ``[B, D]`` in the compute dtype -> (y ``[B, D]`` in that dtype,
-        (probs, frac) ``[B, E]`` each, f32)."""
+    def forward(self, x: torch.Tensor, group: Group = None) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """x ``[B, D]`` in the compute dtype (with ``group``, this rank's
+        block of the global batch) -> (y ``[B, D]`` in that dtype, (probs,
+        frac) ``[B, E]`` each, f32)."""
         dtype = x.dtype
-        C = expert_capacity(x.shape[0], self.n_experts, self.capacity_factor)
-        dispatch, combine, probs = route_top1(x, self.gate, self.n_experts, C)     # [B, E, C]
+        C = expert_capacity(x.shape[0], self.n_experts, self.capacity_factor, group)
+        dispatch, combine, probs = route_top1(x, self.gate, self.n_experts, C, group)     # [B, E, C]
         xin = torch.einsum("bec,bd->ecd", dispatch.to(dtype), x)
         h = torch.einsum("ecd,edf->ecf", xin, self.expert_w1.to(dtype)) + self.expert_b1[:, None].to(dtype)
         h = F.gelu(h, approximate="tanh")

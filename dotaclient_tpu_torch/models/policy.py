@@ -54,6 +54,7 @@ from dotaclient_tpu_torch.models.transformer import (
     transformer_initial_state,
 )
 from dotaclient_tpu_torch.ops.lstm import lstm_sequence
+from dotaclient_tpu_torch.parallel.collectives import Group
 from dotaclient_tpu_torch.utils.tree import tree_map
 
 # (c, h) for the LSTM core, Flax's order; (valid, ((k, v), ...)) for the
@@ -209,29 +210,31 @@ class Policy(nn.Module):
         return initial_carry(self.model, batch_size, self.device)
 
     def step(
-        self, obs: Obs, carry: Carry
+        self, obs: Obs, carry: Carry, group: Group = None
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Carry]:
-        """Single batched step: obs ``[B, ...]``; the LSTM core runs with T=1."""
+        """Single batched step: obs ``[B, ...]``; the LSTM core runs with T=1.
+        ``group``: the batch group an MoE core routes over, when the rows
+        are this rank's share of a data-parallel batch."""
         x, unit_emb = self._trunk(obs)
         if self.model.core == "lstm":
             resets = torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)
             carry, ys = self.core(x[:, None], carry, resets)
             y = ys[:, 0]
         else:
-            carry, y, _ = self.core(carry, x)
+            carry, y, _ = self.core(carry, x, group)
         logits, value = self._heads(y, unit_emb)
         return logits, value, carry
 
     def sequence(
         self, obs: Obs, carry: Carry, dones: Optional[torch.Tensor] = None,
-        use_kernel: bool = True, return_moe: bool = False,
+        use_kernel: bool = True, return_moe: bool = False, group: Group = None,
     ):
         """Teacher-forced sequence mode: obs ``[B, T, ...]`` from the stored
         initial carry -> ``(logits, value, carry)``. ``dones`` ([B, T'] with
         T' <= T, episode ended AT step t) zeroes the carry before step t+1,
         as the actor's reset does. ``return_moe`` appends the MoE routing
         stats: per MoE layer ``(probs, frac)``, each ``[T, B, E]`` (an empty
-        tuple for the dense and LSTM cores)."""
+        tuple for the dense and LSTM cores). ``group`` as in ``step``."""
         x, unit_emb = self._trunk(obs)                            # [B, T, H]
         B, T = x.shape[:2]
         resets = torch.zeros(B, T, dtype=torch.float32, device=x.device)
@@ -246,7 +249,7 @@ class Policy(nn.Module):
             steps: List[MoEStats] = []
             for t in range(T):
                 carry = mask_carry(carry, 1.0 - resets[:, t])
-                carry, y, stats = self.core(carry, x[:, t])
+                carry, y, stats = self.core(carry, x[:, t], group)
                 outs.append(y)
                 steps.append(stats)
             ys = torch.stack(outs, dim=1)
@@ -257,9 +260,9 @@ class Policy(nn.Module):
             return logits, value, carry, moe
         return logits, value, carry
 
-    def forward(self, obs: Obs, carry: Carry):
+    def forward(self, obs: Obs, carry: Carry, group: Group = None):
         """Default = step mode."""
-        return self.step(obs, carry)
+        return self.step(obs, carry, group)
 
 
 def make_policy(

@@ -37,6 +37,7 @@ from torch import nn
 
 from dotaclient_tpu_torch.config import ModelConfig
 from dotaclient_tpu_torch.models.moe import MoEMLP
+from dotaclient_tpu_torch.parallel.collectives import Group
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 # per layer (probs [B, E], frac [B, E]) of an MoE core; empty for a dense one
@@ -110,10 +111,11 @@ class Block(nn.Module):
         self.gate_ffn = GRUGate(H, device)
 
     def forward(
-        self, kv: KV, valid: torch.Tensor, h: torch.Tensor
+        self, kv: KV, valid: torch.Tensor, h: torch.Tensor, group: Group = None
     ) -> Tuple[KV, torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """kv (k, v) ``[B, W, H]`` f32, valid ``[B, W]`` f32, h ``[B, H]``
-        in the compute dtype -> (the rolled kv, h, MoE stats or None)."""
+        in the compute dtype -> (the rolled kv, h, MoE stats or None).
+        ``group``: the batch group the MoE FFN routes over."""
         kc, vc = kv
         B, W = valid.shape
         H = h.shape[-1]
@@ -136,7 +138,7 @@ class Block(nn.Module):
         hm = self.ln1(h)
         stats = None
         if self.moe is not None:
-            ffn, stats = self.moe(hm)
+            ffn, stats = self.moe(hm, group)
         else:
             ffn = dense(self.ffn1, F.gelu(dense(self.ffn0, hm), approximate="tanh"))
         h = self.gate_ffn(h, ffn)
@@ -156,12 +158,12 @@ class WindowedTransformerCore(nn.Module):
         self.blocks = nn.ModuleList([Block(config, device) for _ in range(config.n_layers)])
         self.out_ln = LayerNorm(config.hidden_dim, device)
 
-    def forward(self, carry, x: torch.Tensor):
+    def forward(self, carry, x: torch.Tensor, group: Group = None):
         valid, caches = carry
         h = x
         new_caches, stats = [], []
         for block, kv in zip(self.blocks, caches):
-            kv, h, st = block(kv, valid, h)
+            kv, h, st = block(kv, valid, h, group)
             new_caches.append(kv)
             if st is not None:
                 stats.append(st)

@@ -10,9 +10,12 @@ Counterpart of ``dotaclient_tpu/parallel/mesh.py``. Axes, as there:
 
 The reference's ``Mesh`` is an array of devices that one controller drives;
 the port's is this rank's view of the same layout: the axis names and
-sizes, this rank's coordinates, one process group an axis, and the batch
-group over the (dcn x) data axes, with a gloo twin for host tensors when
-the job's backend is NCCL. The reference's ``NamedSharding`` rules
+sizes, this rank's coordinates, one process group an axis, the batch
+group over the (dcn x) data axes and the group of every rank of the mesh
+(``all_group``: the whole params of the tensor-parallel layout), each of
+the last two with a gloo twin for host tensors when the job's backend is
+NCCL (``all_host_group`` carries the learner's agreements and the host-fed
+ring's door). The reference's ``NamedSharding`` rules
 (``data_sharding``, ``replicated``, ``row_sharding``) become the rules that
 give a rank its local row range of a leading axis.
 
@@ -50,6 +53,8 @@ class Mesh:
     batch_group: Optional[dist.ProcessGroup] = None
     batch_host_group: Optional[dist.ProcessGroup] = None
     batch_axis_names: Tuple[str, ...] = ()
+    all_group: Optional[dist.ProcessGroup] = None
+    all_host_group: Optional[dist.ProcessGroup] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -131,8 +136,8 @@ def make_mesh(config: MeshConfig, world_size: Optional[int] = None, rank: Option
 
 
 def _make_groups(mesh: Mesh, config: MeshConfig) -> None:
-    """One group an axis of size > 1 and the batch group, each made by every
-    rank of the world in the same order (``new_group`` is collective), each
+    """One group an axis of size > 1, the batch group and the mesh's group,
+    each made by every rank of the world in the same order (``new_group`` is collective), each
     timing out as the runtime's default does."""
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
     gloo_twin = dist.get_backend() != "gloo"
@@ -155,6 +160,8 @@ def _make_groups(mesh: Mesh, config: MeshConfig) -> None:
     if batch_shard_count(mesh, config) > 1:
         mesh.batch_group = each_group(free)
         mesh.batch_host_group = each_group(free, backend="gloo") if gloo_twin else mesh.batch_group
+    mesh.all_group = each_group(mesh.axis_names)
+    mesh.all_host_group = each_group(mesh.axis_names, backend="gloo") if gloo_twin else mesh.all_group
 
 
 def axis_group(mesh: Mesh, axis: str) -> Tuple[Optional[dist.ProcessGroup], int, int]:

@@ -28,6 +28,7 @@ import torch
 
 from dotaclient_tpu_torch.config import ADVANTAGE_STORE_DTYPES, RunConfig
 from dotaclient_tpu_torch.models.policy import Policy
+from dotaclient_tpu_torch.parallel.collectives import Group
 from dotaclient_tpu_torch.train.gae import gae
 
 
@@ -51,18 +52,21 @@ def store_dtype(config: RunConfig) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
-def advantages_and_returns(policy: Policy, batch: Any, cfg: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+def advantages_and_returns(policy: Policy, batch: Any, cfg: Any, group: Group = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The in-step estimator's ops as a stage of their own: the sequence
     forward over the full ``[B, T+1]`` chunk (the trailing slot is the
-    bootstrap value), then GAE, both f32 and without a gradient."""
+    bootstrap value), then GAE, both f32 and without a gradient. With a
+    ``group`` the batch is this rank's rows (an MoE core routes over the
+    group)."""
     with torch.no_grad():
-        _, values, _ = policy.sequence(batch["obs"], batch["carry0"], batch["dones"])
+        _, values, _ = policy.sequence(batch["obs"], batch["carry0"], batch["dones"], group=group)
         return gae(batch["rewards"], values, batch["dones"], cfg.gamma, cfg.gae_lambda)
 
 
-def make_advantage_pass(policy: Policy, config: RunConfig):
+def make_advantage_pass(policy: Policy, config: RunConfig, group: Group = None):
     """``pass(batch) -> (advantages, returns)`` at the staging dtype, with
-    the policy's live params."""
+    the policy's live params; ``group`` the batch group of a sharded
+    batch."""
     if config.ppo.advantage != "gae":
         raise ValueError(
             "the one-pass advantage plane precomputes GAE only: advantage='vtrace' needs the current "
@@ -72,7 +76,7 @@ def make_advantage_pass(policy: Policy, config: RunConfig):
     cfg = config.ppo
 
     def advantage_pass(batch):
-        adv, ret = advantages_and_returns(policy, batch, cfg)
+        adv, ret = advantages_and_returns(policy, batch, cfg, group)
         return adv.to(dt), ret.to(dt)
 
     return advantage_pass

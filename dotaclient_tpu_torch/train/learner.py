@@ -138,11 +138,29 @@ calls a collective. A job::
     python -m torch.distributed.run --nproc-per-node K -m dotaclient_tpu_torch.train.learner --multihost \
         [--mesh data_parallel=-1] [--dcn-slices D] ...
 
-Not ported yet, each with its ROADMAP item: tensor parallelism in the
-learner (``--model-parallel`` above 1), an MoE core and the host-fed actor
-modes (``external``, ``vec``, ``scalar``) on a world above 1 (queue 1, item
-7b), and the JAX debug and cache flags (item 12). They raise
-``NotImplementedError`` naming the item.
+The host-fed modes (``external``, ``vec``, ``scalar``) on a world above 1
+have one door, as the reference's single controller: rank 0 holds the
+transport (the CLI binds it there alone) or runs the host pool, and the
+ring's single door (``buffer/trajectory_buffer.py``) admits every row on
+rank 0, keeps the whole ring's bookkeeping there, sends each row to the
+ranks of the batch shard that will train it, and broadcasts each take's
+decision, so a world of n trains the same batches, drops included, as a
+world of 1. Every rank reaches the ring's ``add`` and ``take`` at the same
+points of the loop, on the train thread (the ``--overlap`` pool's thread
+issues no collective); rank 0's pool plays the params it holds, equal on
+every rank, and its stats and league draws are the job's. An MoE core
+routes over the batch group in the rollout, the update and the advantage
+pass (``parallel/expert.py``). ``--model-parallel N`` (the ``model`` axis)
+is the tensor-parallel layout of ``parallel/sharding.py``: each rank's
+``TrainState`` keeps 1/N of every cut master param and its Adam moments,
+the model group gathers them into whole params after each optimizer step,
+and the model ranks of one data shard compute the same rollout and
+update; checkpoints save the whole layout (a gather every rank joins), so
+any ``model_parallel`` restores them. A crash checkpoint of that layout is
+skipped (its gather would need every rank).
+
+Not ported yet: the JAX debug and cache flags (ROADMAP queue 1, item 12).
+They raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -230,25 +248,21 @@ class Learner:
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
-        if config.mesh.model_parallel > 1:
-            raise NotImplementedError(f"model_parallel {config.mesh.model_parallel}: tensor parallelism in the "
-                                      f"learner is not ported yet: {_ITEM_7B}")
         mesh = mesh if mesh is not None else make_mesh(config.mesh)
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh.shape}: launch as many ranks as the mesh "
                              "holds, or give data_parallel=-1")
         n_shards = batch_shard_count(mesh, config.mesh)
-        if n_shards > 1 and actor in ("external", "vec", "scalar"):
-            raise NotImplementedError(f"the {actor!r} actor mode on a world of {n_shards} ranks (its chunks reach "
-                                      f"one rank and would have to be scattered): {_ITEM_7B}")
-        if n_shards > 1 and config.model.moe_experts > 0:
-            raise NotImplementedError(f"an MoE core on a world of {n_shards} ranks: {_ITEM_7B}")
         self.mesh = mesh
         self.n_shards = n_shards
         self.is_chief = mesh.rank == 0
-        # the gloo group of the ranks' host agreements and gathers (None
-        # on a world of 1)
-        self._host_group = mesh.batch_host_group if n_shards > 1 else None
+        # more than one rank: the loops agree, and the host-fed modes go
+        # through rank 0's door
+        self._multi = mesh.size > 1
+        # the gloo group of the ranks' host agreements (None on a world of 1)
+        self._host_group = mesh.all_host_group if self._multi else None
+        # the tensor-parallel layout's group (None without a model axis)
+        self._model_group = mesh.group(config.mesh.model_axis)
         if not self.is_chief:
             # rank 0 alone writes the record
             logdir = metrics_jsonl = None
@@ -260,7 +274,7 @@ class Learner:
         if config.steps_per_dispatch > 1 and actor != "fused":
             raise ValueError("steps_per_dispatch > 1 batches iterations inside the fused step; it has no meaning "
                              "for the buffered learner: use actor='fused' or leave it at 1")
-        if actor == "external" and transport is None:
+        if actor == "external" and transport is None and self.is_chief:
             raise ValueError("the external actor mode needs a transport (a TransportServer) for the actor "
                              "processes to reach")
         if actor != "fused" and config.ppo.batch_rollouts % max(1, config.ppo.minibatches):
@@ -308,7 +322,7 @@ class Learner:
         self.init_from_step = 0  # the source's step when seeded by init_from
         if init_from:
             self.init_from_step = self._seed_from(init_from, checkpoint_dir, restore)
-        self.state = init_train_state(self.policy, config.ppo)
+        self.state = init_train_state(self.policy, config.ppo, model_group=self._model_group)
         self.ckpt: Optional[CheckpointManager] = None
         self._ckpt_dir = checkpoint_dir
         # best-model rotation: <checkpoint_dir>/best at the best windowed
@@ -328,6 +342,10 @@ class Learner:
                 self._best_win = self._load_best_win()
         elif restore:
             raise ValueError("restore needs a checkpoint_dir")
+        # a best-model save of the tensor-parallel layout gathers the
+        # optimizer state: every rank joins rank 0's decision
+        self._best_agreed = (self._model_group is not None and bool(checkpoint_dir)
+                             and config.checkpoint_best_min_episodes > 0)
         # every rank starts from rank 0's state (the seed's or the restore's)
         self._broadcast_train_state()
         # the anchor of anchor_kl is the policy as constructed (after
@@ -349,11 +367,15 @@ class Learner:
         # (drop-oldest: with overlap the pool free-runs past the learner)
         self._sink: Optional[deque] = deque(maxlen=4 * config.buffer.capacity_rollouts) if actor == "vec" else None
         self.device_actor: Optional[DeviceActor] = None
-        # the host pool of the vec and scalar modes
+        # the host pool of the vec and scalar modes, rank 0's alone: it
+        # plays every game of the job and its rows go through the ring's
+        # single door
         self.host_pool: Optional[Any] = None
         if actor in ("device", "fused"):
             self.device_actor = DeviceActor(config, self.policy, seed=seed, registry=self.registry,
                                             device=self.device, mesh=mesh)
+        elif not self.is_chief:
+            pass
         elif actor == "scalar":
             self.host_pool = ActorPool(config, self.policy, self._actor_params_copy(), transport=self.transport,
                                        seed=seed, version=self.state.version, device=self.device,
@@ -386,8 +408,9 @@ class Learner:
             if config.ppo.steps_per_batch > 1:
                 self.epoch_step = make_epoch_step(config, anchor=self.anchor, group=group)
             if one_pass_enabled(config):
-                self.advantage_pass = make_advantage_pass(self.policy, config)
-            self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry, mesh=mesh)
+                self.advantage_pass = make_advantage_pass(self.policy, config, group)
+            self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry, mesh=mesh,
+                                           host_fed=actor in ("vec", "scalar", "external"))
             da = self.device_actor
             if da is not None and n_shards > 1 and da.lane_shards == 1:
                 if da.n_lanes % n_shards:
@@ -441,7 +464,7 @@ class Learner:
         if hasattr(self.transport, "metrics_handler"):
             self.transport.metrics_handler = self.fleet.ingest
         self._fleet_started = False
-        if actor == "external" and telemetry.fleet_interval_s > 0:
+        if actor == "external" and telemetry.fleet_interval_s > 0 and self.is_chief:
             self.fleet.start()
             self._fleet_started = True
         self._util = utilization.make_learner(self.registry)
@@ -531,36 +554,45 @@ class Learner:
         agree); its end then saves the whole pipeline, so the run resumes
         at that exact step. One flag write: safe in a signal handler."""
         self._stop_signal = True
-        if self.n_shards == 1:
+        if not self._multi:
             self._stop_requested = True
 
     # -- the ranks ------------------------------------------------------------
 
     def _broadcast_train_state(self) -> None:
-        """Rank 0's params, Adam moments and counters to every rank: device
-        tensors over the batch group, host ones over its gloo twin."""
-        if self.n_shards == 1:
+        """Rank 0's params and counters to every rank, and each Adam moment
+        from the first rank of its batch group (a moment of the
+        tensor-parallel layout is the slice of this rank's model
+        coordinate): device tensors over the device groups, host ones over
+        their gloo twins."""
+        if not self._multi:
             return
         import torch.distributed as dist
 
-        def bcast(t: torch.Tensor) -> None:
-            dist.broadcast(t, src=0, group=self._host_group if t.device.type == "cpu" else self.mesh.batch_group)
+        mesh = self.mesh
+
+        def bcast(t: torch.Tensor, device_group, host_group) -> None:
+            group = host_group if t.device.type == "cpu" else device_group
+            if group is not None:
+                dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
 
         with torch.no_grad():
             for t in self.policy.state_dict().values():
-                bcast(t)
+                bcast(t, mesh.all_group, mesh.all_host_group)
+            if self.state.shards is not None:
+                self.state.shards.recut()
             opt = self.state.optimizer
             for group in opt.param_groups:
                 for p in group["params"]:
                     for k in sorted(opt.state.get(p, {})):
                         if isinstance(opt.state[p][k], torch.Tensor):
-                            bcast(opt.state[p][k])
+                            bcast(opt.state[p][k], mesh.batch_group, mesh.batch_host_group)
         counters = torch.tensor([self.state.step, self.state.version], dtype=torch.int64)
-        bcast(counters)
+        bcast(counters, None, self._host_group)
         self.state.step, self.state.version = int(counters[0]), int(counters[1])
 
     def _barrier(self) -> None:
-        if self.n_shards > 1:
+        if self._multi:
             import torch.distributed as dist
 
             dist.barrier(group=self._host_group)
@@ -571,7 +603,7 @@ class Learner:
         sets the agreed stop and returns whether any rank latched. On a
         world of 1, the local latch."""
         latched = self._health is not None and self._health.unhealthy is not None
-        if self.n_shards == 1:
+        if not self._multi:
             return latched
         import torch.distributed as dist
 
@@ -714,18 +746,23 @@ class Learner:
         processes' frames; decoded by ``consume_decoded`` where the
         transport has it, with the wire byte accounting), waiting at most
         ``buffer.consume_poll_timeout_s`` on an empty one. Returns the
-        chunks kept."""
+        chunks kept. Through the ring's single door (a world above 1) every
+        rank calls the ring's ``add``, rank 0 with the rows."""
         cap = self.config.buffer.capacity_rollouts
-        if self._sink is not None:
-            rollouts = []
+        rollouts: List[Any] = []
+        if not self.is_chief:
+            pass   # the rows reach rank 0 alone
+        elif self._sink is not None:
             while self._sink and len(rollouts) < cap:
                 rollouts.append(self._sink.popleft())
-            return self.buffer.add(rollouts, self.state.version) if rollouts else 0
-        if hasattr(self.transport, "consume_decoded"):
+        elif hasattr(self.transport, "consume_decoded"):
             rollouts = self.transport.consume_decoded(cap, timeout=self._poll_timeout)
-            return self.buffer.add(rollouts, self.state.version) if rollouts else 0
-        protos = self.transport.consume_rollouts(cap, timeout=self._poll_timeout)
-        return self.buffer.add([decode_rollout(r) for r in protos], self.state.version) if protos else 0
+        else:
+            protos = self.transport.consume_rollouts(cap, timeout=self._poll_timeout)
+            rollouts = [decode_rollout(r) for r in protos]
+        if rollouts or self._multi:
+            return self.buffer.add(rollouts, self.state.version)
+        return 0
 
     def _next_batch(self, drain_transport: bool = True) -> Optional[Dict[str, Any]]:
         """The batch staged behind the previous update if there is one
@@ -901,9 +938,10 @@ class Learner:
         if not self._agree():
             return 0
         if self._health.unhealthy is None:
-            # another rank latched first: fold this rank's backlog
+            # another rank latched first: fold this rank's backlog (a best
+            # save left waiting is applied below, where every rank drains)
             self._flush_health()
-            self._drain_snapshots()
+            self._drain_snapshots(apply_best=False)
             if self._health.unhealthy is None:
                 raise RuntimeError("training health guardian: another rank latched a divergence this rank's "
                                    "verdicts do not show: the ranks' updates have diverged")
@@ -975,9 +1013,17 @@ class Learner:
 
     # -- boundaries --------------------------------------------------------------
 
-    def _train_state_tree(self) -> Dict[str, Any]:
+    def _train_state_tree(self, opt_state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """The train state in the whole layout, with ``opt_state`` when it
+        was gathered already (``_whole_opt_state``)."""
         return {"step": self.state.step, "version": self.state.version, "params": self.policy.state_dict(),
-                "opt_state": self.state.optimizer.state_dict()}
+                "opt_state": opt_state if opt_state is not None else self.state.optimizer.state_dict()}
+
+    def _whole_opt_state(self) -> Optional[Dict[str, Any]]:
+        """The tensor-parallel layout's optimizer state gathered whole, on
+        every rank (a collective); None without the layout (a save reads
+        the optimizer itself)."""
+        return self.state.optimizer_state_dict() if self.state.shards is not None else None
 
     def _actor_params_copy(self) -> Dict[str, torch.Tensor]:
         """A device-to-device copy of the params for an in-process pool:
@@ -989,6 +1035,8 @@ class Learner:
         a latched-unhealthy monitor blocks the push
         (``health/publish_blocked_total``), so in-process actors keep the
         last good params too."""
+        if self.host_pool is None:
+            return   # not rank 0: no pool
         if self._health is not None:
             if self._snap_engine is None:
                 self._sync_fold_latest()
@@ -1038,41 +1086,53 @@ class Learner:
         self._util.phase("publish_stall", stall)
         self.registry.gauge("learner/publish_stall_ms").set(stall * 1e3)
 
-    def _drain_snapshots(self) -> None:
+    def _drain_snapshots(self, apply_best: bool = True) -> None:
         """Wait until the engine has landed every pending job, its
-        checkpoint writes included, then apply a best-model save its
-        metrics continuation left for this thread."""
+        checkpoint writes included, then (with ``apply_best``) apply a
+        best-model save its metrics continuation left for this thread."""
         if self._snap_engine is None:
             return
         timeout = self.config.learner.snapshot_drain_timeout_s
         if not self._snap_engine.drain(timeout=timeout):
             print(f"WARNING: snapshot engine did not drain within {timeout:.0f}s; going on", flush=True)
-        self._apply_pending_best()
+        if apply_best:
+            self._apply_pending_best()
 
     # -- best-model rotation -------------------------------------------------------
 
     def _apply_pending_best(self) -> None:
         with self._pending_best_lock:
             best, self._pending_best = self._pending_best, None
-        if best is not None:
-            self._maybe_save_best(best)
+        if best is not None or self._best_agreed:
+            self._maybe_save_best(best or {})
 
     def _maybe_save_best(self, scalars: Dict[str, float]) -> None:
         """Save the weights to ``<checkpoint_dir>/best`` when the windowed
         win rate beats the best so far over at least
         ``checkpoint_best_min_episodes`` episodes. Train thread only: the
-        save reads ``self.state``."""
-        if self._best_dir is None:
-            return
+        save reads ``self.state``. Of the tensor-parallel layout, every rank
+        calls it at the same point: rank 0's decision is all-reduced and the
+        optimizer state gathered."""
         wr = scalars.get("win_rate_recent")
         eps = scalars.get("episodes_recent", 0.0)
-        if wr is None or eps < self.config.checkpoint_best_min_episodes or wr <= self._best_win:
+        due = (self._best_dir is not None and wr is not None
+               and eps >= self.config.checkpoint_best_min_episodes and wr > self._best_win)
+        opt_state = None
+        if self._best_agreed:
+            import torch.distributed as dist
+
+            flag = torch.tensor([float(due)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._host_group)
+            if not bool(flag[0]):
+                return
+            opt_state = self._whole_opt_state()
+        if not due:
             return
         if self.ckpt_best is None:
             self.ckpt_best = CheckpointManager(self._best_dir, max_to_keep=1, registry=self.registry)
         # a declined save (a resumed run whose step sits below the kept
         # peak's) must not move the marker
-        if self.ckpt_best.save(self.state, self.config):
+        if self.ckpt_best.save(self.state, self.config, opt_state=opt_state):
             self._best_win = wr
             # temp file and rename: a kill mid-write must not reset the
             # marker on resume
@@ -1162,18 +1222,20 @@ class Learner:
 
     def _checkpoint_boundary(self) -> None:
         """A periodic save of the train state (the pipeline is saved only
-        at the end of ``train``), behind the health gate; rank 0's."""
+        at the end of ``train``), behind the health gate; rank 0's (every
+        rank joins the tensor-parallel layout's gather first)."""
+        opt_state = self._whole_opt_state()
         if not self.is_chief:
             return
         t0 = time.perf_counter()
         if self._snap_engine is not None:
-            self._snap_engine.submit_checkpoint(device_copy(self._train_state_tree()), self.config)
+            self._snap_engine.submit_checkpoint(device_copy(self._train_state_tree(opt_state)), self.config)
         else:
             self._sync_fold_latest()
             if self._health is not None and self._health.unhealthy is not None:
                 self.registry.counter("health/checkpoints_blocked_total").inc()
             else:
-                self.ckpt.save(self.state, self.config, mark_good=self._health is not None)
+                self.ckpt.save(self.state, self.config, mark_good=self._health is not None, opt_state=opt_state)
         self._util.phase("checkpoint_stall", time.perf_counter() - t0)
 
     def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
@@ -1271,7 +1333,7 @@ class Learner:
         def refresh_due() -> bool:
             return bool(refresh_every) and (self._steps_done // epochs) % refresh_every == 0
 
-        if self.host_pool is None:
+        if self.actor_mode == "external":
             # external: the actors are other processes; this loop trains and
             # publishes, the transport drain riding the prefetch lane
             self._publish_weights()
@@ -1285,6 +1347,8 @@ class Learner:
                 if refresh_due():
                     self._publish_weights()
             return
+        # the host pool is rank 0's (None on the other ranks, which take
+        # their shares of its rows at the same points of the loop)
         pool = self.host_pool
         if self._overlap:
             stop = threading.Event()
@@ -1297,9 +1361,11 @@ class Learner:
                 except BaseException as e:  # noqa: BLE001 - surfaced on the train thread
                     actor_error.append(e)
 
-            pool.set_params(self._actor_params_copy(), self.state.version)
-            thread = threading.Thread(target=actor_loop, name="actor", daemon=True)
-            thread.start()
+            thread = None
+            if pool is not None:
+                pool.set_params(self._actor_params_copy(), self.state.version)
+                thread = threading.Thread(target=actor_loop, name="actor", daemon=True)
+                thread.start()
             try:
                 while self._steps_done < num_steps and not self._stop_requested:
                     if actor_error:
@@ -1316,14 +1382,16 @@ class Learner:
                         self._refresh_league_opponent()
             finally:
                 stop.set()
-                thread.join(timeout=30.0)
+                if thread is not None:
+                    thread.join(timeout=30.0)
             return
         while self._steps_done < num_steps and not self._stop_requested:
             # the actor phase plays the live params: it runs to its end on
             # this thread before the next update changes them
             self._push_pool_params(self.policy.state_dict())
             self._refresh_league_opponent()
-            pool.run(self._actor_steps, refresh_every=0)
+            if pool is not None:
+                pool.run(self._actor_steps, refresh_every=0)
             self._ingest()
             while (batch := self._next_batch()) is not None:
                 train_one(batch)
@@ -1349,18 +1417,20 @@ class Learner:
         the exact stop step with the whole pipeline, waited for: a failed
         write raises here. The forced save is never health-blocked, but
         only a verdict-clean state is marked good."""
-        if self.pool is not None:
-            self._maybe_save_best(self.pool.drain_stats())
+        if self.pool is not None or self._best_agreed:
+            self._maybe_save_best(self.pool.drain_stats() if self.pool is not None else {})
         self._flush_league_reports()
         self._publish_weights()
         self._drain_snapshots()
         if self.ckpt is not None:
             # every rank gathers its part; rank 0 writes
             pipeline = self._pipeline_state()
+            opt_state = self._whole_opt_state()
             if self.is_chief:
                 self._sync_fold_latest()
                 self.ckpt.save(self.state, self.config, force=True, pipeline=pipeline,
-                               mark_good=self._health is not None and self._health.unhealthy is None)
+                               mark_good=self._health is not None and self._health.unhealthy is None,
+                               opt_state=opt_state)
                 self.ckpt.wait()
 
     def train(self, num_steps: int, actor_steps_per_iter: Optional[int] = None, overlap: bool = False,
@@ -1439,8 +1509,6 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_7B = ("ROADMAP queue 1, item 7b (tensor parallelism in the learner, and the host-fed actor modes on a "
-            "world above 1)")
 _ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
 # flags of the reference learner whose features the port does not have
 # yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
@@ -1455,6 +1523,12 @@ def crash_checkpoint(learner: Learner) -> None:
     """``--on-crash-checkpoint``: land the engine's jobs, then a forced
     weights-only save, waited for, and its line. Whatever fails here is
     printed, never raised: the caller re-raises the original error."""
+    if learner.state.shards is not None:
+        # the gather would need every rank of the model group, whose state
+        # after a crash on one is unknown
+        print("learner: crash checkpoint skipped: the optimizer state is cut over the model axis, and its "
+              "gather is a collective; resume from the last periodic checkpoint", flush=True)
+        return
     try:
         learner._drain_snapshots()
     except Exception:  # noqa: BLE001 - the rescue goes on
@@ -1568,7 +1642,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "sets it: NCCL on cards, gloo on the CPU); run every rank with it")
     p.add_argument("--dcn-slices", type=int, default=None, help="slices (hosts) of the job: the mesh's dcn axis")
     p.add_argument("--model-parallel", type=int, default=None,
-                   help="tensor-parallel width (the model axis); above 1 not ported yet: " + _ITEM_7B)
+                   help="tensor-parallel width (the model axis, innermost): each rank keeps 1/N of the cut master "
+                   "params and Adam moments, and the model ranks of a data shard compute on the gathered params")
     for flag, kw, item in _NOT_PORTED_FLAGS:
         p.add_argument(flag, **{"default": None, **kw}, help="not ported yet: " + item)
     args = p.parse_args(argv)
@@ -1595,9 +1670,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             p.error(str(e))
     if mesh_over:
         config = dataclasses.replace(config, mesh=dataclasses.replace(config.mesh, **mesh_over))
-    if config.mesh.model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {config.mesh.model_parallel}: tensor parallelism in the "
-                                  f"learner is not ported yet: {_ITEM_7B}")
     model_over = {k: v for k, v in (("core", args.core), ("moe_experts", args.moe_experts)) if v is not None}
     if model_over:
         config = dataclasses.replace(config, model=dataclasses.replace(config.model, **model_over))
@@ -1660,9 +1732,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
-    """The CLI's transport, learner, signal handlers, run and last line."""
+    """The CLI's transport, learner, signal handlers, run and last line. On
+    a world above 1 rank 0 alone binds the transport: the actors reach the
+    job through it, and the other ranks never see them."""
     transport = None
-    if args.transport == "socket":
+    if pdist.process_info()["process_index"] != 0:
+        pass
+    elif args.transport == "socket":
         host, port = args.listen.rsplit(":", 1)
         t = config.transport
         transport = TransportServer(host, int(port), fanout_max_lag=t.fanout_max_lag,

@@ -51,9 +51,21 @@ so the gradients summed over the group (one all-reduce of the flattened
 gradient) are the global loss's, and the global norm of the clip is taken
 after that sum: every rank clips and steps the same tensor, and the params
 stay equal across ranks. With no group every reduction is skipped and the
-update is the one-card update, bit for bit. An MoE core's load-balancing
-term is not reduced (its routing is per rank): an MoE core on a group of
-more than one rank raises (ROADMAP queue 1, item 7b).
+update is the one-card update, bit for bit. An MoE core routes over the
+group (``parallel/expert.py``: the global capacity and a token's global
+slot), and its load-balancing term, a product of two global means, is
+taken from the masked sums all-reduced over the group: each rank's loss
+carries the importance sums of its own rows times the global load, so the
+ranks' gradients sum to the global term's.
+
+Tensor parallelism: a ``TrainState`` made with a ``model_group`` of m > 1
+ranks holds the ``ParamShards`` layout (``parallel/sharding.py``): Adam
+steps this rank's 1/m slices of the cut master params, the rank keeps the
+slices of their gradients (summed over the batch group), the clip's global
+norm is summed over the model group, and after the step the model group
+gathers the slices into the policy's whole params. ``optimizer_state_dict``
+and ``load_whole`` speak the whole layout, so a checkpoint of any
+``model_parallel`` restores at any other.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from dotaclient_tpu_torch.models import distributions as D
 from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch, initial_carry
 from dotaclient_tpu_torch.models.transformer import MoEStats
 from dotaclient_tpu_torch.parallel.collectives import Group, all_gather_rows, group_rank, group_size, psum
+from dotaclient_tpu_torch.parallel.sharding import ParamShards
 from dotaclient_tpu_torch.train.gae import gae, vtrace
 from dotaclient_tpu_torch.utils.tree import tree_map
 
@@ -88,16 +101,51 @@ ADAM_EPS = 1e-8
 @dataclasses.dataclass
 class TrainState:
     """Learner state: the policy (its params), its optimizer, and the
-    optimizer-step and model-version counters."""
+    optimizer-step and model-version counters; with ``shards`` the
+    tensor-parallel layout, whose masters the optimizer steps."""
 
     step: int
     version: int
     policy: Policy
     optimizer: torch.optim.Adam
+    shards: Optional[ParamShards] = None
 
     def clone(self) -> "TrainState":
-        """An independent copy (params, optimizer moments and all)."""
+        """An independent copy (params, optimizer moments and all) of a
+        state without a tensor-parallel layout."""
+        if self.shards is not None:
+            raise ValueError("a tensor-parallel TrainState holds a process group and is not cloned")
         return copy.deepcopy(self)
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state dict in the whole layout (a collective over
+        the model group when the state is sharded)."""
+        sd = self.optimizer.state_dict()
+        return self.shards.whole_opt_state(sd) if self.shards is not None else sd
+
+    def load_whole(self, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any]) -> None:
+        """Params and an optimizer state dict of the whole layout into this
+        state, cut to this rank's slices when it is sharded."""
+        self.policy.load_state_dict(params)
+        if self.shards is not None:
+            self.shards.recut()
+            opt_state = self.shards.cut_opt_state(opt_state)
+        load_optimizer_state(self.optimizer, opt_state)
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """``opt.load_state_dict(saved)``, keeping each group's learning rate
+    where the live optimizer keeps it: a device tensor that the
+    ``kl_target`` controller rescales in place stays that tensor (with the
+    saved value), and a float stays a float."""
+    lrs = [g["lr"] for g in opt.param_groups]
+    opt.load_state_dict(saved)
+    for group, live in zip(opt.param_groups, lrs):
+        if isinstance(live, torch.Tensor):
+            live.copy_(torch.as_tensor(group["lr"]))
+            group["lr"] = live
+        elif isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(group["lr"])
 
 
 def make_optimizer(cfg: PPOConfig, params: Sequence[torch.nn.Parameter]) -> torch.optim.Adam:
@@ -112,8 +160,14 @@ def make_optimizer(cfg: PPOConfig, params: Sequence[torch.nn.Parameter]) -> torc
     return torch.optim.Adam(params, lr=lr, eps=ADAM_EPS, foreach=True, capturable=tensor_lr)
 
 
-def init_train_state(policy: Policy, cfg: PPOConfig) -> TrainState:
-    """A fresh TrainState over ``policy``'s params (used in place)."""
+def init_train_state(policy: Policy, cfg: PPOConfig, model_group: Group = None) -> TrainState:
+    """A fresh TrainState over ``policy``'s params (used in place); with a
+    ``model_group`` of more than one rank, in the tensor-parallel layout
+    (the policy's params must already be equal over the group)."""
+    if group_size(model_group) > 1:
+        shards = ParamShards(policy, model_group)
+        return TrainState(step=0, version=0, policy=policy, optimizer=make_optimizer(cfg, shards.masters),
+                          shards=shards)
     return TrainState(step=0, version=0, policy=policy,
                       optimizer=make_optimizer(cfg, policy.parameters()))
 
@@ -133,23 +187,50 @@ def _masked_mean(x: torch.Tensor, valid: torch.Tensor, n_valid: torch.Tensor) ->
     return (x * valid).sum() / n_valid
 
 
-def _moe_aux_loss(moe: MoEStats, valid: torch.Tensor) -> torch.Tensor:
+def _moe_aux_loss(moe: MoEStats, valid: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """The global Switch load-balancing term (``_moe_aux_terms``' second)."""
+    return _moe_aux_terms(moe, valid, group)[1]
+
+
+def _moe_aux_terms(moe: MoEStats, valid: torch.Tensor,
+                   group: Group = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Switch load-balancing loss from an MoE core's routing stats:
     per layer ``(probs, frac)``, each ``[T', B, E]`` with T' >= T (the
     bootstrap slot, when the forward ran it, is cut off), masked by
-    ``valid [B, T]`` like every other term. 0 for a core without MoE."""
+    ``valid [B, T]`` like every other term. 0 for a core without MoE.
+
+    Returns (this rank's term of the loss, the global value). Per layer the
+    term is ``E x sum_e mean_p[e] x mean_f[e]``, a product of two global
+    means: with a ``group`` the masked ``[E]`` sums and the valid count are
+    all-reduced (one all-reduce), the product taken once; the rank's loss
+    term is its own importance sums over the global count times the global
+    load (no gradient flows through the load), so the ranks' terms and
+    gradients sum to the global term's. Without a group both are the
+    one-card term."""
+    zero = torch.zeros((), device=valid.device)
     if not moe:
-        return torch.zeros((), device=valid.device)
+        return zero, zero
     T = valid.shape[1]
     w = valid.t()[..., None]                                   # [T, B, 1]
-    denom = torch.clamp(valid.sum(), min=1.0)
-    aux = torch.zeros((), device=valid.device)
-    for probs, frac in moe:
-        E = probs.shape[-1]
-        mean_p = (probs[:T] * w).sum(dim=(0, 1)) / denom       # [E] masked importance
-        mean_f = (frac[:T] * w).sum(dim=(0, 1)) / denom        # [E] masked load
-        aux = aux + E * torch.sum(mean_p * mean_f)
-    return aux
+    p_sums = [(probs[:T] * w).sum(dim=(0, 1)) for probs, _ in moe]   # [E] masked importance
+    f_sums = [(frac[:T] * w).sum(dim=(0, 1)) for _, frac in moe]     # [E] masked load
+    count = valid.sum()
+    if group_size(group) > 1:
+        summed = psum(torch.cat([count[None], *[p.detach() for p in p_sums], *f_sums]), group)
+        count, rest = summed[0], summed[1:]
+        E = p_sums[0].shape[0]
+        global_p = list(rest[:E * len(moe)].split(E))
+        f_sums = list(rest[E * len(moe):].split(E))
+    else:
+        global_p = p_sums
+    denom = torch.clamp(count, min=1.0)
+    aux, total = zero, zero
+    for p_local, p_global, f in zip(p_sums, global_p, f_sums):
+        E = p_local.shape[0]
+        mean_f = f / denom
+        aux = aux + E * torch.sum((p_local / denom) * mean_f)
+        total = total + E * torch.sum((p_global / denom) * mean_f)
+    return aux, total
 
 
 def ppo_loss(
@@ -184,11 +265,8 @@ def ppo_loss(
         obs = {k: v[:, :T] for k, v in obs.items()}
 
     logits, values, _, moe = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel,
-                                             return_moe=True)
-    if moe and group_size(group) > 1:
-        raise NotImplementedError("the MoE core's routing and load-balancing term over a data-parallel group: "
-                                  "ROADMAP queue 1, item 7b")
-    moe_aux = _moe_aux_loss(moe, valid)
+                                             return_moe=True, group=group)
+    moe_aux, moe_aux_global = _moe_aux_terms(moe, valid, group)
     # the trailing slot is the bootstrap step: its value is used, its
     # policy outputs are not
     logits_t = {k: v[:, :T] for k, v in logits.items()}
@@ -232,7 +310,8 @@ def ppo_loss(
         # frozen-anchor forward (no gradient); skipped while the warmup
         # window zeroes the policy terms
         with torch.no_grad():
-            anchor_logits, _, _ = anchor.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel)
+            anchor_logits, _, _ = anchor.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel,
+                                                  group=group)
         a_t = {k: v[:, :T] for k, v in anchor_logits.items()}
         anchor_kl = _masked_mean(D.kl(logits_t, a_t, obs_t), valid, n_valid)
 
@@ -244,7 +323,7 @@ def ppo_loss(
     detached = lambda t: t.detach()  # noqa: E731 - metrics carry no graph
     metrics = {
         "loss": detached(loss),
-        "moe_aux": detached(moe_aux),
+        "moe_aux": detached(moe_aux_global),
         **({"anchor_kl": detached(anchor_kl)} if cfg.anchor_kl_coef > 0 and anchor is not None else {}),
         # kept for _train_step's post-update KL (popped there)
         **({"_logp": detached(logp)} if cfg.kl_target > 0 else {}),
@@ -307,8 +386,14 @@ def _train_step(
     loss, metrics = ppo_loss(policy, batch, cfg, step=state.step, anchor=anchor, use_kernel=use_kernel,
                              group=group)
     named = [(n, p) for n, p in policy.named_parameters() if p.requires_grad]
-    params = [p for _, p in named]
-    grads = _sum_grads(list(torch.autograd.grad(loss, params)), group)
+    grads = list(torch.autograd.grad(loss, [p for _, p in named]))
+    shards = state.shards
+    # what the optimizer steps: the params, or the tensor-parallel layout's
+    # masters with their slices of the gradient
+    params = shards.masters if shards is not None else [p for _, p in named]
+    if shards is not None:
+        grads = shards.local_grads(grads)
+    grads = _sum_grads(grads, group)
     if warm:
         # critic-only warmup: zero every gradient outside the value head,
         # so the behaviour policy stays exactly frozen
@@ -318,12 +403,14 @@ def _train_step(
             # Adam's shared count advanced; a fresh optimizer makes the
             # first live update a first step
             _reset_optimizer(opt, cfg)
-    grad_norm = global_norm(grads)
+    grad_norm = shards.global_norm(grads) if shards is not None else global_norm(grads)
     for p, g in zip(params, clip_by_global_norm(grads, cfg.max_grad_norm, grad_norm)):
         p.grad = g
     opt.step()
     for p in params:
         p.grad = None
+    if shards is not None:
+        shards.gather()
 
     if cfg.kl_target > 0:
         # KL-adaptive lr: the post-update policy shift on this batch's
@@ -343,7 +430,8 @@ def _train_step(
                 if "advantages" in batch:
                     # the same T-step window the update trained on
                     obs = {k: v[:, :T] for k, v in obs.items()}
-                logits_post, _, _ = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel)
+                logits_post, _, _ = policy.sequence(obs, batch["carry0"], batch["dones"], use_kernel=use_kernel,
+                                                    group=group)
                 logp_post = D.log_prob({k: v[:, :T] for k, v in logits_post.items()},
                                        {k: v[:, :T] for k, v in obs.items()}, batch["actions"])
                 d = logp_post - logp_pre

@@ -5,7 +5,9 @@ format (the port cannot read orbax). A checkpoint directory holds::
 
     <dir>/<step>/state.pt        torch.save of {"step", "version",
                                  "params": state dict of CPU tensors,
-                                 "opt_state": optimizer.state_dict()}
+                                 "opt_state": the optimizer's state dict,
+                                 whole whatever the tensor-parallel
+                                 layout, TrainState.optimizer_state_dict}
     <dir>/<step>/config.json     RunConfig.to_json()
     <dir>/<step>/pipeline.pt     (optional) the learner's pipeline state:
                                  the trajectory ring, the device actor's
@@ -329,17 +331,20 @@ class CheckpointManager:
     # -- save -------------------------------------------------------------------
 
     def save(self, state: Any, config: RunConfig, force: bool = False, pipeline: Optional[Any] = None,
-             mark_good: bool = False) -> bool:
+             mark_good: bool = False, opt_state: Optional[Dict[str, Any]] = None) -> bool:
         """Save ``state`` (a ``TrainState``: its step, version, policy params
         and optimizer state) and ``config`` at ``state.step``, with
         ``pipeline`` (a tree of tensors and ints) beside it. The copy to the
         host happens here (it reads the device: the learner calls it only
-        between iterations); the write lands after it returns."""
+        between iterations); the write lands after it returns. A state of
+        the tensor-parallel layout gathers its optimizer state over the
+        model group here (every rank of it must call this), unless
+        ``opt_state`` gives it, gathered already."""
         host_state = {
             "step": int(state.step),
             "version": int(state.version),
             "params": {k: v.detach().cpu().clone() for k, v in state.policy.state_dict().items()},
-            "opt_state": _to_cpu(state.optimizer.state_dict()),
+            "opt_state": _to_cpu(opt_state if opt_state is not None else _whole_opt_state(state)),
         }
         if pipeline is not None:
             pipeline = _to_cpu(pipeline)
@@ -592,8 +597,13 @@ class CheckpointManager:
             return raw, saved
 
         raw, saved = self._restore_stepwise(attempt)
-        state.policy.load_state_dict(raw["params"])
-        _load_optimizer(state.optimizer, raw["opt_state"])
+        if hasattr(state, "load_whole"):
+            state.load_whole(raw["params"], raw["opt_state"])
+        else:
+            from dotaclient_tpu_torch.train.ppo import load_optimizer_state
+
+            state.policy.load_state_dict(raw["params"])
+            load_optimizer_state(state.optimizer, raw["opt_state"])
         state.step, state.version = int(raw["step"]), int(raw["version"])
         return state, saved
 
@@ -622,19 +632,13 @@ class CheckpointManager:
         return out, ""
 
 
-def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
-    """``opt.load_state_dict(saved)``, keeping each group's learning rate
-    where the live optimizer keeps it: a device tensor that the
-    ``kl_target`` controller rescales in place stays that tensor (with the
-    saved value), and a float stays a float."""
-    lrs = [g["lr"] for g in opt.param_groups]
-    opt.load_state_dict(saved)
-    for group, live in zip(opt.param_groups, lrs):
-        if isinstance(live, torch.Tensor):
-            live.copy_(torch.as_tensor(group["lr"]))
-            group["lr"] = live
-        elif isinstance(group["lr"], torch.Tensor):
-            group["lr"] = float(group["lr"])
+def _whole_opt_state(state: Any) -> Dict[str, Any]:
+    """The optimizer state of ``state`` in the whole layout: a
+    ``TrainState``'s own (gathered under tensor parallelism), else any
+    state's optimizer's."""
+    if hasattr(state, "optimizer_state_dict"):
+        return state.optimizer_state_dict()
+    return state.optimizer.state_dict()
 
 
 def _to_cpu(tree: Any) -> Any:

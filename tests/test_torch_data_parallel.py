@@ -21,7 +21,8 @@ data 2 runs on all four against data 4. The JAX side builds its meshes of
 * dcn 2 x data 2 equal to data 4 (``tests/test_dcn.py``);
 * the ring's divisibility messages and ``buffer/shard_bytes``;
 * the learner's checkpoint and actor state restored 2 -> 1 and 1 -> 2, its
-  record at world 2 against the multichip tier, the refusals naming item 7b;
+  record at world 2 against the multichip tier, and the calls once refused
+  naming item 7b (the host-fed modes, an MoE core) now building learners;
 * ``initialize_runtime`` idempotent.
 
 Tolerances: metrics 1e-4 relative (1e-6 absolute), params the train tests'
@@ -392,11 +393,20 @@ def test_learner_record_at_world_2_meets_the_multichip_tier(world):
 
 
 def test_refusals_name_item_7b(world):
+    """The calls that raised naming item 7b now build learners: the
+    host-fed modes with the ring's single door and rank 0's pool, the MoE
+    core's actor routing over the batch group, and ``model_parallel=2`` in
+    the config beside a data-parallel mesh (whose model axis is 1: no
+    tensor-parallel layout)."""
     _, ranks = world
-    refusals = ranks[0]["g_refusals"]
-    assert set(refusals) == {"vec", "scalar", "external", "moe", "model_parallel"}
-    for msg in refusals.values():
-        assert "ROADMAP queue 1, item 7b" in msg
+    for r in (0, 1):
+        built = ranks[r]["g_refusals"]
+        assert set(built) == {"vec", "scalar", "external", "moe", "model_parallel"}
+        for mode in ("vec", "scalar"):
+            assert built[mode] == {"pool": r == 0, "door": True}, (r, mode)
+        assert built["external"] == {"pool": False, "door": True}
+        assert built["moe"]["routes_over"] and not built["moe"]["tp"]
+        assert not built["model_parallel"]["tp"]
 
 
 def test_initialize_runtime_is_idempotent(world):

@@ -451,13 +451,13 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
     ``--no-vec``, ``--shm-name``, ``--core``, ``--moe-experts``,
     ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``,
     ``--amqp-host``, ``--wire-dtype``, ``--rollout-wire-dtype``) and the
-    data-parallel slice (``--mesh``, ``--multihost``, ``--dcn-slices``),
-    which now reach the learner, config, runtime or transport they
-    configure; the trace flags reach ``tracing.configure`` before the
-    learner is built, and its shutdown after; ``--amqp-host`` reaches the
-    ``AmqpTransport`` of ``--transport amqp``; ``--multihost`` reaches
-    ``initialize_runtime`` (and the process group's teardown); and
-    ``--model-parallel 2`` raises naming item 7b."""
+    data-parallel slices (``--mesh``, ``--multihost``, ``--dcn-slices``,
+    ``--model-parallel``), which now reach the learner, config, runtime or
+    transport they configure; the trace flags reach ``tracing.configure``
+    before the learner is built, and its shutdown after; ``--amqp-host``
+    reaches the ``AmqpTransport`` of ``--transport amqp``; ``--multihost``
+    reaches ``initialize_runtime`` (and the process group's teardown); and
+    ``--model-parallel 2`` reaches the mesh config."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
     if name == "--trace-sample":
@@ -466,7 +466,8 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         argv += ["--transport", "amqp"]   # the broker's address is the AMQP transport's
     if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
                 "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample", "--amqp-host",
-                "--wire-dtype", "--rollout-wire-dtype", "--mesh", "--multihost", "--dcn-slices"):
+                "--wire-dtype", "--rollout-wire-dtype", "--mesh", "--multihost", "--dcn-slices",
+                "--model-parallel"):
         built = []
         runtime = []
         monkeypatch.setattr(plearner.pdist, "initialize_runtime", lambda: runtime.append("init"))
@@ -486,7 +487,7 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
             assert config.transport.wire_dtype == ("bfloat16" if name == "--wire-dtype" else "float32")
             assert config.transport.rollout_wire_dtype == ("bfloat16" if name == "--rollout-wire-dtype" else "float32")
             assert (config.mesh.data_parallel, config.mesh.dcn_slices) == want_mesh
-            assert config.mesh.model_parallel == 1
+            assert config.mesh.model_parallel == (2 if name == "--model-parallel" else 1)
             assert runtime == (["init"] if name == "--multihost" else [])
             raise SystemExit(0)
 
@@ -506,7 +507,7 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
         assert traced == want_trace + [(None, None)] * bool(want_trace)   # the log shut down at the end
         return
-    item = {"--model-parallel": "7b", "--checkify": "12", "--compile-cache": "12"}.get(name, "13")
+    item = {"--checkify": "12", "--compile-cache": "12"}.get(name, "13")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
         plearner.main(argv)
 

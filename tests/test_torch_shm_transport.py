@@ -5,8 +5,10 @@ wraparound, drop-newest when full, the deferred release that keeps drained
 views intact), the seqlocked weights slab (latest wins, the cached parse,
 the size check), slot claims, releases and reaping, the liveness beacon,
 a restart over a dead learner's segments, and the metrics frames and CRC
-quarantine shared with the socket lane. The bf16 weights slab is the narrow
-wire (ROADMAP queue 1, item 13): the port refuses it. Across packages, the
+quarantine shared with the socket lane. The slab carries a bf16 weights
+frame (the narrow wire) byte for byte, and the actor widens it on decode
+(``test_bf16_wire_through_slab_is_refused`` holds that, whatever its name
+says). Across packages, the
 segment layout is the wire contract: a JAX ``ShmTransport`` feeds a port
 server and a port actor a JAX server, with the same payload bytes and ring
 counters both ways, and the weights slab read across too. The learner CLI

@@ -172,6 +172,22 @@ def _rows(tree: Any, lo: int, hi: int) -> Any:
     return tree[lo:hi]
 
 
+def _policy_of(cfg, params):
+    from dotaclient_tpu_torch.models.policy import Policy
+
+    policy = Policy(cfg.model, cfg.obs, cfg.actions, device="cpu")
+    policy.load_state_dict(_torch_tree(params))
+    return policy
+
+
+def _params_np(policy):
+    return {k: v.detach().numpy().copy() for k, v in policy.state_dict().items()}
+
+
+def _metrics_np(m):
+    return {k: float(v) for k, v in m.items()}
+
+
 def data_parallel_ranks(rank: int, world: int, p: dict) -> dict:
     """The data-parallel slice's cases on a world of 4: the world-2 cases
     on ranks 0 and 1 (an explicit ``data_parallel=2`` mesh takes the first
@@ -187,7 +203,6 @@ def data_parallel_ranks(rank: int, world: int, p: dict) -> dict:
 
     from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
     from dotaclient_tpu_torch.envs import torch_lane_sim as S
-    from dotaclient_tpu_torch.models.policy import Policy
     from dotaclient_tpu_torch.parallel import initialize_runtime, make_mesh
     from dotaclient_tpu_torch.train import fused as pfused
     from dotaclient_tpu_torch.train import ppo as pppo
@@ -197,16 +212,7 @@ def data_parallel_ranks(rank: int, world: int, p: dict) -> dict:
     def mesh_of(cfg, **over):
         return make_mesh(dataclasses.replace(cfg.mesh, **over))
 
-    def policy_of(cfg, params):
-        policy = Policy(cfg.model, cfg.obs, cfg.actions, device="cpu")
-        policy.load_state_dict(_torch_tree(params))
-        return policy
-
-    def params_np(policy):
-        return {k: v.numpy().copy() for k, v in policy.state_dict().items()}
-
-    def metrics_np(m):
-        return {k: float(v) for k, v in m.items()}
+    policy_of, params_np, metrics_np = _policy_of, _params_np, _metrics_np
 
     out: dict = {}
     world2 = rank < 2
@@ -341,22 +347,318 @@ def data_parallel_ranks(rank: int, world: int, p: dict) -> dict:
         lr = learner(m2, checkpoint_dir=d1, restore=True)
         out["g_1to2"] = snapshot(lr)
         lr.close()
-        refusals = {}
+        # the calls the port once refused (ROADMAP item 7b) now build
+        # learners: the host-fed modes through the ring's single door (rank
+        # 0's pool), an MoE core routing over the batch group
+        built = {}
         for mode in ("vec", "scalar", "external"):
-            try:
-                Learner(cfg, actor=mode, device="cpu", registry=telemetry.Registry(), mesh=m2, transport=object())
-            except NotImplementedError as e:
-                refusals[mode] = str(e)
+            lr = Learner(cfg, actor=mode, device="cpu", registry=telemetry.Registry(), mesh=m2, transport=object())
+            built[mode] = {"pool": lr.host_pool is not None, "door": lr.buffer._door}
+            lr.close()
         moe = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, core="transformer", moe_experts=2))
         for name, c in (("moe", moe), ("model_parallel", dataclasses.replace(
                 cfg, mesh=dataclasses.replace(cfg.mesh, model_parallel=2)))):
-            try:
-                Learner(c, actor="device", device="cpu", registry=telemetry.Registry(), mesh=m2)
-            except NotImplementedError as e:
-                refusals[name] = str(e)
-        out["g_refusals"] = refusals
+            lr = Learner(c, actor="device", device="cpu", registry=telemetry.Registry(), mesh=m2)
+            built[name] = {"routes_over": lr.device_actor.batch_group is not None,
+                           "tp": lr.state.shards is not None}
+            lr.close()
+        out["g_refusals"] = built
 
     group_before = dist.group.WORLD
     initialize_runtime()
     out["idempotent"] = dist.group.WORLD is group_before and dist.get_world_size() == world
+    return out
+
+
+# -- the rank side of tests/test_torch_host_fed_parallel.py ----------------------------------------
+
+
+def run_ring_script(ring, script):
+    """The ops of ``script`` on ``ring`` (any world): ``("add", rows,
+    version)``, ``("take", version, hold)``, ``("snapshot",)``,
+    ``("release",)`` and ``("requeue",)`` (of the last held ticket).
+    Returns each take's batch (numpy, None when there was none), each
+    add's count and each snapshot."""
+    out, ticket = [], None
+    for op in script:
+        if op[0] == "add":
+            out.append(ring.add([(dict(m), a) for m, a in op[1]], op[2]))
+        elif op[0] == "take":
+            got = ring.take(current_version=op[1], hold=op[2])
+            if got is not None and op[2]:
+                got, ticket = got
+            out.append(None if got is None else _np_tree(got))
+        elif op[0] == "snapshot":
+            out.append(_np_tree(ring.state_dict()))
+        elif op[0] == "release":
+            ring.release(ticket)
+            out.append(None)
+        else:
+            ring.requeue(ticket)
+            out.append(None)
+    return out
+
+
+def ring_books(ring):
+    return {"order": list(ring._order), "free": sorted(ring._free), "held": {k: list(v) for k, v in ring._held.items()},
+            "counters": ring.metrics(), "versions": [int(v) for v in ring._slot_version]}
+
+
+def host_fed_ranks(rank: int, world: int, p: dict) -> dict:
+    """The single door at world 2: the ring through a script of adds and
+    takes (a stale drop and an eviction between admission and take), an
+    ``external`` learner fed encoded chunks through rank 0's in-process
+    transport, and a ``vec`` learner; each rank's shares, books, resident
+    rows and ``buffer/shard_bytes``."""
+    import numpy as np
+    import torch
+
+    from dotaclient_tpu_torch.buffer import TrajectoryBuffer
+    from dotaclient_tpu_torch.parallel import make_mesh
+    from dotaclient_tpu_torch.protos import dota_pb2 as pb
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.transport.queues import InProcTransport
+    from dotaclient_tpu_torch.utils import telemetry
+
+    out: dict = {}
+    rc = p["ring"]
+    mesh = make_mesh(rc["cfg"].mesh)
+    reg = telemetry.Registry()
+    ring = TrajectoryBuffer(rc["cfg"], device="cpu", registry=reg, mesh=mesh, host_fed=True)
+    first = run_ring_script(ring, rc["placement"])
+    # after the first ingest, before any take: this rank's slots' row ids
+    placed = ring._store["rewards"][:, 0].numpy().copy()
+    rest = run_ring_script(ring, rc["script"])
+    out["ring"] = {"ops": first + rest, "placed": placed, "books": ring_books(ring),
+                   "shard_bytes": reg.snapshot()["buffer/shard_bytes"], "local_cap": ring._local_cap,
+                   "rows_moved": ring.rows_moved}
+
+    def learner_run(lc, actor):
+        cfg = lc["cfg"]
+        transport = None
+        if actor == "external" and rank == 0:
+            transport = InProcTransport(registry=telemetry.Registry())
+            for blob in lc["blobs"]:
+                transport.publish_rollout(pb.Rollout.FromString(blob))
+        reg = telemetry.Registry()
+        lr = Learner(cfg, actor=actor, seed=1, device="cpu", registry=reg, mesh=make_mesh(cfg.mesh),
+                     transport=transport)
+        if "params" in lc:
+            lr.policy.load_state_dict(_torch_tree(lc["params"]))
+        batches, metrics, adds = [], [], []
+        take, step, add = lr.buffer.take, lr.train_step, lr.buffer.add
+
+        def taking(*a, **k):
+            got = take(*a, **k)
+            if got is not None:
+                batches.append(_np_tree(got[0] if isinstance(got, tuple) else got))
+            return got
+
+        def stepping(state, batch):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        def adding(rows, version):
+            if rows:
+                adds.append([_np_tree(a) for _, a in rows])
+            return add(rows, version)
+
+        lr.buffer.take, lr.train_step, lr.buffer.add = taking, stepping, adding
+        res = lr.train(lc["steps"], refresh_every=1)
+        snap = reg.snapshot()
+        books = ring_books(lr.buffer)
+        params = {k: v.numpy().copy() for k, v in lr.policy.state_dict().items()}
+        lr.close()
+        return {"batches": batches, "metrics": metrics, "params": params, "books": books, "adds": adds[:1],
+                "shard_bytes": snap["buffer/shard_bytes"], "steps": res["optimizer_steps"],
+                "pool": lr.host_pool is not None}
+
+    out["external"] = learner_run(p["external"], "external")
+    out["vec"] = learner_run(p["vec"], "vec")
+    return out
+
+
+# -- the rank side of tests/test_torch_model_parallel.py --------------------------------------------
+
+
+def _fused_run(cfg, params, mesh, iters, model_group=None):
+    """``iters`` fused iterations from ``params`` with the actor's own draws
+    (seed 5): the first chunk, the metrics, the params, the state."""
+    import copy
+
+    import torch
+
+    from dotaclient_tpu_torch.actor.device_rollout import DeviceActor
+    from dotaclient_tpu_torch.train import fused as pfused
+    from dotaclient_tpu_torch.train import ppo as pppo
+
+    policy = _policy_of(cfg, params)
+    actor = DeviceActor(cfg, policy, seed=5, device="cpu", mesh=mesh)
+    with torch.no_grad():
+        _, chunk, _ = actor._rollout_impl(policy, copy.deepcopy(actor.state))
+    state = pppo.init_train_state(policy, cfg.ppo, model_group=model_group)
+    fused = pfused.make_fused_step(cfg, actor)
+    ms = []
+    for _ in range(iters):
+        state, actor.state, m, _ = fused(state, actor.state)
+        ms.append(_metrics_np(m))
+    return {"chunk": _np_tree(chunk), "metrics": ms, "params": _params_np(policy), "lane_shards": actor.lane_shards}, state
+
+
+def moe_data_ranks(rank: int, world: int, p: dict) -> dict:
+    """The MoE core over a data group of 2: the layer's routing on each
+    rank's block of the global tokens (and routed locally, the fault), the
+    load-balancing term, and the MoE transformer's fused step at world 2;
+    world 1 on rank 0 after."""
+    import torch
+
+    from dotaclient_tpu_torch.models.moe import MoEMLP
+    from dotaclient_tpu_torch.parallel import make_mesh
+    from dotaclient_tpu_torch.parallel import expert as pexpert
+    from dotaclient_tpu_torch.train import ppo as pppo
+
+    out: dict = {}
+    lay = p["layer"]
+    mesh = make_mesh(lay["mesh"])
+    group = mesh.batch_group
+    x = torch.from_numpy(lay["x"])
+    per = x.shape[0] // world
+    xr = x[rank * per:(rank + 1) * per]
+    E, cf = lay["E"], lay["cf"]
+    C = pexpert.expert_capacity(per, E, cf, group)
+    gate = torch.from_numpy(lay["params"]["gate"])
+    d, c, pr = pexpert.route_top1(xr, gate, E, C, group)
+    layer = MoEMLP(x.shape[1], E, cf, torch.device("cpu"))
+    layer.load_state_dict(_torch_tree(lay["params"]))
+    with torch.no_grad():
+        y, (probs, frac) = layer(xr, group)
+        y_local, _ = layer(xr)
+    out["layer"] = {"C": C, "dispatch": d.numpy(), "combine": c.numpy(), "probs": pr.numpy(), "y": y.numpy(),
+                    "frac": frac.numpy(), "y_local": y_local.numpy()}
+    ax = p["aux"]
+    b = ax["valid"].shape[0] // world
+    stats = tuple((torch.from_numpy(pp[:, rank * b:(rank + 1) * b].copy()),
+                   torch.from_numpy(ff[:, rank * b:(rank + 1) * b].copy())) for pp, ff in ax["stats"])
+    valid = torch.from_numpy(ax["valid"][rank * b:(rank + 1) * b].copy())
+    local, glob = pppo._moe_aux_terms(stats, valid, group)
+    out["aux"] = {"local": float(local), "global": float(glob), "alone": float(pppo._moe_aux_loss(stats, valid))}
+    fc = p["fused"]
+    out["fused2"], _ = _fused_run(fc["cfg"], fc["params"], make_mesh(fc["cfg"].mesh), 1)
+    if rank == 0:
+        out["fused1"], _ = _fused_run(fc["cfg"], fc["params"], None, 1)
+    return out
+
+
+def model_parallel_ranks(rank: int, world: int, p: dict) -> dict:
+    """Tensor parallelism on a world of 4: the wide core at data 1 x model 2
+    (ranks 0 and 1; world 1 on rank 2), the fused step at data 2 x model 2,
+    the MoE transformer at data 2 x model 2, dcn 2 x model 2 against data 2
+    x model 2, and checkpoints between model 2 and model 1. Every mesh is
+    made by every rank in the same order."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from dotaclient_tpu_torch.config import MeshConfig
+    from dotaclient_tpu_torch.parallel import make_mesh
+    from dotaclient_tpu_torch.train import ppo as pppo
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    def layout(state):
+        s = state.shards
+        opt = state.optimizer
+        return {name: {"master": tuple(m.shape), "whole": tuple(q.shape), "dim": d,
+                       "moments": [tuple(opt.state[m][k].shape) for k in ("exp_avg", "exp_avg_sq") if m in opt.state]}
+                for (name, q, d), m in zip(s.named, s.masters)}
+
+    def steps(cfg, params, batch, group, model_group, n):
+        policy = _policy_of(cfg, params)
+        state = pppo.init_train_state(policy, cfg.ppo, model_group=model_group)
+        ms = []
+        for _ in range(n):
+            state, m = pppo._train_step(cfg.ppo, state, batch, group=group)
+            ms.append(_metrics_np(m))
+        return {"metrics": ms, "params": _params_np(policy)}, state
+
+    out: dict = {}
+    # (a) the wide core
+    wc = p["wide"]
+    mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=2))
+    batch = _torch_tree(wc["batch"])
+    if rank < 2:
+        out["wide2"], state = steps(wc["cfg"], wc["params"], batch, None, mesh.group("model"), 2)
+        out["wide2"]["layout"] = layout(state)
+    elif rank == 2:
+        out["wide1"], _ = steps(wc["cfg"], wc["params"], batch, None, None, 2)
+    # (b) the fused step at data 2 x model 2
+    fc = p["fused"]
+    mesh = make_mesh(fc["cfg"].mesh)
+    out["fused_tp"], state = _fused_run(fc["cfg"], fc["params"], mesh, 2, model_group=mesh.group("model"))
+    out["fused_tp"]["layout"] = layout(state)
+    # (c) the MoE transformer at data 2 x model 2, one step on its rows
+    mc = p["moe"]
+    mesh = make_mesh(mc["cfg"].mesh)
+    batch = _torch_tree(mc["batch"])
+    per = batch["rewards"].shape[0] // 2
+    d = mesh.coords["data"]
+    out["moe_tp"], state = steps(mc["cfg"], mc["params"], _rows(batch, d * per, (d + 1) * per), mesh.batch_group,
+                                 mesh.group("model"), 1)
+    out["moe_tp"]["layout"] = layout(state)
+    # (d) dcn 2 x model 2 against data 2 x model 2
+    dc = p["dcn"]
+    batch = _torch_tree(dc["batch"])
+    for name, over in (("flat", {}), ("dcn", {"dcn_slices": 2})):
+        cfg = dataclasses.replace(dc["cfg"], mesh=dataclasses.replace(dc["cfg"].mesh, model_parallel=2, **over))
+        mesh = make_mesh(cfg.mesh)
+        from dotaclient_tpu_torch.parallel.mesh import batch_index
+
+        i = batch_index(mesh, cfg.mesh)
+        per = batch["rewards"].shape[0] // 2
+        out[f"dcn_{name}"], _ = steps(cfg, dc["params"], _rows(batch, i * per, (i + 1) * per), mesh.batch_group,
+                                      mesh.group("model"), 2)
+    # (e) checkpoints: model 2 -> model 1, and model 1 -> model 2
+    lc = p["learner"]
+    cfg2 = dataclasses.replace(lc["cfg"], mesh=MeshConfig(data_parallel=1, model_parallel=2))
+    cfg1 = dataclasses.replace(lc["cfg"], mesh=MeshConfig(data_parallel=1, model_parallel=1))
+    m2, m1 = make_mesh(cfg2.mesh), make_mesh(cfg1.mesh)
+    d2, d1 = os.path.join(lc["dir"], "tp2"), os.path.join(lc["dir"], "tp1")
+
+    def learner(cfg, mesh, **kw):
+        return Learner(cfg, actor="device", seed=3, device="cpu", registry=telemetry.Registry(), mesh=mesh, **kw)
+
+    def whole(lr):
+        return {"params": _params_np(lr.policy), "opt": _np_tree(lr.state.optimizer_state_dict()["state"]),
+                "step": lr.state.step}
+
+    if rank < 2:
+        lr = learner(cfg2, m2, checkpoint_dir=d2)
+        lr.train(lc["steps"])
+        out["ck_tp2"] = {**whole(lr), "layout": layout(lr.state)}
+        lr.close()
+    dist.barrier()
+    if rank == 0:
+        lr = learner(cfg1, m1, checkpoint_dir=d2, restore=True)
+        out["ck_2to1"] = whole(lr)
+        lr.close()
+        lr = learner(cfg1, m1, checkpoint_dir=d1)
+        lr.train(lc["steps"])
+        out["ck_tp1"] = whole(lr)
+        lr.close()
+    dist.barrier()
+    if rank < 2:
+        lr = learner(cfg2, m2, checkpoint_dir=d1, restore=True)
+        s = lr.state.shards
+        out["ck_1to2"] = {**whole(lr), "masters": {name: m.detach().numpy().copy()
+                                                   for (name, _, _), m in zip(s.named, s.masters)},
+                          "moments": {name: lr.state.optimizer.state[m]["exp_avg"].numpy().copy()
+                                      for (name, _, _), m in zip(s.named, s.masters) if m in lr.state.optimizer.state},
+                          "me": s.me}
+        lr.close()
+    # world-1 references of (b) and (c), after the world's collectives
+    if rank == 0:
+        out["fused1"], _ = _fused_run(fc["cfg"], fc["params"], None, 2)
+        out["moe1"], _ = steps(mc["cfg"], mc["params"], _torch_tree(mc["batch"]), None, None, 1)
     return out
