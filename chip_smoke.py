@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, and the tools beside the package, on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (each one's seconds logged on a line of their own; any failure
+exits non-zero and prints no result line):
 
 1. build: compile every kernel of the path (``ops/csrc/*.cu``, sm_90a)
    from the sources in this checkout;
@@ -16,9 +17,13 @@ Phases (any failure exits non-zero and prints no result line):
    T=1 and T=17, the parity digest's B=1 T=1, the 5v5 league's B=1,280
    at T=1 and T=17, its 64-game evaluation's B=320 T=1, and the buffered
    learner's advantage pass B=32 T=17 and minibatch updates B=16 at T=16
-   (on precomputed advantages) and T=17 (the in-step estimator), and the
-   scalar pool's step B=8 T=1), with the f32
-   tolerance stated below, its launch plan logged, and timed on the card (CUDA
+   (on precomputed advantages) and T=17 (the in-step estimator), the
+   scalar pool's step B=8 T=1, a world-2 rank's update B=64 T=17, and phase
+   21's: the 256 self-play lanes of BASELINE configs 3 and 4 at B=256 T=1
+   and T=17, config 2's 512 at B=512 T=1, phase 12's demo's update B=320
+   T=17, the curriculum's B=8 T=17 and
+   B=40 at T=1 and T=17, and the chaos children's B=4 T=1, B=8 T=9 and
+   B=4 T=8), with the f32 tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
    function (``torch.lstm_cell`` at T=1; at T>1 cuDNN's ``torch.lstm`` on
@@ -55,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
    before the phase and read just after). Logged: trained frames/s, wall ms
    an iteration split into rollout and update by CUDA events, the LSTM
    backward's share of the update, and the card's busy share and top
-   kernels in a torch.profiler window of 2 more iterations;
+   kernels in a torch.profiler window of 1 more iteration;
 7. kernel against plain in the train step: on one chunk of the phase, from
    the phase's state, the loss and gradients with the kernel and with
    ``use_kernel=False``, at f32 compute (loss within TRAIN_LOSS_ATOL, each
@@ -132,7 +137,7 @@ Phases (any failure exits non-zero and prints no result line):
     bitwise equal to its value when taken, and ``lstm_seq`` launched
     iterations x (2 x rollout_len + updates) times. Logged: trained
     frames/s, rollout and update ms, and the busy share and top kernels of
-    2 more iterations under the profiler. Then, on its params:
+    1 more iteration under the profiler. Then, on its params:
     ``evaluate`` against ``scripted_hard`` and (league mode) against the
     step-0 snapshot, 64 games each (episodes >= games, win rate in [0, 1],
     ``lstm_seq`` launches = the policy steps it ran, wall time logged);
@@ -146,12 +151,12 @@ Phases (any failure exits non-zero and prints no result line):
     ``epochs_per_batch`` 2 and ``minibatches`` 2 over the default batch of
     32 chunks and ring (256 chunks, ``min_fill`` 32), so the one-pass
     advantage pass and the epoch step both run, the health guardian and the
-    snapshot engine on, and a checkpoint directory: 2 warm collects, 8
+    snapshot engine on, and a checkpoint directory: 1 warm collect, 4
     timed ones and one that meets the first log and checkpoint boundary,
     each ``train`` call's loop under ``torch.cuda.set_sync_debug_mode
     ("error")`` (the boundary's copies to the host held by the engine until
     the guard lifts; the end of each call, with its forced save, runs
-    unguarded), and 2 more collects under the profiler. Checked: finite
+    unguarded), and 1 more collect under the profiler. Checked: finite
     loss and gradient norm and ``health_ok`` 1 in every batch, every param
     moved, every action legal, episodes ended, the ring's books (ingested =
     collects x 128 = batches x 32 + size + each kind of drop),
@@ -263,7 +268,7 @@ Phases (any failure exits non-zero and prints no result line):
     (counts reset just before and read just after). Logged: trained
     frames/s, the pool's env steps/s, ``span/actor/step`` against
     ``span/actor/infer``. (a') ``python -m dotaclient_tpu_torch.train.learner
-    --actor scalar --checkpoint-dir --metrics-jsonl`` for 16 steps and, beside
+    --actor scalar --checkpoint-dir --metrics-jsonl`` for 10 steps and, beside
     it, ``--no-vec`` for 10: exit 0, their ``done:`` lines' launches against
     pool steps + updates + passes from their records. (b) ``evaluate_served``
     in this process: 8 games against the hard bot, games of 20 s, through a
@@ -298,8 +303,8 @@ Phases (any failure exits non-zero and prints no result line):
     compute, f32 params; no kernel of its own, so ``lstm_seq`` must launch
     0 times on this path, which shows the core switch took). (a) BASELINE
     config 5 at phase 12's league shape and cuts (256 5v5 games, 1,280
-    learner and 1,280 opponent lanes): 2 warm and 8 timed fused iterations
-    under the sync guard, 2 profiled. Checked: finite loss and
+    learner and 1,280 opponent lanes): 1 warm and 4 timed fused iterations
+    under the sync guard, 1 profiled. Checked: finite loss and
     ``health_ok`` 1, params moved, both sides' actions legal, snapshots
     bitwise as taken, the chunks' and both sides' carry leaves (valid [L,
     16], k and v [L, 16, 128] a layer, f32). Logged: trained frames/s and
@@ -307,7 +312,7 @@ Phases (any failure exits non-zero and prints no result line):
     ms (CUDA events), kernels and copies an iteration and the busy share
     (profiler); then one 64-game evaluation against the hard bot. (b) 4
     Switch experts a layer (capacity factor 2), fused at 128 games of 1v1
-    against the easy bot (the demo's recipe, 20 s games): 2 warm and 4
+    against the easy bot (the demo's recipe, 20 s games): 1 warm and 2
     timed iterations under the sync guard; ``moe_aux`` finite and above 0
     in each, the actions legal; the share of tokens dropped at capacity per
     layer logged (the last chunk's sequence forward), while (c) starts
@@ -347,7 +352,8 @@ Phases (any failure exits non-zero and prints no result line):
     bit for bit; and a bf16 weights frame through the shm slab, equal to
     the params rounded to bf16. AMQP is not driven here: neither machine
     has ``pika`` (its tests run on a fake broker).
-19. data parallel over ``torch.distributed``: (a) ``python -m
+19. data parallel over ``torch.distributed``, (a) as a child beside (b)
+    in this process: (a) ``python -m
     torch.distributed.run --standalone --nproc-per-node 1 --no-python
     python -c ...`` running the learner CLI's ``main`` (``--multihost
     --mesh data_parallel=-1``) at phase 14's traffic for DP_CLI_STEPS
@@ -398,6 +404,30 @@ Phases (any failure exits non-zero and prints no result line):
     update's loss and ``grad_norm`` within 1e-4 of world 1's, the params
     after MG_TP_ITERS iterations within rtol 2e-4, atol 2e-5, and
     ``lstm_seq`` iterations x (rollout_len + 1) on each rank.
+21. the tools beside the package (``tools_phase``), within
+    PHASE21_BUDGET_S. (a) every BASELINE config through
+    ``train/bench_configs.py``'s ``measure_config`` (its config, its
+    ``Learner``, its frames_trained over the host clock), configs 3 and 4
+    in the ``device`` and ``fused`` modes, 1, 2 and 5 in ``device``, cut to
+    games of BENCH_MAX_DOTA_TIME, BENCH_WARMUP warm-up step and one block
+    of BENCH_STEPS: frames/s, learner lanes (games x heroes, x 2 in
+    self-play: 256 for configs 3 and 4, 512 for config 2), finite loss
+    and ``health_ok`` 1 in every update, every param moved, every action legal, ``lstm_seq``
+    launched as the iterations derive (a rollout step once a side; a fused
+    iteration's update once; a buffered batch's update and advantage
+    passes), each launch at a shape phase 2 holds against the plain
+    version; the fused frames/s of configs 3 and 4 logged against phase
+    6's. Then, side by side, (b) ``python -m
+    dotaclient_tpu_torch.train.curriculum`` as a child (CURRICULUM_ARGS):
+    exit 0, a ``DEMO_SUMMARY`` a stage, stage 2 from stage 1's saved step
+    and its checkpoint bit for bit stage 1's in every param but the value
+    head (its critic-only warm-up trains that alone); (c) ``python -m
+    dotaclient_tpu_torch.utils.chaos_run --scenario baseline`` as a child
+    with 2 actors, the SIGTERM at step CHAOS_STEPS and as many after the
+    restore: ``CHAOS_SUMMARY`` ok, both learners exit 0, an actor killed,
+    corrupt frames counted, the exact resume, each learner's ``lstm_seq``
+    launches (its ``done:`` line) its steps plus its advantage passes (its
+    record).
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -461,7 +491,7 @@ TRAIN_BF16_GRAD_RTOL = 1e-2
 CONTROL_NOISE = 1e-6
 
 TRAIN_ENVS, TRAIN_MAX_DOTA_TIME = 128, 20.0
-TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 2
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 1
 
 N_GAMES, N_STEPS = 64, 20
 RELEASE_AFTER_ROUND, RELEASED_SLOTS = 7, (3, 40)
@@ -547,7 +577,7 @@ def lstm_bound(B, T, D, H):
 # phase 12's league: its games, team size and game length, and its
 # evaluations' games
 LEAGUE_ENVS, LEAGUE_TEAM, LEAGUE_MAX_DOTA_TIME = 256, 5, 20.0
-LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 16
+LEAGUE_EVAL_GAMES, LEAGUE_CLI_GAMES = 64, 8
 
 # phase 13's buffered learner: the default batch of 32 chunks, split into
 # 2 minibatches in each of 2 epochs
@@ -569,14 +599,29 @@ BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
 # scalar pool's step (BASELINE config 1: the default 8 games against a
 # scripted bot, one lane each, at T=1), and phase 19's rank of a world of
 # 2 (64 of the 128 games) at the update (its rollout step is the serving
-# step's shape)
+# step's shape); then phase 21's: BASELINE configs 3 and 4's 256 self-play
+# learner lanes at the rollout step and the fused update, config 2's 512
+# (256 games) at the rollout step (the buffered modes' update is the
+# advantage pass's B=32 T=17), phase 12's demo child's update (64 5v5
+# games: B=320 T=17; its and the league CLI's 8-game evaluations are the
+# curriculum's B=40 T=1), the curriculum's stages at 8
+# games (stage 1's fused update B=8 T=17; stage 2's 40 lanes of 5v5 at the
+# step, its 8-game evaluations, and the update), and the chaos baseline's
+# children: an actor's 4 games at the step, and the learner's batch of 8
+# chunks of 8 steps at the advantage pass (T=9) and its minibatches of 4 at
+# the update on precomputed advantages (T=8)
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 SCALAR_LANES = 8
+SELFPLAY_LANES, CONFIG2_LANES, CURRICULUM_5V5_LANES = 256, 512, 8 * 5
 LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 128, 128),
                (128, 1, 128, 128), (128, 17, 128, 128), (1, 1, 128, 128),
                (LEAGUE_LANES, 1, 128, 128), (LEAGUE_LANES, 17, 128, 128), (LEAGUE_EVAL_LANES, 1, 128, 128),
                (BUFFERED_BATCH, 17, 128, 128), (BUFFERED_MB, 16, 128, 128), (BUFFERED_MB, 17, 128, 128),
-               (SCALAR_LANES, 1, 128, 128), (TRAIN_ENVS // 2, 17, 128, 128))
+               (SCALAR_LANES, 1, 128, 128), (TRAIN_ENVS // 2, 17, 128, 128),
+               (SELFPLAY_LANES, 1, 128, 128), (SELFPLAY_LANES, 17, 128, 128), (CONFIG2_LANES, 1, 128, 128),
+               (LEAGUE_EVAL_LANES, 17, 128, 128), (8, 17, 128, 128),
+               (CURRICULUM_5V5_LANES, 1, 128, 128), (CURRICULUM_5V5_LANES, 17, 128, 128), (4, 1, 128, 128),
+               (8, 9, 128, 128), (4, 8, 128, 128))
 
 
 def max_err(got, want):
@@ -656,7 +701,7 @@ def check_lstm_kernel(device, seed):
             log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
             shape["library_ms"] = device_ms(library)
             shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128 and B in (BUFFERED_MB, 32, 128, LEAGUE_LANES, TRAIN_ENVS // 2):
+        if T > 1 and D == H == 128:
             reset_free, rf_err = lstm_reset_free_library(args)
             log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
             shape["library_ms_reset_free"] = device_ms(reset_free)
@@ -678,6 +723,7 @@ def check_lstm_kernel(device, seed):
     adv_seq, mb_seq, mb_seq_instep = (shapes[(BUFFERED_BATCH, 17)], shapes[(BUFFERED_MB, 16)],
                                       shapes[(BUFFERED_MB, 17)])
     scalar_step = shapes[(SCALAR_LANES, 1)]
+    selfplay_step, selfplay_seq = shapes[(SELFPLAY_LANES, 1)], shapes[(SELFPLAY_LANES, 17)]
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -702,12 +748,15 @@ def check_lstm_kernel(device, seed):
         "buffered_minibatch_sequence_ms": mb_seq["ms"],
         "buffered_minibatch_instep_sequence_ms": mb_seq_instep["ms"],
         "scalar_pool_step_ms": scalar_step["ms"],
+        "selfplay_rollout_step_ms": selfplay_step["ms"],
+        "selfplay_fused_sequence_ms": selfplay_seq["ms"],
     }
     return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
                    "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
                    "league_eval_step": league_eval_step, "buffered_advantage_sequence": adv_seq,
                    "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
-                   "scalar_pool_step": scalar_step, "shapes": list(shapes.values())}
+                   "scalar_pool_step": scalar_step, "selfplay_rollout_step": selfplay_step,
+                   "selfplay_fused_sequence": selfplay_seq, "shapes": list(shapes.values())}
 
 
 def lstm_sweep(device, seed):
@@ -1044,7 +1093,7 @@ def log_profile(label, result):
         log(f"  {e['device_us']:10.1f} us  x{e['count']:<5d} {e['name'][:90]}")
 
 
-def profile_serve(device, seed, rounds: int = 5):
+def profile_serve(device, seed, rounds: int = 3):
     """A few lockstep rounds on a fresh engine under torch.profiler (after
     a warm-up), reduced to the device's busy share of the wall clock and
     the kernels that took the most device time. Runs after the checked
@@ -2156,9 +2205,9 @@ def fleet_cli_phase(ckpt_dir, step, seed):
 # -- phase 12: league self-play at the 5v5 league shape ------------------------------
 
 
-LEAGUE_WARM, LEAGUE_TIMED, LEAGUE_PROFILED = 2, 8, 2
+LEAGUE_WARM, LEAGUE_TIMED, LEAGUE_PROFILED = 2, 8, 1
 DEMO_ARGS = ("--steps", "4", "--n-envs", "64", "--team-size", "5", "--opponent", "league",
-             "--max-dota-time", "20", "--eval-games", "16")
+             "--max-dota-time", "20", "--eval-games", "8")
 CHILD_S = 600.0
 
 
@@ -2283,7 +2332,12 @@ def counted_eval(learner, mode, opponent_params, seed, device):
 def run_child(args, what):
     """A child of the port run to its exit within CHILD_S: (its lines, its
     wall seconds). It must exit 0; it is killed in a ``finally``."""
-    child = Child(list(args))
+    return finish_child(Child(list(args)), what)
+
+
+def finish_child(child, what):
+    """``run_child`` for a ``Child`` already started (so that work of this
+    process can run beside it)."""
     try:
         rc = child.proc.wait(timeout=CHILD_S)
         child._reader.join(30)
@@ -2299,10 +2353,29 @@ def run_child(args, what):
     return lines, wall_s
 
 
-def league_children(learner, ckpt_dir):
+def demo_launches(summary, what, opponent_lanes):
+    """Hold a demo child's ``lstm_seq`` launches (its DEMO_SUMMARY) against
+    the count its steps and evaluations derive: a fused iteration T policy
+    steps (two a step with ``opponent_lanes``) and an update; an
+    evaluation chunk T policy steps, two against the initial self (the
+    last of the five). Returns the launches."""
+    from dotaclient_tpu_torch.config import default_config
+
+    T = default_config().ppo.rollout_len
+    evals = summary["eval_collects"]
+    want = (summary["steps"] * (T * (2 if opponent_lanes else 1) + 1) + T * (sum(evals[:4]) + 2 * evals[4]))
+    if len(evals) != 5 or summary["lstm_seq_launches"] != want:
+        raise AssertionError(f"{what}: {summary['lstm_seq_launches']} lstm_seq launches, expected {want} = "
+                             f"{summary['steps']} fused iterations of {T} steps{' x 2' if opponent_lanes else ''} "
+                             f"+ 1 and evaluations of {evals} chunks of {T} steps (the last x 2)")
+    return want
+
+
+def league_children(learner, ckpt_dir, meanwhile):
     """The league CLI on a checkpoint of the phase against a second one
     (the step-0 snapshot's params), and the demo at a smoke size, each as a
-    child process."""
+    child process, side by side and beside ``meanwhile()`` in this process.
+    Returns (the children's results, what ``meanwhile`` returned)."""
     import os
 
     from dotaclient_tpu_torch.utils import telemetry
@@ -2317,15 +2390,22 @@ def league_children(learner, ckpt_dir):
          "opt_state": _to_cpu(learner.state.optimizer.state_dict())}, learner.config, force=True)
     for mgr in (mgr_a, mgr_b):
         mgr.close()   # the writes land before the children read them
-    lines, cli_s = run_child(["dotaclient_tpu_torch.league", "--checkpoint", a, "--vs", b,
-                              "--games", str(LEAGUE_CLI_GAMES)], "the league CLI")
+    children = [Child(["dotaclient_tpu_torch.league", "--checkpoint", a, "--vs", b, "--games",
+                       str(LEAGUE_CLI_GAMES)])]
+    try:
+        children.append(Child(["dotaclient_tpu_torch.train.demo", *DEMO_ARGS]))
+        during = meanwhile()
+        (lines, cli_s), (demo_lines, demo_s) = (finish_child(c, w) for c, w in
+                                                zip(children, ("the league CLI", "the demo")))
+    finally:
+        for child in children:
+            child.kill()
     cli = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
     if not (cli["games"] >= LEAGUE_CLI_GAMES and cli["opponent"] == f"checkpoint:{b}@step0"
             and cli["step"] == learner.state.step and 0.0 <= cli["win_rate"] <= 1.0):
         raise AssertionError(f"the league CLI's line {cli}")
     log(f"league CLI: {json.dumps(cli)} in {cli_s:.1f} s wall")
-    lines, demo_s = run_child(["dotaclient_tpu_torch.train.demo", *DEMO_ARGS], "the demo")
-    summary = json.loads(next(line for line in reversed(lines) if line.startswith("DEMO_SUMMARY "))
+    summary = json.loads(next(line for line in reversed(demo_lines) if line.startswith("DEMO_SUMMARY "))
                          [len("DEMO_SUMMARY "):])
     rates = [v for k, v in summary.items() if "_win_" in k]
     flag = dict(zip(DEMO_ARGS[::2], DEMO_ARGS[1::2]))
@@ -2333,8 +2413,10 @@ def league_children(learner, ckpt_dir):
             and len(rates) == 5
             and all(0.0 <= r <= 1.0 for r in rates)):
         raise AssertionError(f"the demo's summary {summary}")
-    log(f"demo {' '.join(DEMO_ARGS)}: DEMO_SUMMARY {json.dumps(summary)} in {demo_s:.1f} s wall")
-    return {"cli": {**cli, "wall_s": cli_s}, "demo": {**summary, "wall_s": demo_s}}
+    demo_launches(summary, "the demo", opponent_lanes=flag["--opponent"] == "league")
+    log(f"demo {' '.join(DEMO_ARGS)}: DEMO_SUMMARY {json.dumps(summary)} (lstm_seq launches as derived) in "
+        f"{demo_s:.1f} s wall")
+    return {"cli": {**cli, "wall_s": cli_s}, "demo": {**summary, "wall_s": demo_s}}, during
 
 
 def league_phase(device, seed, ckpt_dir):
@@ -2450,10 +2532,11 @@ def league_phase(device, seed, ckpt_dir):
     log_profile(f"league profile: {LEAGUE_PROFILED} iterations", profile)
     if pool.snapshots[0].step != 0:
         raise AssertionError("the step-0 snapshot left the pool before the league evaluation")
-    evals = {"scripted_hard": counted_eval(learner, "scripted_hard", None, seed, device),
-             "league": counted_eval(learner, "league", pool.snapshots[0].params, seed, device)}
+    # the evaluations run in this process while the children run beside them
+    result["children"], evals = league_children(learner, ckpt_dir, lambda: {
+        "scripted_hard": counted_eval(learner, "scripted_hard", None, seed, device),
+        "league": counted_eval(learner, "league", pool.snapshots[0].params, seed, device)})
     result["eval"] = {**evals, "lstm_seq_launches": sum(e["lstm_seq_launches"] for e in evals.values())}
-    result["children"] = league_children(learner, ckpt_dir)
     return result
 
 
@@ -2463,7 +2546,7 @@ BUFFERED_ENVS, BUFFERED_MAX_DOTA_TIME = 128, 20.0
 # collects: warm, timed under the sync guard, profiled, then one that
 # meets the run's first log and checkpoint boundary (BOUNDARY_EVERY steps:
 # each collect feeds 128 / 32 batches of 2 x 2 updates)
-BUFFERED_WARM, BUFFERED_TIMED, BUFFERED_PROFILED = 2, 8, 2
+BUFFERED_WARM, BUFFERED_TIMED, BUFFERED_PROFILED = 1, 4, 1
 STEPS_PER_COLLECT = BUFFERED_ENVS // BUFFERED_BATCH * BUFFERED_EPOCHS * BUFFERED_MINIBATCHES
 BOUNDARY_EVERY = (BUFFERED_WARM + BUFFERED_TIMED + BUFFERED_PROFILED + 1) * STEPS_PER_COLLECT
 # the rollback run: log and checkpoint every 20 steps (a last_good save at
@@ -2782,11 +2865,15 @@ def buffered_phase(device, seed, ckpt_dir, fused_frames_per_s):
         f"{passes:.0f} + {batches} x {updates}"
     )
     log_profile(f"buffered profile: {BUFFERED_PROFILED} collects", profile)
-    result["rollback"] = buffered_rollback(device, seed, os.path.join(ckpt_dir, "rollback"))
-    result["resume"] = buffered_resume(device, seed, os.path.join(ckpt_dir, "resume"))
+    # the CLI child runs beside the rollback and the resume
     cli_jsonl = os.path.join(ckpt_dir, "cli.jsonl")
-    lines, cli_s = run_child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3", "--metrics-jsonl",
-                              cli_jsonl], "the learner CLI")
+    child = Child(["dotaclient_tpu_torch.train.learner", "--smoke", "--steps", "3", "--metrics-jsonl", cli_jsonl])
+    try:
+        result["rollback"] = buffered_rollback(device, seed, os.path.join(ckpt_dir, "rollback"))
+        result["resume"] = buffered_resume(device, seed, os.path.join(ckpt_dir, "resume"))
+        lines, cli_s = finish_child(child, "the learner CLI")
+    finally:
+        child.kill()
     steps, frames, _, _ = done_line(lines, "the learner CLI")
     cli = read_record(cli_jsonl)[1][-1]
     if not (steps == 3 and cli["optimizer_steps"] == 3.0 and np.isfinite(cli["loss"]) and cli["health_ok"] == 1.0):
@@ -2818,7 +2905,9 @@ class ModuleChild:
     """``python -m MODULE ARGS`` as a child process, its stdout and stderr
     into files (so children can run side by side without a pipe filling
     up); ``lines`` reads its stdout so far, ``wait`` waits for its exit
-    within a bound, ``kill`` leaves nothing running."""
+    within a bound, ``kill`` leaves nothing running. The child leads a
+    process group of its own, and ``kill`` takes the group: the processes
+    a launcher or a supervisor child starts go with it."""
 
     def __init__(self, module, args, root, name, env=None):
         import os
@@ -2830,7 +2919,7 @@ class ModuleChild:
         self.name, self.t0 = name, time.perf_counter()
         self._out, self._err = (open(os.path.join(root, f"{name}.{k}"), "w+") for k in ("out", "err"))
         self.proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=repo, env=env, stdout=self._out,
-                                     stderr=self._err, text=True)
+                                     stderr=self._err, text=True, start_new_session=True)
         self.wall_s = None
 
     def lines(self):
@@ -2850,9 +2939,16 @@ class ModuleChild:
         return rc
 
     def kill(self):
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.wait(timeout=30)
+        self.proc.wait(timeout=30)
         self._out.close()
         self._err.close()
 
@@ -3843,7 +3939,7 @@ def external_actors_phase(device, seed, smi=""):
 # (b): served games against the hard bot.
 SCALAR_MAX_DOTA_TIME = 20.0
 SCALAR_WARM, SCALAR_TIMED, SCALAR_OVERLAP = 2, 4, 4
-SCALAR_CLI_STEPS, SCALAR_NOVEC_STEPS = 16, 10   # 10: one log line (log_every 10)
+SCALAR_CLI_STEPS, SCALAR_NOVEC_STEPS = 10, 10   # 10: one log line (log_every 10)
 EVAL_SERVED_GAMES = 8
 
 
@@ -4138,8 +4234,8 @@ def scalar_path_phase(device, seed, socket_frames_per_s, smi=""):
 # -- phase 17: the transformer and MoE cores ---------------------------------------
 
 
-TF_WARM, TF_TIMED, TF_PROFILED = 2, 8, 2
-MOE_ENVS, MOE_MAX_DOTA_TIME, MOE_WARM, MOE_TIMED, MOE_EXPERTS = 128, 20.0, 2, 4, 4
+TF_WARM, TF_TIMED, TF_PROFILED = 1, 4, 1
+MOE_ENVS, MOE_MAX_DOTA_TIME, MOE_WARM, MOE_TIMED, MOE_EXPERTS = 128, 20.0, 1, 2, 4
 TF_CLI_STEPS = 4
 TF_SERVE_GAMES, TF_SERVE_STEPS = 16, 10
 
@@ -5077,18 +5173,23 @@ def dp_guarded_learner(argv):
     return learner_mod.main(argv)
 
 
-def dp_cli_phase(seed, root):
+def dp_cli_child(seed, root):
     """(a): the learner CLI as ``torch.distributed.run`` launches it, world
     1 over NCCL, its train loop under the sync guard (``dp_guarded_learner``),
-    its record against every learner tier (the multichip one among them)."""
+    started; ``dp_cli_result`` checks it."""
     import os
 
     jsonl = os.path.join(root, "dp.jsonl")
     rank = "import sys, chip_smoke; sys.exit(chip_smoke.dp_guarded_learner(sys.argv[1:]))"
-    child = ModuleChild("torch.distributed.run", [
+    return ModuleChild("torch.distributed.run", [
         "--standalone", "--nproc-per-node", "1", "--no-python", sys.executable, "-c", rank, "--multihost",
         "--mesh", "data_parallel=-1", "--n-envs", str(RECORD_ENVS), "--opponent", "scripted_easy", "--steps",
-        str(DP_CLI_STEPS), "--seed", str(seed), "--metrics-jsonl", jsonl], root, "dp_cli")
+        str(DP_CLI_STEPS), "--seed", str(seed), "--metrics-jsonl", jsonl], root, "dp_cli"), jsonl
+
+
+def dp_cli_result(child, jsonl):
+    """(a)'s exit 0, its runtime and ``done:`` lines, and its record against
+    every learner tier (the multichip one among them)."""
     try:
         rc = child.wait(DP_CLI_S)
         lines = child.lines()
@@ -5120,18 +5221,22 @@ def dp_cli_phase(seed, root):
 
 
 def data_parallel_phase(device, seed, smi=""):
-    """Phase 19: (a) the CLI under torch.distributed.run over NCCL, then (b)
-    world 2 over gloo on the one card against world 1 in this process."""
+    """Phase 19: (a) the CLI under torch.distributed.run over NCCL, beside
+    (b) world 2 over gloo on the one card against world 1 in this process."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
-        cli = dp_cli_phase(seed, root)
+        child, jsonl = dp_cli_child(seed, root)
+        try:
+            ranks = dp_world2(seed)
+            one = dp_train(device, seed, timed_psum=False)
+            cli = dp_cli_result(child, jsonl)
+        finally:
+            child.kill()
     log(f"data parallel (a): torch.distributed.run, world 1 over NCCL: {cli['steps']} steps, "
         f"{cli['frames_per_s']} frames/s, {cli['lstm_seq_launches']} lstm_seq launches, record of "
         f"{cli['record_lines']} lines meets every learner tier, multichip {cli['multichip']}, train loop "
         f"under the sync guard, "
-        f"{cli['wall_s']:.1f} s with the launcher; {smi}")
-    ranks = dp_world2(seed)
-    one = dp_train(device, seed, timed_psum=False)
+        f"{cli['wall_s']:.1f} s with the launcher, beside (b); {smi}")
     for r, res in enumerate(ranks):
         half = TRAIN_ENVS // 2
         if res["lane_shards"] != 2 or res["lanes"] != one["lanes"] // 2 or res["games"] != [half * r, half * (r + 1)]:
@@ -5182,7 +5287,9 @@ def data_parallel_phase(device, seed, smi=""):
                               "world2_rank1": ranks[1]["lstm_seq_launches"]},
     }
     result["wall_s"] = time.perf_counter() - t0
-    log(f"data parallel (b): world 2 over gloo on one card ({ranks[0]['lanes']} lanes a rank): "
+    # (b)'s rates are read beside (a)'s child, world 1's perhaps after it
+    # exited: correctness is held, the rates are logged for the record only
+    log(f"data parallel (b), beside (a)'s child: world 2 over gloo on one card ({ranks[0]['lanes']} lanes a rank): "
         f"{ranks[0]['frames_per_s']:.0f} frames/s (the job's), the update's all-reduces "
         f"{result['psum_share_of_loop']:.3f} of the timed loop ({ranks[0]['psum_calls']} calls, "
         f"{ranks[0]['psum_s'] * 1e3:.1f} ms); world 1 in process {one['frames_per_s']:.0f} frames/s; first chunk "
@@ -5636,6 +5743,310 @@ def multigpu_rest_phase(device, seed, smi=""):
     return out
 
 
+# -- phase 21: the tools beside the package ------------------------------------
+
+# (a): every BASELINE config through train/bench_configs.py's measurement:
+# configs 3 and 4 in both modes, the others in the buffered mode, each cut
+# from the CLI's 120 s games, 20 warm-up steps and best of 3 blocks of 100
+# steps to BENCH_MAX_DOTA_TIME, BENCH_WARMUP and one block of BENCH_STEPS
+BENCH_RUNS = ((3, "device"), (3, "fused"), (4, "device"), (4, "fused"), (1, "device"), (2, "device"),
+              (5, "device"))
+BENCH_MAX_DOTA_TIME, BENCH_WARMUP, BENCH_REPEATS, BENCH_STEPS = 20.0, 1, 1, 4
+# (b): both curriculum stages as children, a few steps a stage, small games
+CURRICULUM_ARGS = ("--stage1-steps", "2", "--stage2-steps", "2", "--n-envs", "8", "--eval-games", "8",
+                   "--max-dota-time", "20")
+# (c): the chaos supervisor's baseline scenario, 2 actors, the SIGTERM at
+# CHAOS_STEPS and as many steps after the restore (from 10 and 10)
+CHAOS_STEPS = 6
+TOOLS_CHILD_S = 130.0
+PHASE21_BUDGET_S = 150.0
+
+
+def record_lstm_shapes(shapes):
+    """Count each (B, T, D, H) the LSTM kernel is launched at in
+    ``shapes`` (a Counter) by wrapping ``ops.lstm.kernel_plan``, which its
+    wrapper calls once a launch. Returns the undo."""
+    from dotaclient_tpu_torch.ops import lstm
+
+    plan = lstm.kernel_plan
+
+    def recorded(B, T, D, H):
+        shapes[(B, T, D, H)] += 1
+        return plan(B, T, D, H)
+
+    lstm.kernel_plan = recorded
+    return lambda: setattr(lstm, "kernel_plan", plan)
+
+
+class BenchRecorder:
+    """Wraps a bench learner's fused step (``fused``) or its collects and
+    updates (``device``) to record, with no read of the device, each
+    update's metrics, each chunk and the iterations; snapshots the params
+    and zeroes the kernel's count when the learner is built."""
+
+    def __init__(self, mode):
+        self.mode, self.metrics, self.chunks = mode, [], []
+        self.iterations = self.collects = self.updates = 0
+        self.before = self.passes0 = None
+
+    def __call__(self, learner, outs):
+        from dotaclient_tpu_torch.ops import lstm
+
+        if outs is not None:
+            self.passes = learner.registry.snapshot().get("advantage/passes_total", 0.0) - self.passes0
+            self.moved = check_params_moved(self.before, learner.policy, self.chunks)
+            self.learner_lanes = learner.device_actor.n_lanes
+            self.opponent_lanes = learner.device_actor.n_opp_lanes if learner.config.env.opponent == "league" else 0
+            self.launches = lstm.lstm_sequence_kernel.launches
+            self.steps_per_batch = learner.config.ppo.steps_per_batch
+            return
+        da = learner.device_actor
+        rollout = da._rollout_impl
+
+        def recorded_rollout(params, state, opp_params=None, **kw):
+            out = rollout(params, state, opp_params, **kw)
+            self.chunks.append(out[1])
+            return out
+
+        da._rollout_impl = recorded_rollout
+        if self.mode == "fused":
+            fused = learner.fused_step
+
+            def recorded_fused(state, actor_state, opp_params=None):
+                out = fused(state, actor_state, opp_params)
+                self.iterations += 1
+                self.metrics.append(out[2])
+                return out
+
+            learner.fused_step = recorded_fused
+        else:
+            collect, optimize = da.collect, learner._optimize
+
+            def counted_collect(*args, **kw):
+                self.collects += 1
+                return collect(*args, **kw)
+
+            def recorded_optimize(batch):
+                m = optimize(batch)
+                self.updates += 1
+                self.metrics.append(m)
+                return m
+
+            da.collect, learner._optimize = counted_collect, recorded_optimize
+        self.before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+        self.passes0 = learner.registry.snapshot().get("advantage/passes_total", 0.0)
+        lstm.lstm_sequence_kernel.launches = 0
+
+    def expected_launches(self, T):
+        """The kernel's launches its iterations derive: a rollout step is one
+        launch for the learner lanes and one for the opponent lanes of a
+        league; a fused iteration updates once at E x M = 1, a buffered
+        batch once an update plus its advantage passes."""
+        sides = 2 if self.opponent_lanes else 1
+        if self.mode == "fused":
+            return self.iterations * (T * sides + 1)
+        return self.collects * T * sides + self.updates + int(self.passes)
+
+
+def bench_phase(device, seed):
+    """(a): each BASELINE config through ``bench_configs.measure_config`` at
+    the cut depth: frames/s, learner lanes, finite loss and ``health_ok`` 1
+    in every update, every param moved, every action legal, and
+    ``lstm_seq`` launched as the iterations derive, at shapes phase 2
+    holds against the plain version."""
+    from collections import Counter
+
+    import torch
+
+    from dotaclient_tpu_torch.config import RunConfig
+    from dotaclient_tpu_torch.train import bench_configs
+
+    rows, launches = [], {}
+    for n, mode in BENCH_RUNS:
+        rec, shapes = BenchRecorder(mode), Counter()
+        undo = record_lstm_shapes(shapes)
+        t0 = time.perf_counter()
+        try:
+            row, outs = bench_configs.measure_config(n, RunConfig(), mode=mode, seed=seed, device=device,
+                                                     steps=BENCH_STEPS, warmup=BENCH_WARMUP,
+                                                     repeats=BENCH_REPEATS, max_dota_time=BENCH_MAX_DOTA_TIME,
+                                                     observe=rec)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        what = f"config {n} ({mode})"
+        cfg, _ = bench_configs.build_config(n, RunConfig())
+        T = cfg.ppo.rollout_len
+        heroes = cfg.env.team_size * (2 if cfg.env.opponent == "selfplay" else 1)
+        if row["learner_lanes"] != cfg.env.n_envs * heroes:
+            raise AssertionError(f"{what}: {row['learner_lanes']} learner lanes, expected {cfg.env.n_envs} games x "
+                                 f"{heroes} heroes")
+        steps = BENCH_WARMUP + BENCH_REPEATS * BENCH_STEPS
+        iters = rec.iterations if mode == "fused" else rec.updates
+        if iters != steps:
+            raise AssertionError(f"{what}: {iters} {'iterations' if mode == 'fused' else 'updates'}, expected "
+                                 f"{steps}")
+        for i, m in enumerate(rec.metrics):
+            loss, ok = float(m["loss"]), float(m["health_ok"])
+            if not (np.isfinite(loss) and ok == 1.0):
+                raise AssertionError(f"{what}: update {i}: loss {loss}, health_ok {ok}")
+        illegal, n_actions = check_chunk_actions(rec.chunks)
+        if illegal:
+            raise AssertionError(f"{what}: {illegal} of {n_actions} sampled actions illegal under their masks")
+        want = rec.expected_launches(T)
+        if rec.launches != want or sum(shapes.values()) != rec.launches:
+            raise AssertionError(f"{what}: lstm_seq launched {rec.launches} times ({sum(shapes.values())} by shape), "
+                                 f"expected {want}: {rec.collects} collects, {rec.iterations} fused iterations, "
+                                 f"{rec.updates} updates, {rec.passes:.0f} passes")
+        unchecked = [s for s in shapes if s not in LSTM_SHAPES]
+        if unchecked:
+            raise AssertionError(f"{what}: lstm_seq launched at {unchecked}, shapes phase 2 does not check")
+        key = f"bench_config{n}_{mode}"
+        launches[key] = rec.launches
+        rows.append({**row, "wall_s": wall_s, "lstm_seq_launches": rec.launches, "collects": rec.collects,
+                     "updates": rec.updates, "iterations": rec.iterations, "passes": rec.passes,
+                     "opponent_lanes": rec.opponent_lanes, "actions": n_actions,
+                     "loss": [float(m["loss"]) for m in rec.metrics],
+                     "shapes": {f"B={b} T={t}": c for (b, t, _, _), c in sorted(shapes.items())}})
+        log(f"bench {what}: {row['end_to_end_frames_per_sec']} trained frames/s (best of {BENCH_REPEATS} block of "
+            f"{BENCH_STEPS} steps after {BENCH_WARMUP} warm-up, {BENCH_MAX_DOTA_TIME:.0f} s games), "
+            f"{row['learner_lanes']} learner lanes ({row['n_envs']} games, team {row['team_size']}"
+            + (f", {rec.opponent_lanes} opponent lanes" if rec.opponent_lanes else "") + "); "
+            f"loss {float(rec.metrics[-1]['loss']):.4g}, health_ok 1 in all {len(rec.metrics)} updates; "
+            f"{n_actions} actions legal; lstm_seq launches {rec.launches} = "
+            + (f"{rec.iterations} iterations x ({T} x {2 if rec.opponent_lanes else 1} + 1)" if mode == "fused" else
+               f"{rec.collects} collects x {T}" + (" x 2" if rec.opponent_lanes else "")
+               + f" + {rec.updates} updates + {rec.passes:.0f} passes")
+            + f", by shape {rows[-1]['shapes']}; {wall_s:.1f} s")
+    return {"rows": rows, "lstm_seq_launches": launches}
+
+
+def curriculum_result(child, root):
+    """(b)'s checks once the curriculum child exited: exit 0, a
+    DEMO_SUMMARY a stage, stage 2 from stage 1's saved step, and stage 2's
+    checkpoint equal to stage 1's bit for bit in every param its critic-only
+    warm-up leaves (all but the value head, which moved)."""
+    import os
+
+    import torch
+
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rc = child.wait(TOOLS_CHILD_S)
+    lines = child.lines()
+    if rc != 0:
+        raise AssertionError(f"the curriculum exited {rc}: {lines[-10:]} {child.stderr()[-2000:]}")
+    summaries = [json.loads(line[len("DEMO_SUMMARY "):]) for line in lines if line.startswith("DEMO_SUMMARY ")]
+    if [s["team_size"] for s in summaries] != [1, 5]:
+        raise AssertionError(f"the curriculum's DEMO_SUMMARY lines: {summaries}")
+    ck = os.path.join(root, "curriculum")
+    w1, step1 = CheckpointManager(os.path.join(ck, "curriculum_stage1")).restore_weights()
+    w2, step2 = CheckpointManager(os.path.join(ck, "curriculum_stage2")).restore_weights()
+    if summaries[1]["restored_step"] != step1:
+        raise AssertionError(f"stage 2 started from step {summaries[1]['restored_step']}, stage 1 saved {step1}")
+    # both stages train against scripted_easy: no opponent lanes
+    launches = [demo_launches(sm, f"curriculum stage {i}", opponent_lanes=False)
+                for i, sm in enumerate(summaries, 1)]
+    moved = sorted(k for k in w1 if not torch.equal(w1[k], w2[k]))
+    if moved != ["head_value.bias", "head_value.weight"]:
+        raise AssertionError(f"stage 2's checkpoint against stage 1's: changed {moved}, expected the value head "
+                             "alone (the critic-only warm-up)")
+    log(f"curriculum (b): stage 1 (1v1, hero pool {{1,2,3}}) saved step {step1}, stage 2 (5v5 --init-from it) "
+        f"step {step2} with every param but the value head bit for bit stage 1's; lstm_seq launches {launches} "
+        f"as derived; DEMO_SUMMARY stage 1 {summaries[0]}, stage 2 {summaries[1]}; {child.wall_s:.1f} s")
+    return {"summaries": summaries, "stage1_step": step1, "stage2_step": step2, "wall_s": child.wall_s,
+            "lstm_seq_launches": sum(launches)}
+
+
+def chaos_result(child, root):
+    """(c)'s checks once the chaos child exited: exit 0 and its
+    CHAOS_SUMMARY ok with the scenario's evidence; the learners' launches
+    from their ``done:`` lines."""
+    import os
+
+    rc = child.wait(TOOLS_CHILD_S)
+    lines = child.lines()
+    found = [json.loads(line[len("CHAOS_SUMMARY "):]) for line in lines if line.startswith("CHAOS_SUMMARY ")]
+    if rc != 0 or len(found) != 1 or not found[0].get("ok"):
+        raise AssertionError(f"the chaos supervisor exited {rc}: {lines[-10:]} {child.stderr()[-2000:]}")
+    s = found[0]
+    if not (s["learner1_exit"] == 0 == s["learner2_exit"] and s["actor_kills"] >= 1 and s["frames_corrupt_total"] >= 1
+            and s["final_step"] == s["saved_step"] + CHAOS_STEPS):
+        raise AssertionError(f"CHAOS_SUMMARY: {s}")
+    work = os.path.join(root, "chaos")
+    learners = []
+    for phase in (1, 2):
+        with open(os.path.join(work, f"learner{phase}.log")) as f:
+            d = done_fields(f.read().splitlines(), f"the chaos learner {phase}")
+        # minibatches 2: an update a minibatch (a step) and an advantage
+        # pass a batch, the one a drain prefetched included (its record)
+        _, scalars = read_record(os.path.join(work, f"learner{phase}.jsonl"))
+        d["passes"] = int(scalars[-1]["advantage/passes_total"])
+        if d["launches"] != d["steps"] + d["passes"]:
+            raise AssertionError(f"the chaos learner {phase}: {d['launches']} lstm_seq launches, expected "
+                                 f"{d['steps']} steps + {d['passes']} advantage passes")
+        learners.append(d)
+    # every actor incarnation that closed cleanly (the killed one prints
+    # nothing) appends its ACTOR_STATS to its slot's log: a launch a step
+    actors = []
+    for i in range(2):
+        with open(os.path.join(work, f"actor{i}.log")) as f:
+            actors += [json.loads(x.split(" ", 1)[1]) for x in f.read().splitlines() if x.startswith("ACTOR_STATS ")]
+    if len(actors) < s["clean_actor_exits"] or not sum(a["steps"] for a in actors):
+        raise AssertionError(f"the chaos actors: {len(actors)} ACTOR_STATS lines for {s['clean_actor_exits']} clean "
+                             f"exits: {actors}")
+    for a in actors:
+        if a["lstm_seq_launches"] != a["steps"]:
+            raise AssertionError(f"a chaos actor: {a['lstm_seq_launches']} lstm_seq launches in {a['steps']} steps")
+    log(f"chaos (c), baseline: CHAOS_SUMMARY {json.dumps(s, sort_keys=True)}; the learners' lstm_seq launches "
+        f"{[d['launches'] for d in learners]} = steps {[d['steps'] for d in learners]} + advantage passes "
+        f"{[d['passes'] for d in learners]}; the closed actors' {[a['lstm_seq_launches'] for a in actors]} = their "
+        f"steps; {child.wall_s:.1f} s")
+    return {"summary": s, "learners": learners, "actors": actors, "wall_s": child.wall_s,
+            "lstm_seq_launches": sum(d["launches"] for d in learners),
+            "actors_lstm_seq_launches": sum(a["lstm_seq_launches"] for a in actors)}
+
+
+def tools_phase(device, seed, smi=""):
+    """Phase 21: (a) the BASELINE configs through bench_configs in this
+    process, then (b) the curriculum and (c) the chaos supervisor's
+    baseline as children side by side; the phase within PHASE21_BUDGET_S."""
+    import os
+
+    t0 = time.perf_counter()
+    bench = bench_phase(device, seed)
+    a_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as root:
+        children = []
+        try:
+            # each starts processes of its own: a kill takes its group
+            children.append(ModuleChild("dotaclient_tpu_torch.train.curriculum",
+                                        ["--ckpt-root", os.path.join(root, "curriculum"), "--seed", str(seed),
+                                         *CURRICULUM_ARGS], root, "curriculum"))
+            children.append(ModuleChild("dotaclient_tpu_torch.utils.chaos_run",
+                                        ["--scenario", "baseline", "--actors", "2", "--seed", str(seed), "--workdir",
+                                         os.path.join(root, "chaos"), "--keep-workdir", "--sigterm-at",
+                                         str(CHAOS_STEPS), "--resume-steps", str(CHAOS_STEPS), "--timeout",
+                                         str(TOOLS_CHILD_S - 10)], root, "chaos"))
+            curriculum = curriculum_result(children[0], root)
+            chaos = chaos_result(children[1], root)
+        finally:
+            for child in children:
+                child.kill()
+    out = {"bench": bench, "curriculum": curriculum, "chaos": chaos, "bench_s": a_s,
+           "lstm_seq_launches": {**bench["lstm_seq_launches"], "curriculum": curriculum["lstm_seq_launches"],
+                                 "chaos_learners": chaos["lstm_seq_launches"],
+                                 "chaos_actors": chaos["actors_lstm_seq_launches"]},
+           "wall_s": time.perf_counter() - t0}
+    by = {f"{r['config']}/{r['mode']}": r["end_to_end_frames_per_sec"] for r in bench["rows"]}
+    log(f"phase 21 (the tools beside the package): {out['wall_s']:.1f} s (bench {a_s:.1f} s, the children side by "
+        f"side {out['wall_s'] - a_s:.1f} s); trained frames/s by config/mode {by}; {smi}")
+    if out["wall_s"] > PHASE21_BUDGET_S:
+        raise AssertionError(f"phase 21 took {out['wall_s']:.1f} s, over its budget of {PHASE21_BUDGET_S:.0f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5659,36 +6070,54 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
 
-    t0 = time.perf_counter()
-    build.kernel_library(verbose=True)
-    build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.1f} s")
-    lstm_entry, lstm_extra = check_lstm_kernel(device, args.seed)
-    lstm_extra["sweep"] = lstm_sweep(device, args.seed)
-    serve = serve_phase(device, args.seed)
-    serve_profile = profile_serve(device, args.seed)
-    lstm_extra["backward"] = check_lstm_backward(device, args.seed)
-    train, learner, chunk = train_phase(device, args.seed)
-    train["kernel_vs_plain"] = check_train_step_kernel(learner, chunk)
+    phase_s = {}
+
+    def timed(label, fn, *fn_args):
+        """``fn(*fn_args)``, its seconds logged on a line of their own."""
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[label] = time.perf_counter() - t
+        log(f"phase {label}: {phase_s[label]:.1f} s")
+        return out
+
+    t_start = time.perf_counter()
+    timed("1 (build)", build.kernel_library, True)
+    build_s = phase_s["1 (build)"]
+    lstm_entry, lstm_extra = timed("2 (kernels)", check_lstm_kernel, device, args.seed)
+    lstm_extra["sweep"] = timed("2 (sweep)", lstm_sweep, device, args.seed)
+    serve = timed("3 (serve)", serve_phase, device, args.seed)
+    serve_profile = timed("4 (serve profile)", profile_serve, device, args.seed)
+    lstm_extra["backward"] = timed("5 (backward)", check_lstm_backward, device, args.seed)
+    train, learner, chunk = timed("6 (train)", train_phase, device, args.seed)
+    train["kernel_vs_plain"] = timed("7 (kernel in the train step)", check_train_step_kernel, learner, chunk)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        sock = socket_phase(device, args.seed, learner, ckpt_dir, serve)
-        sock["cli"] = cli_phase(ckpt_dir, learner.state.step, args.seed)
-        fleet = {"parity": fleet_parity_phase(device, args.seed, ckpt_dir),
-                 "cli": fleet_cli_phase(ckpt_dir, learner.state.step, args.seed)}
-        league = league_phase(device, args.seed, ckpt_dir)
-        buffered = buffered_phase(device, args.seed, ckpt_dir, train["frames_per_s"])
-    record = run_record_phase(device, args.seed, smi)
-    external = external_actors_phase(device, args.seed, smi)
-    scalar = scalar_path_phase(device, args.seed, external["external"]["frames_per_s_steps_10_to_30"], smi)
-    phase17 = transformer_phase(device, args.seed, league["frames_per_s"])
-    phase18 = wire_phase(device, args.seed, external["external"], smi)
-    phase19 = data_parallel_phase(device, args.seed, smi)
-    phase20 = multigpu_rest_phase(device, args.seed, smi)
+        sock = timed("8 (socket)", socket_phase, device, args.seed, learner, ckpt_dir, serve)
+        sock["cli"] = timed("9 (serve CLI)", cli_phase, ckpt_dir, learner.state.step, args.seed)
+        fleet = {"parity": timed("10 (fleet parity)", fleet_parity_phase, device, args.seed, ckpt_dir),
+                 "cli": timed("11 (fleet processes)", fleet_cli_phase, ckpt_dir, learner.state.step, args.seed)}
+        league = timed("12 (league)", league_phase, device, args.seed, ckpt_dir)
+        buffered = timed("13 (buffered)", buffered_phase, device, args.seed, ckpt_dir, train["frames_per_s"])
+    record = timed("14 (run record)", run_record_phase, device, args.seed, smi)
+    external = timed("15 (external actors)", external_actors_phase, device, args.seed, smi)
+    scalar = timed("16 (scalar path, shm lane)", scalar_path_phase, device, args.seed,
+                   external["external"]["frames_per_s_steps_10_to_30"], smi)
+    phase17 = timed("17 (transformer, MoE)", transformer_phase, device, args.seed, league["frames_per_s"])
+    phase18 = timed("18 (wire)", wire_phase, device, args.seed, external["external"], smi)
+    phase19 = timed("19 (data parallel)", data_parallel_phase, device, args.seed, smi)
+    phase20 = timed("20 (multi-GPU)", multigpu_rest_phase, device, args.seed, smi)
+    phase21 = timed("21 (tools)", tools_phase, device, args.seed, smi)
+    frames = {r["config"]: r["end_to_end_frames_per_sec"] for r in phase21["bench"]["rows"] if r["mode"] == "fused"}
+    log(f"configs 3 and 4 fused {frames} trained frames/s against phase 6's fused config-1 learner "
+        f"{train['frames_per_s']:.0f} in this run: {frames[3] / train['frames_per_s']:.3f}x and "
+        f"{frames[4] / train['frames_per_s']:.3f}x; {smi}")
+    log(f"phases 1-21: {time.perf_counter() - t_start:.1f} s; "
+        + ", ".join(f"{k.split(' ')[0]} {v:.1f}" for k, v in phase_s.items()))
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
                                       "serve_fleet_parity": fleet["parity"]["lstm_seq_launches"],
                                       "serve_fleet_processes": fleet["cli"]["lstm_seq_launches"],
                                       "train_league": league["lstm_seq_launches"],
+                                      "league_demo": league["children"]["demo"]["lstm_seq_launches"],
                                       "league_eval": league["eval"]["lstm_seq_launches"],
                                       "train_buffered": buffered["lstm_seq_launches"],
                                       "train_run_record": record["lstm_seq_launches"],
@@ -5708,7 +6137,8 @@ def main() -> int:
                                       "train_buffered_narrow": phase18["buffered"]["lstm_seq_launches"],
                                       **{f"data_parallel_{k}": v
                                          for k, v in phase19["lstm_seq_launches"].items()},
-                                      **{f"multigpu_{k}": v for k, v in phase20["lstm_seq_launches"].items()}}
+                                      **{f"multigpu_{k}": v for k, v in phase20["lstm_seq_launches"].items()},
+                                      **phase21["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     from dotaclient_tpu_torch.transport import serialize
@@ -5725,7 +6155,7 @@ def main() -> int:
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
                        "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19,
-                       "phase20": phase20}, f,
+                       "phase20": phase20, "phase21": phase21, "phase_s": phase_s}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -48,7 +48,9 @@ def evaluate(
     """Play ``n_games`` full games of ``params`` (a state dict) against
     ``opponent``, any ``EnvConfig`` opponent mode; ``"league"`` plays
     against ``opponent_params``, a frozen policy's state dict. Returns
-    ``win_rate``, ``episodes`` and ``episode_reward_mean``. The games run
+    ``win_rate``, ``episodes``, ``episode_reward_mean`` and ``collects``
+    (the chunks it played: a policy step a chunk step, two in league
+    mode). The games run
     on ``device`` (default: the current CUDA card; with no card it raises);
     the drains every 8 chunks are the only reads of the device.
 
@@ -77,9 +79,11 @@ def evaluate(
     steps_per_episode = eval_cfg.env.max_dota_time / (eval_cfg.env.ticks_per_observation / 30.0)
     # enough chunks for every game to finish at least once, plus slack
     max_chunks = max_chunks or int(2 * steps_per_episode / config.ppo.rollout_len + 2)
+    collects = 0
     with tel.span("league/evaluate"):
         for i in range(max_chunks):
             actor.collect(params, opp_params=opponent_params)
+            collects += 1
             if i % 8 == 7 and actor.drain_stats()["episodes_done"] >= n_games:
                 break
         stats = actor.drain_stats()
@@ -91,6 +95,7 @@ def evaluate(
         "win_rate": stats["win_rate"],
         "episodes": stats["episodes_done"],
         "episode_reward_mean": stats["episode_reward_mean"],
+        "collects": collects,
     }
 
 

@@ -15,7 +15,10 @@ Protocol:
    printing each block's windowed win rate and episode reward;
 3. evaluate the trained policy against both bots and against its own
    initial self (league mode against the step-0 params);
-4. print ``DEMO_SUMMARY {json}``.
+4. print ``DEMO_SUMMARY {json}``, with the ``lstm_seq`` kernel's launches
+   in the run (0 on the CPU) and each evaluation's chunks
+   (``eval_collects``: easy, hard, then easy, hard and the initial self),
+   from which the launches follow.
 
 ``--metrics-jsonl PATH`` writes the learner's run record (pair it with
 ``--log-every`` for dense outcome curves), ``--logdir`` its tensorboardX
@@ -97,6 +100,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dotaclient_tpu_torch.config import PPOConfig, RewardConfig, default_config
     from dotaclient_tpu_torch.device import resolve_device
     from dotaclient_tpu_torch.league import evaluate
+    from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.train.learner import Learner, apply_league_flags
     from dotaclient_tpu_torch.utils.overrides import parse_dataclass_overrides
 
@@ -141,10 +145,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     # restored policy; restored_step says so
     restored_step = learner.state.step if args.restore else learner.init_from_step
     init_params = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    launches0, eval_collects = lstm.lstm_sequence_kernel.launches, []
 
     def run_eval(params, opponent, opponent_params=None):
-        return evaluate(config, policy, params, opponent, opponent_params=opponent_params,
-                        n_games=args.eval_games, seed=7, device=device)
+        result = evaluate(config, policy, params, opponent, opponent_params=opponent_params,
+                          n_games=args.eval_games, seed=7, device=device)
+        eval_collects.append(result["collects"])
+        return result
 
     print(f"== eval: INITIAL policy (step {restored_step}) ==", flush=True)
     init_easy = run_eval(init_params, "scripted_easy")
@@ -190,6 +197,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         "final_win_vs_initial_self": round(vs_past["win_rate"], 3),
         "reward_first_block": curve[0]["ep_reward_recent"] if curve else None,
         "reward_last_block": curve[-1]["ep_reward_recent"] if curve else None,
+        "lstm_seq_launches": lstm.lstm_sequence_kernel.launches - launches0,
+        "eval_collects": eval_collects,
     }
     learner.close()
     print("DEMO_SUMMARY " + json.dumps(summary), flush=True)

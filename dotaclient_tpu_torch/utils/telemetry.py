@@ -15,7 +15,7 @@ reference's: ``ConsoleSink`` (the short line, telemetry keys left out),
 (the learner's ``--metrics-jsonl``, the serve CLI's
 ``--serve-metrics-jsonl``, the router CLI's ``--metrics-jsonl``: one line a
 boundary, structured events such as ``ALERT`` included), read back by
-``load_jsonl``.
+``load_jsonl`` and scanned by ``json_records`` and ``scan_metrics``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, TextIO, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, TextIO, Tuple
 
 # Pipeline tracing's sample cadence (``utils/tracing.py``): with a trace log
 # configured, every Nth sampling decision (a chunk's encode, a dispatch, a
@@ -341,6 +341,55 @@ def load_jsonl(path: str) -> List[str]:
     # else the torn line
     lines.pop()
     return lines
+
+
+def json_records(lines: List[str]) -> List[dict]:
+    """The JSON objects among a record's lines, in order: a torn line, or a
+    value that is not an object, is skipped."""
+    out = []
+    for raw in lines:
+        try:
+            obj = json.loads(raw)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(obj, dict):
+            out.append(obj)
+    return out
+
+
+class MetricsScan(NamedTuple):
+    """A run record read by ``scan_metrics``."""
+    points: List[Tuple[int, Dict[str, float]]]  # (step, numeric scalars) a metrics line with an int step
+    union: Dict[str, float]  # the latest union of the metrics lines' numeric scalars
+    last_ts: Optional[float]  # the last numeric ts: a corrupt one keeps the last good one
+    last_step: Optional[int]
+    events: List[dict]  # the event lines (``ALERT`` and the like), in order
+
+
+def scan_metrics(lines: List[str]) -> MetricsScan:
+    """The metrics lines of a run record (``{"ts", "step", "scalars"}``),
+    and its event lines apart. Torn lines and lines without a dict of
+    scalars are skipped; the union carries counters and gauges forward
+    (fleet mirrors may ride some lines only)."""
+    scan = MetricsScan([], {}, None, None, [])
+    last_ts, last_step = None, None
+    for obj in json_records(lines):
+        if "event" in obj:
+            scan.events.append(obj)
+            continue
+        sc = obj.get("scalars")
+        if not isinstance(sc, dict):
+            continue
+        numeric = {k: v for k, v in sc.items() if isinstance(v, (int, float))}
+        scan.union.update(numeric)
+        ts = obj.get("ts")
+        if isinstance(ts, (int, float)):
+            last_ts = ts
+        step = obj.get("step")
+        if isinstance(step, int):
+            last_step = step
+            scan.points.append((step, numeric))
+    return scan._replace(last_ts=last_ts, last_step=last_step)
 
 
 # One process-wide registry; tests that want isolation construct their own.

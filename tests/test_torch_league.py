@@ -378,6 +378,9 @@ def test_evaluate_counts_full_games_as_the_reference(mode):
                            opponent_params=convert(opp) if mode == "league" else None,
                            n_games=3, seed=2, device="cpu")
     assert got["episodes"] == want["episodes"] >= 3
+    # the chunks played: the budget, or a drain (every 8th chunk) stopped it
+    budget = int(2 * pcfg.env.max_dota_time / (pcfg.env.ticks_per_observation / 30.0) / pcfg.ppo.rollout_len + 2)
+    assert 1 <= got["collects"] <= budget and (got["collects"] == budget or got["collects"] % 8 == 0)
     assert 0.0 <= got["win_rate"] <= 1.0 and np.isfinite(got["episode_reward_mean"])
     snap = telemetry.get_registry().snapshot()
     assert snap["league/eval_episodes"] == got["episodes"] and snap["league/eval_win_rate"] == got["win_rate"]
@@ -424,6 +427,9 @@ def test_demo_cli_on_cpu(capsys):
     for k in ("init_win_vs_easy", "init_win_vs_hard", "final_win_vs_easy", "final_win_vs_hard",
               "final_win_vs_initial_self"):
         assert 0.0 <= summary[k] <= 1.0, k
+    # the kernel runs on the card alone; each evaluation's chunks are named
+    assert summary["lstm_seq_launches"] == 0
+    assert len(summary["eval_collects"]) == 5 and min(summary["eval_collects"]) >= 1
 
 
 @pytest.mark.parametrize("flag", [["--core", "gru"], ["--moe-experts", "4"]])

@@ -71,6 +71,9 @@ WIRE_MODULES = ("dotaclient_tpu_torch.native", "dotaclient_tpu_torch.native.buil
 DATA_PARALLEL_MODULES = ("dotaclient_tpu_torch.parallel.distributed", "dotaclient_tpu_torch.parallel.mesh",
                          "dotaclient_tpu_torch.parallel.sharding", "dotaclient_tpu_torch.parallel.sequence",
                          "dotaclient_tpu_torch.parallel.pipeline", "dotaclient_tpu_torch.parallel.collectives")
+TOOLS_MODULES = ("dotaclient_tpu_torch.train.bench_configs", "dotaclient_tpu_torch.train.curriculum",
+                 "dotaclient_tpu_torch.utils.outcome_report", "dotaclient_tpu_torch.utils.fleet_status",
+                 "dotaclient_tpu_torch.utils.utilization_report", "dotaclient_tpu_torch.utils.chaos_run")
 
 
 def port_sources():
@@ -87,11 +90,13 @@ def test_port_imports_without_jax():
     # every module of the port: the league's, the buffered learner's, the
     # run record's (the trace plane's among them), the external actors',
     # the scalar path's (the gRPC service's only where grpc is installed)
-    # the transformer and MoE cores' and the data-parallel slice's
+    # the transformer and MoE cores', the data-parallel slice's and the
+    # tools beside the package (the bench, the curriculum, the consoles and
+    # the chaos supervisor)
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 83 + has_grpc
+    assert int(count) >= 89 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
-                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES):
+                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES, TOOLS_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -151,6 +156,36 @@ def test_router_runs_without_torch():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.splitlines()[-1] == "router without torch"
     assert json.loads(out.stdout.splitlines()[-2])["router_backend_deaths"] == 0.0
+
+
+# the three report consoles with torch blocked: they read a run record and
+# start in milliseconds
+_CONSOLES_NO_TORCH = r"""
+import os, sys, tempfile
+BANNED = ("torch", "jax", "jaxlib", "flax", "dotaclient_tpu")
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"banned import: {name}")
+        return None
+sys.meta_path.insert(0, Blocker())
+from dotaclient_tpu_torch.utils import fleet_status, outcome_report, utilization_report
+path = tempfile.mkstemp(suffix=".jsonl")[1]
+rcs = [m.main([path]) for m in (outcome_report, fleet_status, utilization_report)]
+os.unlink(path)
+assert not any(n.split(".")[0] in BANNED for n in sys.modules)
+print(rcs)
+"""
+
+
+def test_consoles_run_without_torch():
+    out = subprocess.run(
+        [sys.executable, "-c", _CONSOLES_NO_TORCH], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    # an empty record: no curves and no fold, the fleet board still renders
+    assert out.stdout.splitlines()[-1] == "[1, 0, 1]"
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bflax\b", r"dotaclient_tpu\.", r"from dotaclient_tpu import"])

@@ -33,17 +33,15 @@ ATOL = 1e-5
 N_ENVS, T = 2, 3
 
 
-def rollout_configs(opponent, max_dota_time=0.4):
+def rollout_configs(opponent, max_dota_time=0.4, team_size=None, hero_pool=None):
     """A tiny game (0.4 s = 2 steps, so every game ends and resets inside
-    a 3-step chunk) at the small f32 model."""
+    a 3-step chunk) at the small f32 model; ``team_size`` and
+    ``hero_pool`` default to the config's."""
     out = []
     for cfg in small_configs():
-        out.append(dataclasses.replace(
-            cfg,
-            ppo=dataclasses.replace(cfg.ppo, rollout_len=T),
-            env=dataclasses.replace(cfg.env, n_envs=N_ENVS, opponent=opponent, max_dota_time=max_dota_time),
-            log_every=1,
-        ))
+        env = dataclasses.replace(cfg.env, n_envs=N_ENVS, opponent=opponent, max_dota_time=max_dota_time,
+                                  team_size=team_size or cfg.env.team_size, hero_pool=hero_pool or cfg.env.hero_pool)
+        out.append(dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, rollout_len=T), env=env, log_every=1))
     return tuple(out)
 
 
@@ -115,9 +113,21 @@ def assert_tree_close(got, want, path=""):
         np.testing.assert_array_equal(got, want, err_msg=path)
 
 
-@pytest.mark.parametrize("opponent", ["scripted_easy", "selfplay"])
-def test_rollout_chunk_matches_jax(opponent):
-    jcfg, pcfg = rollout_configs(opponent)
+# (opponent, team size, hero pool): the scripted and self-play games at the
+# config's shape, and the environments of BASELINE configs 3 (the hero pool
+# {1,2,3}, self-play at team 1) and 4 (self-play at team 2)
+ROLLOUT_CASES = {
+    "scripted_easy": ("scripted_easy", None, None),
+    "selfplay": ("selfplay", None, None),
+    "config3_hero_pool_selfplay": ("selfplay", 1, (1, 2, 3)),
+    "config4_2v2_selfplay": ("selfplay", 2, (1, 2, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROLLOUT_CASES), ids=list(ROLLOUT_CASES))
+def test_rollout_chunk_matches_jax(case):
+    opponent, team_size, hero_pool = ROLLOUT_CASES[case]
+    jcfg, pcfg = rollout_configs(opponent, team_size=team_size, hero_pool=hero_pool)
     params = flax_params(jcfg, seed=3)
     jpolicy = jax_policy(jcfg)[0]
     jactor = JaxDeviceActor(jcfg, jpolicy, seed=5)

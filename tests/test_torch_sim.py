@@ -260,3 +260,48 @@ def test_featurizer_refuses_non_contiguous_players():
     _, pspec = specs(2, team_size=2)
     with pytest.raises(ValueError):
         TF.player_slice([0, 2])
+
+
+# -- whole episodes: statistics, not trajectories ------------------------------
+
+
+def full_episodes(team_size, n=16, max_dota_time=300.0, max_steps=1600, seed=0):
+    """``n`` games of scripted easy (Radiant) against scripted hard (Dire),
+    every hero Shadow Fiend, played by the port's sim with its own seeded
+    creep jitter until every game ends or ``max_steps`` steps."""
+    _, pspec = specs(n, team_size, max_dota_time)
+    P = 2 * team_size
+    hero = torch.ones(n, P, dtype=torch.int32)
+    ctrl = torch.full((n, P), pb.CONTROL_SCRIPTED_EASY, dtype=torch.int32)
+    ctrl[:, team_size:] = pb.CONTROL_SCRIPTED_HARD
+    gen = torch.Generator().manual_seed(seed)
+    state = S.init_state(pspec, hero, ctrl, generator=gen)
+    acts = {k: torch.from_numpy(v) for k, v in noop(n, P).items()}
+    for _ in range(max_steps):
+        state = S.step(pspec, state, acts, generator=gen)
+        if bool(state.done.all()):
+            break
+    return state
+
+
+def test_full_episode_statistics():
+    """The counterpart of ``tests/test_jax_sim.py``'s
+    ``test_full_episode_statistics``, at its thresholds: over whole 300 s
+    games (waves spawn, so the jitter draws differ from the reference's and
+    trajectories part) hard still beats easy and every game ends."""
+    from dotaclient_tpu_torch.envs.lane_sim import TEAM_DIRE
+
+    state = full_episodes(team_size=1)
+    assert bool(state.done.all())
+    # timeout wins are tower-HP noisy (hard retreats, easy pushes); kills
+    # are the robust dominance signal
+    hard_wins = int((state.winning_team == TEAM_DIRE).sum())
+    assert hard_wins >= 7
+    assert int(state.kills[:, 1].sum()) > 5 * int(state.kills[:, 0].sum())
+
+
+def test_full_episodes_end_at_team_size_2():
+    """The same games at 2v2 (BASELINE config 4's team size): every game
+    ends inside the step budget."""
+    state = full_episodes(team_size=2)
+    assert bool(state.done.all())
