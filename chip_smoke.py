@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, and the tools beside the package, on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, the tools beside the package, and the static checks, the preflight and the gate, on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -23,7 +23,9 @@ exits non-zero and prints no result line):
    and T=17, config 2's 512 at B=512 T=1, phase 12's demo's update B=320
    T=17, the curriculum's B=8 T=17 and
    B=40 at T=1 and T=17, and the chaos children's B=4 T=1, B=8 T=9 and
-   B=4 T=8), with the f32 tolerance stated below, its launch plan logged, and timed on the card (CUDA
+   B=4 T=8; and phase 22's: the fused parity ranks' B=2 and B=4 at T=1
+   and T=9, the router failover digest's B=1 T=1 at D=H=8), with the f32
+   tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
    function (``torch.lstm_cell`` at T=1; at T>1 cuDNN's ``torch.lstm`` on
@@ -428,6 +430,28 @@ exits non-zero and prints no result line):
     corrupt frames counted, the exact resume, each learner's ``lstm_seq``
     launches (its ``done:`` line) its steps plus its advantage passes (its
     record).
+22. the checks and the preflight (``checks_phase``), within
+    PHASE22_BUDGET_S, children side by side. (a) ``python -m
+    dotaclient_tpu_torch.utils.run_multichip`` (the preflight: the card's
+    init with no pin, then the dry run's global-batch update at world 1
+    over NCCL) must print ``"ok": true``; a SKIP line fails the phase; then
+    its ``--fused-parity 2`` (world 1 against two ranks on the card over
+    gloo: losses, float64 param L1, the lane split read off each rank's
+    actor state). (b) the learner CLI with ``--checkify`` at the ``--smoke``
+    sizes for CHECKIFY_STEPS steps: the clean child's final checkpoint
+    against an unchecked child's from the same seed, every tensor bitwise
+    (the checks read results and change none), a child
+    poisoned by ``DOTA_FAULTS=learner.nan_grad@1`` exits non-zero naming
+    the op, and the seconds an update of both clean children. (c) two
+    learner children with the same fresh ``--compile-cache DIR``, one after
+    the other: the first builds the kernel library and the codec into
+    DIR, the second loads both with no build (the libraries' mtimes
+    unchanged); both children's build seconds logged. (d) ``bash
+    dotaclient_tpu_torch/utils/ci_gate.sh`` with ``CI_GATE_SKIP_TESTS=1``:
+    every stage passes on the card. Every child runs with SHAPE_SHIM as its
+    ``sitecustomize``: every process it starts counts the shape of each
+    ``lstm_seq`` launch in memory and writes the counts at its exit; each
+    shape must be in LSTM_SHAPES, and the kernels line counts them.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -609,7 +633,10 @@ BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
 # step, its 8-game evaluations, and the update), and the chaos baseline's
 # children: an actor's 4 games at the step, and the learner's batch of 8
 # chunks of 8 steps at the advantage pass (T=9) and its minibatches of 4 at
-# the update on precomputed advantages (T=8)
+# the update on precomputed advantages (T=8); then phase 22's: the fused
+# parity probe's 4 games (world 1) and a world-2 rank's 2 at the step and
+# the fused update (T=9), and the router failover digest's tiny backends
+# (D=H=8) at the serving step B=1
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 SCALAR_LANES = 8
 SELFPLAY_LANES, CONFIG2_LANES, CURRICULUM_5V5_LANES = 256, 512, 8 * 5
@@ -621,7 +648,8 @@ LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 12
                (SELFPLAY_LANES, 1, 128, 128), (SELFPLAY_LANES, 17, 128, 128), (CONFIG2_LANES, 1, 128, 128),
                (LEAGUE_EVAL_LANES, 17, 128, 128), (8, 17, 128, 128),
                (CURRICULUM_5V5_LANES, 1, 128, 128), (CURRICULUM_5V5_LANES, 17, 128, 128), (4, 1, 128, 128),
-               (8, 9, 128, 128), (4, 8, 128, 128))
+               (8, 9, 128, 128), (4, 8, 128, 128), (2, 1, 128, 128), (2, 9, 128, 128), (4, 9, 128, 128),
+               (1, 1, 8, 8))
 
 
 def max_err(got, want):
@@ -694,7 +722,7 @@ def check_lstm_kernel(device, seed):
                  "ms": device_ms(lambda: lstm.lstm_sequence_kernel(*args)),
                  "plain_ms": device_ms(lambda: lstm.lstm_sequence_reference(*args)),
                  "bound_ms": bound, "bound_by": bound_by}
-        if T == 1 and D == H == 128:
+        if T == 1:
             library = lstm_cell_library(args)
             lib_h, lib_c = library()
             lib_err = max(float((lib_h - want[1][0]).abs().max()), float((lib_c - want[1][1]).abs().max()))
@@ -715,15 +743,18 @@ def check_lstm_kernel(device, seed):
             + (f", torch.lstm reset-free {shape['library_ms_reset_free'] * 1e3:.2f} us"
                if "library_ms_reset_free" in shape else "")
         )
-        shapes[(B, T)] = shape
-    serve, sequence = shapes[(64, 1)], shapes[(32, 16)]
-    train_step, train_seq, digest_step = shapes[(128, 1)], shapes[(128, 17)], shapes[(1, 1)]
-    league_step, league_seq = shapes[(LEAGUE_LANES, 1)], shapes[(LEAGUE_LANES, 17)]
-    league_eval_step = shapes[(LEAGUE_EVAL_LANES, 1)]
-    adv_seq, mb_seq, mb_seq_instep = (shapes[(BUFFERED_BATCH, 17)], shapes[(BUFFERED_MB, 16)],
-                                      shapes[(BUFFERED_MB, 17)])
-    scalar_step = shapes[(SCALAR_LANES, 1)]
-    selfplay_step, selfplay_seq = shapes[(SELFPLAY_LANES, 1)], shapes[(SELFPLAY_LANES, 17)]
+        shapes[(B, T, D, H)] = shape
+
+    def at(B, T):
+        return shapes[(B, T, 128, 128)]
+
+    serve, sequence = at(64, 1), at(32, 16)
+    train_step, train_seq, digest_step = at(128, 1), at(128, 17), at(1, 1)
+    league_step, league_seq = at(LEAGUE_LANES, 1), at(LEAGUE_LANES, 17)
+    league_eval_step = at(LEAGUE_EVAL_LANES, 1)
+    adv_seq, mb_seq, mb_seq_instep = at(BUFFERED_BATCH, 17), at(BUFFERED_MB, 16), at(BUFFERED_MB, 17)
+    scalar_step = at(SCALAR_LANES, 1)
+    selfplay_step, selfplay_seq = at(SELFPLAY_LANES, 1), at(SELFPLAY_LANES, 17)
     entry = {
         "name": "lstm_seq",
         "route": "cuda",
@@ -6047,6 +6078,330 @@ def tools_phase(device, seed, smi=""):
     return out
 
 
+# -- phase 22: the checks and the preflight -------------------------------------
+
+PHASE22_BUDGET_S = 120.0
+CHECKS_CHILD_S = 110.0
+# (b): the clean checked child against the unchecked one, at the --smoke
+# sizes, every param tensor bitwise
+CHECKIFY_STEPS = 4
+GATE_STAGES = ("lint", "schema", "fused_parity", "router_failover")
+
+
+class ShellChild(ModuleChild):
+    """``bash SCRIPT`` as a child, as ``ModuleChild`` runs a module."""
+
+    def __init__(self, script, root, name, env=None):
+        import os
+        import pathlib
+
+        repo = str(pathlib.Path(__file__).resolve().parent)
+        env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               "PYTHONUNBUFFERED": "1", "PYTHON": sys.executable, **(env or {})}
+        self.name, self.t0 = name, time.perf_counter()
+        self._out, self._err = (open(os.path.join(root, f"{name}.{k}"), "w+") for k in ("out", "err"))
+        self.proc = subprocess.Popen(["bash", os.path.join(repo, script)], cwd=repo, env=env, stdout=self._out,
+                                     stderr=self._err, text=True, start_new_session=True)
+        self.wall_s = None
+
+
+# phase 22's children's sitecustomize (first on their PYTHONPATH, so every
+# process they start runs it): when CHIP_SMOKE_SHAPES_DIR is set it wraps
+# ops.lstm.kernel_plan, which the kernel's wrapper calls once a launch, as
+# that module is imported, counts each launch's (B, T, D, H) in memory and
+# writes the counts to DIR/<pid>.shapes at exit; then it runs the
+# sitecustomize it shadows, if there is one
+SHAPE_SHIM = r'''
+import atexit
+import collections
+import importlib.abc
+import importlib.machinery
+import importlib.util
+import os
+import sys
+
+_DIR = os.environ.get("CHIP_SMOKE_SHAPES_DIR")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SHAPES = collections.Counter()
+
+
+def _dump():
+    if _SHAPES:
+        with open(os.path.join(_DIR, f"{os.getpid()}.shapes"), "w") as f:
+            f.writelines(f"{b} {t} {d} {h} {n}\n" for (b, t, d, h), n in _SHAPES.items())
+
+
+class _Finder(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name != "dotaclient_tpu_torch.ops.lstm":
+            return None
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            plan = module.kernel_plan
+
+            def recorded(B, T, D, H):
+                _SHAPES[(B, T, D, H)] += 1
+                return plan(B, T, D, H)
+
+            module.kernel_plan = recorded
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+if _DIR:
+    sys.meta_path.insert(0, _Finder())
+    atexit.register(_dump)
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _HERE])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+
+def shape_env(root, name):
+    """The environment that makes every process of the child ``name``
+    count its ``lstm_seq`` launches by shape into ``root/shapes_name``:
+    SHAPE_SHIM first on PYTHONPATH."""
+    import os
+    import pathlib
+
+    shim = os.path.join(root, "shim")
+    if not os.path.exists(os.path.join(shim, "sitecustomize.py")):
+        os.makedirs(shim, exist_ok=True)
+        with open(os.path.join(shim, "sitecustomize.py"), "w") as f:
+            f.write(SHAPE_SHIM)
+    out = os.path.join(root, f"shapes_{name}")
+    os.makedirs(out, exist_ok=True)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    return {"CHIP_SMOKE_SHAPES_DIR": out,
+            "PYTHONPATH": os.pathsep.join([shim, repo, os.environ.get("PYTHONPATH", "")])}
+
+
+def logged_shapes(root, name):
+    """The Counter of (B, T, D, H) the child ``name``'s processes launched
+    ``lstm_seq`` at; every one must be a shape phase 2 checks."""
+    import os
+    from collections import Counter
+
+    out = os.path.join(root, f"shapes_{name}")
+    shapes = Counter()
+    for fname in sorted(os.listdir(out)):
+        with open(os.path.join(out, fname)) as f:
+            for line in f:
+                if line.strip():
+                    b, t, d, h, n = (int(v) for v in line.split())
+                    shapes[(b, t, d, h)] += n
+    unchecked = [s for s in shapes if s not in LSTM_SHAPES]
+    if unchecked:
+        raise AssertionError(f"{name}: lstm_seq launched at {unchecked}, shapes phase 2 does not check")
+    return shapes
+
+
+def last_json(lines, what):
+    for line in reversed(lines):
+        if line.startswith("{"):
+            return json.loads(line)
+    raise AssertionError(f"{what} printed no JSON line: {lines[-5:]}")
+
+
+def finished(child, what, expect_rc=0):
+    rc = child.wait(CHECKS_CHILD_S)
+    lines = child.lines()
+    if expect_rc is not None and rc != expect_rc:
+        raise AssertionError(f"{what} exited {rc}: {lines[-10:]} {child.stderr()[-3000:]}")
+    return rc, lines
+
+
+def preflight_result(child, count):
+    """(a)'s preflight: ``ok`` at world ``count`` over NCCL; a SKIP fails."""
+    _, lines = finished(child, "the preflight")
+    out = last_json(lines, "the preflight")
+    if out.get("skipped") or not out.get("ok") or out.get("mode") != "accelerator" \
+            or out.get("backend") != "nccl" or out.get("n_devices") != count:
+        raise AssertionError(f"the preflight: {out} {child.stderr()[-2000:]}")
+    return out
+
+
+def parity_result(child):
+    """(a)'s fused parity at 2 on the card: ``ok``, the lanes split."""
+    _, lines = finished(child, "the fused parity")
+    out = last_json(lines, "the fused parity")
+    if not (out.get("ok") and out.get("lane_sharded") and out.get("devices") == [1, 2]
+            and out.get("device") == "cuda"):
+        raise AssertionError(f"the fused parity: {out} {child.stderr()[-2000:]}")
+    return out
+
+
+def seconds_an_update(jsonl):
+    """A learner child's seconds an update: its run's elapsed seconds over
+    its optimizer steps (the record's closing line), and the mean of its
+    ``learner/dispatch`` span (the checked update syncs, the unchecked only
+    issues)."""
+    _, scalars = read_record(jsonl)
+    last = scalars[-1]
+    disp = [s["span/learner/dispatch/mean_s"] for s in scalars if "span/learner/dispatch/mean_s" in s]
+    return {"s_per_update": last["elapsed_sec"] / last["optimizer_steps"], "dispatch_mean_s": disp[-1],
+            "steps": last["optimizer_steps"]}
+
+
+def checkify_results(children, root):
+    """(b): the clean checked child's params against the unchecked
+    child's, the poisoned child's exit and the op it names, and both clean
+    children's seconds an update."""
+    import os
+    import re
+
+    import torch
+
+    from dotaclient_tpu_torch.utils.checkpoint import CheckpointManager
+
+    out, weights = {}, {}
+    for name in ("checked", "plain"):
+        _, lines = finished(children[name], f"the {name} learner")
+        d = done_fields(lines, f"the {name} learner")
+        weights[name], step = CheckpointManager(os.path.join(root, f"ck_{name}")).restore_weights()
+        out[name] = {**d, **seconds_an_update(os.path.join(root, f"{name}.jsonl")), "ckpt_step": step,
+                     "wall_s": children[name].wall_s}
+        if step != CHECKIFY_STEPS:
+            raise AssertionError(f"the {name} learner saved step {step}, expected {CHECKIFY_STEPS}")
+    if set(weights["checked"]) != set(weights["plain"]):
+        raise AssertionError(f"checkify's clean run saved {sorted(weights['checked'])}, the unchecked one "
+                             f"{sorted(weights['plain'])}")
+    diffs = {k: float((weights["checked"][k] - w).abs().max()) for k, w in weights["plain"].items()}
+    unequal = [k for k, w in weights["plain"].items() if not torch.equal(weights["checked"][k], w)]
+    if unequal:
+        raise AssertionError(f"checkify's clean run against the unchecked one: {len(unequal)} of {len(diffs)} param "
+                             f"tensors not bitwise; largest differences "
+                             f"{sorted(diffs.items(), key=lambda kv: -kv[1])[:3]}")
+    elements = sum(w.numel() for w in weights["plain"].values())
+    rc, lines = finished(children["poisoned"], "the poisoned learner", expect_rc=None)
+    err = children["poisoned"].stderr()
+    m = re.search(r"FloatCheckError: nan generated by primitive: (\S+)", err)
+    if rc == 0 or m is None:
+        raise AssertionError(f"the poisoned checked learner exited {rc}: {err[-3000:]}")
+    out.update({"params_bitwise": len(diffs), "params": len(diffs), "elements": elements,
+                "poisoned_rc": rc, "poisoned_op": m.group(1).rstrip("."), "poisoned_wall_s": children["poisoned"].wall_s,
+                "slowdown": out["checked"]["s_per_update"] / out["plain"]["s_per_update"]})
+    return out
+
+
+def cache_lines(lines, what):
+    """A learner child's ``learner: compile cache DIR: kernels H in S s
+    (PATH), codec H in S s (PATH)`` line, parsed."""
+    import re
+
+    for line in lines:
+        if line.startswith("learner: compile cache "):
+            found = dict((name, {"how": how, "seconds": float(sec), "path": path}) for name, how, sec, path in
+                         re.findall(r"(codec|kernels) (built|loaded|unavailable) in ([0-9.]+) s \(([^)]*)\)", line))
+            if set(found) == {"codec", "kernels"}:
+                return found
+    raise AssertionError(f"{what} printed no compile cache line: {lines[:10]}")
+
+
+def gate_result(child):
+    """(d): every stage of the gate passes; the tests stage skipped."""
+    _, lines = finished(child, "the gate")
+    stages = {line.split()[1]: line.split()[2] for line in lines if line.startswith("CI_GATE ")}
+    want = {"tests": "SKIP", **{s: "PASS" for s in GATE_STAGES}}
+    if stages != want:
+        raise AssertionError(f"the gate's stages {stages}, expected {want}: {lines[-20:]} "
+                             f"{child.stderr()[-2000:]}")
+    return {"stages": stages, "wall_s": child.wall_s}
+
+
+def checks_phase(device, seed, smi=""):
+    """Phase 22: (a) the preflight and the fused parity, (b) checkify, (c)
+    the compile cache and (d) the gate, as children side by side; every
+    ``lstm_seq`` shape they launch held against LSTM_SHAPES."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    smoke = ["--smoke", "--steps", str(CHECKIFY_STEPS), "--seed", str(seed)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checks_") as root:
+        cache = os.path.join(root, "cache")
+        children = {}
+        try:
+            def start(name, module, args, env=None):
+                children[name] = ModuleChild(module, args, root, name, env={**shape_env(root, name), **(env or {})})
+
+            children["gate"] = ShellChild("dotaclient_tpu_torch/utils/ci_gate.sh", root, "gate",
+                                          env={"CI_GATE_SKIP_TESTS": "1", **shape_env(root, "gate")})
+            start("preflight", "dotaclient_tpu_torch.utils.run_multichip", [])
+            for name, extra in (("checked", ["--checkify"]), ("plain", [])):
+                start(name, "dotaclient_tpu_torch.train.learner",
+                      smoke + extra + ["--checkpoint-dir", os.path.join(root, f"ck_{name}"), "--metrics-jsonl",
+                                       os.path.join(root, f"{name}.jsonl")])
+            start("poisoned", "dotaclient_tpu_torch.train.learner", smoke + ["--checkify"],
+                  env={"DOTA_FAULTS": "learner.nan_grad@1"})
+            start("cache1", "dotaclient_tpu_torch.train.learner", ["--smoke", "--steps", "1", "--compile-cache", cache])
+            preflight = preflight_result(children["preflight"], count)
+            start("parity", "dotaclient_tpu_torch.utils.run_multichip", ["--fused-parity", "2"])
+            _, lines1 = finished(children["cache1"], "the first compile cache learner")
+            first = cache_lines(lines1, "the first compile cache learner")
+            mtimes = {k: os.path.getmtime(v["path"]) for k, v in first.items()}
+            start("cache2", "dotaclient_tpu_torch.train.learner", ["--smoke", "--steps", "1", "--compile-cache", cache])
+            checkify = checkify_results(children, root)
+            parity = parity_result(children["parity"])
+            _, lines2 = finished(children["cache2"], "the second compile cache learner")
+            second = cache_lines(lines2, "the second compile cache learner")
+            if not (all(v["how"] == "built" for v in first.values()) and all(v["how"] == "loaded"
+                                                                            for v in second.values())
+                    and {k: os.path.getmtime(v["path"]) for k, v in second.items()} == mtimes
+                    and all(v["path"].startswith(cache) for v in second.values())):
+                raise AssertionError(f"the compile cache: first child {first}, second {second}")
+            gate = gate_result(children["gate"])
+            launches = {}
+            for name in ("preflight", "parity", "checked", "plain", "poisoned", "cache1", "cache2", "gate"):
+                shapes = logged_shapes(root, name)
+                launches[name] = {"launches": sum(shapes.values()),
+                                  "shapes": {f"B={b} T={t} D={d}": c for (b, t, d, _), c in sorted(shapes.items())}}
+        finally:
+            for child in children.values():
+                child.kill()
+    # the children's own counts, where they report them, against the logs
+    for name in ("checked", "plain"):
+        if checkify[name]["launches"] != launches[name]["launches"]:
+            raise AssertionError(f"the {name} learner's done: line counts {checkify[name]['launches']} lstm_seq "
+                                 f"launches, its processes logged {launches[name]['launches']}")
+    for name, reported in (("preflight", preflight["lstm_seq_launches"]), ("parity", parity["lstm_seq_launches"])):
+        if reported != launches[name]["launches"] or not reported:
+            raise AssertionError(f"the {name}'s ranks count {reported} lstm_seq launches, their processes logged "
+                                 f"{launches[name]['launches']}")
+    for name in launches:
+        if not launches[name]["launches"]:
+            raise AssertionError(f"{name}'s processes launched lstm_seq no time")
+    out = {"preflight": preflight, "parity": {k: v for k, v in parity.items() if k != "probes"},
+           "checkify": checkify, "cache": {"first": first, "second": second}, "gate": gate, "launches": launches,
+           "lstm_seq_launches": {f"checks_{k}": v["launches"] for k, v in launches.items()},
+           "wall_s": time.perf_counter() - t0}
+    c = checkify
+    log(f"checks (a): preflight {preflight['tail']} ({preflight['backend_info']}); fused parity at 2 on the card "
+        f"over gloo: losses {parity['parity']['max_abs_loss_diff']:.3g} apart, param L1 {parity['parity']['param_l1']}, "
+        f"lanes {parity['lanes']}")
+    log(f"checks (b): checkify's clean run against the unchecked run from seed {seed}: {c['params_bitwise']} of "
+        f"{c['params']} param tensors ({c['elements']} elements) bitwise; the poisoned run exited {c['poisoned_rc']} naming "
+        f"{c['poisoned_op']}; seconds an update (the run's elapsed over its {c['checked']['steps']:.0f} steps, "
+        f"rollouts included) checked {c['checked']['s_per_update']:.4f} against unchecked "
+        f"{c['plain']['s_per_update']:.4f} ({c['slowdown']:.2f}x), learner/dispatch mean "
+        f"{c['checked']['dispatch_mean_s']:.4f} against {c['plain']['dispatch_mean_s']:.4f} s; {smi}")
+    log(f"checks (c): compile cache: first child {({k: (v['how'], round(v['seconds'], 2)) for k, v in first.items()})}, "
+        f"second {({k: (v['how'], round(v['seconds'], 2)) for k, v in second.items()})}, mtimes unchanged; {smi}")
+    log(f"checks (d): the gate {gate['stages']} in {gate['wall_s']:.1f} s; lstm_seq launches by child "
+        f"{({k: v['launches'] for k, v in launches.items()})}, shapes {({k: v['shapes'] for k, v in launches.items()})}")
+    log(f"phase 22 (the checks and the preflight): {out['wall_s']:.1f} s; {smi}")
+    if out["wall_s"] > PHASE22_BUDGET_S:
+        raise AssertionError(f"phase 22 took {out['wall_s']:.1f} s, over its budget of {PHASE22_BUDGET_S:.0f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6106,11 +6461,12 @@ def main() -> int:
     phase19 = timed("19 (data parallel)", data_parallel_phase, device, args.seed, smi)
     phase20 = timed("20 (multi-GPU)", multigpu_rest_phase, device, args.seed, smi)
     phase21 = timed("21 (tools)", tools_phase, device, args.seed, smi)
+    phase22 = timed("22 (checks)", checks_phase, device, args.seed, smi)
     frames = {r["config"]: r["end_to_end_frames_per_sec"] for r in phase21["bench"]["rows"] if r["mode"] == "fused"}
     log(f"configs 3 and 4 fused {frames} trained frames/s against phase 6's fused config-1 learner "
         f"{train['frames_per_s']:.0f} in this run: {frames[3] / train['frames_per_s']:.3f}x and "
         f"{frames[4] / train['frames_per_s']:.3f}x; {smi}")
-    log(f"phases 1-21: {time.perf_counter() - t_start:.1f} s; "
+    log(f"phases 1-22: {time.perf_counter() - t_start:.1f} s; "
         + ", ".join(f"{k.split(' ')[0]} {v:.1f}" for k, v in phase_s.items()))
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
@@ -6138,7 +6494,8 @@ def main() -> int:
                                       **{f"data_parallel_{k}": v
                                          for k, v in phase19["lstm_seq_launches"].items()},
                                       **{f"multigpu_{k}": v for k, v in phase20["lstm_seq_launches"].items()},
-                                      **phase21["lstm_seq_launches"]}
+                                      **phase21["lstm_seq_launches"],
+                                      **phase22["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     from dotaclient_tpu_torch.transport import serialize
@@ -6155,7 +6512,7 @@ def main() -> int:
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
                        "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19,
-                       "phase20": phase20, "phase21": phase21, "phase_s": phase_s}, f,
+                       "phase20": phase20, "phase21": phase21, "phase22": phase22, "phase_s": phase_s}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

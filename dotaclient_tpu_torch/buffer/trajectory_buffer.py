@@ -350,11 +350,13 @@ class TrajectoryBuffer:
             plan[0] = len(slots)
             plan[1:1 + len(slots)] = torch.as_tensor(slots, dtype=torch.int64)
         broadcast_host(plan, self._all_group)
+        # host-sync-ok: plan is a host tensor, broadcast over the gloo host group
         k = int(plan[0])
         if not k:
             self._publish_telemetry()
             return 0
         with self._tel.span("buffer/insert"):
+            # host-sync-ok: plan is a host tensor, broadcast over the gloo host group
             slots = plan[1:1 + k].tolist()
             by_shard = [[j for j, g in enumerate(slots) if self._shard_of(g) == s] for s in range(self._n_shards)]
             width = max(len(x) for x in by_shard)
@@ -407,9 +409,11 @@ class TrajectoryBuffer:
                 plan[1:] = torch.as_tensor(slots, dtype=torch.int64)
                 ticket = self._hold_or_free(slots, hold)
         broadcast_host(plan, self._all_group)
+        # host-sync-ok: plan is a host tensor, broadcast over the gloo host group
         if not int(plan[0]):
             self._publish_telemetry()
             return None
+        # host-sync-ok: plan is a host tensor, broadcast over the gloo host group
         slots = plan[1:].tolist()
         with self._tel.span("buffer/sample"):
             batch = self._gather_share(slots)
@@ -463,6 +467,7 @@ class TrajectoryBuffer:
         packed = {}
         for key, local_slots in sends.items():
             idx = host_index(local_slots, self.device)
+            # host-sync-ok: the door's one read of the device on a world above 1: rows moving to another rank's shard go through the host (gloo)
             host = {name: leaf.index_select(0, idx).cpu() for name, leaf in flatten_tree(self._store).items()}
             packed[key] = self._pack(host, list(range(len(local_slots))), len(local_slots))
         like = {key: ((n, self._row_bytes), torch.uint8) for key, n in recv_counts.items()}
@@ -536,6 +541,7 @@ class TrajectoryBuffer:
         k = self._staging_idx
         self._staging_idx = (k + 1) % self._staging_lanes
         if self._staging_events[k] is not None:
+            # host-sync-ok: waits for the copy out of this pinned lane, issued a whole lane cycle ago, before refilling it
             self._staging_events[k].synchronize()
             self._staging_events[k] = None
         return self._staging[k]
@@ -548,11 +554,13 @@ class TrajectoryBuffer:
                 if dst.dtype == torch.bfloat16:
                     # a bf16 lane by its bits: a bf16 row copies them, a
                     # full-width row rounds as the wire would
+                    # host-sync-ok: a pinned host staging lane: numpy's view of host memory
                     view = dst.view(torch.int16).numpy().view(np.uint16)
                     for i, flat in enumerate(rows):
                         src = flat[name]
                         view[i] = bf16_tensor_to_bits(src) if _dtype_name(src) == BF16 else f32_to_bf16_bits(src)
                 else:
+                    # host-sync-ok: a pinned host staging lane: numpy's view of host memory
                     view = dst.numpy()
                     for i, flat in enumerate(rows):
                         src = flat[name]
@@ -694,6 +702,7 @@ class TrajectoryBuffer:
             # how far behind the optimizer the batch's experience is, in
             # optimizer steps (host ints)
             self._tel.gauge("buffer/batch_staleness").set(
+                # host-sync-ok: host ints: the slots' version book is a numpy array
                 float(current_version - self._slot_version[slots].mean()))
 
     def drain_traces(self) -> List[dict]:

@@ -3,7 +3,8 @@
 Counterpart of ``dotaclient_tpu/native/build.py``, with its own copy of the
 source (``rollout_codec.cc``) and the same struct layouts. The library is
 compiled with ``g++ -O2 -shared -fPIC -std=c++17`` at first use into
-``native/_build/`` (ignored by git), never beside the source, under a name
+``native/_build/`` (ignored by git; ``set_build_dir`` moves it, as the
+learner's ``--compile-cache DIR`` does), never beside the source, under a name
 that carries the source's hash: an edited source builds a new library, and
 a process never loads a stale one. Processes that start together each
 compile to a private temporary file and rename it into place, so a
@@ -38,6 +39,19 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 load_error: Optional[str] = None
+
+
+def set_build_dir(path: str) -> None:
+    """Build the library in (and load it from) ``path`` instead of
+    ``native/_build/``; before the first ``load_library`` of the process
+    (raises after it, if ``path`` is another directory)."""
+    global BUILD_DIR
+    path = os.path.abspath(path)
+    with _lock:
+        if (_lib is not None or _load_failed) and path != BUILD_DIR:
+            raise RuntimeError(f"the rollout codec is already loaded from {BUILD_DIR}; set the build directory "
+                               "before its first use")
+        BUILD_DIR = path
 
 
 def library_path() -> str:

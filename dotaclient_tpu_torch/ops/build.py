@@ -6,7 +6,10 @@ with ``ctypes``. The sources expose plain C entry points (no PyTorch headers
 beyond c10's error checks), so a build takes seconds, not minutes. The
 architecture flags are set here explicitly, so ``TORCH_CUDA_ARCH_LIST``
 cannot change them, and the output goes to ``ops/_build/`` (ignored by git),
-so nothing outside the checkout is read or written.
+so nothing outside the checkout is read or written, unless
+``set_build_dir`` points the build elsewhere (the learner's
+``--compile-cache DIR``: processes that share ``DIR`` build once, and a
+read-only checkout can still cache its build).
 
 Every failure raises: a missing compiler, a refused build, an entry point
 that is not in the library. There is no fallback to a plain version.
@@ -37,6 +40,24 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
+
+
+def set_build_dir(path: str) -> None:
+    """Build the library in (and load it from) ``path`` instead of
+    ``ops/_build/``; before the first ``kernel_library`` call of the
+    process (raises after it, if ``path`` is another directory)."""
+    global BUILD_DIR
+    path = os.path.abspath(path)
+    with _lock:
+        if _library is not None and path != BUILD_DIR:
+            raise RuntimeError(f"the kernel library is already loaded from {BUILD_DIR}; set the build directory "
+                               "before the first kernel launch")
+        BUILD_DIR = path
+
+
+def library_file() -> str:
+    """Where the built library lives in the current build directory."""
+    return os.path.join(BUILD_DIR, LIBRARY_NAME + ".so")
 
 
 def source_paths() -> List[str]:

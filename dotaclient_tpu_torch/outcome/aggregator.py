@@ -135,5 +135,7 @@ class OutcomeAggregator:
         for i, c in enumerate(counts):
             seen += c
             if seen >= total / 2.0:
+                # host-sync-ok: host ints
                 return float(2 ** (i + 1))   # the bucket's upper bound
+        # host-sync-ok: host ints
         return float(2 ** N_LEN_BUCKETS)

@@ -44,6 +44,7 @@ def opponent_bucket(opponent: str) -> str:
 
 def len_bucket(ep_len_steps: float) -> int:
     """The histogram bucket of one episode length (env steps)."""
+    # host-sync-ok: a host int from the episode record
     n = max(int(ep_len_steps), 1)
     return min(n.bit_length() - 1, N_LEN_BUCKETS - 1)
 
@@ -71,6 +72,7 @@ def record_episode(reg: telemetry.Registry, bucket: str, won: bool, ep_len_steps
     if won:
         reg.counter(f"outcome/wins/{bucket}").inc()
     reg.counter(f"outcome/episodes_side/{side}").inc()
+    # host-sync-ok: a host float from the episode record
     reg.counter("outcome/ep_len_sum").inc(float(max(ep_len_steps, 0.0)))
     reg.counter(f"outcome/ep_len_hist/{len_bucket(ep_len_steps):02d}").inc()
 
@@ -80,6 +82,7 @@ def add_reward_terms(reg: telemetry.Registry, term_sums: Mapping[str, float]) ->
     counters."""
     for term, v in term_sums.items():
         if v:
+            # host-sync-ok: host floats from the episode record
             reg.counter(f"outcome/reward_sum/{term}").inc(float(v))
 
 
@@ -93,7 +96,9 @@ def fold_device_stats(
     only."""
     episodes = 0.0
     for bucket in BUCKETS:
+        # host-sync-ok: the drained stats are already on the host (the snapshot engine's one batched transfer)
         eps = float(stats.get(f"out_eps_{bucket}", 0.0))
+        # host-sync-ok: the drained stats are already on the host
         wins = float(stats.get(f"out_wins_{bucket}", 0.0))
         if eps:
             reg.counter(f"outcome/episodes/{bucket}").inc(eps)
@@ -103,17 +108,20 @@ def fold_device_stats(
     if episodes:
         # the device actor's episodes are all owner-side games
         reg.counter(f"outcome/episodes_side/{owner_side}").inc(episodes)
+    # host-sync-ok: the drained stats are already on the host
     len_sum = float(stats.get("out_ep_len_sum", 0.0))
     if len_sum:
         reg.counter("outcome/ep_len_sum").inc(len_sum)
     hist = stats.get("out_ep_len_hist")
     if hist is not None:
         for i in range(N_LEN_BUCKETS):
+            # host-sync-ok: the drained stats are already on the host
             v = float(hist[i])
             if v:
                 reg.counter(f"outcome/ep_len_hist/{i:02d}").inc(v)
     terms = stats.get("out_reward_terms")
     if isinstance(terms, Mapping):
+        # host-sync-ok: the drained stats are already on the host
         add_reward_terms(reg, {t: float(v) for t, v in terms.items()})
 
 

@@ -337,10 +337,15 @@ class ServeEngine:
         t0 = time.perf_counter()
         B, dev = self._scfg.max_batch, self._device
         out, _ = self._dispatch(
+            # lint-ok: thread-ownership(before any game attaches: the
+            # batcher waits on an empty window, and this dispatch writes
+            # the scratch slot's carry row alone)
             self._params,
             {name: torch.zeros_like(lane) for name, lane in self._dev_lanes.items()},
             torch.full((B,), self._scratch_slot, dtype=torch.int64, device=dev),
             torch.ones((B,), dtype=torch.float32, device=dev),
+            # lint-ok: thread-ownership(the same warm-up dispatch, before
+            # any game attaches)
             self._carries,
             torch.Generator(device=dev),
         )

@@ -105,9 +105,9 @@ class HealthMonitor:
 
     @property
     def unhealthy(self) -> Optional[HealthEvent]:
-        # lock-free latch read: the event only goes None -> set under the
-        # lock and stays until clear(); a stale None delays the gate by one
-        # fold
+        # lint-ok: thread-ownership(lock-free latch read: the event only
+        # goes None -> set under the lock and stays until clear(); a stale
+        # None delays the gate by one fold)
         return self._unhealthy
 
     def note_unrecoverable(self) -> bool:
@@ -162,8 +162,11 @@ class HealthMonitor:
                 gen is not None and gen != self._gen
             ) or self._unhealthy is not None:
                 return  # abandoned timeline, or already latched
+            # host-sync-ok: the verdict tree arrives already fetched (the snapshot engine's one batched transfer)
             loss = float(tree["loss"])
+            # host-sync-ok: already fetched host scalars
             gn = float(tree["grad_norm"])
+            # host-sync-ok: already fetched host scalars
             ok = float(tree.get("health_ok", 1.0)) >= 0.5
             if not ok or not math.isfinite(loss) or not math.isfinite(gn):
                 self._tel.counter("health/nonfinite_steps_total").inc()
@@ -190,5 +193,7 @@ class HealthMonitor:
             "health: divergence latched at step %d (version %d): %s "
             "(value %r) — weight publishes and periodic checkpoints are "
             "blocked until rollback",
+            # lint-ok: thread-ownership(only reached by the thread that just
+            # latched the event; latched values are immutable until clear)
             step, version, self._unhealthy.reason, self._unhealthy.value,
         )

@@ -14,7 +14,7 @@ return dict) and of its CLI. Run on the card::
         [--health K=V,...] [--learner K=V,...] [--sync-snapshots]
         [--seed S] [--device cuda|cpu] [--metrics-jsonl PATH] [--logdir DIR] [--profile DIR]
         [--checkpoint-dir DIR [--checkpoint-every N] [--restore] [--on-crash-checkpoint]]
-        [--init-from DIR] [--multihost] [--mesh K=V,...] [--dcn-slices N]
+        [--init-from DIR] [--multihost] [--mesh K=V,...] [--dcn-slices N] [--checkify] [--compile-cache DIR]
 
 Five actor modes, ``device`` the default as in the reference:
 
@@ -159,8 +159,13 @@ update; checkpoints save the whole layout (a gather every rank joins), so
 any ``model_parallel`` restores them. A crash checkpoint of that layout is
 skipped (its gather would need every rank).
 
-Not ported yet: the JAX debug and cache flags (ROADMAP queue 1, item 12).
-They raise ``NotImplementedError`` naming the item.
+The debug and cache flags: ``--checkify`` (``Learner(...,
+debug_checkify=True)``) runs every update of the buffered modes under
+``train/checkify.py``'s per-op NaN and division checks, each update of the
+epoch step checked on its own, as the reference's staged checkify loop
+does; it refuses ``--actor fused``. ``--compile-cache DIR`` builds the kernel library and the
+native codec into ``DIR`` (``use_compile_cache``), the port's only compiled
+programs, so processes that share ``DIR`` build them once.
 """
 
 from __future__ import annotations
@@ -245,9 +250,13 @@ class Learner:
         metrics_jsonl: Optional[str] = None,
         transport: Any = None,
         mesh: Optional[Mesh] = None,
+        debug_checkify: bool = False,
     ) -> None:
         if actor not in ACTOR_MODES:
             raise ValueError(f"unknown actor mode {actor!r}")
+        if actor == "fused" and debug_checkify:
+            raise ValueError("checkify instruments the buffered train step, which fused mode never calls — use "
+                             "actor='device' to hunt NaNs")
         mesh = mesh if mesh is not None else make_mesh(config.mesh)
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh.shape}: launch as many ranks as the mesh "
@@ -402,11 +411,12 @@ class Learner:
             self.fused_step = make_fused_step(config, self.device_actor, anchor=self.anchor)
         else:
             group = mesh.batch_group if n_shards > 1 else None
-            self.train_step = make_train_step(config, anchor=self.anchor, group=group)
+            self.train_step = make_train_step(config, anchor=self.anchor, group=group, debug_checkify=debug_checkify)
             # ppo.fused_epoch picks nothing here: the reference's staged
             # loop and its scanned epoch are the same Python loop in torch
             if config.ppo.steps_per_batch > 1:
-                self.epoch_step = make_epoch_step(config, anchor=self.anchor, group=group)
+                self.epoch_step = make_epoch_step(config, anchor=self.anchor, group=group,
+                                                  debug_checkify=debug_checkify)
             if one_pass_enabled(config):
                 self.advantage_pass = make_advantage_pass(self.policy, config, group)
             self.buffer = TrajectoryBuffer(config, device=self.device, registry=self.registry, mesh=mesh,
@@ -589,6 +599,7 @@ class Learner:
                             bcast(opt.state[p][k], mesh.batch_group, mesh.batch_host_group)
         counters = torch.tensor([self.state.step, self.state.version], dtype=torch.int64)
         bcast(counters, None, self._host_group)
+        # host-sync-ok: counters is a host tensor, broadcast over the gloo host group
         self.state.step, self.state.version = int(counters[0]), int(counters[1])
 
     def _barrier(self) -> None:
@@ -607,9 +618,12 @@ class Learner:
             return latched
         import torch.distributed as dist
 
+        # host-sync-ok: host flags, all-reduced over the gloo host group
         flags = torch.tensor([float(self._stop_signal), float(latched)])
         dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._host_group)
+        # host-sync-ok: host flags, all-reduced over the gloo host group
         self._stop_requested = self._stop_requested or bool(flags[0])
+        # host-sync-ok: host flags, all-reduced over the gloo host group
         return bool(flags[1])
 
     def close(self) -> None:
@@ -672,8 +686,10 @@ class Learner:
             return {}
         self._flush_league_reports()
         wrs = self.league.win_rates()
+        # host-sync-ok: the league pool's host win rates
         out = {"league_snapshots": float(len(wrs))}
         if wrs:
+            # host-sync-ok: the league pool's host win rates
             out["league_winrate_mean"] = float(np.mean(wrs))
         return out
 
@@ -696,6 +712,7 @@ class Learner:
             for key in ("rewards", "advantages"):
                 if key in batch:
                     poisoned = batch[key].clone()
+                    # host-sync-ok: a literal NaN for the injected fault
                     poisoned[0, 0] = float("nan")
                     batch[key] = poisoned
         cfg = self.config.ppo
@@ -909,6 +926,7 @@ class Learner:
         marks a state, when the last log boundary may predate it."""
         if self._health is None or self._snap_engine is not None or self._last_verdict_m is None:
             return
+        # host-sync-ok: synchronous snapshots only: the last verdict's three scalars, read at a checkpoint, publish or the run's end (boundary cadence)
         host = {k: float(v) for k, v in self._last_verdict_m.items()}
         self._health.fold_host(self.state.step, self.state.version, host)
 
@@ -1000,6 +1018,7 @@ class Learner:
         self._mb_draws = 0
         self._last_verdict_m = None
         self._health.clear()
+        # host-sync-ok: a host int
         self.registry.gauge("health/last_good_step").set(float(self.state.step))
         if not self.is_chief:
             return rewound
@@ -1142,6 +1161,7 @@ class Learner:
             os.replace(meta + ".tmp", meta)
 
     def _log(self, step: int, scalars: Dict[str, float]) -> None:
+        # host-sync-ok: a host int
         self.history.append({"step": float(step), **scalars})
         self._last_metrics = self.metrics.log(step, scalars)
 
@@ -1164,6 +1184,7 @@ class Learner:
             best_win = self._best_win   # read here: the train thread owns it
 
             def finish(host: Dict[str, Any]) -> None:
+                # host-sync-ok: runs on the snapshot engine's thread on values it already fetched in one batched transfer
                 scalars = {k: float(v) for k, v in host["m"].items()}
                 if da is not None:
                     # host-only: the drain submitted above folded first
@@ -1180,6 +1201,7 @@ class Learner:
             self._snap_engine.submit_metrics(device_copy({"m": m}, clone=False), finish)
             return
         with self.registry.span("learner/metrics_fetch"):
+            # host-sync-ok: synchronous snapshots only: the log boundary's one batched read (span learner/metrics_fetch), at log_every cadence
             scalars = {k: float(v) for k, v in m.items()}
             if self.pool is not None:
                 scalars.update(self.pool.drain_stats())
@@ -1331,6 +1353,7 @@ class Learner:
             self._steps_done -= self._after_step(m, frames_per, epochs)
 
         def refresh_due() -> bool:
+            # host-sync-ok: a host int
             return bool(refresh_every) and (self._steps_done // epochs) % refresh_every == 0
 
         if self.actor_mode == "external":
@@ -1472,7 +1495,9 @@ class Learner:
         out = {
             **self._last_metrics,
             **{f"actor_{k}": v for k, v in actor_stats.items()},
+            # host-sync-ok: host counters
             "optimizer_steps": float(self._steps_done),
+            # host-sync-ok: host counters
             "frames_trained": float(self._frames_trained),
             "frames_per_sec": self._frames_trained / max(elapsed, 1e-9),
             "elapsed_sec": elapsed,
@@ -1509,14 +1534,34 @@ def apply_league_flags(config: RunConfig, opponent: Optional[str], league: Optio
     return dataclasses.replace(config, league=dataclasses.replace(config.league, **over))
 
 
-_ITEM_12 = "ROADMAP queue 1, item 12 (the JAX debug and cache flags)"
-# flags of the reference learner whose features the port does not have
-# yet: (flag, argparse keyword arguments, ROADMAP item); each raises when
-# given
-_NOT_PORTED_FLAGS = (
-    ("--checkify", {"action": "store_true"}, _ITEM_12),
-    ("--compile-cache", {"type": str}, _ITEM_12),
-)
+def use_compile_cache(directory: str, kernels: bool) -> Dict[str, Any]:
+    """``--compile-cache DIR``: build the kernel library into ``DIR/kernels``
+    and the native rollout codec into ``DIR/native`` instead of the
+    package's ``_build`` directories, then load both now (the kernels only
+    when ``kernels``, i.e. on a card: the CPU has no ``nvcc``), so a process
+    that finds them in ``DIR`` builds nothing. Prints one line with each
+    library's seconds and whether it was built or loaded; returns them."""
+    from dotaclient_tpu_torch.native import build as native_build
+    from dotaclient_tpu_torch.ops import build as ops_build
+
+    ops_build.set_build_dir(os.path.join(directory, "kernels"))
+    native_build.set_build_dir(os.path.join(directory, "native"))
+    out: Dict[str, Any] = {}
+    libs = [("codec", native_build.library_path, native_build.load_library)]
+    if kernels:
+        libs.append(("kernels", ops_build.library_file, ops_build.kernel_library))
+    for name, path_of, load in libs:
+        path = path_of()
+        before = os.path.getmtime(path) if os.path.exists(path) else None
+        t0 = time.perf_counter()
+        ok = load() is not None
+        seconds = time.perf_counter() - t0
+        after = os.path.getmtime(path) if os.path.exists(path) else None
+        how = "unavailable" if not ok else "loaded" if before is not None and before == after else "built"
+        out[name] = {"how": how, "seconds": seconds, "path": path}
+    print("learner: compile cache " + directory + ": "
+          + ", ".join(f"{k} {v['how']} in {v['seconds']:.2f} s ({v['path']})" for k, v in out.items()), flush=True)
+    return out
 
 
 def crash_checkpoint(learner: Learner) -> None:
@@ -1644,14 +1689,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--model-parallel", type=int, default=None,
                    help="tensor-parallel width (the model axis, innermost): each rank keeps 1/N of the cut master "
                    "params and Adam moments, and the model ranks of a data shard compute on the gathered params")
-    for flag, kw, item in _NOT_PORTED_FLAGS:
-        p.add_argument(flag, **{"default": None, **kw}, help="not ported yet: " + item)
+    p.add_argument("--checkify", action="store_true",
+                   help="debug numerics: every op of the buffered train step (forward, backward and the optimizer's "
+                   "step) checked, raising on the first that produces a NaN or divides by zero, named (syncs the host "
+                   "on every op: slow; never for production runs, never under a sync guard; not with --actor fused)")
+    p.add_argument("--compile-cache", type=str, default=None, metavar="DIR",
+                   help="build the CUDA kernel library and the native rollout codec into DIR (DIR/kernels, "
+                   "DIR/native) instead of the package's _build directories and load them at start: processes that "
+                   "share DIR build once (a read-only checkout can still cache its builds)")
     args = p.parse_args(argv)
-    for flag, _, item in _NOT_PORTED_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
     if args.actor is None:
         args.actor = "scalar" if args.no_vec else "external" if args.transport != "inproc" else "device"
+    if args.checkify and args.actor == "fused":
+        p.error("--checkify instruments the buffered train step, which --actor fused never calls")
+    if args.compile_cache:
+        use_compile_cache(args.compile_cache, kernels=not str(args.device or "cuda").startswith("cpu"))
 
     if args.multihost:
         # before any other collective or device work of this process
@@ -1760,7 +1812,8 @@ def _run_cli(args: argparse.Namespace, config: RunConfig) -> int:
     try:
         learner = Learner(config, actor=args.actor, seed=args.seed, device=args.device,
                           checkpoint_dir=args.checkpoint_dir, restore=args.restore, init_from=args.init_from,
-                          logdir=args.logdir, metrics_jsonl=args.metrics_jsonl, transport=transport)
+                          logdir=args.logdir, metrics_jsonl=args.metrics_jsonl, transport=transport,
+                          debug_checkify=args.checkify)
     except BaseException:
         if transport is not None:
             transport.close()

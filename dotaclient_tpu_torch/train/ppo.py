@@ -83,6 +83,7 @@ from dotaclient_tpu_torch.models.policy import Policy, dummy_obs_batch, initial_
 from dotaclient_tpu_torch.models.transformer import MoEStats
 from dotaclient_tpu_torch.parallel.collectives import Group, all_gather_rows, group_rank, group_size, psum
 from dotaclient_tpu_torch.parallel.sharding import ParamShards
+from dotaclient_tpu_torch.train.checkify import checked
 from dotaclient_tpu_torch.train.gae import gae, vtrace
 from dotaclient_tpu_torch.utils.tree import tree_map
 
@@ -480,11 +481,18 @@ def take_rows(tree: Any, idx: torch.Tensor) -> Any:
     return tree.index_select(0, idx)
 
 
-def make_train_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None):
+def make_train_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None,
+                    debug_checkify: bool = False):
     """``train_step(state, batch) -> (state, metrics)``: one update (in
     place) with the health probe on when ``config.health.enabled``.
     ``anchor`` is required exactly when ``ppo.anchor_kl_coef > 0``. With a
-    ``group`` the batch is this rank's rows of the global batch."""
+    ``group`` the batch is this rank's rows of the global batch.
+
+    ``debug_checkify`` runs every op of the update (forward, backward and
+    the optimizer's step) under ``train/checkify.py``'s checks, which raise
+    ``FloatCheckError`` on the first op that produces a NaN or divides by
+    zero: the debug numerics mode (it syncs the host on every op), the
+    reference's checkify-instrumented step."""
     if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
         raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
     cfg, probe = config.ppo, config.health.enabled
@@ -492,10 +500,11 @@ def make_train_step(config: RunConfig, anchor: Optional[Policy] = None, group: G
     def train_step(state: TrainState, batch: Batch):
         return _train_step(cfg, state, batch, anchor=anchor, probe=probe, group=group)
 
-    return train_step
+    return checked(train_step) if debug_checkify else train_step
 
 
-def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None):
+def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: Group = None,
+                    debug_checkify: bool = False):
     """``epoch_step(state, batch, perms) -> (state, metrics)``: all
     ``epochs_per_batch x minibatches`` updates of one consumed batch.
 
@@ -511,10 +520,13 @@ def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: G
     the global batch, the same on every rank. A minibatch of the reference
     is ``B / M`` global rows cut evenly over the ranks, so with ``M > 1``
     the ranks first gather the whole batch (one all-gather a leaf a call)
-    and rank k trains on its k-th block of each minibatch's rows."""
-    if (config.ppo.anchor_kl_coef > 0) != (anchor is not None):
-        raise ValueError("anchor must be passed exactly when ppo.anchor_kl_coef > 0")
-    cfg, probe = config.ppo, config.health.enabled
+    and rank k trains on its k-th block of each minibatch's rows.
+
+    ``debug_checkify`` checks each update as ``make_train_step``'s does
+    (the reference's checkify runs its staged loop, a checked step an
+    update); the row gathers between them move values and are not
+    checked."""
+    cfg = config.ppo
     E, M, B = cfg.epochs_per_batch, max(1, cfg.minibatches), cfg.batch_rollouts
     if B % M:
         raise ValueError(f"batch_rollouts {B} not divisible by minibatches {M}")
@@ -522,12 +534,14 @@ def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: G
     n, k = group_size(group), group_rank(group)
     if mb % n:
         raise ValueError(f"minibatch size {mb} not divisible by the batch shard count {n}")
+    # raises unless anchor is passed exactly when ppo.anchor_kl_coef > 0
+    update = make_train_step(config, anchor=anchor, group=group, debug_checkify=debug_checkify)
 
     def epoch_step(state: TrainState, batch: Batch, perms: Any):
         metric_seq = []
         if M == 1:
             for _ in range(E):
-                state, m = _train_step(cfg, state, batch, anchor=anchor, probe=probe, group=group)
+                state, m = update(state, batch)
                 metric_seq.append(m)
         else:
             idx = host_index(perms, batch["rewards"].device).reshape(E * M, mb)
@@ -535,8 +549,7 @@ def make_epoch_step(config: RunConfig, anchor: Optional[Policy] = None, group: G
                 batch = tree_map(lambda t: all_gather_rows(t, group), batch)
                 idx = idx[:, k * (mb // n):(k + 1) * (mb // n)]
             for r in range(E * M):
-                state, m = _train_step(cfg, state, take_rows(batch, idx[r]), anchor=anchor, probe=probe,
-                                       group=group)
+                state, m = update(state, take_rows(batch, idx[r]))
                 metric_seq.append(m)
         return state, fold_scan_metrics(metric_seq)
 

@@ -138,6 +138,7 @@ class SnapshotEngine:
             if self._jobs[kind] is not None:
                 self._tel.counter(f"snapshot/{kind}_coalesced").inc()
             self._jobs[kind] = job
+            # host-sync-ok: a host int
             self._tel.gauge("snapshot/pending").set(float(self._pending_locked()))
             self._cond.notify_all()
 
@@ -168,6 +169,7 @@ class SnapshotEngine:
             if self._stopped:
                 raise RuntimeError("snapshot engine is stopped")
             self._stats_jobs.append((device_stats, finish))
+            # host-sync-ok: a host int
             self._tel.gauge("snapshot/pending").set(float(self._pending_locked()))
             self._cond.notify_all()
 
@@ -206,6 +208,8 @@ class SnapshotEngine:
     def last_published(self) -> int:
         """Highest version handed to the transport (read by the rollback
         after ``drain``, when the engine is idle)."""
+        # lint-ok: thread-ownership(rollback reads this only after drain()
+        # returned: the engine thread is provably idle at that point)
         return self._last_published
 
     # -- the engine's thread ------------------------------------------------
@@ -222,6 +226,7 @@ class SnapshotEngine:
                 for k in batch:
                     self._jobs[k] = None
                 self._busy = True
+                # host-sync-ok: a host int
                 self._tel.gauge("snapshot/pending").set(float(self._pending_locked()))
             try:
                 # stat folds first (the log line and the health gates read
@@ -245,6 +250,7 @@ class SnapshotEngine:
             finally:
                 with self._cond:
                     self._busy = False
+                    # host-sync-ok: a host int
                     self._tel.gauge("snapshot/pending").set(float(self._pending_locked()))
                     self._cond.notify_all()
 
@@ -254,6 +260,7 @@ class SnapshotEngine:
         thread queued after it)."""
         t0 = time.perf_counter()
         if copy.event is None:
+            # host-sync-ok: the engine's one batched fetch, on its own thread
             host = map_tensors(lambda t: t.cpu(), copy.tree)
         else:
             stream = self._streams.get(copy.device)
@@ -261,6 +268,7 @@ class SnapshotEngine:
                 stream = self._streams[copy.device] = torch.cuda.Stream(copy.device)
             with torch.cuda.stream(stream):
                 stream.wait_event(copy.event)
+                # host-sync-ok: the engine's one batched fetch, on its own thread
                 host = map_tensors(lambda t: t.cpu(), copy.tree)
         self._tel.gauge("snapshot/d2h_ms").set((time.perf_counter() - t0) * 1e3)
         return host

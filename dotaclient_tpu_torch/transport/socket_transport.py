@@ -506,7 +506,9 @@ class TransportServer:
             self._drop(conn)
         self._tel.counter("transport/weights_published").inc()
         self._tel.gauge("transport/weights_version").set(weights.version)
+        # host-sync-ok: host ints
         self._tel.gauge("transport/fanout_lag_max").set(float(max_lag))
+        # host-sync-ok: host ints
         self._tel.gauge("transport/fanout_queue_depth").set(float(pending_depth))
         self._tel.gauge("transport/actors_connected").set(self.n_connected)
 

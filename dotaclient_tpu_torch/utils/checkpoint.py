@@ -103,6 +103,7 @@ class CheckpointIntegrityError(RuntimeError):
 
 
 def _tensor_bytes(t: torch.Tensor) -> bytes:
+    # host-sync-ok: the manifest's CRC of tensors already copied to the host by save
     return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
 
 
@@ -224,6 +225,7 @@ class CheckpointManager:
 
     def _steps_on_disk(self) -> List[int]:
         return sorted(
+            # host-sync-ok: step directories' names
             int(n) for n in os.listdir(self.directory)
             if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, STATE_FILE))
         )
@@ -341,8 +343,11 @@ class CheckpointManager:
         model group here (every rank of it must call this), unless
         ``opt_state`` gives it, gathered already."""
         host_state = {
+            # host-sync-ok: host ints
             "step": int(state.step),
+            # host-sync-ok: host ints
             "version": int(state.version),
+            # host-sync-ok: the save path's one batched fetch: the learner saves between iterations
             "params": {k: v.detach().cpu().clone() for k, v in state.policy.state_dict().items()},
             "opt_state": _to_cpu(opt_state if opt_state is not None else _whole_opt_state(state)),
         }
@@ -359,6 +364,7 @@ class CheckpointManager:
         rule) or, for a periodic save, refused. With ``mark_good`` (a
         health-verified state) the landed save is mirrored into the
         ``last_good`` slot."""
+        # host-sync-ok: a host int
         step = int(host_state["step"])
         if not self._save_lock.acquire(timeout=self.LOCK_TIMEOUT_S):
             return self._refuse(force, RuntimeError(
@@ -391,6 +397,7 @@ class CheckpointManager:
                mark_good: bool) -> None:
         """The write itself, on the writer thread: a temporary directory
         moved into place, the manifest, the retention, the mirror."""
+        # host-sync-ok: a host int
         step = int(host_state["step"])
         tmp = None
         try:
@@ -430,11 +437,13 @@ class CheckpointManager:
         (its own manager, so the main retention never deletes it), and wait
         for it there. An I/O error here is counted and warned about; the
         main save stands."""
+        # host-sync-ok: a host int
         step = int(host_state["step"])
         try:
             slot = self._last_good_slot()
             slot.save_host({k: host_state[k] for k in STATE_KEYS}, config, force=True)
             slot.wait()
+            # host-sync-ok: a host int
             self._tel.gauge("health/last_good_step").set(float(step))
         except Exception as e:  # noqa: BLE001 - a protection layer, never fatal
             self._tel.counter("checkpoint/save_failures_total").inc()
@@ -643,6 +652,7 @@ def _whole_opt_state(state: Any) -> Dict[str, Any]:
 
 def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
+        # host-sync-ok: the save path's one batched fetch (the optimizer state and the pipeline beside the params)
         return tree.detach().cpu().clone()
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

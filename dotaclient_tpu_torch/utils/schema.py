@@ -1,22 +1,26 @@
-"""The key tiers a learner's run record must carry, and their check.
+"""The key tiers a run record must carry, and their check.
 
-Copy of the tier tuples of ``scripts/check_telemetry_schema.py`` that a
-port learner's ``--metrics-jsonl`` record meets (the base tier and the
-snapshot, health, trace, advantage, fleet, outcome, utilization and wire
-tiers, and the multichip tier), and of its ``validate_lines`` (a record of a learner serving actor
-processes, marked by its transport server's gauges, is not held to the keys
-only an in-process actor emits), so ``chip_smoke.py`` checks a record on the
-card without the script, which reads the JAX package's telemetry module.
-``tests/test_torch_runrecord.py`` holds these tuples equal to the
-script's. ``validate_lines(lines, MULTICHIP_KEYS)`` is the script's
-``--require-multichip``; every port learner's record meets it, at every
-world size.
+Copy of every tier tuple of ``scripts/check_telemetry_schema.py`` (the base
+tier of a learner's ``--metrics-jsonl`` record; the snapshot, health,
+trace, advantage, fleet, outcome, utilization, multichip and wire tiers
+every port learner's record meets; the socket, shm and fault tiers of a
+learner serving actor processes; the serve tier of a serve CLI's record and
+the router tier of a router's), and of its ``validate_lines`` (a record of
+a learner serving actor processes, marked by its transport server's
+gauges, is not held to the keys only an in-process actor emits; a serve or
+router record is held to ``base_required=()`` instead of the learner's
+base tier). ``utils/check_telemetry_schema.py`` is the CLI over them, and
+``chip_smoke.py`` checks records on the card with them.
+``tests/test_torch_runrecord.py`` and ``tests/test_torch_multichip_tools.py``
+hold these tuples equal to the script's. ``validate_lines(lines,
+MULTICHIP_KEYS)`` is ``--require-multichip``; every port learner's record
+meets it, at every world size.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 # the base tier: the learner pipeline's spans, gauges and counters
 REQUIRED_KEYS = (
@@ -188,6 +192,73 @@ MULTICHIP_KEYS = (
     "learner/psum_ms",
 )
 
+# --require-transport: the socket server's fanout (made at construction)
+SOCKET_TRANSPORT_KEYS = (
+    "transport/weights_coalesced",
+    "transport/fanout_conns_dropped",
+    "transport/weights_sent",
+    "transport/fanout_lag_max",
+    "transport/fanout_queue_depth",
+    "transport/actors_connected",
+)
+
+# --require-shm: the shared-memory lane (made at construction)
+SHM_TRANSPORT_KEYS = (
+    "shm/ring_occupancy",
+    "shm/ring_dropped_total",
+    "transport/queue_depth",
+)
+
+# --require-faults: a socket learner with a checkpoint directory (the
+# counters made at construction; 0 in a run that saw no fault)
+FAULT_KEYS = (
+    "transport/frames_corrupt_total",
+    "transport/peers_quarantined",
+    "transport/conn_idle_drops",
+    "transport/heartbeats_sent",
+    "transport/reader_exits",
+    "checkpoint/save_failures_total",
+)
+
+# --require-serve: a serve CLI's record (--serve-metrics-jsonl); the engine
+# and the server make every key at construction
+SERVE_KEYS = (
+    "serve/requests_total",
+    "serve/batch_fill",
+    "serve/batch_window_hits",
+    "serve/p99_latency_ms",
+    "serve/weights_version",
+    "serve/dispatches_total",
+    "serve/max_batch_hits",
+    "serve/weight_swaps_total",
+    "serve/dispatch_errors_total",
+    "serve/replies_total",
+    "serve/reply_errors_total",
+    "serve/clients_connected",
+    "serve/slots_in_use",
+    "serve/conns_rejected_total",
+    "serve/carry_installs_total",
+)
+
+# --require-router: a router's record (--metrics-jsonl); the router makes
+# every key at construction (the per-backend router/backend/<i>/sessions
+# are dynamic and not in the tier)
+ROUTER_KEYS = (
+    "router/sessions_attached_total",
+    "router/sessions_detached_total",
+    "router/sessions_rehomed_total",
+    "router/carry_resets_total",
+    "router/spares_promoted_total",
+    "router/backend_deaths_total",
+    "router/probe_reconnects_total",
+    "router/route_requests_total",
+    "router/route_errors_total",
+    "router/backends_live",
+    "router/backends_dead",
+    "router/spares_available",
+    "router/sessions_active",
+)
+
 # the wire tier: a socket or shm learner's rollout bytes, at their full
 # width, and the ratio (both servers make them at construction, the gauge
 # at 1.0)
@@ -215,12 +286,14 @@ LEARNER_TIERS = (SNAPSHOT_KEYS + HEALTH_KEYS + TRACE_KEYS + ADVANTAGE_KEYS + FLE
                  + UTILIZATION_KEYS + MULTICHIP_KEYS)
 
 
-def validate_lines(lines: Sequence[str], extra_required: tuple = ()) -> List[str]:
+def validate_lines(lines: Sequence[str], extra_required: tuple = (),
+                   base_required: Optional[tuple] = None) -> List[str]:
     """The violations of a record's lines (empty when the schema holds):
     each line's envelope ``{"ts": number, "step": int >= 0, "scalars":
     {str: number | null}}`` (event lines skipped), the union of the
-    scalars' keys against the base tier and ``extra_required``, and every
-    span timer's full set of stat leaves."""
+    scalars' keys against the base tier (``REQUIRED_KEYS``, or
+    ``base_required`` for another process class's record) and
+    ``extra_required``, and every span timer's full set of stat leaves."""
     if not lines:
         return ["JSONL file is empty: no metrics were emitted"]
     errors: List[str] = []
@@ -248,7 +321,7 @@ def validate_lines(lines: Sequence[str], extra_required: tuple = ()) -> List[str
             if v is not None and not isinstance(v, (int, float)):
                 errors.append(f"line {i}: scalar {k!r} is {type(v).__name__}")
         union.update(scalars)
-    required = (*REQUIRED_KEYS, *extra_required)
+    required = (*(REQUIRED_KEYS if base_required is None else base_required), *extra_required)
     if any(m in union for m in EXTERNAL_TRANSPORT_MARKERS):
         required = tuple(k for k in required if k not in IN_PROC_ACTOR_KEYS)
     missing = [k for k in required if k not in union]

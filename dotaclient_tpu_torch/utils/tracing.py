@@ -237,7 +237,9 @@ class TraceWriter:
         """Drain and stop the writer, then flush, fsync and close the file."""
         self._stopped = True
         self._thread.join(timeout)
-        f = self._f   # the writer thread has exited: this thread owns the file
+        # lint-ok: thread-ownership(join() above: the writer thread has
+        # exited before this thread touches the file)
+        f = self._f
         try:
             f.flush()
             os.fsync(f.fileno())

@@ -74,10 +74,18 @@ DATA_PARALLEL_MODULES = ("dotaclient_tpu_torch.parallel.distributed", "dotaclien
 TOOLS_MODULES = ("dotaclient_tpu_torch.train.bench_configs", "dotaclient_tpu_torch.train.curriculum",
                  "dotaclient_tpu_torch.utils.outcome_report", "dotaclient_tpu_torch.utils.fleet_status",
                  "dotaclient_tpu_torch.utils.utilization_report", "dotaclient_tpu_torch.utils.chaos_run")
+# the static checks (the whole lint package), their CLIs, the multi-GPU
+# preflight and the learner's per-op numerics checks
+CHECKS_MODULES = ("dotaclient_tpu_torch.lint", "dotaclient_tpu_torch.lint.__main__", "dotaclient_tpu_torch.lint.core",
+                  "dotaclient_tpu_torch.lint.host_sync", "dotaclient_tpu_torch.lint.ownership",
+                  "dotaclient_tpu_torch.lint.telemetry_drift", "dotaclient_tpu_torch.lint.config_drift",
+                  "dotaclient_tpu_torch.lint.alert_drift", "dotaclient_tpu_torch.utils.check_host_sync",
+                  "dotaclient_tpu_torch.utils.check_telemetry_schema", "dotaclient_tpu_torch.utils.run_multichip",
+                  "dotaclient_tpu_torch.train.checkify")
 
 
 def port_sources():
-    return sorted(p for p in PORT.rglob("*") if p.suffix in {".py", ".cu", ".cuh", ".cc"}) + [ROOT / "chip_smoke.py"]
+    return sorted(p for p in PORT.rglob("*") if p.suffix in {".py", ".cu", ".cuh", ".cc", ".sh"}) + [ROOT / "chip_smoke.py"]
 
 
 def test_port_imports_without_jax():
@@ -90,13 +98,14 @@ def test_port_imports_without_jax():
     # every module of the port: the league's, the buffered learner's, the
     # run record's (the trace plane's among them), the external actors',
     # the scalar path's (the gRPC service's only where grpc is installed)
-    # the transformer and MoE cores', the data-parallel slice's and the
+    # the transformer and MoE cores', the data-parallel slice's, the
     # tools beside the package (the bench, the curriculum, the consoles and
-    # the chaos supervisor)
+    # the chaos supervisor) and the static checks, their CLIs and the
+    # preflight
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 89 + has_grpc
+    assert int(count) >= 101 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
-                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES, TOOLS_MODULES):
+                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES, TOOLS_MODULES, CHECKS_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -194,6 +203,10 @@ def test_no_port_source_names_jax(pattern):
     assert {PORT / "parallel" / "expert.py", PORT / "models" / "moe.py", PORT / "models" / "transformer.py",
             PORT / "utils" / "tree.py"} <= set(port_sources())
     assert {PORT / "parallel" / f"{m.rsplit('.', 1)[1]}.py" for m in DATA_PARALLEL_MODULES} <= set(port_sources())
+    # the static checks and their CLIs among them, the gate's shell script too
+    assert {PORT / "lint" / f"{m}.py" for m in ("__init__", "__main__", "core", "host_sync", "ownership",
+                                                   "telemetry_drift", "config_drift", "alert_drift")} \
+        | {PORT / "utils" / "ci_gate.sh", PORT / "utils" / "run_multichip.py"} <= set(port_sources())
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in port_sources()

@@ -445,19 +445,22 @@ def test_fleet_aggregator_as_the_reference():
     ("--overlap", None), ("--no-vec", None), ("--trace-jsonl", "t.jsonl"), ("--trace-sample", "4"),
     ("--fleet-interval", "1"), ("--checkify", None), ("--compile-cache", "cc"), ("--transport", "socket"))])
 def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
-    """Each flag raises naming its item, but those the external-actor,
-    scalar, core, trace and wire slices ported (``--listen``,
+    """Every flag the port once refused now reaches what it configures:
+    those the external-actor, scalar, core, trace and wire slices ported (``--listen``,
     ``--refresh-every``, ``--overlap``, ``--transport socket``,
     ``--no-vec``, ``--shm-name``, ``--core``, ``--moe-experts``,
     ``--fleet-interval``, ``--trace-jsonl``, ``--trace-sample``,
     ``--amqp-host``, ``--wire-dtype``, ``--rollout-wire-dtype``) and the
     data-parallel slices (``--mesh``, ``--multihost``, ``--dcn-slices``,
-    ``--model-parallel``), which now reach the learner, config, runtime or
-    transport they configure; the trace flags reach ``tracing.configure``
+    ``--model-parallel``) and the debug and cache flags (``--checkify``,
+    ``--compile-cache``) reach the learner, config, runtime, transport or
+    build directories they configure; the trace flags reach ``tracing.configure``
     before the learner is built, and its shutdown after; ``--amqp-host``
     reaches the ``AmqpTransport`` of ``--transport amqp``; ``--multihost``
-    reaches ``initialize_runtime`` (and the process group's teardown); and
-    ``--model-parallel 2`` reaches the mesh config."""
+    reaches ``initialize_runtime`` (and the process group's teardown);
+    ``--model-parallel 2`` reaches the mesh config; ``--checkify`` the
+    learner's ``debug_checkify``; and ``--compile-cache DIR``
+    ``use_compile_cache`` (no kernels with ``--device cpu``)."""
     name, value = flag
     argv = ["--smoke", "--device", "cpu", name] + ([value] if value is not None else [])
     if name == "--trace-sample":
@@ -467,7 +470,7 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
     if name in ("--listen", "--refresh-every", "--overlap", "--transport", "--no-vec", "--shm-name", "--core",
                 "--moe-experts", "--fleet-interval", "--trace-jsonl", "--trace-sample", "--amqp-host",
                 "--wire-dtype", "--rollout-wire-dtype", "--mesh", "--multihost", "--dcn-slices",
-                "--model-parallel"):
+                "--model-parallel", "--checkify", "--compile-cache"):
         built = []
         runtime = []
         monkeypatch.setattr(plearner.pdist, "initialize_runtime", lambda: runtime.append("init"))
@@ -489,7 +492,13 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
             assert (config.mesh.data_parallel, config.mesh.dcn_slices) == want_mesh
             assert config.mesh.model_parallel == (2 if name == "--model-parallel" else 1)
             assert runtime == (["init"] if name == "--multihost" else [])
+            assert kw["debug_checkify"] == (name == "--checkify")
+            assert caches == ([("cc", False)] if name == "--compile-cache" else [])
             raise SystemExit(0)
+
+        caches = []
+        monkeypatch.setattr(plearner, "use_compile_cache", lambda directory, kernels: caches.append(
+            (directory, kernels)))
 
         monkeypatch.setattr(plearner, "Learner", recording)
         monkeypatch.setattr(plearner, "TransportServer", lambda host, port, **kw: type(
@@ -507,9 +516,7 @@ def test_learner_refuses_what_is_not_ported(flag, monkeypatch):
         assert telemetry.fleet_interval_s == interval0   # restored for the embedding program
         assert traced == want_trace + [(None, None)] * bool(want_trace)   # the log shut down at the end
         return
-    item = {"--checkify": "12", "--compile-cache": "12"}.get(name, "13")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item} "):
-        plearner.main(argv)
+    raise AssertionError(f"{name} is not among the flags the port reaches")
 
 
 def test_learner_override_flags_reach_the_config(monkeypatch, capsys):

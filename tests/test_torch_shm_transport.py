@@ -7,8 +7,7 @@ the size check), slot claims, releases and reaping, the liveness beacon,
 a restart over a dead learner's segments, and the metrics frames and CRC
 quarantine shared with the socket lane. The slab carries a bf16 weights
 frame (the narrow wire) byte for byte, and the actor widens it on decode
-(``test_bf16_wire_through_slab_is_refused`` holds that, whatever its name
-says). Across packages, the
+(``test_slab_carries_the_bf16_weights_frame``). Across packages, the
 segment layout is the wire contract: a JAX ``ShmTransport`` feeds a port
 server and a port actor a JAX server, with the same payload bytes and ring
 counters both ways, and the weights slab read across too. The learner CLI
@@ -223,10 +222,10 @@ def test_latest_wins_and_cache():
         server.close()
 
 
-def test_bf16_wire_through_slab_is_refused():
-    """No longer refused: a bf16 weights frame crosses the slab byte for
-    byte, its CRC checked, and the actor's decode widens it to the params
-    rounded to bf16."""
+def test_slab_carries_the_bf16_weights_frame():
+    """A bf16 weights frame crosses the slab byte for byte, its CRC
+    checked, and the actor's decode widens it to the params rounded to
+    bf16."""
     server, actor, _ = make_lane("wb")
     params = {"k": np.linspace(0, 1, 9, dtype=np.float32), "n": np.arange(3, dtype=np.int32)}
     try:
