@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, the tools beside the package, and the static checks, the preflight and the gate, on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, the tools beside the package, the static checks, the preflight and the gate, and the bench, on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -24,7 +24,9 @@ exits non-zero and prints no result line):
    T=17, the curriculum's B=8 T=17 and
    B=40 at T=1 and T=17, and the chaos children's B=4 T=1, B=8 T=9 and
    B=4 T=8; and phase 22's: the fused parity ranks' B=2 and B=4 at T=1
-   and T=9, the router failover digest's B=1 T=1 at D=H=8), with the f32
+   and T=9, the router failover digest's B=1 T=1 at D=H=8; and phase 23's:
+   the advantage stage's pass B=64 T=5 and updates B=32 at T=4 and T=5,
+   its parity digest's B=8 T=8 and the serve curve's B=16 T=1), with the f32
    tolerance stated below, its launch plan logged, and timed on the card (CUDA
    events around a CUDA graph of 100 calls, median of 11 replays; warm)
    beside its plain version, the one PyTorch call that computes the same
@@ -261,9 +263,9 @@ exits non-zero and prints no result line):
     reset/act/observe cycle of the gRPC fake dotaservice over 127.0.0.1.
     (a) ``Learner(cfg, actor="scalar")`` at the reference's defaults
     (``RunConfig()``: 8 games against the easy bot, hero Shadow Fiend,
-    LSTM(128), batches of 32, 1 x 1 updates) with games of 20 s: 2 warm and
-    4 timed optimizer steps alternating with the scalar pool, then 4 with
-    the pool on its own thread. Checked: finite loss and ``health_ok`` 1,
+    LSTM(128), batches of 32, 1 x 1 updates) with games of 20 s: 1 warm and
+    3 timed optimizer steps alternating with the scalar pool, then 3 with
+    the pool on its own thread, while (a')'s children run beside it. Checked: finite loss and ``health_ok`` 1,
     every param moved, every trained action legal, ended episodes, chunk
     versions above 0 (the pool plays pushed params), the ring's books, and
     ``lstm_seq`` launched pool steps + updates + advantage passes times
@@ -419,7 +421,7 @@ exits non-zero and prints no result line):
     iteration's update once; a buffered batch's update and advantage
     passes), each launch at a shape phase 2 holds against the plain
     version; the fused frames/s of configs 3 and 4 logged against phase
-    6's. Then, side by side, (b) ``python -m
+    6's. Beside (a), started beside phase 20, (b) ``python -m
     dotaclient_tpu_torch.train.curriculum`` as a child (CURRICULUM_ARGS):
     exit 0, a ``DEMO_SUMMARY`` a stage, stage 2 from stage 1's saved step
     and its checkpoint bit for bit stage 1's in every param but the value
@@ -434,10 +436,11 @@ exits non-zero and prints no result line):
     PHASE22_BUDGET_S, children side by side. (a) ``python -m
     dotaclient_tpu_torch.utils.run_multichip`` (the preflight: the card's
     init with no pin, then the dry run's global-batch update at world 1
-    over NCCL) must print ``"ok": true``; a SKIP line fails the phase; then
-    its ``--fused-parity 2`` (world 1 against two ranks on the card over
-    gloo: losses, float64 param L1, the lane split read off each rank's
-    actor state). (b) the learner CLI with ``--checkify`` at the ``--smoke``
+    over NCCL) must print ``"ok": true``; a SKIP line fails the phase; its
+    ``--fused-parity 2`` (world 1 against two ranks on the card over gloo:
+    losses, float64 param L1, the lane split read off each rank's actor
+    state) runs once, as phase 23's fused_multichip stage, and is checked
+    there. (b) the learner CLI with ``--checkify`` at the ``--smoke``
     sizes for CHECKIFY_STEPS steps: the clean child's final checkpoint
     against an unchecked child's from the same seed, every tensor bitwise
     (the checks read results and change none), a child
@@ -448,10 +451,28 @@ exits non-zero and prints no result line):
     DIR, the second loads both with no build (the libraries' mtimes
     unchanged); both children's build seconds logged. (d) ``bash
     dotaclient_tpu_torch/utils/ci_gate.sh`` with ``CI_GATE_SKIP_TESTS=1``:
-    every stage passes on the card. Every child runs with SHAPE_SHIM as its
-    ``sitecustomize``: every process it starts counts the shape of each
-    ``lstm_seq`` launch in memory and writes the counts at its exit; each
-    shape must be in LSTM_SHAPES, and the kernels line counts them.
+    every stage passes on the card. Every child but the second compile
+    cache learner starts beside phase 21.
+    Every child runs with SHAPE_SHIM as its ``sitecustomize``: every
+    process it starts counts the shape of each ``lstm_seq`` launch in
+    memory and writes the counts at its exit; each shape must be in
+    LSTM_SHAPES, and the kernels line counts them.
+23. the bench (``bench_smoke_phase``): ``python -m
+    dotaclient_tpu_torch.bench --smoke`` on the card (the learner's
+    ``--smoke`` sizes at the default model's widths, a few steps a variant;
+    the advantage stage's E=16 M=2 T=4 B=64 and the serve curve's 16
+    clients as the stage defines them), its headline and thirteen stages
+    split over BENCH_CHILDREN, three children started beside phase 21, each
+    with SHAPE_SHIM and an anchor file of its own. Checked: each child
+    exits 0 with one JSON line and no stage's ``error``; the parity digests
+    (multichip, advantage, serve, the re-home, the fused parity) and
+    ``serve_fleet_complete`` at 1; ``rollout_compression`` at least 1.8;
+    every frames/s in the lines finite and above 0; nothing of a child's
+    session left running; every ``lstm_seq`` shape its processes launched
+    in LSTM_SHAPES; the fused_multichip stage, phase 22 (a)'s fused parity
+    at 2, on the card with the lanes split 2 + 2. Logged: the lines'
+    numbers, which at this depth check the path and measure nothing (the
+    reference's depth runs stage by stage outside this script).
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -636,7 +657,11 @@ BUFFERED_MB = BUFFERED_BATCH // BUFFERED_MINIBATCHES
 # the update on precomputed advantages (T=8); then phase 22's: the fused
 # parity probe's 4 games (world 1) and a world-2 rank's 2 at the step and
 # the fused update (T=9), and the router failover digest's tiny backends
-# (D=H=8) at the serving step B=1
+# (D=H=8) at the serving step B=1; then phase 23's: the advantage stage's
+# headline shape (E=16 M=2 T=4 B=64: the pass at B=64 T=5, a minibatch's
+# update at B=32 on precomputed advantages, T=4, and with the in-step
+# estimator, T=5), its parity digest's update on precomputed advantages at
+# the --smoke batch (B=8 T=8), and the serve curve's 16 clients (B=16 T=1)
 LEAGUE_LANES, LEAGUE_EVAL_LANES = LEAGUE_ENVS * LEAGUE_TEAM, LEAGUE_EVAL_GAMES * LEAGUE_TEAM
 SCALAR_LANES = 8
 SELFPLAY_LANES, CONFIG2_LANES, CURRICULUM_5V5_LANES = 256, 512, 8 * 5
@@ -649,7 +674,8 @@ LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 12
                (LEAGUE_EVAL_LANES, 17, 128, 128), (8, 17, 128, 128),
                (CURRICULUM_5V5_LANES, 1, 128, 128), (CURRICULUM_5V5_LANES, 17, 128, 128), (4, 1, 128, 128),
                (8, 9, 128, 128), (4, 8, 128, 128), (2, 1, 128, 128), (2, 9, 128, 128), (4, 9, 128, 128),
-               (1, 1, 8, 8))
+               (1, 1, 8, 8), (64, 5, 128, 128), (32, 5, 128, 128), (32, 4, 128, 128), (8, 8, 128, 128),
+               (16, 1, 128, 128))
 
 
 def max_err(got, want):
@@ -3969,7 +3995,7 @@ def external_actors_phase(device, seed, smi=""):
 # the pool, overlapped. (a'): the CLI's steps, and the --no-vec child's.
 # (b): served games against the hard bot.
 SCALAR_MAX_DOTA_TIME = 20.0
-SCALAR_WARM, SCALAR_TIMED, SCALAR_OVERLAP = 2, 4, 4
+SCALAR_WARM, SCALAR_TIMED, SCALAR_OVERLAP = 1, 3, 3
 SCALAR_CLI_STEPS, SCALAR_NOVEC_STEPS = 10, 10   # 10: one log line (log_every 10)
 EVAL_SERVED_GAMES = 8
 
@@ -4113,23 +4139,38 @@ def scalar_phase(device, seed):
     return result
 
 
-def scalar_cli_phase(seed, root):
-    """(a') the learner CLI with ``--actor scalar`` (its checkpoint feeds
-    (b)) and, beside it, with ``--no-vec``; each one's launches from its
-    ``done:`` line against its pool steps + updates + advantage passes."""
+SCALAR_CLI_RUNS = {"scalar": (["--actor", "scalar"], SCALAR_CLI_STEPS), "no_vec": (["--no-vec"], SCALAR_NOVEC_STEPS)}
+
+
+def scalar_cli_start(seed, root):
+    """(a')'s children: the learner CLI with ``--actor scalar`` (its
+    checkpoint feeds (b)) and, beside it, with ``--no-vec``."""
+    import os
+
+    children = {}
+    try:
+        for name, (flags, steps) in SCALAR_CLI_RUNS.items():
+            jsonl = os.path.join(root, f"{name}.jsonl")
+            ckpt = ["--checkpoint-dir", os.path.join(root, "scalar_ckpt")] if name == "scalar" else []
+            children[name] = (RecordChild([*flags, *ckpt, "--steps", str(steps), "--seed", str(seed),
+                                           "--metrics-jsonl", jsonl], root, f"cli_{name}"), jsonl)
+    except BaseException:
+        for child, _ in children.values():
+            child.kill()
+        raise
+    return children
+
+
+def scalar_cli_phase(children, root):
+    """(a') once the children exited: each one's launches from its
+    ``done:`` line against its pool steps + updates + advantage passes.
+    Kills them either way."""
     import os
 
     from dotaclient_tpu_torch.config import RunConfig
 
-    ckpt = os.path.join(root, "scalar_ckpt")
-    runs = {"scalar": (["--actor", "scalar", "--checkpoint-dir", ckpt], SCALAR_CLI_STEPS),
-            "no_vec": (["--no-vec"], SCALAR_NOVEC_STEPS)}
-    children = {}
+    runs = SCALAR_CLI_RUNS
     try:
-        for name, (flags, steps) in runs.items():
-            jsonl = os.path.join(root, f"{name}.jsonl")
-            children[name] = (RecordChild([*flags, "--steps", str(steps), "--seed", str(seed), "--metrics-jsonl",
-                                           jsonl], root, f"cli_{name}"), jsonl)
         out = {}
         for name, (child, jsonl) in children.items():
             rc, lines, err, wall = child.result()
@@ -4158,7 +4199,7 @@ def scalar_cli_phase(seed, root):
     finally:
         for child, _ in children.values():
             child.kill()
-    out["ckpt_dir"] = ckpt
+    out["ckpt_dir"] = os.path.join(root, "scalar_ckpt")
     return out
 
 
@@ -4247,9 +4288,17 @@ def scalar_path_phase(device, seed, socket_frames_per_s, smi=""):
     import tempfile as tf
 
     t0 = time.perf_counter()
-    result = {"grpc": grpc_check(), "scalar": scalar_phase(device, seed)}
+    result = {"grpc": grpc_check()}
     with tf.TemporaryDirectory(prefix="chip_smoke_scalar_") as root:
-        result["cli"] = scalar_cli_phase(seed, root)
+        # (a')'s children run beside (a)
+        children = scalar_cli_start(seed, root)
+        try:
+            result["scalar"] = scalar_phase(device, seed)
+        except BaseException:
+            for child, _ in children.values():
+                child.kill()
+            raise
+        result["cli"] = scalar_cli_phase(children, root)
         result["eval_served"] = eval_served_phase(result["cli"]["ckpt_dir"], seed, root, smi)
         result["shm"] = external_phase(device, seed, root, lane="shm", subscriber_ckpt=result["cli"]["ckpt_dir"],
                                        traced=True, smi=smi)
@@ -4625,13 +4674,13 @@ def transformer_phase(device, seed, lstm_league_frames_per_s):
 # -- phase 18: the wire (the native codec, the narrow wires) ------------------------------
 
 # (a): passes over the chunks of one pool phase, each codec and wire timed
-CODEC_REPS = 3
+CODEC_REPS = 2
 # (b): phase 15 (b)'s topology on the narrow wires: the learner's steps, and
 # the step line at which the actors are stopped (no kill); the steps after
 # the stop come from the ring and the flushed chunks
 WIRE_STEPS, WIRE_STOP_AT = 24, 20
 # (c): the buffered learner's collects on a narrow ring
-NARROW_COLLECTS = 3
+NARROW_COLLECTS = 2
 
 
 def codec_phase(device, seed):
@@ -5782,14 +5831,14 @@ def multigpu_rest_phase(device, seed, smi=""):
 # steps to BENCH_MAX_DOTA_TIME, BENCH_WARMUP and one block of BENCH_STEPS
 BENCH_RUNS = ((3, "device"), (3, "fused"), (4, "device"), (4, "fused"), (1, "device"), (2, "device"),
               (5, "device"))
-BENCH_MAX_DOTA_TIME, BENCH_WARMUP, BENCH_REPEATS, BENCH_STEPS = 20.0, 1, 1, 4
+BENCH_MAX_DOTA_TIME, BENCH_WARMUP, BENCH_REPEATS, BENCH_STEPS = 20.0, 1, 1, 2
 # (b): both curriculum stages as children, a few steps a stage, small games
 CURRICULUM_ARGS = ("--stage1-steps", "2", "--stage2-steps", "2", "--n-envs", "8", "--eval-games", "8",
                    "--max-dota-time", "20")
 # (c): the chaos supervisor's baseline scenario, 2 actors, the SIGTERM at
 # CHAOS_STEPS and as many steps after the restore (from 10 and 10)
 CHAOS_STEPS = 6
-TOOLS_CHILD_S = 130.0
+TOOLS_CHILD_S = 240.0
 PHASE21_BUDGET_S = 150.0
 
 
@@ -6039,40 +6088,47 @@ def chaos_result(child, root):
             "actors_lstm_seq_launches": sum(a["lstm_seq_launches"] for a in actors)}
 
 
-def tools_phase(device, seed, smi=""):
-    """Phase 21: (a) the BASELINE configs through bench_configs in this
-    process, then (b) the curriculum and (c) the chaos supervisor's
-    baseline as children side by side; the phase within PHASE21_BUDGET_S."""
+def start_tools(root, seed):
+    """(b)'s and (c)'s children, started beside phase 20; each starts
+    processes of its own: a kill takes its group."""
     import os
 
-    t0 = time.perf_counter()
-    bench = bench_phase(device, seed)
-    a_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as root:
-        children = []
-        try:
-            # each starts processes of its own: a kill takes its group
-            children.append(ModuleChild("dotaclient_tpu_torch.train.curriculum",
-                                        ["--ckpt-root", os.path.join(root, "curriculum"), "--seed", str(seed),
-                                         *CURRICULUM_ARGS], root, "curriculum"))
-            children.append(ModuleChild("dotaclient_tpu_torch.utils.chaos_run",
+    children = {}
+    try:
+        children["curriculum"] = ModuleChild("dotaclient_tpu_torch.train.curriculum",
+                                             ["--ckpt-root", os.path.join(root, "curriculum"), "--seed", str(seed),
+                                              *CURRICULUM_ARGS], root, "curriculum")
+        children["chaos"] = ModuleChild("dotaclient_tpu_torch.utils.chaos_run",
                                         ["--scenario", "baseline", "--actors", "2", "--seed", str(seed), "--workdir",
                                          os.path.join(root, "chaos"), "--keep-workdir", "--sigterm-at",
                                          str(CHAOS_STEPS), "--resume-steps", str(CHAOS_STEPS), "--timeout",
-                                         str(TOOLS_CHILD_S - 10)], root, "chaos"))
-            curriculum = curriculum_result(children[0], root)
-            chaos = chaos_result(children[1], root)
-        finally:
-            for child in children:
-                child.kill()
+                                         str(TOOLS_CHILD_S - 10)], root, "chaos")
+    except BaseException:
+        for child in children.values():
+            child.kill()
+        raise
+    return children
+
+
+def tools_phase(device, seed, tools, smi=""):
+    """Phase 21: (a) the BASELINE configs through bench_configs in this
+    process, beside (b) the curriculum and (c) the chaos supervisor's
+    baseline, ``tools`` = (their children, started beside phase 20, the
+    directory of their logs); the phase within PHASE21_BUDGET_S."""
+    t0 = time.perf_counter()
+    children, root = tools
+    bench = bench_phase(device, seed)
+    a_s = time.perf_counter() - t0
+    curriculum = curriculum_result(children["curriculum"], root)
+    chaos = chaos_result(children["chaos"], root)
     out = {"bench": bench, "curriculum": curriculum, "chaos": chaos, "bench_s": a_s,
            "lstm_seq_launches": {**bench["lstm_seq_launches"], "curriculum": curriculum["lstm_seq_launches"],
                                  "chaos_learners": chaos["lstm_seq_launches"],
                                  "chaos_actors": chaos["actors_lstm_seq_launches"]},
            "wall_s": time.perf_counter() - t0}
     by = {f"{r['config']}/{r['mode']}": r["end_to_end_frames_per_sec"] for r in bench["rows"]}
-    log(f"phase 21 (the tools beside the package): {out['wall_s']:.1f} s (bench {a_s:.1f} s, the children side by "
-        f"side {out['wall_s'] - a_s:.1f} s); trained frames/s by config/mode {by}; {smi}")
+    log(f"phase 21 (the tools beside the package): {out['wall_s']:.1f} s (bench {a_s:.1f} s, then {out['wall_s'] - a_s:.1f}"
+        f" s until the children, started beside phase 20, ended); trained frames/s by config/mode {by}; {smi}")
     if out["wall_s"] > PHASE21_BUDGET_S:
         raise AssertionError(f"phase 21 took {out['wall_s']:.1f} s, over its budget of {PHASE21_BUDGET_S:.0f} s")
     return out
@@ -6226,16 +6282,6 @@ def preflight_result(child, count):
     return out
 
 
-def parity_result(child):
-    """(a)'s fused parity at 2 on the card: ``ok``, the lanes split."""
-    _, lines = finished(child, "the fused parity")
-    out = last_json(lines, "the fused parity")
-    if not (out.get("ok") and out.get("lane_sharded") and out.get("devices") == [1, 2]
-            and out.get("device") == "cuda"):
-        raise AssertionError(f"the fused parity: {out} {child.stderr()[-2000:]}")
-    return out
-
-
 def seconds_an_update(jsonl):
     """A learner child's seconds an update: its run's elapsed seconds over
     its optimizer steps (the record's closing line), and the mean of its
@@ -6314,78 +6360,93 @@ def gate_result(child):
     return {"stages": stages, "wall_s": child.wall_s}
 
 
-def checks_phase(device, seed, smi=""):
-    """Phase 22: (a) the preflight and the fused parity, (b) checkify, (c)
-    the compile cache and (d) the gate, as children side by side; every
-    ``lstm_seq`` shape they launch held against LSTM_SHAPES."""
+def start_checks(root, seed):
+    """Phase 22's children, started beside phase 21: (d) the gate, ``bash
+    dotaclient_tpu_torch/utils/ci_gate.sh`` with the tests stage skipped,
+    and (a)-(c)'s but the second compile cache learner, which follows the
+    first."""
+    import os
+
+    smoke = ["--smoke", "--steps", str(CHECKIFY_STEPS), "--seed", str(seed)]
+    children = {}
+
+    def start(name, module, args, env=None):
+        children[name] = ModuleChild(module, args, root, name, env={**shape_env(root, name), **(env or {})})
+
+    try:
+        children["gate"] = ShellChild("dotaclient_tpu_torch/utils/ci_gate.sh", root, "gate",
+                                      env={"CI_GATE_SKIP_TESTS": "1", **shape_env(root, "gate")})
+        start("preflight", "dotaclient_tpu_torch.utils.run_multichip", [])
+        for name, extra in (("checked", ["--checkify"]), ("plain", [])):
+            start(name, "dotaclient_tpu_torch.train.learner",
+                  smoke + extra + ["--checkpoint-dir", os.path.join(root, f"ck_{name}"), "--metrics-jsonl",
+                                   os.path.join(root, f"{name}.jsonl")])
+        start("poisoned", "dotaclient_tpu_torch.train.learner", smoke + ["--checkify"],
+              env={"DOTA_FAULTS": "learner.nan_grad@1"})
+        start("cache1", "dotaclient_tpu_torch.train.learner",
+              ["--smoke", "--steps", "1", "--compile-cache", os.path.join(root, "cache")])
+    except BaseException:
+        for child in children.values():
+            child.kill()
+        raise
+    return children
+
+
+def checks_phase(device, seed, children, root, smi=""):
+    """Phase 22: (a) the preflight, (b) checkify, (c) the compile cache and
+    (d) the gate, their children in ``children`` (started beside phase 21
+    by ``start_checks``; the caller kills them), their logs in ``root``;
+    the second compile cache learner starts here, once the first ended, and
+    joins ``children``. Every ``lstm_seq`` shape
+    they launch is held against LSTM_SHAPES. (a)'s fused parity at 2 is
+    phase 23's fused_multichip stage, checked there."""
     import os
 
     import torch
 
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
-    smoke = ["--smoke", "--steps", str(CHECKIFY_STEPS), "--seed", str(seed)]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_checks_") as root:
-        cache = os.path.join(root, "cache")
-        children = {}
-        try:
-            def start(name, module, args, env=None):
-                children[name] = ModuleChild(module, args, root, name, env={**shape_env(root, name), **(env or {})})
-
-            children["gate"] = ShellChild("dotaclient_tpu_torch/utils/ci_gate.sh", root, "gate",
-                                          env={"CI_GATE_SKIP_TESTS": "1", **shape_env(root, "gate")})
-            start("preflight", "dotaclient_tpu_torch.utils.run_multichip", [])
-            for name, extra in (("checked", ["--checkify"]), ("plain", [])):
-                start(name, "dotaclient_tpu_torch.train.learner",
-                      smoke + extra + ["--checkpoint-dir", os.path.join(root, f"ck_{name}"), "--metrics-jsonl",
-                                       os.path.join(root, f"{name}.jsonl")])
-            start("poisoned", "dotaclient_tpu_torch.train.learner", smoke + ["--checkify"],
-                  env={"DOTA_FAULTS": "learner.nan_grad@1"})
-            start("cache1", "dotaclient_tpu_torch.train.learner", ["--smoke", "--steps", "1", "--compile-cache", cache])
-            preflight = preflight_result(children["preflight"], count)
-            start("parity", "dotaclient_tpu_torch.utils.run_multichip", ["--fused-parity", "2"])
-            _, lines1 = finished(children["cache1"], "the first compile cache learner")
-            first = cache_lines(lines1, "the first compile cache learner")
-            mtimes = {k: os.path.getmtime(v["path"]) for k, v in first.items()}
-            start("cache2", "dotaclient_tpu_torch.train.learner", ["--smoke", "--steps", "1", "--compile-cache", cache])
-            checkify = checkify_results(children, root)
-            parity = parity_result(children["parity"])
-            _, lines2 = finished(children["cache2"], "the second compile cache learner")
-            second = cache_lines(lines2, "the second compile cache learner")
-            if not (all(v["how"] == "built" for v in first.values()) and all(v["how"] == "loaded"
-                                                                            for v in second.values())
-                    and {k: os.path.getmtime(v["path"]) for k, v in second.items()} == mtimes
-                    and all(v["path"].startswith(cache) for v in second.values())):
-                raise AssertionError(f"the compile cache: first child {first}, second {second}")
-            gate = gate_result(children["gate"])
-            launches = {}
-            for name in ("preflight", "parity", "checked", "plain", "poisoned", "cache1", "cache2", "gate"):
-                shapes = logged_shapes(root, name)
-                launches[name] = {"launches": sum(shapes.values()),
-                                  "shapes": {f"B={b} T={t} D={d}": c for (b, t, d, _), c in sorted(shapes.items())}}
-        finally:
-            for child in children.values():
-                child.kill()
+    cache = os.path.join(root, "cache")
+    preflight = preflight_result(children["preflight"], count)
+    _, lines1 = finished(children["cache1"], "the first compile cache learner")
+    first = cache_lines(lines1, "the first compile cache learner")
+    mtimes = {k: os.path.getmtime(v["path"]) for k, v in first.items()}
+    children["cache2"] = ModuleChild("dotaclient_tpu_torch.train.learner",
+                                     ["--smoke", "--steps", "1", "--compile-cache", cache], root, "cache2",
+                                     env=shape_env(root, "cache2"))
+    checkify = checkify_results(children, root)
+    _, lines2 = finished(children["cache2"], "the second compile cache learner")
+    second = cache_lines(lines2, "the second compile cache learner")
+    if not (all(v["how"] == "built" for v in first.values()) and all(v["how"] == "loaded"
+                                                                    for v in second.values())
+            and {k: os.path.getmtime(v["path"]) for k, v in second.items()} == mtimes
+            and all(v["path"].startswith(cache) for v in second.values())):
+        raise AssertionError(f"the compile cache: first child {first}, second {second}")
+    gate = gate_result(children["gate"])
+    launches = {}
+    for name in ("preflight", "checked", "plain", "poisoned", "cache1", "cache2", "gate"):
+        shapes = logged_shapes(root, name)
+        launches[name] = {"launches": sum(shapes.values()),
+                          "shapes": {f"B={b} T={t} D={d}": c for (b, t, d, _), c in sorted(shapes.items())}}
     # the children's own counts, where they report them, against the logs
     for name in ("checked", "plain"):
         if checkify[name]["launches"] != launches[name]["launches"]:
             raise AssertionError(f"the {name} learner's done: line counts {checkify[name]['launches']} lstm_seq "
                                  f"launches, its processes logged {launches[name]['launches']}")
-    for name, reported in (("preflight", preflight["lstm_seq_launches"]), ("parity", parity["lstm_seq_launches"])):
-        if reported != launches[name]["launches"] or not reported:
-            raise AssertionError(f"the {name}'s ranks count {reported} lstm_seq launches, their processes logged "
-                                 f"{launches[name]['launches']}")
+    reported = preflight["lstm_seq_launches"]
+    if reported != launches["preflight"]["launches"] or not reported:
+        raise AssertionError(f"the preflight's ranks count {reported} lstm_seq launches, their processes logged "
+                             f"{launches['preflight']['launches']}")
     for name in launches:
         if not launches[name]["launches"]:
             raise AssertionError(f"{name}'s processes launched lstm_seq no time")
-    out = {"preflight": preflight, "parity": {k: v for k, v in parity.items() if k != "probes"},
-           "checkify": checkify, "cache": {"first": first, "second": second}, "gate": gate, "launches": launches,
+    out = {"preflight": preflight, "checkify": checkify, "cache": {"first": first, "second": second}, "gate": gate,
+           "launches": launches,
            "lstm_seq_launches": {f"checks_{k}": v["launches"] for k, v in launches.items()},
            "wall_s": time.perf_counter() - t0}
     c = checkify
-    log(f"checks (a): preflight {preflight['tail']} ({preflight['backend_info']}); fused parity at 2 on the card "
-        f"over gloo: losses {parity['parity']['max_abs_loss_diff']:.3g} apart, param L1 {parity['parity']['param_l1']}, "
-        f"lanes {parity['lanes']}")
+    log(f"checks (a): preflight {preflight['tail']} ({preflight['backend_info']}); the fused parity at 2: phase 23's "
+        f"fused_multichip stage")
     log(f"checks (b): checkify's clean run against the unchecked run from seed {seed}: {c['params_bitwise']} of "
         f"{c['params']} param tensors ({c['elements']} elements) bitwise; the poisoned run exited {c['poisoned_rc']} naming "
         f"{c['poisoned_op']}; seconds an update (the run's elapsed over its {c['checked']['steps']:.0f} steps, "
@@ -6394,12 +6455,159 @@ def checks_phase(device, seed, smi=""):
         f"{c['checked']['dispatch_mean_s']:.4f} against {c['plain']['dispatch_mean_s']:.4f} s; {smi}")
     log(f"checks (c): compile cache: first child {({k: (v['how'], round(v['seconds'], 2)) for k, v in first.items()})}, "
         f"second {({k: (v['how'], round(v['seconds'], 2)) for k, v in second.items()})}, mtimes unchanged; {smi}")
-    log(f"checks (d): the gate {gate['stages']} in {gate['wall_s']:.1f} s; lstm_seq launches by child "
+    log(f"checks (d): the gate {gate['stages']}, ended within {gate['wall_s']:.1f} s of its start beside phase 21; "
+        f"lstm_seq launches by child "
         f"{({k: v['launches'] for k, v in launches.items()})}, shapes {({k: v['shapes'] for k, v in launches.items()})}")
     log(f"phase 22 (the checks and the preflight): {out['wall_s']:.1f} s; {smi}")
     if out["wall_s"] > PHASE22_BUDGET_S:
         raise AssertionError(f"phase 22 took {out['wall_s']:.1f} s, over its budget of {PHASE22_BUDGET_S:.0f} s")
     return out
+
+
+# -- phase 23: the bench -----------------------------------------------------------
+
+# ``python -m dotaclient_tpu_torch.bench --smoke``'s stages over three
+# children side by side (they start beside phase 21): (a) the headline, the
+# learner stages and the serve curve, (b) the multichip probes and the
+# routed fleet, (c) the five planes' A/Bs and the fused parity at 2 (phase
+# 22 (a)'s, with frames/s)
+BENCH_CHILDREN = {"bench_a": ("headline", "transport", "stall", "quantize", "advantage", "serve"),
+                  "bench_b": ("multichip", "serve_fleet"),
+                  "bench_c": ("health", "trace", "fleet", "outcome", "utilization", "fused_multichip")}
+BENCH_CHILD_S = 240.0
+PHASE23_BUDGET_S = 150.0
+# the stages' gates: parity digests and completion at 1, the bf16 wire's
+# compression at the reference's bar
+BENCH_AT_1 = ("multichip_parity", "advantage_parity", "serve_parity", "serve_fleet_rehome_parity",
+              "serve_fleet_complete", "fused_multichip_parity")
+BENCH_COMPRESSION = 1.8
+
+
+def start_bench(root, seed):
+    """Phase 23's children, each with SHAPE_SHIM (its grandchildren too)."""
+    import os
+
+    children = {}
+    try:
+        for name, stages in BENCH_CHILDREN.items():
+            args = ["--smoke", "--seed", str(seed), "--anchor", os.path.join(root, f"anchor_{name}.json")]
+            children[name] = ModuleChild("dotaclient_tpu_torch.bench",
+                                         args + [a for st in stages for a in ("--stage", st)], root, name,
+                                         env=shape_env(root, name))
+    except BaseException:
+        for child in children.values():
+            child.kill()
+        raise
+    return children
+
+
+def rates(tree, path=""):
+    """Every frames/s of a bench line (``*frames_per_sec``, ``*_fps*``):
+    (path, value)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from rates(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool) and (
+            path.endswith("frames_per_sec") or "_fps" in path.rsplit(".", 1)[-1] or path == "value"):
+        yield path, tree
+
+
+def session_left(sid, wait_s=15.0):
+    """The processes of session ``sid`` still running (pid, command line)
+    after at most ``wait_s``: a child's helpers (a shared-memory resource
+    tracker) end on their own soon after it does."""
+    import os
+
+    deadline = time.monotonic() + wait_s
+    while True:
+        left = []
+        for pid in (p for p in os.listdir("/proc") if p.isdigit()):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                if int(fields[3]) != sid or fields[0] == "Z":   # the session id; zombies are gone
+                    continue
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    left.append((int(pid), f.read().replace(b"\0", b" ").decode(errors="replace")[:200]))
+            except (OSError, IndexError, ValueError):
+                continue
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.2)
+
+
+def bench_result(child, root, stages):
+    """A bench child's line, once it exited: exit 0, no stage's error, its
+    stages' gates, every frames/s finite and above 0, its processes gone,
+    every ``lstm_seq`` shape they launched in LSTM_SHAPES."""
+    import os
+
+    rc = child.wait(BENCH_CHILD_S)
+    lines = child.lines()
+    line = last_json(lines, child.name) if lines else {}
+    errors = {k: v["error"] for k, v in line.items() if isinstance(v, dict) and "error" in v}
+    if rc != 0 or errors or "error" in line or len(lines) != 1:
+        raise AssertionError(f"{child.name} exited {rc}: errors {errors} {line.get('error')}; "
+                             f"{child.stderr()[-3000:]}")
+    left = session_left(child.proc.pid)
+    if left:
+        raise AssertionError(f"{child.name} left processes of its session running: {left}")
+    gates = {k: line["stages"][k] for k in BENCH_AT_1 if line["stages"].get(k) is not None}
+    if any(v < 1.0 for v in gates.values()):
+        raise AssertionError(f"{child.name}: stage gates below 1: {gates}")
+    comp = line["stages"].get("rollout_compression")
+    if comp is not None and comp < BENCH_COMPRESSION:
+        raise AssertionError(f"{child.name}: rollout_compression {comp} under {BENCH_COMPRESSION}")
+    bad = [(k, v) for k, v in rates(line) if not (np.isfinite(v) and v > 0)]
+    found = dict(rates(line))
+    if bad or ("headline" in stages and "end_to_end_frames_per_sec" not in found):
+        raise AssertionError(f"{child.name}: frames/s not finite and above 0: {bad}")
+    missing = [st for st in stages if st != "headline" and not isinstance(line.get(st), dict)]
+    if missing:
+        raise AssertionError(f"{child.name}: no result for {missing}")
+    shapes = logged_shapes(root, child.name)
+    return {"line": line, "gates": gates, "wall_s": child.wall_s, "launches": sum(shapes.values()),
+            "shapes": {f"B={b} T={t} D={d}": c for (b, t, d, _), c in sorted(shapes.items())}}
+
+
+def bench_smoke_phase(children, root, smi=""):
+    """Phase 23: the bench's children (started beside phase 21) to their
+    ends and their lines checked; the fused_multichip stage stands in for
+    phase 22 (a)'s fused parity at 2 and is held to its checks."""
+    t0 = time.perf_counter()
+    out = {name: bench_result(child, root, BENCH_CHILDREN[name]) for name, child in children.items()}
+    fused = out["bench_c"]["line"]["fused_multichip"]
+    if not (fused["fused_multichip_parity"] == 1.0 and fused["lane_sharded"] and fused["device"] == "cuda"
+            and fused["lanes"]["per_rank"] == [2, 2] and fused["n_devices"] == 2):
+        raise AssertionError(f"the fused parity at 2 (fused_multichip): {fused}")
+    for name, r in out.items():
+        if not r["launches"]:
+            raise AssertionError(f"{name}'s processes launched lstm_seq no time")
+    if fused["lstm_seq_launches"] > out["bench_c"]["launches"]:
+        raise AssertionError(f"the fused parity's ranks count {fused['lstm_seq_launches']} lstm_seq launches, "
+                             f"bench_c's processes logged {out['bench_c']['launches']}")
+    lines = {name: r["line"] for name, r in out.items()}
+    a, b, c = lines["bench_a"], lines["bench_b"], lines["bench_c"]
+    st = {**a["stages"], **{k: v for x in (b, c) for k, v in x["stages"].items() if v is not None}}
+    log(f"bench (a): --smoke headline {a['value']} optimizer frames/s, end to end {a['end_to_end_frames_per_sec']}, "
+        f"fused {a['fused_frames_per_sec']}, k8 {a['fused_k8_frames_per_sec']}, actor {a['actor_frames_per_sec']}; "
+        f"shm_vs_socket {a['transport']['shm_vs_socket']}, stall recoveries {st['stall_sync_recovery']} / "
+        f"{st['stall_async_recovery']}, rollout_compression {st['rollout_compression']}, advantage_speedup "
+        f"{st['advantage_speedup']} (smoke depth: checks, not measurements; {smi})")
+    log(f"bench (a): serve parity {st['serve_parity']}, best window {a['serve']['best_window']}; (b): multichip "
+        f"parity {st['multichip_parity']} over {b['multichip']['backend']}; serve_fleet complete "
+        f"{st['serve_fleet_complete']}, re-home parity {st['serve_fleet_rehome_parity']}, blackout p99 "
+        f"{st['serve_fleet_blackout_p99_ms']} ms")
+    log(f"bench (c): overheads health {st['health_overhead']}, trace {st['trace_overhead']}, fleet "
+        f"{st['fleet_overhead']}, outcome {st['outcome_overhead']}, utilization {st['utilization_overhead']}; the "
+        f"fused parity at 2 on the card over gloo (phase 22 (a)'s): losses {fused['parity']['max_abs_loss_diff']:.3g} "
+        f"apart, param L1 {fused['parity']['param_l1']}, lanes {fused['lanes']}")
+    log(f"bench: children's walls {({k: round(r['wall_s'], 1) for k, r in out.items()})} s, lstm_seq launches "
+        f"{({k: r['launches'] for k, r in out.items()})}, shapes {({k: r['shapes'] for k, r in out.items()})}")
+    result = {"children": out, "wall_s": time.perf_counter() - t0,
+              "lstm_seq_launches": {name: r["launches"] for name, r in out.items()}}
+    log(f"phase 23 (the bench): {result['wall_s']:.1f} s after phase 22 (the children started with 21); {smi}")
+    return result
 
 
 def main() -> int:
@@ -6459,14 +6667,30 @@ def main() -> int:
     phase17 = timed("17 (transformer, MoE)", transformer_phase, device, args.seed, league["frames_per_s"])
     phase18 = timed("18 (wire)", wire_phase, device, args.seed, external["external"], smi)
     phase19 = timed("19 (data parallel)", data_parallel_phase, device, args.seed, smi)
-    phase20 = timed("20 (multi-GPU)", multigpu_rest_phase, device, args.seed, smi)
-    phase21 = timed("21 (tools)", tools_phase, device, args.seed, smi)
-    phase22 = timed("22 (checks)", checks_phase, device, args.seed, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_late_") as late:
+        children = start_tools(late, args.seed)   # phase 21 (b) and (c), beside phase 20
+        try:
+            phase20 = timed("20 (multi-GPU)", multigpu_rest_phase, device, args.seed, smi)
+            # phases 22's and 23's children, beside phase 21 (checks_phase
+            # adds its second compile cache learner to ``children``)
+            children.update(start_checks(late, args.seed))
+            bench_children = start_bench(late, args.seed)
+            children.update(bench_children)
+            phase21 = timed("21 (tools)", tools_phase, device, args.seed,
+                            ({k: children[k] for k in ("curriculum", "chaos")}, late), smi)
+            phase22 = timed("22 (checks)", checks_phase, device, args.seed, children, late, smi)
+            phase23 = timed("23 (bench)", bench_smoke_phase, bench_children, late, smi)
+            if phase_s["22 (checks)"] + phase_s["23 (bench)"] > PHASE22_BUDGET_S + PHASE23_BUDGET_S:
+                raise AssertionError(f"phases 22 and 23 took {phase_s['22 (checks)'] + phase_s['23 (bench)']:.1f} s, "
+                                     f"over their budget of {PHASE22_BUDGET_S + PHASE23_BUDGET_S:.0f} s")
+        finally:
+            for child in children.values():
+                child.kill()
     frames = {r["config"]: r["end_to_end_frames_per_sec"] for r in phase21["bench"]["rows"] if r["mode"] == "fused"}
     log(f"configs 3 and 4 fused {frames} trained frames/s against phase 6's fused config-1 learner "
         f"{train['frames_per_s']:.0f} in this run: {frames[3] / train['frames_per_s']:.3f}x and "
         f"{frames[4] / train['frames_per_s']:.3f}x; {smi}")
-    log(f"phases 1-22: {time.perf_counter() - t_start:.1f} s; "
+    log(f"phases 1-23: {time.perf_counter() - t_start:.1f} s; "
         + ", ".join(f"{k.split(' ')[0]} {v:.1f}" for k, v in phase_s.items()))
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
@@ -6495,7 +6719,8 @@ def main() -> int:
                                          for k, v in phase19["lstm_seq_launches"].items()},
                                       **{f"multigpu_{k}": v for k, v in phase20["lstm_seq_launches"].items()},
                                       **phase21["lstm_seq_launches"],
-                                      **phase22["lstm_seq_launches"]}
+                                      **phase22["lstm_seq_launches"],
+                                      **phase23["lstm_seq_launches"]}
     lstm_entry["launches"] = sum(lstm_entry["launches_by_path"].values())
 
     from dotaclient_tpu_torch.transport import serialize
@@ -6512,7 +6737,8 @@ def main() -> int:
                        "profile": serve_profile, "train": train, "socket": sock, "fleet": fleet,
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
                        "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19,
-                       "phase20": phase20, "phase21": phase21, "phase22": phase22, "phase_s": phase_s}, f,
+                       "phase20": phase20, "phase21": phase21, "phase22": phase22, "phase23": phase23,
+                       "phase_s": phase_s}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

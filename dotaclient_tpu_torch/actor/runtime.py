@@ -354,8 +354,9 @@ class ActorPool(WindowedStatsMixin):
             if done and lane is self._env_owner(lane.env_idx):
                 self._on_episode_end(lane.env_idx, ws)
         outcome_records.add_reward_terms(self._tel, step_terms)
-        self._util.phase("featurize", feat_s)
-        self._util.phase("env_step", time.perf_counter() - t_env - feat_s)
+        if self._util is not None:
+            self._util.phase("featurize", feat_s)
+            self._util.phase("env_step", time.perf_counter() - t_env - feat_s)
 
         if finished:
             zeros_row = np.zeros((self._hidden,), np.float32)
@@ -409,13 +410,15 @@ class ActorPool(WindowedStatsMixin):
         self._next_rollout_id += 1
         t_ship = time.perf_counter()
         # the chunk's assembly is encode; its proto and publish, ship_wait
-        self._util.phase("encode", t_ship - t_enc)
+        if self._util is not None:
+            self._util.phase("encode", t_ship - t_enc)
         if self.rollout_sink is not None:
             # in process: full width, no wire to save bytes on
             self.rollout_sink(encode_rollout(arrays, **meta))
         elif self.transport is not None:
             self.transport.publish_rollout(encode_rollout(arrays, **meta, **self._wire_kwargs))
-        self._util.phase("ship_wait", time.perf_counter() - t_ship)
+        if self._util is not None:
+            self._util.phase("ship_wait", time.perf_counter() - t_ship)
         self.rollouts_shipped += 1
         self._tel.counter("actor/rollouts_shipped").inc()
         self._tel.counter("actor/frames_shipped").inc(n)
@@ -428,7 +431,8 @@ class ActorPool(WindowedStatsMixin):
         for t in range(n_steps):
             if refresh_every and t % refresh_every == 0:
                 self.refresh_weights()
-                self._util.maybe_fold()   # cadence-gated: one clock compare
+                if self._util is not None:
+                    self._util.maybe_fold()   # cadence-gated: one clock compare
             self.step()
         return self.stats()
 

@@ -309,7 +309,8 @@ class VecActorPool(WindowedStatsMixin):
         t_env = time.perf_counter()
         self.sim.step(sim_actions)
         r = self.rewards.compute()                                 # [L]
-        self._util.phase("env_step", time.perf_counter() - t_env)
+        if self._util is not None:
+            self._util.phase("env_step", time.perf_counter() - t_env)
         self._ep_game_steps += 1
         outcome_records.add_reward_terms(self._tel, self.rewards.last_term_sums)
         done_game = self.sim.done                                  # [N]
@@ -323,7 +324,8 @@ class VecActorPool(WindowedStatsMixin):
 
         t_feat = time.perf_counter()
         obs_next = self.feat.featurize_all()
-        self._util.phase("featurize", time.perf_counter() - t_feat)
+        if self._util is not None:
+            self._util.phase("featurize", time.perf_counter() - t_feat)
         finished = (self._cursor >= T) | done_lane
         if finished.any():
             self._emit_chunks(np.nonzero(finished)[0], done_lane, obs_next, carry_np, version)
@@ -339,7 +341,8 @@ class VecActorPool(WindowedStatsMixin):
             self._reset_mask |= done_lane
             t_feat = time.perf_counter()
             obs_next = self.feat.featurize_all()   # the fresh episodes'
-            self._util.phase("featurize", time.perf_counter() - t_feat)
+            if self._util is not None:
+                self._util.phase("featurize", time.perf_counter() - t_feat)
         self._pending_obs = obs_next
 
     def _emit_chunks(self, lanes: np.ndarray, done_lane: np.ndarray, obs_next: Dict[str, np.ndarray],
@@ -408,7 +411,8 @@ class VecActorPool(WindowedStatsMixin):
                 buf[lane] = 0.0 if done else src[lane]
         # encode: the chunks' assembly and trace stamps; the publish below
         # is ship_wait
-        self._util.phase("encode", time.perf_counter() - t_enc)
+        if self._util is not None:
+            self._util.phase("encode", time.perf_counter() - t_enc)
         self._tel.counter("actor/rollouts_shipped").inc(len(out))
         self._tel.counter("actor/frames_shipped").inc(float(sum(m["length"] for m, _ in out)))
         t_ship = time.perf_counter()
@@ -421,7 +425,8 @@ class VecActorPool(WindowedStatsMixin):
                     publish_bytes(encode_rollout_bytes(arrays, **meta, **self._wire_kwargs, trace=blob))
                 else:
                     self.transport.publish_rollout(encode_rollout(arrays, **meta, **self._wire_kwargs, trace=blob))
-        self._util.phase("ship_wait", time.perf_counter() - t_ship)
+        if self._util is not None:
+            self._util.phase("ship_wait", time.perf_counter() - t_ship)
         self.rollouts_shipped += len(out)
 
     def _record_episodes(self, games: np.ndarray) -> None:
@@ -453,7 +458,8 @@ class VecActorPool(WindowedStatsMixin):
                     # cadence-gated inside; a send error propagates like a
                     # failed rollout publish, to the caller's reconnect
                     self._fleet.maybe_publish(self.transport)
-                self._util.maybe_fold()   # cadence-gated: one clock compare
+                if self._util is not None:
+                    self._util.maybe_fold()   # cadence-gated: one clock compare
             self.step()
         return self.stats()
 

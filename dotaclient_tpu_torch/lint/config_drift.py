@@ -79,6 +79,9 @@ ALL_CLIS = OPERATOR_CLIS + (
     "dotaclient_tpu_torch/utils/trace_report.py",
     "dotaclient_tpu_torch/utils/outcome_report.py",
     "dotaclient_tpu_torch/utils/utilization_report.py",
+    "dotaclient_tpu_torch/bench.py",
+    "dotaclient_tpu_torch/transport/bench_producer.py",
+    "dotaclient_tpu_torch/utils/bench_trajectory.py",
 )
 
 # `--flag` mention: lowercase-dashed word; a trailing [_a-z0-9] after the

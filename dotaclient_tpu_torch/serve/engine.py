@@ -401,7 +401,8 @@ class ServeEngine:
                     # idle waiting for ANY request counts as window_wait
                     t_w = time.perf_counter()
                     self._cond.wait()
-                    self._util.phase("window_wait", time.perf_counter() - t_w)
+                    if self._util is not None:
+                        self._util.phase("window_wait", time.perf_counter() - t_w)
                 if self._stopped and not self._pending:
                     return
             rows, resets, installs = self._collect_window()
@@ -429,7 +430,8 @@ class ServeEngine:
                         "request(s) dropped, batcher continues",
                         type(e).__name__, e, len(rows),
                     )
-            self._util.maybe_fold()
+            if self._util is not None:
+                self._util.maybe_fold()
 
     def _peek_pending_weights(self):
         with self._weights_lock:
@@ -488,7 +490,8 @@ class ServeEngine:
                     self._install_carries.clear()
                     return rows, resets, installs
                 self._cond.wait(min(deadline - now, 0.05))
-                self._util.phase("window_wait", time.perf_counter() - now)
+                if self._util is not None:
+                    self._util.phase("window_wait", time.perf_counter() - now)
 
     def _stage(self, rows: List[_Request]) -> None:
         """Copy the window into the host lanes and enqueue their copies to
@@ -527,7 +530,8 @@ class ServeEngine:
         self._dispatch_idx += 1
         version = self._version
         t_done = time.perf_counter()
-        self._util.phase("dispatch", t_done - t_d)
+        if self._util is not None:
+            self._util.phase("dispatch", t_done - t_d)
         timer = self._tel.timer("span/serve/request")
         errors = 0
         for i, req in enumerate(rows):
@@ -542,7 +546,8 @@ class ServeEngine:
                     )
             except Exception:   # noqa: BLE001 - a dead client must not kill the batcher
                 errors += 1
-        self._util.phase("reply", time.perf_counter() - t_done)
+        if self._util is not None:
+            self._util.phase("reply", time.perf_counter() - t_done)
         self._tel.counter("serve/dispatches_total").inc()
         self._tel.counter("serve/replies_total").inc(n - errors)
         if errors:

@@ -59,15 +59,20 @@ def run_loadgen(
     router: bool = False,
     max_reconnects: int = 6,
     think_s: float = 0.0,
+    collect_samples: bool = False,
 ) -> Dict[str, Any]:
     """N client threads x R sequential requests each, started together.
     The wall clock covers first send to last reply across the fleet, so
     actions/s reflects the server's coalescing. ``think_s`` sleeps between a
     client's requests (a game's frame cadence). The summary also counts
-    re-homed sessions and requests that missed their deadline."""
+    re-homed sessions and requests that missed their deadline.
+    ``collect_samples`` adds each reply's ``(t_end, latency, client)``
+    (monotonic clock) under ``samples``, so a caller can split the latency
+    curve around a failover (the bench's blackout p99)."""
     from dotaclient_tpu_torch.serve.client import ServeClient, ServeDeadlineError
 
     latencies: List[List[float]] = [[] for _ in range(n_clients)]
+    samples: List[tuple] = []
     lock = threading.Lock()
     versions: set = set()
     errors: List[str] = []
@@ -98,6 +103,9 @@ def run_loadgen(
                     continue
                 latencies[ci].append(client.last_latency_s)
                 versions.add(client.last_version)
+                if collect_samples:
+                    with lock:
+                        samples.append((time.monotonic(), client.last_latency_s, ci))
         except Exception as e:  # noqa: BLE001 - reported in the summary
             errors.append(f"step: {type(e).__name__}: {e}")
         finally:
@@ -115,7 +123,7 @@ def run_loadgen(
     wall = time.perf_counter() - t0
     flat = sorted(s for per in latencies for s in per)
     n = len(flat)
-    return {
+    out = {
         "clients": n_clients,
         "requests_per_client": requests_per_client,
         "replies": n,
@@ -128,6 +136,9 @@ def run_loadgen(
         "p99_ms": round(flat[min(n - 1, int(n * 0.99))] * 1e3, 3) if n else 0.0,
         "versions_seen": sorted(versions),
     }
+    if collect_samples:
+        out["samples"] = samples
+    return out
 
 
 def _wait_until(pred, timeout=30.0, poll=0.02):

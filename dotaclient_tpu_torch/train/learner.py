@@ -732,7 +732,8 @@ class Learner:
             else:
                 self.state, m = self.epoch_step(self.state, batch, perms)
         # the host's time issuing the updates (utils/utilization.py)
-        self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+        if self._util is not None:
+            self._util.phase("dispatch_inflight", time.perf_counter() - t0)
         self._dispatch_inflight = True
         self._submit_health(m)
         if self._tracer is not None:
@@ -799,7 +800,8 @@ class Learner:
         dt = time.perf_counter() - t0
         # a productive take is staging; an empty one, the ring below
         # its minimum
-        self._util.phase("gather" if batch is not None else "ingest_wait", dt)
+        if self._util is not None:
+            self._util.phase("gather" if batch is not None else "ingest_wait", dt)
         if batch is None:
             return None
         self._prefetch_serial_s += dt
@@ -821,10 +823,12 @@ class Learner:
         taken = self.buffer.take(current_version=self.state.version, hold=True)
         dt = time.perf_counter() - t0
         if taken is None:
-            self._util.phase("ingest_wait", dt)
+            if self._util is not None:
+                self._util.phase("ingest_wait", dt)
             return
         self._prefetched, self._prefetch_ticket = taken
-        self._util.phase("gather", dt)
+        if self._util is not None:
+            self._util.phase("gather", dt)
         # recorded only when a batch was staged
         self.registry.timer("span/learner/prefetch").observe(dt)
         if self._dispatch_inflight:
@@ -858,7 +862,8 @@ class Learner:
         dt = time.perf_counter() - t0
         self.registry.gauge("advantage/pass_ms").set(dt * 1e3)
         self.registry.counter("advantage/passes_total").inc()
-        self._util.phase("advantage_pass", dt)
+        if self._util is not None:
+            self._util.phase("advantage_pass", dt)
         if self._adv_first:
             # the first pass pays one-time costs (allocations, the kernel
             # library's load)
@@ -1102,7 +1107,8 @@ class Learner:
                 self._published_version = max(self._published_version, self.state.version)
         stall = time.perf_counter() - t0
         self._stall_s += stall
-        self._util.phase("publish_stall", stall)
+        if self._util is not None:
+            self._util.phase("publish_stall", stall)
         self.registry.gauge("learner/publish_stall_ms").set(stall * 1e3)
 
     def _drain_snapshots(self, apply_best: bool = True) -> None:
@@ -1240,7 +1246,8 @@ class Learner:
         tracing.update_memory_gauges(reg, self.device)
         if not self._fleet_started:
             self.outcome.tick()
-        self._util.fold(self.state.step)
+        if self._util is not None:
+            self._util.fold(self.state.step)
 
     def _checkpoint_boundary(self) -> None:
         """A periodic save of the train state (the pipeline is saved only
@@ -1258,7 +1265,8 @@ class Learner:
                 self.registry.counter("health/checkpoints_blocked_total").inc()
             else:
                 self.ckpt.save(self.state, self.config, mark_good=self._health is not None, opt_state=opt_state)
-        self._util.phase("checkpoint_stall", time.perf_counter() - t0)
+        if self._util is not None:
+            self._util.phase("checkpoint_stall", time.perf_counter() - t0)
 
     def _after_step(self, m: Dict[str, torch.Tensor], frames: int, stride: int) -> int:
         """The boundary work of one loop iteration; returns the optimizer
@@ -1313,7 +1321,8 @@ class Learner:
                 opp_params, opp_uid = self._league_opponent()
                 t0 = time.perf_counter()
                 self.state, da.state, m, chunk_stats = self.fused_step(self.state, da.state, opp_params)
-                self._util.phase("dispatch_inflight", time.perf_counter() - t0)
+                if self._util is not None:
+                    self._util.phase("dispatch_inflight", time.perf_counter() - t0)
                 self._dispatch_inflight = True
                 self._report_league(opp_uid, chunk_stats)
                 da.env_steps += frames_per
@@ -1364,7 +1373,8 @@ class Learner:
                 batch = self._next_batch()
                 if batch is None:
                     time.sleep(0.005)
-                    self._util.phase("ingest_wait", 0.005)
+                    if self._util is not None:
+                        self._util.phase("ingest_wait", 0.005)
                     continue
                 train_one(batch)
                 if refresh_due():
@@ -1397,7 +1407,8 @@ class Learner:
                     batch = self._next_batch()
                     if batch is None:
                         time.sleep(0.002)
-                        self._util.phase("ingest_wait", 0.002)
+                        if self._util is not None:
+                            self._util.phase("ingest_wait", 0.002)
                         continue
                     train_one(batch)
                     if refresh_due():

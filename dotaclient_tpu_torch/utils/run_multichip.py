@@ -27,16 +27,31 @@ the dry run its ``__graft_entry__.dryrun_multichip`` provides), for
   param L1 at reassociation tolerance, and requires at N the lane-sharding
   proof: each rank's actor state holds ``lanes / N`` rows, read off the
   state.
-* ``--probe`` and ``--fused`` are measurements: they wait for the port's
-  benchmark (ROADMAP, the note after item 8), and the CLI refuses them.
+* **--probe**: the measurement of the bench's multichip stage. The
+  learner's epoch step (``train/ppo.py`` ``make_epoch_step``) at the
+  default shapes with E=2 and M=2, so each call runs the multi-update
+  program (the minibatch gathers, the gradient all-reduce an update), at
+  world N: optimizer frames/s (best of 2 timed segments) and a
+  deterministic parity digest (each step's loss and the params' float64 L1
+  from the seed's params and the learner's minibatch permutation stream).
+  The bench runs it at world 1 and world N and compares the digests.
+* **--fused**: the same contract for the fused iteration at world N, with
+  the lane-sharding proof of ``--fused-parity``.
 
-The ranks run on the card unless ``--device cpu`` is given (``--force-host``
-is the CPU by definition).
+Every mode runs its ranks through the preflight's world: over NCCL when
+each rank has a card of its own, over gloo when they share one
+(``--devices`` above the card count), on gloo CPU processes with
+``--force-host N`` or ``--device cpu``. The ranks run on the card unless
+``--device cpu`` is given (``--force-host`` is the CPU by definition). The
+probes compute in f32, as the fused parity does: their digests are
+compared across world sizes.
 
 Usage:
     python -m dotaclient_tpu_torch.utils.run_multichip                   # preflight on the cards
     python -m dotaclient_tpu_torch.utils.run_multichip --force-host 2    # gloo CPU fallback
     python -m dotaclient_tpu_torch.utils.run_multichip --fused-parity 2 [--device cpu]
+    python -m dotaclient_tpu_torch.utils.run_multichip --probe --devices 2 --steps 8   # the bench's probe
+    python -m dotaclient_tpu_torch.utils.run_multichip --fused --force-host 2
 """
 
 from __future__ import annotations
@@ -112,6 +127,9 @@ FAILURE_SIGNATURES: Tuple[Tuple[str, str, str], ...] = (
 PARITY_ENVS, PARITY_STEPS, PARITY_ROLLOUT_LEN = 4, 2, 8
 # the dry run's rows a rank and rollout length
 DRYRUN_ROWS, DRYRUN_ROLLOUT_LEN = 8, 8
+# the probes' timed dispatches a segment (best of 2 segments) and the
+# deterministic steps of their digest
+PROBE_STEPS, PROBE_PARITY_STEPS = 10, 3
 # a rank prints it once it has joined its world: what it printed before is
 # its init's output, what fails after is the path's
 JOINED = "MULTICHIP_RANK_JOINED"
@@ -242,7 +260,8 @@ def _rank_entry(job: str, rank: int, world: int, addr: str, device: str, backend
         if int(ones.item()) != world:
             raise AssertionError(f"the join's all-reduce gave {ones.item()}, expected {world}")
         print(JOINED, flush=True)
-        out = {"dryrun": dryrun, "fused_rank": fused_rank}[job](rank, world, device, json.loads(payload_json))
+        jobs = {"dryrun": dryrun, "fused_rank": fused_rank, "probe_rank": probe_rank}
+        out = jobs[job](rank, world, device, json.loads(payload_json))
         print("MULTICHIP_RANK " + json.dumps(out, sort_keys=True), flush=True)
     finally:
         dist.destroy_process_group()
@@ -280,10 +299,11 @@ def dryrun(rank: int, world: int, device: str, payload: dict) -> Dict[str, Any]:
     import numpy as np
     import torch
 
+    from dotaclient_tpu_torch.bench import seeded_batch
     from dotaclient_tpu_torch.models.policy import init_params, make_policy
     from dotaclient_tpu_torch.parallel import make_mesh
     from dotaclient_tpu_torch.parallel.mesh import data_sharding
-    from dotaclient_tpu_torch.train.ppo import example_batch, init_train_state, make_train_step
+    from dotaclient_tpu_torch.train.ppo import init_train_state, make_train_step
     from dotaclient_tpu_torch.utils.tree import tree_map
 
     config = _config(payload)
@@ -296,13 +316,7 @@ def dryrun(rank: int, world: int, device: str, payload: dict) -> Dict[str, Any]:
     init_params(policy, torch.Generator().manual_seed(0))
     state = init_train_state(policy, config.ppo)
     step = make_train_step(config, group=mesh.batch_group if world > 1 else None)
-    rng = np.random.default_rng(0)
-    T = config.ppo.rollout_len
-    batch = example_batch(config, B, device=dev)
-    batch["obs"]["units"] = torch.from_numpy(rng.normal(size=tuple(batch["obs"]["units"].shape))
-                                             .astype(np.float32)).to(dev)
-    batch["rewards"] = torch.from_numpy((rng.normal(size=(B, T)) * 0.1).astype(np.float32)).to(dev)
-    batch["behavior_logp"] = torch.from_numpy(-np.abs(rng.normal(size=(B, T))).astype(np.float32)).to(dev)
+    batch = seeded_batch(config, B, np.random.default_rng(0), dev)
     rows = data_sharding(mesh, config.mesh, B)
     launches0 = _launches()
     state, m = step(state, tree_map(lambda t: t[rows], batch))
@@ -352,8 +366,107 @@ def fused_rank(rank: int, world: int, device: str, payload: dict) -> Dict[str, A
         if not np.isfinite(loss):
             raise AssertionError(f"non-finite loss {loss}")
         losses.append(loss)
-    return {"losses": losses, "param_l1": _param_l1(policy), "lane_shards": int(actor.lane_shards),
-            "global_lanes": int(actor._global_lanes), "state_lane_rows": int(ast.ep_return.shape[0]),
+    out = {"losses": losses, "param_l1": _param_l1(policy), "lane_shards": int(actor.lane_shards),
+           "global_lanes": int(actor._global_lanes), "state_lane_rows": int(ast.ep_return.shape[0])}
+    steps = payload.get("steps", 0)
+    if steps:
+        # after the digest: a settling call, then the best of 2 segments
+        # (every lane of the world trained a call)
+        frames = actor._global_lanes * config.ppo.rollout_len * config.steps_per_dispatch
+
+        def run(n):
+            nonlocal state, ast
+            for _ in range(n):
+                state, ast, m, _stats = fused(state, ast)
+            return float(m["loss"])
+
+        out["optimizer_frames_per_sec"] = _best_fps(run, steps, frames)
+    out["lstm_seq_launches"] = _launches() - launches0
+    return out
+
+
+def _best_fps(run, steps: int, frames: int) -> float:
+    """``run(1)`` to settle, then the best of 2 segments of ``run(steps)``
+    in ``frames`` a step over the host clock; ``run`` reads a result of its
+    last step, so each segment ends when the device has finished it."""
+    run(1)
+    fps = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(steps)
+        fps = max(fps, steps * frames / (time.perf_counter() - t0))
+    return round(fps, 1)
+
+
+def _probe_config(payload: dict):
+    """The probe's run config: the default shapes with E=2 and M=2 (the
+    multi-update program), f32 compute, ``payload``'s DCN slices and model
+    overrides."""
+    import dataclasses
+
+    config = _config(payload)
+    return dataclasses.replace(
+        config,
+        model=dataclasses.replace(config.model, dtype="float32"),
+        ppo=dataclasses.replace(config.ppo, epochs_per_batch=2, minibatches=2),
+        mesh=dataclasses.replace(config.mesh, dcn_slices=payload.get("dcn_slices", 1)),
+    )
+
+
+def probe_rank(rank: int, world: int, device: str, payload: dict) -> Dict[str, Any]:
+    """The epoch step over the world's batch group: ``parity_steps`` steps
+    from the seed's params (each loss, then the params' float64 L1), then
+    the throughput of fresh params: a settling step and the best of 2
+    segments of ``steps``, in global frames over the host clock. The
+    batch is the reference probe's seeded one; the permutations are drawn
+    from the learner's stream (``seed + 1``), the same on every rank."""
+    import numpy as np
+    import torch
+
+    from dotaclient_tpu_torch.bench import seeded_batch
+    from dotaclient_tpu_torch.models.policy import init_params, make_policy
+    from dotaclient_tpu_torch.parallel import make_mesh
+    from dotaclient_tpu_torch.parallel.mesh import data_sharding
+    from dotaclient_tpu_torch.train.ppo import init_train_state, make_epoch_step
+    from dotaclient_tpu_torch.utils.tree import tree_map
+
+    config = _probe_config(payload)
+    B, T, E = config.ppo.batch_rollouts, config.ppo.rollout_len, config.ppo.epochs_per_batch
+    dev = _rank_device(device, rank)
+    mesh = make_mesh(config.mesh)
+    policy = make_policy(config.model, config.obs, config.actions, device=dev)
+    step = make_epoch_step(config, group=mesh.batch_group if world > 1 else None)
+
+    def fresh_state():
+        init_params(policy, torch.Generator().manual_seed(config.seed))
+        return init_train_state(policy, config.ppo)
+
+    batch = seeded_batch(config, B, np.random.default_rng(0), dev)
+    batch = tree_map(lambda t: t[data_sharding(mesh, config.mesh, B)], batch)
+    mb_rng = np.random.default_rng(config.seed + 1)
+
+    def perms():
+        return np.stack([mb_rng.permutation(B) for _ in range(E)]).astype(np.int32)
+
+    launches0 = _launches()
+    state, losses = fresh_state(), []
+    for _ in range(payload["parity_steps"]):
+        state, m = step(state, batch, perms())
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    param_l1 = _param_l1(policy)
+    state = fresh_state()
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = step(state, batch, perms())
+        return float(m["loss"])
+
+    fps = _best_fps(run, payload["steps"], B * T)
+    return {"losses": losses, "param_l1": param_l1, "optimizer_frames_per_sec": fps,
+            "mesh": {str(k): int(v) for k, v in mesh.shape.items()},
             "lstm_seq_launches": _launches() - launches0}
 
 
@@ -431,8 +544,72 @@ def preflight(n_devices: Optional[int], force_host: Optional[int], device: str =
     return _dryrun_result(n, "accelerator", "cuda", backend, {"backend_info": backend_info}, model)
 
 
+def _measure(job: str, mode: str, n_devices: Optional[int], force_host: Optional[int], device: str,
+             payload: dict) -> Tuple[Optional[int], Optional[dict], List[dict]]:
+    """``job`` on the preflight's world: ``force_host`` (or ``n_devices``
+    with ``device="cpu"``) gloo CPU processes, else ``n_devices`` ranks
+    (default: the card count) on the cards, over NCCL when each has its
+    own. Returns (None, the result's base, each rank's result), or (the
+    exit code of the printed SKIP or failure line, None, [])."""
+    if force_host is not None or device == "cpu":
+        n, device, backend = (force_host if force_host is not None else (n_devices or 1)), "cpu", "gloo"
+    else:
+        import torch
+
+        count = torch.cuda.device_count()
+        n = n_devices if n_devices is not None else max(1, count)
+        backend = "nccl" if n <= count else "gloo"
+    rc, out, results, init = _run_world(n, job, device, backend, payload)
+    base = {"n_devices": n, "mode": mode, "backend": backend, "device": device, "rc": rc}
+    if rc == 0 and all(r is not None for r in results):
+        l1 = {r["param_l1"] for r in results}
+        if len(l1) == 1:
+            return None, base, results
+        out += f"\nthe ranks' params differ after the digest: param L1 {sorted(l1)}"
+    skipped = _skip(base, init) if rc != 0 else None
+    if skipped is not None:
+        return skipped, None, []
+    return _result({**base, "ok": False, "skipped": False, "tail": "\n".join(out.splitlines()[-12:])}), None, []
+
+
+def probe(n_devices: Optional[int], force_host: Optional[int] = None, device: str = "cuda",
+          steps: int = PROBE_STEPS, parity_steps: int = PROBE_PARITY_STEPS, dcn_slices: int = 1,
+          model: Optional[dict] = None) -> int:
+    """``--probe``: the epoch step's optimizer frames/s and parity digest at
+    world N (rank 0's numbers; every rank's params equal after the
+    digest)."""
+    payload = {"model": model or {}, "steps": steps, "parity_steps": parity_steps, "dcn_slices": dcn_slices}
+    rc, base, results = _measure("probe_rank", "probe", n_devices, force_host, device, payload)
+    if base is None:
+        return rc
+    r0 = results[0]
+    return _result({**base, "ok": True, "skipped": False, "mesh": r0["mesh"],
+                    "optimizer_frames_per_sec": r0["optimizer_frames_per_sec"],
+                    "parity": {"losses": r0["losses"], "param_l1": r0["param_l1"]},
+                    "lstm_seq_launches": sum(r["lstm_seq_launches"] for r in results)})
+
+
+def fused_probe(n_devices: Optional[int], force_host: Optional[int] = None, device: str = "cuda",
+                steps: int = PROBE_STEPS, parity_steps: int = PROBE_PARITY_STEPS,
+                rollout_len: int = PARITY_ROLLOUT_LEN, model: Optional[dict] = None) -> int:
+    """``--fused``: the fused iteration's optimizer frames/s, parity digest
+    and lane layout at world N (rank 0's numbers)."""
+    payload = {"model": model or {}, "steps": steps, "parity_steps": parity_steps, "rollout_len": rollout_len}
+    rc, base, results = _measure("fused_rank", "fused", n_devices, force_host, device, payload)
+    if base is None:
+        return rc
+    r0, n = results[0], base["n_devices"]
+    return _result({**base, "ok": True, "skipped": False, "lane_shards": r0["lane_shards"],
+                    "lanes_per_shard": r0["state_lane_rows"], "n_lanes": r0["global_lanes"],
+                    "lane_sharded": n > 1 and all(r["lane_shards"] == n and r["state_lane_rows"] * n
+                                                  == r["global_lanes"] for r in results),
+                    "optimizer_frames_per_sec": r0["optimizer_frames_per_sec"],
+                    "parity": {"losses": r0["losses"], "param_l1": r0["param_l1"]},
+                    "lstm_seq_launches": sum(r["lstm_seq_launches"] for r in results)})
+
+
 def fused_parity(n_high: int, parity_steps: int = PARITY_STEPS, rollout_len: int = PARITY_ROLLOUT_LEN,
-                 device: str = "cuda", model: Optional[dict] = None) -> int:
+                 device: str = "cuda", model: Optional[dict] = None, steps: int = 0) -> int:
     """One-command parity verdict: the fused iteration at world 1 and world
     ``n_high`` (fresh processes each, gloo: the ranks may share a card),
     compared at reassociation tolerance, with the lane-sharding proof.
@@ -444,8 +621,12 @@ def fused_parity(n_high: int, parity_steps: int = PARITY_STEPS, rollout_len: int
     * the float64 param L1 at ``|c1-cN| <= 1e-5·max(1, |c1|)``;
     * at ``n_high``: every rank's actor state holds ``lanes / n_high`` rows
       (``lane_shards == n_high``), read off the state.
+
+    With ``steps`` each world also times its fused calls after the digest
+    (``--fused``'s measurement), and the line carries
+    ``scaling_efficiency``, ``(fps_N / fps_1) / N``.
     """
-    payload = {"model": model or {}, "parity_steps": parity_steps, "rollout_len": rollout_len}
+    payload = {"model": model or {}, "parity_steps": parity_steps, "rollout_len": rollout_len, "steps": steps}
     probes: Dict[int, List[dict]] = {}
     for n in (1, n_high):
         rc, out, results, init = _run_world(n, "fused_rank", device, "gloo", payload)
@@ -465,7 +646,12 @@ def fused_parity(n_high: int, parity_steps: int = PARITY_STEPS, rollout_len: int
     checksum_ok = all(r["param_l1"] == cn for r in high) and abs(c1 - cn) <= 1e-5 * max(1.0, abs(c1))
     lane_sharded = all(r["lane_shards"] == n_high and r["state_lane_rows"] * n_high == r["global_lanes"]
                        for r in high)
+    extra = {}
+    if steps:
+        fps1, fpsn = one["optimizer_frames_per_sec"], high[0]["optimizer_frames_per_sec"]
+        extra["scaling_efficiency"] = round(fpsn / (fps1 * n_high), 4) if fps1 > 0 else 0.0
     return _result({
+        **extra,
         "mode": "fused-parity",
         "n_devices": n_high,
         "rc": 0,
@@ -483,32 +669,46 @@ def fused_parity(n_high: int, parity_steps: int = PARITY_STEPS, rollout_len: int
     })
 
 
-MEASUREMENTS = ("ROADMAP, the note after item 8: --probe and --fused measure throughput, and the port's "
-                "measurements wait for its benchmark")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--devices", type=int, default=None,
-                   help="preflight: the world size of the dry run (default: the card count)")
+                   help="preflight and probes: the world size (default: the card count)")
     p.add_argument("--force-host", type=int, default=None, metavar="N",
-                   help="skip the card and run the dry run on N gloo CPU processes: the zero-GPU validation path")
+                   help="skip the card and run the dry run (or a probe) on N gloo CPU processes: the zero-GPU "
+                   "validation path")
+    p.add_argument("--probe", action="store_true",
+                   help="measurement mode (the bench's multichip stage): the epoch step's optimizer frames/s and "
+                   "parity digest at world N")
+    p.add_argument("--fused", action="store_true",
+                   help="measurement mode for the fused iteration (rollout + update, actor='fused'): lane-sharded "
+                   "frames/s, parity digest and the lane-sharding proof at world N")
     p.add_argument("--fused-parity", type=int, default=None, metavar="N",
                    help="one-command verdict: the fused iteration at world 1 and world N (fresh processes, gloo), "
                    "compared at reassociation tolerance, with the lane-sharding proof at N")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="where the ranks run (default the card; 'cpu' must be asked for)")
-    p.add_argument("--parity-steps", type=int, default=PARITY_STEPS,
-                   help="--fused-parity: fused calls in the parity digest")
+    p.add_argument("--dcn-slices", type=int, default=1,
+                   help="--probe: build the (dcn, data, model) mesh with this many DCN slices (the world must "
+                   "divide by dcn_slices x model_parallel)")
+    p.add_argument("--steps", type=int, default=None,
+                   help=f"timed calls a segment: --probe and --fused (default {PROBE_STEPS}); --fused-parity "
+                   "(default 0: no timing)")
+    p.add_argument("--parity-steps", type=int, default=None,
+                   help=f"calls in the parity digest (default {PROBE_PARITY_STEPS} for the probes, {PARITY_STEPS} "
+                   "for --fused-parity)")
     p.add_argument("--rollout-len", type=int, default=PARITY_ROLLOUT_LEN,
-                   help="--fused-parity: rollout chunk length T of the probe")
-    p.add_argument("--probe", action="store_true", help="refused: a measurement (" + MEASUREMENTS + ")")
-    p.add_argument("--fused", action="store_true", help="refused: a measurement (" + MEASUREMENTS + ")")
+                   help="--fused and --fused-parity: rollout chunk length T of the probe")
     args = p.parse_args(argv)
-    if args.probe or args.fused:
-        p.error(f"{'--probe' if args.probe else '--fused'} is not available in the port: {MEASUREMENTS}")
     if args.fused_parity is not None:
-        return fused_parity(args.fused_parity, args.parity_steps, args.rollout_len, args.device)
+        return fused_parity(args.fused_parity, args.parity_steps or PARITY_STEPS, args.rollout_len, args.device,
+                            steps=args.steps or 0)
+    probe_args = dict(force_host=args.force_host, device=args.device,
+                      steps=PROBE_STEPS if args.steps is None else args.steps,
+                      parity_steps=args.parity_steps or PROBE_PARITY_STEPS)
+    if args.fused:
+        return fused_probe(args.devices, rollout_len=args.rollout_len, **probe_args)
+    if args.probe:
+        return probe(args.devices, dcn_slices=args.dcn_slices, **probe_args)
     return preflight(args.devices, args.force_host, args.device)
 
 

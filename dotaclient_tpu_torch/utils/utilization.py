@@ -30,9 +30,11 @@ busy share, which ``chip_smoke.py`` reads from a profiler window
 
 The factories create their gauges first, so a record carries them from its
 first line (``util/duty_cycle`` starts at the neutral 1.0, ``util/armed``
-at 0). The reference's module knob ``enabled``, which turns the accountants
-off for its overhead A/B, waits for a port benchmark that measures that
-overhead (ROADMAP queue 1, item 8).
+at 0), then return None when the module knob ``enabled`` is off: every
+call site tests its accountant against None, so a disabled plane costs one
+pointer test a site. The bench's utilization stage
+(``dotaclient_tpu_torch/bench.py``) turns it off for its baseline and
+measures the plane's cost against it; everything else leaves it on.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ import time
 from typing import Dict, Optional, Tuple
 
 from dotaclient_tpu_torch.utils import telemetry
+
+# Module knob: the bench's utilization stage turns it off for its baseline
+# variant; everything else leaves it on (the plane is always on by design)
+enabled: bool = True
 
 # steps/s smoothing: time-constant weighted EMAs (alpha = 1 - exp(-window /
 # tau)), both seeded during warm-up with the cumulative rate over the whole
@@ -220,23 +226,29 @@ class PoolUtilization:
         return fractions or None
 
 
-def make_learner(registry: Optional[telemetry.Registry] = None) -> LearnerUtilization:
-    """The learner's accountant, its gauges created first."""
+def make_learner(registry: Optional[telemetry.Registry] = None) -> Optional[LearnerUtilization]:
+    """The learner's accountant, its gauges created first; None when the
+    plane is off (``enabled``)."""
     reg = registry if registry is not None else telemetry.get_registry()
-    return LearnerUtilization(ensure_learner_keys(reg))
+    handles = ensure_learner_keys(reg)
+    return LearnerUtilization(handles) if enabled else None
 
 
-def make_actor(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:
-    """An actor pool's accountant, folding every ``telemetry.fleet_interval_s``."""
+def make_actor(registry: Optional[telemetry.Registry] = None) -> Optional[PoolUtilization]:
+    """An actor pool's accountant, folding every ``telemetry.fleet_interval_s``;
+    None when the plane is off."""
     reg = registry if registry is not None else telemetry.get_registry()
-    return PoolUtilization(
-        ensure_actor_keys(reg), ACTOR_PHASES, "util/actor/", telemetry.fleet_interval_s
-    )
+    handles = ensure_actor_keys(reg)
+    if not enabled:
+        return None
+    return PoolUtilization(handles, ACTOR_PHASES, "util/actor/", telemetry.fleet_interval_s)
 
 
-def make_serve(registry: Optional[telemetry.Registry] = None) -> PoolUtilization:
-    """The batcher's accountant, folding every ``telemetry.fleet_interval_s``."""
+def make_serve(registry: Optional[telemetry.Registry] = None) -> Optional[PoolUtilization]:
+    """The batcher's accountant, folding every ``telemetry.fleet_interval_s``;
+    None when the plane is off."""
     reg = registry if registry is not None else telemetry.get_registry()
-    return PoolUtilization(
-        ensure_serve_keys(reg), SERVE_PHASES, "util/serve/", telemetry.fleet_interval_s
-    )
+    handles = ensure_serve_keys(reg)
+    if not enabled:
+        return None
+    return PoolUtilization(handles, SERVE_PHASES, "util/serve/", telemetry.fleet_interval_s)

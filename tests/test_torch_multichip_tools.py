@@ -8,7 +8,8 @@ same records. The preflight classifies each CUDA failure signature into a
 SKIP line with a remediation, a hung init included, and never prints a
 traceback; on this machine (no card) the real preflight is such a SKIP.
 ``--force-host 2`` and ``--fused-parity 2`` run on gloo CPU processes at a
-tiny model and print ``"ok": true``.
+tiny model and print ``"ok": true``; so do the measurements ``--probe`` and
+``--fused``, whose digests agree at world 1 and world 2.
 """
 
 from __future__ import annotations
@@ -205,10 +206,27 @@ def test_fused_parity_2_on_gloo_cpu_processes(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--probe", "--fused"])
-def test_measurements_are_refused_naming_the_roadmap(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        mc.main([flag])
-    assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
+def test_measurements_give_equal_digests_at_world_1_and_2(flag, capsys):
+    """``--probe`` (the epoch step at E=M=2) and ``--fused`` (the fused
+    iteration) on gloo CPU processes at world 1 and at ``--force-host 2``:
+    each prints ``ok`` with its frames/s, and the two worlds' digests
+    agree (the all-reduce reorders sums: losses within 1e-5 relative, the
+    float64 param L1 within 1e-7)."""
+    fn = mc.probe if flag == "--probe" else mc.fused_probe
+    lines = {}
+    for world in (1, 2):
+        assert fn(None, force_host=world, steps=1, parity_steps=2, model=TINY) == 0
+        lines[world] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    one, two = lines[1], lines[2]
+    for line, world in ((one, 1), (two, 2)):
+        assert line["ok"] and not line["skipped"] and line["n_devices"] == world and line["backend"] == "gloo"
+        assert line["optimizer_frames_per_sec"] > 0 and len(line["parity"]["losses"]) == 2
+    assert one["parity"]["losses"] == pytest.approx(two["parity"]["losses"], rel=1e-5)
+    assert one["parity"]["param_l1"] == pytest.approx(two["parity"]["param_l1"], rel=1e-7)
+    if flag == "--fused":
+        assert two["lane_sharded"] and not one["lane_sharded"] and two["lanes_per_shard"] * 2 == two["n_lanes"]
+    else:
+        assert (one["mesh"]["data"], two["mesh"]["data"]) == (1, 2)
 
 
 def test_ci_gate_script_parses_and_has_the_references_stages():

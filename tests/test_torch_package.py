@@ -82,6 +82,9 @@ CHECKS_MODULES = ("dotaclient_tpu_torch.lint", "dotaclient_tpu_torch.lint.__main
                   "dotaclient_tpu_torch.lint.alert_drift", "dotaclient_tpu_torch.utils.check_host_sync",
                   "dotaclient_tpu_torch.utils.check_telemetry_schema", "dotaclient_tpu_torch.utils.run_multichip",
                   "dotaclient_tpu_torch.train.checkify")
+# the bench and what only it uses
+BENCH_MODULES = ("dotaclient_tpu_torch.bench", "dotaclient_tpu_torch.transport.bench_producer",
+                 "dotaclient_tpu_torch.utils.bench_trajectory")
 
 
 def port_sources():
@@ -101,11 +104,11 @@ def test_port_imports_without_jax():
     # the transformer and MoE cores', the data-parallel slice's, the
     # tools beside the package (the bench, the curriculum, the consoles and
     # the chaos supervisor) and the static checks, their CLIs and the
-    # preflight
+    # preflight, and the bench
     has_grpc = importlib.util.find_spec("grpc") is not None
-    assert int(count) >= 101 + has_grpc
+    assert int(count) >= 104 + has_grpc
     for group in (LEAGUE_MODULES, BUFFERED_MODULES, RUNRECORD_MODULES, EXTERNAL_MODULES, SCALAR_MODULES,
-                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES, TOOLS_MODULES, CHECKS_MODULES):
+                  CORE_MODULES, WIRE_MODULES, DATA_PARALLEL_MODULES, TOOLS_MODULES, CHECKS_MODULES, BENCH_MODULES):
         assert set(group) - ({"dotaclient_tpu_torch.envs.service"} if not has_grpc else set()) <= set(names.split())
 
 
@@ -165,6 +168,56 @@ def test_router_runs_without_torch():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.splitlines()[-1] == "router without torch"
     assert json.loads(out.stdout.splitlines()[-2])["router_backend_deaths"] == 0.0
+
+
+# the bench's producer child with torch blocked, shipping through both
+# lanes: it is up in milliseconds, so the bench's window measures the
+# transport
+_PRODUCER_NO_TORCH = r"""
+import os, sys, threading
+BANNED = ("torch", "jax", "jaxlib", "flax", "dotaclient_tpu")
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"banned import: {name}")
+        return None
+sys.meta_path.insert(0, Blocker())
+from dotaclient_tpu_torch.transport import bench_producer
+from dotaclient_tpu_torch.transport.shm_transport import ShmTransportServer
+from dotaclient_tpu_torch.transport.socket_transport import TransportServer
+got = []
+for lane in ("socket", "shm"):
+    if lane == "socket":
+        server = TransportServer(port=0)
+        addr = f"{server.address[0]}:{server.address[1]}"
+    else:
+        server = ShmTransportServer(name=f"bench-pkg-{os.getpid()}", slots=1, ring_bytes=1 << 20,
+                                    weights_bytes=1 << 16)
+        addr = server.address
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(bench_producer.main(
+        ["--lane", lane, "--addr", addr, "--frames", "25", "--bytes", "4096"])))
+    t.start()
+    n = 0
+    for _ in range(300):
+        n += len(server._drain(25, timeout=0.05))
+        if n >= 25:
+            break
+    t.join(30)
+    server.close()
+    got.append((lane, n, rc))
+assert not any(n.split(".")[0] in BANNED for n in sys.modules)
+print(got)
+"""
+
+
+def test_bench_producer_runs_without_torch():
+    out = subprocess.run(
+        [sys.executable, "-c", _PRODUCER_NO_TORCH], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines()[-1] == "[('socket', 25, [0]), ('shm', 25, [0])]"
 
 
 # the three report consoles with torch blocked: they read a run record and

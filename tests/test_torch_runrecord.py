@@ -355,14 +355,31 @@ def test_learner_utilization_as_the_reference(name):
         assert preg.snapshot()["util/throughput_regression"] == 1.0
 
 
-def test_make_learner_matches_the_reference_default():
-    # the port has no ``enabled`` knob: its accountant is the reference's
-    # default, the gauges created at their neutral values (exact)
+@pytest.mark.parametrize("enabled", [True, False])
+def test_make_learner_matches_the_reference_default(enabled, monkeypatch):
+    """The module knob ``enabled`` as the reference's: on (the default of
+    both) each factory returns its accountant; off, each returns None, and
+    either way the gauges are created at their neutral values, the same in
+    both registries (exact), and a call site's None test records nothing."""
+    assert utilization.enabled and jutil.enabled
+    monkeypatch.setattr(utilization, "enabled", enabled)
+    monkeypatch.setattr(jutil, "enabled", enabled)
     reg, jreg = telemetry.Registry(), jtel.Registry()
-    assert not hasattr(utilization, "enabled") and jutil.enabled
-    assert isinstance(utilization.make_learner(reg), utilization.LearnerUtilization)
-    assert isinstance(jutil.make_learner(jreg), jutil.LearnerUtilization)
+    made = [(utilization.make_learner(reg), jutil.make_learner(jreg)),
+            (utilization.make_actor(reg), jutil.make_actor(jreg)),
+            (utilization.make_serve(reg), jutil.make_serve(jreg))]
+    for port, ref in made:
+        assert (port is None) == (ref is None) == (not enabled)
+    assert isinstance(made[0][0], utilization.LearnerUtilization) == enabled
     assert reg.snapshot() == jreg.snapshot() and reg.snapshot()["util/duty_cycle"] == 1.0
+    # each fold of the accountants made (as every timeline case holds them)
+    if enabled:
+        for lu in (made[0][0], made[0][1]):
+            lu.phase("gather", 1.0)
+        assert made[0][0].fold(10, now=made[0][0]._acct._window_start + 5.0) == \
+            made[0][1].fold(10, now=made[0][1]._acct._window_start + 5.0)
+    assert reg.snapshot() == jreg.snapshot()
+    assert reg.snapshot()["util/armed"] == (1.0 if enabled else 0.0)
 
 
 def test_memory_gauge_on_the_cpu():
