@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, the tools beside the package, the static checks, the preflight and the gate, and the bench, on one NVIDIA card, end to end.
+"""Drive the PyTorch port's serving, training, league, buffered-learner, run-record, external-actor, scalar, transformer, wire, data-parallel and multi-GPU paths, the tools beside the package, the static checks, the preflight and the gate, the bench, and the wide LSTM core on the grid-wide kernel, on one NVIDIA card, end to end.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -33,7 +33,19 @@ exits non-zero and prints no result line):
    function (``torch.lstm_cell`` at T=1; at T>1 cuDNN's ``torch.lstm`` on
    a reset-free copy, a labelled yardstick only) and its roofline bound;
    the time of a single call with the host's issue included (events
-   around each call, median of 200) is logged too;
+   around each call, median of 200) is logged too. Every one of those
+   shapes must take the cluster plan. Then the grid-wide kernel, at
+   LSTM_GRID_SHAPES (shapes the cluster plan refuses: phase 24's serving
+   step B=64 T=1, rollout step B=128 T=1 and update B=128 T=17 at
+   D=H=512; H=256 and 1,024 at B=64 T=1; an odd width, B=5 T=3 at H=255;
+   and H=128 past the cluster's T, B=4 T=10,000), each of which must take
+   the grid plan, held against the plain version and timed the same way
+   (graphs of ~50 ms where a call is long: one call and 3 replays at
+   T=10,000, where the plain version is timed around one call, the host's
+   issue included), with ``torch.lstm_cell`` at T=1. Where K = D+H exceeds 256 (no cluster shape of the port's paths
+   does) the tolerance is ``wide_atol``'s: KERNEL_ATOL, or twice the plain
+   version's own max abs error against the same function in f64 on the
+   same inputs, whichever is larger;
 3. serve: the default ``RunConfig`` (LSTM(128) policy, bf16 compute, f32
    params drawn from ``--seed``; max_batch 64, max_slots 256) served by
    ``ServeEngine`` on the card: 64 games submit 20 steps each (1,280
@@ -473,6 +485,30 @@ exits non-zero and prints no result line):
     at 2, on the card with the lanes split 2 + 2. Logged: the lines'
     numbers, which at this depth check the path and measure nothing (the
     reference's depth runs stage by stage outside this script).
+24. the wide core (``wide_core_phase``): the LSTM at ``ModelConfig(
+    hidden_dim=512)``, every other field at its default (``unit_embed_dim``
+    64, bf16 compute), a width whose weight slice no cluster holds, on the
+    grid-wide kernel. (a) phase 6's traffic: the fused learner at 128
+    games against the easy bot, WIDE_WARM warm-up, WIDE_TIMED timed
+    iterations under the sync guard and WIDE_PROFILED under the profiler
+    (the rollout step B=128 T=1, the update B=128 T=17). Checked: finite
+    loss and ``health_ok`` 1 in the timed iterations, every param moved,
+    every action legal, and the grid plan's launches iterations x
+    (rollout_len + updates) with none of the cluster plan's (the counts
+    reset just before, read just after). (b) phase 3's serving traffic
+    (64 games x 20 steps, B=64 T=1, a release and a weight swap) on a
+    ``ServeEngine`` at that width: every request answered legally, the
+    grid plan's launches equal to the dispatches and the cluster's 0, the
+    stream replayed bitwise through ``reference_step``, and each reply's
+    log-prob against the same policy with ``use_kernel=False`` on the card
+    (the plain version's carries chained, the served actions scored)
+    within SOCKET_LOGP_ATOL, while the same replay with the carries zeroed
+    at every dispatch must read above it. Logged: trained frames/s,
+    rollout and update ms, the busy share; req/s and p50/p99.
+    Phase 24 runs after phase 21, beside the children of phases 22 and 23
+    (so its times are taken beside theirs), and the grid plan's launches in
+    this process stay at phase 2's from its end to phase 24: the H=128
+    paths launch only the cluster plan.
 
 The lines before the last are the ``kernels`` JSON and the card's name and
 power limit from nvidia-smi; the last line is the JSON result.
@@ -677,6 +713,20 @@ LSTM_SHAPES = ((64, 1, 128, 128), (32, 16, 128, 128), (5, 3, 16, 32), (65, 2, 12
                (1, 1, 8, 8), (64, 5, 128, 128), (32, 5, 128, 128), (32, 4, 128, 128), (8, 8, 128, 128),
                (16, 1, 128, 128))
 
+# phase 24's wide core: ModelConfig(hidden_dim=WIDE_HIDDEN), every other
+# field at its default; the learner's warm-up, timed and profiled
+# iterations
+WIDE_HIDDEN = 512
+WIDE_WARM, WIDE_TIMED, WIDE_PROFILED = 1, 2, 1
+# (B, T, D, H) of the grid-wide plan, shapes the cluster plan refuses:
+# phase 24's serving step, rollout step and update at D=H=512, the serving
+# step at H=256 and at H=1,024 (whose weight slice is read from L2 each
+# step), an odd width, and H=128 past the cluster plan's T (its tile's
+# resets sit whole in shared memory)
+LSTM_GRID_SHAPES = ((64, 1, WIDE_HIDDEN, WIDE_HIDDEN), (TRAIN_ENVS, 1, WIDE_HIDDEN, WIDE_HIDDEN),
+                    (TRAIN_ENVS, 17, WIDE_HIDDEN, WIDE_HIDDEN), (64, 1, 256, 256), (64, 1, 1024, 1024),
+                    (5, 3, 255, 255), (4, 10_000, 128, 128))
+
 
 def max_err(got, want):
     return max(float((a - b).abs().max()) for a, b in zip((got[0], *got[1]), (want[0], *want[1])))
@@ -724,53 +774,130 @@ def lstm_reset_free_library(args):
     return call, max_err((out, (hT[0], cT[0])), want)
 
 
-def check_lstm_kernel(device, seed):
-    """Kernel vs plain version at every shape of LSTM_SHAPES, each timed on
-    the card with its plan logged; returns the kernels line's entry (the
-    serving step's numbers, the worst error of all shapes, the sequence's
-    time) and every shape's numbers."""
+def wide_atol(args, want):
+    """The kernel's tolerance against the plain version where K = D+H
+    exceeds 256 (no cluster shape of the port's paths does), and the plain
+    version's own max abs error against the same function in f64: the
+    larger of KERNEL_ATOL and twice that error. Both f32 evaluations sum
+    512-2,048 products a gate in different orders, and at these inputs
+    (weights of std 0.3, 6.8x the policy's lecun scale at H=512) each step
+    of the recurrence amplifies the rounding of the steps before (H100:
+    1.45e-4 between kernel and plain at B=128 T=17 H=512, the plain version
+    itself 1.25e-4 from f64); the plain version's own error measures that
+    amplification on the same inputs."""
+    from dotaclient_tpu_torch.ops import lstm
+
+    exact = lstm.lstm_sequence_reference(*(a.double() for a in args))
+    own = max(float((a.double() - b).abs().max()) for a, b in zip((want[0], *want[1]), (exact[0], *exact[1])))
+    return max(KERNEL_ATOL, 2 * own), own
+
+
+def graph_depth(fn, target_ms=50.0):
+    """(fn, calls a graph, replays) for ``device_ms`` at a grid shape: 100
+    calls and 11 replays, as every cluster shape takes them, unless a call
+    (events around one, the host's issue included) takes so long that fewer
+    calls make ``target_ms``; for a single call, 3 replays."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    n = max(1, min(100, int(target_ms / start.elapsed_time(end))))
+    return fn, n, (11 if n > 1 else 3)
+
+
+def check_lstm_shape(device, seed, B, T, D, H, kind):
+    """The kernel that ``kind`` names against its plain version at one
+    shape, timed on the card, its plan logged; returns the shape's
+    numbers."""
     import torch
 
     from dotaclient_tpu_torch.ops import lstm
 
-    shapes = {}
-    for B, T, D, H in LSTM_SHAPES:
-        plan = lstm.kernel_plan(B, T, D, H)
-        args = lstm_inputs(B, T, D, H, seed + B + T, device)
-        got = lstm.lstm_sequence_kernel(*args)
-        torch.cuda.synchronize()
-        want = lstm.lstm_sequence_reference(*args)
-        err = max_err(got, want)
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"lstm_seq B={B} T={T} D={D} H={H}: max abs err {err} > {KERNEL_ATOL}")
-        bound, bound_by = lstm_bound(B, T, D, H)
-        shape = {"B": B, "T": T, "D": D, "H": H, "plan": dataclasses.asdict(plan), "max_abs_err": err,
-                 "ms": device_ms(lambda: lstm.lstm_sequence_kernel(*args)),
-                 "plain_ms": device_ms(lambda: lstm.lstm_sequence_reference(*args)),
-                 "bound_ms": bound, "bound_by": bound_by}
-        if T == 1:
-            library = lstm_cell_library(args)
-            lib_h, lib_c = library()
-            lib_err = max(float((lib_h - want[1][0]).abs().max()), float((lib_c - want[1][1]).abs().max()))
-            log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
-            shape["library_ms"] = device_ms(library)
-            shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-        if T > 1 and D == H == 128:
-            reset_free, rf_err = lstm_reset_free_library(args)
-            log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
-            shape["library_ms_reset_free"] = device_ms(reset_free)
-        log(
-            f"lstm_seq B={B} T={T} D={D} H={H}: plan cluster {plan.cluster}, rows per tile {plan.rows}, "
-            f"{plan.grid} blocks of {plan.threads} threads, {plan.smem_bytes} B shared memory each; "
-            f"max abs err {err:.3g} (atol {KERNEL_ATOL}); kernel {shape['ms'] * 1e3:.2f} us on the card, "
-            f"plain {shape['plain_ms'] * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {bound_by}"
-            + (f", torch.lstm_cell {shape['library_ms'] * 1e3:.2f} us, "
-               f"{shape['call_ms'] * 1e3:.2f} us a call with the host's issue" if "library_ms" in shape else "")
-            + (f", torch.lstm reset-free {shape['library_ms_reset_free'] * 1e3:.2f} us"
-               if "library_ms_reset_free" in shape else "")
-        )
-        shapes[(B, T, D, H)] = shape
+    plan = lstm.kernel_plan(B, T, D, H)
+    if plan.kind != kind:
+        raise AssertionError(f"lstm_seq B={B} T={T} D={D} H={H}: the {plan.kind} plan, expected the {kind} plan")
+    args = lstm_inputs(B, T, D, H, seed + B + T, device)
+    got = lstm.lstm_sequence_kernel(*args)
+    torch.cuda.synchronize()
+    want = lstm.lstm_sequence_reference(*args)
+    err = max_err(got, want)
+    atol, plain_err_f64 = (KERNEL_ATOL, None) if D + H <= 256 else wide_atol(args, want)
+    if not err <= atol:
+        raise AssertionError(f"lstm_seq B={B} T={T} D={D} H={H}: max abs err {err} > {atol}")
+    bound, bound_by = lstm_bound(B, T, D, H)
+    depth = graph_depth if kind == "grid" else (lambda fn: (fn,))
+    plain = lambda: lstm.lstm_sequence_reference(*args)  # noqa: E731
+    # past T=1,000 the plain version is tens of thousands of small launches:
+    # a graph of it takes longer to build than to run, so one call between
+    # events, the host's issue included
+    shape = {"B": B, "T": T, "D": D, "H": H, "plan": dataclasses.asdict(plan), "max_abs_err": err, "atol": atol,
+             "plain_max_abs_err_vs_f64": plain_err_f64,
+             "ms": device_ms(*depth(lambda: lstm.lstm_sequence_kernel(*args))),
+             "plain_ms": time_ms(plain, n=1, warmup=1) if T >= 1000 else device_ms(*depth(plain)),
+             "plain_timed": "one call, host issue included" if T >= 1000 else "device, in a CUDA graph",
+             "bound_ms": bound, "bound_by": bound_by}
+    if T == 1:
+        library = lstm_cell_library(args)
+        lib_h, lib_c = library()
+        lib_err = max(float((lib_h - want[1][0]).abs().max()), float((lib_c - want[1][1]).abs().max()))
+        log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
+        shape["library_ms"] = device_ms(library)
+        shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
+    if T > 1 and D == H == 128 and kind == "cluster":
+        reset_free, rf_err = lstm_reset_free_library(args)
+        log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
+        shape["library_ms_reset_free"] = device_ms(reset_free)
+    where = (f"plan cluster {plan.cluster}, rows per tile {plan.rows}, {plan.grid} blocks of {plan.threads} threads"
+             if kind == "cluster" else
+             f"grid plan, {plan.grid} blocks of {plan.threads} threads ({plan.units} units each, "
+             f"{plan.kslices} K-slices, weights {'resident' if plan.resident else 'read from L2'}), "
+             f"rows per tile {plan.rows}")
+    log(
+        f"lstm_seq B={B} T={T} D={D} H={H}: {where}, {plan.smem_bytes} B shared memory each; "
+        f"max abs err {err:.3g} (atol {atol:.3g}"
+        + (f": the plain version {plain_err_f64:.3g} from f64" if plain_err_f64 is not None else "")
+        + f"); kernel {shape['ms'] * 1e3:.2f} us on the card, "
+        f"plain {shape['plain_ms'] * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {bound_by}"
+        + (f", torch.lstm_cell {shape['library_ms'] * 1e3:.2f} us, "
+           f"{shape['call_ms'] * 1e3:.2f} us a call with the host's issue" if "library_ms" in shape else "")
+        + (f", torch.lstm reset-free {shape['library_ms_reset_free'] * 1e3:.2f} us"
+           if "library_ms_reset_free" in shape else "")
+    )
+    return shape
 
+
+def check_lstm_kernel(device, seed):
+    """Each kernel against its plain version: the cluster kernel at every
+    shape of LSTM_SHAPES, the grid-wide kernel at every shape of
+    LSTM_GRID_SHAPES, each timed on the card with its plan logged; returns
+    the kernels line's two entries (each at its serving step, with the
+    worst error of its shapes) and every shape's numbers."""
+    from dotaclient_tpu_torch.ops import lstm
+
+    shapes = {s: check_lstm_shape(device, seed, *s, "cluster") for s in LSTM_SHAPES}
+    grid = {s: check_lstm_shape(device, seed, *s, "grid") for s in LSTM_GRID_SHAPES}
+    grid_serve, grid_step, grid_seq = (grid[(B, T, WIDE_HIDDEN, WIDE_HIDDEN)]
+                                       for B, T in ((64, 1), (TRAIN_ENVS, 1), (TRAIN_ENVS, 17)))
+    grid_entry = {
+        "name": "lstm_seq_grid",
+        "route": "cuda",
+        "source": "dotaclient_tpu_torch/ops/csrc/lstm_seq.cu",
+        "replaces": "dotaclient_tpu/ops/pallas/lstm.py:117",
+        "launches": 0,
+        "max_abs_err": max(s["max_abs_err"] for s in grid.values()),
+        "ms": grid_serve["ms"],
+        "plain_ms": grid_serve["plain_ms"],
+        "bound_ms": grid_serve["bound_ms"],
+        "bound_by": grid_serve["bound_by"],
+        "library_ms": grid_serve["library_ms"],
+        "plan": grid_serve["plan"],
+        "train_rollout_step_ms": grid_step["ms"],
+        "train_sequence_ms": grid_seq["ms"],
+    }
     def at(B, T):
         return shapes[(B, T, 128, 128)]
 
@@ -808,12 +935,15 @@ def check_lstm_kernel(device, seed):
         "selfplay_rollout_step_ms": selfplay_step["ms"],
         "selfplay_fused_sequence_ms": selfplay_seq["ms"],
     }
-    return entry, {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
-                   "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
-                   "league_eval_step": league_eval_step, "buffered_advantage_sequence": adv_seq,
-                   "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
-                   "scalar_pool_step": scalar_step, "selfplay_rollout_step": selfplay_step,
-                   "selfplay_fused_sequence": selfplay_seq, "shapes": list(shapes.values())}
+    extra = {"sequence": sequence, "train_rollout_step": train_step, "train_sequence": train_seq,
+             "digest_step": digest_step, "league_rollout_step": league_step, "league_sequence": league_seq,
+             "league_eval_step": league_eval_step, "buffered_advantage_sequence": adv_seq,
+             "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
+             "scalar_pool_step": scalar_step, "selfplay_rollout_step": selfplay_step,
+             "selfplay_fused_sequence": selfplay_seq, "shapes": list(shapes.values()),
+             "grid_shapes": list(grid.values()),
+             "grid_check_launches": lstm.lstm_sequence_kernel.launches_by_plan["grid"]}
+    return entry, grid_entry, extra
 
 
 def lstm_sweep(device, seed):
@@ -964,9 +1094,11 @@ def run_games(engine, cfg, rng, params2, n_games, n_steps, release_round):
     return requests, replies.items, releases
 
 
-def replay(engine, requests, replies, releases, n_games, params_by_version):
-    """Replay every dispatch through ``reference_step`` on a carry store of
-    our own; the actions and log-probs must be bitwise those served."""
+def replayed(engine, requests, replies, releases, n_games, params_by_version, before_step=None):
+    """Each dispatch replayed through ``reference_step`` on a carry store of
+    our own: yields (its rows, (request_id, version, actions, logp) in row
+    order; the replay's packed actions; its log-probs). ``before_step(rows,
+    carries)`` runs before each step."""
     import torch
 
     by_dispatch = {}
@@ -976,7 +1108,6 @@ def replay(engine, requests, replies, releases, n_games, params_by_version):
     for idx in sorted(by_dispatch):
         first_dispatch_of_round.setdefault(by_dispatch[idx][0][0] // n_games, idx)
     carries = engine.initial_carries()
-    mismatches = 0
     for idx in sorted(by_dispatch):
         rows = by_dispatch[idx]
         rnd = rows[0][0] // n_games
@@ -987,15 +1118,78 @@ def replay(engine, requests, replies, releases, n_games, params_by_version):
         versions = {v for _, v, _, _ in rows}
         if len(versions) != 1:
             raise AssertionError(f"dispatch {idx} mixed weights versions {versions}")
+        if before_step is not None:
+            before_step(rows, carries)
         reqs = [requests[rid] for rid, _, _, _ in rows]
         packed, logp, carries = engine.reference_step(
             [q[0] for q in reqs], [q[1] for q in reqs], [q[2] for q in reqs], carries, idx,
             params=params_by_version[versions.pop()],
         )
+        yield rows, packed, logp
+
+
+def replay(engine, requests, replies, releases, n_games, params_by_version):
+    """Replay every dispatch through ``reference_step`` on a carry store of
+    our own; the actions and log-probs must be bitwise those served.
+    Returns (the replies that differ, the dispatches replayed)."""
+    mismatches = dispatches = 0
+    for rows, packed, logp in replayed(engine, requests, replies, releases, n_games, params_by_version):
+        dispatches += 1
         for i, (_, _, actions, lp) in enumerate(rows):
             if not (np.array_equal(packed[i], actions) and float(logp[i]) == lp):
                 mismatches += 1
-    return mismatches, len(by_dispatch)
+    return mismatches, dispatches
+
+
+def plain_replay(engine, requests, replies, releases, n_games, params_by_version, zeroed=False):
+    """Every dispatch replayed as ``replay`` replays it, with the policy's
+    LSTM on its plain version (``use_kernel=False``, on the engine's
+    device) and each row's served actions in place of the ones it samples
+    (the same noise drawn, so the rest of the dispatch is the engine's).
+    With ``zeroed`` every carry is zeroed before each dispatch (a control
+    that must read farther off). Returns (the largest |served log-prob -
+    the plain policy's log-prob of the served action|, the rows whose own
+    sample differed from the served actions, the rows)."""
+    import torch
+
+    from dotaclient_tpu_torch.models import distributions as D
+    from dotaclient_tpu_torch.models import policy as P
+    from dotaclient_tpu_torch.ops import lstm
+
+    served, flips = [], [0]
+    sample, core = D.sample, P.lstm_sequence
+
+    def plain_core(*args, use_kernel=True):
+        return lstm.lstm_sequence(*args, use_kernel=False)
+
+    def served_sample(logits, obs, generator=None):
+        acts, _ = sample(logits, obs, generator=generator)
+        n = len(served)
+        want = torch.as_tensor(np.stack(served).astype(np.int64), device=acts[D.HEADS[0]].device)
+        differs = torch.zeros(n, dtype=torch.bool, device=want.device)
+        acts = dict(acts)
+        for i, h in enumerate(D.HEADS):
+            differs |= acts[h][:n] != want[:, i].to(acts[h].dtype)
+            acts[h] = torch.cat([want[:, i].to(acts[h].dtype), acts[h][n:]])
+        flips[0] += int(differs.sum())
+        return acts, D.log_prob(logits, obs, acts)
+
+    def before_step(rows, carries):
+        served[:] = [r[2] for r in rows]
+        if zeroed:
+            for c in carries:
+                c.zero_()
+
+    worst, n_rows = 0.0, 0
+    D.sample, P.lstm_sequence = served_sample, plain_core
+    try:
+        for rows, _, logp in replayed(engine, requests, replies, releases, n_games, params_by_version, before_step):
+            for i, (_, _, _, lp) in enumerate(rows):
+                worst = max(worst, abs(float(logp[i]) - lp))
+                n_rows += 1
+    finally:
+        D.sample, P.lstm_sequence = sample, core
+    return worst, flips[0], n_rows
 
 
 def check_first_round_on_cpu(cfg, params, requests, replies, n_games):
@@ -1021,18 +1215,18 @@ def check_first_round_on_cpu(cfg, params, requests, replies, n_games):
     return float(np.abs(ref - served).max())
 
 
-def serve_phase(device, seed):
+def serve_stream(cfg, params, params2, device, seed, what, reset):
+    """Phase 3's traffic on a ``ServeEngine`` of ``cfg`` (after a warm-up on
+    an engine of its own): 64 games submit 20 steps each with resets at
+    episode starts, 2 slot releases and 1 weight swap partway through,
+    ``reset()`` (the launch counts to 0) just before, the counts read by the
+    caller. Checked: every request answered, legal and finite, zero dispatch
+    errors, the swap landed. Returns (the stopped engine, its telemetry
+    snapshot, the requests, the replies, the releases, the wall seconds)."""
     import torch
 
-    from dotaclient_tpu_torch.config import RunConfig
-    from dotaclient_tpu_torch.models import convert, random_flax_params
-    from dotaclient_tpu_torch.ops import lstm
     from dotaclient_tpu_torch.serve import ServeEngine, make_inference_policy
     from dotaclient_tpu_torch.utils import telemetry
-
-    cfg = RunConfig()
-    params = convert(random_flax_params(cfg, seed, value_head=False))
-    params2 = convert(random_flax_params(cfg, seed + 1, value_head=False))
 
     # warm-up on an engine of its own (first cuBLAS calls, allocator)
     warm = ServeEngine(cfg, make_inference_policy(cfg, device=device), params,
@@ -1045,29 +1239,45 @@ def serve_phase(device, seed):
                          registry=reg, device=device)
     rng = np.random.default_rng(seed)
     torch.cuda.synchronize()
-    lstm.lstm_sequence_kernel.launches = 0
+    reset()
     t0 = time.perf_counter()
     requests, replies, releases = run_games(
         engine, cfg, rng, params2, N_GAMES, N_STEPS, release_round=RELEASE_AFTER_ROUND
     )
     wall = time.perf_counter() - t0
-    launches = lstm.lstm_sequence_kernel.launches
     engine.stop()
     snap = reg.snapshot()
 
     n = N_GAMES * N_STEPS
     if len(replies) != n or len({r[0] for r in replies}) != n:
-        raise AssertionError(f"{len(replies)} replies for {n} requests")
+        raise AssertionError(f"{what}: {len(replies)} replies for {n} requests")
     if snap["serve/dispatch_errors_total"] != 0:
-        raise AssertionError(f"serve/dispatch_errors_total = {snap['serve/dispatch_errors_total']}")
+        raise AssertionError(f"{what}: serve/dispatch_errors_total = {snap['serve/dispatch_errors_total']}")
     good = rows_legal([requests[r[0]][0] for r in replies], [r[3] for r in replies])
     illegal = [r[0] for r, ok in zip(replies, good) if not ok]
     if illegal:
-        raise AssertionError(f"{len(illegal)} illegal actions, e.g. request {illegal[0]}")
+        raise AssertionError(f"{what}: {len(illegal)} illegal actions, e.g. request {illegal[0]}")
     if not all(np.isfinite(r[4]) for r in replies):
-        raise AssertionError("non-finite log-prob in a reply")
+        raise AssertionError(f"{what}: non-finite log-prob in a reply")
     if snap["serve/weight_swaps_total"] != 1 or {r[2] for r in replies} != {0, 1}:
-        raise AssertionError("the weight swap did not land")
+        raise AssertionError(f"{what}: the weight swap did not land")
+    return engine, snap, requests, replies, releases, wall
+
+
+def serve_phase(device, seed):
+    from dotaclient_tpu_torch.config import RunConfig
+    from dotaclient_tpu_torch.models import convert, random_flax_params
+    from dotaclient_tpu_torch.ops import lstm
+
+    cfg = RunConfig()
+    params = convert(random_flax_params(cfg, seed, value_head=False))
+    params2 = convert(random_flax_params(cfg, seed + 1, value_head=False))
+    def reset():  # the total; the counts by plan run on from phase 2 (main checks the grid plan's)
+        lstm.lstm_sequence_kernel.launches = 0
+
+    engine, snap, requests, replies, releases, wall = serve_stream(cfg, params, params2, device, seed, "serve", reset)
+    launches = lstm.lstm_sequence_kernel.launches
+    n = N_GAMES * N_STEPS
     dispatches = int(snap["serve/dispatches_total"])
     if launches != dispatches:
         raise AssertionError(f"{launches} kernel launches for {dispatches} dispatches")
@@ -6610,6 +6820,162 @@ def bench_smoke_phase(children, root, smi=""):
     return result
 
 
+# -- phase 24: the wide core on the grid-wide kernel ----------------------------
+
+
+def wide_model(cfg):
+    """``cfg`` with the LSTM at hidden_dim WIDE_HIDDEN, every other model
+    field at its default."""
+    from dotaclient_tpu_torch.config import ModelConfig
+
+    return dataclasses.replace(cfg, model=ModelConfig(hidden_dim=WIDE_HIDDEN))
+
+
+def reset_launches():
+    """Both plans' launch counts and their total to 0."""
+    from dotaclient_tpu_torch.ops import lstm
+
+    lstm.lstm_sequence_kernel.launches = 0
+    for kind in lstm.lstm_sequence_kernel.launches_by_plan:
+        lstm.lstm_sequence_kernel.launches_by_plan[kind] = 0
+
+
+def plan_launches(what, grid):
+    """The launches by plan since ``reset_launches``; raises unless the grid
+    plan's are ``grid`` and the cluster plan's 0."""
+    from dotaclient_tpu_torch.ops import lstm
+
+    got = dict(lstm.lstm_sequence_kernel.launches_by_plan)
+    if got != {"cluster": 0, "grid": grid} or lstm.lstm_sequence_kernel.launches != grid:
+        raise AssertionError(f"{what}: lstm_seq launched {got} by plan ({lstm.lstm_sequence_kernel.launches} in "
+                             f"all), expected {grid} on the grid plan and none on the cluster plan")
+    return got
+
+
+def wide_train(device, seed):
+    """(a) phase 6's fused learner at the wide core: warm-up, the timed
+    iterations under the sync guard, a profiled window."""
+    import torch
+
+    from dotaclient_tpu_torch.train.learner import Learner
+    from dotaclient_tpu_torch.utils import telemetry
+
+    cfg = wide_model(train_config(seed))
+    T = cfg.ppo.rollout_len
+    updates = cfg.ppo.steps_per_batch * cfg.steps_per_dispatch
+    learner = Learner(cfg, actor="fused", seed=seed, device=device, registry=telemetry.Registry())
+    rec = Recorder(learner)
+    unguarded_end(learner)
+    before = {k: v.detach().clone() for k, v in learner.policy.state_dict().items()}
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        learner.train(WIDE_WARM * updates)
+        torch.cuda.synchronize()
+        rec.clear()
+        out, wall_s = guarded_train(learner, WIDE_TIMED * updates)
+        metrics = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+        for i, m in enumerate(metrics):
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["health_ok"] == 1.0):
+                raise AssertionError(f"wide timed iteration {i}: loss {m['loss']}, grad_norm {m['grad_norm']}, "
+                                     f"health_ok {m['health_ok']}")
+        frames = WIDE_TIMED * learner.device_actor.n_lanes * T
+        if out["frames_trained"] != frames or len(metrics) != WIDE_TIMED:
+            raise AssertionError(f"{out['frames_trained']} frames in {len(metrics)} iterations, expected {frames}")
+        rollout_ms = statistics.mean(a.elapsed_time(b) for a, b, _ in rec.marks)
+        update_ms = statistics.mean(b.elapsed_time(c) for _, b, c in rec.marks)
+        chunks = list(rec.chunks)
+        rec.clear()
+        profile = profiled(lambda: learner.train(WIDE_PROFILED * updates))
+        iters = WIDE_WARM + WIDE_TIMED + WIDE_PROFILED
+        launches = plan_launches("wide train", iters * (T + updates))
+    finally:
+        rec.close()
+        learner.close()
+    moved, _, _ = check_params_moved(before, learner.policy, chunks)
+    illegal, n_actions = check_chunk_actions(chunks)
+    if illegal:
+        raise AssertionError(f"wide train: {illegal} of {n_actions} sampled actions illegal under their masks")
+    result = {
+        "hidden_dim": cfg.model.hidden_dim, "n_envs": cfg.env.n_envs, "lanes": learner.device_actor.n_lanes,
+        "rollout_len": T, "updates_per_iteration": updates, "warm_iterations": WIDE_WARM,
+        "timed_iterations": WIDE_TIMED, "profiled_iterations": WIDE_PROFILED, "frames_trained": frames,
+        "frames_per_s": frames / wall_s, "iteration_ms": wall_s * 1e3 / WIDE_TIMED,
+        "rollout_ms": rollout_ms, "update_ms": update_ms, "lstm_seq_launches": launches,
+        "actions_checked": n_actions, "params_moved": sum(moved.values()), "params": len(moved),
+        "last_metrics": metrics[-1], "sync_debug_mode": "error", "profile": profile,
+    }
+    log(
+        f"wide train (hidden_dim {cfg.model.hidden_dim}): {WIDE_TIMED} timed fused iterations x "
+        f"{learner.device_actor.n_lanes} lanes x {T} steps = {frames} trained frames in {wall_s * 1e3:.1f} ms: "
+        f"{result['frames_per_s']:.0f} frames/s, {result['iteration_ms']:.2f} ms an iteration (rollout "
+        f"{rollout_ms:.2f} ms, update {update_ms:.2f} ms between CUDA events); loss {metrics[-1]['loss']:.4g}, "
+        f"grad_norm {metrics[-1]['grad_norm']:.4g}, health_ok 1 in all; {n_actions} actions legal; "
+        f"{sum(moved.values())} of {len(moved)} param tensors moved; lstm_seq launches by plan {launches}"
+    )
+    log_profile(f"wide train profile: {WIDE_PROFILED} iterations", profile)
+    return result
+
+
+def wide_serve(device, seed):
+    """(b) phase 3's serving traffic on a ServeEngine at the wide core: the
+    counted run, the bitwise replay through the kernel, and the replay
+    through the plain version with its control."""
+    from dotaclient_tpu_torch.config import RunConfig
+    from dotaclient_tpu_torch.models import convert, random_flax_params
+
+    cfg = wide_model(RunConfig())
+    params = convert(random_flax_params(cfg, seed, value_head=False))
+    params2 = convert(random_flax_params(cfg, seed + 1, value_head=False))
+    engine, snap, requests, replies, releases, wall = serve_stream(cfg, params, params2, device, seed, "wide serve",
+                                                                   reset_launches)
+    dispatches = int(snap["serve/dispatches_total"])
+    launches = plan_launches("wide serve", dispatches)
+    n = N_GAMES * N_STEPS
+    by_version = {0: params, 1: params2}
+    reset_launches()
+    mismatches, n_replayed = replay(engine, requests, replies, releases, N_GAMES, by_version)
+    if mismatches:
+        raise AssertionError(f"wide serve: reference_step replay: {mismatches} of {n} replies differ")
+    plan_launches("wide serve replay", n_replayed)
+    reset_launches()
+    plain_err, flips, rows = plain_replay(engine, requests, replies, releases, N_GAMES, by_version)
+    zeroed_err, _, _ = plain_replay(engine, requests, replies, releases, N_GAMES, by_version, zeroed=True)
+    plan_launches("wide serve plain replay", 0)
+    if not (rows == n and plain_err <= SOCKET_LOGP_ATOL < zeroed_err):
+        raise AssertionError(f"wide serve: {rows} rows replayed on the plain version; served log-probs {plain_err} "
+                             f"from the plain version's (limit {SOCKET_LOGP_ATOL}), {zeroed_err} with the carries "
+                             "zeroed (must read above it)")
+    lat_ms = np.asarray([(r[5] - requests[r[0]][3]) * 1e3 for r in replies])
+    result = {
+        "hidden_dim": cfg.model.hidden_dim, "requests": n, "dispatches": dispatches,
+        "requests_per_s": n / wall, "request_p50_ms": float(np.percentile(lat_ms, 50)),
+        "request_p99_ms": float(np.percentile(lat_ms, 99)),
+        "dispatch_mean_ms": snap["span/serve/dispatch/mean_s"] * 1e3,
+        "replay": "bitwise", "replayed_dispatches": n_replayed,
+        "logp_err_vs_plain": plain_err, "plain_sample_flips": flips, "logp_err_vs_plain_zeroed_carry": zeroed_err,
+        "lstm_seq_launches": launches,
+    }
+    log(
+        f"wide serve (hidden_dim {cfg.model.hidden_dim}): {n} requests, {dispatches} dispatches, "
+        f"{result['requests_per_s']:.0f} req/s, request p50 {result['request_p50_ms']:.3f} ms p99 "
+        f"{result['request_p99_ms']:.3f} ms, dispatch mean {result['dispatch_mean_ms']:.3f} ms; replay bitwise "
+        f"over {n_replayed} dispatches; served log-probs within {plain_err:.3g} of the plain version's (limit "
+        f"{SOCKET_LOGP_ATOL}; {flips} of {rows} rows' own samples differed; carries zeroed: {zeroed_err:.3g}); "
+        f"lstm_seq launches by plan {launches}"
+    )
+    return result
+
+
+def wide_core_phase(device, seed, smi=""):
+    """Phase 24: the LSTM at hidden_dim WIDE_HIDDEN, trained and served on
+    the grid-wide kernel."""
+    result = {"train": wide_train(device, seed), "serve": wide_serve(device, seed)}
+    result["grid_launches"] = result["train"]["lstm_seq_launches"]["grid"] + result["serve"]["lstm_seq_launches"]["grid"]
+    log(f"wide core: the grid plan launched {result['grid_launches']} times on the path, the cluster plan 0; {smi}")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6621,7 +6987,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("FAILED: no CUDA device")
         return 2
-    from dotaclient_tpu_torch.ops import build  # the port must sit beside this script
+    from dotaclient_tpu_torch.ops import build, lstm  # the port must sit beside this script
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -6646,7 +7012,7 @@ def main() -> int:
     t_start = time.perf_counter()
     timed("1 (build)", build.kernel_library, True)
     build_s = phase_s["1 (build)"]
-    lstm_entry, lstm_extra = timed("2 (kernels)", check_lstm_kernel, device, args.seed)
+    lstm_entry, grid_entry, lstm_extra = timed("2 (kernels)", check_lstm_kernel, device, args.seed)
     lstm_extra["sweep"] = timed("2 (sweep)", lstm_sweep, device, args.seed)
     serve = timed("3 (serve)", serve_phase, device, args.seed)
     serve_profile = timed("4 (serve profile)", profile_serve, device, args.seed)
@@ -6678,6 +7044,14 @@ def main() -> int:
             children.update(bench_children)
             phase21 = timed("21 (tools)", tools_phase, device, args.seed,
                             ({k: children[k] for k in ("curriculum", "chaos")}, late), smi)
+            # phase 24 in this process, beside the children of 22 and 23
+            if lstm.lstm_sequence_kernel.launches_by_plan["grid"] != lstm_extra["grid_check_launches"]:
+                raise AssertionError(
+                    f"the grid plan launched {lstm.lstm_sequence_kernel.launches_by_plan['grid']} times in this "
+                    f"process by phase 21, {lstm_extra['grid_check_launches']} of them phase 2's checks: an H=128 "
+                    "path took it")
+            phase24 = timed("24 (wide core)", wide_core_phase, device, args.seed, smi)
+            grid_entry["launches"] = phase24["grid_launches"]
             phase22 = timed("22 (checks)", checks_phase, device, args.seed, children, late, smi)
             phase23 = timed("23 (bench)", bench_smoke_phase, bench_children, late, smi)
             if phase_s["22 (checks)"] + phase_s["23 (bench)"] > PHASE22_BUDGET_S + PHASE23_BUDGET_S:
@@ -6690,7 +7064,7 @@ def main() -> int:
     log(f"configs 3 and 4 fused {frames} trained frames/s against phase 6's fused config-1 learner "
         f"{train['frames_per_s']:.0f} in this run: {frames[3] / train['frames_per_s']:.3f}x and "
         f"{frames[4] / train['frames_per_s']:.3f}x; {smi}")
-    log(f"phases 1-23: {time.perf_counter() - t_start:.1f} s; "
+    log(f"phases 1-24: {time.perf_counter() - t_start:.1f} s; "
         + ", ".join(f"{k.split(' ')[0]} {v:.1f}" for k, v in phase_s.items()))
     lstm_entry["launches_by_path"] = {"serve": serve["lstm_seq_launches"], "train": train["lstm_seq_launches"],
                                       "serve_socket": sock["lstm_seq_launches"],
@@ -6730,7 +7104,7 @@ def main() -> int:
         raise AssertionError(f"this process's rollout codec: {calls} (native calls and no fallback expected)")
     log(f"this process's rollout codec over every phase: {calls}")
 
-    kernels = {"kernels": [lstm_entry]}
+    kernels = {"kernels": [lstm_entry, grid_entry]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**kernels, "lstm_seq_extra": lstm_extra, "serve": serve, "build_s": build_s, "card": smi,
@@ -6738,7 +7112,7 @@ def main() -> int:
                        "league": league, "buffered": buffered, "run_record": record, "external": external,
                        "scalar": scalar, "phase17": phase17, "phase18": phase18, "phase19": phase19,
                        "phase20": phase20, "phase21": phase21, "phase22": phase22, "phase23": phase23,
-                       "phase_s": phase_s}, f,
+                       "phase24": phase24, "phase_s": phase_s}, f,
                       indent=2)
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

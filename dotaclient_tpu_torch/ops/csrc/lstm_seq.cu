@@ -1,8 +1,9 @@
-// Whole-sequence LSTM forward for Hopper (sm_90a), one thread-block cluster
-// per tile of batch rows.
+// Whole-sequence LSTM forward for Hopper (sm_90a): one thread-block cluster
+// per tile of batch rows, or, for the shapes a cluster cannot hold, one
+// cooperative grid over the whole card (the second kernel, further down).
 //
-// Replaces the Pallas TPU kernel `_kernel` launched by `_pallas_forward` in
-// dotaclient_tpu/ops/pallas/lstm.py. Same function, same contract: for each
+// Both replace the Pallas TPU kernel `_kernel` launched by `_pallas_forward`
+// in dotaclient_tpu/ops/pallas/lstm.py. Same function, same contract: for each
 // step t of a batch-major sequence,
 //
 //     (h, c) *= (1 - reset_t)                      reset BEFORE the step
@@ -59,8 +60,9 @@
 // 1e-5; TF32 keeps 10 mantissa bits (~1e-3 relative) and cannot meet it,
 // and the per-step product (kRows x 4U x (D+H) per block) is far too small
 // for a wgmma pipeline to pay. bf16 weights or a 3xTF32 split would change
-// the contract. The plan (`kernel_plan` in ops/lstm.py) refuses shapes
-// whose weight slice and buffers do not fit one block's 227 KB at C <= 8.
+// the contract. The plan (`kernel_plan` in ops/lstm.py) takes this kernel
+// for every shape whose weight slice and buffers fit one block's 227 KB at
+// C <= 8, and the grid-wide kernel below for every other shape.
 //
 // Where the time goes (measured on the card; PERF.md): a fixed cost of a
 // few microseconds, most of it the issue of the 16-byte copies of the
@@ -377,11 +379,247 @@ __global__ void lstm_seq_cluster_kernel(
   if (T > 1) cluster.sync();
 }
 
+// -- the grid-wide kernel -----------------------------------------------------
+//
+// Every shape the cluster plan refuses: any H whose weight slice does not
+// fit one block at a cluster of 8 or less (at D = H, 910 of the first 1,024
+// widths: every H above 216, among them 256, 512 and 1,024, every odd H from
+// 79 up, and even widths whose largest portable cluster is small), any D,
+// and any T (the cluster kernel keeps the tile's resets whole in shared
+// memory). Same function, same contract, same cell math as above.
+//
+// Design: the Pallas kernel's "weights pinned across all T steps" spread
+// over the whole card instead of one cluster.
+//   * One persistent cooperative launch of at most one block an SM. The
+//     hidden units are split over the grid, U a block (U = ceil(H / 132)):
+//     block j owns units [jU, jU+U) and their four gate columns (4U). A
+//     cooperative launch is refused when the grid cannot be co-resident, so
+//     the grid-wide barrier never waits on a block that is not running.
+//   * Where its (D+H) x 4U weight slice fits beside the buffers (resident),
+//     a block copies it into shared memory once and keeps it for all T steps
+//     (64 KB at D = H = 512); otherwise (D = H above ~900) it reads the slice
+//     from global memory every step, where the 50 MB L2 holds the whole f32
+//     weights up to H ~ 1,250.
+//   * h goes between steps through device memory: step t reads h_{t-1} from
+//     hs[:, t-1], which every block wrote at step t-1, after one grid-wide
+//     barrier a step, with ld.global.cg (L2; the SM's L1 is not coherent
+//     across SMs, and a line of hs[:, t] may sit in it from a read of the
+//     neighbouring hs[:, t-1]). c lives in cT, each element read and written
+//     by the thread of its (row, unit) only.
+//   * The batch is walked in tiles of R rows (R = 1..8 by B). For each tile
+//     the rows' inputs [x_t, h_{t-1} * keep] are staged into shared memory
+//     in chunks of KC of the padded K = D+H axis. Each thread owns one gate
+//     column (or a few, where 4U exceeds the column threads) and a K-slice
+//     of 4-deep chunks, and accumulates its R rows from 16-byte reads of the
+//     staged inputs. Resets are read a step at a time from global memory, so
+//     T has no limit but memory.
+//   * The sum order is fixed: each thread's slice in order, chunk after
+//     chunk, then the K-slices in order, then the bias. No atomics, no
+//     split-K across blocks, and a row's sums never touch another row's: its
+//     bits do not depend on the other rows, nor on B or R.
+//
+// What bounds it: at B=64 T=1 D=H=512 the work is 268 MFLOP against 8.4 MB
+// of weights, about 4 us at the card's f32 peak; the kernel is far from it.
+// Its limits are latencies, paid one after another: the prologue's weight
+// load, then for each tile the staging from L2, the product, three block
+// barriers, the K-slices' sums and the cell's round trip to cT, and one
+// grid barrier a step. More threads a block shorten each thread's chain
+// of loads (the K-slices), hence 512; at R=16 the accumulators spill
+// (ptxas) and a launch took longer than at R=8 (PERF.md), hence R <= 8.
+// Simple and right first: no tensor cores (the f32 contract, as above), no
+// TMA, no overlap of one tile's staging with another's product, and every
+// block reads the whole [B, D+H] input of a step.
+
+// Shared memory of one block, in floats: the weight slice [Kp][NC] when
+// resident, the staged inputs [R][KC], partial sums [KS][R][NC], gate
+// pre-activations [R][NC] and the bias slice [NC].
+__host__ __device__ inline long long grid_smem_floats(int D, int H, int R, int U, int KS, int KC, int resident) {
+  const long long Kp = round4(D) + round4(H), NC = 4LL * U;
+  return (resident ? Kp * NC : 0) + (long long)R * KC + (long long)KS * R * NC + R * NC + NC;
+}
+
+// the weight of gate column `col` of the block whose first unit is u0, at
+// row k of the padded K axis (x rows [0, Dp), h rows [Dp, Dp+Hp)); zero in
+// the rounding rows and past H
+__device__ __forceinline__ float grid_weight(const float* __restrict__ wx, const float* __restrict__ wh,
+                                             int D, int H, int Dp, int U, int u0, int k, int col) {
+  const int q = col / U, unit = u0 + col - q * U;
+  if (unit >= H) return 0.0f;
+  const size_t G = 4 * (size_t)H, offset = (size_t)q * H + unit;
+  if (k < Dp) return k < D ? __ldg(wx + (size_t)k * G + offset) : 0.0f;
+  return k - Dp < H ? __ldg(wh + (size_t)(k - Dp) * G + offset) : 0.0f;
+}
+
+// input k (of the padded K axis) of batch row b (< B) at step t: x_t, or
+// h_{t-1} * (1 - reset_t) (the reset, BEFORE the step); zero in the
+// rounding rows of K
+__device__ __forceinline__ float grid_input(const float* __restrict__ x, const float* __restrict__ h0,
+                                            const float* hs, const float* __restrict__ resets, int b, int T,
+                                            int D, int H, int Dp, int t, int k) {
+  const size_t bt = (size_t)b * T + t;
+  if (k < Dp) return k < D ? __ldg(x + bt * D + k) : 0.0f;
+  const int kh = k - Dp;
+  if (kh >= H) return 0.0f;
+  return (t == 0 ? __ldg(h0 + (size_t)b * H + kh) : __ldcg(hs + (bt - 1) * H + kh)) * (1.0f - __ldg(resets + bt));
+}
+
+// weight loads a thread keeps in flight in the prologue: each is a separate
+// 4-byte read, so one at a time would pay its latency every time
+constexpr int kInFlight = 8;
+
+// threads a block at most (GRID_THREADS in ops/lstm.py): the register cap
+// that keeps one block an SM schedulable whatever R is
+constexpr int kGridMaxThreads = 512;
+
+template <int R>
+__global__ void __launch_bounds__(kGridMaxThreads) lstm_seq_grid_kernel(
+    const float* __restrict__ x,       // [B, T, D]
+    const float* __restrict__ h0,      // [B, H]
+    const float* __restrict__ c0,      // [B, H]
+    const float* __restrict__ wx,      // [D, 4H]
+    const float* __restrict__ wh,      // [H, 4H]
+    const float* __restrict__ bias,    // [4H]
+    const float* __restrict__ resets,  // [B, T]
+    float* hs,                         // [B, T, H]: written, and read a step later
+    float* __restrict__ hT,            // [B, H]
+    float* cT,                         // [B, H]: c between steps
+    int B, int T, int D, int H, int U, int KS, int KC, int resident) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int NC = 4 * U;
+  const int Dp = round4(D), Kp = Dp + round4(H);
+  const int u0 = blockIdx.x * U;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int NCT = nthreads / KS;           // column threads
+  const int colt = tid % NCT, ks = tid / NCT;
+  float* w = smem;                                   // [Kp][NC], when resident
+  float* in = w + (resident ? (size_t)Kp * NC : 0);  // [R][KC]
+  float* red = in + R * KC;                          // [KS][R][NC]
+  float* pre = red + KS * R * NC;                    // [R][NC]
+  float* bsm = pre + R * NC;                         // [NC]
+
+  for (int col = tid; col < NC; col += nthreads) {
+    const int q = col / U, unit = u0 + col - q * U;
+    bsm[col] = unit < H ? bias[(size_t)q * H + unit] : 0.0f;
+  }
+  if (resident) {
+    const int n = Kp * NC;
+    for (int i0 = tid; i0 < n; i0 += kInFlight * nthreads) {
+      float v[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int i = i0 + u * nthreads, k = i / NC;
+        v[u] = i < n ? grid_weight(wx, wh, D, H, Dp, U, u0, k, i - k * NC) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        if (i0 + u * nthreads < n) w[i0 + u * nthreads] = v[u];
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    for (int b0 = 0; b0 < B; b0 += R) {
+      for (int kc = 0; kc < Kp; kc += KC) {
+        const int kn = min(KC, Kp - kc);  // a multiple of 4, as Kp and KC are
+        if (kc > 0) __syncthreads();      // the last chunk's products are done with `in`
+        // the R rows' loads of one K index in flight together
+        for (int kk = tid; kk < kn; kk += nthreads) {
+          float v[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            v[r] = b0 + r < B ? grid_input(x, h0, hs, resets, b0 + r, T, D, H, Dp, t, kc + kk) : 0.0f;
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) in[r * KC + kk] = v[r];
+        }
+        __syncthreads();
+        for (int col = colt; col < NC; col += NCT) {
+          float acc[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+          for (int c = ks; c < kn / 4; c += KS) {
+            const int k = kc + 4 * c;
+            float wk[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wk[j] = resident ? w[(k + j) * NC + col] : grid_weight(wx, wh, D, H, Dp, U, u0, k + j, col);
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float4 v = *reinterpret_cast<const float4*>(in + r * KC + 4 * c);
+              acc[r] = fmaf(v.x, wk[0], acc[r]);
+              acc[r] = fmaf(v.y, wk[1], acc[r]);
+              acc[r] = fmaf(v.z, wk[2], acc[r]);
+              acc[r] = fmaf(v.w, wk[3], acc[r]);
+            }
+          }
+          float* part = red + ks * R * NC + col;  // this thread's own, chunk after chunk
+#pragma unroll
+          for (int r = 0; r < R; ++r) part[r * NC] = kc == 0 ? acc[r] : part[r * NC] + acc[r];
+        }
+      }
+      __syncthreads();
+
+      // gate pre-activations: the K-slices in a fixed order, then the bias
+      for (int o = tid; o < R * NC; o += nthreads) {
+        float s = 0.0f;
+#pragma unroll 8
+        for (int j = 0; j < KS; ++j) s += red[j * R * NC + o];
+        pre[o] = s + bsm[o % NC];
+      }
+      __syncthreads();
+
+      for (int i = tid; i < R * U; i += nthreads) {
+        const int r = i / U, j = i - r * U, b = b0 + r, unit = u0 + j;
+        if (b < B && unit < H) {
+          const size_t bt = (size_t)b * T + t, bu = (size_t)b * H + unit;
+          const float* a = pre + r * NC + j;  // i, f, g, o at a[0], a[U], a[2U], a[3U]
+          const float i_g = sigmoid_f32(a[0]);
+          const float f_g = sigmoid_f32(a[U]);
+          const float g_g = tanhf(a[2 * U]);
+          const float o_g = sigmoid_f32(a[3 * U]);
+          const float keep = 1.0f - __ldg(resets + bt);
+          const float c = f_g * ((t == 0 ? __ldg(c0 + bu) : cT[bu]) * keep) + i_g * g_g;
+          const float h = o_g * tanhf(c);
+          hs[bt * H + unit] = h;
+          cT[bu] = c;
+          if (t == T - 1) hT[bu] = h;
+        }
+      }
+      // the next tile writes `in` before a barrier, but every read of it
+      // here came before the barrier ahead of the pre-activations; `red` and
+      // `pre` are written only after the next tile's first barrier
+    }
+    if (t + 1 < T) grid.sync();  // h_t of every unit is in hs[:, t]
+  }
+}
+
+using GridKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                            const float*, const float*, float*, float*, float*, int, int, int, int, int,
+                            int, int, int);
+
+GridKernel grid_kernel(int rows) {
+  switch (rows) {
+    case 1: return lstm_seq_grid_kernel<1>;
+    case 2: return lstm_seq_grid_kernel<2>;
+    case 4: return lstm_seq_grid_kernel<4>;
+    case 8: return lstm_seq_grid_kernel<8>;
+    default: return nullptr;
+  }
+}
+
 // Shared-memory attribute and schedulability, checked once per device and
 // launch shape.
 std::mutex g_configured_lock;
 std::map<std::tuple<int, int, int, int>, int> g_configured;
 std::map<int, int> g_smem_ceiling;  // device -> the attribute's value
+// the grid kernel's: (device, rows, smem, threads) -> co-resident blocks,
+// and (device, rows) -> the attribute's value
+std::map<std::tuple<int, int, int, int>, long long> g_grid_configured;
+std::map<std::pair<int, int>, int> g_grid_smem_ceiling;
 
 }  // namespace
 
@@ -460,6 +698,85 @@ extern "C" int dota_lstm_seq_forward(
     const bool vec_w = U % 4 == 0 && aligned(wx) && aligned(wh) && aligned(bias);
     C10_CUDA_CHECK(cudaLaunchKernelEx(&cfg, kernel, x, h0, c0, wx, wh, bias, resets, hs, hT, cT,
                                       B, T, D, H, KS, (int)vec_x, (int)vec_h, (int)vec_w));
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    return 0;
+  } catch (const c10::Error& e) {
+    snprintf(err, err_len, "%s", e.what_without_backtrace());
+  } catch (const std::exception& e) {
+    snprintf(err, err_len, "%s", e.what());
+  }
+  return 1;
+}
+
+// Launches the grid-wide kernel on `stream` with the plan's numbers (see
+// `kernel_plan` in ops/lstm.py) as one cooperative launch. Returns 0, or 1
+// with the reason written to `err`: a plan that does not match the shape, a
+// grid that cannot be co-resident on this device, a refused launch.
+extern "C" int dota_lstm_seq_grid_forward(
+    const float* x, const float* h0, const float* c0, const float* wx,
+    const float* wh, const float* bias, const float* resets, float* hs,
+    float* hT, float* cT, int B, int T, int D, int H, int rows, int grid,
+    int threads, int units, int kslices, int kchunk, int resident, int smem_bytes,
+    void* stream, char* err, int err_len) {
+  try {
+    const GridKernel kernel = grid_kernel(rows);
+    const bool plan_ok =
+        kernel != nullptr && units >= 1 && grid == (H + units - 1) / units && kslices >= 1 &&
+        threads % kslices == 0 && threads <= kGridMaxThreads && threads / kslices >= 1 &&
+        threads / kslices <= 4 * units && kchunk >= 4 && kchunk % 4 == 0 &&
+        kchunk <= round4(D) + round4(H) && (resident == 0 || resident == 1) &&
+        (long long)smem_bytes == 4 * grid_smem_floats(D, H, rows, units, kslices, kchunk, resident);
+    if (!plan_ok) {
+      snprintf(err, err_len,
+               "plan does not fit the grid kernel: B=%d T=%d D=%d H=%d rows=%d grid=%d threads=%d "
+               "units=%d kslices=%d kchunk=%d resident=%d smem=%d",
+               B, T, D, H, rows, grid, threads, units, kslices, kchunk, resident, smem_bytes);
+      return 1;
+    }
+
+    int device = 0;
+    C10_CUDA_CHECK(cudaGetDevice(&device));
+    long long capacity = 0;
+    {
+      std::lock_guard<std::mutex> guard(g_configured_lock);
+      const auto key = std::make_tuple(device, rows, smem_bytes, threads);
+      auto it = g_grid_configured.find(key);
+      if (it == g_grid_configured.end()) {
+        int& ceiling = g_grid_smem_ceiling[std::make_pair(device, rows)];
+        if (smem_bytes > ceiling) {
+          C10_CUDA_CHECK(cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+          ceiling = smem_bytes;
+        }
+        int per_sm = 0, sms = 0;
+        C10_CUDA_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes));
+        C10_CUDA_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+        capacity = (long long)per_sm * sms;
+        g_grid_configured[key] = capacity;
+      } else {
+        capacity = it->second;
+      }
+    }
+    if (capacity < grid) {
+      snprintf(err, err_len,
+               "a grid of %d blocks with %d threads and %d bytes of shared memory each cannot be "
+               "co-resident on this device (%lld can)",
+               grid, threads, smem_bytes, capacity);
+      return 1;
+    }
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem_bytes;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    C10_CUDA_CHECK(cudaLaunchKernelEx(&cfg, kernel, x, h0, c0, wx, wh, bias, resets, hs, hT, cT,
+                                      B, T, D, H, units, kslices, kchunk, resident));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
     return 0;
   } catch (const c10::Error& e) {

@@ -13,11 +13,15 @@ Cell math, gate order i, f, g, o, the reset applied BEFORE the step::
     c' = sigmoid(f) * c + sigmoid(i) * tanh(g);  h' = sigmoid(o) * tanh(c')
 
 ``lstm_sequence_reference`` is the plain PyTorch version: a Python loop over
-T, and the spec the kernel is held against. ``lstm_sequence_kernel`` launches
-``csrc/lstm_seq.cu`` (one launch for all T steps, one thread-block cluster
-per tile of batch rows, the weights resident in the cluster's shared memory)
-with the numbers of ``kernel_plan``, and counts its launches in
-``lstm_sequence_kernel.launches``.
+T, and the spec the kernels are held against. ``lstm_sequence_kernel``
+launches one of the two kernels of ``csrc/lstm_seq.cu``, one launch for all T
+steps, with the numbers of ``kernel_plan``: the cluster kernel (one
+thread-block cluster per tile of batch rows, the weights resident in the
+cluster's shared memory) for every shape whose weight slice fits one block
+at a cluster of 8 or less, and the grid-wide kernel (one cooperative launch
+over the card, the hidden units split over its blocks) for every other
+non-empty shape. It counts its launches in ``lstm_sequence_kernel.launches``
+and, by plan, in ``lstm_sequence_kernel.launches_by_plan``.
 
 ``LSTMSequenceFunction`` gives the kernel its gradient, as the JAX package's
 ``lstm_sequence_pallas`` custom VJP does: the forward runs the
@@ -69,11 +73,26 @@ ROWS_PER_TILE = 4           # batch rows per cluster (kRows in the source)
 CLUSTER_SIZES = (8, 4, 2, 1)  # portable cluster sizes, largest first
 TARGET_THREADS = 256        # per block: column groups x K-slices
 MAX_SMEM_BYTES = 232_448    # shared memory one block may use on Hopper (227 KB)
+# the grid-wide kernel's: blocks at most (one an SM of an H100 SXM, so the
+# cooperative launch is co-resident), rows per batch tile (by B, the
+# smallest that holds B, up to 8: at 16 the accumulators spill and a launch
+# takes longer), threads per block at most (column threads x K-slices),
+# K-slices at most, and the chunk of the K = D+H axis staged at once
+GRID_BLOCKS = 132
+GRID_ROWS = (1, 2, 4, 8)
+GRID_THREADS = 512          # kGridMaxThreads in the source (its launch bound)
+GRID_KSLICES = 32
+GRID_KCHUNK = 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
-    """Launch numbers of the cluster kernel for one shape."""
+    """Launch numbers for one shape: ``kind`` names the kernel. A cluster
+    plan (``cluster`` blocks a cluster, one cluster a tile of ``rows``
+    batch rows) or a grid plan (``cluster`` 1; ``grid`` blocks, each owning
+    ``units`` hidden units, walking the batch in tiles of ``rows``, staging
+    ``kchunk`` of the padded D+H axis at once, its weight slice in shared
+    memory when ``resident``)."""
 
     cluster: int      # blocks per cluster; block r owns hidden units [r*U, (r+1)*U)
     rows: int         # batch rows per tile; one cluster per tile
@@ -81,19 +100,20 @@ class KernelPlan:
     threads: int      # per block: U column groups (of the 4U columns) x kslices
     kslices: int      # the K axis is cut into this many slices of 4-deep chunks
     smem_bytes: int   # dynamic shared memory per block
+    kind: str = "cluster"
+    units: int = 0    # hidden units per block (grid plan)
+    kchunk: int = 0   # floats of the padded K axis staged at once (grid plan)
+    resident: bool = True  # the weight slice kept in shared memory (grid plan)
 
 
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def kernel_plan(B: int, T: int, D: int, H: int) -> KernelPlan:
-    """The cluster kernel's launch for ``x [B, T, D]`` and hidden width H.
-    Pure Python. Raises ``ValueError`` for a shape the kernel does not take:
-    an empty one, or one whose weight slice and buffers exceed one block's
-    shared memory at the largest portable cluster size that divides H."""
-    if min(B, T, D, H) < 1:
-        raise ValueError(f"lstm kernel plan: empty shape B={B} T={T} D={D} H={H}")
+def _cluster_plan(B: int, T: int, D: int, H: int):
+    """The cluster kernel's launch, or None where its buffers exceed one
+    block's shared memory (or threads) at the largest portable cluster size
+    that divides H."""
     cluster = next(c for c in CLUSTER_SIZES if H % c == 0)
     units = H // cluster
     rows = ROWS_PER_TILE
@@ -106,18 +126,53 @@ def kernel_plan(B: int, T: int, D: int, H: int) -> KernelPlan:
               + cols + _round4(rows * T))
     smem = 4 * floats
     if smem > MAX_SMEM_BYTES or threads > 1024:
-        raise ValueError(
-            f"lstm kernel plan: D={D} H={H} needs {smem} bytes of shared memory and {threads} "
-            f"threads per block at a cluster of {cluster} (limits {MAX_SMEM_BYTES} and 1024)"
-        )
+        return None
     tiles = -(-B // rows)
-    return KernelPlan(cluster, rows, cluster * tiles, threads, kslices, smem)
+    return KernelPlan(cluster, rows, cluster * tiles, threads, kslices, smem, units=units)
+
+
+def _grid_plan(B: int, D: int, H: int) -> KernelPlan:
+    """The grid-wide kernel's launch: H split over at most GRID_BLOCKS
+    blocks; the weight slice resident where it fits beside the buffers, read
+    from global memory each step where it does not (then fewer rows a tile
+    where even the buffers do not fit)."""
+    units = -(-H // GRID_BLOCKS)
+    blocks = -(-H // units)
+    cols = 4 * units
+    col_threads = min(cols, GRID_THREADS)
+    kslices = max(1, min(GRID_KSLICES, GRID_THREADS // col_threads))
+    Kp = _round4(D) + _round4(H)
+    kchunk = min(Kp, GRID_KCHUNK)
+    top = next(r for r in GRID_ROWS if r >= min(B, GRID_ROWS[-1]))
+
+    def smem(rows, resident):  # grid_smem_floats in the source, in bytes
+        return 4 * ((Kp * cols if resident else 0) + rows * kchunk + kslices * rows * cols + rows * cols + cols)
+
+    tries = [(top, True)] + [(r, False) for r in reversed(GRID_ROWS) if r <= top]
+    for rows, resident in tries:
+        if smem(rows, resident) <= MAX_SMEM_BYTES:
+            return KernelPlan(1, rows, blocks, col_threads * kslices, kslices, smem(rows, resident), kind="grid",
+                              units=units, kchunk=kchunk, resident=resident)
+    raise ValueError(f"lstm kernel plan: H={H} needs {smem(1, False)} bytes of shared memory a block even "
+                     f"with one row a tile (limit {MAX_SMEM_BYTES}); its weights exceed any card's memory")
+
+
+def kernel_plan(B: int, T: int, D: int, H: int) -> KernelPlan:
+    """The launch for ``x [B, T, D]`` and hidden width H. Pure Python. The
+    cluster kernel's plan wherever its weight slice and buffers fit one
+    block's shared memory at the largest portable cluster size that divides
+    H; the grid-wide kernel's plan for every other shape. Raises
+    ``ValueError`` for an empty shape (and for widths whose weights no card
+    could hold)."""
+    if min(B, T, D, H) < 1:
+        raise ValueError(f"lstm kernel plan: empty shape B={B} T={T} D={D} H={H}")
+    return _cluster_plan(B, T, D, H) or _grid_plan(B, D, H)
 
 
 def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
-    """Launch the Hopper kernel on the current stream. Takes contiguous f32
-    CUDA tensors of the contract's shapes and raises on anything else,
-    a shape outside ``kernel_plan``'s limit included."""
+    """Launch the Hopper kernel that ``kernel_plan`` names on the current
+    stream. Takes contiguous f32 CUDA tensors of the contract's non-empty
+    shapes and raises on anything else; never runs the plain version."""
     B, T, D = x.shape
     H = h0.shape[-1]
     expected = {
@@ -140,20 +195,28 @@ def lstm_sequence_kernel(x, h0, c0, wx, wh, b, resets) -> LSTMOut:
     cT = torch.empty((B, H), dtype=torch.float32, device=x.device)
     lib = build.kernel_library()
     err = ctypes.create_string_buffer(512)
+    tensors = (x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+               resets.data_ptr(), hs.data_ptr(), hT.data_ptr(), cT.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.dota_lstm_seq_forward(
-            x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(),
-            wh.data_ptr(), b.data_ptr(), resets.data_ptr(), hs.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), B, T, D, H, plan.cluster, plan.rows, plan.grid,
-            plan.threads, plan.smem_bytes, stream, err, len(err),
-        )
-    build.check(status, err, "lstm_seq kernel launch")
+        if plan.kind == "cluster":
+            status = lib.dota_lstm_seq_forward(
+                *tensors, B, T, D, H, plan.cluster, plan.rows, plan.grid, plan.threads, plan.smem_bytes,
+                stream, err, len(err),
+            )
+        else:
+            status = lib.dota_lstm_seq_grid_forward(
+                *tensors, B, T, D, H, plan.rows, plan.grid, plan.threads, plan.units, plan.kslices,
+                plan.kchunk, int(plan.resident), plan.smem_bytes, stream, err, len(err),
+            )
+    build.check(status, err, f"lstm_seq {plan.kind} kernel launch")
     lstm_sequence_kernel.launches += 1
+    lstm_sequence_kernel.launches_by_plan[plan.kind] += 1
     return hs, (hT, cT)
 
 
 lstm_sequence_kernel.launches = 0
+lstm_sequence_kernel.launches_by_plan = {"cluster": 0, "grid": 0}
 
 
 class LSTMSequenceFunction(torch.autograd.Function):

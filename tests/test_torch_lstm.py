@@ -3,10 +3,12 @@
 The port's plain version (``lstm_sequence_reference``) must equal the JAX
 spec and the Pallas kernel (in interpret mode, as tests/test_pallas.py runs
 it) on the same numpy inputs, at f32 with atol 1e-5 (both sides accumulate
-the gate products in f32, in different orders). The kernel's launch plan is
-pure Python and is checked here; the CUDA kernel itself is compared with the
-plain version in the ``cuda`` cases, which need a card
-(``python -m pytest tests/test_torch_lstm.py -m cuda``).
+the gate products in f32, in different orders). The kernels' launch plan is
+pure Python and is checked here: the cluster plan for every shape it took
+before, the grid-wide plan for every other non-empty shape. The CUDA
+kernels themselves are compared with the plain version in the ``cuda``
+cases, which need a card (``python -m pytest tests/test_torch_lstm.py -m
+cuda``).
 """
 
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import LSTM_SHAPES
 from dotaclient_tpu.ops.pallas import lstm_sequence as jax_lstm_sequence
 from dotaclient_tpu.ops.pallas import lstm_sequence_reference as jax_lstm_reference
 from dotaclient_tpu_torch.ops import lstm as port
@@ -74,6 +77,21 @@ def test_plain_matches_pallas_interpret(B, T):
     got = flat(port.lstm_sequence(*to_torch(args)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,T", [(3, 2), (2, 4)])
+def test_plain_matches_pallas_interpret_at_a_grid_width(B, T):
+    """At H=256, a width only the grid plan takes on the card, the port's
+    plain version against ``lstm_sequence_pallas(..., interpret=True)``:
+    at K = D+H = 512 each gate sums twice the products of the narrow cases,
+    in another order on each side, so the tolerance is ATOL x sqrt(2)."""
+    from dotaclient_tpu.ops.pallas.lstm import lstm_sequence_pallas
+
+    args = inputs(B=B, T=T, D=256, H=256, seed=40 + B + T)
+    want = flat(lstm_sequence_pallas(*to_jax(args), True))
+    got = flat(port.lstm_sequence(*to_torch(args)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL * np.sqrt(2))
 
 
 def test_resets_cut_state():
@@ -137,10 +155,93 @@ def test_kernel_plan_fits_one_block(B, T, D, H):
     assert plan.grid == plan.cluster * tiles and (tiles - 1) * plan.rows < B
 
 
-@pytest.mark.parametrize("D,H", [(512, 512), (128, 1024), (4096, 128)])
-def test_kernel_plan_refuses_shapes_past_the_limit(D, H):
-    with pytest.raises(ValueError, match="shared memory"):
-        port.kernel_plan(8, 4, D, H)
+def cluster_plan_before(B, T, D, H):
+    """The cluster plan as ``kernel_plan`` computed it when it took no other
+    kernel: (cluster, rows, grid, threads, kslices, smem_bytes), or None
+    for a shape it refused."""
+    cluster = next(c for c in (8, 4, 2, 1) if H % c == 0)
+    units = H // cluster
+    kslices = max(4, min(32, 256 // units))
+    threads = units * kslices
+    cols, Dp, Hp = 4 * units, -(-D // 4) * 4, -(-H // 4) * 4
+    floats = (4 + (Dp + Hp) * cols + 2 * 4 * (Dp + Hp) + kslices * 4 * cols + 4 * cols + cols
+              + -(-4 * T // 4) * 4)
+    if 4 * floats > 232_448 or threads > 1024:
+        return None
+    return cluster, 4, cluster * -(-B // 4), threads, kslices, 4 * floats
+
+
+def assert_valid_plan(plan, B, T, D, H):
+    """Shared memory within one block's 227 KB, at most 1,024 threads, a
+    grid the card holds co-resident, and the numbers the kernels check."""
+    assert plan.smem_bytes <= 232_448 and 1 <= plan.threads <= 1024
+    if plan.kind == "cluster":
+        assert plan == port._cluster_plan(B, T, D, H)
+        assert (plan.cluster, plan.rows, plan.grid, plan.threads, plan.kslices, plan.smem_bytes) == \
+            cluster_plan_before(B, T, D, H)
+        return
+    assert plan.kind == "grid" and cluster_plan_before(B, T, D, H) is None and plan.cluster == 1
+    assert plan.threads <= port.GRID_THREADS  # the kernel's launch bound
+    # at most one block an SM of the card's 132, each owning `units` hidden
+    # units, every unit owned once
+    assert 1 <= plan.grid <= 132 and (plan.grid - 1) * plan.units < H <= plan.grid * plan.units
+    assert plan.threads % plan.kslices == 0 and plan.threads // plan.kslices <= 4 * plan.units
+    assert plan.rows in port.GRID_ROWS and (plan.rows >= min(B, port.GRID_ROWS[-1]) or not plan.resident)
+    Kp = -(-D // 4) * 4 + -(-H // 4) * 4
+    assert plan.kchunk % 4 == 0 and 4 <= plan.kchunk <= Kp
+    cols = 4 * plan.units
+    floats = ((Kp * cols if plan.resident else 0) + plan.rows * plan.kchunk + plan.kslices * plan.rows * cols
+              + plan.rows * cols + cols)  # grid_smem_floats in the source
+    assert plan.smem_bytes == 4 * floats
+
+
+# widths at D = H: the ones the cluster plan takes (up to 216, even, with a
+# large enough portable cluster), every odd width from 79 up, the even ones
+# whose largest portable cluster is small (114-130), and the wide ones up to
+# 1,024, where the weight slice no longer fits a block even over the grid
+PLAN_WIDTHS = [1, 2, 3, 7, 8, 16, 32, 64, 78, 79, 80, 113, 114, 118, 122, 126, 128, 129, 130, 131, 132, 133, 200,
+               216, 217, 218, 255, 256, 257, 264, 300, 384, 500, 511, 512, 513, 640, 768, 900, 950, 951, 1000, 1023,
+               1024]
+
+
+@pytest.mark.parametrize("H", PLAN_WIDTHS)
+def test_kernel_plan_takes_every_width(H):
+    """A valid plan at D = H and at D != H (narrow and wide inputs), from
+    one row to the league's 1,280, from T=1 to T=20,000."""
+    for B, T, D in [(1, 1, H), (5, 3, H), (64, 1, H), (128, 17, H), (1280, 17, H), (4, 10_000, H), (2, 20_000, H),
+                    (64, 1, 7), (8, 4, 4096)]:
+        assert_valid_plan(port.kernel_plan(B, T, D, H), B, T, D, H)
+
+
+def test_kernel_plan_covers_widths_1_to_1024():
+    """Every width from 1 to 1,024 at D = H (B=64, T=17): the cluster plan
+    for the 114 it took before, 216 the widest, and the grid plan for the
+    other 910; at H=128 the grid plan past the cluster's T (its tile's
+    resets sit whole in shared memory)."""
+    kinds = {}
+    for H in range(1, 1025):
+        plan = port.kernel_plan(64, 17, H, H)
+        assert_valid_plan(plan, 64, 17, H, H)
+        kinds.setdefault(plan.kind, []).append(H)
+    assert len(kinds["cluster"]) == 114 and max(kinds["cluster"]) == 216 and len(kinds["grid"]) == 910
+    assert port.kernel_plan(4, 8_000, 128, 128).kind == "cluster"
+    assert port.kernel_plan(4, 10_000, 128, 128).kind == "grid"
+
+
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_kernel_plan_keeps_the_cluster_plan_of_every_path_shape(shape):
+    """Every shape the port's paths launch (``chip_smoke.LSTM_SHAPES``)
+    keeps the cluster plan it had, number for number."""
+    plan = port.kernel_plan(*shape)
+    assert plan.kind == "cluster"
+    assert (plan.cluster, plan.rows, plan.grid, plan.threads, plan.kslices, plan.smem_bytes) == \
+        cluster_plan_before(*shape)
+
+
+@pytest.mark.parametrize("B,T,D,H", [(0, 1, 8, 8), (1, 0, 8, 8), (1, 1, 0, 8), (1, 1, 8, 0)])
+def test_kernel_plan_refuses_empty_shapes(B, T, D, H):
+    with pytest.raises(ValueError, match="empty"):
+        port.kernel_plan(B, T, D, H)
 
 
 @pytest.mark.cuda
@@ -184,15 +285,66 @@ def test_kernel_rows_are_independent(cuda_device, B, T):
         assert torch.equal(u[0], v[0])
 
 
+def wide_atol(args, want):
+    """The tolerance of the kernel against the plain version where K = D+H
+    exceeds 256 (no cluster shape of the port's paths does): ATOL, or twice
+    the plain version's own distance from the same function in f64 on the
+    same inputs, whichever is larger. Both f32 evaluations sum 512-2,048
+    products a gate in different orders, and at these inputs (weights of
+    std 0.3, 6.8x the policy's lecun scale at H=512) each step of the
+    recurrence amplifies the rounding of the steps before; the plain
+    version's own error measures that amplification."""
+    exact = port.lstm_sequence_reference(*(a.double() for a in args))
+    own = max(float((a.double() - b).abs().max()) for a, b in zip((want[0], *want[1]), (exact[0], *exact[1])))
+    return max(ATOL, 2 * own)
+
+
+# grid-plan shapes: an odd width, the policy's H=512 at the serving step,
+# the rollout step and the update, H=1,024 (the weight slice read from L2
+# each step), the narrowest width the cluster refuses, H=128 past the
+# cluster's T, and narrow inputs to a wide core
+GRID_SHAPES = [(5, 3, 255, 255), (64, 1, 512, 512), (128, 1, 512, 512), (128, 17, 512, 512), (64, 1, 1024, 1024),
+               (2, 1, 79, 79), (4, 10_000, 128, 128), (3, 4, 7, 300)]
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_shapes_past_the_plan(cuda_device):
-    """For CUDA tensors a shape the plan refuses raises; it never falls back
-    to the plain version."""
-    args = to_torch(inputs(B=2, T=1, D=512, H=512, seed=9), device=cuda_device)
-    before = port.lstm_sequence_kernel.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        port.lstm_sequence(*args)
-    assert port.lstm_sequence_kernel.launches == before
+@pytest.mark.parametrize("B,T,D,H", GRID_SHAPES)
+def test_grid_kernel_matches_plain_on_cuda(cuda_device, B, T, D, H):
+    """For CUDA tensors a shape the cluster plan cannot take launches the
+    grid-wide kernel once (never the plain version), within ``wide_atol``
+    of the plain version (ATOL where K <= 256)."""
+    assert port.kernel_plan(B, T, D, H).kind == "grid"
+    args = to_torch(inputs(B=B, T=T, D=D, H=H, seed=B + H), device=cuda_device)
+    before = dict(port.lstm_sequence_kernel.launches_by_plan)
+    got = port.lstm_sequence(*args)
+    torch.cuda.synchronize()
+    assert port.lstm_sequence_kernel.launches_by_plan["grid"] == before["grid"] + 1
+    assert port.lstm_sequence_kernel.launches_by_plan["cluster"] == before["cluster"]
+    want = port.lstm_sequence_reference(*args)
+    atol = ATOL if D + H <= 256 else wide_atol(args, want)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        torch.testing.assert_close(g, w, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(64, 1, 512, 512), (128, 17, 512, 512), (5, 3, 255, 255), (16, 2, 1024, 1024)])
+def test_grid_kernel_is_deterministic_and_rows_independent(cuda_device, B, T, D, H):
+    """Two launches give the same bits, and row 0's bits do not depend on
+    what rows 1..B-1 hold, nor on B: the serve engine's replay relies on
+    both."""
+    x, h0, c0, wx, wh, b, r = to_torch(inputs(B=B, T=T, D=D, H=H, seed=8), device=cuda_device)
+    a = port.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    a2 = port.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    quiet = [torch.zeros_like(t) for t in (x, h0, c0, r)]
+    for q, t in zip(quiet, (x, h0, c0, r)):
+        q[0] = t[0]
+    z = port.lstm_sequence_kernel(quiet[0], quiet[1], quiet[2], wx, wh, b, quiet[3])
+    one = port.lstm_sequence_kernel(x[:1].contiguous(), h0[:1].contiguous(), c0[:1].contiguous(), wx, wh, b,
+                                    r[:1].contiguous())
+    torch.cuda.synchronize()
+    for u, v, q, o in zip((a[0], *a[1]), (a2[0], *a2[1]), (z[0], *z[1]), (one[0], *one[1])):
+        assert torch.equal(u, v)
+        assert torch.equal(u[0], q[0]) and torch.equal(u[0], o[0])
 
 
 # -- the recompute backward ---------------------------------------------------

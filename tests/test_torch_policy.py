@@ -10,6 +10,8 @@ over 8 seeds of these tests was 0.0156, one such ulp. The bf16 cases allow
 atol 0.03, two ulps, on logits, value and carry.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from dotaclient_tpu_torch.models import convert, flax_param_shapes
 from dotaclient_tpu_torch.models.policy import mask_carry
+from dotaclient_tpu_torch.ops.lstm import kernel_plan
 from tests.test_torch_common import (
     flax_params,
     flax_shapes,
@@ -124,6 +127,25 @@ def test_sequence_matches_flax(dtype):
         )
     assert got[0]["move_x"].shape == (B, T, pcfg.actions.move_bins)
     assert_outputs_close(want, got, TOL[dtype])
+
+
+def test_sequence_matches_flax_at_a_grid_width():
+    """At hidden_dim 130 (even, but its largest portable cluster is 2, so
+    on the card only the grid plan takes it) the port's policy sequence
+    against flax's at f32, as at the small config's width."""
+    jcfg, pcfg = (dataclasses.replace(c, model=dataclasses.replace(c.model, hidden_dim=130)) for c in small_configs())
+    assert kernel_plan(B, T, 130, 130).kind == "grid"
+    params = flax_params(jcfg, seed=21)
+    obs = random_obs(pcfg, (B, T), seed=22)
+    carry = random_carry(130, seed=23)
+    dones = (np.random.default_rng(24).random((B, T)) < 0.3).astype(np.float32)
+    want = jax_policy(jcfg)[2](params, to_jax(obs), jax_carry(carry, jnp.float32), jnp.asarray(dones))
+    with torch.no_grad():
+        got = port_policy(pcfg, params).sequence(
+            to_torch(obs), torch_carry(carry, torch.float32), torch.from_numpy(dones)
+        )
+    assert got[2][0].shape == (B, 130)
+    assert_outputs_close(want, got, TOL["float32"])
 
 
 def test_sequence_equals_steps_with_resets():

@@ -92,6 +92,18 @@ def in_order(record):
     return stamps(record) == sorted(stamps(record))
 
 
+def share_one_clock(monkeypatch):
+    """Both packages' trace clocks on one epoch offset for the rest of the
+    test. Each module fixes ``_EPOCH_OFFSET`` (wall minus monotonic) when it
+    is imported; two imports minutes apart on a host whose wall clock is
+    slewed in between differ by milliseconds, and a cross-package timeline
+    in one process (a client's ``encode`` and the server's ``recv`` well
+    under a millisecond apart) would then read out of order. Across
+    processes both packages rely on wall clocks alike. The port's module
+    takes the reference's offset; the reference's is only read."""
+    monkeypatch.setattr(tracing, "_EPOCH_OFFSET", jtracing._EPOCH_OFFSET)
+
+
 # -- records and blobs ------------------------------------------------------------------------------------------
 
 RECORDS = [
@@ -367,7 +379,10 @@ def test_tracing_off_runs_no_tracing_code(monkeypatch):
 # -- serve ------------------------------------------------------------------------------------------------------
 
 
-def test_jax_client_gets_recv_and_reply_from_the_port_server(tmp_path):
+def jax_client_on_port_server(tmp_path):
+    """A JAX client steps 3 requests on the port's server, both tracing
+    every request; returns (the client's ``chunk`` records, the server's
+    events)."""
     jcfg, pcfg = serve_configs()
     jpath, ppath = str(tmp_path / "client.jsonl"), str(tmp_path / "server.jsonl")
     jtracing.configure(jpath, sample_n=1)
@@ -382,15 +397,35 @@ def test_jax_client_gets_recv_and_reply_from_the_port_server(tmp_path):
             client.close()
     jtracing.shutdown()
     tracing.shutdown()
-    done = [e for e in read_events(jpath) if e["event"] == "chunk"]
+    return [e for e in read_events(jpath) if e["event"] == "chunk"], read_events(ppath)
+
+
+def test_jax_client_gets_recv_and_reply_from_the_port_server(tmp_path, monkeypatch):
+    share_one_clock(monkeypatch)
+    done, served = jax_client_on_port_server(tmp_path)
     assert len(done) == 3
     for e in done:
         assert names(e) == ["encode", "recv", "reply", "done"] and in_order(e)
-    served = read_events(ppath)
     assert sorted(e["tid"] for e in served if e["event"] == "serve_request") == sorted(e["tid"] for e in done)
 
 
-def test_port_client_gets_recv_and_reply_from_a_jax_server(tmp_path):
+@pytest.mark.parametrize("skew_s", [-0.003, 0.003])
+def test_skewed_trace_clocks_order_once_shared(tmp_path, monkeypatch, skew_s):
+    """The port's clock set a few ms off the reference's, as two imports
+    apart on a slewed host leave them: the skew shows in ``now``, and once
+    the two share one offset the cross-package timeline orders again."""
+    monkeypatch.setattr(tracing, "_EPOCH_OFFSET", jtracing._EPOCH_OFFSET + skew_s)
+    assert abs(tracing.now() - jtracing.now() - skew_s) < 1e-3
+    share_one_clock(monkeypatch)
+    assert abs(tracing.now() - jtracing.now()) < 1e-3
+    done, _ = jax_client_on_port_server(tmp_path)
+    assert len(done) == 3
+    for e in done:
+        assert names(e) == ["encode", "recv", "reply", "done"] and in_order(e)
+
+
+def test_port_client_gets_recv_and_reply_from_a_jax_server(tmp_path, monkeypatch):
+    share_one_clock(monkeypatch)
     jcfg, pcfg = serve_configs()
     jpath, ppath = str(tmp_path / "server.jsonl"), str(tmp_path / "client.jsonl")
     jtracing.configure(jpath, sample_n=1)
