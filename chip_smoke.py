@@ -42,10 +42,14 @@ exits non-zero and prints no result line):
    the grid plan, held against the plain version and timed the same way
    (graphs of ~50 ms where a call is long: one call and 3 replays at
    T=10,000, where the plain version is timed around one call, the host's
-   issue included), with ``torch.lstm_cell`` at T=1. Where K = D+H exceeds 256 (no cluster shape of the port's paths
+   issue included), with ``torch.lstm_cell`` at T=1 and cuDNN's reset-free
+   ``torch.lstm`` at 1 < T < 1,000. Where K = D+H exceeds 256 (no cluster shape of the port's paths
    does) the tolerance is ``wide_atol``'s: KERNEL_ATOL, or twice the plain
    version's own max abs error against the same function in f64 on the
-   same inputs, whichever is larger;
+   same inputs, whichever is larger. Then the grid kernel's bits at the
+   wide core: two launches at the serving step equal, row 0 of it equal to
+   a B=1 launch, and a T=1 launch at the training batch equal to step 0 of
+   a T=17 launch;
 3. serve: the default ``RunConfig`` (LSTM(128) policy, bf16 compute, f32
    params drawn from ``--seed``; max_batch 64, max_slots 256) served by
    ``ServeEngine`` on the card: 64 games submit 20 steps each (1,280
@@ -817,7 +821,7 @@ def check_lstm_shape(device, seed, B, T, D, H, kind):
 
     from dotaclient_tpu_torch.ops import lstm
 
-    plan = lstm.kernel_plan(B, T, D, H)
+    plan = lstm.kernel_plan(B, T, D, H, lstm.device_sms(device))
     if plan.kind != kind:
         raise AssertionError(f"lstm_seq B={B} T={T} D={D} H={H}: the {plan.kind} plan, expected the {kind} plan")
     args = lstm_inputs(B, T, D, H, seed + B + T, device)
@@ -847,15 +851,17 @@ def check_lstm_shape(device, seed, B, T, D, H, kind):
         log(f"torch.lstm_cell vs plain version: max abs err {lib_err:.3g}")
         shape["library_ms"] = device_ms(library)
         shape["call_ms"] = time_ms(lambda: lstm.lstm_sequence_kernel(*args))
-    if T > 1 and D == H == 128 and kind == "cluster":
+    if 1 < T < 1000 and (D == H == 128 and kind == "cluster" or kind == "grid"):
         reset_free, rf_err = lstm_reset_free_library(args)
         log(f"torch.lstm (cuDNN, reset-free copy) vs plain version on the same copy: max abs err {rf_err:.3g}")
-        shape["library_ms_reset_free"] = device_ms(reset_free)
+        shape["library_ms_reset_free"] = device_ms(*depth(reset_free))
     where = (f"plan cluster {plan.cluster}, rows per tile {plan.rows}, {plan.grid} blocks of {plan.threads} threads"
              if kind == "cluster" else
-             f"grid plan, {plan.grid} blocks of {plan.threads} threads ({plan.units} units each, "
-             f"{plan.kslices} K-slices, weights {'resident' if plan.resident else 'read from L2'}), "
-             f"rows per tile {plan.rows}")
+             f"grid plan for {lstm.device_sms(device)} SMs, {plan.parts} parts of the batch, {plan.grid} blocks "
+             f"of {plan.threads} threads ({plan.units} units each, {plan.kslices} K-slices, weights "
+             f"{'resident' if plan.resident else 'streamed from L2'}), {plan.rows} rows a pass "
+             f"({plan.thread_rows} a thread, {-(-B // (plan.parts * plan.rows))} passes a part), chunks of "
+             f"{plan.kchunk} through {lstm.GRID_STAGES} stages")
     log(
         f"lstm_seq B={B} T={T} D={D} H={H}: {where}, {plan.smem_bytes} B shared memory each; "
         f"max abs err {err:.3g} (atol {atol:.3g}"
@@ -870,6 +876,41 @@ def check_lstm_shape(device, seed, B, T, D, H, kind):
     return shape
 
 
+def check_grid_invariants(device, seed):
+    """The grid kernel's bits at the wide core's shapes, as the serve
+    engine's replays and the tests rely on them: two launches at the
+    serving step B=64 T=1 give the same bits, row 0 of it equals a B=1
+    launch on row 0's inputs (its bits depend on no other row, nor on B),
+    and at the training batch B=128 a T=1 launch equals step 0 of a T=17
+    launch on the same inputs (the sum order ignores T). Raises on any
+    difference; returns what it compared."""
+    import torch
+
+    from dotaclient_tpu_torch.ops import lstm
+
+    H = WIDE_HIDDEN
+    x, h0, c0, wx, wh, b, r = lstm_inputs(64, 1, H, H, seed + 7, device)
+    a = lstm.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    a2 = lstm.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    one = lstm.lstm_sequence_kernel(x[:1].contiguous(), h0[:1].contiguous(), c0[:1].contiguous(), wx, wh, b,
+                                    r[:1].contiguous())
+    x, h0, c0, wx, wh, b, r = lstm_inputs(TRAIN_ENVS, 17, H, H, seed + 8, device)
+    seq = lstm.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
+    step = lstm.lstm_sequence_kernel(x[:, :1].contiguous(), h0, c0, wx, wh, b, r[:, :1].contiguous())
+    torch.cuda.synchronize()
+    checks = {
+        "two_launches_equal": all(torch.equal(u, v) for u, v in zip((a[0], *a[1]), (a2[0], *a2[1]))),
+        "row0_equals_B1": all(torch.equal(u[0], v[0]) for u, v in zip((a[0], *a[1]), (one[0], *one[1]))),
+        "T1_equals_step0_of_T17": torch.equal(step[0][:, 0], seq[0][:, 0]) and torch.equal(step[1][0], seq[0][:, 0]),
+    }
+    log(f"lstm_seq grid kernel at H={H}: two launches at B=64 T=1 bitwise equal {checks['two_launches_equal']}, "
+        f"row 0 equal to a B=1 launch {checks['row0_equals_B1']}, a T=1 launch equal to step 0 of a T=17 launch "
+        f"at B={TRAIN_ENVS} {checks['T1_equals_step0_of_T17']}")
+    if not all(checks.values()):
+        raise AssertionError(f"lstm_seq grid kernel: bits differ where they must not: {checks}")
+    return checks
+
+
 def check_lstm_kernel(device, seed):
     """Each kernel against its plain version: the cluster kernel at every
     shape of LSTM_SHAPES, the grid-wide kernel at every shape of
@@ -880,6 +921,7 @@ def check_lstm_kernel(device, seed):
 
     shapes = {s: check_lstm_shape(device, seed, *s, "cluster") for s in LSTM_SHAPES}
     grid = {s: check_lstm_shape(device, seed, *s, "grid") for s in LSTM_GRID_SHAPES}
+    grid_bits = check_grid_invariants(device, seed)
     grid_serve, grid_step, grid_seq = (grid[(B, T, WIDE_HIDDEN, WIDE_HIDDEN)]
                                        for B, T in ((64, 1), (TRAIN_ENVS, 1), (TRAIN_ENVS, 17)))
     grid_entry = {
@@ -941,7 +983,7 @@ def check_lstm_kernel(device, seed):
              "buffered_minibatch_sequence": mb_seq, "buffered_minibatch_instep_sequence": mb_seq_instep,
              "scalar_pool_step": scalar_step, "selfplay_rollout_step": selfplay_step,
              "selfplay_fused_sequence": selfplay_seq, "shapes": list(shapes.values()),
-             "grid_shapes": list(grid.values()),
+             "grid_shapes": list(grid.values()), "grid_bits": grid_bits,
              "grid_check_launches": lstm.lstm_sequence_kernel.launches_by_plan["grid"]}
     return entry, grid_entry, extra
 
@@ -6060,9 +6102,9 @@ def record_lstm_shapes(shapes):
 
     plan = lstm.kernel_plan
 
-    def recorded(B, T, D, H):
+    def recorded(B, T, D, H, *sms):
         shapes[(B, T, D, H)] += 1
-        return plan(B, T, D, H)
+        return plan(B, T, D, H, *sms)
 
     lstm.kernel_plan = recorded
     return lambda: setattr(lstm, "kernel_plan", plan)
@@ -6408,9 +6450,9 @@ class _Finder(importlib.abc.MetaPathFinder):
             run(module)
             plan = module.kernel_plan
 
-            def recorded(B, T, D, H):
+            def recorded(B, T, D, H, *sms):
                 _SHAPES[(B, T, D, H)] += 1
-                return plan(B, T, D, H)
+                return plan(B, T, D, H, *sms)
 
             module.kernel_plan = recorded
 

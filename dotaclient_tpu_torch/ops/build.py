@@ -36,10 +36,10 @@ _SIGNATURES = {
     # 10 tensors; B, T, D, H; the plan's cluster, rows, grid, threads and
     # smem_bytes; stream, error buffer and its length
     "dota_lstm_seq_forward": [_P] * 10 + [_I] * 4 + [_I] * 5 + [_P, ctypes.c_char_p, _I],
-    # the same tensors and sizes; the grid plan's rows, grid, threads,
-    # units, kslices, kchunk, resident and smem_bytes; stream, error buffer
-    # and its length
-    "dota_lstm_seq_grid_forward": [_P] * 10 + [_I] * 4 + [_I] * 8 + [_P, ctypes.c_char_p, _I],
+    # the same tensors and sizes; the grid plan's rows, thread_rows, grid,
+    # threads, units, kslices, kchunk, resident and smem_bytes; stream,
+    # error buffer and its length
+    "dota_lstm_seq_grid_forward": [_P] * 10 + [_I] * 4 + [_I] * 9 + [_P, ctypes.c_char_p, _I],
 }
 
 _lock = threading.Lock()

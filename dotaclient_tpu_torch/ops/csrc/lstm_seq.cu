@@ -386,92 +386,146 @@ __global__ void lstm_seq_cluster_kernel(
 // widths: every H above 216, among them 256, 512 and 1,024, every odd H from
 // 79 up, and even widths whose largest portable cluster is small), any D,
 // and any T (the cluster kernel keeps the tile's resets whole in shared
-// memory). Same function, same contract, same cell math as above.
+// memory). It replaces the same Pallas kernel (`_kernel`, launched by
+// `_pallas_forward` in dotaclient_tpu/ops/pallas/lstm.py), with the same
+// function, contract and cell math as above.
 //
-// Design: the Pallas kernel's "weights pinned across all T steps" spread
-// over the whole card instead of one cluster.
-//   * One persistent cooperative launch of at most one block an SM. The
-//     hidden units are split over the grid, U a block (U = ceil(H / 132)):
-//     block j owns units [jU, jU+U) and their four gate columns (4U). A
-//     cooperative launch is refused when the grid cannot be co-resident, so
-//     the grid-wide barrier never waits on a block that is not running.
-//   * Where its (D+H) x 4U weight slice fits beside the buffers (resident),
-//     a block copies it into shared memory once and keeps it for all T steps
-//     (64 KB at D = H = 512); otherwise (D = H above ~900) it reads the slice
-//     from global memory every step, where the 50 MB L2 holds the whole f32
-//     weights up to H ~ 1,250.
-//   * h goes between steps through device memory: step t reads h_{t-1} from
-//     hs[:, t-1], which every block wrote at step t-1, after one grid-wide
-//     barrier a step, with ld.global.cg (L2; the SM's L1 is not coherent
-//     across SMs, and a line of hs[:, t] may sit in it from a read of the
-//     neighbouring hs[:, t-1]). c lives in cT, each element read and written
-//     by the thread of its (row, unit) only.
-//   * The batch is walked in tiles of R rows (R = 1..8 by B). For each tile
-//     the rows' inputs [x_t, h_{t-1} * keep] are staged into shared memory
-//     in chunks of KC of the padded K = D+H axis. Each thread owns one gate
-//     column (or a few, where 4U exceeds the column threads) and a K-slice
-//     of 4-deep chunks, and accumulates its R rows from 16-byte reads of the
-//     staged inputs. Resets are read a step at a time from global memory, so
-//     T has no limit but memory.
-//   * The sum order is fixed: each thread's slice in order, chunk after
-//     chunk, then the K-slices in order, then the bias. No atomics, no
-//     split-K across blocks, and a row's sums never touch another row's: its
-//     bits do not depend on the other rows, nor on B or R.
+// What bounds it on an H100. At B=128 T=1 D=H=512 a step is 268 MFLOP, 4 us
+// at the card's f32 peak, and needs the whole [B, D+H] input (512 KB) next
+// to every SM that owns some of the 2,048 gate columns. When every SM reads
+// the same lines of L2 at once they arrive far slower than L2's bandwidth
+// would allow, so the input, not the product, sets a step's time; for T > 1
+// one grid-wide barrier a step comes on top. The first version of
+// this kernel walked the batch 8 rows at a time, each tile paying staging,
+// three block barriers, a 32-way reduction and a round trip to device
+// memory one after another, its weights read 4 bytes at a time: 119.6 us
+// at that shape against torch.lstm_cell's 34.4 (PERF.md).
 //
-// What bounds it: at B=64 T=1 D=H=512 the work is 268 MFLOP against 8.4 MB
-// of weights, about 4 us at the card's f32 peak; the kernel is far from it.
-// Its limits are latencies, paid one after another: the prologue's weight
-// load, then for each tile the staging from L2, the product, three block
-// barriers, the K-slices' sums and the cell's round trip to cT, and one
-// grid barrier a step. More threads a block shorten each thread's chain
-// of loads (the K-slices), hence 512; at R=16 the accumulators spill
-// (ptxas) and a launch took longer than at R=8 (PERF.md), hence R <= 8.
-// Simple and right first: no tensor cores (the f32 contract, as above), no
-// TMA, no overlap of one tile's staging with another's product, and every
-// block reads the whole [B, D+H] input of a step.
+// Design:
+//   * One launch of at most one block an SM. The batch is cut into P parts
+//     (one a 32 rows, up to 4; 2 where the weight slice streams) and H into
+//     unit groups of U = P x ceil(H / sms) units (sms: the card's SMs, from
+//     the plan), one block a (group, part): each block owns the four gate
+//     columns (gate-major) of its units for its part's rows, so it reads
+//     only its part of each step's input, and every line of it is read by
+//     1/P of the SMs. T > 1 is a cooperative launch, refused when the grid
+//     cannot be co-resident, with one grid-wide barrier a step; a T = 1
+//     launch has no barrier and is an ordinary launch.
+//   * The whole part in one pass: each thread owns a register tile of RT
+//     rows x 4 gate columns at one of KS K-slices; the part's rows are
+//     spread over RG row groups of U x KS threads, so a step's product is
+//     one latency chain however large B is (RG x RT rows a pass; a larger
+//     part takes a few passes). A warp holds neighbouring row groups and
+//     column groups of one K-slice: its 16-byte reads of an input row are
+//     broadcast to the lanes of that row, and those of a weight row to the
+//     lanes of that column group; rows sit an odd number of 16-byte units
+//     apart, so the 8 rows of a warp's read fall on distinct banks. From 32
+//     steps on, the fewest row groups that hold the part (at least 4) take
+//     it: a long sequence pays its barriers every step, and fewer warps meet
+//     at them sooner.
+//   * Staging overlapped with the product: the [rows, KC] chunks of x_t,
+//     then of h_{t-1}, come through a ring of two stages in shared memory
+//     in 16-byte cp.async copies, chunk c+1 in flight while chunk c is
+//     multiplied. The chunk is as deep as shared memory allows at the
+//     pass's rows (a whole part of K at small B), and the next step's first
+//     x chunk is in flight across the grid barrier. h_{t-1} is read from
+//     hs[:, t-1] through L2 (.cg: the SM's L1 is not coherent across SMs),
+//     where every block wrote it before the barrier; rows that are not
+//     16-byte aligned (D or H not a multiple of 4) are copied element by
+//     element (ld.global.cg for h, four loads in flight a thread). The reset
+//     is applied as h is staged: each thread scales the pieces of h it
+//     copied, once its copies have landed, so the product has no multiply
+//     of its own for it.
+//   * The weight slice ((D+H) x 4U floats) is copied into shared memory
+//     straight from the unpacked [K, 4H] layout, 16 bytes a copy where
+//     U % 4 == 0 and H % 4 == 0, each chunk's rows with that chunk during
+//     the launch's first pass, and kept for all T steps; where it does not
+//     fit (D = H = 512 at 4 parts, D = H above ~900 at 1), each chunk of it
+//     streams through the ring with the inputs, once a step.
+//   * The sum order is fixed by (D, H, sms) alone: the K axis is cut into
+//     4-deep groups dealt round-robin to KS = 32 / ceil(H / sms) K-slices;
+//     each slice sums its groups in order, then the slices are added in
+//     order, then the bias. No atomics, no split-K across blocks, and a
+//     column's sums are one thread's, whichever block and thread it lands
+//     on: a row's bits depend neither on the other rows, nor on B, P, RG,
+//     RT or the chunk depth, nor on T (step 0 of a T>1 launch equals a T=1
+//     launch).
+//   * The slices' partials meet in shared memory (aliasing the ring); the
+//     thread of each (row, unit) adds them, four gates side by side, and
+//     applies the cell. Where the part takes one pass, c stays in that
+//     thread's register for all T steps; otherwise it goes through cT.
+//
+// No tensor cores: the contract is f32 against the plain version at atol
+// 1e-5 (or the recurrence's own amplification where K > 256), which TF32
+// cannot meet; a split-TF32 (3xTF32) wgmma product is the next candidate,
+// and blocks in clusters sharing one copy of each input chunk the other.
 
-// Shared memory of one block, in floats: the weight slice [Kp][NC] when
-// resident, the staged inputs [R][KC], partial sums [KS][R][NC], gate
-// pre-activations [R][NC] and the bias slice [NC].
-__host__ __device__ inline long long grid_smem_floats(int D, int H, int R, int U, int KS, int KC, int resident) {
-  const long long Kp = round4(D) + round4(H), NC = 4LL * U;
-  return (resident ? Kp * NC : 0) + (long long)R * KC + (long long)KS * R * NC + R * NC + NC;
-}
-
-// the weight of gate column `col` of the block whose first unit is u0, at
-// row k of the padded K axis (x rows [0, Dp), h rows [Dp, Dp+Hp)); zero in
-// the rounding rows and past H
-__device__ __forceinline__ float grid_weight(const float* __restrict__ wx, const float* __restrict__ wh,
-                                             int D, int H, int Dp, int U, int u0, int k, int col) {
-  const int q = col / U, unit = u0 + col - q * U;
-  if (unit >= H) return 0.0f;
-  const size_t G = 4 * (size_t)H, offset = (size_t)q * H + unit;
-  if (k < Dp) return k < D ? __ldg(wx + (size_t)k * G + offset) : 0.0f;
-  return k - Dp < H ? __ldg(wh + (size_t)(k - Dp) * G + offset) : 0.0f;
-}
-
-// input k (of the padded K axis) of batch row b (< B) at step t: x_t, or
-// h_{t-1} * (1 - reset_t) (the reset, BEFORE the step); zero in the
-// rounding rows of K
-__device__ __forceinline__ float grid_input(const float* __restrict__ x, const float* __restrict__ h0,
-                                            const float* hs, const float* __restrict__ resets, int b, int T,
-                                            int D, int H, int Dp, int t, int k) {
-  const size_t bt = (size_t)b * T + t;
-  if (k < Dp) return k < D ? __ldg(x + bt * D + k) : 0.0f;
-  const int kh = k - Dp;
-  if (kh >= H) return 0.0f;
-  return (t == 0 ? __ldg(h0 + (size_t)b * H + kh) : __ldcg(hs + (bt - 1) * H + kh)) * (1.0f - __ldg(resets + bt));
-}
-
-// weight loads a thread keeps in flight in the prologue: each is a separate
-// 4-byte read, so one at a time would pay its latency every time
-constexpr int kInFlight = 8;
-
-// threads a block at most (GRID_THREADS in ops/lstm.py): the register cap
-// that keeps one block an SM schedulable whatever R is
+// threads a block at most (GRID_THREADS in ops/lstm.py): the launch bound
+// that keeps one block an SM schedulable whatever RT is
 constexpr int kGridMaxThreads = 512;
+// (row, unit) cells a thread updates in a pass at most (GRID_CELL_ITEMS)
+constexpr int kCellItems = 4;
+// ring stages (GRID_STAGES)
+constexpr int kStages = 2;
 
-template <int R>
+// a staged input row's stride in floats: an odd number of 16-byte units,
+// so the 8 rows of one warp's read fall on distinct banks
+__host__ __device__ inline int grid_ldi(int KC) { return (KC + 7) / 8 * 8 + 4; }
+
+// Shared memory of one block, in floats: the weight slice [Kp][4U] when
+// resident, the bias slice [4U], the pass's resets [rows] (rounded to 4),
+// and the ring: S stages of the inputs [rows][ldi] (and, when not
+// resident, the weights [KC][4U]), which the K-slices' partial sums
+// [KS][rows][4U] alias after a pass's product.
+__host__ __device__ inline long long grid_smem_floats(int D, int H, int rows, int U, int KS, int KC, int S,
+                                                      int resident) {
+  const long long Kp = round4(D) + round4(H), NC = 4LL * U;
+  const long long stage = (long long)rows * grid_ldi(KC) + (resident ? 0 : (long long)KC * NC);
+  const long long red = (long long)KS * rows * NC;
+  return (resident ? Kp * NC : 0) + NC + round4(rows) + (S * stage > red ? S * stage : red);
+}
+
+// 16 bytes global -> shared, through L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// 4 bytes global -> shared (through L1: read-only data only); zero where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// acc[r][:] += in[row r] . w over the 4-deep groups first, first + KS, ...
+// (< gn) of one chunk, in order; row r of the thread is row rg + r*RG of
+// the pass
+template <int RT>
+__device__ __forceinline__ void grid_product(float (&acc)[RT][4], const float* in, int ldi, const float* w,
+                                             int NC, int colg, int rg, int RG, int KS, int first, int gn) {
+#pragma unroll 1
+  for (int g = first; g < gn; g += KS) {
+    const int k = 4 * g;
+    const float4 w0 = *reinterpret_cast<const float4*>(w + (k + 0) * NC + 4 * colg);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + (k + 1) * NC + 4 * colg);
+    const float4 w2 = *reinterpret_cast<const float4*>(w + (k + 2) * NC + 4 * colg);
+    const float4 w3 = *reinterpret_cast<const float4*>(w + (k + 3) * NC + 4 * colg);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(in + (rg + r * RG) * ldi + k);
+      float* a = acc[r];
+      a[0] = fmaf(v.x, w0.x, a[0]); a[1] = fmaf(v.x, w0.y, a[1]);
+      a[2] = fmaf(v.x, w0.z, a[2]); a[3] = fmaf(v.x, w0.w, a[3]);
+      a[0] = fmaf(v.y, w1.x, a[0]); a[1] = fmaf(v.y, w1.y, a[1]);
+      a[2] = fmaf(v.y, w1.z, a[2]); a[3] = fmaf(v.y, w1.w, a[3]);
+      a[0] = fmaf(v.z, w2.x, a[0]); a[1] = fmaf(v.z, w2.y, a[1]);
+      a[2] = fmaf(v.z, w2.z, a[2]); a[3] = fmaf(v.z, w2.w, a[3]);
+      a[0] = fmaf(v.w, w3.x, a[0]); a[1] = fmaf(v.w, w3.y, a[1]);
+      a[2] = fmaf(v.w, w3.z, a[2]); a[3] = fmaf(v.w, w3.w, a[3]);
+    }
+  }
+}
+
+template <int RT>
 __global__ void __launch_bounds__(kGridMaxThreads) lstm_seq_grid_kernel(
     const float* __restrict__ x,       // [B, T, D]
     const float* __restrict__ h0,      // [B, H]
@@ -482,127 +536,238 @@ __global__ void __launch_bounds__(kGridMaxThreads) lstm_seq_grid_kernel(
     const float* __restrict__ resets,  // [B, T]
     float* hs,                         // [B, T, H]: written, and read a step later
     float* __restrict__ hT,            // [B, H]
-    float* cT,                         // [B, H]: c between steps
-    int B, int T, int D, int H, int U, int KS, int KC, int resident) {
+    float* cT,                         // [B, H]: c between steps where B takes passes
+    int B, int T, int D, int H, int U, int KS, int KC, int resident, int vec_x, int vec_h, int vec_w) {
   extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
+  constexpr int S = kStages;
   const int NC = 4 * U;
-  const int Dp = round4(D), Kp = Dp + round4(H);
-  const int u0 = blockIdx.x * U;
+  const int Dp = round4(D), Hp = round4(H), Kp = Dp + Hp;
+  // block (unit group, batch part): units [u0, u0 + U) of rows [bbeg, bend)
+  const int ugroups = (H + U - 1) / U, parts = gridDim.x / ugroups;
+  const int u0 = (blockIdx.x % ugroups) * U;
+  const int bpart = (B + parts - 1) / parts, bbeg = min(B, (blockIdx.x / ugroups) * bpart);
+  const int bend = min(B, bbeg + bpart);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int NCT = nthreads / KS;           // column threads
-  const int colt = tid % NCT, ks = tid / NCT;
-  float* w = smem;                                   // [Kp][NC], when resident
-  float* in = w + (resident ? (size_t)Kp * NC : 0);  // [R][KC]
-  float* red = in + R * KC;                          // [KS][R][NC]
-  float* pre = red + KS * R * NC;                    // [R][NC]
-  float* bsm = pre + R * NC;                         // [NC]
+  const int RG = nthreads / (U * KS);
+  const int rows = RG * RT;  // batch rows a pass
+  const int colg = tid % U, rg = (tid / U) % RG, ks = tid / (U * RG);
+  const int ldi = grid_ldi(KC);
+  const int stage_floats = rows * ldi + (resident ? 0 : KC * NC);
+  float* wres = smem;                                  // [Kp][NC], when resident
+  float* bsm = wres + (resident ? Kp * NC : 0);        // [NC]
+  float* kbuf = bsm + NC;                              // [rows]: the pass's resets at this step
+  float* ring = kbuf + round4(rows);                   // [S][stage_floats]
+  float* red = ring;                                   // [KS][rows][NC], after a pass's product
+  const int nx = (Dp + KC - 1) / KC, nchunks = nx + (Hp + KC - 1) / KC;
+  const bool one_pass = bend - bbeg <= rows;
+  const size_t G = 4 * (size_t)H;
 
-  for (int col = tid; col < NC; col += nthreads) {
-    const int q = col / U, unit = u0 + col - q * U;
-    bsm[col] = unit < H ? bias[(size_t)q * H + unit] : 0.0f;
-  }
-  if (resident) {
-    const int n = Kp * NC;
-    for (int i0 = tid; i0 < n; i0 += kInFlight * nthreads) {
-      float v[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int i = i0 + u * nthreads, k = i / NC;
-        v[u] = i < n ? grid_weight(wx, wh, D, H, Dp, U, u0, k, i - k * NC) : 0.0f;
+  // chunk c of the pass's rows [b0, b0 + live) at step t into stage c % S:
+  // x_t's chunks first, then h_{t-1}'s (h0 at t = 0); with them the
+  // weights' rows (streamed, or the resident slice's on the launch's first
+  // pass) and, on the first chunk, the pass's resets and the bias
+  auto fill = [&](int c, int b0, int live, int t, bool first_pass) {
+    float* dst = ring + (c % S) * stage_floats;
+    const bool hpart = c >= nx;
+    const int kp = (hpart ? c - nx : c) * KC;
+    const int kn = min(KC, (hpart ? Hp : Dp) - kp);
+    const float* src;
+    size_t ld;
+    bool vec;
+    if (!hpart) {
+      src = x + ((size_t)b0 * T + t) * D + kp;
+      ld = (size_t)T * D;
+      vec = vec_x;
+    } else if (t == 0) {
+      src = h0 + (size_t)b0 * H + kp;
+      ld = H;
+      vec = vec_h;
+    } else {
+      src = hs + ((size_t)b0 * T + t - 1) * H + kp;
+      ld = (size_t)T * H;
+      vec = vec_h;
+    }
+    if (vec) {
+      const int per = kn / 4;
+      for (int i = tid; i < live * per; i += nthreads) {
+        const int r = i / per, k = 4 * (i - r * per);
+        cp_async16(dst + r * ldi + k, src + r * ld + k);
       }
+    } else if (!hpart || t == 0) {
+      const int valid = (hpart ? H : D) - kp;
+      for (int i = tid; i < live * kn; i += nthreads) {
+        const int r = i / kn, k = i - r * kn;
+        const bool ok = k < valid;
+        cp_async4(dst + r * ldi + k, ok ? src + r * ld + k : src, ok);
+      }
+    } else {
+      // h written by other SMs, rows not 16-byte aligned: ld.global.cg, four
+      // loads in flight before their stores
+      for (int i0 = tid; i0 < live * kn; i0 += 4 * nthreads) {
+        float v[4];
 #pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        if (i0 + u * nthreads < n) w[i0 + u * nthreads] = v[u];
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * nthreads, r = i / kn, k = i - r * kn;
+          v[u] = i < live * kn && k < H - kp ? __ldcg(src + r * ld + k) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * nthreads, r = i / kn;
+          if (i < live * kn) dst[r * ldi + i - r * kn] = v[u];
+        }
       }
     }
-  }
-  __syncthreads();
+    if (!resident || first_pass) {
+      float* wdst = resident ? wres + (size_t)((hpart ? Dp : 0) + kp) * NC : dst + rows * ldi;
+      const float* w = (hpart ? wh : wx) + (size_t)kp * G + u0;
+      const int wvalid = (hpart ? H : D) - kp;
+      if (vec_w) {
+        // 16-byte pieces: thread tid always takes piece tid % U of a row
+        const int col = 4 * colg, q = col / U, j = col - q * U;
+        const bool live_unit = u0 + j < H;  // the 4 units are all < H or all >= H
+        for (int kk = tid / U; kk < kn; kk += nthreads / U) {
+          float* d = wdst + kk * NC + col;
+          if (kk < wvalid && live_unit) {
+            cp_async16(d, w + (size_t)kk * G + (size_t)q * H + j);
+          } else {
+            *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+      } else {
+        for (int i = tid; i < kn * NC; i += nthreads) {
+          const int kk = i / NC, col = i - kk * NC, q = col / U, j = col - q * U;
+          const bool ok = kk < wvalid && u0 + j < H;
+          cp_async4(wdst + kk * NC + col, ok ? w + (size_t)kk * G + (size_t)q * H + j : w, ok);
+        }
+      }
+    }
+    if (c == 0) {
+      for (int r = tid; r < rows; r += nthreads) {
+        cp_async4(kbuf + r, r < live ? resets + (size_t)(b0 + r) * T + t : resets, r < live);
+      }
+      if (first_pass) {
+        for (int col = tid; col < NC; col += nthreads) {
+          const int q = col / U, unit = u0 + col - q * U;
+          cp_async4(bsm + col, unit < H ? bias + (size_t)q * H + unit : bias, unit < H);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
+  // this thread's cells: cell n is unit u0 + cell_j of row cell_r + n * cell_step of a pass
+  // (the threads are a multiple of U)
+  const int cell_r = tid / U, cell_j = tid - cell_r * U, cell_step = nthreads / U;
+  float creg[kCellItems];  // c of this thread's cells, across steps where B takes one pass
+  bool primed = false;     // the pass's first chunk is in flight
   for (int t = 0; t < T; ++t) {
-    for (int b0 = 0; b0 < B; b0 += R) {
-      for (int kc = 0; kc < Kp; kc += KC) {
-        const int kn = min(KC, Kp - kc);  // a multiple of 4, as Kp and KC are
-        if (kc > 0) __syncthreads();      // the last chunk's products are done with `in`
-        // the R rows' loads of one K index in flight together
-        for (int kk = tid; kk < kn; kk += nthreads) {
-          float v[R];
+    for (int b0 = bbeg; b0 < bend; b0 += rows) {
+      const int live = min(rows, bend - b0);
+      const bool first_pass = t == 0 && b0 == bbeg;
+      if (!primed) fill(0, b0, live, t, first_pass);
+      primed = false;
+      if (t == 0 || !one_pass) {
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            v[r] = b0 + r < B ? grid_input(x, h0, hs, resets, b0 + r, T, D, H, Dp, t, kc + kk) : 0.0f;
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r) in[r * KC + kk] = v[r];
+        for (int n = 0; n < kCellItems; ++n) {
+          const int r = cell_r + n * cell_step, unit = u0 + cell_j;
+          const size_t bu = (size_t)(b0 + r) * H + unit;
+          creg[n] = r < live && unit < H ? (t == 0 ? __ldg(c0 + bu) : cT[bu]) : 0.0f;
         }
-        __syncthreads();
-        for (int col = colt; col < NC; col += NCT) {
-          float acc[R];
+      }
+
+      float acc[RT][4];
 #pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-          for (int c = ks; c < kn / 4; c += KS) {
-            const int k = kc + 4 * c;
-            float wk[4];
+      for (int r = 0; r < RT; ++r) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              wk[j] = resident ? w[(k + j) * NC + col] : grid_weight(wx, wh, D, H, Dp, U, u0, k + j, col);
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+      }
+      for (int c = 0; c < nchunks; ++c) {
+        const bool hpart = c >= nx;
+        float* in = ring + (c % S) * stage_floats;
+        const int k0 = hpart ? Dp + (c - nx) * KC : c * KC;  // on the padded axis
+        const int kn = min(KC, (hpart ? Kp : Dp) - k0);
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // this thread's copies of chunk c
+        if (hpart) {
+          // the reset, before the step: each thread scales the pieces of h
+          // it copied (fill's mapping), so the product multiplies no keep
+          if (vec_h) {
+            const int per = kn / 4;
+            for (int i = tid; i < live * per; i += nthreads) {
+              const int r = i / per;
+              float4* v = reinterpret_cast<float4*>(in + r * ldi + 4 * (i - r * per));
+              const float keep = 1.0f - kbuf[r];
+              *v = make_float4(v->x * keep, v->y * keep, v->z * keep, v->w * keep);
             }
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float4 v = *reinterpret_cast<const float4*>(in + r * KC + 4 * c);
-              acc[r] = fmaf(v.x, wk[0], acc[r]);
-              acc[r] = fmaf(v.y, wk[1], acc[r]);
-              acc[r] = fmaf(v.z, wk[2], acc[r]);
-              acc[r] = fmaf(v.w, wk[3], acc[r]);
+          } else {
+            for (int i = tid; i < live * kn; i += nthreads) {
+              const int r = i / kn;
+              in[r * ldi + i - r * kn] *= 1.0f - kbuf[r];
             }
           }
-          float* part = red + ks * R * NC + col;  // this thread's own, chunk after chunk
+        }
+        __syncthreads();  // everyone's copies have landed; chunk c-1's stage is free
+        if (c + 1 < nchunks) fill(c + 1, b0, live, t, first_pass);
+        if (rg < live) {
+          const float* w = resident ? wres + (size_t)k0 * NC : in + rows * ldi;
+          const int first = (ks + KS - (k0 / 4) % KS) % KS;
+          grid_product<RT>(acc, in, ldi, w, NC, colg, rg, RG, KS, first, kn / 4);
+        }
+      }
+      __syncthreads();  // every read of the ring is done: the partial sums go there
 #pragma unroll
-          for (int r = 0; r < R; ++r) part[r * NC] = kc == 0 ? acc[r] : part[r * NC] + acc[r];
+      for (int r = 0; r < RT; ++r) {
+        const int row = rg + r * RG;
+        if (row < live) {
+          *reinterpret_cast<float4*>(red + ((size_t)ks * rows + row) * NC + 4 * colg) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
         }
       }
       __syncthreads();
 
-      // gate pre-activations: the K-slices in a fixed order, then the bias
-      for (int o = tid; o < R * NC; o += nthreads) {
-        float s = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kCellItems; ++n) {
+        const int r = cell_r + n * cell_step, j = cell_j, unit = u0 + j;
+        if (r < live && unit < H) {
+          // gate pre-activations: the K-slices in a fixed order, four gates
+          // side by side, then the bias
+          const float* p = red + (size_t)r * NC + j;
+          const size_t stride = (size_t)rows * NC;
+          float a0 = p[0], a1 = p[U], a2 = p[2 * U], a3 = p[3 * U];
 #pragma unroll 8
-        for (int j = 0; j < KS; ++j) s += red[j * R * NC + o];
-        pre[o] = s + bsm[o % NC];
-      }
-      __syncthreads();
-
-      for (int i = tid; i < R * U; i += nthreads) {
-        const int r = i / U, j = i - r * U, b = b0 + r, unit = u0 + j;
-        if (b < B && unit < H) {
-          const size_t bt = (size_t)b * T + t, bu = (size_t)b * H + unit;
-          const float* a = pre + r * NC + j;  // i, f, g, o at a[0], a[U], a[2U], a[3U]
-          const float i_g = sigmoid_f32(a[0]);
-          const float f_g = sigmoid_f32(a[U]);
-          const float g_g = tanhf(a[2 * U]);
-          const float o_g = sigmoid_f32(a[3 * U]);
-          const float keep = 1.0f - __ldg(resets + bt);
-          const float c = f_g * ((t == 0 ? __ldg(c0 + bu) : cT[bu]) * keep) + i_g * g_g;
-          const float h = o_g * tanhf(c);
-          hs[bt * H + unit] = h;
-          cT[bu] = c;
+          for (int k = 1; k < KS; ++k) {
+            const float* pk = p + k * stride;
+            a0 += pk[0]; a1 += pk[U]; a2 += pk[2 * U]; a3 += pk[3 * U];
+          }
+          const float i_g = sigmoid_f32(a0 + bsm[j]);
+          const float f_g = sigmoid_f32(a1 + bsm[U + j]);
+          const float g_g = tanhf(a2 + bsm[2 * U + j]);
+          const float o_g = sigmoid_f32(a3 + bsm[3 * U + j]);
+          const float cn = f_g * (creg[n] * (1.0f - kbuf[r])) + i_g * g_g;
+          const float h = o_g * tanhf(cn);
+          creg[n] = cn;
+          const size_t b = b0 + r, bu = b * H + unit;
+          hs[(b * T + t) * H + unit] = h;
+          if (!one_pass || t == T - 1) cT[bu] = cn;
           if (t == T - 1) hT[bu] = h;
         }
       }
-      // the next tile writes `in` before a barrier, but every read of it
-      // here came before the barrier ahead of the pre-activations; `red` and
-      // `pre` are written only after the next tile's first barrier
+      __syncthreads();  // the partial sums and the resets are read: the ring is free again
     }
-    if (t + 1 < T) grid.sync();  // h_t of every unit is in hs[:, t]
+    if (t + 1 < T) {
+      // the next step's first chunk (x) needs no h: in flight across the barrier
+      if (bbeg < bend) fill(0, bbeg, min(rows, bend - bbeg), t + 1, false);
+      primed = true;
+      cg::this_grid().sync();  // h_t of every unit is in hs[:, t]
+    }
   }
 }
 
 using GridKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                             const float*, const float*, float*, float*, float*, int, int, int, int, int,
-                            int, int, int);
+                            int, int, int, int, int, int);
 
-GridKernel grid_kernel(int rows) {
-  switch (rows) {
+GridKernel grid_kernel(int thread_rows) {
+  switch (thread_rows) {
     case 1: return lstm_seq_grid_kernel<1>;
     case 2: return lstm_seq_grid_kernel<2>;
     case 4: return lstm_seq_grid_kernel<4>;
@@ -709,28 +874,32 @@ extern "C" int dota_lstm_seq_forward(
 }
 
 // Launches the grid-wide kernel on `stream` with the plan's numbers (see
-// `kernel_plan` in ops/lstm.py) as one cooperative launch. Returns 0, or 1
-// with the reason written to `err`: a plan that does not match the shape, a
-// grid that cannot be co-resident on this device, a refused launch.
+// `kernel_plan` in ops/lstm.py): a cooperative launch where T > 1, an
+// ordinary one at T = 1. Returns 0, or 1 with the reason written to `err`:
+// a plan that does not match the shape, a T > 1 grid that cannot be
+// co-resident on this device, a refused launch.
 extern "C" int dota_lstm_seq_grid_forward(
     const float* x, const float* h0, const float* c0, const float* wx,
     const float* wh, const float* bias, const float* resets, float* hs,
-    float* hT, float* cT, int B, int T, int D, int H, int rows, int grid,
-    int threads, int units, int kslices, int kchunk, int resident, int smem_bytes,
-    void* stream, char* err, int err_len) {
+    float* hT, float* cT, int B, int T, int D, int H, int rows, int thread_rows, int grid,
+    int threads, int units, int kslices, int kchunk, int resident, int smem_bytes, void* stream,
+    char* err, int err_len) {
   try {
-    const GridKernel kernel = grid_kernel(rows);
+    const GridKernel kernel = grid_kernel(thread_rows);
+    const int slice_threads = units * kslices;
+    const int row_groups = slice_threads > 0 ? threads / slice_threads : 0;
     const bool plan_ok =
-        kernel != nullptr && units >= 1 && grid == (H + units - 1) / units && kslices >= 1 &&
-        threads % kslices == 0 && threads <= kGridMaxThreads && threads / kslices >= 1 &&
-        threads / kslices <= 4 * units && kchunk >= 4 && kchunk % 4 == 0 &&
-        kchunk <= round4(D) + round4(H) && (resident == 0 || resident == 1) &&
-        (long long)smem_bytes == 4 * grid_smem_floats(D, H, rows, units, kslices, kchunk, resident);
+        kernel != nullptr && units >= 1 && kslices >= 1 && grid % ((H + units - 1) / units) == 0 &&
+        grid / ((H + units - 1) / units) >= 1 &&
+        threads <= kGridMaxThreads && row_groups >= 1 && threads == row_groups * slice_threads &&
+        rows == row_groups * thread_rows && (thread_rows + kslices - 1) / kslices <= kCellItems &&
+        kchunk >= 4 && kchunk % 4 == 0 && (resident == 0 || resident == 1) &&
+        (long long)smem_bytes == 4 * grid_smem_floats(D, H, rows, units, kslices, kchunk, kStages, resident);
     if (!plan_ok) {
       snprintf(err, err_len,
-               "plan does not fit the grid kernel: B=%d T=%d D=%d H=%d rows=%d grid=%d threads=%d "
-               "units=%d kslices=%d kchunk=%d resident=%d smem=%d",
-               B, T, D, H, rows, grid, threads, units, kslices, kchunk, resident, smem_bytes);
+               "plan does not fit the grid kernel: B=%d T=%d D=%d H=%d rows=%d thread_rows=%d grid=%d "
+               "threads=%d units=%d kslices=%d kchunk=%d resident=%d smem=%d",
+               B, T, D, H, rows, thread_rows, grid, threads, units, kslices, kchunk, resident, smem_bytes);
       return 1;
     }
 
@@ -739,10 +908,10 @@ extern "C" int dota_lstm_seq_grid_forward(
     long long capacity = 0;
     {
       std::lock_guard<std::mutex> guard(g_configured_lock);
-      const auto key = std::make_tuple(device, rows, smem_bytes, threads);
+      const auto key = std::make_tuple(device, thread_rows, smem_bytes, threads);
       auto it = g_grid_configured.find(key);
       if (it == g_grid_configured.end()) {
-        int& ceiling = g_grid_smem_ceiling[std::make_pair(device, rows)];
+        int& ceiling = g_grid_smem_ceiling[std::make_pair(device, thread_rows)];
         if (smem_bytes > ceiling) {
           C10_CUDA_CHECK(cudaFuncSetAttribute(
               kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
@@ -757,13 +926,21 @@ extern "C" int dota_lstm_seq_grid_forward(
         capacity = it->second;
       }
     }
-    if (capacity < grid) {
+    // a T = 1 launch never waits on another block, so only the cooperative
+    // launch needs the whole grid resident at once
+    if ((T > 1 && capacity < grid) || capacity < 1) {
       snprintf(err, err_len,
                "a grid of %d blocks with %d threads and %d bytes of shared memory each cannot be "
                "co-resident on this device (%lld can)",
                grid, threads, smem_bytes, capacity);
       return 1;
     }
+
+    // 16-byte copies where every row start is 16-byte aligned
+    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    const bool vec_x = D % 4 == 0 && aligned(x);
+    const bool vec_h = H % 4 == 0 && aligned(h0) && aligned(hs);
+    const bool vec_w = units % 4 == 0 && H % 4 == 0 && aligned(wx) && aligned(wh);
 
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(grid);
@@ -774,9 +951,10 @@ extern "C" int dota_lstm_seq_grid_forward(
     attr[0].id = cudaLaunchAttributeCooperative;
     attr[0].val.cooperative = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = T > 1 ? 1 : 0;
     C10_CUDA_CHECK(cudaLaunchKernelEx(&cfg, kernel, x, h0, c0, wx, wh, bias, resets, hs, hT, cT,
-                                      B, T, D, H, units, kslices, kchunk, resident));
+                                      B, T, D, H, units, kslices, kchunk, resident, (int)vec_x, (int)vec_h,
+                                      (int)vec_w));
     C10_CUDA_KERNEL_LAUNCH_CHECK();
     return 0;
   } catch (const c10::Error& e) {

@@ -171,9 +171,10 @@ def cluster_plan_before(B, T, D, H):
     return cluster, 4, cluster * -(-B // 4), threads, kslices, 4 * floats
 
 
-def assert_valid_plan(plan, B, T, D, H):
+def assert_valid_plan(plan, B, T, D, H, sms=132):
     """Shared memory within one block's 227 KB, at most 1,024 threads, a
-    grid the card holds co-resident, and the numbers the kernels check."""
+    grid of at most one block an SM of a card with ``sms`` SMs, and the
+    numbers the kernels check."""
     assert plan.smem_bytes <= 232_448 and 1 <= plan.threads <= 1024
     if plan.kind == "cluster":
         assert plan == port._cluster_plan(B, T, D, H)
@@ -181,18 +182,40 @@ def assert_valid_plan(plan, B, T, D, H):
             cluster_plan_before(B, T, D, H)
         return
     assert plan.kind == "grid" and cluster_plan_before(B, T, D, H) is None and plan.cluster == 1
-    assert plan.threads <= port.GRID_THREADS  # the kernel's launch bound
-    # at most one block an SM of the card's 132, each owning `units` hidden
-    # units, every unit owned once
-    assert 1 <= plan.grid <= 132 and (plan.grid - 1) * plan.units < H <= plan.grid * plan.units
-    assert plan.threads % plan.kslices == 0 and plan.threads // plan.kslices <= 4 * plan.units
-    assert plan.rows in port.GRID_ROWS and (plan.rows >= min(B, port.GRID_ROWS[-1]) or not plan.resident)
-    Kp = -(-D // 4) * 4 + -(-H // 4) * 4
-    assert plan.kchunk % 4 == 0 and 4 <= plan.kchunk <= Kp
-    cols = 4 * plan.units
-    floats = ((Kp * cols if plan.resident else 0) + plan.rows * plan.kchunk + plan.kslices * plan.rows * cols
-              + plan.rows * cols + cols)  # grid_smem_floats in the source
-    assert plan.smem_bytes == 4 * floats
+    # the batch in parts of GRID_PART_ROWS rows or more; at most one block
+    # an SM, each owning `units` hidden units of one part, every unit owned
+    # once in each part; the K-slices a function of (D, H, sms) alone
+    base = -(-H // sms)
+    assert plan.parts in (1, 2, 4) and plan.parts <= port.GRID_MAX_PARTS
+    assert plan.parts == 1 or B >= plan.parts * port.GRID_PART_ROWS
+    assert plan.units == base * plan.parts and plan.kslices == max(1, 32 // base)
+    assert 1 <= plan.grid <= sms and plan.grid % plan.parts == 0
+    groups = plan.grid // plan.parts
+    assert (groups - 1) * plan.units < H <= groups * plan.units
+    # row groups of units x kslices threads, within the kernel's launch
+    # bound; a thread's rows the fewest that put the part in one pass (or
+    # the most it takes), its cells at most kCellItems
+    assert plan.thread_rows in port.GRID_THREAD_ROWS and plan.rows % plan.thread_rows == 0
+    row_groups = plan.rows // plan.thread_rows
+    assert plan.threads == row_groups * plan.units * plan.kslices <= port.GRID_THREADS
+    assert -(-plan.thread_rows // plan.kslices) <= port.GRID_CELL_ITEMS
+    part_rows = -(-B // plan.parts)
+    most = port.GRID_THREADS // (plan.units * plan.kslices)
+    # long sequences: the fewest row groups (at least GRID_MIN_ROW_GROUPS)
+    assert row_groups == (min(most, max(port.GRID_MIN_ROW_GROUPS, part_rows)) if T >= port.GRID_LONG_STEPS
+                          else most)
+    assert plan.rows >= part_rows or plan.thread_rows == port.GRID_THREAD_ROWS[-1] or \
+        -(-(2 * plan.thread_rows) // plan.kslices) > port.GRID_CELL_ITEMS
+    assert plan.thread_rows == 1 or (plan.thread_rows // 2) * row_groups < part_rows
+    # chunks of a multiple of 4, a whole part of the K axis at most, staged
+    # through a ring of two
+    Dp, Hp = -(-D // 4) * 4, -(-H // 4) * 4
+    assert plan.kchunk % 4 == 0 and 4 <= plan.kchunk <= max(Dp, Hp)
+    cols, ldi = 4 * plan.units, -(-plan.kchunk // 8) * 8 + 4
+    stage = plan.rows * ldi + (0 if plan.resident else plan.kchunk * cols)
+    floats = (((Dp + Hp) * cols if plan.resident else 0) + cols + -(-plan.rows // 4) * 4
+              + max(port.GRID_STAGES * stage, plan.kslices * plan.rows * cols))
+    assert plan.smem_bytes == 4 * floats  # grid_smem_floats in the source
 
 
 # widths at D = H: the ones the cluster plan takes (up to 216, even, with a
@@ -202,15 +225,30 @@ def assert_valid_plan(plan, B, T, D, H):
 PLAN_WIDTHS = [1, 2, 3, 7, 8, 16, 32, 64, 78, 79, 80, 113, 114, 118, 122, 126, 128, 129, 130, 131, 132, 133, 200,
                216, 217, 218, 255, 256, 257, 264, 300, 384, 500, 511, 512, 513, 640, 768, 900, 950, 951, 1000, 1023,
                1024]
+# an H100 SXM's SMs (the plan's default) and an H100 PCIe's
+PLAN_SMS = (132, 114)
 
 
-@pytest.mark.parametrize("H", PLAN_WIDTHS)
-def test_kernel_plan_takes_every_width(H):
+@pytest.mark.parametrize("H,sms", [pytest.param(H, 132, id=str(H)) for H in PLAN_WIDTHS]
+                         + [pytest.param(H, 114, id=f"{H}-sms114") for H in PLAN_WIDTHS])
+def test_kernel_plan_takes_every_width(H, sms):
     """A valid plan at D = H and at D != H (narrow and wide inputs), from
-    one row to the league's 1,280, from T=1 to T=20,000."""
+    one row to the league's 1,280, from T=1 to T=20,000, on a card of 132
+    SMs and of 114."""
     for B, T, D in [(1, 1, H), (5, 3, H), (64, 1, H), (128, 17, H), (1280, 17, H), (4, 10_000, H), (2, 20_000, H),
                     (64, 1, 7), (8, 4, 4096)]:
-        assert_valid_plan(port.kernel_plan(B, T, D, H), B, T, D, H)
+        assert_valid_plan(port.kernel_plan(B, T, D, H, sms), B, T, D, H, sms)
+
+
+def covers_widths_1_to_1024(sms):
+    kinds = {}
+    for H in range(1, 1025):
+        plan = port.kernel_plan(64, 17, H, H, sms)
+        assert_valid_plan(plan, 64, 17, H, H, sms)
+        kinds.setdefault(plan.kind, []).append(H)
+    assert len(kinds["cluster"]) == 114 and max(kinds["cluster"]) == 216 and len(kinds["grid"]) == 910
+    assert port.kernel_plan(4, 8_000, 128, 128, sms).kind == "cluster"
+    assert port.kernel_plan(4, 10_000, 128, 128, sms).kind == "grid"
 
 
 def test_kernel_plan_covers_widths_1_to_1024():
@@ -218,14 +256,84 @@ def test_kernel_plan_covers_widths_1_to_1024():
     for the 114 it took before, 216 the widest, and the grid plan for the
     other 910; at H=128 the grid plan past the cluster's T (its tile's
     resets sit whole in shared memory)."""
-    kinds = {}
-    for H in range(1, 1025):
-        plan = port.kernel_plan(64, 17, H, H)
-        assert_valid_plan(plan, 64, 17, H, H)
-        kinds.setdefault(plan.kind, []).append(H)
-    assert len(kinds["cluster"]) == 114 and max(kinds["cluster"]) == 216 and len(kinds["grid"]) == 910
-    assert port.kernel_plan(4, 8_000, 128, 128).kind == "cluster"
-    assert port.kernel_plan(4, 10_000, 128, 128).kind == "grid"
+    covers_widths_1_to_1024(port.GRID_SMS)
+
+
+@pytest.mark.parametrize("sms", [114])
+def test_kernel_plan_covers_widths_1_to_1024_at_sms(sms):
+    """The same on a card of fewer SMs (an H100 PCIe's 114): the same
+    kinds, and every grid plan at most ``sms`` blocks, every unit owned
+    once, within one block's shared memory."""
+    covers_widths_1_to_1024(sms)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+def test_grid_plan_sum_order_ignores_B_and_T(sms):
+    """The grid plan's sum order (its K-slices, the units a block of one
+    part of the batch; the K cut, 4-deep groups dealt round-robin to the
+    slices, is the source's) is the same for B in {1, 5, 64,
+    128, 1,280} and T in {1, 17, 10,000} at every width the grid plan
+    takes: a row's bits depend neither on B nor on T, and step 0 of a
+    sequence equals a serving step. (The parts, the chunk depth and the
+    rows a thread follow B; each column's sum is a thread's own, whichever
+    block and thread it lands on.)"""
+    grid_widths = 0
+    for H in PLAN_WIDTHS:
+        plans = [port.kernel_plan(B, T, H, H, sms) for B in (1, 5, 64, 128, 1280) for T in (1, 17, 10_000)]
+        orders = {(p.kslices, p.units // p.parts) for p in plans if p.kind == "grid"}
+        assert len(orders) <= 1, (H, orders)
+        grid_widths += bool(orders)
+    assert grid_widths >= sum(H > 216 for H in PLAN_WIDTHS)  # the widest cluster width is 216
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+def test_grid_plan_cuts_the_batch_into_parts(sms):
+    """The most parts of 32 rows or more, up to 4 (2 where the weight slice
+    streams from L2): H=512 serves B=64 in 2 parts and steps and updates
+    B=128 in 4, H=1,024 takes at most 2, and a small batch takes 1."""
+    parts = {(B, T, H): port.kernel_plan(B, T, H, H, sms).parts
+             for B, T, H in [(1, 1, 512), (5, 3, 255), (64, 1, 512), (128, 1, 512), (128, 17, 512), (1280, 1, 512),
+                             (64, 1, 1024), (128, 1, 1024), (4, 10_000, 128), (64, 1, 256)]}
+    assert parts == {(1, 1, 512): 1, (5, 3, 255): 1, (64, 1, 512): 2, (128, 1, 512): 4, (128, 17, 512): 4,
+                     (1280, 1, 512): 4, (64, 1, 1024): 2, (128, 1, 1024): 2, (4, 10_000, 128): 1, (64, 1, 256): 2}
+
+
+def test_chip_smoke_shims_pass_the_sm_count(tmp_path):
+    """Both of chip_smoke.py's wrappers of ``kernel_plan`` (phase 21's
+    ``record_lstm_shapes``, and ``SHAPE_SHIM``, phase 22's children's
+    sitecustomize) count a launch's shape and pass the SM count through."""
+    import collections
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    want = (port.kernel_plan(64, 1, 512, 512, 114), port.kernel_plan(64, 1, 512, 512))
+    assert want[0] != want[1]
+    shapes = collections.Counter()
+    undo = chip_smoke.record_lstm_shapes(shapes)
+    try:
+        plans = (port.kernel_plan(64, 1, 512, 512, 114), port.kernel_plan(64, 1, 512, 512))
+    finally:
+        undo()
+    assert shapes == collections.Counter({(64, 1, 512, 512): 2})
+    assert plans == want
+
+    shim, out = tmp_path / "shim", tmp_path / "shapes"
+    shim.mkdir()
+    out.mkdir()
+    (shim / "sitecustomize.py").write_text(chip_smoke.SHAPE_SHIM)
+    repo = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    env = dict(os.environ, CHIP_SMOKE_SHAPES_DIR=str(out),
+               PYTHONPATH=os.pathsep.join([str(shim), repo, os.environ.get("PYTHONPATH", "")]))
+    code = ("from dotaclient_tpu_torch.ops import lstm\n"
+            "print(lstm.kernel_plan(64, 1, 512, 512, 114).grid, lstm.kernel_plan(64, 1, 512, 512).grid)")
+    child = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
+    assert child.returncode == 0, child.stderr
+    assert child.stdout.split() == [str(p.grid) for p in want]
+    (dump,) = out.iterdir()
+    assert dump.read_text().split() == ["64", "1", "512", "512", "2"]
 
 
 @pytest.mark.parametrize("shape", LSTM_SHAPES)
@@ -300,11 +408,14 @@ def wide_atol(args, want):
 
 
 # grid-plan shapes: an odd width, the policy's H=512 at the serving step,
-# the rollout step and the update, H=1,024 (the weight slice read from L2
-# each step), the narrowest width the cluster refuses, H=128 past the
-# cluster's T, and narrow inputs to a wide core
+# the rollout step and the update, H=1,024 (the weight slice streamed from
+# L2 each step), the narrowest width the cluster refuses, H=128 past the
+# cluster's T, narrow inputs to a wide core, one row at H=512, a batch that
+# leaves a partial pass (130 rows: one of 128, one of 2), the league's
+# 1,280 (ten passes), and H=1,024 at 128 rows (one pass of 8 rows a thread)
 GRID_SHAPES = [(5, 3, 255, 255), (64, 1, 512, 512), (128, 1, 512, 512), (128, 17, 512, 512), (64, 1, 1024, 1024),
-               (2, 1, 79, 79), (4, 10_000, 128, 128), (3, 4, 7, 300)]
+               (2, 1, 79, 79), (4, 10_000, 128, 128), (3, 4, 7, 300), (1, 1, 512, 512), (130, 1, 512, 512),
+               (1280, 1, 512, 512), (128, 1, 1024, 1024)]
 
 
 @pytest.mark.cuda
@@ -331,7 +442,8 @@ def test_grid_kernel_matches_plain_on_cuda(cuda_device, B, T, D, H):
 def test_grid_kernel_is_deterministic_and_rows_independent(cuda_device, B, T, D, H):
     """Two launches give the same bits, and row 0's bits do not depend on
     what rows 1..B-1 hold, nor on B: the serve engine's replay relies on
-    both."""
+    both. Where T > 1, a T=1 launch on the first step's inputs gives the
+    bits of the sequence's step 0 (the sum order ignores T)."""
     x, h0, c0, wx, wh, b, r = to_torch(inputs(B=B, T=T, D=D, H=H, seed=8), device=cuda_device)
     a = port.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
     a2 = port.lstm_sequence_kernel(x, h0, c0, wx, wh, b, r)
@@ -345,6 +457,28 @@ def test_grid_kernel_is_deterministic_and_rows_independent(cuda_device, B, T, D,
     for u, v, q, o in zip((a[0], *a[1]), (a2[0], *a2[1]), (z[0], *z[1]), (one[0], *one[1])):
         assert torch.equal(u, v)
         assert torch.equal(u[0], q[0]) and torch.equal(u[0], o[0])
+    if T > 1:
+        step = port.lstm_sequence_kernel(x[:, :1].contiguous(), h0, c0, wx, wh, b, r[:, :1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(step[0][:, 0], a[0][:, 0]) and torch.equal(step[1][0], a[0][:, 0])
+
+
+@pytest.mark.cuda
+def test_wrapper_plans_from_the_device_sm_count(cuda_device, monkeypatch):
+    """The wrapper plans each launch for the SMs of the tensors' device."""
+    seen = []
+    plan = port.kernel_plan
+
+    def recorded(*args):
+        seen.append(args)
+        return plan(*args)
+
+    monkeypatch.setattr(port, "kernel_plan", recorded)
+    args = to_torch(inputs(B=4, T=1, D=512, H=512, seed=3), device=cuda_device)
+    port.lstm_sequence_kernel(*args)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert seen == [(4, 1, 512, 512, sms)]
 
 
 # -- the recompute backward ---------------------------------------------------
